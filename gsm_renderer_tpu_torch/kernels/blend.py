@@ -1,0 +1,174 @@
+"""Tile blending (front-to-back alpha compositing) and image assembly.
+
+Port of ``gsm_renderer_tpu/kernels/blend.py``: ``build_words_table``,
+``blend_tiles_pallas`` (``_row_blend_kernel``, depth modes "weighted" and
+"none") and ``assemble_image``.  The kernel is ``csrc/blend.cu``; it writes
+the (H, W, 4) image and the (H, W) depth directly, so assembly is fused into
+it on the card.
+
+Early-exit rule, shared by the kernel and :func:`blend_tiles_plain`: a tile's
+span is walked in 256-record batches aligned to 128-record blocks (the Pallas
+kernel's 2 x 128-slot chunks); after each batch the tile stops once every
+pixel's transmittance is below 1/255.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _native
+from .. import mathlib as M
+from .expand import THETA_UNIT, _f16_bits_to_f32, _u8f
+
+MIN_TRANSMITTANCE = 1.0 / 255.0
+ALPHA_CLAMP = 0.99
+WORD_ROWS = 4
+BATCH = 256
+BLOCK = 128
+
+BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.F, _native.F, _native.F, _native.P, _native.P])
+
+
+def build_words_table(sorted_word_list):
+    """Sorted record words -> the (4, C) int32 table the blend reads."""
+    return torch.stack([w.to(torch.int32) for w in sorted_word_list]).contiguous()
+
+
+def decode_records(table):
+    """Per-record blend attributes of a (4, C) word table: the centred linear
+    forms (a1, b1, a2, b2), mean, log opacity, color and depth (each (C,)
+    float32)."""
+    w0, w1, w2, w3 = (M.u32(table[k]) for k in range(WORD_ROWS))
+    theta = (w1 & 0xFFFF).to(torch.int32).to(torch.float32) * THETA_UNIT
+    s1 = torch.clamp(_f16_bits_to_f32(w1 >> 16), min=1e-4)
+    s2 = torch.clamp(_f16_bits_to_f32(w2), min=1e-4)
+    cth = torch.cos(theta)
+    sth = torch.sin(theta)
+    i1 = 1.0 / s1
+    i2 = 1.0 / s2
+    return dict(mx=_f16_bits_to_f32(w0), my=_f16_bits_to_f32(w0 >> 16),
+                depth=_f16_bits_to_f32(w2 >> 16), r=_u8f(w3, 0),
+                g=_u8f(w3, 8), b=_u8f(w3, 16), logop=torch.log(_u8f(w3, 24)),
+                a1=cth * i1, b1=sth * i1, a2=-sth * i2, b2=cth * i2)
+
+
+def blend_tiles_plain(table, starts, counts, *, tiles_x: int, tile_w: int = 16,
+                      tile_h: int = 16, depth_mode: str = "weighted",
+                      tiles=None, return_processed: bool = False):
+    """Plain version of the blend kernel on any device.
+
+    ``table``: (4, C) int32 sorted record words; ``starts``/``counts``: (T,)
+    int32 tile spans; ``tiles``: optional subset of tile ids (default all).
+    Returns (tile_color (T', 256, 4), tile_depth (T', 256) or None), plus the
+    number of records each tile composited before its exit when
+    ``return_processed``.  Records are composited one rank at a time across
+    all tiles, each tile stopping by the kernel's rule.
+    """
+    if tile_w != 16 or tile_h != 16:
+        raise NotImplementedError("the blend takes 16x16 tiles only")
+    if depth_mode not in ("weighted", "none"):
+        raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
+    dev = table.device
+    if tiles is None:
+        tiles = torch.arange(starts.shape[0], device=dev)
+    tiles = tiles.to(torch.int64)
+    pix = tile_w * tile_h
+    rec = decode_records(table)
+    cap = table.shape[1]
+    start = starts.to(torch.int64)[tiles]
+    count = counts.to(torch.int64)[tiles]
+    end = start + count
+    base = torch.div(start, BLOCK, rounding_mode="floor") * BLOCK
+    pidx = torch.arange(pix, device=dev)
+    lx = (pidx % tile_w).to(torch.float32)
+    ly = torch.div(pidx, tile_w, rounding_mode="floor").to(torch.float32)
+    ox = ((tiles % tiles_x) * tile_w).to(torch.float32)
+    oy = (torch.div(tiles, tiles_x, rounding_mode="floor") * tile_h).to(torch.float32)
+    pxa = lx[None, :] + ox[:, None]
+    pya = ly[None, :] + oy[:, None]
+
+    n_t = tiles.shape[0]
+    trans = torch.ones((n_t, pix), dtype=torch.float32, device=dev)
+    acc = [torch.zeros((n_t, pix), dtype=torch.float32, device=dev)
+           for _ in range(4)]
+    active = count > 0
+    processed = torch.zeros(n_t, dtype=torch.int64, device=dev)
+    max_k = int(count.max()) if n_t else 0
+    for k in range(max_k):
+        valid = active & (k < count)
+        idx = torch.clamp(start + k, 0, max(cap - 1, 0))
+        at = {name: v[idx][:, None] for name, v in rec.items()}
+        dx = pxa - at["mx"]
+        dy = pya - at["my"]
+        u = at["a1"] * dx + at["b1"] * dy
+        v = at["a2"] * dx + at["b2"] * dy
+        q = u * u + v * v
+        alpha = torch.clamp(torch.exp(q * -0.5 + at["logop"]), max=ALPHA_CLAMP)
+        alpha = torch.where(valid[:, None], alpha, 0.0)
+        w = alpha * trans
+        for c, name in enumerate(("r", "g", "b", "depth")):
+            acc[c] = acc[c] + w * at[name]
+        trans = trans * (1.0 - alpha)
+        processed += valid.to(torch.int64)
+        pos = start + k + 1
+        batch_end = valid & (torch.remainder(pos - base, BATCH) == 0) & (pos < end)
+        saturated = (trans < MIN_TRANSMITTANCE).all(dim=1)
+        active = active & ~(batch_end & saturated)
+    color = torch.stack([acc[0], acc[1], acc[2], 1.0 - trans], dim=-1)
+    depth = None if depth_mode == "none" else acc[3]
+    if return_processed:
+        return color, depth, processed
+    return color, depth
+
+
+def assemble_image(tile_color, tile_depth, *, tiles_x: int, tiles_y: int,
+                   width: int, height: int, tile_w: int = 16, tile_h: int = 16):
+    """(T, P, C) tile rasters -> (H, W, C) image + (H, W) depth."""
+    def unpack(t, ch):
+        x = t.reshape(tiles_y, tiles_x, tile_h, tile_w, ch).permute(0, 2, 1, 3, 4)
+        return x.reshape(tiles_y * tile_h, tiles_x * tile_w, ch)[:height, :width]
+
+    color = unpack(tile_color, 4).contiguous()
+    if tile_depth is None:
+        return color, None
+    return color, unpack(tile_depth[..., None], 1)[..., 0].contiguous()
+
+
+def blend_image_cuda(table, starts, counts, *, tiles_x: int, tiles_y: int,
+                     width: int, height: int, depth_mode: str = "weighted"):
+    """Launch ``csrc/blend.cu``: returns (color (H, W, 4), depth (H, W) or
+    None)."""
+    if depth_mode not in ("weighted", "none"):
+        raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
+    dev = table.device
+    n_t = tiles_x * tiles_y
+    _native.check(table, "table", torch.int32, (WORD_ROWS, table.shape[1]), dev)
+    _native.check(starts, "starts", torch.int32, (n_t,), dev)
+    _native.check(counts, "counts", torch.int32, (n_t,), dev)
+    with_depth = depth_mode != "none"
+    color = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    depth = torch.empty((height, width) if with_depth else (1,),
+                        dtype=torch.float32, device=dev)
+    BLEND.launch(*[_native.ptr(table[k]) for k in range(WORD_ROWS)],
+                 _native.ptr(starts), _native.ptr(counts), tiles_x, tiles_y,
+                 width, height, int(with_depth), M.f32(THETA_UNIT),
+                 M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),
+                 _native.ptr(color), _native.ptr(depth))
+    return color, (depth if with_depth else None)
+
+
+def blend_image(table, starts, counts, *, tiles_x: int, tiles_y: int,
+                width: int, height: int, depth_mode: str = "weighted"):
+    """Blend + assemble: the CUDA kernel for CUDA tensors, the plain version
+    (then :func:`assemble_image`) for CPU tensors."""
+    if table.is_cuda:
+        return blend_image_cuda(table, starts, counts, tiles_x=tiles_x,
+                                tiles_y=tiles_y, width=width, height=height,
+                                depth_mode=depth_mode)
+    tc, td = blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
+                               depth_mode=depth_mode)
+    return assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
+                          width=width, height=height)

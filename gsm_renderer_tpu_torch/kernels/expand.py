@@ -1,0 +1,297 @@
+"""Binning prep (exact 8x4 tile masks, counts, global offset scan) and
+instance expansion into KeyPlan sort keys.
+
+Port of the mono path of ``gsm_renderer_tpu/kernels/expand.py``:
+``binning_prep_pallas`` (``_prep_kernel``, mode "mono", ``count_rows=False``)
+and ``expand_slots_pallas`` (``_expand_kernel``, prebuilt table with KeyPlan
+keys).  The kernels are ``csrc/binning.cu``.
+
+The JAX package packs its tables as (planes, rows, 128) for the TPU; here
+every table is a flat array: ``offsets`` (N + 1,) with ``offsets[N]`` the slot
+total, and ``rect`` / ``mask`` (N,).  The depth and record words are read
+straight from the projection outputs.  Word tensors are int32 holding the
+u32 bits; the plain versions widen to int64 for shifts and compares.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _native
+from .. import mathlib as M
+
+SENTINEL = 0xFFFFFFFF
+#: rect_word bit 30: culled gaussian (its single slot is dead)
+CULLED_BIT = 1 << 30
+#: rect_word bit 31: exact pre-counted gaussian; its j-th instance is the
+#: j-th set bit of its 8x4 tile mask (bit = dy * 8 + dx)
+MASKED_BIT = 1 << 31
+MASK_W, MASK_H = 8, 4
+THETA_UNIT = 3.14159265358979 / 65535.0
+
+PREP = _native.Kernel("prep", "binning", "gsm_prep", [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.I, _native.F, _native.F, _native.F,
+    _native.P, _native.P, _native.P, _native.P, _native.I])
+EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.F, _native.F, _native.F,
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P])
+
+
+def _popcount(v):
+    """SWAR popcount of int64 tensors holding u32 values."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def _nth_set_bit(mask, jj):
+    """Bit index of the (jj+1)-th set bit of ``mask`` (valid for jj <
+    popcount): binary ascent on the prefix popcount."""
+    p = torch.zeros_like(jj)
+    for step in (16, 8, 4, 2, 1):
+        cand = p + step
+        low = (torch.ones_like(cand) << cand) - 1
+        p = torch.where(_popcount(mask & low) <= jj, cand, p)
+    return p
+
+
+def _f16_bits_to_f32(bits):
+    """IEEE f16 bits (low 16 of an int64 tensor) -> float32, subnormals
+    flushed to zero."""
+    b = bits & 0xFFFF
+    sign = (b >> 15) << 31
+    exp = (b >> 10) & 0x1F
+    mant = b & 0x3FF
+    val = M.to_i32(sign | ((exp + 112) << 23) | (mant << 13)).view(torch.float32)
+    return torch.where(exp == 0, 0.0, val)
+
+
+def _u8f(w, shift):
+    """float(u8 field) / 255 of an int64 word tensor."""
+    return ((w >> shift) & 0xFF).to(torch.int32).to(torch.float32) * (1.0 / 255.0)
+
+
+def _conic_from_words(w0, w1, w2):
+    """Decoded conic (ca, cb, cc), mean and reciprocals of a quantized
+    record (int64 word tensors)."""
+    mx = _f16_bits_to_f32(w0)
+    my = _f16_bits_to_f32(w0 >> 16)
+    theta = (w1 & 0xFFFF).to(torch.int32).to(torch.float32) * THETA_UNIT
+    s1 = torch.clamp(_f16_bits_to_f32(w1 >> 16), min=1e-4)
+    s2 = torch.clamp(_f16_bits_to_f32(w2), min=1e-4)
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    iv1 = 1.0 / (s1 * s1)
+    iv2 = 1.0 / (s2 * s2)
+    ca = c * c * iv1 + s * s * iv2
+    cb = c * s * (iv1 - iv2)
+    cc = s * s * iv1 + c * c * iv2
+    return dict(mx=mx, my=my, ca=ca, cb=cb, cc=cc,
+                inv_a=1.0 / torch.clamp(ca, min=1e-20),
+                inv_c=1.0 / torch.clamp(cc, min=1e-20))
+
+
+def _d2min_rect(con, xmin, xmax, ymin, ymax):
+    """minQuadRect of a decoded conic over a mean-centred rect."""
+    ca, cb, cc = con["ca"], con["cb"], con["cc"]
+    inside = (xmin <= 0.0) & (0.0 <= xmax) & (ymin <= 0.0) & (0.0 <= ymax)
+
+    def quad(x, y):
+        return ca * x * x + 2.0 * cb * x * y + cc * y * y
+
+    def clip(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    q1 = quad(xmin, clip(-(cb * con["inv_c"]) * xmin, ymin, ymax))
+    q2 = quad(xmax, clip(-(cb * con["inv_c"]) * xmax, ymin, ymax))
+    q3 = quad(clip(-(cb * con["inv_a"]) * ymin, xmin, xmax), ymin)
+    q4 = quad(clip(-(cb * con["inv_a"]) * ymax, xmin, xmax), ymax)
+    return torch.where(inside, 0.0, torch.minimum(torch.minimum(q1, q2),
+                                                  torch.minimum(q3, q4)))
+
+
+def _d2_cutoff(w3, alpha_threshold):
+    tau = max(alpha_threshold, 1e-12)
+    return M.compute_d2_cutoff(_u8f(w3, 24), tau)
+
+
+def exact_tile_masks(w0, w1, w2, w3, min_tx, min_ty, rect_w, rect_h,
+                     tile_w: int, tile_h: int, alpha_threshold: float):
+    """Exact per-tile pass mask (bit = dy * 8 + dx) over the 8x4 window at
+    the rect's corner, from the quantized record (int64 word tensors).
+    Returns (mask int64, count int64)."""
+    con = _conic_from_words(w0, w1, w2)
+    cutoff = _d2_cutoff(w3, alpha_threshold)
+    x_base = min_tx.to(torch.float32) * tile_w - con["mx"]
+    y_base = min_ty.to(torch.float32) * tile_h - con["my"]
+    mask = torch.zeros_like(w0)
+    for p in range(MASK_W * MASK_H):
+        dx, dy = p % MASK_W, p // MASK_W
+        xmin = x_base + float(dx * tile_w)
+        ymin = y_base + float(dy * tile_h)
+        d2min = _d2min_rect(con, xmin, xmin + tile_w, ymin, ymin + tile_h)
+        passes = (dx < rect_w) & (dy < rect_h) & (d2min <= cutoff)
+        mask = mask | (passes.to(torch.int64) << p)
+    return mask, _popcount(mask)
+
+
+def _exact_tile_test(w0, w1, w2, w3, tx, ty, tile_w, tile_h, alpha_threshold):
+    """True where the instance's peak alpha within tile (tx, ty) reaches
+    the threshold (minQuadRect <= d2 cutoff)."""
+    x0 = tx.to(torch.float32) * tile_w
+    y0 = ty.to(torch.float32) * tile_h
+    con = _conic_from_words(w0, w1, w2)
+    d2min = _d2min_rect(con, x0 - con["mx"], (x0 + tile_w) - con["mx"],
+                        y0 - con["my"], (y0 + tile_h) - con["my"])
+    return d2min <= _d2_cutoff(w3, alpha_threshold)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: binning prep
+# ---------------------------------------------------------------------------
+
+def binning_prep_plain(rect_word, rect_h, words, *, tile_w: int = 16,
+                       tile_h: int = 16, alpha_threshold: float = 0.005):
+    """Plain version of the prep kernel.  Returns (offsets (N+1,) int32 with
+    offsets[N] the slot total, rect' (N,) int32 with MASKED/CULLED bits,
+    mask (N,) int32)."""
+    rw = M.u32(rect_word)
+    min_tx = rw & 0x3FF
+    min_ty = (rw >> 10) & 0x3FF
+    rect_w = (rw >> 20) & 0x3FF
+    culled0 = (rw & CULLED_BIT) != 0
+    rh = rect_h.to(torch.int64)
+    w0, w1, w2, w3 = (M.u32(w) for w in words)
+    mask, cnt = exact_tile_masks(w0, w1, w2, w3, min_tx, min_ty, rect_w, rh,
+                                 tile_w, tile_h, alpha_threshold)
+    visible = ~culled0
+    eligible = visible & (rect_w <= MASK_W) & (rh <= MASK_H)
+    counts = torch.where(visible, torch.where(eligible, cnt, rect_w * rh), 0)
+    culled = culled0 | (eligible & (cnt == 0))
+    rect_out = (rw | torch.where(eligible, MASKED_BIT, 0)
+                | torch.where(culled, CULLED_BIT, 0))
+    # every gaussian owns >= 1 slot: offsets strictly increase
+    counts = torch.clamp(counts, min=1)
+    offsets = torch.zeros(rw.shape[0] + 1, dtype=torch.int64, device=rw.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return offsets.to(torch.int32), M.to_i32(rect_out), M.to_i32(mask)
+
+
+def binning_prep_cuda(rect_word, rect_h, words, *, tile_w: int = 16,
+                      tile_h: int = 16, alpha_threshold: float = 0.005):
+    """Launch the prep kernels of ``csrc/binning.cu`` (per-gaussian masks
+    and counts with block scans, a pass over the block sums, an add-back)."""
+    if tile_w != 16 or tile_h != 16:
+        raise NotImplementedError("the prep kernel takes 16x16 tiles only")
+    dev = rect_word.device
+    n = rect_word.shape[0]
+    for name, t in (("rect_word", rect_word), ("rect_h", rect_h),
+                    *((f"w{k}", w) for k, w in enumerate(words))):
+        _native.check(t, name, torch.int32, (n,), dev)
+    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    rect_out = torch.empty(n, dtype=torch.int32, device=dev)
+    mask = torch.empty(n, dtype=torch.int32, device=dev)
+    block_sums = torch.empty(max(-(-n // 256), 1), dtype=torch.int32, device=dev)
+    PREP.launch(_native.ptr(rect_word), _native.ptr(rect_h),
+                *[_native.ptr(w) for w in words], n,
+                M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
+                M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr(rect_out),
+                _native.ptr(mask), _native.ptr(block_sums),
+                block_sums.shape[0])
+    return offsets, rect_out, mask
+
+
+def binning_prep(rect_word, rect_h, words, **kw):
+    """Prep of the packed projection: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if rect_word.is_cuda:
+        return binning_prep_cuda(rect_word, rect_h, words, **kw)
+    return binning_prep_plain(rect_word, rect_h, words, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: slot expansion with KeyPlan keys
+# ---------------------------------------------------------------------------
+
+def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
+                       tiles_x: int, key_plan, tile_w: int = 16,
+                       tile_h: int = 16, alpha_threshold: float = 0.005):
+    """Plain version of the expand kernel.
+
+    Slot s < total belongs to the gaussian g with offsets[g] <= s <
+    offsets[g + 1] and maps to its tile by the j-th set bit of the mask
+    (MASKED gaussians) or a row-major walk of the rect plus the exact tile
+    test.  Returns (key1 (C,), key2 (C,), words (4, C)) int32 with the
+    sentinel in both keys and zero words for dead slots, then the unclamped
+    slot total and the overflow flag as 0-d int32 tensors.
+    """
+    d_hi, d_lo, idx_bits = key_plan.kernel_tuple
+    dev = offsets.device
+    n = rect.shape[0]
+    off = offsets.to(torch.int64)
+    total = off[n]
+    slot = torch.arange(capacity, dtype=torch.int64, device=dev)
+    g = torch.searchsorted(off[:n].contiguous(), slot, right=True) - 1
+    g = torch.clamp(g, 0, max(n - 1, 0))
+    jj = slot - off[g]
+    rw = M.u32(rect)[g]
+    min_tx = rw & 0x3FF
+    min_ty = (rw >> 10) & 0x3FF
+    rect_w = torch.clamp((rw >> 20) & 0x3FF, min=1)
+    culled = (rw & CULLED_BIT) != 0
+    is_masked = (rw & MASKED_BIT) != 0
+    q = torch.div(jj, rect_w, rounding_mode="floor")
+    r = jj - q * rect_w
+    pbit = _nth_set_bit(M.u32(mask)[g], jj)
+    q = torch.where(is_masked, pbit >> 3, q)
+    r = torch.where(is_masked, pbit & 7, r)
+    t_y = min_ty + q
+    t_x = min_tx + r
+    tile = t_y * tiles_x + t_x
+    w = [M.u32(x)[g] for x in words]
+    passes = _exact_tile_test(w[0], w[1], w[2], w[3], t_x, t_y, float(tile_w),
+                              float(tile_h), alpha_threshold) | is_masked
+    dead = (slot >= total) | culled | ~passes
+    dn = M.u32(dsw)[g]
+    key1 = ((tile << d_hi) | (dn >> d_lo)) & M.U32
+    key2 = (((dn & ((1 << d_lo) - 1)) << idx_bits) | g) & M.U32
+    table = torch.stack([M.to_i32(torch.where(dead, 0, x)) for x in w])
+    return (M.to_i32(torch.where(dead, SENTINEL, key1)),
+            M.to_i32(torch.where(dead, SENTINEL, key2)), table,
+            total.to(torch.int32), (total > capacity).to(torch.int32))
+
+
+def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
+                      tiles_x: int, key_plan, tile_w: int = 16,
+                      tile_h: int = 16, alpha_threshold: float = 0.005):
+    """Launch the expand kernel of ``csrc/binning.cu`` (one thread per
+    slot, upper-bound binary search over the offsets)."""
+    if tile_w != 16 or tile_h != 16:
+        raise NotImplementedError("the expand kernel takes 16x16 tiles only")
+    dev = offsets.device
+    n = rect.shape[0]
+    _native.check(offsets, "offsets", torch.int32, (n + 1,), dev)
+    for name, t in (("rect", rect), ("mask", mask), ("dsw", dsw),
+                    *((f"w{k}", w) for k, w in enumerate(words))):
+        _native.check(t, name, torch.int32, (n,), dev)
+    d_hi, d_lo, idx_bits = key_plan.kernel_tuple
+    out = torch.empty((6, capacity), dtype=torch.int32, device=dev)
+    EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
+                  _native.ptr(dsw), *[_native.ptr(w) for w in words], n,
+                  capacity, tiles_x, d_hi, d_lo, idx_bits,
+                  M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
+                  M.f32(1.0 / 255.0), *[_native.ptr(out[k]) for k in range(6)])
+    total = offsets[n]
+    return out[0], out[1], out[2:], total, (total > capacity).to(torch.int32)
+
+
+def expand_slots(offsets, rect, mask, dsw, words, **kw):
+    """Slot expansion: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if offsets.is_cuda:
+        return expand_slots_cuda(offsets, rect, mask, dsw, words, **kw)
+    return expand_slots_plain(offsets, rect, mask, dsw, words, **kw)

@@ -1,0 +1,303 @@
+"""Fused projection: project + cull + quantize + pack in one pass.
+
+Port of ``gsm_renderer_tpu/kernels/project.py`` (``project_and_cull_packed``
+and the Pallas ``_project_kernel``).  The kernel is ``csrc/project.cu``; it
+also folds in the JAX version's XLA theta epilogue (atan2 and the u16
+packing), so one launch yields the finished record words.
+
+:func:`project_plain` is the same function in plain PyTorch, operation for
+operation.  :func:`project_and_cull_packed` runs it for CPU tensors and the
+CUDA kernel for CUDA tensors; there is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import _native
+from .. import mathlib as M
+from ..ops.binning import pack_rect_word
+from .expand import CULLED_BIT
+
+PROJECT = _native.Kernel("project", "project", "gsm_project", [
+    _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P])
+
+_PARAM_NAMES = ("near_plane", "far_plane", "half_w", "half_h",
+                "alpha_threshold", "lim_x", "lim_y", "focal_x", "focal_y",
+                "max_eig", "width", "height", "wm1", "hm1", "ink_threshold",
+                "ink_af", "ink_den", "tau", "theta_scale", "pi", "inv255")
+
+
+@dataclasses.dataclass
+class PackedProjection:
+    """Per-gaussian packed projection outputs (int32 tensors holding u32
+    bits): ``rect_word`` (min_tx | min_ty << 10 | rect_w << 20, CULLED_BIT
+    for invisible gaussians), ``rect_h``, ``dsw`` (KeyPlan-normalized depth
+    word), ``words`` (the 4 record words, theta merged into w1), and
+    ``visible`` (bool)."""
+
+    rect_word: torch.Tensor
+    rect_h: torch.Tensor
+    dsw: torch.Tensor
+    words: list
+    visible: torch.Tensor
+
+
+def prepare_projection_inputs(gi, sh_degree: int):
+    """(comp (11, N) f32, harm (3 * n_coeffs, N) f32): the component planes
+    and the SH coefficient planes of the used degree, contiguous."""
+    comp = torch.stack([
+        gi.positions[:, 0], gi.positions[:, 1], gi.positions[:, 2],
+        gi.scales[:, 0], gi.scales[:, 1], gi.scales[:, 2],
+        gi.rotations[:, 0], gi.rotations[:, 1], gi.rotations[:, 2],
+        gi.rotations[:, 3], gi.opacities]).to(torch.float32).contiguous()
+    n_coeffs = (sh_degree + 1) ** 2
+    harm = gi.harmonics[:, :n_coeffs, :].to(torch.float32)
+    harm = harm.reshape(3 * n_coeffs, gi.count).contiguous()
+    return comp, harm
+
+
+def cached_projection_inputs(gi, sh_degree: int):
+    """Per-input cache of :func:`prepare_projection_inputs`, stored on the
+    GaussianInput (the inputs do not change between frames)."""
+    cache = gi.__dict__.setdefault("_proj_prep", {})
+    got = cache.get(sh_degree)
+    if got is None:
+        got = prepare_projection_inputs(gi, sh_degree)
+        cache[sh_degree] = got
+    return got
+
+
+def frame_constants(proj, *, width, height, near_plane,
+                    far_plane, alpha_threshold, total_ink_threshold):
+    """Float32 frame constants shared by the kernel and the plain version,
+    each rounded to float32 the way JAX folds it."""
+    lim_x, lim_y, focal_x, focal_y = M.covariance_2d_consts(
+        M.mat(proj), width, height)
+    af, den = M.depth_factor_consts(near_plane, far_plane)
+    c = dict(
+        near_plane=M.f32(near_plane), far_plane=M.f32(far_plane),
+        half_w=M.f32(0.5 * width), half_h=M.f32(0.5 * height),
+        alpha_threshold=M.f32(alpha_threshold), lim_x=lim_x, lim_y=lim_y,
+        focal_x=focal_x, focal_y=focal_y,
+        max_eig=M.max_eigenvalue(width, height),
+        width=M.f32(width), height=M.f32(height),
+        wm1=M.f32(width - 1.0), hm1=M.f32(height - 1.0),
+        ink_threshold=M.f32(total_ink_threshold), ink_af=af, ink_den=den,
+        tau=M.f32(max(alpha_threshold, 1e-12)),
+        theta_scale=M.f32(65535.0 / M.PI), pi=M.f32(M.PI),
+        inv255=M.f32(1.0 / 255.0))
+    return c
+
+
+def f32_to_f16_bits(v):
+    """Manual f32 -> f16 bit conversion with IEEE round-to-nearest-even
+    (subnormals via the float-add trick, overflow -> inf, NaN -> 0x7E00);
+    returns int64 holding the 16 bits."""
+    bits = M.u32(v.contiguous().view(torch.int32))
+    sign = (bits >> 16) & 0x8000
+    f = bits & 0x7FFFFFFF
+    is_nan = f > 0x7F800000
+    is_big = f >= 0x47800000
+    big = torch.where(is_nan, 0x7E00, 0x7C00)
+    is_small = f < (113 << 23)
+    fv = M.to_i32(f).view(torch.float32)
+    sub = (M.u32((fv + 0.5).view(torch.int32)) - 0x3F000000) & M.U32
+    mant_odd = (f >> 13) & 1
+    fn = (f + ((((15 - 127) << 23) + 0xFFF) & M.U32) + mant_odd) & M.U32
+    h = torch.where(is_small, sub, fn >> 13)
+    h = torch.where(is_big, big, h)
+    return (sign | h) & 0xFFFF
+
+
+def _jmod(x, y: float):
+    """jnp.mod for float32: fmod, then + y where the signs differ."""
+    r = torch.fmod(x, y)
+    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+
+
+def project_plain(comp, harm, view, proj, center, *, width: int, height: int,
+                  tile_w: int, tile_h: int, sh_degree: int, near_plane: float,
+                  far_plane: float, alpha_threshold: float,
+                  total_ink_threshold: float, input_is_srgb: bool,
+                  key_plan=None) -> PackedProjection:
+    """Plain PyTorch version of the projection kernel, on any device."""
+    if tile_w != 16 or tile_h != 16:
+        raise NotImplementedError("the projection takes 16x16 tiles only")
+    view_m, proj_m, cen = M.mat(view), M.mat(proj), M.mat(center)
+    k = frame_constants(proj, width=width, height=height,
+                        near_plane=near_plane, far_plane=far_plane,
+                        alpha_threshold=alpha_threshold,
+                        total_ink_threshold=total_ink_threshold)
+    tiles_x, tiles_y = -(-width // tile_w), -(-height // tile_h)
+    px, py, pz, sx, sy, sz = (comp[j] for j in range(6))
+    opacity = comp[10]
+
+    alive = ~M.cull_by_scale_c(sx, sy, sz)
+    vx, vy, vz, nx, ny, depth, in_front = M.project_points_c(
+        px, py, pz, view_m, proj_m, k["near_plane"])
+    alive &= in_front
+    alive &= ~M.cull_by_far_plane(depth, k["far_plane"])
+    screen_x = (nx + 1.0) * k["half_w"]
+    screen_y = (ny + 1.0) * k["half_h"]
+    alive &= opacity >= k["alpha_threshold"]
+
+    c3d = M.build_covariance_3d_c(sx, sy, sz, comp[6], comp[7], comp[8],
+                                  comp[9])
+    ca, cb, cd = M.project_covariance_2d_c(c3d, vx, vy, vz, view_m, proj_m,
+                                           float(width), float(height))
+    ca, cb, cd = M.stabilize_covariance_2d_c(ca, cb, cd, float(width),
+                                             float(height))
+
+    a = torch.clamp(ca, min=1e-8)
+    d = torch.clamp(cd, min=1e-8)
+    b = cb
+    finite = torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(d)
+    det = a * d - b * b
+    eig_ok = finite & torch.isfinite(det) & (det > 0.0)
+    mid = 0.5 * (a + d)
+    disc = torch.clamp(mid * mid - det, min=0.0)
+    sqrt_disc = torch.sqrt(disc)
+    lam1 = torch.clamp(mid + sqrt_disc, min=1e-8)
+    lam2 = torch.clamp(mid - sqrt_disc, min=1e-8)
+    use_b = b.abs() > 1e-8
+    evx = torch.where(use_b, b, torch.where(a >= d, 1.0, 0.0))
+    evy = torch.where(use_b, lam1 - a, torch.where(a >= d, 0.0, 1.0))
+    vlen = torch.sqrt(evx * evx + evy * evy)
+    evx = evx / torch.clamp(vlen, min=1e-12)
+    evy = evy / torch.clamp(vlen, min=1e-12)
+    sigma1 = torch.sqrt(lam1)
+    sigma2 = torch.sqrt(lam2)
+    eig_ok &= torch.isfinite(sigma1) & torch.isfinite(sigma2)
+    alive &= eig_ok
+
+    radius = 3.0 * torch.maximum(sigma1, sigma2)
+    alive &= ~M.cull_by_radius(radius)
+    det2d = ca * cd - cb * cb
+    alive &= ~M.cull_by_total_ink(opacity, det2d, depth, near_plane,
+                                  far_plane, total_ink_threshold)
+    obb_x, obb_y = M.compute_obb_extents_c(ca, cb, cd, 3.0)
+    alive &= ~M.cull_by_screen_bounds_c(screen_x, screen_y, obb_x, obb_y,
+                                        k["width"], k["height"])
+
+    n_coeffs = (sh_degree + 1) ** 2
+    if sh_degree == 0:
+        color = [harm[ch * n_coeffs] * M.SH_C0 for ch in range(3)]
+    else:
+        dx = cen[0] - px
+        dy = cen[1] - py
+        dz = cen[2] - pz
+        inv = 1.0 / torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-24))
+        basis = M.sh_basis_c(dx * inv, dy * inv, dz * inv, sh_degree)
+        color = []
+        for ch in range(3):
+            acc = harm[ch * n_coeffs] * basis[0]
+            for c in range(1, n_coeffs):
+                acc = acc + harm[ch * n_coeffs + c] * basis[c]
+            color.append(acc)
+    color = [torch.clamp(c + 0.5, min=0.0) for c in color]
+    if input_is_srgb:
+        color = [torch.where(c <= 0.04045, M.div(c, 12.92),
+                             torch.pow(M.div(torch.clamp(c, 0.0, 1.0) + 0.055,
+                                             1.055), 2.4))
+                 for c in (torch.clamp(c, 0.0, 1.0) for c in color)]
+
+    theta = torch.atan2(evy, evx)
+    theta = _jmod(theta, k["pi"])
+    theta = torch.where(theta >= k["pi"], theta - k["pi"], theta)
+    t = _jmod(theta, k["pi"])
+    t = torch.where(t < 0.0, t + k["pi"], t)
+    theta_u = torch.clamp(t * k["theta_scale"] + 0.5, 0.0, 65535.0).to(
+        torch.int32).to(torch.int64)
+    w0 = f32_to_f16_bits(screen_x) | (f32_to_f16_bits(screen_y) << 16)
+    w1 = theta_u | (f32_to_f16_bits(sigma1) << 16)
+    w2 = f32_to_f16_bits(sigma2) | (f32_to_f16_bits(depth) << 16)
+
+    def u8(c):
+        return torch.clamp(c * 255.0, 0.0, 255.0).to(torch.int32).to(torch.int64)
+
+    op_u8 = u8(opacity)
+    w3 = u8(color[0]) | (u8(color[1]) << 8) | (u8(color[2]) << 16) | (op_u8 << 24)
+
+    min_tx, max_tx, min_ty, max_ty = M.compute_tile_bounds_c(
+        screen_x, screen_y, obb_x, obb_y, k["width"], k["height"], tile_w,
+        tile_h, tiles_x, tiles_y)
+    alive &= (min_tx <= max_tx) & (min_ty <= max_ty)
+    opacity_q = op_u8.to(torch.int32).to(torch.float32) * k["inv255"]
+    alive &= M.compute_d2_cutoff(opacity_q, k["tau"]) >= 0.0
+
+    min_tx = torch.where(alive, min_tx, 0)
+    min_ty = torch.where(alive, min_ty, 0)
+    rect_w = torch.where(alive, max_tx - min_tx + 1, 1)
+    rect_h = torch.where(alive, max_ty - min_ty + 1, 1).to(torch.int32)
+
+    dkey = torch.where(alive, M.float_to_sortable_uint(depth), M.U32)
+    if key_plan is not None:
+        dsw = torch.where(alive, key_plan.normalize(dkey), key_plan.span)
+    else:
+        dsw = dkey
+
+    rw = M.u32(pack_rect_word(min_tx, min_ty, rect_w))
+    rw = torch.where(alive, rw, rw | CULLED_BIT)
+    return PackedProjection(
+        rect_word=M.to_i32(rw), rect_h=rect_h, dsw=M.to_i32(dsw),
+        words=[M.to_i32(w) for w in (w0, w1, w2, w3)], visible=alive)
+
+
+def project_cuda(comp, harm, view, proj, center, *, width: int, height: int,
+                 tile_w: int, tile_h: int, sh_degree: int, near_plane: float,
+                 far_plane: float, alpha_threshold: float,
+                 total_ink_threshold: float, input_is_srgb: bool,
+                 key_plan=None) -> PackedProjection:
+    """Launch ``csrc/project.cu`` on CUDA tensors."""
+    if tile_w != 16 or tile_h != 16:
+        raise NotImplementedError("the projection kernel takes 16x16 tiles only")
+    dev = comp.device
+    n = comp.shape[1]
+    n_coeffs = (sh_degree + 1) ** 2
+    _native.check(comp, "comp", torch.float32, (11, n), dev)
+    _native.check(harm, "harm", torch.float32, (3 * n_coeffs, n), dev)
+    k = frame_constants(proj, width=width, height=height,
+                        near_plane=near_plane, far_plane=far_plane,
+                        alpha_threshold=alpha_threshold,
+                        total_ink_threshold=total_ink_threshold)
+    params = np.concatenate([
+        np.asarray(view, np.float32).reshape(-1),
+        np.asarray(proj, np.float32).reshape(-1),
+        np.asarray(center, np.float32).reshape(-1),
+        np.asarray([k[name] for name in _PARAM_NAMES], np.float32)])
+    tiles_x, tiles_y = -(-width // tile_w), -(-height // tile_h)
+    ints = np.asarray([n, tiles_x, tiles_y, sh_degree, int(input_is_srgb),
+                       int(key_plan is not None)], np.int32)
+    plan = np.asarray([key_plan.near_key, key_plan.span] if key_plan else [0, 0],
+                      np.uint32)
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(7)]
+    visible = torch.empty(n, dtype=torch.bool, device=dev)
+    PROJECT.launch(
+        _native.ptr(comp), _native.ptr(harm),
+        params.ctypes.data_as(ctypes.c_void_p),
+        ints.ctypes.data_as(ctypes.c_void_p),
+        plan.ctypes.data_as(ctypes.c_void_p),
+        *[_native.ptr(o) for o in outs], _native.ptr(visible))
+    rect_word, rect_h, dsw, w0, w1, w2, w3 = outs
+    return PackedProjection(rect_word=rect_word, rect_h=rect_h, dsw=dsw,
+                            words=[w0, w1, w2, w3], visible=visible)
+
+
+def project_and_cull_packed(gi, view, proj, center, *, prepared=None,
+                            **kw) -> PackedProjection:
+    """Fused projection of a GaussianInput: the CUDA kernel for inputs on
+    the card, the plain version for inputs on the CPU.  ``view``/``proj``
+    (4, 4) and ``center`` (3,) are host arrays; ``prepared`` is an optional
+    (comp, harm) from :func:`cached_projection_inputs`."""
+    comp, harm = (prepared if prepared is not None
+                  else prepare_projection_inputs(gi, kw["sh_degree"]))
+    if comp.is_cuda:
+        return project_cuda(comp, harm, view, proj, center, **kw)
+    return project_plain(comp, harm, view, proj, center, **kw)

@@ -1,0 +1,150 @@
+"""Blend parity: gsm_renderer_tpu_torch's plain blend vs the JAX package's
+``blend_tiles_pallas`` (interpret mode) and ``blend_tiles_xla``.
+
+Both sides get the same sorted record words, starts and counts, made from a
+seed with numpy.  Early-exit rule under test (the port's, shared by its CUDA
+kernel and its plain version): 256-record batches aligned to 128-record
+blocks, the tile stops after a batch once every pixel's transmittance is
+below 1/255 -- the Pallas kernel's chunking, so the two stop at the same
+record; the XLA blend never stops.
+
+Tolerances: colour and alpha within 5e-3 of both (the 1/255 early-exit
+bound); depth within 5e-2 of both (the residual transmittance < 1/255 times
+depths up to 12 in the heavy scene, plus float32 summation order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gsm_renderer_tpu.kernels import blend as JK
+
+from gsm_renderer_tpu_torch.kernels import blend as TK
+
+# the suite runs files in parallel workers: one intra-op thread per worker
+torch.set_num_threads(1)
+
+COLOR_TOL = 5e-3
+DEPTH_TOL = 5e-2
+
+
+def f16b(x):
+    return np.asarray(x, np.float16).view(np.uint16).astype(np.uint32)
+
+
+def synth(rng, tiles_x, tiles_y, per_tile, sigma=(0.6, 12.0), op=(1, 256),
+          depth=(0.1, 50.0)):
+    """Quantized records for ``per_tile`` instances in each tile (a few tiles
+    empty or short, dead zero slots after the last span), with the XLA
+    oracle's attribute table built from the decoded values."""
+    n_t = tiles_x * tiles_y
+    n_live = n_t * per_tile
+    cap = -(-(n_live + 300) // 128) * 128
+    mx = rng.uniform(0, tiles_x * 16, n_live).astype(np.float32)
+    my = rng.uniform(0, tiles_y * 16, n_live).astype(np.float32)
+    s1 = rng.uniform(*sigma, n_live).astype(np.float32)
+    s2 = rng.uniform(*sigma, n_live).astype(np.float32)
+    th = rng.uniform(0, np.pi, n_live).astype(np.float32)
+    opq = rng.integers(op[0], op[1], n_live).astype(np.uint32)
+    col = rng.integers(0, 256, (n_live, 3)).astype(np.uint32)
+    dep = rng.uniform(*depth, n_live).astype(np.float32)
+    w = [np.zeros(cap, np.uint32) for _ in range(4)]
+    w[0][:n_live] = f16b(mx) | (f16b(my) << 16)
+    w[1][:n_live] = np.round(th / np.pi * 65535.0).astype(np.uint32) | (f16b(s1) << 16)
+    w[2][:n_live] = f16b(s2) | (f16b(dep) << 16)
+    w[3][:n_live] = col[:, 0] | (col[:, 1] << 8) | (col[:, 2] << 16) | (opq << 24)
+    starts = (np.arange(n_t) * per_tile).astype(np.int32)
+    counts = np.full(n_t, per_tile, np.int32)
+    counts[min(3, n_t - 1)] = 0
+    counts[min(1, n_t - 1)] = max(per_tile - 7, 0)
+
+    def deco(bits):
+        return np.asarray(bits, np.uint16).view(np.float16).astype(np.float32)
+
+    s1d = np.maximum(deco(w[1] >> 16), 1e-4)
+    s2d = np.maximum(deco(w[2] & 0xFFFF), 1e-4)
+    thd = (w[1] & 0xFFFF).astype(np.float32) * np.float32(np.pi / 65535.0)
+    c, s = np.cos(thd), np.sin(thd)
+    mxd, myd = deco(w[0] & 0xFFFF), deco(w[0] >> 16)
+    a1, b1, a2, b2 = c / s1d, s / s1d, -s / s2d, c / s2d
+    attrs = dict(a1=a1, b1=b1, c1=-(a1 * mxd + b1 * myd), a2=a2, b2=b2,
+                 c2=-(a2 * mxd + b2 * myd), r=(w[3] & 0xFF) / 255.0,
+                 g=((w[3] >> 8) & 0xFF) / 255.0, b=((w[3] >> 16) & 0xFF) / 255.0,
+                 depth=deco(w[2] >> 16), op=((w[3] >> 24) & 0xFF) / 255.0)
+    attr_table = JK.build_blend_table(
+        {k: jnp.asarray(v.astype(np.float32)) for k, v in attrs.items()}, cap)
+    words_table = JK.build_words_table([jnp.asarray(x) for x in w], cap)
+    port_table = torch.from_numpy(np.stack(w).view(np.int32).copy())
+    return dict(attr=attr_table, words=words_table, port=port_table,
+                starts=starts, counts=counts, per=max(per_tile, 1))
+
+
+@pytest.fixture(scope="module", params=["light", "heavy"])
+def case(request):
+    rng = np.random.default_rng(21)
+    if request.param == "light":
+        # ~37 records per tile: no tile saturates
+        d = synth(rng, 6, 4, 37)
+        tiles_x, tiles_y = 6, 4
+    else:
+        # 700 large, opaque records per tile: tiles saturate mid-span, so
+        # the early exit decides the result
+        d = synth(rng, 2, 2, 700, sigma=(6.0, 24.0), op=(180, 256),
+                  depth=(1.0, 12.0))
+        tiles_x, tiles_y = 2, 2
+    starts, counts = jnp.asarray(d["starts"]), jnp.asarray(d["counts"])
+    pal = JK.blend_tiles_pallas(d["words"], starts, counts, tiles_x=tiles_x,
+                                tiles_y=tiles_y, interpret=True)
+    xla = JK.blend_tiles_xla(d["attr"], starts, counts, tiles_x=tiles_x,
+                             tiles_y=tiles_y, max_per_tile=d["per"])
+    d.update(tiles_x=tiles_x, tiles_y=tiles_y, name=request.param,
+             pallas=[np.asarray(x) for x in pal], xla=[np.asarray(x) for x in xla])
+    return d
+
+
+def port_blend(d, **kw):
+    return TK.blend_tiles_plain(d["port"], torch.from_numpy(d["starts"]),
+                                torch.from_numpy(d["counts"]),
+                                tiles_x=d["tiles_x"], **kw)
+
+
+def test_blend_matches_pallas_and_xla(case):
+    color, depth, processed = port_blend(case, return_processed=True)
+    for ref_color, ref_depth in (case["pallas"], case["xla"]):
+        np.testing.assert_allclose(color.numpy(), ref_color, atol=COLOR_TOL)
+        np.testing.assert_allclose(depth.numpy(), ref_depth, atol=DEPTH_TOL)
+    counts = torch.from_numpy(case["counts"])
+    if case["name"] == "heavy":
+        live = counts > 0
+        assert (processed[live] < counts[live]).all()   # every tile exited early
+        # same exit point as the Pallas kernel: float32-close, not 1/255-close
+        np.testing.assert_allclose(color.numpy(), case["pallas"][0], atol=1e-5)
+        assert (color[live][..., 3] > 1.0 - 1.0 / 255.0).all()
+    else:
+        assert (processed == counts).all()
+    assert float(color[..., :3].max()) > 0.05
+
+
+def test_blend_no_depth(case):
+    color, depth = port_blend(case)
+    color_nd, depth_nd = port_blend(case, depth_mode="none")
+    assert depth_nd is None and depth is not None
+    np.testing.assert_array_equal(color_nd.numpy(), color.numpy())
+
+
+def test_blend_tile_subset_and_assembly(case):
+    """A subset of tiles blends exactly as in the full call, and assembly
+    crops the ragged edge in row-major tile order."""
+    color, depth = port_blend(case)
+    sub = torch.tensor([case["tiles_x"] * case["tiles_y"] - 1, 0])
+    c_sub, d_sub = port_blend(case, tiles=sub)
+    np.testing.assert_array_equal(c_sub.numpy(), color[sub].numpy())
+    w, h = case["tiles_x"] * 16 - 5, case["tiles_y"] * 16 - 3
+    img, dimg = TK.assemble_image(color, depth, tiles_x=case["tiles_x"],
+                                  tiles_y=case["tiles_y"], width=w, height=h)
+    assert img.shape == (h, w, 4) and dimg.shape == (h, w)
+    t = case["tiles_x"] + 1 if case["tiles_y"] > 1 else 0
+    ty, tx = divmod(t, case["tiles_x"])
+    np.testing.assert_array_equal(img[ty * 16 + 2, tx * 16 + 3].numpy(),
+                                  color[t, 2 * 16 + 3].numpy())

@@ -1,0 +1,261 @@
+"""Whole-frame parity of gsm_renderer_tpu_torch's DepthFirstRenderer (mono,
+``row_expand=False``, on the CPU: the plain PyTorch versions of the kernels)
+against the JAX package and the NumPy oracle, plus the renderer's contract.
+
+Tolerances:
+* vs JAX ``depth_first_frame(..., interpret=True, row_capacity=0)`` (the
+  production Pallas path): colour and alpha max |d| <= 1e-2, depth <= 5e-2,
+  visible_count equal up to counted projection flips (<= 0.2%).
+* vs tests/reference_impl.py (scenes of tests/test_pipeline_depthfirst.py):
+  colour and alpha max |d| <= 1e-2 (the oracle stops per pixel at T < 1/255,
+  the port per tile after a batch: <= 1/255 apart), depth <= 0.1.
+"""
+
+import os
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import gsm_renderer_tpu as G
+from gsm_renderer_tpu.io.scene import generate_visible_gaussians as jax_gen
+from gsm_renderer_tpu.pipelines.depth_first import depth_first_frame as jax_frame
+from reference_impl import render_reference
+
+import gsm_renderer_tpu_torch as T
+from gsm_renderer_tpu_torch.io.scene import (generate_grid_gaussians,
+                                             generate_visible_gaussians)
+from gsm_renderer_tpu_torch.pipelines.base import instance_capacity
+
+# the suite runs files in parallel workers: one intra-op thread per worker
+torch.set_num_threads(1)
+
+COLOR_TOL = 1e-2
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def renderer(**cfg):
+    return T.DepthFirstRenderer(T.RendererConfig(row_expand=False, **cfg),
+                                device="cpu")
+
+
+def test_frame_matches_jax_pallas_path():
+    w, h, n = 128, 96, 600
+    ds = jax_gen(n, sh_degree=1, scale_range=(0.01, 0.06))
+    cam = G.make_camera(w, h, far=20.0)
+    view, proj, center = cam.astuple_jax()
+    ref = jax_frame(ds.to_input(), view, proj, center, width=w, height=h,
+                    capacity=4096, sh_degree=1, alpha_threshold=0.005,
+                    total_ink_threshold=2.0, near_plane=0.1, far_plane=20.0,
+                    input_is_srgb=False, use_xla_blend=False, interpret=True,
+                    row_capacity=0)
+    got = renderer(sh_degree=1).render(
+        generate_visible_gaussians(n, sh_degree=1, scale_range=(0.01, 0.06))
+        .to_input(device="cpu"), T.make_camera(w, h, far=20.0), w, h)
+    assert abs(int(got.header.visible_count)
+               - int(ref.header.visible_count)) <= int(0.002 * n)
+    assert int(got.header.overflow) == int(ref.header.overflow) == 0
+    assert int(got.header.slot_total) == int(ref.header.slot_total)
+    assert int(got.header.total_instances) == int(ref.header.total_instances)
+    assert int(got.header.row_total) == int(ref.header.row_total)
+    np.testing.assert_allclose(got.color.numpy(), np.asarray(ref.color),
+                               atol=COLOR_TOL)
+    np.testing.assert_allclose(got.depth.numpy(), np.asarray(ref.depth),
+                               atol=5e-2)
+    assert float(got.color[..., :3].max()) > 0.05
+
+
+@pytest.mark.parametrize("sh_degree", [0, 2])
+def test_frame_matches_reference_oracle(sh_degree):
+    w, h = 128, 96
+    ds = generate_grid_gaussians(300, sh_degree=sh_degree, xy_extent=1.2)
+    cam = T.make_camera(w, h)
+    ref_color, ref_depth, aux = render_reference(
+        ds, cam.view_matrix, cam.projection_matrix, cam.position, w, h,
+        sh_degree=sh_degree)
+    out = renderer(sh_degree=sh_degree).render(ds.to_input(device="cpu"), cam,
+                                               w, h)
+    assert int(out.header.visible_count) == aux["visible"]
+    assert int(out.header.total_instances) == aux["total_instances"]
+    assert int(out.header.overflow) == 0
+    np.testing.assert_allclose(out.color.numpy(), ref_color, atol=COLOR_TOL)
+    np.testing.assert_allclose(out.depth.numpy(), ref_depth, atol=0.1)
+
+
+def test_opengl_convention_renders_the_same():
+    w, h = 128, 96
+    ds = generate_grid_gaussians(200, sh_degree=0)
+    r = renderer(sh_degree=0)
+    out_cv = r.render(ds.to_input(device="cpu"),
+                      T.make_camera(w, h, convention="opencv"), w, h)
+    ds.positions = ds.positions * np.array([1, 1, -1], np.float32)
+    ds.rotations = ds.rotations * np.array([-1, -1, 1, 1], np.float32)
+    out_gl = r.render(ds.to_input(device="cpu"),
+                      T.make_camera(w, h, convention="opengl"), w, h)
+    np.testing.assert_allclose(out_cv.color.numpy(), out_gl.color.numpy(),
+                               atol=0.02)
+
+
+def test_header_invariants():
+    w, h = 160, 120
+    out = renderer(sh_degree=0).render(
+        generate_visible_gaussians(500, sh_degree=0).to_input(device="cpu"),
+        T.make_camera(w, h), w, h)
+    visible = int(out.header.visible_count)
+    assert 0 < visible <= 500
+    assert int(out.header.total_instances) >= visible
+    assert int(out.header.slot_total) >= int(out.header.total_instances)
+    assert int(out.header.overflow) == 0
+    for f in ("visible_count", "total_instances", "overflow", "slot_total",
+              "row_total"):
+        t = getattr(out.header, f)
+        assert t.dtype == torch.int32 and t.dim() == 0
+
+
+def test_empty_scene_is_black():
+    w, h = 64, 64
+    ds = generate_grid_gaussians(10)
+    ds.positions[:, 2] = -5.0
+    out = renderer(sh_degree=0).render(ds.to_input(device="cpu"),
+                                       T.make_camera(w, h), w, h)
+    assert int(out.header.visible_count) == 0
+    assert int(out.header.total_instances) == 0
+    assert float(out.color.abs().max()) == 0.0
+
+
+def test_overflow_sets_flag_and_renders():
+    w, h = 64, 64
+    ds = generate_grid_gaussians(3000, xy_extent=0.3, scale_range=(0.1, 0.3))
+    out = renderer(sh_degree=0, max_instances=1024).render(
+        ds.to_input(device="cpu"), T.make_camera(w, h), w, h)
+    assert int(out.header.overflow) == 1
+    assert int(out.header.slot_total) > 1024
+    assert torch.isfinite(out.color).all() and torch.isfinite(out.depth).all()
+
+
+def test_fp16_input_renders_close_to_fp32():
+    w, h = 96, 64
+    ds = generate_grid_gaussians(150, sh_degree=1)
+    r = renderer(sh_degree=1, precision=T.Precision.FLOAT16)
+    cam = T.make_camera(w, h)
+    out16 = r.render(ds.to_input(T.Precision.FLOAT16, device="cpu"), cam, w, h)
+    out32 = r.render(ds.to_input(T.Precision.FLOAT32, device="cpu"), cam, w, h)
+    np.testing.assert_allclose(out16.color.numpy(), out32.color.numpy(), atol=0.08)
+
+
+def test_rgba16_float_and_no_depth_outputs():
+    w, h = 96, 64
+    gi = generate_visible_gaussians(300, sh_degree=0).to_input(device="cpu")
+    cam = T.make_camera(w, h)
+    base = renderer(sh_degree=0).render(gi, cam, w, h)
+    half = renderer(sh_degree=0, color_format=T.ColorFormat.RGBA16_FLOAT).render(
+        gi, cam, w, h)
+    assert half.color.dtype == torch.float16 and half.depth.dtype == torch.float16
+    np.testing.assert_array_equal(half.color.numpy(),
+                                  base.color.to(torch.float16).numpy())
+    nod = renderer(sh_degree=0, depth_output=False).render(gi, cam, w, h)
+    assert nod.depth is None
+    np.testing.assert_array_equal(nod.color.numpy(), base.color.numpy())
+
+
+def test_capacity_locks_in_and_output_is_identical():
+    w, h, n = 128, 96, 3000
+    gi = generate_visible_gaussians(n, sh_degree=1,
+                                    scale_range=(0.005, 0.03)).to_input(device="cpu")
+    cam = T.make_camera(w, h)
+    r = renderer(sh_degree=1)
+    full = instance_capacity(r.config, n)
+    o1 = r.render(gi, cam, w, h)
+    o2 = r.render(gi, cam, w, h)
+    cap = r._cap_state[(r._mono_key, n)]["cap"]
+    assert int(o1.header.slot_total) < cap < full
+    assert int(o2.header.overflow) == 0
+    np.testing.assert_array_equal(o1.color.numpy(), o2.color.numpy())
+    r.render(gi, cam, w, h)
+    assert r._cap_state[(r._mono_key, n)]["cap"] == cap
+
+
+def test_capacity_policy():
+    n = 5000
+    r = renderer(sh_degree=0)
+    full = instance_capacity(r.config, n)
+    r._cap_feedback = {(r._mono_key, n): types.SimpleNamespace(
+        slot_total=torch.tensor(3 * full, dtype=torch.int32))}
+    assert 3 * full <= r.pick_capacity(n, kind=r._mono_key) <= 4 * full
+    fixed = renderer(sh_degree=0, max_instances=65536)
+    assert fixed.pick_capacity(n) == instance_capacity(fixed.config, n)
+    off = T.DepthFirstRenderer(T.RendererConfig(row_expand=False),
+                               device="cpu", adaptive_capacity=False)
+    off.note_frame(n, types.SimpleNamespace(slot_total=torch.tensor(10)))
+    assert off.pick_capacity(n) == instance_capacity(off.config, n)
+
+
+@pytest.mark.parametrize("cfg,what", [
+    (dict(), "row_expand"),
+    (dict(row_expand=False,
+          depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16), "BITS16"),
+    (dict(row_expand=False, tile_id_precision=T.TileIdPrecision.BITS32),
+     "BITS32"),
+])
+def test_unported_options_raise(cfg, what):
+    r = T.DepthFirstRenderer(T.RendererConfig(**cfg), device="cpu")
+    gi = generate_visible_gaussians(50).to_input(device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.render(gi, T.make_camera(64, 64), 64, 64)
+
+
+def test_unported_renderers_and_modes_raise():
+    for cls in (T.GlobalRenderer, T.LocalRenderer, T.HardwareRenderer):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cls(device="cpu")
+    r = renderer()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.render_stereo(None, None, 64, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.render_stereo_foveated(None, None, None)
+
+
+def test_import_loads_no_jax():
+    """Importing the port pulls in neither jax nor the JAX package (a
+    subprocess: this test process has jax loaded already)."""
+    code = ("import sys, gsm_renderer_tpu_torch, gsm_renderer_tpu_torch.interop; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'jaxlib' or m == 'gsm_renderer_tpu' "
+            "or m.startswith('gsm_renderer_tpu.')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_default_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.DepthFirstRenderer(T.RendererConfig(row_expand=False))
+    with pytest.raises(RuntimeError):
+        generate_visible_gaussians(10).to_input()
+
+
+@pytest.mark.parametrize("precision", [G.Precision.FLOAT32, G.Precision.FLOAT16])
+def test_interop_round_trips_jax_input_exactly(precision):
+    ds = jax_gen(200, sh_degree=2)
+    jgi = ds.to_input(precision)
+    gi = T.gaussian_input_from_numpy(
+        np.asarray(jgi.positions), np.asarray(jgi.scales),
+        np.asarray(jgi.rotations), np.asarray(jgi.opacities),
+        np.asarray(jgi.harmonics), device="cpu")
+    for name in ("positions", "scales", "rotations", "opacities", "harmonics"):
+        a, b = np.asarray(getattr(jgi, name)), getattr(gi, name).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    jcam = G.make_camera(320, 240, far=30.0)
+    cam = T.camera_from_numpy(jcam.view_matrix, jcam.projection_matrix,
+                              jcam.position, jcam.near_plane, jcam.far_plane,
+                              320, 240)
+    for name in ("view_matrix", "projection_matrix", "position"):
+        np.testing.assert_array_equal(getattr(cam, name), getattr(jcam, name))
+    assert (cam.near_plane, cam.far_plane) == (jcam.near_plane, jcam.far_plane)

@@ -1,0 +1,205 @@
+"""Projection kernel parity: gsm_renderer_tpu_torch vs the JAX package.
+
+The port's plain PyTorch projection (the CPU side of
+``gsm_renderer_tpu_torch.kernels.project.project_and_cull_packed``) against
+the Pallas ``project_and_cull_packed`` in interpret mode, on the same inputs
+made from a seed with numpy.
+
+Tolerance (ROADMAP parity contract): rect_word, rect_h, dsw, w0, w2, w3 and
+visible are equal except for float-boundary flips, counted and capped at
+0.2% of the gaussians; every f16 field of a flipped word may move by at most
+one f16 step.  w1 is equal except theta's low u16, which may differ by +-1
+(atan2 runs in XLA there, in PyTorch here).
+
+Theta and near-isotropic records: XLA:CPU contracts a*b+c into FMA in the
+interpret-mode kernel and its rsqrt differs from 1/sqrt in the last bit (see
+ROADMAP Queue 3), so the covariance differs by an ulp, and the eigenvector
+of a nearly isotropic covariance turns by many ulps.  Its orientation then
+hardly matters: the relative conic error is |dtheta| * (s1^2 - s2^2) / s1^2.
+The test bounds that weighted error by THETA_TOL = 4 u16 units, 2e-4 of the
+conic (1 unit for a fully anisotropic record would be the +-1 above; the
+largest seen on these scenes is 2.8).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import gsm_renderer_tpu as G
+from gsm_renderer_tpu.io.scene import generate_visible_gaussians
+from gsm_renderer_tpu.kernels.project import project_and_cull_packed as jax_project
+from gsm_renderer_tpu.ops import binning as JB
+
+import gsm_renderer_tpu_torch as T
+from gsm_renderer_tpu_torch.kernels import project as TP
+from gsm_renderer_tpu_torch.ops import binning as TB
+
+# the suite runs files in parallel workers: one intra-op thread per worker
+torch.set_num_threads(1)
+
+N, W, H = 2000, 480, 320
+NEAR, FAR = 0.1, 20.0
+FLIP_CAP = int(0.002 * N)
+
+
+def scene(sh_degree, seed=3):
+    """Visible cloud plus every cull case: behind the camera, beyond the far
+    plane, sub-threshold scale and opacity."""
+    ds = generate_visible_gaussians(N, sh_degree=sh_degree, seed=seed,
+                                    scale_range=(0.004, 0.10))
+    rng = np.random.default_rng(seed)
+    k = N // 20
+    idx = rng.permutation(N)
+    ds.positions[idx[:k], 2] *= -1.0
+    ds.positions[idx[k:2 * k], 2] += FAR
+    ds.scales[idx[2 * k:3 * k]] = 1e-4
+    ds.opacities[idx[3 * k:4 * k]] = 0.003
+    return ds
+
+
+def torch_input(ds, precision=T.Precision.FLOAT32):
+    return T.make_gaussian_input(ds.positions, ds.scales, ds.rotations,
+                                 ds.opacities, ds.harmonics, precision,
+                                 device="cpu")
+
+
+def u32(t):
+    return np.asarray(t).astype(np.int64) & 0xFFFFFFFF
+
+
+THETA_TOL = 4.0
+
+
+def theta_error(w1_ref, w1_got, w2_ref):
+    """Cyclic theta difference in u16 units, weighted by the reference
+    record's anisotropy (s1^2 - s2^2) / s1^2."""
+    def half(h):
+        return np.asarray(h, np.uint16).view(np.float16).astype(np.float64)
+
+    d = np.abs((w1_ref & 0xFFFF) - (w1_got & 0xFFFF))
+    d = np.minimum(d, 65536 - d)
+    s1, s2 = half(w1_ref >> 16), half(w2_ref & 0xFFFF)
+    aniso = np.clip((s1 * s1 - s2 * s2) / np.maximum(s1 * s1, 1e-30), 0.0, 1.0)
+    return np.where(d <= 1, 0.0, d * aniso)
+
+
+def f16_steps(a, b):
+    """Largest distance in f16 steps between the two 16-bit halves."""
+    worst = np.zeros(a.shape, np.int64)
+    for sh in (0, 16):
+        ha, hb = (a >> sh) & 0xFFFF, (b >> sh) & 0xFFFF
+        worst = np.maximum(worst, np.abs(ha - hb))
+    return worst
+
+
+@pytest.mark.parametrize("sh_degree,srgb", [(0, False), (1, False), (2, False),
+                                            (3, False), (3, True)])
+def test_project_matches_pallas(sh_degree, srgb):
+    ds = scene(sh_degree)
+    cam = G.make_camera(W, H, far=FAR)
+    tiles = (-(-W // 16)) * (-(-H // 16))
+    kw = dict(width=W, height=H, tile_w=16, tile_h=16, sh_degree=sh_degree,
+              near_plane=NEAR, far_plane=FAR, alpha_threshold=0.005,
+              total_ink_threshold=2.0, input_is_srgb=srgb)
+    view, proj, center = cam.astuple_jax()
+    ref = jax_project(ds.to_input(), view, proj, center, interpret=True,
+                      key_plan=JB.make_key_plan(tiles, N, near_plane=NEAR,
+                                                far_plane=FAR), **kw)
+    plan = TB.make_key_plan(tiles, N, near_plane=NEAR, far_plane=FAR)
+    got = TP.project_and_cull_packed(
+        torch_input(ds), cam.view_matrix, cam.projection_matrix, cam.position,
+        key_plan=plan, **kw)
+
+    assert 0.5 * N < int(np.asarray(ref.visible).sum()) < N  # culls exercised
+    pairs = {"rect_word": (ref.rect_word, got.rect_word),
+             "rect_h": (ref.rect_h, got.rect_h), "dsw": (ref.dsw, got.dsw),
+             "w0": (ref.words[0], got.words[0]),
+             "w2": (ref.words[2], got.words[2]),
+             "w3": (ref.words[3], got.words[3]),
+             "visible": (ref.visible, got.visible)}
+    flipped = np.zeros(N, bool)
+    for name, (r, g) in pairs.items():
+        r, g = u32(r), u32(g.numpy())
+        diff = r != g
+        flipped |= diff
+        if name in ("w0", "w2") and diff.any():
+            assert f16_steps(r[diff], g[diff]).max() <= 1, name
+    # w1: sigma1 half equal (up to a boundary flip), theta u16 within +-1
+    r1, g1 = u32(ref.words[1]), u32(got.words[1].numpy())
+    assert theta_error(r1, g1, u32(ref.words[2])).max() <= THETA_TOL
+    s_diff = (r1 >> 16) != (g1 >> 16)
+    flipped |= s_diff
+    if s_diff.any():
+        assert f16_steps(r1[s_diff] >> 16, g1[s_diff] >> 16).max() <= 1
+    assert flipped.sum() <= FLIP_CAP, f"{flipped.sum()} flipped gaussians"
+
+
+def test_project_fp16_input_matches_pallas():
+    ds = scene(1, seed=5)
+    cam = G.make_camera(W, H, far=FAR)
+    kw = dict(width=W, height=H, tile_w=16, tile_h=16, sh_degree=1,
+              near_plane=NEAR, far_plane=FAR, alpha_threshold=0.005,
+              total_ink_threshold=2.0, input_is_srgb=False)
+    view, proj, center = cam.astuple_jax()
+    ref = jax_project(ds.to_input(G.Precision.FLOAT16), view, proj, center,
+                      interpret=True, **kw)
+    got = TP.project_and_cull_packed(
+        torch_input(ds, T.Precision.FLOAT16), cam.view_matrix,
+        cam.projection_matrix, cam.position, **kw)
+    flipped = np.zeros(N, bool)
+    for r, g in [(ref.rect_word, got.rect_word), (ref.dsw, got.dsw),
+                 (ref.words[0], got.words[0]), (ref.words[2], got.words[2]),
+                 (ref.words[3], got.words[3])]:
+        flipped |= u32(r) != u32(g.numpy())
+    r1, g1 = u32(ref.words[1]), u32(got.words[1].numpy())
+    assert theta_error(r1, g1, u32(ref.words[2])).max() <= THETA_TOL
+    flipped |= (r1 >> 16) != (g1 >> 16)
+    assert flipped.sum() <= FLIP_CAP
+
+
+def test_f16_packing_matches_numpy_rounding():
+    """The manual f32 -> f16 packing equals IEEE round-to-nearest-even,
+    including subnormals, overflow to inf and NaN -> 0x7E00."""
+    rng = np.random.default_rng(0)
+    vals = np.concatenate([
+        rng.normal(0, 1e3, 20000), rng.normal(0, 1e-5, 5000),
+        [0.0, -0.0, 65504.0, 65519.9, 65520.0, 1e6, -1e6, np.inf, -np.inf,
+         6e-8, 3e-8, 2.9802322e-08]]).astype(np.float32)
+    got = TP.f32_to_f16_bits(torch.from_numpy(vals)).numpy()
+    with np.errstate(over="ignore"):
+        want = vals.astype(np.float16).view(np.uint16).astype(np.int64)
+    np.testing.assert_array_equal(got, want)
+    nan = TP.f32_to_f16_bits(torch.tensor([float("nan")]))
+    assert int(nan[0]) == 0x7E00
+
+
+def test_record_words_pack_and_unpack_like_jax():
+    """pack_record_words / unpack_record_words equal the JAX package's on
+    the same quantized record fields."""
+    import jax.numpy as jnp
+    from gsm_renderer_tpu.pipelines import common as JC
+    from gsm_renderer_tpu.types import RenderRecord as JaxRecord
+
+    from gsm_renderer_tpu_torch.pipelines import common as TC
+    from gsm_renderer_tpu_torch.types import RenderRecord
+
+    rng = np.random.default_rng(9)
+    n = 500
+    f16 = {k: rng.uniform(-2000, 2000, n).astype(np.float16)
+           for k in ("mean_x", "mean_y", "sigma1", "sigma2", "depth")}
+    theta = rng.integers(0, 65536, n).astype(np.uint16)
+    color = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+    opacity = rng.integers(0, 256, n).astype(np.uint8)
+    ref = JC.pack_record_words(JaxRecord(
+        theta=jnp.asarray(theta), color=jnp.asarray(color),
+        opacity=jnp.asarray(opacity), **{k: jnp.asarray(v) for k, v in f16.items()}))
+    got = TC.pack_record_words(RenderRecord(
+        theta=torch.from_numpy(theta.astype(np.int32)),
+        color=torch.from_numpy(color), opacity=torch.from_numpy(opacity),
+        **{k: torch.from_numpy(v) for k, v in f16.items()}))
+    np.testing.assert_array_equal(u32(got.numpy()), u32(ref))
+    ref_f = JC.unpack_record_words(ref)
+    got_f = TC.unpack_record_words(got)
+    for k in ref_f:
+        np.testing.assert_array_equal(got_f[k].numpy(), np.asarray(ref_f[k]),
+                                      err_msg=k)
