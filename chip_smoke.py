@@ -10,21 +10,35 @@ Phases (each raises on failure, and the script then exits non-zero):
 1. Build the CUDA kernels from ``gsm_renderer_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and print the card's name and power limit.
 2. The headline frame through the user entry point
-   ``DepthFirstRenderer(config).render``: 1M gaussians, SH3, float32,
-   1920x1080, row_expand=False.  Two capacity lock-in frames, 3 warm-up and
-   10 timed frames (CUDA events); every kernel's launch count is set to 0
-   just before these frames and read just after.  Requires overflow 0, a
-   finite image and some non-black pixels.
-3. Each kernel on the frame's own intermediate tensors against its plain
-   PyTorch version on the card: integer outputs equal (counted mismatches
-   capped at 1e-4 of the elements), the blend within 1e-4 on the 64 heaviest
-   and 64 random tiles.  Times kernel, plain version, the instance sort and
-   the tile ranges; computes each kernel's bound from this run's inputs.
-4. A small frame (20k gaussians, 512x384) on the card vs the same renderer
-   on the CPU (plain versions): colour within 1e-3.
-   Between phases 2 and 3 a torch.profiler trace of 10 headline frames
-   prints the device busy time and the kernel time by name.
-5. The last line is {"ok": true, "device": {...}}.
+   ``DepthFirstRenderer(config).render`` with the default configuration
+   (row expansion on): 1M gaussians, SH3, float32, 1920x1080.  Two capacity
+   lock-in frames, 3 warm-up and 10 timed frames (CUDA events); every
+   kernel's launch count is set to 0 just before these frames and read just
+   after.  Requires overflow 0, a finite image, some non-black pixels, and
+   the colour and depth bit-equal to the same scene rendered with
+   ``row_expand=False`` (8 frames, with launch counts of their own).
+3. The realistic heavy-tailed scene (``generate_realistic_gaussians``, 1M,
+   SH3, recentred, camera before the nearest splats, far 80) rendered with
+   rows on and off: frame times, slot totals and a device-time split by
+   kernel for each; requires bit-equal images, overflow 0 and a smaller
+   rows-on slot total.
+4. Side-by-side stereo through ``render_stereo``: the headline scene at
+   1920x1080 per eye (a 1080x3840 frame), its own launch counts; requires
+   overflow 0, a finite frame and both halves non-black.
+5. Each kernel and mode on the frames' own intermediate tensors (prep and
+   expand both as the rows-on and as the rows-off frame run them, and in
+   their stereo modes) against its plain PyTorch version on the card:
+   integer outputs equal
+   (counted mismatches capped at 1e-4 of the elements), float outputs
+   within 1e-3, the blends within 1e-4 on the 64 heaviest and 64 random
+   tiles.  Times kernel, plain version, the instance sort and the tile
+   ranges; computes each kernel's bound from this run's inputs.
+6. Small frames (20k gaussians, 512x384) on the card vs the same renderer on
+   the CPU (plain versions): rows off, rows on and stereo; colour within
+   1e-3.
+   After phase 2 a torch.profiler trace of 10 headline frames prints the
+   device busy time and the kernel time by name.
+7. The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside the repository, it prints no result and
 exits 2.
@@ -32,6 +46,7 @@ exits 2.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,22 +59,33 @@ F32_FLOPS = 67e12
 # float32 operations per element, counted from the kernels' source
 # (transcendentals, sqrt and division counted as one each)
 PROJECT_FLOPS = 520        # per gaussian at SH3
-PREP_DECODE_FLOPS = 30     # per gaussian: conic decode and cutoff
+STEREO_PROJECT_FLOPS = 860  # per gaussian at SH3: two eye chains, one SH
+PREP_DECODE_FLOPS = 30     # per gaussian and eye: conic decode and cutoff
 TILE_TEST_FLOPS = 65       # per minQuadRect <= cutoff test
-EXPAND_DECODE_FLOPS = 30   # per tested slot, plus one tile test
-BLEND_DECODE_FLOPS = 30    # per record decoded
-BLEND_PAIR_FLOPS = 25      # per (pixel, record) composited
+ROW_SPAN_FLOPS = 75        # per oversized row: decode and closed-form span
+EXPAND_DECODE_FLOPS = 30   # per tested slot and eye, plus one tile test
+BLEND_DECODE_FLOPS = 30    # per record and eye decoded
+BLEND_PAIR_FLOPS = 25      # per (pixel, record, eye) composited
 
 KERNEL_SOURCES = {
     "project": ("gsm_renderer_tpu_torch/csrc/project.cu",
                 "gsm_renderer_tpu/kernels/project.py:99"),
     "prep": ("gsm_renderer_tpu_torch/csrc/binning.cu",
              "gsm_renderer_tpu/kernels/expand.py:735"),
+    "row_expand": ("gsm_renderer_tpu_torch/csrc/binning.cu",
+                   "gsm_renderer_tpu/kernels/expand.py:915"),
     "expand": ("gsm_renderer_tpu_torch/csrc/binning.cu",
                "gsm_renderer_tpu/kernels/expand.py:550"),
     "blend": ("gsm_renderer_tpu_torch/csrc/blend.cu",
               "gsm_renderer_tpu/kernels/blend.py:335"),
+    "stereo_project": ("gsm_renderer_tpu_torch/csrc/project.cu",
+                       "gsm_renderer_tpu/kernels/project.py:493"),
 }
+#: the kernels each path must launch
+MONO_ROWS_PATH = ("project", "prep", "row_expand", "expand", "blend")
+MONO_RECTS_PATH = ("project", "prep", "expand", "blend")
+STEREO_PATH = ("stereo_project", "prep", "expand", "blend")
+W, H = 1920, 1080
 
 
 def log(msg: str) -> None:
@@ -151,100 +177,224 @@ def phase_build(native):
     return smi.stdout.strip().splitlines()[0]
 
 
-def phase_headline(torch, T, kernels, n: int = 1_000_000):
-    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
-
-    w, h = 1920, 1080
-    ds = generate_visible_gaussians(n, sh_degree=3, seed=7,
-                                    scale_range=(0.002, 0.012))
-    cam = T.make_camera(w, h, far=50.0)
-    cfg = T.RendererConfig(sh_degree=3, precision=T.Precision.FLOAT32,
-                           max_width=w, max_height=h, row_expand=False)
-    gi = ds.to_input(T.Precision.FLOAT32)
-    r = T.DepthFirstRenderer(cfg)
-
-    for k in kernels:
-        k.launches = 0
+def timed_frames(torch, render, n_lock: int = 2, n_warm: int = 3,
+                 n_timed: int = 10):
+    """(last output, stats): ``n_lock`` capacity lock-in and ``n_warm``
+    warm-up frames, then ``n_timed`` frames timed with CUDA events."""
     out = None
-    for _ in range(2 + 3):  # capacity lock-in, then warm-up
-        out = r.render(gi, cam, w, h)
+    for _ in range(n_lock + n_warm):
+        out = render()
     torch.cuda.synchronize()
     times = []
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(n_timed):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = r.render(gi, cam, w, h)
+        out = render()
         end.record()
         times.append((start, end))
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
-    launches = {k.name: k.launches for k in kernels}
-
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_timed
     ms = [s.elapsed_time(e) for s, e in times]
     hd = out.header
-    capacity = r._cap_state[(r._mono_key, n)]["cap"]
     stats = dict(avg=sum(ms) / len(ms), min=min(ms), max=max(ms),
-                 wall_avg=wall_ms, msplats_per_s=n / (sum(ms) / len(ms)) / 1e3,
-                 visible=int(hd.visible_count),
+                 wall_avg=wall_ms, visible=int(hd.visible_count),
                  total_instances=int(hd.total_instances),
-                 slot_total=int(hd.slot_total), capacity=capacity,
-                 overflow=int(hd.overflow))
-    log("[headline] " + json.dumps({"headline_frame_ms": stats}))
-    color = out.color
-    if stats["overflow"] != 0:
-        raise RuntimeError("headline frame overflowed")
-    if not torch.isfinite(color).all() or not torch.isfinite(out.depth).all():
-        raise RuntimeError("headline frame is not finite")
-    nonblack = float((color[..., :3].amax(-1) > 0.02).float().mean())
-    log(f"[headline] non-black fraction {nonblack:.4f}")
-    if nonblack <= 0.0:
-        raise RuntimeError("headline frame is black")
+                 slot_total=int(hd.slot_total), overflow=int(hd.overflow))
+    if hd.row_total is not None:
+        stats["row_total"] = int(hd.row_total)
+    return out, stats
+
+
+def check_frame(torch, out, label: str, halves: int = 1):
+    """Overflow 0, finite colour and depth, non-black pixels (in each half
+    of a side-by-side frame)."""
+    if int(out.header.overflow) != 0:
+        raise RuntimeError(f"{label}: frame overflowed")
+    if not torch.isfinite(out.color).all() or not torch.isfinite(out.depth).all():
+        raise RuntimeError(f"{label}: frame is not finite")
+    w = out.color.shape[1] // halves
+    for k in range(halves):
+        half = out.color[:, k * w:(k + 1) * w, :3]
+        nonblack = float((half.amax(-1) > 0.02).float().mean())
+        log(f"[{label}] non-black fraction (part {k}) {nonblack:.4f}")
+        if nonblack <= 0.0:
+            raise RuntimeError(f"{label}: frame (part {k}) is black")
+
+
+def drive_path(torch, kernels, names, label, render):
+    """Counts to 0, the path's frames, counts read: (out, stats, launches).
+    Fails if a kernel of the path was not launched."""
     for k in kernels:
-        if launches[k.name] <= 0:
-            raise RuntimeError(f"kernel {k.name} was not launched by the frame")
-    return dict(r=r, gi=gi, cam=cam, cfg=cfg, out=out, n=n, w=w, h=h,
-                capacity=capacity, launches=launches, stats=stats)
+        k.launches = 0
+    out, stats = render()
+    launches = {k.name: k.launches for k in kernels}
+    for name in names:
+        if launches[name] <= 0:
+            raise RuntimeError(f"{label}: kernel {name} was not launched")
+    log(f"[{label}] launches " + json.dumps(launches))
+    return out, stats, launches
 
 
-def phase_trace(torch, hl):
-    """Device busy share and kernel time by name over 10 headline frames,
-    from a torch.profiler trace (profiler on: the host is slower than in the
-    timed frames, so this idle share is an upper bound)."""
+def phase_headline(torch, T, kernels, n: int = 1_000_000):
+    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
+
+    ds = generate_visible_gaussians(n, sh_degree=3, seed=7,
+                                    scale_range=(0.002, 0.012))
+    cam = T.make_camera(W, H, far=50.0)
+    cfg = T.RendererConfig(sh_degree=3, precision=T.Precision.FLOAT32,
+                           max_width=W, max_height=H)
+    gi = ds.to_input(T.Precision.FLOAT32)
+    r = T.DepthFirstRenderer(cfg)
+    out, stats, launches = drive_path(
+        torch, kernels, MONO_ROWS_PATH, "headline",
+        lambda: timed_frames(torch, lambda: r.render(gi, cam, W, H)))
+    capacity = r._cap_state[(r._mono_key, n)]["cap"]
+    row_capacity = r._cap_state[("rows", r._mono_key, n)]["cap"]
+    if row_capacity <= 0:
+        raise RuntimeError("headline: the row decomposition was not on")
+    stats.update(capacity=capacity, row_capacity=row_capacity,
+                 msplats_per_s=n / stats["avg"] / 1e3)
+    check_frame(torch, out, "headline")
+
+    r_off = T.DepthFirstRenderer(dataclasses.replace(cfg, row_expand=False))
+    off, off_stats, off_launches = drive_path(
+        torch, kernels, MONO_RECTS_PATH, "headline rows_off",
+        lambda: timed_frames(torch, lambda: r_off.render(gi, cam, W, H),
+                             n_warm=1, n_timed=5))
+    off_capacity = r_off._cap_state[(r_off._mono_key, n)]["cap"]
+    stats["rows_off"] = dict(avg=off_stats["avg"],
+                             slot_total=off_stats["slot_total"],
+                             capacity=off_capacity)
+    log("[headline] " + json.dumps({"headline_frame_ms": stats}))
+    if not (torch.equal(out.color, off.color) and torch.equal(out.depth, off.depth)):
+        raise RuntimeError("headline: rows-on frame differs from rows-off")
+    log("[headline] rows-on colour and depth bit-equal to rows-off")
+    return dict(r=r, gi=gi, cam=cam, cfg=cfg, out=out, n=n, w=W, h=H,
+                capacity=capacity, row_capacity=row_capacity,
+                launches=launches, off_capacity=off_capacity,
+                off_launches=off_launches, stats=stats)
+
+
+def trace_frames(torch, render, label: str, frames: int = 10):
+    """Device busy share and kernel time by name over ``frames`` frames,
+    from a torch.profiler trace (profiler on: the host is slower than in
+    the timed frames, so this idle share is an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
-    r, gi, cam, w, h = hl["r"], hl["gi"], hl["cam"], hl["w"], hl["h"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(10):
-            r.render(gi, cam, w, h)
+        for _ in range(frames):
+            render()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((ms, name[:60]) for name, ms in
-                   device_kernel_ms(prof, 10).items()), reverse=True)
+                   device_kernel_ms(prof, frames).items()), reverse=True)
     busy = sum(ms for ms, _ in rows)
     if busy == 0.0:
-        log("[trace] the profiler recorded no device time: idle share not measured")
+        log(f"[{label}] the profiler recorded no device time: idle share "
+            "not measured")
         return
-    log("[trace] " + json.dumps({
-        "frame_wall_ms": wall_ms / 10, "device_busy_ms": busy,
-        "idle_share": 1.0 - busy / (wall_ms / 10),
-        "kernels": [dict(ms=ms, name=name) for ms, name in rows[:14]]}))
+    log(f"[{label}] " + json.dumps({
+        "frame_wall_ms": wall_ms / frames, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / (wall_ms / frames),
+        "kernels": [dict(ms=ms, name=name) for ms, name in rows[:16]]}))
 
 
-def phase_kernels(torch, T, hl):
+def phase_realistic(torch, T, n: int = 1_000_000):
+    """The heavy-tailed scene the row decomposition is for, rows on and
+    off.  Recentred on its bounding box; the camera just before the nearest
+    splats looking +z, far 80."""
+    import numpy as np
+    from gsm_renderer_tpu_torch.io.scene import generate_realistic_gaussians
+
+    ds = generate_realistic_gaussians(n, sh_degree=3)
+    center = 0.5 * (ds.positions.min(0) + ds.positions.max(0))
+    if np.linalg.norm(center) > 1e-6:
+        ds.positions = (ds.positions - center).astype(np.float32)
+    view = np.eye(4, dtype=np.float32)
+    view[2, 3] = -(ds.positions[:, 2].min() - 1.0)
+    cam = T.make_camera(W, H, view_matrix=view, far=80.0)
+    gi = ds.to_input(T.Precision.FLOAT32)
+    outs, res = {}, {}
+    for label, rows in (("rows_on", True), ("rows_off", False)):
+        r = T.DepthFirstRenderer(T.RendererConfig(
+            sh_degree=3, precision=T.Precision.FLOAT32, max_width=W,
+            max_height=H, row_expand=rows))
+        outs[label], res[label] = timed_frames(
+            torch, lambda r=r: r.render(gi, cam, W, H))
+        trace_frames(torch, lambda r=r: r.render(gi, cam, W, H),
+                     f"realistic {label} trace", frames=5)
+        check_frame(torch, outs[label], f"realistic {label}")
+    log("[realistic] " + json.dumps({"realistic_frame_ms": res}))
+    on, off = outs["rows_on"], outs["rows_off"]
+    if not (torch.equal(on.color, off.color) and torch.equal(on.depth, off.depth)):
+        raise RuntimeError("realistic: rows-on frame differs from rows-off")
+    if not res["rows_on"]["slot_total"] < res["rows_off"]["slot_total"]:
+        raise RuntimeError("realistic: rows did not shrink the slot total")
+    log("[realistic] rows-on colour and depth bit-equal to rows-off")
+    return res
+
+
+def phase_stereo(torch, T, kernels, hl):
+    r = T.DepthFirstRenderer(hl["cfg"])
+    stereo = T.make_side_by_side_stereo(hl["cam"])
+    gi, n = hl["gi"], hl["n"]
+    out, stats, launches = drive_path(
+        torch, kernels, STEREO_PATH, "stereo",
+        lambda: timed_frames(torch, lambda: r.render_stereo(gi, stereo, W, H)))
+    capacity = r._cap_state[(r._stereo_key, n)]["cap"]
+    stats.update(capacity=capacity, shape=list(out.color.shape))
+    log("[stereo] " + json.dumps({"stereo_frame_ms": stats}))
+    if tuple(out.color.shape) != (H, 2 * W, 4):
+        raise RuntimeError(f"stereo: frame shape {tuple(out.color.shape)}")
+    check_frame(torch, out, "stereo", halves=2)
+    trace_frames(torch, lambda: r.render_stereo(gi, stereo, W, H),
+                 "stereo trace", frames=5)
+    return dict(r=r, stereo=stereo, out=out, capacity=capacity,
+                launches=launches, stats=stats)
+
+
+def blend_subset_err(torch, KB, table, starts, counts, color, depth, *,
+                     tiles_x, tiles_y, w, h, n_eyes=1, r2_cutoff=0.0):
+    """Max |kernel - plain| over the 64 heaviest and 64 random tiles of
+    each eye (the kernel's (H, n_eyes * W) images against the plain
+    tiles)."""
+    gen = torch.Generator().manual_seed(0)
+    heavy = torch.argsort(counts.cpu(), descending=True)[:64]
+    rand = torch.randperm(tiles_x * tiles_y, generator=gen)[:64]
+    sub = torch.unique(torch.cat([heavy, rand])).to(counts.device)
+    plain = KB.blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
+                                 tiles=sub, n_eyes=n_eyes, r2_cutoff=r2_cutoff)
+    eyes = plain if n_eyes == 2 else [plain]
+    pix = torch.arange(256, device=sub.device)
+    ys = (sub // tiles_x)[:, None] * 16 + pix[None, :] // 16
+    xs = (sub % tiles_x)[:, None] * 16 + pix[None, :] % 16
+    inside = ys < h
+    err = 0.0
+    for e, (sc, sd) in enumerate(eyes):
+        kc = color[ys.clamp(max=h - 1), xs + e * w]
+        kd = depth[ys.clamp(max=h - 1), xs + e * w]
+        err = max(err, float((kc - sc).abs()[inside].max()),
+                  float((kd - sd).abs()[inside].max()))
+    return err
+
+
+def phase_kernels(torch, T, hl, st):
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.kernels import project as KP
     from gsm_renderer_tpu_torch.ops import binning as OB
     from gsm_renderer_tpu_torch.pipelines import common as PC
+    import numpy as np
 
     n, w, h, cam, cfg = hl["n"], hl["w"], hl["h"], hl["cam"], hl["cfg"]
     tiles_x, tiles_y = -(-w // 16), -(-h // 16)
     comp, harm = KP.cached_projection_inputs(hl["gi"], 3)
-    plan = OB.make_key_plan(tiles_x * tiles_y, n, near_plane=cam.near_plane,
+    r_cap = hl["row_capacity"]
+    plan = OB.make_key_plan(tiles_x * tiles_y, r_cap, near_plane=cam.near_plane,
                             far_plane=cam.far_plane)
     pkw = dict(width=w, height=h, tile_w=16, tile_h=16, sh_degree=3,
                near_plane=cam.near_plane, far_plane=cam.far_plane,
@@ -253,12 +403,13 @@ def phase_kernels(torch, T, hl):
                input_is_srgb=False, key_plan=plan)
     args = (comp, harm, cam.view_matrix, cam.projection_matrix, cam.position)
     rows, other = {}, []
+    n_coeffs = harm.shape[0]
 
-    def record(name, ms, plain_ms, err, flips, nbytes, flops):
+    def record(name, kernel, launches, ms, plain_ms, err, flips, nbytes, flops):
         b, by = bound(nbytes, flops)
-        src, replaces = KERNEL_SOURCES[name]
+        src, replaces = KERNEL_SOURCES[kernel]
         rows[name] = dict(name=name, route="cuda", source=src,
-                          replaces=replaces, launches=hl["launches"][name],
+                          replaces=replaces, launches=launches,
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b, bound_by=by, library_ms=None,
                           flips=flips)
@@ -271,43 +422,68 @@ def phase_kernels(torch, T, hl):
             raise RuntimeError(f"{name}: {bad} of {total} outputs differ")
         return worst, bad / total
 
-    # kernel 1: project
+    def tile_tests(rect_word, rect_h):
+        rw = rect_word.to(torch.int64) & 0xFFFFFFFF
+        return float((torch.clamp((rw >> 20) & 0x3FF, max=8)
+                      * torch.clamp(rect_h.to(torch.int64), max=4)).sum())
+
+    def tested_slots(off, rect):
+        counts_g = (off[1:] - off[:-1]).to(torch.int64)
+        ru = rect.to(torch.int64) & 0xFFFFFFFF
+        return float(counts_g[((ru >> 30) & 3) == 0].sum())  # unmasked, live
+
+    mono_l, st_l = hl["launches"], st["launches"]
+
+    # kernel 1: project (with the row-addressing KeyPlan of the frame)
     pk, ms = device_ms(torch, lambda: KP.project_cuda(*args, **pkw), 20)
     pp, plain_ms = device_ms(torch, lambda: KP.project_plain(*args, **pkw), 3)
     err, flips = check_ints("project", [
         (pk.rect_word, pp.rect_word), (pk.rect_h, pp.rect_h), (pk.dsw, pp.dsw),
         (pk.visible, pp.visible)] + list(zip(pk.words, pp.words)))
-    n_coeffs = harm.shape[0]
-    record("project", ms, plain_ms, err, flips,
+    record("project", "project", mono_l["project"], ms, plain_ms, err, flips,
            (11 + n_coeffs) * 4 * n + (7 * 4 + 1) * n, PROJECT_FLOPS * n)
 
-    # kernel 2: prep
+    # kernel 2: prep, counting virtual rows as the rows-on frame does
     prep_in = (pk.rect_word, pk.rect_h, pk.words)
     (off, rect, mask), ms = device_ms(
-        torch, lambda: KE.binning_prep_cuda(*prep_in), 20)
+        torch, lambda: KE.binning_prep_cuda(*prep_in, count_rows=True), 20)
     (off_p, rect_p, mask_p), plain_ms = device_ms(
-        torch, lambda: KE.binning_prep_plain(*prep_in), 3)
+        torch, lambda: KE.binning_prep_plain(*prep_in, count_rows=True), 3)
     err, flips = check_ints("prep", [(off, off_p), (rect, rect_p), (mask, mask_p)])
-    rw = pk.rect_word.to(torch.int64) & 0xFFFFFFFF
-    tests = (torch.clamp((rw >> 20) & 0x3FF, max=8)
-             * torch.clamp(pk.rect_h.to(torch.int64), max=4))
-    record("prep", ms, plain_ms, err, flips, (6 + 3) * 4 * n + 4,
-           PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * float(tests.sum()))
+    record("prep", "prep", mono_l["prep"], ms, plain_ms, err, flips,
+           (6 + 3) * 4 * n + 4,
+           PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(pk.rect_word,
+                                                                pk.rect_h))
 
-    # kernel 3: expand
+    # kernel 3: row expansion over the frame's row capacity
+    rkw = dict(row_capacity=r_cap)
+    row_in = (off, rect, mask, pk.dsw, pk.words)
+    rk, ms = device_ms(torch, lambda: KE.row_expand_cuda(*row_in, **rkw), 20)
+    rp, plain_ms = device_ms(torch, lambda: KE.row_expand_plain(*row_in, **rkw), 3)
+    err, flips = check_ints("row_expand", [
+        (rk[0], rp[0]), (rk[1], rp[1]), (rk[2], rp[2]), (rk[3], rp[3]),
+        (rk[5], rp[5])] + list(zip(rk[4], rp[4])))
+    ru = rect.to(torch.int64) & 0xFFFFFFFF
+    oversized_rows = float((off[1:] - off[:-1]).to(torch.int64)[
+        ((ru >> 30) & 3) == 0].sum())
+    total_rows = int(off[n])
+    log(f"[kernels] row_expand: {total_rows} rows of {r_cap}, "
+        f"{oversized_rows:.0f} oversized, {int(rk[0][r_cap])} slots")
+    record("row_expand", "row_expand", mono_l["row_expand"], ms, plain_ms, err,
+           flips, (n + 1) * 4 + 7 * 4 * n + (r_cap + 1) * 4 + 7 * 4 * r_cap,
+           ROW_SPAN_FLOPS * oversized_rows)
+
+    # kernel 4: expand over the row table
     cap = hl["capacity"]
     ekw = dict(capacity=cap, tiles_x=tiles_x, key_plan=plan)
-    exp_in = (off, rect, mask, pk.dsw, pk.words)
+    exp_in = (rk[0], rk[1], rk[2], rk[3], rk[4])
     ek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp_in, **ekw), 20)
     ep, plain_ms = device_ms(torch, lambda: KE.expand_slots_plain(*exp_in, **ekw), 3)
     # key1, key2, the (4, C) words, the slot total and the overflow flag
     err, flips = check_ints("expand", list(zip(ek, ep)))
-    counts_g = (off[1:] - off[:-1]).to(torch.int64)
-    ru = rect.to(torch.int64) & 0xFFFFFFFF
-    tested = float(counts_g[((ru >> 30) & 3) == 0].sum())  # visible, unmasked
-    record("expand", ms, plain_ms, err, flips,
-           (n + 1) * 4 + 7 * 4 * n + 6 * 4 * cap,
-           (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested)
+    record("expand", "expand", mono_l["expand"], ms, plain_ms, err, flips,
+           (r_cap + 1) * 4 + 7 * 4 * r_cap + 6 * 4 * cap,
+           (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(rk[0], rk[1]))
 
     # instance sort and tile ranges (library calls)
     (sorted_key, table), sort_ms = device_ms(
@@ -323,7 +499,7 @@ def phase_kernels(torch, T, hl):
     log(f"[library] sort {sort_ms:.4f} ms over {cap} slots, ranges "
         f"{ranges_ms:.4f} ms")
 
-    # kernel 4: blend (the staged frame must reproduce the renderer's frame)
+    # kernel 5: blend (the staged frame must reproduce the renderer's frame)
     bkw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=w, height=h)
     (color, depth), ms = device_ms(
         torch, lambda: KB.blend_image_cuda(table, starts, counts, **bkw), 10)
@@ -333,20 +509,8 @@ def phase_kernels(torch, T, hl):
         torch, lambda: KB.blend_tiles_plain(table, starts, counts,
                                             tiles_x=tiles_x,
                                             return_processed=True), 1)
-    gen = torch.Generator().manual_seed(0)
-    heavy = torch.argsort(counts.cpu(), descending=True)[:64]
-    rand = torch.randperm(tiles_x * tiles_y, generator=gen)[:64]
-    sub = torch.unique(torch.cat([heavy, rand])).to(counts.device)
-    sc, sd = KB.blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
-                                  tiles=sub)
-    pix = torch.arange(256, device=sub.device)
-    ys = (sub // tiles_x)[:, None] * 16 + pix[None, :] // 16
-    xs = (sub % tiles_x)[:, None] * 16 + pix[None, :] % 16
-    inside = ys < h
-    kc = color[ys.clamp(max=h - 1), xs]
-    kd = depth[ys.clamp(max=h - 1), xs]
-    err = max(float((kc - sc).abs()[inside].max()),
-              float((kd - sd).abs()[inside].max()))
+    err = blend_subset_err(torch, KB, table, starts, counts, color, depth,
+                           tiles_x=tiles_x, tiles_y=tiles_y, w=w, h=h)
     if err > 1e-4:
         raise RuntimeError(f"blend: kernel vs plain max |d| {err}")
     full_err = float((pc.reshape(tiles_y, tiles_x, 16, 16, 4).permute(
@@ -354,18 +518,133 @@ def phase_kernels(torch, T, hl):
         - color).abs().max())
     log(f"[kernels] blend: full-frame plain vs kernel max |d| {full_err:.3g}")
     n_live = int(counts.sum())
-    pairs = 256.0 * float(processed.sum())
-    record("blend", ms, plain_ms, err, 0.0,
+    record("blend", "blend", mono_l["blend"], ms, plain_ms, err, 0.0,
            16 * n_live + 8 * tiles_x * tiles_y + (16 + 4) * w * h,
            BLEND_DECODE_FLOPS * float(processed.sum())
-           + BLEND_PAIR_FLOPS * pairs)
+           + BLEND_PAIR_FLOPS * 256.0 * float(processed.sum()))
     stages = dict(project=rows["project"]["ms"], prep=rows["prep"]["ms"],
+                  row_expand=rows["row_expand"]["ms"],
                   expand=rows["expand"]["ms"], sort=sort_ms, ranges=ranges_ms,
                   blend=rows["blend"]["ms"])
     log("[stages] " + json.dumps({"stage_ms": stages,
                                   "records_composited": float(processed.sum()),
                                   "live_instances": n_live}))
-    return [rows[k] for k in ("project", "prep", "expand", "blend")], other
+
+    # kernels 2 and 4 as the rows-off frame runs them: prep counting full
+    # rects, the expand walking them over the gaussian table
+    off_l, cap0 = hl["off_launches"], hl["off_capacity"]
+    plan0 = OB.make_key_plan(tiles_x * tiles_y, n, near_plane=cam.near_plane,
+                             far_plane=cam.far_plane)
+    pk0 = KP.project_cuda(*args, **dict(pkw, key_plan=plan0))
+    prep0_in = (pk0.rect_word, pk0.rect_h, pk0.words)
+    (off0, rect0, mask0), ms = device_ms(
+        torch, lambda: KE.binning_prep_cuda(*prep0_in, count_rows=False), 20)
+    (off0_p, rect0_p, mask0_p), plain_ms = device_ms(
+        torch, lambda: KE.binning_prep_plain(*prep0_in, count_rows=False), 3)
+    err, flips = check_ints("prep.rows_off", [(off0, off0_p), (rect0, rect0_p),
+                                              (mask0, mask0_p)])
+    record("prep.rows_off", "prep", off_l["prep"], ms, plain_ms, err, flips,
+           (6 + 3) * 4 * n + 4,
+           PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(pk0.rect_word,
+                                                                pk0.rect_h))
+    ekw0 = dict(capacity=cap0, tiles_x=tiles_x, key_plan=plan0)
+    exp0_in = (off0, rect0, mask0, pk0.dsw, pk0.words)
+    ek0, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp0_in, **ekw0), 20)
+    ep0, plain_ms = device_ms(torch,
+                              lambda: KE.expand_slots_plain(*exp0_in, **ekw0), 3)
+    err, flips = check_ints("expand.rows_off", list(zip(ek0, ep0)))
+    record("expand.rows_off", "expand", off_l["expand"], ms, plain_ms, err,
+           flips, (n + 1) * 4 + 7 * 4 * n + 6 * 4 * cap0,
+           (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(off0, rect0))
+    sorted0, table0 = PC.sort_instances(ek0[0], ek0[1], ek0[2])
+    tile0 = PC.binning_sorted_tile(sorted0, plan_tuple=plan0.kernel_tuple)
+    color0, _ = KB.blend_image_cuda(
+        table0, *OB.extract_tile_ranges(tile0, tiles_x * tiles_y), **bkw)
+    if not torch.equal(color0, hl["out"].color):
+        raise RuntimeError("staged rows-off frame differs from the renderer's")
+
+    # kernel 6: stereo projection, then the stereo modes of 2, 4 and 5
+    stereo = st["stereo"]
+    views = np.stack([stereo.left.view_matrix, stereo.right.view_matrix])
+    projs = np.stack([stereo.left.projection_matrix,
+                      stereo.right.projection_matrix])
+    centers = np.stack([stereo.left.position, stereo.right.position])
+    st_plan = OB.make_key_plan(tiles_x * tiles_y, n, near_plane=cam.near_plane,
+                               far_plane=cam.far_plane)
+    sargs = (comp, harm, views, projs, centers, np.eye(4, dtype=np.float32))
+    skw = dict(pkw, key_plan=st_plan)
+    sk, ms = device_ms(torch, lambda: KP.stereo_project_cuda(*sargs, **skw), 20)
+    sp, plain_ms = device_ms(torch, lambda: KP.stereo_project_plain(*sargs, **skw), 3)
+    err, flips = check_ints("stereo_project", [
+        (sk.rect_word, sp.rect_word), (sk.rect_h, sp.rect_h), (sk.dsw, sp.dsw),
+        (sk.visible, sp.visible)] + list(zip(sk.words, sp.words)))
+    ferr = max(float((getattr(sk, f) - getattr(sp, f)).abs().max())
+               for f in ("px_min", "px_max", "py_min", "py_max"))
+    if ferr > 1e-3:
+        raise RuntimeError(f"stereo_project: pixel bounds max |d| {ferr}")
+    record("stereo_project", "stereo_project", st_l["stereo_project"], ms,
+           plain_ms, max(err, ferr), flips,
+           (11 + n_coeffs) * 4 * n + (10 * 4 + 4 * 4 + 1) * n,
+           STEREO_PROJECT_FLOPS * n)
+
+    sprep_in = (sk.rect_word, sk.rect_h, sk.words)
+    (soff, srect, smask), ms = device_ms(
+        torch, lambda: KE.binning_prep_cuda(*sprep_in, mode="stereo"), 20)
+    (soff_p, srect_p, smask_p), plain_ms = device_ms(
+        torch, lambda: KE.binning_prep_plain(*sprep_in, mode="stereo"), 3)
+    err, flips = check_ints("prep.stereo", [(soff, soff_p), (srect, srect_p),
+                                            (smask, smask_p)])
+    record("prep.stereo", "prep", st_l["prep"], ms, plain_ms, err, flips,
+           # words 0-2 and 4-6: the stereo cutoff needs no opacity word
+           (2 + 6 + 3) * 4 * n + 4,
+           2 * PREP_DECODE_FLOPS * n
+           + 2 * TILE_TEST_FLOPS * tile_tests(sk.rect_word, sk.rect_h))
+
+    scap = st["capacity"]
+    sekw = dict(capacity=scap, tiles_x=tiles_x, key_plan=st_plan, mode="stereo")
+    sexp_in = (soff, srect, smask, sk.dsw, sk.words)
+    sek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*sexp_in, **sekw), 20)
+    sep, plain_ms = device_ms(torch,
+                              lambda: KE.expand_slots_plain(*sexp_in, **sekw), 3)
+    err, flips = check_ints("expand.stereo", list(zip(sek, sep)))
+    record("expand.stereo", "expand", st_l["expand"], ms, plain_ms, err, flips,
+           # words 3 and 7 are one shared plane, read once
+           (n + 1) * 4 + (3 + 7) * 4 * n + 10 * 4 * scap,
+           (2 * EXPAND_DECODE_FLOPS + 2 * TILE_TEST_FLOPS)
+           * tested_slots(soff, srect))
+
+    s_sorted, s_table = PC.sort_instances(sek[0], sek[1], sek[2])
+    s_tile = PC.binning_sorted_tile(s_sorted, plan_tuple=st_plan.kernel_tuple)
+    s_starts, s_counts = OB.extract_tile_ranges(s_tile, tiles_x * tiles_y)
+    sbkw = dict(bkw, n_eyes=2, r2_cutoff=9.0)
+    (scolor, sdepth), ms = device_ms(
+        torch, lambda: KB.blend_image_cuda(s_table, s_starts, s_counts, **sbkw),
+        10)
+    if not torch.equal(scolor, st["out"].color):
+        raise RuntimeError("staged stereo frame differs from the renderer's")
+    (_eyes, sprocessed), plain_ms = device_ms(
+        torch, lambda: KB.blend_tiles_plain(s_table, s_starts, s_counts,
+                                            tiles_x=tiles_x, n_eyes=2,
+                                            r2_cutoff=9.0,
+                                            return_processed=True), 1)
+    err = blend_subset_err(torch, KB, s_table, s_starts, s_counts, scolor,
+                           sdepth, tiles_x=tiles_x, tiles_y=tiles_y, w=w, h=h,
+                           n_eyes=2, r2_cutoff=9.0)
+    if err > 1e-4:
+        raise RuntimeError(f"blend.stereo: kernel vs plain max |d| {err}")
+    s_live = int(s_counts.sum())
+    record("blend.stereo", "blend", st_l["blend"], ms, plain_ms, err, 0.0,
+           32 * s_live + 8 * tiles_x * tiles_y + 2 * (16 + 4) * w * h,
+           2 * BLEND_DECODE_FLOPS * float(sprocessed.sum())
+           + 2 * BLEND_PAIR_FLOPS * 256.0 * float(sprocessed.sum()))
+    log("[stages] " + json.dumps({"stereo_stage_ms": {
+        k: rows[k]["ms"] for k in ("stereo_project", "prep.stereo",
+                                   "expand.stereo", "blend.stereo")},
+        "records_composited": float(sprocessed.sum()),
+        "live_instances": s_live}))
+    order = ("project", "prep", "prep.rows_off", "row_expand", "expand",
+             "expand.rows_off", "blend", "stereo_project", "prep.stereo", "expand.stereo", "blend.stereo")
+    return [rows[k] for k in order], other
 
 
 def phase_small(torch, T):
@@ -375,19 +654,30 @@ def phase_small(torch, T):
     ds = generate_visible_gaussians(n, sh_degree=3, seed=11,
                                     scale_range=(0.005, 0.05))
     cam = T.make_camera(w, h, far=50.0)
-    cfg = T.RendererConfig(sh_degree=3, precision=T.Precision.FLOAT32,
-                           max_width=w, max_height=h, row_expand=False)
-    og = T.DepthFirstRenderer(cfg).render(ds.to_input(), cam, w, h)
-    oc = T.DepthFirstRenderer(cfg, device="cpu").render(
-        ds.to_input(device="cpu"), cam, w, h)
-    cerr = float((og.color.cpu() - oc.color).abs().max())
-    derr = float((og.depth.cpu() - oc.depth).abs().max())
-    log(f"[small] cuda vs cpu: colour max |d| {cerr:.3g}, depth max |d| "
-        f"{derr:.3g}, visible {int(og.header.visible_count)} vs "
-        f"{int(oc.header.visible_count)}, instances "
-        f"{int(og.header.total_instances)} vs {int(oc.header.total_instances)}")
-    if cerr > 1e-3:
-        raise RuntimeError(f"small frame: cuda vs cpu colour max |d| {cerr}")
+    gi_g, gi_c = ds.to_input(), ds.to_input(device="cpu")
+    stereo = T.make_side_by_side_stereo(cam, ipd=0.1)
+    for label, rows, stereo_frame in (("rows off", False, False),
+                                      ("rows on", True, False),
+                                      ("stereo", True, True)):
+        cfg = T.RendererConfig(sh_degree=3, precision=T.Precision.FLOAT32,
+                               max_width=w, max_height=h, row_expand=rows)
+        rg, rc = T.DepthFirstRenderer(cfg), T.DepthFirstRenderer(cfg, device="cpu")
+        if stereo_frame:
+            og = rg.render_stereo(gi_g, stereo, w, h)
+            oc = rc.render_stereo(gi_c, stereo, w, h)
+        else:
+            og, oc = rg.render(gi_g, cam, w, h), rc.render(gi_c, cam, w, h)
+        cerr = float((og.color.cpu() - oc.color).abs().max())
+        derr = float((og.depth.cpu() - oc.depth).abs().max())
+        log(f"[small] {label}: cuda vs cpu colour max |d| {cerr:.3g}, depth "
+            f"max |d| {derr:.3g}, visible {int(og.header.visible_count)} vs "
+            f"{int(oc.header.visible_count)}, instances "
+            f"{int(og.header.total_instances)} vs "
+            f"{int(oc.header.total_instances)}, slots "
+            f"{int(og.header.slot_total)} vs {int(oc.header.slot_total)}")
+        if cerr > 1e-3:
+            raise RuntimeError(f"small frame {label}: cuda vs cpu colour max "
+                               f"|d| {cerr}")
 
 
 def main() -> int:
@@ -405,12 +695,16 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = [project.PROJECT, expand.PREP, expand.EXPAND, blend.BLEND]
+    kernels = [project.PROJECT, expand.PREP, expand.ROW_EXPAND, expand.EXPAND,
+               blend.BLEND, project.STEREO_PROJECT]
     t0 = time.perf_counter()
     smi = phase_build(_native)
     hl = phase_headline(torch, T, kernels)
-    phase_trace(torch, hl)
-    rows, other = phase_kernels(torch, T, hl)
+    trace_frames(torch, lambda: hl["r"].render(hl["gi"], hl["cam"], W, H),
+                 "trace")
+    phase_realistic(torch, T)
+    st = phase_stereo(torch, T, kernels, hl)
+    rows, other = phase_kernels(torch, T, hl, st)
     phase_small(torch, T)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"library_ops": other}))

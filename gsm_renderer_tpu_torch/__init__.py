@@ -7,10 +7,12 @@ caller passes ``device="cpu"``, which runs the plain PyTorch versions of the
 kernels.  Importing the package imports neither JAX nor the JAX package.
 """
 
-from .camera import CameraParams, make_camera, make_look_at, make_projection_matrix
+from .camera import (CameraParams, StereoCameraParams, make_camera, make_look_at,
+                     make_projection_matrix, make_side_by_side_stereo)
 from .config import (ColorFormat, DepthSortKeyPrecision, GaussianColorSpace,
                      HardwareBackend, Precision, RendererConfig, TileIdPrecision)
-from .interop import camera_from_numpy, gaussian_input_from_numpy
+from .interop import (camera_from_numpy, gaussian_input_from_numpy,
+                      stereo_camera_from_numpy)
 from .pipelines import (DepthFirstRenderer, GaussianRenderer, GlobalRenderer,
                         HardwareRenderer, LocalRenderer)
 from .types import (FrameHeader, GaussianInput, RendererError, RenderOutput,
@@ -19,10 +21,12 @@ from .types import (FrameHeader, GaussianInput, RendererError, RenderOutput,
 __version__ = "0.1.0"
 
 __all__ = [
-    "CameraParams", "make_camera", "make_look_at", "make_projection_matrix",
+    "CameraParams", "StereoCameraParams", "make_camera", "make_look_at",
+    "make_projection_matrix", "make_side_by_side_stereo",
     "ColorFormat", "DepthSortKeyPrecision", "GaussianColorSpace",
     "HardwareBackend", "Precision", "RendererConfig", "TileIdPrecision",
     "camera_from_numpy", "gaussian_input_from_numpy",
+    "stereo_camera_from_numpy",
     "DepthFirstRenderer", "GaussianRenderer", "GlobalRenderer",
     "HardwareRenderer", "LocalRenderer",
     "FrameHeader", "GaussianInput", "RendererError", "RenderOutput",

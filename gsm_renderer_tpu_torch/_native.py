@@ -141,6 +141,18 @@ def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+MAX_PTRS = 8
+
+
+def ptr_array(tensors) -> ctypes.Array:
+    """Host array of up to MAX_PTRS device pointers (unused entries 0), for
+    a C entry point that copies them into a by-value kernel argument."""
+    if len(tensors) > MAX_PTRS:
+        raise ValueError(f"at most {MAX_PTRS} pointers, got {len(tensors)}")
+    ptrs = [t.data_ptr() for t in tensors] + [0] * (MAX_PTRS - len(tensors))
+    return (ctypes.c_void_p * MAX_PTRS)(*ptrs)
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
           device: torch.device) -> None:
     """Validate a kernel operand before its pointer is passed to C."""

@@ -1,4 +1,4 @@
-"""Camera parameters and projection-matrix helpers.
+"""Camera parameters (mono and stereo) and projection-matrix helpers.
 
 PyTorch counterpart of ``gsm_renderer_tpu/camera.py``.  Matrices follow
 ``clip = proj @ view @ [x, y, z, 1]^T``; both the OpenCV (+Z forward) and the
@@ -33,6 +33,16 @@ class CameraParams:
         return tuple(torch.as_tensor(np.asarray(m, np.float32), device=device)
                      for m in (self.view_matrix, self.projection_matrix,
                                self.position))
+
+
+@dataclasses.dataclass
+class StereoCameraParams:
+    """Dual-eye camera: the left and right eyes and an optional (4, 4)
+    world -> scene transform (identity when None), all host arrays."""
+
+    left: CameraParams
+    right: CameraParams
+    scene_transform: np.ndarray | None = None
 
 
 def make_projection_matrix(width: int, height: int, near: float = 0.1,
@@ -97,3 +107,24 @@ def make_camera(width: int, height: int, position=(0.0, 0.0, 0.0),
         near_plane=near,
         far_plane=far,
     )
+
+
+def make_side_by_side_stereo(camera: CameraParams,
+                             ipd: float = 0.063) -> StereoCameraParams:
+    """A side-by-side stereo rig from a mono camera: the eyes shifted by
+    -+ipd/2 along the view-space X axis."""
+    view = np.asarray(camera.view_matrix, np.float32)
+    shift_l = np.eye(4, dtype=np.float32)
+    shift_l[0, 3] = ipd / 2.0
+    shift_r = np.eye(4, dtype=np.float32)
+    shift_r[0, 3] = -ipd / 2.0
+    rot = view[:3, :3]
+    base_pos = -rot.T @ view[:3, 3]
+    right_axis = rot.T @ np.array([1.0, 0.0, 0.0], np.float32)
+    left = dataclasses.replace(
+        camera, view_matrix=shift_l @ view,
+        position=(base_pos - right_axis * (ipd / 2.0)).astype(np.float32))
+    right = dataclasses.replace(
+        camera, view_matrix=shift_r @ view,
+        position=(base_pos + right_axis * (ipd / 2.0)).astype(np.float32))
+    return StereoCameraParams(left=left, right=right)

@@ -90,9 +90,8 @@ class RendererConfig:
     max_instances: int = 0
 
     #: per-row exact-span decomposition of oversized rects (the row-expand
-    #: kernel).  Output is bitwise identical either way; only the slot volume
-    #: changes.  Not ported yet: the renderer raises NotImplementedError for
-    #: True, so callers pass ``row_expand=False``.
+    #: kernel, mono frames).  Output is bitwise identical either way; only the
+    #: slot volume changes.
     row_expand: bool = True
 
     #: optional depth output; False drops the depth plane and

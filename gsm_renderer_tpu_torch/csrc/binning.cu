@@ -1,37 +1,60 @@
-// Kernels 2 and 3: binning prep and slot expansion (mono, KeyPlan keys).
+// Binning kernels: prep (kernel 2), row expansion (kernel 3) and slot
+// expansion (kernel 4), for the mono (4 record words) and stereo (8 words:
+// the left record, then the right; w3 shared) tables with KeyPlan keys.
 //
-// Kernel 2 replaces the Pallas kernel gsm_renderer_tpu/kernels/expand.py::
-// _prep_kernel (binning_prep_pallas, mode "mono", count_rows=False): per
-// gaussian, the exact 8x4 tile mask (up to 32 minQuadRect <= d2 cutoff
-// tests), its popcount, the MASKED / CULLED bits and the instance count
-// (every gaussian owns >= 1 slot); then the global exclusive scan of the
-// counts.  The Pallas kernel carries the scan across its sequential grid in
-// SMEM; blocks here run in no order, so the scan is three passes written by
-// hand: a block scan (warp shuffles) that also stores each block's sum, one
-// block that scans the block sums and writes offsets[n] (the slot total),
-// and an add-back of the block offsets.
+// Prep replaces the Pallas kernel gsm_renderer_tpu/kernels/expand.py::
+// _prep_kernel (binning_prep_pallas, modes "mono" and "stereo", option
+// count_rows): per gaussian, the exact 8x4 tile mask (up to 32 minQuadRect
+// tests: <= the alpha d2 cutoff in mono, either eye <= 9 in stereo), its
+// popcount, the MASKED / CULLED bits and the count -- instances, or virtual
+// tile rows under count_rows (every gaussian owns >= 1); then the global
+// exclusive scan of the counts.  The Pallas kernel carries the scan across
+// its sequential grid in SMEM; blocks here run in no order, so the scan is
+// three passes written by hand: a block scan (warp shuffles) that also
+// stores each block's sum, one block that scans the block sums and writes
+// offsets[n] (the total), and an add-back of the block offsets.
 //
-// Kernel 3 replaces _expand_kernel (expand_slots_pallas with a prebuilt
-// table and a KeyPlan): one thread per slot.  The owning gaussian is an
-// upper-bound binary search over the strictly increasing offsets; the tile
-// is the j-th set bit of the mask (MASKED gaussians) or the row-major walk
-// of the rect plus the exact tile test.  Keys: key1 = [tile | depth_hi],
-// key2 = [depth_lo | gaussian index]; dead slots (slot >= total, culled
-// gaussian, failed test) get the sentinel in both keys and zero words.
-// Slots at or beyond the capacity are not written (the grid covers the
-// capacity); the caller derives overflow = total > capacity.
+// Row expansion replaces _row_expand_kernel (row_expand_pallas): one thread
+// per virtual row r < R.  An upper-bound binary search over the prep
+// offsets (strictly increasing: every gaussian owns >= 1 row) finds the
+// gaussian g and its tile row jj = r - offsets[g]; an oversized rect's row
+// is narrowed to the closed-form column span of the ellipse (row_span, the
+// formulas of _row_tile_span), and the per-row instance counts go through
+// the same three-pass scan, so the output is again a complete table of R
+// entries plus offsets[R].  Rows at or past the row total carry zero planes
+// and count 0.
+//
+// Slot expansion replaces _expand_kernel (expand_slots_pallas with a
+// prebuilt table and a KeyPlan): one thread per slot.  The owning entry (a
+// gaussian, or a row of a row table) is an upper-bound binary search over
+// the offsets.  Offsets rise strictly over live entries; a row table's dead
+// tail repeats the total, and since slot < total the search, which keeps
+// offsets[lo] <= slot < offsets[hi], never stops on a dead row.  The tile is
+// the j-th set bit of the mask (MASKED entries) or the row-major walk of the
+// rect plus the exact test (mono alpha cutoff, stereo either eye q <= 9).
+// Keys: key1 = [tile | depth_hi], key2 = [depth_lo | entry index]; dead
+// slots (slot >= total, culled entry, failed test) get the sentinel in both
+// keys and zero words.  Slots at or beyond the capacity are not written (the
+// grid covers the capacity); the caller derives overflow = total > capacity.
 //
 // Bounds on the H100.  Prep: float operations (32 tests of ~65 flops for a
-// gaussian whose rect fills the window) against 36 B of traffic per
-// gaussian.  Expand: device memory (24 B written per slot, ~36 B read per
-// gaussian); the binary search's 20 dependent loads hit L2 (the offsets of
-// 1M gaussians are 4 MB).  Both are one thread per element, coalesced.
+// gaussian whose rect fills the window, twice in stereo) against 36-52 B of
+// traffic per gaussian.  Row expansion: device memory (~40 B read and 32 B
+// written per row, ~100 flops for the span).  Expand: device memory (24-40 B
+// written per slot); the binary search's ~21 dependent loads hit L2 (the
+// offsets of 1-2M entries are 4-8 MB).  All are one thread per element,
+// coalesced.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kPrepThreads = 256;
 constexpr int kScanThreads = 1024;
+constexpr float kStereoR2Cutoff = 9.0f;
+
+struct WordPtrs {
+  const int32_t* w[8];
+};
 
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
   const int lane = threadIdx.x & 31;
@@ -64,12 +87,66 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
   return base + inc - v;
 }
 
+// Index lo in [0, n) with offsets[lo] <= s < offsets[lo + 1], for
+// offsets[0] <= s < offsets[n] and non-decreasing offsets.
+__device__ __forceinline__ int upper_bound_entry(const int32_t* offsets, int n,
+                                                 int s) {
+  int lo = 0, hi = n;  // offsets[lo] <= s < offsets[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (offsets[mid] <= s) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ uint32_t word(const WordPtrs& W, int k, int i) {
+  return static_cast<uint32_t>(W.w[k][i]);
+}
+
+// 8x4 window pass mask at the rect's corner: mono (kWords == 4) tests
+// minQuadRect <= the alpha d2 cutoff of the record; stereo (kWords == 8)
+// tests min(left, right) <= 9.
+template <int kWords>
+__device__ __forceinline__ uint32_t window_mask(const WordPtrs& W, int i,
+                                                int min_tx, int min_ty,
+                                                int rect_w, int rh, float tau,
+                                                float theta_unit,
+                                                float inv255) {
+  const Conic k0 = decode_conic(word(W, 0, i), word(W, 1, i), word(W, 2, i),
+                                theta_unit);
+  Conic k1 = k0;
+  float cutoff;
+  if constexpr (kWords == 8) {
+    k1 = decode_conic(word(W, 4, i), word(W, 5, i), word(W, 6, i), theta_unit);
+    cutoff = kStereoR2Cutoff;
+  } else {
+    cutoff = d2_cutoff(u8f(word(W, 3, i), 24, inv255), tau);
+  }
+  const float x0 = static_cast<float>(min_tx) * 16.0f - k0.mx;
+  const float y0 = static_cast<float>(min_ty) * 16.0f - k0.my;
+  const float x1 = static_cast<float>(min_tx) * 16.0f - k1.mx;
+  const float y1 = static_cast<float>(min_ty) * 16.0f - k1.my;
+  uint32_t mask = 0;
+  for (int dy = 0; dy < GSM_MASK_H && dy < rh; ++dy) {
+    const float oy = static_cast<float>(dy * 16);
+    for (int dx = 0; dx < GSM_MASK_W && dx < rect_w; ++dx) {
+      const float ox = static_cast<float>(dx * 16);
+      const float xa = x0 + ox, ya = y0 + oy;
+      float d2 = d2min_rect(k0, xa, xa + 16.0f, ya, ya + 16.0f);
+      if constexpr (kWords == 8) {
+        const float xb = x1 + ox, yb = y1 + oy;
+        d2 = jmin(d2, d2min_rect(k1, xb, xb + 16.0f, yb, yb + 16.0f));
+      }
+      if (d2 <= cutoff) mask |= 1u << (dy * GSM_MASK_W + dx);
+    }
+  }
+  return mask;
+}
+
+template <int kWords>
 __global__ void prep_kernel(const int32_t* __restrict__ rect_word,
-                            const int32_t* __restrict__ rect_h,
-                            const int32_t* __restrict__ w0,
-                            const int32_t* __restrict__ w1,
-                            const int32_t* __restrict__ w2,
-                            const int32_t* __restrict__ w3, int n, float tau,
+                            const int32_t* __restrict__ rect_h, WordPtrs W,
+                            int count_rows, int n, float tau,
                             float theta_unit, float inv255,
                             int32_t* __restrict__ offsets,
                             int32_t* __restrict__ rect_out,
@@ -84,27 +161,16 @@ __global__ void prep_kernel(const int32_t* __restrict__ rect_word,
     const int rect_w = (rw >> 20) & 0x3FFu;
     const int rh = rect_h[i];
     const bool culled0 = (rw & GSM_CULLED_BIT) != 0;
-    const uint32_t a0 = static_cast<uint32_t>(w0[i]);
-    const uint32_t a1 = static_cast<uint32_t>(w1[i]);
-    const uint32_t a2 = static_cast<uint32_t>(w2[i]);
-    const uint32_t a3 = static_cast<uint32_t>(w3[i]);
-    const Conic k = decode_conic(a0, a1, a2, theta_unit);
-    const float cutoff = d2_cutoff(u8f(a3, 24, inv255), tau);
-    const float x_base = static_cast<float>(min_tx) * 16.0f - k.mx;
-    const float y_base = static_cast<float>(min_ty) * 16.0f - k.my;
-    uint32_t mask = 0;
-    for (int dy = 0; dy < GSM_MASK_H && dy < rh; ++dy) {
-      const float ymin = y_base + static_cast<float>(dy * 16);
-      for (int dx = 0; dx < GSM_MASK_W && dx < rect_w; ++dx) {
-        const float xmin = x_base + static_cast<float>(dx * 16);
-        const float d2 = d2min_rect(k, xmin, xmin + 16.0f, ymin, ymin + 16.0f);
-        if (d2 <= cutoff) mask |= 1u << (dy * GSM_MASK_W + dx);
-      }
-    }
+    const uint32_t mask = window_mask<kWords>(W, i, min_tx, min_ty, rect_w, rh,
+                                              tau, theta_unit, inv255);
     const int cnt = __popc(mask);
     const bool visible = !culled0;
     const bool eligible = visible && rect_w <= GSM_MASK_W && rh <= GSM_MASK_H;
-    count = visible ? (eligible ? cnt : rect_w * rh) : 0;
+    if (count_rows) {
+      count = (visible && !eligible) ? rh : 1;
+    } else {
+      count = visible ? (eligible ? cnt : rect_w * rh) : 0;
+    }
     const bool culled = culled0 || (eligible && cnt == 0);
     const uint32_t ro = rw | (eligible ? GSM_MASKED_BIT : 0u) |
                         (culled ? GSM_CULLED_BIT : 0u);
@@ -141,6 +207,125 @@ __global__ void add_block_offsets_kernel(const int32_t* __restrict__ block_offs,
   if (i < n) offsets[i] += block_offs[blockIdx.x];
 }
 
+// Scan pass 2 and 3 after a kernel that left per-thread exclusive prefixes
+// in offsets[0, n) and the block sums in block_sums.
+void finish_scan(int32_t* offsets, int n, int32_t* block_sums, int n_blocks,
+                 cudaStream_t stream) {
+  scan_block_sums_kernel<<<1, kScanThreads, 0, stream>>>(
+      block_sums, n > 0 ? n_blocks : 0, offsets, n);
+  if (n > 0) {
+    add_block_offsets_kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
+        block_sums, offsets, n);
+  }
+}
+
+// Widened tile-column span [t_lo, t_lo + span) of the record's ellipse
+// within tile row ty (kernels/expand.py::_row_tile_span, formula for
+// formula).  span 0 when the ellipse misses the row or op < tau.
+__device__ __forceinline__ void row_span(uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, int ty, int min_tx,
+                                         int rect_w, float tau,
+                                         float theta_unit, float inv255,
+                                         int* t_lo_out, int* span_out) {
+  const float mx = f16_bits_to_f32(a0);
+  const float my = f16_bits_to_f32(a0 >> 16);
+  const float theta =
+      static_cast<float>(static_cast<int>(a1 & 0xFFFFu)) * theta_unit;
+  const float s1 = jmax(f16_bits_to_f32(a1 >> 16), 1e-4f);
+  const float s2 = jmax(f16_bits_to_f32(a2), 1e-4f);
+  const float c = cosf(theta);
+  const float s = sinf(theta);
+  const float iv1 = 1.0f / (s1 * s1);
+  const float iv2 = 1.0f / (s2 * s2);
+  const float ca = c * c * iv1 + s * s * iv2;
+  const float cb = c * s * (iv1 - iv2);
+  const float det = iv1 * iv2;
+  const float k = d2_cutoff(u8f(a3, 24, inv255), tau);
+
+  const float y0 = static_cast<float>(ty) * 16.0f - my;
+  const float y1 = y0 + 16.0f;
+  const float cak = ca * k;
+  const float ylim = sqrtf(jmax(cak / det, 0.0f));
+  const float yc0 = jmax(y0, -ylim);
+  const float yc1 = jmin(y1, ylim);
+  const bool empty = (k < 0.0f) || (yc0 > yc1);
+
+  const float inv_ca = 1.0f / jmax(ca, 1e-20f);
+  const float t_mag = sqrtf(jmax(cak / (det * (det + cb * cb)), 0.0f));
+  const float yb = jclip(-cb * t_mag, yc0, yc1);
+  const float ya = jclip(cb * t_mag, yc0, yc1);
+  const float db = sqrtf(jmax(cak - det * yb * yb, 0.0f));
+  const float da = sqrtf(jmax(cak - det * ya * ya, 0.0f));
+  const float xb = (-cb * yb + db) * inv_ca;
+  const float xa = (-cb * ya - da) * inv_ca;
+  const float pad = 1e-5f * (fabsf(xa) + fabsf(xb)) + 0.125f;
+  const float xs0 = xa + mx - pad;
+  const float xs1 = xb + mx + pad;
+  int t_lo = static_cast<int>(floorf(xs0 * 0.0625f));
+  int t_hi = static_cast<int>(floorf(xs1 * 0.0625f));
+  t_lo = max(t_lo, min_tx);
+  t_hi = min(t_hi, min_tx + rect_w - 1);
+  *t_lo_out = t_lo;
+  *span_out = empty ? 0 : max(t_hi - t_lo + 1, 0);
+}
+
+// planes: (7, r_cap) = rect', mask, dsw, w0..w3 of each row.
+__global__ void row_expand_kernel(const int32_t* __restrict__ off1,
+                                  const int32_t* __restrict__ rect1,
+                                  const int32_t* __restrict__ mask1,
+                                  const int32_t* __restrict__ dsw1, WordPtrs W,
+                                  int n, int r_cap, float tau,
+                                  float theta_unit, float inv255,
+                                  int32_t* __restrict__ off2,
+                                  int32_t* __restrict__ planes,
+                                  int32_t* __restrict__ block_sums) {
+  const int r = blockIdx.x * kPrepThreads + threadIdx.x;
+  int count = 0;
+  if (r < r_cap) {
+    uint32_t rect2 = 0, mask = 0, dsw = 0, a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+    if (r < off1[n]) {
+      const int g = upper_bound_entry(off1, n, r);
+      const int jj = r - off1[g];
+      const uint32_t ru = static_cast<uint32_t>(rect1[g]);
+      mask = static_cast<uint32_t>(mask1[g]);
+      dsw = static_cast<uint32_t>(dsw1[g]);
+      a0 = word(W, 0, g);
+      a1 = word(W, 1, g);
+      a2 = word(W, 2, g);
+      a3 = word(W, 3, g);
+      const bool culled = (ru & GSM_CULLED_BIT) != 0;
+      const bool masked = (ru & GSM_MASKED_BIT) != 0;
+      const int min_tx = ru & 0x3FFu;
+      const int min_ty = (ru >> 10) & 0x3FFu;
+      const int rect_w = (ru >> 20) & 0x3FFu;
+      const int ty = min_ty + jj;
+      int t_lo, span;
+      row_span(a0, a1, a2, a3, ty, min_tx, rect_w, tau, theta_unit, inv255,
+               &t_lo, &span);
+      const bool passthrough = masked || culled;
+      const bool empty = !passthrough && span == 0;
+      rect2 = passthrough ? ru
+                          : (static_cast<uint32_t>(t_lo) |
+                             (static_cast<uint32_t>(ty) << 10) |
+                             (static_cast<uint32_t>(span) << 20));
+      if (empty) rect2 |= GSM_CULLED_BIT;
+      count = (culled || empty) ? 1 : (masked ? __popc(mask) : span);
+    }
+    const size_t R = static_cast<size_t>(r_cap);
+    planes[0 * R + r] = static_cast<int32_t>(rect2);
+    planes[1 * R + r] = static_cast<int32_t>(mask);
+    planes[2 * R + r] = static_cast<int32_t>(dsw);
+    planes[3 * R + r] = static_cast<int32_t>(a0);
+    planes[4 * R + r] = static_cast<int32_t>(a1);
+    planes[5 * R + r] = static_cast<int32_t>(a2);
+    planes[6 * R + r] = static_cast<int32_t>(a3);
+  }
+  int block_total;
+  const int excl = block_exclusive_scan<kPrepThreads>(count, &block_total);
+  if (r < r_cap) off2[r] = excl;
+  if (threadIdx.x == 0) block_sums[blockIdx.x] = block_total;
+}
+
 __device__ __forceinline__ int nth_set_bit(uint32_t mask, int jj) {
   int p = 0;
 #pragma unroll
@@ -152,43 +337,42 @@ __device__ __forceinline__ int nth_set_bit(uint32_t mask, int jj) {
   return p;
 }
 
+// minQuadRect of a record over the tile at pixel corner (x0, y0).
+__device__ __forceinline__ float tile_d2(uint32_t a0, uint32_t a1, uint32_t a2,
+                                         float x0, float y0,
+                                         float theta_unit) {
+  const Conic k = decode_conic(a0, a1, a2, theta_unit);
+  return d2min_rect(k, x0 - k.mx, (x0 + 16.0f) - k.mx, y0 - k.my,
+                    (y0 + 16.0f) - k.my);
+}
+
+// out: (2 + kWords, capacity) = key1, key2, the carried words.
+template <int kWords>
 __global__ void expand_kernel(const int32_t* __restrict__ offsets,
                               const int32_t* __restrict__ rect,
                               const int32_t* __restrict__ mask,
-                              const int32_t* __restrict__ dsw,
-                              const int32_t* __restrict__ w0,
-                              const int32_t* __restrict__ w1,
-                              const int32_t* __restrict__ w2,
-                              const int32_t* __restrict__ w3, int n,
-                              int capacity, int tiles_x, int d_hi, int d_lo,
-                              int idx_bits, float tau, float theta_unit,
-                              float inv255, int32_t* __restrict__ key1,
-                              int32_t* __restrict__ key2,
-                              int32_t* __restrict__ o0, int32_t* __restrict__ o1,
-                              int32_t* __restrict__ o2,
-                              int32_t* __restrict__ o3) {
+                              const int32_t* __restrict__ dsw, WordPtrs W,
+                              int n, int capacity, int tiles_x, int d_hi,
+                              int d_lo, int idx_bits, float tau,
+                              float theta_unit, float inv255,
+                              int32_t* __restrict__ out) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= capacity) return;
   const int total = offsets[n];
   bool dead = s >= total;
   uint32_t k1 = GSM_SENTINEL, k2 = GSM_SENTINEL;
-  uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+  uint32_t a[kWords];
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) a[k] = 0;
   if (!dead) {
-    int lo = 0, hi = n;  // offsets[lo] <= s < offsets[hi]
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (offsets[mid] <= s) lo = mid; else hi = mid;
-    }
-    const int g = lo;
+    const int g = upper_bound_entry(offsets, n, s);
     const int jj = s - offsets[g];
     const uint32_t rw = static_cast<uint32_t>(rect[g]);
     const int min_tx = rw & 0x3FFu;
     const int min_ty = (rw >> 10) & 0x3FFu;
     const int rect_w = max(static_cast<int>((rw >> 20) & 0x3FFu), 1);
-    a0 = static_cast<uint32_t>(w0[g]);
-    a1 = static_cast<uint32_t>(w1[g]);
-    a2 = static_cast<uint32_t>(w2[g]);
-    a3 = static_cast<uint32_t>(w3[g]);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) a[k] = word(W, k, g);
     int tx, ty;
     bool passes;
     if (rw & GSM_MASKED_BIT) {
@@ -200,12 +384,15 @@ __global__ void expand_kernel(const int32_t* __restrict__ offsets,
       const int q = jj / rect_w;
       ty = min_ty + q;
       tx = min_tx + (jj - q * rect_w);
-      const Conic k = decode_conic(a0, a1, a2, theta_unit);
       const float x0 = static_cast<float>(tx) * 16.0f;
       const float y0 = static_cast<float>(ty) * 16.0f;
-      const float d2 = d2min_rect(k, x0 - k.mx, (x0 + 16.0f) - k.mx,
-                                  y0 - k.my, (y0 + 16.0f) - k.my);
-      passes = d2 <= d2_cutoff(u8f(a3, 24, inv255), tau);
+      const float d2 = tile_d2(a[0], a[1], a[2], x0, y0, theta_unit);
+      if constexpr (kWords == 8) {
+        passes = jmin(d2, tile_d2(a[4], a[5], a[6], x0, y0, theta_unit)) <=
+                 kStereoR2Cutoff;
+      } else {
+        passes = d2 <= d2_cutoff(u8f(a[3], 24, inv255), tau);
+      }
     }
     dead = (rw & GSM_CULLED_BIT) || !passes;
     if (!dead) {
@@ -215,55 +402,76 @@ __global__ void expand_kernel(const int32_t* __restrict__ offsets,
       const uint32_t dlo = d_lo > 0 ? (dn & ((1u << d_lo) - 1u)) : 0u;
       k2 = (idx_bits < 32 ? (dlo << idx_bits) : 0u) | static_cast<uint32_t>(g);
     } else {
-      a0 = a1 = a2 = a3 = 0;
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) a[k] = 0;
     }
   }
-  key1[s] = static_cast<int32_t>(k1);
-  key2[s] = static_cast<int32_t>(k2);
-  o0[s] = static_cast<int32_t>(a0);
-  o1[s] = static_cast<int32_t>(a1);
-  o2[s] = static_cast<int32_t>(a2);
-  o3[s] = static_cast<int32_t>(a3);
+  const size_t C = static_cast<size_t>(capacity);
+  out[s] = static_cast<int32_t>(k1);
+  out[C + s] = static_cast<int32_t>(k2);
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) out[(2 + k) * C + s] = static_cast<int32_t>(a[k]);
+}
+
+WordPtrs load_words(const void* const* words) {
+  WordPtrs W;
+  for (int k = 0; k < 8; ++k) W.w[k] = static_cast<const int32_t*>(words[k]);
+  return W;
 }
 
 }  // namespace
 
 extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
-                        const int32_t* w0, const int32_t* w1,
-                        const int32_t* w2, const int32_t* w3, int n, float tau,
-                        float theta_unit, float inv255, int32_t* offsets,
-                        int32_t* rect_out, int32_t* mask_out,
+                        const void* const* words, int n_words, int count_rows,
+                        int n, float tau, float theta_unit, float inv255,
+                        int32_t* offsets, int32_t* rect_out, int32_t* mask_out,
                         int32_t* block_sums, int n_blocks,
                         cudaStream_t stream) {
+  if (n_words != 4 && n_words != 8) return static_cast<int>(cudaErrorInvalidValue);
+  const WordPtrs W = load_words(words);
   if (n > 0) {
-    prep_kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
-        rect_word, rect_h, w0, w1, w2, w3, n, tau, theta_unit, inv255, offsets,
+    auto kernel = n_words == 8 ? prep_kernel<8> : prep_kernel<4>;
+    kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
+        rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255, offsets,
         rect_out, mask_out, block_sums);
   }
-  scan_block_sums_kernel<<<1, kScanThreads, 0, stream>>>(
-      block_sums, n > 0 ? n_blocks : 0, offsets, n);
-  if (n > 0) {
-    add_block_offsets_kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
-        block_sums, offsets, n);
+  finish_scan(offsets, n, block_sums, n_blocks, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
+                              const int32_t* mask1, const int32_t* dsw1,
+                              const void* const* words, int n, int r_cap,
+                              float tau, float theta_unit, float inv255,
+                              int32_t* off2, int32_t* planes,
+                              int32_t* block_sums, int n_blocks,
+                              cudaStream_t stream) {
+  const WordPtrs W = load_words(words);
+  if (r_cap > 0) {
+    row_expand_kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
+        off1, rect1, mask1, dsw1, W, n, r_cap, tau, theta_unit, inv255, off2,
+        planes, block_sums);
   }
+  finish_scan(off2, r_cap, block_sums, n_blocks, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                           const int32_t* mask, const int32_t* dsw,
-                          const int32_t* w0, const int32_t* w1,
-                          const int32_t* w2, const int32_t* w3, int n,
+                          const void* const* words, int n_words, int n,
                           int capacity, int tiles_x, int d_hi, int d_lo,
                           int idx_bits, float tau, float theta_unit,
-                          float inv255, int32_t* key1, int32_t* key2,
-                          int32_t* o0, int32_t* o1, int32_t* o2, int32_t* o3,
-                          cudaStream_t stream) {
+                          float inv255, int32_t* out, cudaStream_t stream) {
+  if (n_words != 4 && n_words != 8) return static_cast<int>(cudaErrorInvalidValue);
+  const WordPtrs W = load_words(words);
   if (capacity > 0) {
     const int threads = 256;
     const int blocks = (capacity + threads - 1) / threads;
-    expand_kernel<<<blocks, threads, 0, stream>>>(
-        offsets, rect, mask, dsw, w0, w1, w2, w3, n, capacity, tiles_x, d_hi,
-        d_lo, idx_bits, tau, theta_unit, inv255, key1, key2, o0, o1, o2, o3);
+    auto kernel = n_words == 8 ? expand_kernel<8> : expand_kernel<4>;
+    kernel<<<blocks, threads, 0, stream>>>(offsets, rect, mask, dsw, W, n,
+                                           capacity, tiles_x, d_hi, d_lo,
+                                           idx_bits, tau, theta_unit, inv255,
+                                           out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .camera import CameraParams
+from .camera import CameraParams, StereoCameraParams
 from .types import GaussianInput, resolve_device
 
 
@@ -53,3 +53,16 @@ def camera_from_numpy(view, proj, position, near: float, far: float,
         focal_x=float(width) * abs(float(proj[0, 0])) / 2.0,
         focal_y=float(height) * abs(float(proj[1, 1])) / 2.0,
         near_plane=float(near), far_plane=float(far))
+
+
+def stereo_camera_from_numpy(views, projs, positions, near: float, far: float,
+                             width: int, height: int,
+                             scene_transform=None) -> StereoCameraParams:
+    """StereoCameraParams from (2, 4, 4) view and projection matrices, the
+    (2, 3) eye positions (left first), the clip planes and an optional
+    (4, 4) scene transform."""
+    left, right = (camera_from_numpy(views[e], projs[e], positions[e], near,
+                                     far, width, height) for e in range(2))
+    st = (None if scene_transform is None
+          else np.asarray(scene_transform, np.float32))
+    return StereoCameraParams(left=left, right=right, scene_transform=st)

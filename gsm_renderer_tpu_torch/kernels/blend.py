@@ -2,14 +2,16 @@
 
 Port of ``gsm_renderer_tpu/kernels/blend.py``: ``build_words_table``,
 ``blend_tiles_pallas`` (``_row_blend_kernel``, depth modes "weighted" and
-"none") and ``assemble_image``.  The kernel is ``csrc/blend.cu``; it writes
-the (H, W, 4) image and the (H, W) depth directly, so assembly is fused into
-it on the card.
+"none", ``n_eyes`` 1 and 2, ``r2_cutoff``) and ``assemble_image``.  The
+kernel is ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W)
+depth directly -- (H, 2W) for two eyes side by side -- so assembly is fused
+into it on the card.
 
 Early-exit rule, shared by the kernel and :func:`blend_tiles_plain`: a tile's
 span is walked in 256-record batches aligned to 128-record blocks (the Pallas
 kernel's 2 x 128-slot chunks); after each batch the tile stops once every
-pixel's transmittance is below 1/255.
+pixel's transmittance is below 1/255 -- in both eyes, for the dual-eye blend
+(the Pallas kernel's exit on the larger of the eyes' transmittances).
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ BATCH = 256
 BLOCK = 128
 
 BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.I, _native.I, _native.P, _native.P,
     _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.F, _native.F, _native.F, _native.P, _native.P])
+    _native.F, _native.F, _native.F, _native.F, _native.P, _native.P])
 
 
 def build_words_table(sorted_word_list):
@@ -57,26 +59,32 @@ def decode_records(table):
 
 def blend_tiles_plain(table, starts, counts, *, tiles_x: int, tile_w: int = 16,
                       tile_h: int = 16, depth_mode: str = "weighted",
-                      tiles=None, return_processed: bool = False):
+                      n_eyes: int = 1, r2_cutoff: float = 0.0, tiles=None,
+                      return_processed: bool = False):
     """Plain version of the blend kernel on any device.
 
-    ``table``: (4, C) int32 sorted record words; ``starts``/``counts``: (T,)
-    int32 tile spans; ``tiles``: optional subset of tile ids (default all).
-    Returns (tile_color (T', 256, 4), tile_depth (T', 256) or None), plus the
-    number of records each tile composited before its exit when
-    ``return_processed``.  Records are composited one rank at a time across
-    all tiles, each tile stopping by the kernel's rule.
+    ``table``: (4 * n_eyes, C) int32 sorted record words (left eye first);
+    ``starts``/``counts``: (T,) int32 tile spans; ``tiles``: optional subset
+    of tile ids (default all).  With ``r2_cutoff`` > 0 alpha is zeroed where
+    q > r2_cutoff.  Returns (tile_color (T', 256, 4), tile_depth (T', 256) or
+    None) for one eye, a list of such pairs for two, plus the number of
+    records each tile composited before its exit when ``return_processed``.
+    Records are composited one rank at a time across all tiles, each tile
+    stopping by the kernel's rule.
     """
     if tile_w != 16 or tile_h != 16:
         raise NotImplementedError("the blend takes 16x16 tiles only")
     if depth_mode not in ("weighted", "none"):
         raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
+    if n_eyes not in (1, 2):
+        raise ValueError(f"n_eyes must be 1 or 2, got {n_eyes}")
     dev = table.device
     if tiles is None:
         tiles = torch.arange(starts.shape[0], device=dev)
     tiles = tiles.to(torch.int64)
     pix = tile_w * tile_h
-    rec = decode_records(table)
+    recs = [decode_records(table[WORD_ROWS * e:WORD_ROWS * (e + 1)])
+            for e in range(n_eyes)]
     cap = table.shape[1]
     start = starts.to(torch.int64)[tiles]
     count = counts.to(torch.int64)[tiles]
@@ -91,37 +99,47 @@ def blend_tiles_plain(table, starts, counts, *, tiles_x: int, tile_w: int = 16,
     pya = ly[None, :] + oy[:, None]
 
     n_t = tiles.shape[0]
-    trans = torch.ones((n_t, pix), dtype=torch.float32, device=dev)
-    acc = [torch.zeros((n_t, pix), dtype=torch.float32, device=dev)
-           for _ in range(4)]
+    trans = [torch.ones((n_t, pix), dtype=torch.float32, device=dev)
+             for _ in range(n_eyes)]
+    acc = [[torch.zeros((n_t, pix), dtype=torch.float32, device=dev)
+            for _ in range(4)] for _ in range(n_eyes)]
     active = count > 0
     processed = torch.zeros(n_t, dtype=torch.int64, device=dev)
     max_k = int(count.max()) if n_t else 0
     for k in range(max_k):
         valid = active & (k < count)
         idx = torch.clamp(start + k, 0, max(cap - 1, 0))
-        at = {name: v[idx][:, None] for name, v in rec.items()}
-        dx = pxa - at["mx"]
-        dy = pya - at["my"]
-        u = at["a1"] * dx + at["b1"] * dy
-        v = at["a2"] * dx + at["b2"] * dy
-        q = u * u + v * v
-        alpha = torch.clamp(torch.exp(q * -0.5 + at["logop"]), max=ALPHA_CLAMP)
-        alpha = torch.where(valid[:, None], alpha, 0.0)
-        w = alpha * trans
-        for c, name in enumerate(("r", "g", "b", "depth")):
-            acc[c] = acc[c] + w * at[name]
-        trans = trans * (1.0 - alpha)
+        for e, rec in enumerate(recs):
+            at = {name: v[idx][:, None] for name, v in rec.items()}
+            dx = pxa - at["mx"]
+            dy = pya - at["my"]
+            u = at["a1"] * dx + at["b1"] * dy
+            v = at["a2"] * dx + at["b2"] * dy
+            q = u * u + v * v
+            alpha = torch.clamp(torch.exp(q * -0.5 + at["logop"]),
+                                max=ALPHA_CLAMP)
+            if r2_cutoff > 0.0:
+                alpha = torch.where(q > r2_cutoff, 0.0, alpha)
+            alpha = torch.where(valid[:, None], alpha, 0.0)
+            w = alpha * trans[e]
+            for c, name in enumerate(("r", "g", "b", "depth")):
+                acc[e][c] = acc[e][c] + w * at[name]
+            trans[e] = trans[e] * (1.0 - alpha)
         processed += valid.to(torch.int64)
         pos = start + k + 1
         batch_end = valid & (torch.remainder(pos - base, BATCH) == 0) & (pos < end)
-        saturated = (trans < MIN_TRANSMITTANCE).all(dim=1)
+        tmax = trans[0]
+        for t in trans[1:]:
+            tmax = torch.maximum(tmax, t)
+        saturated = (tmax < MIN_TRANSMITTANCE).all(dim=1)
         active = active & ~(batch_end & saturated)
-    color = torch.stack([acc[0], acc[1], acc[2], 1.0 - trans], dim=-1)
-    depth = None if depth_mode == "none" else acc[3]
+    eyes = [(torch.stack([a[0], a[1], a[2], 1.0 - t], dim=-1),
+             None if depth_mode == "none" else a[3])
+            for a, t in zip(acc, trans)]
+    out = eyes[0] if n_eyes == 1 else eyes
     if return_processed:
-        return color, depth, processed
-    return color, depth
+        return (*out, processed) if n_eyes == 1 else (out, processed)
+    return out
 
 
 def assemble_image(tile_color, tile_depth, *, tiles_x: int, tiles_y: int,
@@ -138,37 +156,52 @@ def assemble_image(tile_color, tile_depth, *, tiles_x: int, tiles_y: int,
 
 
 def blend_image_cuda(table, starts, counts, *, tiles_x: int, tiles_y: int,
-                     width: int, height: int, depth_mode: str = "weighted"):
-    """Launch ``csrc/blend.cu``: returns (color (H, W, 4), depth (H, W) or
-    None)."""
+                     width: int, height: int, depth_mode: str = "weighted",
+                     n_eyes: int = 1, r2_cutoff: float = 0.0):
+    """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
+    (H, n_eyes * W) or None), the eyes side by side."""
     if depth_mode not in ("weighted", "none"):
         raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
+    if n_eyes not in (1, 2):
+        raise ValueError(f"n_eyes must be 1 or 2, got {n_eyes}")
     dev = table.device
     n_t = tiles_x * tiles_y
-    _native.check(table, "table", torch.int32, (WORD_ROWS, table.shape[1]), dev)
+    _native.check(table, "table", torch.int32,
+                  (WORD_ROWS * n_eyes, table.shape[1]), dev)
     _native.check(starts, "starts", torch.int32, (n_t,), dev)
     _native.check(counts, "counts", torch.int32, (n_t,), dev)
     with_depth = depth_mode != "none"
-    color = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
-    depth = torch.empty((height, width) if with_depth else (1,),
+    color = torch.empty((height, n_eyes * width, 4), dtype=torch.float32,
+                        device=dev)
+    depth = torch.empty((height, n_eyes * width) if with_depth else (1,),
                         dtype=torch.float32, device=dev)
-    BLEND.launch(*[_native.ptr(table[k]) for k in range(WORD_ROWS)],
+    BLEND.launch(_native.ptr(table), table.shape[1], n_eyes,
                  _native.ptr(starts), _native.ptr(counts), tiles_x, tiles_y,
                  width, height, int(with_depth), M.f32(THETA_UNIT),
                  M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),
-                 _native.ptr(color), _native.ptr(depth))
+                 M.f32(r2_cutoff), _native.ptr(color), _native.ptr(depth))
     return color, (depth if with_depth else None)
 
 
 def blend_image(table, starts, counts, *, tiles_x: int, tiles_y: int,
-                width: int, height: int, depth_mode: str = "weighted"):
+                width: int, height: int, depth_mode: str = "weighted",
+                n_eyes: int = 1, r2_cutoff: float = 0.0):
     """Blend + assemble: the CUDA kernel for CUDA tensors, the plain version
-    (then :func:`assemble_image`) for CPU tensors."""
+    (then :func:`assemble_image`, the eyes concatenated along the width) for
+    CPU tensors."""
     if table.is_cuda:
         return blend_image_cuda(table, starts, counts, tiles_x=tiles_x,
                                 tiles_y=tiles_y, width=width, height=height,
-                                depth_mode=depth_mode)
-    tc, td = blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
-                               depth_mode=depth_mode)
-    return assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
-                          width=width, height=height)
+                                depth_mode=depth_mode, n_eyes=n_eyes,
+                                r2_cutoff=r2_cutoff)
+    out = blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
+                            depth_mode=depth_mode, n_eyes=n_eyes,
+                            r2_cutoff=r2_cutoff)
+    eyes = [assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
+                           width=width, height=height)
+            for tc, td in (out if n_eyes == 2 else [out])]
+    if n_eyes == 1:
+        return eyes[0]
+    color = torch.cat([c for c, _ in eyes], dim=1)
+    depth = None if eyes[0][1] is None else torch.cat([d for _, d in eyes], dim=1)
+    return color, depth

@@ -1,16 +1,19 @@
-"""Binning prep (exact 8x4 tile masks, counts, global offset scan) and
-instance expansion into KeyPlan sort keys.
+"""Binning prep (exact 8x4 tile masks, counts, global offset scan), the
+per-row exact-span decomposition of oversized rects, and instance expansion
+into KeyPlan sort keys.
 
-Port of the mono path of ``gsm_renderer_tpu/kernels/expand.py``:
-``binning_prep_pallas`` (``_prep_kernel``, mode "mono", ``count_rows=False``)
-and ``expand_slots_pallas`` (``_expand_kernel``, prebuilt table with KeyPlan
-keys).  The kernels are ``csrc/binning.cu``.
+Port of ``gsm_renderer_tpu/kernels/expand.py``: ``binning_prep_pallas``
+(``_prep_kernel``, modes "mono" and "stereo", option ``count_rows``),
+``row_expand_pallas`` (``_row_expand_kernel``) and ``expand_slots_pallas``
+(``_expand_kernel``, prebuilt table with KeyPlan keys, exact tests "mono" and
+"stereo").  The kernels are ``csrc/binning.cu``.
 
 The JAX package packs its tables as (planes, rows, 128) for the TPU; here
 every table is a flat array: ``offsets`` (N + 1,) with ``offsets[N]`` the slot
 total, and ``rect`` / ``mask`` (N,).  The depth and record words are read
-straight from the projection outputs.  Word tensors are int32 holding the
-u32 bits; the plain versions widen to int64 for shifts and compares.
+straight from the projection outputs (4 words mono; 8 words stereo, the left
+record then the right).  Word tensors are int32 holding the u32 bits; the
+plain versions widen to int64 for shifts and compares.
 """
 
 from __future__ import annotations
@@ -29,15 +32,25 @@ MASKED_BIT = 1 << 31
 MASK_W, MASK_H = 8, 4
 THETA_UNIT = 3.14159265358979 / 65535.0
 
+#: per-pixel cutoff of the stereo blend (q <= 9); dropping an instance whose
+#: minQuadRect over the tile exceeds it leaves the image unchanged
+STEREO_R2_CUTOFF = 9.0
+#: record words carried per mode
+MODE_WORDS = {"mono": 4, "stereo": 8}
+
 PREP = _native.Kernel("prep", "binning", "gsm_prep", [
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
-    _native.I, _native.F, _native.F, _native.F,
+    _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
+    _native.F, _native.F, _native.F,
     _native.P, _native.P, _native.P, _native.P, _native.I])
+ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.I, _native.F, _native.F, _native.F,
+    _native.P, _native.P, _native.P, _native.I])
 EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
-    _native.P, _native.P, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.F, _native.F, _native.F,
-    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P])
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.F, _native.F, _native.F, _native.P])
+
 
 
 def _popcount(v):
@@ -139,6 +152,32 @@ def exact_tile_masks(w0, w1, w2, w3, min_tx, min_ty, rect_w, rect_h,
     return mask, _popcount(mask)
 
 
+def stereo_tile_masks(wl, wr, min_tx, min_ty, rect_w, rect_h, tile_w: int,
+                      tile_h: int):
+    """Dual-eye exact pass mask over the union tile rect: a position passes
+    if EITHER eye's quantized ellipse reaches q <= STEREO_R2_CUTOFF inside
+    the tile.  ``wl`` / ``wr``: the (w0, w1, w2) int64 word triples of the
+    left / right records.  Returns (mask int64, count int64)."""
+    con_l = _conic_from_words(*wl)
+    con_r = _conic_from_words(*wr)
+    xl = min_tx.to(torch.float32) * tile_w - con_l["mx"]
+    yl = min_ty.to(torch.float32) * tile_h - con_l["my"]
+    xr = min_tx.to(torch.float32) * tile_w - con_r["mx"]
+    yr = min_ty.to(torch.float32) * tile_h - con_r["my"]
+    mask = torch.zeros_like(min_tx)
+    for p in range(MASK_W * MASK_H):
+        dx, dy = p % MASK_W, p // MASK_W
+        ox, oy = float(dx * tile_w), float(dy * tile_h)
+        d2l = _d2min_rect(con_l, xl + ox, xl + ox + tile_w, yl + oy,
+                          yl + oy + tile_h)
+        d2r = _d2min_rect(con_r, xr + ox, xr + ox + tile_w, yr + oy,
+                          yr + oy + tile_h)
+        passes = ((dx < rect_w) & (dy < rect_h)
+                  & (torch.minimum(d2l, d2r) <= STEREO_R2_CUTOFF))
+        mask = mask | (passes.to(torch.int64) << p)
+    return mask, _popcount(mask)
+
+
 def _exact_tile_test(w0, w1, w2, w3, tx, ty, tile_w, tile_h, alpha_threshold):
     """True where the instance's peak alpha within tile (tx, ty) reaches
     the threshold (minQuadRect <= d2 cutoff)."""
@@ -150,27 +189,126 @@ def _exact_tile_test(w0, w1, w2, w3, tx, ty, tile_w, tile_h, alpha_threshold):
     return d2min <= _d2_cutoff(w3, alpha_threshold)
 
 
+def _record_d2min(w0, w1, w2, x0, y0, tile_w, tile_h):
+    """minQuadRect of a quantized record over the pixel rect [x0, x0 +
+    tile_w] x [y0, y0 + tile_h]."""
+    con = _conic_from_words(w0, w1, w2)
+    return _d2min_rect(con, x0 - con["mx"], (x0 + tile_w) - con["mx"],
+                       y0 - con["my"], (y0 + tile_h) - con["my"])
+
+
+def _stereo_tile_test(w, tx, ty, tile_w, tile_h):
+    """Dual-eye tile test of the stereo expand: either eye's record (words
+    0..2 left, 4..6 right) reaches q <= STEREO_R2_CUTOFF inside the tile."""
+    x0 = tx.to(torch.float32) * tile_w
+    y0 = ty.to(torch.float32) * tile_h
+    d2l = _record_d2min(w[0], w[1], w[2], x0, y0, tile_w, tile_h)
+    d2r = _record_d2min(w[4], w[5], w[6], x0, y0, tile_w, tile_h)
+    return torch.minimum(d2l, d2r) <= STEREO_R2_CUTOFF
+
+
+def row_tile_span(w0, w1, w2, w3, ty, min_tx, rect_w, tile_w: float,
+                  tile_h: float, alpha_threshold: float):
+    """Conservatively widened tile-column span of the quantized record's
+    ellipse {q <= d2 cutoff} within tile row ``ty`` (int64 word tensors).
+
+    Along one tile row the tiles passing the exact test are contiguous: a
+    tile spans the row's whole pixel band, so it passes iff its x-range
+    meets the ellipse's x-extent over the band, which is closed-form.  The
+    span is widened by 0.125 + 1e-5 |x| so that float disagreement with the
+    exact test can only add boundary tiles, which the expand's exact test
+    then removes.  Returns (t_lo, span) int64; span 0 when the ellipse
+    misses the row or the opacity is below the threshold."""
+    mx = _f16_bits_to_f32(w0)
+    my = _f16_bits_to_f32(w0 >> 16)
+    theta = (w1 & 0xFFFF).to(torch.int32).to(torch.float32) * THETA_UNIT
+    s1 = torch.clamp(_f16_bits_to_f32(w1 >> 16), min=1e-4)
+    s2 = torch.clamp(_f16_bits_to_f32(w2), min=1e-4)
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    iv1 = 1.0 / (s1 * s1)
+    iv2 = 1.0 / (s2 * s2)
+    ca = c * c * iv1 + s * s * iv2
+    cb = c * s * (iv1 - iv2)
+    det = iv1 * iv2  # == ca * cc - cb^2, without the cancellation
+    k = _d2_cutoff(w3, alpha_threshold)
+
+    y0 = ty.to(torch.float32) * tile_h - my
+    y1 = y0 + tile_h
+    cak = ca * k
+    ylim = torch.sqrt(torch.clamp(cak / det, min=0.0))
+    yc0 = torch.maximum(y0, -ylim)
+    yc1 = torch.minimum(y1, ylim)
+    empty = (k < 0.0) | (yc0 > yc1)
+
+    inv_ca = 1.0 / torch.clamp(ca, min=1e-20)
+    t_mag = torch.sqrt(torch.clamp(cak / (det * (det + cb * cb)), min=0.0))
+
+    def clip(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    yb = clip(-cb * t_mag, yc0, yc1)
+    ya = clip(cb * t_mag, yc0, yc1)
+
+    def sq_disc(y):
+        return torch.sqrt(torch.clamp(cak - det * y * y, min=0.0))
+
+    xb = (-cb * yb + sq_disc(yb)) * inv_ca
+    xa = (-cb * ya - sq_disc(ya)) * inv_ca
+    pad = 1e-5 * (xa.abs() + xb.abs()) + 0.125
+    xs0 = xa + mx - pad
+    xs1 = xb + mx + pad
+    inv_tw = 1.0 / tile_w
+    t_lo = torch.floor(xs0 * inv_tw).to(torch.int32).to(torch.int64)
+    t_hi = torch.floor(xs1 * inv_tw).to(torch.int32).to(torch.int64)
+    t_lo = torch.maximum(t_lo, min_tx)
+    t_hi = torch.minimum(t_hi, min_tx + rect_w - 1)
+    span = torch.where(empty, 0, torch.clamp(t_hi - t_lo + 1, min=0))
+    return t_lo, span
+
+
+def _check_mode(mode: str, words):
+    if mode not in MODE_WORDS:
+        raise NotImplementedError(f"binning mode {mode!r} is not ported yet")
+    if len(words) != MODE_WORDS[mode]:
+        raise ValueError(f"mode {mode!r} carries {MODE_WORDS[mode]} record "
+                         f"words, got {len(words)}")
+
+
 # ---------------------------------------------------------------------------
 # Kernel 2: binning prep
 # ---------------------------------------------------------------------------
 
-def binning_prep_plain(rect_word, rect_h, words, *, tile_w: int = 16,
+def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
+                       count_rows: bool = False, tile_w: int = 16,
                        tile_h: int = 16, alpha_threshold: float = 0.005):
-    """Plain version of the prep kernel.  Returns (offsets (N+1,) int32 with
-    offsets[N] the slot total, rect' (N,) int32 with MASKED/CULLED bits,
-    mask (N,) int32)."""
+    """Plain version of the prep kernel.  ``mode`` "mono" (4 words, the
+    alpha-cutoff exact masks) or "stereo" (8 words, the dual-eye q <= 9
+    masks).  With ``count_rows`` the counts are virtual tile rows (one per
+    mask-eligible or culled gaussian, ``rect_h`` per oversized rect) for
+    :func:`row_expand`.  Returns (offsets (N+1,) int32 with offsets[N] the
+    total, rect' (N,) int32 with MASKED/CULLED bits, mask (N,) int32)."""
+    _check_mode(mode, words)
     rw = M.u32(rect_word)
     min_tx = rw & 0x3FF
     min_ty = (rw >> 10) & 0x3FF
     rect_w = (rw >> 20) & 0x3FF
     culled0 = (rw & CULLED_BIT) != 0
     rh = rect_h.to(torch.int64)
-    w0, w1, w2, w3 = (M.u32(w) for w in words)
-    mask, cnt = exact_tile_masks(w0, w1, w2, w3, min_tx, min_ty, rect_w, rh,
-                                 tile_w, tile_h, alpha_threshold)
+    w = [M.u32(x) for x in words]
+    if mode == "stereo":
+        mask, cnt = stereo_tile_masks(w[0:3], w[4:7], min_tx, min_ty, rect_w,
+                                      rh, tile_w, tile_h)
+    else:
+        mask, cnt = exact_tile_masks(w[0], w[1], w[2], w[3], min_tx, min_ty,
+                                     rect_w, rh, tile_w, tile_h,
+                                     alpha_threshold)
     visible = ~culled0
     eligible = visible & (rect_w <= MASK_W) & (rh <= MASK_H)
-    counts = torch.where(visible, torch.where(eligible, cnt, rect_w * rh), 0)
+    if count_rows:
+        counts = torch.where(visible & ~eligible, rh, 1)
+    else:
+        counts = torch.where(visible, torch.where(eligible, cnt, rect_w * rh), 0)
     culled = culled0 | (eligible & (cnt == 0))
     rect_out = (rw | torch.where(eligible, MASKED_BIT, 0)
                 | torch.where(culled, CULLED_BIT, 0))
@@ -181,12 +319,14 @@ def binning_prep_plain(rect_word, rect_h, words, *, tile_w: int = 16,
     return offsets.to(torch.int32), M.to_i32(rect_out), M.to_i32(mask)
 
 
-def binning_prep_cuda(rect_word, rect_h, words, *, tile_w: int = 16,
+def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
+                      count_rows: bool = False, tile_w: int = 16,
                       tile_h: int = 16, alpha_threshold: float = 0.005):
     """Launch the prep kernels of ``csrc/binning.cu`` (per-gaussian masks
     and counts with block scans, a pass over the block sums, an add-back)."""
     if tile_w != 16 or tile_h != 16:
         raise NotImplementedError("the prep kernel takes 16x16 tiles only")
+    _check_mode(mode, words)
     dev = rect_word.device
     n = rect_word.shape[0]
     for name, t in (("rect_word", rect_word), ("rect_h", rect_h),
@@ -196,8 +336,8 @@ def binning_prep_cuda(rect_word, rect_h, words, *, tile_w: int = 16,
     rect_out = torch.empty(n, dtype=torch.int32, device=dev)
     mask = torch.empty(n, dtype=torch.int32, device=dev)
     block_sums = torch.empty(max(-(-n // 256), 1), dtype=torch.int32, device=dev)
-    PREP.launch(_native.ptr(rect_word), _native.ptr(rect_h),
-                *[_native.ptr(w) for w in words], n,
+    PREP.launch(_native.ptr(rect_word), _native.ptr(rect_h), _native.ptr_array(words),
+                len(words), int(count_rows), n,
                 M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                 M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr(rect_out),
                 _native.ptr(mask), _native.ptr(block_sums),
@@ -214,21 +354,121 @@ def binning_prep(rect_word, rect_h, words, **kw):
 
 
 # ---------------------------------------------------------------------------
+# Row expansion: virtual tile rows narrowed to their exact column spans
+# ---------------------------------------------------------------------------
+
+def row_expand_plain(offsets, rect, mask, dsw, words, *, row_capacity: int,
+                     tile_w: int = 16, tile_h: int = 16,
+                     alpha_threshold: float = 0.005):
+    """Plain version of the row-expand kernel.
+
+    Input: a mono prep table built with ``count_rows=True`` (offsets count
+    virtual rows).  Row r < R = ``row_capacity`` belongs to the gaussian g
+    with offsets[g] <= r < offsets[g + 1], tile row min_ty + (r -
+    offsets[g]).  A mask-eligible or culled gaussian's single row passes
+    through; an oversized rect's row gets rect' = span_lo | ty << 10 |
+    span_w << 20 (CULLED when the span is empty).  Its instance count is 1
+    (culled or empty), the mask popcount (masked) or the span width.  Rows
+    past the row total or R count 0 and carry zero planes.
+
+    Returns (offsets2 (R+1,), rect2, mask2, dsw2 (R,), words2 (4 x (R,)),
+    all int32, and row_overflow = row total > R as a 0-d int32 tensor)."""
+    _check_mode("mono", words)
+    dev = offsets.device
+    n = rect.shape[0]
+    off = offsets.to(torch.int64)
+    total1 = off[n]
+    row = torch.arange(row_capacity, dtype=torch.int64, device=dev)
+    g = torch.searchsorted(off[:n].contiguous(), row, right=True) - 1
+    g = torch.clamp(g, 0, max(n - 1, 0))
+    jj = row - off[g]
+    live = row < total1
+    rect_u = M.u32(rect)[g]
+    mask_u = M.u32(mask)[g]
+    w = [M.u32(x)[g] for x in words]
+    culled = (rect_u & CULLED_BIT) != 0
+    masked = (rect_u & MASKED_BIT) != 0
+    min_tx = rect_u & 0x3FF
+    min_ty = (rect_u >> 10) & 0x3FF
+    rect_w = (rect_u >> 20) & 0x3FF
+    ty = min_ty + jj
+    t_lo, span = row_tile_span(w[0], w[1], w[2], w[3], ty, min_tx, rect_w,
+                               float(tile_w), float(tile_h), alpha_threshold)
+    passthrough = masked | culled
+    empty = ~passthrough & (span == 0)
+    rect2 = torch.where(passthrough, rect_u, t_lo | (ty << 10) | (span << 20))
+    rect2 = torch.where(empty, rect2 | CULLED_BIT, rect2)
+    cnt = torch.where(culled | empty, 1,
+                      torch.where(masked, _popcount(mask_u), span))
+    cnt = torch.where(live, cnt, 0)
+    offsets2 = torch.zeros(row_capacity + 1, dtype=torch.int64, device=dev)
+    offsets2[1:] = torch.cumsum(cnt, 0)
+
+    def plane(x):
+        return M.to_i32(torch.where(live, x, 0))
+
+    return (offsets2.to(torch.int32), plane(rect2), plane(mask_u),
+            plane(M.u32(dsw)[g]), [plane(x) for x in w],
+            (total1 > row_capacity).to(torch.int32))
+
+
+def row_expand_cuda(offsets, rect, mask, dsw, words, *, row_capacity: int,
+                    tile_w: int = 16, tile_h: int = 16,
+                    alpha_threshold: float = 0.005):
+    """Launch the row-expand kernels of ``csrc/binning.cu`` (one thread per
+    row with block scans, a pass over the block sums, an add-back)."""
+    if tile_w != 16 or tile_h != 16:
+        raise NotImplementedError("the row-expand kernel takes 16x16 tiles only")
+    _check_mode("mono", words)
+    dev = offsets.device
+    n = rect.shape[0]
+    _native.check(offsets, "offsets", torch.int32, (n + 1,), dev)
+    for name, t in (("rect", rect), ("mask", mask), ("dsw", dsw),
+                    *((f"w{k}", w) for k, w in enumerate(words))):
+        _native.check(t, name, torch.int32, (n,), dev)
+    r = row_capacity
+    offsets2 = torch.empty(r + 1, dtype=torch.int32, device=dev)
+    planes = torch.empty((7, r), dtype=torch.int32, device=dev)
+    block_sums = torch.empty(max(-(-r // 256), 1), dtype=torch.int32, device=dev)
+    ROW_EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
+                      _native.ptr(dsw), _native.ptr_array(words), n, r,
+                      M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
+                      M.f32(1.0 / 255.0), _native.ptr(offsets2),
+                      _native.ptr(planes), _native.ptr(block_sums),
+                      block_sums.shape[0])
+    return (offsets2, planes[0], planes[1], planes[2], list(planes[3:]),
+            (offsets[n] > r).to(torch.int32))
+
+
+def row_expand(offsets, rect, mask, dsw, words, **kw):
+    """Row expansion: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if offsets.is_cuda:
+        return row_expand_cuda(offsets, rect, mask, dsw, words, **kw)
+    return row_expand_plain(offsets, rect, mask, dsw, words, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Kernel 3: slot expansion with KeyPlan keys
 # ---------------------------------------------------------------------------
 
 def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
-                       tiles_x: int, key_plan, tile_w: int = 16,
-                       tile_h: int = 16, alpha_threshold: float = 0.005):
+                       tiles_x: int, key_plan, mode: str = "mono",
+                       tile_w: int = 16, tile_h: int = 16,
+                       alpha_threshold: float = 0.005):
     """Plain version of the expand kernel.
 
-    Slot s < total belongs to the gaussian g with offsets[g] <= s <
-    offsets[g + 1] and maps to its tile by the j-th set bit of the mask
-    (MASKED gaussians) or a row-major walk of the rect plus the exact tile
-    test.  Returns (key1 (C,), key2 (C,), words (4, C)) int32 with the
+    Slot s < total belongs to the entry g (a gaussian, or a virtual row of a
+    row table) with offsets[g] <= s < offsets[g + 1]; offsets rise strictly
+    over the live entries, and a row table's dead tail repeats the total, so
+    a live slot never lands on a dead row.  The tile is the j-th set bit of
+    the mask (MASKED entries) or a row-major walk of the rect plus the exact
+    test: the alpha cutoff (``mode`` "mono") or the dual-eye q <= 9 test
+    ("stereo").  Returns (key1 (C,), key2 (C,), words (K, C)) int32 with the
     sentinel in both keys and zero words for dead slots, then the unclamped
     slot total and the overflow flag as 0-d int32 tensors.
     """
+    _check_mode(mode, words)
     d_hi, d_lo, idx_bits = key_plan.kernel_tuple
     dev = offsets.device
     n = rect.shape[0]
@@ -253,8 +493,12 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     t_x = min_tx + r
     tile = t_y * tiles_x + t_x
     w = [M.u32(x)[g] for x in words]
-    passes = _exact_tile_test(w[0], w[1], w[2], w[3], t_x, t_y, float(tile_w),
-                              float(tile_h), alpha_threshold) | is_masked
+    if mode == "stereo":
+        passes = _stereo_tile_test(w, t_x, t_y, float(tile_w), float(tile_h))
+    else:
+        passes = _exact_tile_test(w[0], w[1], w[2], w[3], t_x, t_y,
+                                  float(tile_w), float(tile_h), alpha_threshold)
+    passes = passes | is_masked
     dead = (slot >= total) | culled | ~passes
     dn = M.u32(dsw)[g]
     key1 = ((tile << d_hi) | (dn >> d_lo)) & M.U32
@@ -266,12 +510,14 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
 
 
 def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
-                      tiles_x: int, key_plan, tile_w: int = 16,
-                      tile_h: int = 16, alpha_threshold: float = 0.005):
+                      tiles_x: int, key_plan, mode: str = "mono",
+                      tile_w: int = 16, tile_h: int = 16,
+                      alpha_threshold: float = 0.005):
     """Launch the expand kernel of ``csrc/binning.cu`` (one thread per
     slot, upper-bound binary search over the offsets)."""
     if tile_w != 16 or tile_h != 16:
         raise NotImplementedError("the expand kernel takes 16x16 tiles only")
+    _check_mode(mode, words)
     dev = offsets.device
     n = rect.shape[0]
     _native.check(offsets, "offsets", torch.int32, (n + 1,), dev)
@@ -279,12 +525,12 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
                     *((f"w{k}", w) for k, w in enumerate(words))):
         _native.check(t, name, torch.int32, (n,), dev)
     d_hi, d_lo, idx_bits = key_plan.kernel_tuple
-    out = torch.empty((6, capacity), dtype=torch.int32, device=dev)
+    out = torch.empty((2 + len(words), capacity), dtype=torch.int32, device=dev)
     EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
-                  _native.ptr(dsw), *[_native.ptr(w) for w in words], n,
+                  _native.ptr(dsw), _native.ptr_array(words), len(words), n,
                   capacity, tiles_x, d_hi, d_lo, idx_bits,
                   M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
-                  M.f32(1.0 / 255.0), *[_native.ptr(out[k]) for k in range(6)])
+                  M.f32(1.0 / 255.0), _native.ptr(out))
     total = offsets[n]
     return out[0], out[1], out[2:], total, (total > capacity).to(torch.int32)
 

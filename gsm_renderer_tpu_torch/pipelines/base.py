@@ -7,7 +7,9 @@ first frame runs at the full model (4 x gaussians), the next frame reads the
 previous frame's unclamped slot total once (the only host read of a frame)
 and locks the capacity to 1.04 x that total, bucketed, re-reading every
 ``ADAPTIVE_REFRESH`` frames.  A frame whose demand exceeds its capacity
-drops instances, sets ``header.overflow`` and still renders.
+drops instances, sets ``header.overflow`` and still renders.  The row
+decomposition's virtual-row capacity follows the same contract
+(:meth:`GaussianRenderer.pick_row_capacity`).
 """
 
 from __future__ import annotations
@@ -67,6 +69,38 @@ class GaussianRenderer:
         bucket = max(4096, 1 << max(cap.bit_length() - 5, 0))
         cap = max(min(-(-cap // bucket) * bucket, 4 * full), 4096)
         self._cap_state[(kind, n)] = {"cap": cap, "age": 0}
+        return cap
+
+    #: full-model factor of the virtual-row capacity of the row
+    #: decomposition: every gaussian owns >= 1 row and an oversized rect owns
+    #: rect_h rows
+    ROW_CAPACITY_FACTOR = 2
+
+    def pick_row_capacity(self, n: int, kind: str = "mono") -> int:
+        """Virtual-row capacity for the next frame, with the margin, bucket
+        and refresh of :meth:`pick_capacity`, sized from ``header.row_total``
+        (read from the device once per lock-in / refresh).  Returns 0 -- run
+        the full-rect expansion instead -- when the measured row demand
+        exceeds 4x the full model."""
+        full = -(-self.ROW_CAPACITY_FACTOR * n // 4096) * 4096
+        if not self.adaptive_capacity:
+            return full
+        key = ("rows", kind, n)
+        state = self._cap_state.get(key)
+        if state is not None and state["age"] < ADAPTIVE_REFRESH:
+            state["age"] += 1
+            return state["cap"]
+        fb = self._cap_feedback.get((kind, n))
+        if fb is None or getattr(fb, "row_total", None) is None:
+            return full
+        total = int(fb.row_total)  # host read: once per lock-in / refresh
+        if total > 4 * full:
+            cap = 0
+        else:
+            cap = int(total * ADAPTIVE_MARGIN) + 4096
+            bucket = max(4096, 1 << max(cap.bit_length() - 5, 0))
+            cap = max(min(-(-cap // bucket) * bucket, 4 * full), 4096)
+        self._cap_state[key] = {"cap": cap, "age": 0}
         return cap
 
     def note_frame(self, n: int, header, kind: str = "mono") -> None:

@@ -1,7 +1,8 @@
-"""Shared pipeline machinery: record-word packing, the mono binning chain up
-to the instance sort, the sort itself, and sorted tile ids.
+"""Shared pipeline machinery: record-word packing, the binning chain up to
+the instance sort (mono, mono with the row decomposition, stereo), the sort
+itself, and sorted tile ids.
 
-Port of the packed mono branch of ``gsm_renderer_tpu/pipelines/common.py``.
+Port of the packed branch of ``gsm_renderer_tpu/pipelines/common.py``.
 The JAX package sorts the (key1, key2) pair with ``jax.lax.sort``; here one
 ``torch.sort`` on an int64 key ``((key1 ^ 0x80000000) << 32) | key2`` does
 it: flipping bit 31 of key1 keeps the unsigned order under the signed sort
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import mathlib as M
-from ..kernels.expand import SENTINEL, binning_prep, expand_slots
+from ..kernels.expand import SENTINEL, binning_prep, expand_slots, row_expand
 from ..types import RenderRecord
 
 
@@ -62,19 +63,33 @@ def unpack_record_words(words):
 
 
 def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
+                          mode: str = "mono", row_capacity: int = 0,
                           tile_w: int = 16, tile_h: int = 16,
                           alpha_threshold: float = 0.005):
-    """Prep + expand of a packed projection.  Returns (key1 (C,), key2
-    (C,), words (4, C)) int32, the unclamped slot total and the overflow
-    flag (0-d int32)."""
+    """Prep + (row expansion) + expand of a packed projection.
+
+    ``mode`` "mono" carries the 4 record words, "stereo" the 8 of a
+    :class:`StereoPackedProjection`.  ``row_capacity`` > 0 (mono only)
+    counts virtual rows at prep, narrows oversized rects to their exact
+    per-row spans and expands over the R = ``row_capacity`` rows; the
+    KeyPlan's index bits must then address R rows.  Returns (key1 (C,), key2
+    (C,), words (K, C)) int32, the unclamped slot total and the overflow
+    flag (0-d int32; with rows, also set when the row demand exceeds R)."""
+    if row_capacity > 0 and mode != "mono":
+        raise ValueError("the row decomposition is a mono binning mode")
+    kw = dict(tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
     offsets, rect, mask = binning_prep(packed.rect_word, packed.rect_h,
-                                       packed.words, tile_w=tile_w,
-                                       tile_h=tile_h,
-                                       alpha_threshold=alpha_threshold)
+                                       packed.words, mode=mode,
+                                       count_rows=row_capacity > 0, **kw)
+    dsw, words, row_overflow = packed.dsw, packed.words, None
+    if row_capacity > 0:
+        offsets, rect, mask, dsw, words, row_overflow = row_expand(
+            offsets, rect, mask, dsw, words, row_capacity=row_capacity, **kw)
     key1, key2, words, total, overflow = expand_slots(
-        offsets, rect, mask, packed.dsw, packed.words, capacity=capacity,
-        tiles_x=tiles_x, key_plan=key_plan, tile_w=tile_w, tile_h=tile_h,
-        alpha_threshold=alpha_threshold)
+        offsets, rect, mask, dsw, words, capacity=capacity, tiles_x=tiles_x,
+        key_plan=key_plan, mode=mode, **kw)
+    if row_overflow is not None:
+        overflow = torch.maximum(overflow, row_overflow)
     return (key1, key2, words), total, overflow
 
 
@@ -85,7 +100,7 @@ def sort_key64(key1, key2):
 
 def sort_instances(key1, key2, words):
     """Unstable instance sort by (key1, key2); returns (sorted int64 keys,
-    the (4, C) word table gathered into sorted order)."""
+    the (K, C) word table gathered into sorted order)."""
     sorted_key, order = torch.sort(sort_key64(key1, key2), stable=False)
     return sorted_key, words.index_select(1, order)
 

@@ -1,34 +1,40 @@
-"""DepthFirstRenderer: the flagship pipeline, mono.
+"""DepthFirstRenderer: the flagship pipeline, mono and side-by-side stereo.
 
 Port of ``gsm_renderer_tpu/pipelines/depth_first.py`` (``depth_first_frame``
-on its packed path with ``row_capacity=0``, ``DepthFirstRenderer.render`` and
-``_mono_render``).  A frame is
+on its packed path, ``depth_first_stereo_frame`` on its packed path,
+``DepthFirstRenderer.render`` / ``render_stereo``, ``_mono_render`` and
+``_stereo_render``).  A mono frame is
 
   1. project + cull + quantize + pack        kernels/project.py   (kernel 1)
   2. binning prep: masks, counts, scan       kernels/expand.py    (kernel 2)
-  3. slot expansion into KeyPlan keys        kernels/expand.py    (kernel 3)
-  4. unstable instance sort on an int64 key  pipelines/common.py  (torch.sort)
-  5. tile ranges                             ops/binning.py       (searchsorted)
-  6. blend + assemble                        kernels/blend.py     (kernel 4)
+  3. row expansion (``row_expand``)          kernels/expand.py    (kernel 3)
+  4. slot expansion into KeyPlan keys        kernels/expand.py    (kernel 4)
+  5. unstable instance sort on an int64 key  pipelines/common.py  (torch.sort)
+  6. tile ranges                             ops/binning.py       (searchsorted)
+  7. blend + assemble                        kernels/blend.py     (kernel 5)
 
-with no host read except the capacity lock-in (pipelines/base.py).  Options
-that are not ported yet raise NotImplementedError naming their ROADMAP item.
+A stereo frame projects both eyes in one pass (kernel 6), bins the union
+rects with the dual-eye q <= 9 test carrying 8 record words, and blends both
+eyes in one pass into an (H, 2W) image.  No host read except the capacity
+lock-in (pipelines/base.py).  Options that are not ported yet raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import config as cfg
 from ..kernels.blend import blend_image
-from ..kernels.expand import CULLED_BIT, MASK_H, MASK_W
-from ..kernels.project import cached_projection_inputs, project_and_cull_packed
+from ..kernels.expand import CULLED_BIT, MASK_H, MASK_W, STEREO_R2_CUTOFF
+from ..kernels.project import (cached_projection_inputs, project_and_cull_packed,
+                               stereo_project_and_cull_packed)
 from ..mathlib import u32
 from ..ops import binning as B
 from ..types import FrameHeader, RenderOutput
 from .base import GaussianRenderer
 from .common import binning_sort_operands, binning_sorted_tile, sort_instances
-
 
 def not_ported(what: str, item: str):
     """The error for an option of the JAX package that this package does not
@@ -48,23 +54,46 @@ def _row_demand(rect_word, rect_h):
     return torch.where(oversized, rect_h, 1).sum().to(torch.int32)
 
 
+def _mono_key_statics(n_gaussians: int, *, width, height, tile_w, tile_h,
+                      near_plane, far_plane, row_capacity: int = 0):
+    """The mono frame's KeyPlan (32-bit depth keys, 16-bit tile ids: the
+    fused depth16 key is not ported).  With ``row_capacity`` > 0 its index
+    bits address virtual rows; None when the index field no longer fits --
+    callers then run with ``row_capacity=0``."""
+    tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
+    key_n = row_capacity if row_capacity > 0 else n_gaussians
+    return B.make_key_plan(tiles_x * tiles_y, key_n, near_plane=near_plane,
+                           far_plane=far_plane)
+
+
 def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
                       height: int, capacity: int, sh_degree: int,
                       alpha_threshold: float, total_ink_threshold: float,
                       near_plane: float, far_plane: float,
                       input_is_srgb: bool, tile_w: int = 16, tile_h: int = 16,
-                      depth_mode: str = "weighted") -> RenderOutput:
+                      depth_mode: str = "weighted",
+                      row_capacity: int = 0) -> RenderOutput:
     """One mono DepthFirst frame on the device of ``gi``.  ``view``/``proj``
     (4, 4) and ``center`` (3,) are host arrays; ``prepared`` an optional
-    cached (comp, harm) projection layout."""
+    cached (comp, harm) projection layout.  ``row_capacity`` > 0 runs the
+    per-row exact-span decomposition of oversized rects over that many
+    virtual rows (bitwise-identical image, smaller slot volume) when the
+    row-addressing KeyPlan fits, else the full-rect expansion."""
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
     if num_tiles > 0xFFFF:
         raise ValueError(
             f"tile_id_precision BITS16 cannot address {num_tiles} tiles; use "
             "TileIdPrecision.BITS32")
-    key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
-                               far_plane=far_plane)
+    statics = dict(width=width, height=height, tile_w=tile_w, tile_h=tile_h,
+                   near_plane=near_plane, far_plane=far_plane)
+    key_plan = None
+    if row_capacity > 0:
+        key_plan = _mono_key_statics(gi.count, row_capacity=row_capacity,
+                                     **statics)
+    if key_plan is None:
+        row_capacity = 0
+        key_plan = _mono_key_statics(gi.count, **statics)
     if key_plan is None:
         raise not_ported("the stable-sort fallback (no tie-free KeyPlan fits)",
                          "Queue 1, Global and Local renderers")
@@ -78,7 +107,8 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
         key_plan=key_plan)
     (key1, key2, words), slot_total, overflow = binning_sort_operands(
         packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
-        tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
+        row_capacity=row_capacity, tile_w=tile_w, tile_h=tile_h,
+        alpha_threshold=alpha_threshold)
     sorted_key, table = sort_instances(key1, key2, words)
     sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
     starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
@@ -95,35 +125,116 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     return RenderOutput(color=color, depth=depth, header=header)
 
 
+def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
+                             prepared=None, *, width: int, height: int,
+                             capacity: int, sh_degree: int,
+                             alpha_threshold: float,
+                             total_ink_threshold: float, near_plane: float,
+                             far_plane: float, input_is_srgb: bool,
+                             tile_w: int = 16,
+                             tile_h: int = 16) -> RenderOutput:
+    """One side-by-side stereo DepthFirst frame on the device of ``gi``:
+    one shared instance list over the union of both eyes' tile rects, the
+    dual-eye q <= 9 tile test at expansion, and a single-pass dual-eye blend
+    with alpha zeroed past q = 9, composited into an (H, 2W) image.
+    ``views``/``projs`` (2, 4, 4), ``centers`` (2, 3) and
+    ``scene_transform`` (4, 4) are host arrays.  The header's
+    ``total_instances`` is the union-rect total of the visible gaussians;
+    ``row_total`` is None."""
+    tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
+    num_tiles = tiles_x * tiles_y
+    key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
+                               far_plane=far_plane)
+    if key_plan is None:
+        raise not_ported("the stable-sort stereo fallback (no tie-free "
+                         "KeyPlan fits)", "Queue 1, side-by-side stereo")
+    (key1, key2, words), slot_total, overflow, visible_count, total_live = \
+        _stereo_packed_ops(
+            gi, views, projs, centers, scene_transform, prepared, key_plan,
+            width=width, height=height, capacity=capacity, tiles_x=tiles_x,
+            sh_degree=sh_degree, alpha_threshold=alpha_threshold,
+            total_ink_threshold=total_ink_threshold, near_plane=near_plane,
+            far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
+            tile_h=tile_h)
+    sorted_key, table = sort_instances(key1, key2, words)
+    sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
+    starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
+    color, depth = blend_image(table, starts, counts, tiles_x=tiles_x,
+                               tiles_y=tiles_y, width=width, height=height,
+                               n_eyes=2, r2_cutoff=STEREO_R2_CUTOFF)
+    header = FrameHeader(visible_count=visible_count,
+                         total_instances=total_live, overflow=overflow,
+                         slot_total=slot_total)
+    return RenderOutput(color=color, depth=depth, header=header)
+
+
+def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
+                       key_plan, *, width, height, capacity, tiles_x,
+                       sh_degree, alpha_threshold, total_ink_threshold,
+                       near_plane, far_plane, input_is_srgb, tile_w, tile_h):
+    """Dual-eye projection + stereo prep / expand up to the sort operands.
+    Returns ((key1, key2, words (8, C)), slot_total, overflow,
+    visible_count, total_live = the union-rect total of the visible
+    gaussians)."""
+    pp = stereo_project_and_cull_packed(
+        gi, views, projs, centers, scene_transform, prepared=prepared,
+        width=width, height=height, tile_w=tile_w, tile_h=tile_h,
+        sh_degree=sh_degree, near_plane=near_plane, far_plane=far_plane,
+        alpha_threshold=alpha_threshold,
+        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
+        key_plan=key_plan)
+    ops, slot_total, overflow = binning_sort_operands(
+        pp, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
+        mode="stereo", tile_w=tile_w, tile_h=tile_h)
+    rect_w = (u32(pp.rect_word) >> 20) & 0x3FF
+    total_live = torch.where(pp.visible, rect_w * pp.rect_h, 0).sum()
+    return (ops, slot_total, overflow, pp.visible.sum().to(torch.int32),
+            total_live.to(torch.int32))
+
+
 class DepthFirstRenderer(GaussianRenderer):
     """Flagship renderer: depth-ordered tile lists from one instance sort."""
 
     _mono_key = "df"
+    _stereo_key = "df_stereo"
 
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
         return _mono_render(self, gi, camera, width, height)
 
-    def render_stereo(self, gi, camera, width, height):
-        raise not_ported("side-by-side stereo", "Queue 1, side-by-side stereo")
+    def render_stereo(self, gi, camera, width: int,
+                      height: int) -> RenderOutput:
+        """Side-by-side stereo: ``camera`` a :class:`StereoCameraParams`;
+        returns an (H, 2W) frame, the left eye first."""
+        return _stereo_render(self, gi, camera, width, height)
 
     def render_stereo_foveated(self, gi, camera, target):
         raise not_ported("foveated stereo", "Queue 1, foveated stereo")
 
 
-def _mono_render(self, gi, camera, width, height):
-    self.validate_inputs(gi, width, height)
-    c = self.config
-    if c.row_expand:
-        raise not_ported("row_expand=True (pass row_expand=False)",
-                         "Queue 2, row_expand_pallas")
+def _check_ported_options(c):
     if c.depth_sort_key_precision != cfg.DepthSortKeyPrecision.BITS32:
         raise not_ported("depth_sort_key_precision=BITS16",
                          "Queue 1, Global and Local renderers")
     if c.tile_id_precision != cfg.TileIdPrecision.BITS16:
         raise not_ported("tile_id_precision=BITS32",
                          "Queue 1, Global and Local renderers")
+
+
+def _sh_degree(c, gi):
+    return min(c.sh_degree, {1: 0, 4: 1, 9: 2, 16: 3}[gi.sh_n_coeffs])
+
+
+def _mono_render(self, gi, camera, width, height):
+    self.validate_inputs(gi, width, height)
+    c = self.config
+    _check_ported_options(c)
     n = gi.count
-    sh_degree = min(c.sh_degree, {1: 0, 4: 1, 9: 2, 16: 3}[gi.sh_n_coeffs])
+    tile_w, tile_h = cfg.DEPTH_FIRST_TILE
+    # depth_first_frame falls back to the full-rect path when the
+    # row-addressing KeyPlan does not fit
+    row_cap = (self.pick_row_capacity(n, kind=self._mono_key)
+               if c.row_expand else 0)
+    sh_degree = _sh_degree(c, gi)
     out = depth_first_frame(
         gi, camera.view_matrix, camera.projection_matrix, camera.position,
         cached_projection_inputs(gi, sh_degree),
@@ -133,9 +244,36 @@ def _mono_render(self, gi, camera, width, height):
         total_ink_threshold=c.total_ink_threshold,
         near_plane=camera.near_plane, far_plane=camera.far_plane,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
-        tile_w=cfg.DEPTH_FIRST_TILE[0], tile_h=cfg.DEPTH_FIRST_TILE[1],
-        depth_mode="weighted" if c.depth_output else "none")
+        tile_w=tile_w, tile_h=tile_h,
+        depth_mode="weighted" if c.depth_output else "none",
+        row_capacity=row_cap)
     self.note_frame(n, out.header, kind=self._mono_key)
+    return self.finalize_output(out)
+
+
+def _stereo_render(self, gi, camera, width, height):
+    self.validate_inputs(gi, width, height)
+    c = self.config
+    _check_ported_options(c)
+    n = gi.count
+    left, right = camera.left, camera.right
+    st = (np.eye(4, dtype=np.float32) if camera.scene_transform is None
+          else np.asarray(camera.scene_transform, np.float32))
+    sh_degree = _sh_degree(c, gi)
+    out = depth_first_stereo_frame(
+        gi, np.stack([left.view_matrix, right.view_matrix]),
+        np.stack([left.projection_matrix, right.projection_matrix]),
+        np.stack([left.position, right.position]), st,
+        cached_projection_inputs(gi, sh_degree),
+        width=width, height=height,
+        # union rects are expanded in full (the dual-eye test prunes them)
+        capacity=self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
+                                    kind=self._stereo_key),
+        sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
+        total_ink_threshold=c.total_ink_threshold,
+        near_plane=left.near_plane, far_plane=left.far_plane,
+        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB)
+    self.note_frame(n, out.header, kind=self._stereo_key)
     return self.finalize_output(out)
 
 

@@ -1,6 +1,7 @@
 """Whole-frame parity of gsm_renderer_tpu_torch's DepthFirstRenderer (mono,
-``row_expand=False``, on the CPU: the plain PyTorch versions of the kernels)
-against the JAX package and the NumPy oracle, plus the renderer's contract.
+``row_expand=False`` unless a test says otherwise, on the CPU: the plain
+PyTorch versions of the kernels) against the JAX package and the NumPy
+oracle, plus the renderer's contract.
 
 Tolerances:
 * vs JAX ``depth_first_frame(..., interpret=True, row_capacity=0)`` (the
@@ -194,7 +195,6 @@ def test_capacity_policy():
 
 
 @pytest.mark.parametrize("cfg,what", [
-    (dict(), "row_expand"),
     (dict(row_expand=False,
           depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16), "BITS16"),
     (dict(row_expand=False, tile_id_precision=T.TileIdPrecision.BITS32),
@@ -207,13 +207,36 @@ def test_unported_options_raise(cfg, what):
         r.render(gi, T.make_camera(64, 64), 64, 64)
 
 
+def test_default_config_renders():
+    """RendererConfig() (row_expand on) renders on the CPU, equal to the
+    rows-off frame."""
+    w, h = 96, 64
+    gi = generate_visible_gaussians(200, sh_degree=3).to_input(device="cpu")
+    cam = T.make_camera(w, h)
+    out = T.DepthFirstRenderer(T.RendererConfig(), device="cpu").render(
+        gi, cam, w, h)
+    base = renderer().render(gi, cam, w, h)
+    assert int(out.header.overflow) == 0 and int(out.header.visible_count) > 0
+    np.testing.assert_array_equal(out.color.numpy(), base.color.numpy())
+    np.testing.assert_array_equal(out.depth.numpy(), base.depth.numpy())
+
+
+def test_render_stereo_renders():
+    w, h = 96, 64
+    gi = generate_visible_gaussians(200, sh_degree=1).to_input(device="cpu")
+    out = renderer(sh_degree=1).render_stereo(
+        gi, T.make_side_by_side_stereo(T.make_camera(w, h)), w, h)
+    assert out.color.shape == (h, 2 * w, 4) and out.depth.shape == (h, 2 * w)
+    assert torch.isfinite(out.color).all()
+    assert float(out.color[:, :w, :3].max()) > 0.05
+    assert float(out.color[:, w:, :3].max()) > 0.05
+
+
 def test_unported_renderers_and_modes_raise():
     for cls in (T.GlobalRenderer, T.LocalRenderer, T.HardwareRenderer):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(device="cpu")
     r = renderer()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render_stereo(None, None, 64, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.render_stereo_foveated(None, None, None)
 
@@ -221,7 +244,11 @@ def test_unported_renderers_and_modes_raise():
 def test_import_loads_no_jax():
     """Importing the port pulls in neither jax nor the JAX package (a
     subprocess: this test process has jax loaded already)."""
-    code = ("import sys, gsm_renderer_tpu_torch, gsm_renderer_tpu_torch.interop; "
+    code = ("import sys, gsm_renderer_tpu_torch, gsm_renderer_tpu_torch.interop, "
+            "gsm_renderer_tpu_torch.io.scene, gsm_renderer_tpu_torch._native, "
+            "gsm_renderer_tpu_torch.kernels.expand, "
+            "gsm_renderer_tpu_torch.kernels.project, "
+            "gsm_renderer_tpu_torch.kernels.blend; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'jaxlib' or m == 'gsm_renderer_tpu' "
             "or m.startswith('gsm_renderer_tpu.')]; print(bad); "
