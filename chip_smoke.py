@@ -25,17 +25,32 @@ Phases (each raises on failure, and the script then exits non-zero):
 4. Side-by-side stereo through ``render_stereo``: the headline scene at
    1920x1080 per eye (a 1080x3840 frame), its own launch counts; requires
    overflow 0, a finite frame and both halves non-black.
+4f. Foveated stereo through ``render_stereo_foveated``: the same scene and
+   rig, the target ``make_rate_maps(1920, 1080, min_rate=0.4, radius=0.3)``
+   (physical 1767x994 per eye, a 994x3534 frame); 2 lock-in, 3 warm-up and
+   10 timed frames with launch counts of their own (stereo_project, prep,
+   expand and blend each > 0; bounds_gather runs fused into the prep);
+   requires overflow 0, a finite frame and both halves non-black; prints its
+   frame times, slot total and device split beside the stereo frame's, and
+   one timed line at min_rate 0.15.
 5. Each kernel and mode on the frames' own intermediate tensors (prep and
-   expand both as the rows-on and as the rows-off frame run them, and in
-   their stereo modes) against its plain PyTorch version on the card:
-   integer outputs equal
-   (counted mismatches capped at 1e-4 of the elements), float outputs
-   within 1e-3, the blends within 1e-4 on the 64 heaviest and 64 random
-   tiles.  Times kernel, plain version, the instance sort and the tile
-   ranges; computes each kernel's bound from this run's inputs.
+   expand both as the rows-on and as the rows-off frame run them, in their
+   stereo modes, and in mode "warped" on the foveated frame's tensors with
+   the bounds gather and the blend with pixel coordinates) against its
+   plain PyTorch version on the card: integer outputs equal (counted
+   mismatches capped at 1e-4 of the elements), float outputs within 1e-3
+   (the bounds gather's planes bit-equal, and they must reproduce the warped
+   prep's mask; the warped prep is also checked with lod_min 5), the blends
+   within 1e-4 on the 64 heaviest and 64 random tiles.  Times each kernel, plain
+   version, the instance sort and the tile ranges with CUDA events: kernels
+   and library calls queued behind a sleep kernel, so that the host's
+   per-call cost stays out; the plain versions, host-paced, as they run.
+   Computes each kernel's bound from this run's inputs.  For the blends and
+   the bounds gather it also prints CUDA-event times of the same calls,
+   back to back and with the L2 cache overwritten before each.
 6. Small frames (20k gaussians, 512x384) on the card vs the same renderer on
-   the CPU (plain versions): rows off, rows on and stereo; colour within
-   1e-3.
+   the CPU (plain versions): rows off, rows on, stereo and foveated
+   (min_rate 0.4); colour within 1e-3.
    After phase 2 a torch.profiler trace of 10 headline frames prints the
    device busy time and the kernel time by name.
 7. The last line is {"ok": true, "device": {...}}.
@@ -80,12 +95,17 @@ KERNEL_SOURCES = {
               "gsm_renderer_tpu/kernels/blend.py:335"),
     "stereo_project": ("gsm_renderer_tpu_torch/csrc/project.cu",
                        "gsm_renderer_tpu/kernels/project.py:493"),
+    "bounds_gather": ("gsm_renderer_tpu_torch/csrc/binning.cu",
+                      "gsm_renderer_tpu/kernels/expand.py:202"),
 }
 #: the kernels each path must launch
 MONO_ROWS_PATH = ("project", "prep", "row_expand", "expand", "blend")
 MONO_RECTS_PATH = ("project", "prep", "expand", "blend")
 STEREO_PATH = ("stereo_project", "prep", "expand", "blend")
+FOVEATED_PATH = ("stereo_project", "prep", "expand", "blend")
 W, H = 1920, 1080
+#: the foveated rate maps of the JAX bench's foveated rows
+FOV_MIN_RATE, FOV_RADIUS, FOV_MIN_RATE_LOW = 0.4, 0.3, 0.15
 
 
 def log(msg: str) -> None:
@@ -107,8 +127,27 @@ def cuda_ms(torch, fn, reps: int):
     return res, start.elapsed_time(end) / reps
 
 
-def device_kernel_ms(prof, reps: int) -> dict:
-    """Device time per call of every CUDA kernel a profiler saw, by name."""
+def cold_cuda_ms(torch, fn, reps: int, device) -> float:
+    """Mean ms per call over ``reps`` calls, each timed alone with CUDA
+    events after a 64 MiB fill has overwritten the L2 cache (50 MB): the
+    state a frame's stage finds after the stages before it."""
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=device)
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.fill_(0.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def device_kernel_stats(prof) -> dict:
+    """(device ms, launches) of every CUDA kernel a profiler saw, by name."""
     from torch.autograd import DeviceType
 
     out = {}
@@ -118,29 +157,57 @@ def device_kernel_ms(prof, reps: int) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+        ms, count = out.get(e.key, (0.0, 0))
+        out[e.key] = (ms + us / 1e3, count + e.count)
     return out
 
 
-def device_ms(torch, fn, reps: int):
-    """(last result, device ms per call): the summed device time of the
-    kernels ``fn`` launches, from a torch.profiler trace of ``reps`` calls
-    after one warm-up -- host gaps between the calls are excluded.  Falls
-    back to CUDA events around the calls if the profiler records no device
-    time, and says so."""
-    from torch.profiler import ProfilerActivity, profile
+_SLEEP_CYCLES_PER_MS = []
 
+
+def sleep_cycles_per_ms(torch) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond, measured once
+    with CUDA events."""
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def device_ms(torch, fn, reps: int):
+    """(last result, device ms per call) over ``reps`` calls after one
+    warm-up, timed with CUDA events.  A sleep kernel holds the device while
+    the host enqueues the calls, so they run back to back and the time
+    leaves out the host's per-call cost; where the host did not get ahead
+    (a call that waits on the device), it says so.  torch.profiler traces
+    are not used here: on the card they lost kernel records of repeated
+    calls."""
+    t0 = time.perf_counter()
     fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            res = fn()
-        torch.cuda.synchronize()
-    ms = sum(device_kernel_ms(prof, reps).values())
-    if ms > 0.0:
-        return res, ms
-    log("[timer] the profiler saw no device time: timing with CUDA events")
-    return cuda_ms(torch, fn, reps)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_cycles_per_ms(torch)
+                          * (1.5 * reps * host_ms + 0.5)))
+    start.record()
+    for _ in range(reps):
+        res = fn()
+    ahead = not start.query()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    if not ahead:
+        log(f"[timer] {ms:.4f} ms a call includes host gaps (the host took "
+            f"{host_ms:.3f} ms to enqueue one)")
+    return res, ms
 
 
 def mismatches(torch, pairs):
@@ -290,17 +357,23 @@ def trace_frames(torch, render, label: str, frames: int = 10):
             render()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((ms, name[:60]) for name, ms in
-                   device_kernel_ms(prof, frames).items()), reverse=True)
-    busy = sum(ms for ms, _ in rows)
+    rows = sorted(((ms / frames, name[:60], count) for name, (ms, count) in
+                   device_kernel_stats(prof).items()), reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
     if busy == 0.0:
         log(f"[{label}] the profiler recorded no device time: idle share "
             "not measured")
-        return
-    log(f"[{label}] " + json.dumps({
-        "frame_wall_ms": wall_ms / frames, "device_busy_ms": busy,
-        "idle_share": 1.0 - busy / (wall_ms / frames),
-        "kernels": [dict(ms=ms, name=name) for ms, name in rows[:16]]}))
+        return None
+    res = {"frame_wall_ms": wall_ms / frames, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / (wall_ms / frames),
+           "kernels": [dict(ms=ms, name=name, launches=count)
+                       for ms, name, count in rows[:16]],
+           # kernels a frame launches a fixed number of times, seen a number
+           # of times that is not a multiple of the frames: lost records
+           "uneven_launches": [name for _, name, count in rows
+                               if count % frames]}
+    log(f"[{label}] " + json.dumps(res))
+    return res
 
 
 def phase_realistic(torch, T, n: int = 1_000_000):
@@ -351,43 +424,91 @@ def phase_stereo(torch, T, kernels, hl):
     if tuple(out.color.shape) != (H, 2 * W, 4):
         raise RuntimeError(f"stereo: frame shape {tuple(out.color.shape)}")
     check_frame(torch, out, "stereo", halves=2)
-    trace_frames(torch, lambda: r.render_stereo(gi, stereo, W, H),
-                 "stereo trace", frames=5)
+    trace = trace_frames(torch, lambda: r.render_stereo(gi, stereo, W, H),
+                         "stereo trace", frames=5)
     return dict(r=r, stereo=stereo, out=out, capacity=capacity,
+                launches=launches, stats=stats, trace=trace)
+
+
+def phase_foveated(torch, T, kernels, hl, st):
+    """Foveated stereo: the headline scene and the stereo rig into the
+    physical target of the JAX bench's foveated row, then one timed line at
+    the aggressive rate map."""
+    r = T.DepthFirstRenderer(hl["cfg"])
+    target = T.make_rate_maps(W, H, min_rate=FOV_MIN_RATE, radius=FOV_RADIUS)
+    gi, n, stereo = hl["gi"], hl["n"], st["stereo"]
+    render = lambda: r.render_stereo_foveated(gi, stereo, target)
+    out, stats, launches = drive_path(
+        torch, kernels, FOVEATED_PATH, "foveated",
+        lambda: timed_frames(torch, render))
+    capacity = r._cap_state[(r._stereo_key + "_fov", n)]["cap"]
+    shape = (target.render_height, 2 * target.render_width, 4)
+    stats.update(capacity=capacity, shape=list(out.color.shape),
+                 min_rate=FOV_MIN_RATE)
+    if tuple(out.color.shape) != shape:
+        raise RuntimeError(f"foveated: frame shape {tuple(out.color.shape)}, "
+                           f"expected {shape}")
+    check_frame(torch, out, "foveated", halves=2)
+    trace = trace_frames(torch, render, "foveated trace", frames=5)
+
+    low = T.make_rate_maps(W, H, min_rate=FOV_MIN_RATE_LOW, radius=FOV_RADIUS)
+    r_low = T.DepthFirstRenderer(hl["cfg"])
+    out_low, low_stats = timed_frames(
+        torch, lambda: r_low.render_stereo_foveated(gi, stereo, low), n_timed=5)
+    low_stats.update(min_rate=FOV_MIN_RATE_LOW,
+                     shape=list(out_low.color.shape))
+    check_frame(torch, out_low, "foveated low rate", halves=2)
+    log("[foveated] " + json.dumps({
+        "foveated_frame_ms": stats, "stereo_frame_ms": st["stats"],
+        "foveated_low_rate_frame_ms": low_stats}))
+
+    def split(tr):
+        return None if tr is None else {
+            k["name"]: k["ms"] for k in tr["kernels"]}
+    log("[foveated] " + json.dumps({"device_split_ms": {
+        "foveated": split(trace), "stereo": split(st["trace"])},
+        "device_busy_ms": {
+            "foveated": None if trace is None else trace["device_busy_ms"],
+            "stereo": None if st["trace"] is None
+            else st["trace"]["device_busy_ms"]}}))
+    return dict(r=r, target=target, out=out, capacity=capacity,
                 launches=launches, stats=stats)
 
 
 def blend_subset_err(torch, KB, table, starts, counts, color, depth, *,
-                     tiles_x, tiles_y, w, h, n_eyes=1, r2_cutoff=0.0):
+                     tiles_x, tiles_y, w, h, n_eyes=1, r2_cutoff=0.0,
+                     pixel_coords=None):
     """Max |kernel - plain| over the 64 heaviest and 64 random tiles of
-    each eye (the kernel's (H, n_eyes * W) images against the plain
-    tiles)."""
+    each eye (the kernel's (H, n_eyes * W) images against the plain tiles;
+    pixels of the padded edge tiles, outside w x h, are not written)."""
     gen = torch.Generator().manual_seed(0)
     heavy = torch.argsort(counts.cpu(), descending=True)[:64]
     rand = torch.randperm(tiles_x * tiles_y, generator=gen)[:64]
     sub = torch.unique(torch.cat([heavy, rand])).to(counts.device)
     plain = KB.blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
-                                 tiles=sub, n_eyes=n_eyes, r2_cutoff=r2_cutoff)
+                                 tiles=sub, n_eyes=n_eyes, r2_cutoff=r2_cutoff,
+                                 pixel_coords=pixel_coords)
     eyes = plain if n_eyes == 2 else [plain]
     pix = torch.arange(256, device=sub.device)
     ys = (sub // tiles_x)[:, None] * 16 + pix[None, :] // 16
     xs = (sub % tiles_x)[:, None] * 16 + pix[None, :] % 16
-    inside = ys < h
+    inside = (ys < h) & (xs < w)
     err = 0.0
     for e, (sc, sd) in enumerate(eyes):
-        kc = color[ys.clamp(max=h - 1), xs + e * w]
-        kd = depth[ys.clamp(max=h - 1), xs + e * w]
+        kc = color[ys.clamp(max=h - 1), xs.clamp(max=w - 1) + e * w]
+        kd = depth[ys.clamp(max=h - 1), xs.clamp(max=w - 1) + e * w]
         err = max(err, float((kc - sc).abs()[inside].max()),
                   float((kd - sd).abs()[inside].max()))
     return err
 
 
-def phase_kernels(torch, T, hl, st):
+def phase_kernels(torch, T, hl, st, fv):
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.kernels import project as KP
     from gsm_renderer_tpu_torch.ops import binning as OB
     from gsm_renderer_tpu_torch.pipelines import common as PC
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
     import numpy as np
 
     n, w, h, cam, cfg = hl["n"], hl["w"], hl["h"], hl["cam"], hl["cfg"]
@@ -427,16 +548,36 @@ def phase_kernels(torch, T, hl, st):
         return float((torch.clamp((rw >> 20) & 0x3FF, max=8)
                       * torch.clamp(rect_h.to(torch.int64), max=4)).sum())
 
-    def tested_slots(off, rect):
+    def tested_slots(off, rect, masked_too=False):
         counts_g = (off[1:] - off[:-1]).to(torch.int64)
         ru = rect.to(torch.int64) & 0xFFFFFFFF
+        if masked_too:  # the warped expand re-tests MASKED entries
+            return float(counts_g[((ru >> 30) & 1) == 0].sum())
         return float(counts_g[((ru >> 30) & 3) == 0].sum())  # unmasked, live
 
     mono_l, st_l = hl["launches"], st["launches"]
+    timing_check = {}
+
+    def time_check(name, fn, ms):
+        # the table's time beside CUDA-event times of the same calls queued
+        # as the host goes (no sleep ahead of them), then one at a time
+        # after the L2 cache is overwritten, and what a torch.profiler trace
+        # of 10 calls records
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        seen = device_kernel_stats(prof).values()
+        timing_check[name] = dict(
+            ms=ms, events_ms=cuda_ms(torch, fn, 10)[1],
+            cold_events_ms=cold_cuda_ms(torch, fn, 10, comp.device),
+            trace=dict(ms=sum(t for t, _ in seen) / 10,
+                       launches=sum(c for _, c in seen)))
 
     # kernel 1: project (with the row-addressing KeyPlan of the frame)
     pk, ms = device_ms(torch, lambda: KP.project_cuda(*args, **pkw), 20)
-    pp, plain_ms = device_ms(torch, lambda: KP.project_plain(*args, **pkw), 3)
+    pp, plain_ms = cuda_ms(torch, lambda: KP.project_plain(*args, **pkw), 3)
     err, flips = check_ints("project", [
         (pk.rect_word, pp.rect_word), (pk.rect_h, pp.rect_h), (pk.dsw, pp.dsw),
         (pk.visible, pp.visible)] + list(zip(pk.words, pp.words)))
@@ -447,7 +588,7 @@ def phase_kernels(torch, T, hl, st):
     prep_in = (pk.rect_word, pk.rect_h, pk.words)
     (off, rect, mask), ms = device_ms(
         torch, lambda: KE.binning_prep_cuda(*prep_in, count_rows=True), 20)
-    (off_p, rect_p, mask_p), plain_ms = device_ms(
+    (off_p, rect_p, mask_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*prep_in, count_rows=True), 3)
     err, flips = check_ints("prep", [(off, off_p), (rect, rect_p), (mask, mask_p)])
     record("prep", "prep", mono_l["prep"], ms, plain_ms, err, flips,
@@ -459,7 +600,7 @@ def phase_kernels(torch, T, hl, st):
     rkw = dict(row_capacity=r_cap)
     row_in = (off, rect, mask, pk.dsw, pk.words)
     rk, ms = device_ms(torch, lambda: KE.row_expand_cuda(*row_in, **rkw), 20)
-    rp, plain_ms = device_ms(torch, lambda: KE.row_expand_plain(*row_in, **rkw), 3)
+    rp, plain_ms = cuda_ms(torch, lambda: KE.row_expand_plain(*row_in, **rkw), 3)
     err, flips = check_ints("row_expand", [
         (rk[0], rp[0]), (rk[1], rp[1]), (rk[2], rp[2]), (rk[3], rp[3]),
         (rk[5], rp[5])] + list(zip(rk[4], rp[4])))
@@ -478,7 +619,7 @@ def phase_kernels(torch, T, hl, st):
     ekw = dict(capacity=cap, tiles_x=tiles_x, key_plan=plan)
     exp_in = (rk[0], rk[1], rk[2], rk[3], rk[4])
     ek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp_in, **ekw), 20)
-    ep, plain_ms = device_ms(torch, lambda: KE.expand_slots_plain(*exp_in, **ekw), 3)
+    ep, plain_ms = cuda_ms(torch, lambda: KE.expand_slots_plain(*exp_in, **ekw), 3)
     # key1, key2, the (4, C) words, the slot total and the overflow flag
     err, flips = check_ints("expand", list(zip(ek, ep)))
     record("expand", "expand", mono_l["expand"], ms, plain_ms, err, flips,
@@ -501,11 +642,12 @@ def phase_kernels(torch, T, hl, st):
 
     # kernel 5: blend (the staged frame must reproduce the renderer's frame)
     bkw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=w, height=h)
-    (color, depth), ms = device_ms(
-        torch, lambda: KB.blend_image_cuda(table, starts, counts, **bkw), 10)
+    blend_fn = lambda: KB.blend_image_cuda(table, starts, counts, **bkw)
+    (color, depth), ms = device_ms(torch, blend_fn, 10)
+    time_check("blend", blend_fn, ms)
     if not torch.equal(color, hl["out"].color):
         raise RuntimeError("staged frame differs from the renderer's frame")
-    (pc, pd, processed), plain_ms = device_ms(
+    (pc, pd, processed), plain_ms = cuda_ms(
         torch, lambda: KB.blend_tiles_plain(table, starts, counts,
                                             tiles_x=tiles_x,
                                             return_processed=True), 1)
@@ -539,7 +681,7 @@ def phase_kernels(torch, T, hl, st):
     prep0_in = (pk0.rect_word, pk0.rect_h, pk0.words)
     (off0, rect0, mask0), ms = device_ms(
         torch, lambda: KE.binning_prep_cuda(*prep0_in, count_rows=False), 20)
-    (off0_p, rect0_p, mask0_p), plain_ms = device_ms(
+    (off0_p, rect0_p, mask0_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*prep0_in, count_rows=False), 3)
     err, flips = check_ints("prep.rows_off", [(off0, off0_p), (rect0, rect0_p),
                                               (mask0, mask0_p)])
@@ -550,7 +692,7 @@ def phase_kernels(torch, T, hl, st):
     ekw0 = dict(capacity=cap0, tiles_x=tiles_x, key_plan=plan0)
     exp0_in = (off0, rect0, mask0, pk0.dsw, pk0.words)
     ek0, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp0_in, **ekw0), 20)
-    ep0, plain_ms = device_ms(torch,
+    ep0, plain_ms = cuda_ms(torch,
                               lambda: KE.expand_slots_plain(*exp0_in, **ekw0), 3)
     err, flips = check_ints("expand.rows_off", list(zip(ek0, ep0)))
     record("expand.rows_off", "expand", off_l["expand"], ms, plain_ms, err,
@@ -574,7 +716,7 @@ def phase_kernels(torch, T, hl, st):
     sargs = (comp, harm, views, projs, centers, np.eye(4, dtype=np.float32))
     skw = dict(pkw, key_plan=st_plan)
     sk, ms = device_ms(torch, lambda: KP.stereo_project_cuda(*sargs, **skw), 20)
-    sp, plain_ms = device_ms(torch, lambda: KP.stereo_project_plain(*sargs, **skw), 3)
+    sp, plain_ms = cuda_ms(torch, lambda: KP.stereo_project_plain(*sargs, **skw), 3)
     err, flips = check_ints("stereo_project", [
         (sk.rect_word, sp.rect_word), (sk.rect_h, sp.rect_h), (sk.dsw, sp.dsw),
         (sk.visible, sp.visible)] + list(zip(sk.words, sp.words)))
@@ -590,7 +732,7 @@ def phase_kernels(torch, T, hl, st):
     sprep_in = (sk.rect_word, sk.rect_h, sk.words)
     (soff, srect, smask), ms = device_ms(
         torch, lambda: KE.binning_prep_cuda(*sprep_in, mode="stereo"), 20)
-    (soff_p, srect_p, smask_p), plain_ms = device_ms(
+    (soff_p, srect_p, smask_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*sprep_in, mode="stereo"), 3)
     err, flips = check_ints("prep.stereo", [(soff, soff_p), (srect, srect_p),
                                             (smask, smask_p)])
@@ -604,7 +746,7 @@ def phase_kernels(torch, T, hl, st):
     sekw = dict(capacity=scap, tiles_x=tiles_x, key_plan=st_plan, mode="stereo")
     sexp_in = (soff, srect, smask, sk.dsw, sk.words)
     sek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*sexp_in, **sekw), 20)
-    sep, plain_ms = device_ms(torch,
+    sep, plain_ms = cuda_ms(torch,
                               lambda: KE.expand_slots_plain(*sexp_in, **sekw), 3)
     err, flips = check_ints("expand.stereo", list(zip(sek, sep)))
     record("expand.stereo", "expand", st_l["expand"], ms, plain_ms, err, flips,
@@ -617,12 +759,12 @@ def phase_kernels(torch, T, hl, st):
     s_tile = PC.binning_sorted_tile(s_sorted, plan_tuple=st_plan.kernel_tuple)
     s_starts, s_counts = OB.extract_tile_ranges(s_tile, tiles_x * tiles_y)
     sbkw = dict(bkw, n_eyes=2, r2_cutoff=9.0)
-    (scolor, sdepth), ms = device_ms(
-        torch, lambda: KB.blend_image_cuda(s_table, s_starts, s_counts, **sbkw),
-        10)
+    blend_fn = lambda: KB.blend_image_cuda(s_table, s_starts, s_counts, **sbkw)
+    (scolor, sdepth), ms = device_ms(torch, blend_fn, 10)
+    time_check("blend.stereo", blend_fn, ms)
     if not torch.equal(scolor, st["out"].color):
         raise RuntimeError("staged stereo frame differs from the renderer's")
-    (_eyes, sprocessed), plain_ms = device_ms(
+    (_eyes, sprocessed), plain_ms = cuda_ms(
         torch, lambda: KB.blend_tiles_plain(s_table, s_starts, s_counts,
                                             tiles_x=tiles_x, n_eyes=2,
                                             r2_cutoff=9.0,
@@ -642,8 +784,112 @@ def phase_kernels(torch, T, hl, st):
                                    "expand.stereo", "blend.stereo")},
         "records_composited": float(sprocessed.sum()),
         "live_instances": s_live}))
+
+    # kernel 7 and the warped modes of 2, 4 and 5 on the foveated frame's
+    # tensors: the display-size projection with the physical KeyPlan, then
+    # the re-binning, as render_stereo_foveated runs them
+    fv_l, target = fv["launches"], fv["target"]
+    tables = PD.foveated_device_tables(target, comp.device)
+    bounds = tables["bounds"]
+    lod = hl["cfg"].foveated_lod
+    pw, ph = target.render_width, target.render_height
+    ftx, fty = -(-pw // 16), -(-ph // 16)
+    f_plan = OB.make_key_plan(ftx * fty, n, near_plane=cam.near_plane,
+                              far_plane=cam.far_plane)
+    fpk, _ = PD.foveated_packed(
+        KP.stereo_project_cuda(*sargs, **dict(pkw, key_plan=f_plan)),
+        tables["inv_fit"], tiles_x=ftx, tiles_y=fty)
+    fru = fpk.rect_word.to(torch.int64) & 0xFFFFFFFF
+    f_min_tx = (fru & 0x3FF).to(torch.int32)
+    f_min_ty = ((fru >> 10) & 0x3FF).to(torch.int32)
+    gather_fn = lambda: KE.warped_bounds_gather_cuda(bounds, f_min_tx, f_min_ty)
+    (gfx, gfy), ms = device_ms(torch, gather_fn, 20)
+    time_check("bounds_gather", gather_fn, ms)
+    (pfx, pfy), plain_ms = cuda_ms(
+        torch, lambda: KE.warped_bounds_gather_plain(bounds, f_min_tx, f_min_ty),
+        3)
+    for a, b in zip(gfx + gfy, pfx + pfy):
+        if not torch.equal(a, b):
+            raise RuntimeError("bounds_gather: kernel differs from plain")
+    record("bounds_gather", "bounds_gather", fv_l["bounds_gather"], ms,
+           plain_ms, 0.0, 0.0, 2 * 128 * 4 + 2 * 4 * n + 14 * 4 * n, 0.0)
+
+    fprep_in = (fpk.rect_word, fpk.rect_h, fpk.words)
+    fprep_kw = dict(mode="warped", warped_bounds=bounds, lod_min=lod)
+    (foff, frect, fmask), ms = device_ms(
+        torch, lambda: KE.binning_prep_cuda(*fprep_in, **fprep_kw), 20)
+    (foff_p, frect_p, fmask_p), plain_ms = cuda_ms(
+        torch, lambda: KE.binning_prep_plain(*fprep_in, **fprep_kw), 3)
+    err, flips = check_ints("prep.warped", [(foff, foff_p), (frect, frect_p),
+                                            (fmask, fmask_p)])
+    # the gather's planes reproduce the kernel's masks through the plain
+    # warped masks
+    w64 = [x.to(torch.int64) & 0xFFFFFFFF for x in fpk.words]
+    gmask, _ = KE.stereo_warped_tile_masks(
+        w64[0:3], w64[4:7], (fru >> 20) & 0x3FF, fpk.rect_h.to(torch.int64),
+        gfx, gfy, w3=w64[3], lod_min=lod)
+    check_ints("prep.warped mask from bounds_gather", [(gmask, fmask)])
+    # the periphery LOD (foveated_lod > 0) on the same tensors
+    lod_kw = dict(fprep_kw, lod_min=5.0)
+    check_ints("prep.warped lod_min=5", list(zip(
+        KE.binning_prep_cuda(*fprep_in, **lod_kw),
+        KE.binning_prep_plain(*fprep_in, **lod_kw))))
+    record("prep.warped", "prep", fv_l["prep"], ms, plain_ms, err, flips,
+           # words 0-2 and 4-6 (w3 only with the LOD on), the bounds table
+           (2 + 6 + (lod > 0) + 3) * 4 * n + 4 + 2 * 128 * 4,
+           2 * PREP_DECODE_FLOPS * n
+           + 2 * TILE_TEST_FLOPS * tile_tests(fpk.rect_word, fpk.rect_h))
+
+    fcap = fv["capacity"]
+    fekw = dict(capacity=fcap, tiles_x=ftx, key_plan=f_plan, mode="warped",
+                warped_bounds=bounds)
+    fexp_in = (foff, frect, fmask, fpk.dsw, fpk.words)
+    fek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*fexp_in, **fekw), 20)
+    fep, plain_ms = cuda_ms(torch,
+                              lambda: KE.expand_slots_plain(*fexp_in, **fekw), 3)
+    err, flips = check_ints("expand.warped", list(zip(fek, fep)))
+    record("expand.warped", "expand", fv_l["expand"], ms, plain_ms, err, flips,
+           (n + 1) * 4 + (3 + 7) * 4 * n + 10 * 4 * fcap + 2 * 128 * 4,
+           (2 * EXPAND_DECODE_FLOPS + 2 * TILE_TEST_FLOPS)
+           * tested_slots(foff, frect, masked_too=True))
+
+    f_sorted, f_table = PC.sort_instances(fek[0], fek[1], fek[2])
+    f_tile = PC.binning_sorted_tile(f_sorted, plan_tuple=f_plan.kernel_tuple)
+    f_starts, f_counts = OB.extract_tile_ranges(f_tile, ftx * fty)
+    coords = (tables["coord_x"], tables["coord_y"])
+    fbkw = dict(tiles_x=ftx, tiles_y=fty, width=pw, height=ph, n_eyes=2,
+                r2_cutoff=9.0, pixel_coords=coords)
+    blend_fn = lambda: KB.blend_image_cuda(f_table, f_starts, f_counts, **fbkw)
+    (fcolor, fdepth), ms = device_ms(torch, blend_fn, 10)
+    time_check("blend.warped", blend_fn, ms)
+    if not torch.equal(fcolor, fv["out"].color):
+        raise RuntimeError("staged foveated frame differs from the renderer's")
+    (_eyes, fprocessed), plain_ms = cuda_ms(
+        torch, lambda: KB.blend_tiles_plain(f_table, f_starts, f_counts,
+                                            tiles_x=ftx, n_eyes=2,
+                                            r2_cutoff=9.0, pixel_coords=coords,
+                                            return_processed=True), 1)
+    err = blend_subset_err(torch, KB, f_table, f_starts, f_counts, fcolor,
+                           fdepth, tiles_x=ftx, tiles_y=fty, w=pw, h=ph,
+                           n_eyes=2, r2_cutoff=9.0, pixel_coords=coords)
+    if err > 1e-4:
+        raise RuntimeError(f"blend.warped: kernel vs plain max |d| {err}")
+    f_live = int(f_counts.sum())
+    record("blend.warped", "blend", fv_l["blend"], ms, plain_ms, err, 0.0,
+           32 * f_live + 8 * ftx * fty + 2 * (16 + 4) * pw * ph
+           + (ftx + fty) * 256 * 4,
+           2 * BLEND_DECODE_FLOPS * float(fprocessed.sum())
+           + 2 * BLEND_PAIR_FLOPS * 256.0 * float(fprocessed.sum()))
+    log("[stages] " + json.dumps({"foveated_stage_ms": {
+        k: rows[k]["ms"] for k in ("prep.warped", "expand.warped",
+                                   "blend.warped")},
+        "records_composited": float(fprocessed.sum()),
+        "live_instances": f_live, "tiles": [ftx, fty]}))
+    log("[timing check] " + json.dumps(timing_check))
     order = ("project", "prep", "prep.rows_off", "row_expand", "expand",
-             "expand.rows_off", "blend", "stereo_project", "prep.stereo", "expand.stereo", "blend.stereo")
+             "expand.rows_off", "blend", "stereo_project", "prep.stereo",
+             "expand.stereo", "blend.stereo", "bounds_gather", "prep.warped",
+             "expand.warped", "blend.warped")
     return [rows[k] for k in order], other
 
 
@@ -656,13 +902,18 @@ def phase_small(torch, T):
     cam = T.make_camera(w, h, far=50.0)
     gi_g, gi_c = ds.to_input(), ds.to_input(device="cpu")
     stereo = T.make_side_by_side_stereo(cam, ipd=0.1)
-    for label, rows, stereo_frame in (("rows off", False, False),
-                                      ("rows on", True, False),
-                                      ("stereo", True, True)):
+    target = T.make_rate_maps(w, h, min_rate=FOV_MIN_RATE, radius=FOV_RADIUS)
+    for label, rows, frame in (("rows off", False, "mono"),
+                               ("rows on", True, "mono"),
+                               ("stereo", True, "stereo"),
+                               ("foveated", True, "foveated")):
         cfg = T.RendererConfig(sh_degree=3, precision=T.Precision.FLOAT32,
                                max_width=w, max_height=h, row_expand=rows)
         rg, rc = T.DepthFirstRenderer(cfg), T.DepthFirstRenderer(cfg, device="cpu")
-        if stereo_frame:
+        if frame == "foveated":
+            og = rg.render_stereo_foveated(gi_g, stereo, target)
+            oc = rc.render_stereo_foveated(gi_c, stereo, target)
+        elif frame == "stereo":
             og = rg.render_stereo(gi_g, stereo, w, h)
             oc = rc.render_stereo(gi_c, stereo, w, h)
         else:
@@ -696,7 +947,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = [project.PROJECT, expand.PREP, expand.ROW_EXPAND, expand.EXPAND,
-               blend.BLEND, project.STEREO_PROJECT]
+               blend.BLEND, project.STEREO_PROJECT, expand.BOUNDS_GATHER]
     t0 = time.perf_counter()
     smi = phase_build(_native)
     hl = phase_headline(torch, T, kernels)
@@ -704,7 +955,8 @@ def main() -> int:
                  "trace")
     phase_realistic(torch, T)
     st = phase_stereo(torch, T, kernels, hl)
-    rows, other = phase_kernels(torch, T, hl, st)
+    fv = phase_foveated(torch, T, kernels, hl, st)
+    rows, other = phase_kernels(torch, T, hl, st, fv)
     phase_small(torch, T)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"library_ops": other}))

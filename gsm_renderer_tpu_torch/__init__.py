@@ -15,6 +15,8 @@ from .interop import (camera_from_numpy, gaussian_input_from_numpy,
                       stereo_camera_from_numpy)
 from .pipelines import (DepthFirstRenderer, GaussianRenderer, GlobalRenderer,
                         HardwareRenderer, LocalRenderer)
+from .stereo import (FoveatedStereoTarget, compress_foveated, expand_foveated,
+                     foveated_raster_tables, make_rate_maps, warp_tables)
 from .types import (FrameHeader, GaussianInput, RendererError, RenderOutput,
                     make_gaussian_input)
 
@@ -29,6 +31,8 @@ __all__ = [
     "stereo_camera_from_numpy",
     "DepthFirstRenderer", "GaussianRenderer", "GlobalRenderer",
     "HardwareRenderer", "LocalRenderer",
+    "FoveatedStereoTarget", "compress_foveated", "expand_foveated",
+    "foveated_raster_tables", "make_rate_maps", "warp_tables",
     "FrameHeader", "GaussianInput", "RendererError", "RenderOutput",
     "make_gaussian_input",
 ]

@@ -1,11 +1,14 @@
-// Binning kernels: prep (kernel 2), row expansion (kernel 3) and slot
-// expansion (kernel 4), for the mono (4 record words) and stereo (8 words:
-// the left record, then the right; w3 shared) tables with KeyPlan keys.
+// Binning kernels: prep (kernel 2), row expansion (kernel 3), slot
+// expansion (kernel 4) and the foveated bounds gather (kernel 7), for the
+// mono (4 record words), stereo and warped (8 words: the left record, then
+// the right; w3 shared) tables with KeyPlan keys.
 //
 // Prep replaces the Pallas kernel gsm_renderer_tpu/kernels/expand.py::
-// _prep_kernel (binning_prep_pallas, modes "mono" and "stereo", option
-// count_rows): per gaussian, the exact 8x4 tile mask (up to 32 minQuadRect
-// tests: <= the alpha d2 cutoff in mono, either eye <= 9 in stereo), its
+// _prep_kernel (binning_prep_pallas, modes "mono", "stereo" and "warped",
+// options count_rows and lod_min): per gaussian, the exact 8x4 tile mask
+// (up to 32 minQuadRect tests: <= the alpha d2 cutoff in mono, either eye
+// <= 9 in stereo and warped; warped tests the display-space rect of each
+// physical tile and, with lod_min > 0, applies the periphery LOD drop), its
 // popcount, the MASKED / CULLED bits and the count -- instances, or virtual
 // tile rows under count_rows (every gaussian owns >= 1); then the global
 // exclusive scan of the counts.  The Pallas kernel carries the scan across
@@ -31,16 +34,33 @@
 // tail repeats the total, and since slot < total the search, which keeps
 // offsets[lo] <= slot < offsets[hi], never stops on a dead row.  The tile is
 // the j-th set bit of the mask (MASKED entries) or the row-major walk of the
-// rect plus the exact test (mono alpha cutoff, stereo either eye q <= 9).
+// rect plus the exact test (mono alpha cutoff, stereo either eye q <= 9,
+// warped the same on the tile's display-space rect; under the warp MASKED
+// entries are re-tested, as the Pallas kernel does, so that a mask made
+// elsewhere, a widened one included, puts no failing tile in the blend).
 // Keys: key1 = [tile | depth_hi], key2 = [depth_lo | entry index]; dead
 // slots (slot >= total, culled entry, failed test) get the sentinel in both
 // keys and zero words.  Slots at or beyond the capacity are not written (the
 // grid covers the capacity); the caller derives overflow = total > capacity.
 //
+// Bounds gather replaces _bgather_kernel (warped_bounds_gather_pallas): one
+// thread per gaussian reads the 9 x and 5 y display coordinates of the
+// physical tile boundaries min_t + d of its window, bounds[axis][min(min_t +
+// d, 127)], from the (2, 128) float table staged in shared memory (1 KB),
+// and writes 14 planes.  The gather is the device function window_bounds,
+// which the warped prep calls itself (the JAX production path fuses it the
+// same way), so the standalone kernel runs only for callers that want the
+// planes.
+//
+// The warped modes read the bounds table from shared memory: every thread
+// of the block stages part of it and passes one barrier before any thread
+// leaves.
+//
 // Bounds on the H100.  Prep: float operations (32 tests of ~65 flops for a
-// gaussian whose rect fills the window, twice in stereo) against 36-52 B of
-// traffic per gaussian.  Row expansion: device memory (~40 B read and 32 B
-// written per row, ~100 flops for the span).  Expand: device memory (24-40 B
+// gaussian whose rect fills the window, twice in stereo and warped) against
+// 36-52 B of traffic per gaussian.  Bounds gather: device memory (8 B
+// read, 56 B written per gaussian).  Row expansion: device memory (~40 B
+// read and 32 B written per row, ~100 flops for the span).  Expand: device memory (24-40 B
 // written per slot); the binary search's ~21 dependent loads hit L2 (the
 // offsets of 1-2M entries are 4-8 MB).  All are one thread per element,
 // coalesced.
@@ -51,6 +71,13 @@ namespace {
 constexpr int kPrepThreads = 256;
 constexpr int kScanThreads = 1024;
 constexpr float kStereoR2Cutoff = 9.0f;
+constexpr int kBoundsLanes = 128;
+
+// Binning modes: the record words they carry and the test they apply.
+enum Mode { kMono = 0, kStereo = 1, kWarped = 2 };
+
+template <int kMode>
+__host__ __device__ constexpr int words_of() { return kMode == kMono ? 4 : 8; }
 
 struct WordPtrs {
   const int32_t* w[8];
@@ -103,6 +130,99 @@ __device__ __forceinline__ uint32_t word(const WordPtrs& W, int k, int i) {
   return static_cast<uint32_t>(W.w[k][i]);
 }
 
+// Copy the (2, 128) bounds table into shared memory; every thread of the
+// block calls it, and it ends in a barrier.
+__device__ __forceinline__ void stage_bounds(const float* __restrict__ bounds,
+                                             float* sb) {
+  for (int k = threadIdx.x; k < 2 * kBoundsLanes; k += blockDim.x) {
+    sb[k] = bounds[k];
+  }
+  __syncthreads();
+}
+
+// Entry t of one axis row of the bounds table, the index clamped to the row.
+__device__ __forceinline__ float bound_at(const float* row, int t) {
+  return row[min(max(t, 0), kBoundsLanes - 1)];
+}
+
+// Kernel 7's gather: the display coordinates of the physical tile
+// boundaries min_tx + 0..8 and min_ty + 0..4 of a gaussian's 8x4 window.
+__device__ __forceinline__ void window_bounds(const float* sb, int min_tx,
+                                              int min_ty,
+                                              float fx[GSM_MASK_W + 1],
+                                              float fy[GSM_MASK_H + 1]) {
+#pragma unroll
+  for (int d = 0; d <= GSM_MASK_W; ++d) fx[d] = bound_at(sb, min_tx + d);
+#pragma unroll
+  for (int d = 0; d <= GSM_MASK_H; ++d) {
+    fy[d] = bound_at(sb + kBoundsLanes, min_ty + d);
+  }
+}
+
+// out: (GSM_MASK_W + 1 + GSM_MASK_H + 1, n) = fx planes, then fy planes.
+__global__ void bounds_gather_kernel(const float* __restrict__ bounds,
+                                     const int32_t* __restrict__ min_tx,
+                                     const int32_t* __restrict__ min_ty, int n,
+                                     float* __restrict__ out) {
+  __shared__ float sb[2 * kBoundsLanes];
+  stage_bounds(bounds, sb);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float fx[GSM_MASK_W + 1], fy[GSM_MASK_H + 1];
+  window_bounds(sb, min_tx[i], min_ty[i], fx, fy);
+  const size_t N = static_cast<size_t>(n);
+#pragma unroll
+  for (int d = 0; d <= GSM_MASK_W; ++d) out[d * N + i] = fx[d];
+#pragma unroll
+  for (int d = 0; d <= GSM_MASK_H; ++d) out[(GSM_MASK_W + 1 + d) * N + i] = fy[d];
+}
+
+// Warped 8x4 window mask: position (dx, dy) tests both eyes' records
+// against the display-space rect [fx[dx], fx[dx + 1]] x [fy[dy], fy[dy + 1]]
+// (q <= 9), and with lod_min > 0 drops it where op * max_eye(s1 * s2) * ar
+// < lod_min * (1 - min(ar, 1)), ar = (16 / rect width) * (16 / rect height)
+// (expand.py::stereo_warped_tile_masks).
+__device__ __forceinline__ uint32_t warped_window_mask(
+    const WordPtrs& W, int i, int min_tx, int min_ty, int rect_w, int rh,
+    const float* sb, float lod_min, float theta_unit, float inv255) {
+  const uint32_t l1 = word(W, 1, i), l2 = word(W, 2, i);
+  const uint32_t r1 = word(W, 5, i), r2 = word(W, 6, i);
+  const Conic kl = decode_conic(word(W, 0, i), l1, l2, theta_unit);
+  const Conic kr = decode_conic(word(W, 4, i), r1, r2, theta_unit);
+  float fx[GSM_MASK_W + 1], fy[GSM_MASK_H + 1];
+  window_bounds(sb, min_tx, min_ty, fx, fy);
+  float ink = 0.0f;
+  if (lod_min > 0.0f) {
+    const float s1l = jmax(f16_bits_to_f32(l1 >> 16), 1e-4f);
+    const float s2l = jmax(f16_bits_to_f32(l2), 1e-4f);
+    const float s1r = jmax(f16_bits_to_f32(r1 >> 16), 1e-4f);
+    const float s2r = jmax(f16_bits_to_f32(r2), 1e-4f);
+    ink = u8f(word(W, 3, i), 24, inv255) * jmax(s1l * s2l, s1r * s2r);
+  }
+  uint32_t mask = 0;
+#pragma unroll
+  for (int dy = 0; dy < GSM_MASK_H; ++dy) {
+    if (dy >= rh) break;
+    const float y0 = fy[dy], y1 = fy[dy + 1];
+#pragma unroll
+    for (int dx = 0; dx < GSM_MASK_W; ++dx) {
+      if (dx >= rect_w) break;
+      const float x0 = fx[dx], x1 = fx[dx + 1];
+      const float d2 =
+          jmin(d2min_rect(kl, x0 - kl.mx, x1 - kl.mx, y0 - kl.my, y1 - kl.my),
+               d2min_rect(kr, x0 - kr.mx, x1 - kr.mx, y0 - kr.my, y1 - kr.my));
+      bool pass = d2 <= kStereoR2Cutoff;
+      if (lod_min > 0.0f) {
+        const float ar = (16.0f / jmax(x1 - x0, 1e-6f)) *
+                         (16.0f / jmax(y1 - y0, 1e-6f));
+        pass = pass && (ink * ar >= lod_min * (1.0f - jmin(ar, 1.0f)));
+      }
+      if (pass) mask |= 1u << (dy * GSM_MASK_W + dx);
+    }
+  }
+  return mask;
+}
+
 // 8x4 window pass mask at the rect's corner: mono (kWords == 4) tests
 // minQuadRect <= the alpha d2 cutoff of the record; stereo (kWords == 8)
 // tests min(left, right) <= 9.
@@ -143,7 +263,7 @@ __device__ __forceinline__ uint32_t window_mask(const WordPtrs& W, int i,
   return mask;
 }
 
-template <int kWords>
+template <int kMode>
 __global__ void prep_kernel(const int32_t* __restrict__ rect_word,
                             const int32_t* __restrict__ rect_h, WordPtrs W,
                             int count_rows, int n, float tau,
@@ -151,7 +271,10 @@ __global__ void prep_kernel(const int32_t* __restrict__ rect_word,
                             int32_t* __restrict__ offsets,
                             int32_t* __restrict__ rect_out,
                             int32_t* __restrict__ mask_out,
-                            int32_t* __restrict__ block_sums) {
+                            int32_t* __restrict__ block_sums,
+                            const float* __restrict__ bounds, float lod_min) {
+  __shared__ float sb[kMode == kWarped ? 2 * kBoundsLanes : 1];
+  if constexpr (kMode == kWarped) stage_bounds(bounds, sb);
   const int i = blockIdx.x * kPrepThreads + threadIdx.x;
   int count = 0;
   if (i < n) {
@@ -161,8 +284,14 @@ __global__ void prep_kernel(const int32_t* __restrict__ rect_word,
     const int rect_w = (rw >> 20) & 0x3FFu;
     const int rh = rect_h[i];
     const bool culled0 = (rw & GSM_CULLED_BIT) != 0;
-    const uint32_t mask = window_mask<kWords>(W, i, min_tx, min_ty, rect_w, rh,
-                                              tau, theta_unit, inv255);
+    uint32_t mask;
+    if constexpr (kMode == kWarped) {
+      mask = warped_window_mask(W, i, min_tx, min_ty, rect_w, rh, sb, lod_min,
+                                theta_unit, inv255);
+    } else {
+      mask = window_mask<words_of<kMode>()>(W, i, min_tx, min_ty, rect_w, rh,
+                                            tau, theta_unit, inv255);
+    }
     const int cnt = __popc(mask);
     const bool visible = !culled0;
     const bool eligible = visible && rect_w <= GSM_MASK_W && rh <= GSM_MASK_H;
@@ -337,17 +466,16 @@ __device__ __forceinline__ int nth_set_bit(uint32_t mask, int jj) {
   return p;
 }
 
-// minQuadRect of a record over the tile at pixel corner (x0, y0).
-__device__ __forceinline__ float tile_d2(uint32_t a0, uint32_t a1, uint32_t a2,
-                                         float x0, float y0,
-                                         float theta_unit) {
+// minQuadRect of a record over the pixel rect [x0, x1] x [y0, y1].
+__device__ __forceinline__ float rect_d2(uint32_t a0, uint32_t a1, uint32_t a2,
+                                         float x0, float x1, float y0,
+                                         float y1, float theta_unit) {
   const Conic k = decode_conic(a0, a1, a2, theta_unit);
-  return d2min_rect(k, x0 - k.mx, (x0 + 16.0f) - k.mx, y0 - k.my,
-                    (y0 + 16.0f) - k.my);
+  return d2min_rect(k, x0 - k.mx, x1 - k.mx, y0 - k.my, y1 - k.my);
 }
 
-// out: (2 + kWords, capacity) = key1, key2, the carried words.
-template <int kWords>
+// out: (2 + words, capacity) = key1, key2, the carried words.
+template <int kMode>
 __global__ void expand_kernel(const int32_t* __restrict__ offsets,
                               const int32_t* __restrict__ rect,
                               const int32_t* __restrict__ mask,
@@ -355,7 +483,11 @@ __global__ void expand_kernel(const int32_t* __restrict__ offsets,
                               int n, int capacity, int tiles_x, int d_hi,
                               int d_lo, int idx_bits, float tau,
                               float theta_unit, float inv255,
-                              int32_t* __restrict__ out) {
+                              int32_t* __restrict__ out,
+                              const float* __restrict__ bounds) {
+  constexpr int kWords = words_of<kMode>();
+  __shared__ float sb[kMode == kWarped ? 2 * kBoundsLanes : 1];
+  if constexpr (kMode == kWarped) stage_bounds(bounds, sb);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= capacity) return;
   const int total = offsets[n];
@@ -374,22 +506,33 @@ __global__ void expand_kernel(const int32_t* __restrict__ offsets,
 #pragma unroll
     for (int k = 0; k < kWords; ++k) a[k] = word(W, k, g);
     int tx, ty;
-    bool passes;
-    if (rw & GSM_MASKED_BIT) {
+    const bool masked = (rw & GSM_MASKED_BIT) != 0;
+    if (masked) {
       const int pbit = nth_set_bit(static_cast<uint32_t>(mask[g]), jj);
       ty = min_ty + (pbit >> 3);
       tx = min_tx + (pbit & 7);
-      passes = true;
     } else {
       const int q = jj / rect_w;
       ty = min_ty + q;
       tx = min_tx + (jj - q * rect_w);
+    }
+    bool passes = true;
+    if constexpr (kMode == kWarped) {
+      // no bypass for MASKED entries under the warp
+      const float x0 = bound_at(sb, tx), x1 = bound_at(sb, tx + 1);
+      const float y0 = bound_at(sb + kBoundsLanes, ty);
+      const float y1 = bound_at(sb + kBoundsLanes, ty + 1);
+      passes = jmin(rect_d2(a[0], a[1], a[2], x0, x1, y0, y1, theta_unit),
+                    rect_d2(a[4], a[5], a[6], x0, x1, y0, y1, theta_unit)) <=
+               kStereoR2Cutoff;
+    } else if (!masked) {
       const float x0 = static_cast<float>(tx) * 16.0f;
       const float y0 = static_cast<float>(ty) * 16.0f;
-      const float d2 = tile_d2(a[0], a[1], a[2], x0, y0, theta_unit);
-      if constexpr (kWords == 8) {
-        passes = jmin(d2, tile_d2(a[4], a[5], a[6], x0, y0, theta_unit)) <=
-                 kStereoR2Cutoff;
+      const float x1 = x0 + 16.0f, y1 = y0 + 16.0f;
+      const float d2 = rect_d2(a[0], a[1], a[2], x0, x1, y0, y1, theta_unit);
+      if constexpr (kMode == kStereo) {
+        passes = jmin(d2, rect_d2(a[4], a[5], a[6], x0, x1, y0, y1,
+                                  theta_unit)) <= kStereoR2Cutoff;
       } else {
         passes = d2 <= d2_cutoff(u8f(a[3], 24, inv255), tau);
       }
@@ -421,19 +564,32 @@ WordPtrs load_words(const void* const* words) {
 
 }  // namespace
 
+// Mode of a launch: warped when a bounds table is given (8 words), else
+// mono (4 words) or stereo (8 words); -1 for a word count the mode does not
+// carry.
+static int launch_mode(int n_words, const float* bounds) {
+  if (bounds != nullptr) return n_words == 8 ? kWarped : -1;
+  return n_words == 4 ? kMono : n_words == 8 ? kStereo : -1;
+}
+
+// bounds: the (2, 128) table for mode "warped", else null.
 extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
                         const void* const* words, int n_words, int count_rows,
                         int n, float tau, float theta_unit, float inv255,
                         int32_t* offsets, int32_t* rect_out, int32_t* mask_out,
                         int32_t* block_sums, int n_blocks,
+                        const float* bounds, float lod_min,
                         cudaStream_t stream) {
-  if (n_words != 4 && n_words != 8) return static_cast<int>(cudaErrorInvalidValue);
+  const int mode = launch_mode(n_words, bounds);
+  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
   const WordPtrs W = load_words(words);
   if (n > 0) {
-    auto kernel = n_words == 8 ? prep_kernel<8> : prep_kernel<4>;
+    auto kernel = mode == kWarped   ? prep_kernel<kWarped>
+                  : mode == kStereo ? prep_kernel<kStereo>
+                                    : prep_kernel<kMono>;
     kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
         rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255, offsets,
-        rect_out, mask_out, block_sums);
+        rect_out, mask_out, block_sums, bounds, lod_min);
   }
   finish_scan(offsets, n, block_sums, n_blocks, stream);
   return static_cast<int>(cudaGetLastError());
@@ -456,22 +612,39 @@ extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bounds: the (2, 128) table for mode "warped", else null.
 extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                           const int32_t* mask, const int32_t* dsw,
                           const void* const* words, int n_words, int n,
                           int capacity, int tiles_x, int d_hi, int d_lo,
                           int idx_bits, float tau, float theta_unit,
-                          float inv255, int32_t* out, cudaStream_t stream) {
-  if (n_words != 4 && n_words != 8) return static_cast<int>(cudaErrorInvalidValue);
+                          float inv255, int32_t* out, const float* bounds,
+                          cudaStream_t stream) {
+  const int mode = launch_mode(n_words, bounds);
+  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
   const WordPtrs W = load_words(words);
   if (capacity > 0) {
     const int threads = 256;
     const int blocks = (capacity + threads - 1) / threads;
-    auto kernel = n_words == 8 ? expand_kernel<8> : expand_kernel<4>;
+    auto kernel = mode == kWarped   ? expand_kernel<kWarped>
+                  : mode == kStereo ? expand_kernel<kStereo>
+                                    : expand_kernel<kMono>;
     kernel<<<blocks, threads, 0, stream>>>(offsets, rect, mask, dsw, W, n,
                                            capacity, tiles_x, d_hi, d_lo,
                                            idx_bits, tau, theta_unit, inv255,
-                                           out);
+                                           out, bounds);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bounds (2, 128); out (14, n): the 9 fx planes, then the 5 fy planes.
+extern "C" int gsm_bounds_gather(const float* bounds, const int32_t* min_tx,
+                                 const int32_t* min_ty, int n, float* out,
+                                 cudaStream_t stream) {
+  if (n > 0) {
+    const int threads = 256;
+    bounds_gather_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
+        bounds, min_tx, min_ty, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

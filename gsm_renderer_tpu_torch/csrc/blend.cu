@@ -7,8 +7,14 @@
 //
 // Replaces the Pallas kernel gsm_renderer_tpu/kernels/blend.py::
 // _row_blend_kernel (blend_tiles_pallas, exponent_mode "vpu", depth modes
-// "weighted" and "none", n_eyes 1 and 2, r2_cutoff) and the XLA
-// assemble_image after it.
+// "weighted" and "none", n_eyes 1 and 2, r2_cutoff, pixel_coords) and the
+// XLA assemble_image after it.
+//
+// Pixel coordinates: pixel p = ly * 16 + lx of tile (tx, ty) sits at (tx *
+// 16 + lx, ty * 16 + ly), or, with the foveated coordinate tables coord_x
+// (tiles_x, 256) and coord_y (tiles_y, 256), at the display-space point
+// (coord_x[tx][p], coord_y[ty][p]) it samples (256 consecutive floats per
+// tile: coalesced).  Writes stay clipped to width x height either way.
 //
 // Per record: centred linear forms u = a1 dx + b1 dy, v = a2 dx + b2 dy with
 // dx = px - mx at integer pixel corners (no +0.5), alpha = min(exp(-q/2 +
@@ -51,6 +57,8 @@ blend_kernel(const int32_t* __restrict__ table, int capacity,
              const int32_t* __restrict__ counts, int tiles_x, int width,
              int height, int with_depth, float theta_unit, float inv255,
              float min_transmittance, float r2_cutoff,
+             const float* __restrict__ coord_x,
+             const float* __restrict__ coord_y,
              float* __restrict__ color, float* __restrict__ depth) {
   __shared__ Batch sb[kEyes];
 
@@ -58,8 +66,14 @@ blend_kernel(const int32_t* __restrict__ table, int capacity,
   const int tx = tile % tiles_x, ty = tile / tiles_x;
   const int lx = threadIdx.x % kTile, ly = threadIdx.x / kTile;
   const int x = tx * kTile + lx, y = ty * kTile + ly;
-  const float pxf = static_cast<float>(lx) + static_cast<float>(tx * kTile);
-  const float pyf = static_cast<float>(ly) + static_cast<float>(ty * kTile);
+  float pxf, pyf;
+  if (coord_x != nullptr) {
+    pxf = coord_x[static_cast<size_t>(tx) * kPix + threadIdx.x];
+    pyf = coord_y[static_cast<size_t>(ty) * kPix + threadIdx.x];
+  } else {
+    pxf = static_cast<float>(lx) + static_cast<float>(tx * kTile);
+    pyf = static_cast<float>(ly) + static_cast<float>(ty * kTile);
+  }
   const size_t C = static_cast<size_t>(capacity);
 
   const int start = starts[tile];
@@ -146,13 +160,15 @@ blend_kernel(const int32_t* __restrict__ table, int capacity,
 
 }  // namespace
 
-// table: (4 * n_eyes, capacity) record words; color (H, n_eyes * W, 4),
-// depth (H, n_eyes * W) when with_depth.
+// table: (4 * n_eyes, capacity) record words; coord_x (tiles_x, 256) and
+// coord_y (tiles_y, 256) the foveated pixel coordinates, or both null;
+// color (H, n_eyes * W, 4), depth (H, n_eyes * W) when with_depth.
 extern "C" int gsm_blend(const int32_t* table, int capacity, int n_eyes,
                          const int32_t* starts, const int32_t* counts,
                          int tiles_x, int tiles_y, int width, int height,
                          int with_depth, float theta_unit, float inv255,
                          float min_transmittance, float r2_cutoff,
+                         const float* coord_x, const float* coord_y,
                          float* color, float* depth, cudaStream_t stream) {
   if (n_eyes != 1 && n_eyes != 2) return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = tiles_x * tiles_y;
@@ -160,7 +176,8 @@ extern "C" int gsm_blend(const int32_t* table, int capacity, int n_eyes,
     auto kernel = n_eyes == 2 ? blend_kernel<2> : blend_kernel<1>;
     kernel<<<n_tiles, kPix, 0, stream>>>(
         table, capacity, starts, counts, tiles_x, width, height, with_depth,
-        theta_unit, inv255, min_transmittance, r2_cutoff, color, depth);
+        theta_unit, inv255, min_transmittance, r2_cutoff, coord_x, coord_y,
+        color, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }

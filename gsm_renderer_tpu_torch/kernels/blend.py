@@ -2,10 +2,15 @@
 
 Port of ``gsm_renderer_tpu/kernels/blend.py``: ``build_words_table``,
 ``blend_tiles_pallas`` (``_row_blend_kernel``, depth modes "weighted" and
-"none", ``n_eyes`` 1 and 2, ``r2_cutoff``) and ``assemble_image``.  The
-kernel is ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W)
-depth directly -- (H, 2W) for two eyes side by side -- so assembly is fused
-into it on the card.
+"none", ``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``) and
+``assemble_image``.  The kernel is ``csrc/blend.cu``; it writes the (H, W, 4)
+image and the (H, W) depth directly -- (H, 2W) for two eyes side by side --
+so assembly is fused into it on the card.
+
+``pixel_coords`` = (coord_x (tiles_x, 256), coord_y (tiles_y, 256)) float32
+is the foveated frame's: pixel p of tile (tx, ty) evaluates the gaussians at
+the display-space point (coord_x[tx, p], coord_y[ty, p]) instead of its own
+integer corner (``stereo.foveated_raster_tables``).
 
 Early-exit rule, shared by the kernel and :func:`blend_tiles_plain`: a tile's
 span is walked in 256-record batches aligned to 128-record blocks (the Pallas
@@ -31,7 +36,8 @@ BLOCK = 128
 BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
     _native.P, _native.I, _native.I, _native.P, _native.P,
     _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.F, _native.F, _native.F, _native.F, _native.P, _native.P])
+    _native.F, _native.F, _native.F, _native.F, _native.P, _native.P,
+    _native.P, _native.P])
 
 
 def build_words_table(sorted_word_list):
@@ -60,15 +66,17 @@ def decode_records(table):
 def blend_tiles_plain(table, starts, counts, *, tiles_x: int, tile_w: int = 16,
                       tile_h: int = 16, depth_mode: str = "weighted",
                       n_eyes: int = 1, r2_cutoff: float = 0.0, tiles=None,
-                      return_processed: bool = False):
+                      pixel_coords=None, return_processed: bool = False):
     """Plain version of the blend kernel on any device.
 
     ``table``: (4 * n_eyes, C) int32 sorted record words (left eye first);
     ``starts``/``counts``: (T,) int32 tile spans; ``tiles``: optional subset
-    of tile ids (default all).  With ``r2_cutoff`` > 0 alpha is zeroed where
-    q > r2_cutoff.  Returns (tile_color (T', 256, 4), tile_depth (T', 256) or
-    None) for one eye, a list of such pairs for two, plus the number of
-    records each tile composited before its exit when ``return_processed``.
+    of tile ids (default all); ``pixel_coords``: optional foveated
+    (coord_x, coord_y) tables (see the module docstring).  With
+    ``r2_cutoff`` > 0 alpha is zeroed where q > r2_cutoff.  Returns
+    (tile_color (T', 256, 4), tile_depth (T', 256) or None) for one eye, a
+    list of such pairs for two, plus the number of records each tile
+    composited before its exit when ``return_processed``.
     Records are composited one rank at a time across all tiles, each tile
     stopping by the kernel's rule.
     """
@@ -90,13 +98,17 @@ def blend_tiles_plain(table, starts, counts, *, tiles_x: int, tile_w: int = 16,
     count = counts.to(torch.int64)[tiles]
     end = start + count
     base = torch.div(start, BLOCK, rounding_mode="floor") * BLOCK
-    pidx = torch.arange(pix, device=dev)
-    lx = (pidx % tile_w).to(torch.float32)
-    ly = torch.div(pidx, tile_w, rounding_mode="floor").to(torch.float32)
-    ox = ((tiles % tiles_x) * tile_w).to(torch.float32)
-    oy = (torch.div(tiles, tiles_x, rounding_mode="floor") * tile_h).to(torch.float32)
-    pxa = lx[None, :] + ox[:, None]
-    pya = ly[None, :] + oy[:, None]
+    t_x = tiles % tiles_x
+    t_y = torch.div(tiles, tiles_x, rounding_mode="floor")
+    if pixel_coords is not None:
+        pxa = pixel_coords[0].to(torch.float32)[t_x]
+        pya = pixel_coords[1].to(torch.float32)[t_y]
+    else:
+        pidx = torch.arange(pix, device=dev)
+        lx = (pidx % tile_w).to(torch.float32)
+        ly = torch.div(pidx, tile_w, rounding_mode="floor").to(torch.float32)
+        pxa = lx[None, :] + (t_x * tile_w).to(torch.float32)[:, None]
+        pya = ly[None, :] + (t_y * tile_h).to(torch.float32)[:, None]
 
     n_t = tiles.shape[0]
     trans = [torch.ones((n_t, pix), dtype=torch.float32, device=dev)
@@ -157,7 +169,8 @@ def assemble_image(tile_color, tile_depth, *, tiles_x: int, tiles_y: int,
 
 def blend_image_cuda(table, starts, counts, *, tiles_x: int, tiles_y: int,
                      width: int, height: int, depth_mode: str = "weighted",
-                     n_eyes: int = 1, r2_cutoff: float = 0.0):
+                     n_eyes: int = 1, r2_cutoff: float = 0.0,
+                     pixel_coords=None):
     """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
     (H, n_eyes * W) or None), the eyes side by side."""
     if depth_mode not in ("weighted", "none"):
@@ -170,6 +183,12 @@ def blend_image_cuda(table, starts, counts, *, tiles_x: int, tiles_y: int,
                   (WORD_ROWS * n_eyes, table.shape[1]), dev)
     _native.check(starts, "starts", torch.int32, (n_t,), dev)
     _native.check(counts, "counts", torch.int32, (n_t,), dev)
+    coords = (None, None)
+    if pixel_coords is not None:
+        for name, t, rows in (("coord_x", pixel_coords[0], tiles_x),
+                              ("coord_y", pixel_coords[1], tiles_y)):
+            _native.check(t, name, torch.float32, (rows, 256), dev)
+        coords = tuple(_native.ptr(t) for t in pixel_coords)
     with_depth = depth_mode != "none"
     color = torch.empty((height, n_eyes * width, 4), dtype=torch.float32,
                         device=dev)
@@ -179,13 +198,14 @@ def blend_image_cuda(table, starts, counts, *, tiles_x: int, tiles_y: int,
                  _native.ptr(starts), _native.ptr(counts), tiles_x, tiles_y,
                  width, height, int(with_depth), M.f32(THETA_UNIT),
                  M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),
-                 M.f32(r2_cutoff), _native.ptr(color), _native.ptr(depth))
+                 M.f32(r2_cutoff), *coords, _native.ptr(color),
+                 _native.ptr(depth))
     return color, (depth if with_depth else None)
 
 
 def blend_image(table, starts, counts, *, tiles_x: int, tiles_y: int,
                 width: int, height: int, depth_mode: str = "weighted",
-                n_eyes: int = 1, r2_cutoff: float = 0.0):
+                n_eyes: int = 1, r2_cutoff: float = 0.0, pixel_coords=None):
     """Blend + assemble: the CUDA kernel for CUDA tensors, the plain version
     (then :func:`assemble_image`, the eyes concatenated along the width) for
     CPU tensors."""
@@ -193,10 +213,10 @@ def blend_image(table, starts, counts, *, tiles_x: int, tiles_y: int,
         return blend_image_cuda(table, starts, counts, tiles_x=tiles_x,
                                 tiles_y=tiles_y, width=width, height=height,
                                 depth_mode=depth_mode, n_eyes=n_eyes,
-                                r2_cutoff=r2_cutoff)
+                                r2_cutoff=r2_cutoff, pixel_coords=pixel_coords)
     out = blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
                             depth_mode=depth_mode, n_eyes=n_eyes,
-                            r2_cutoff=r2_cutoff)
+                            r2_cutoff=r2_cutoff, pixel_coords=pixel_coords)
     eyes = [assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
                            width=width, height=height)
             for tc, td in (out if n_eyes == 2 else [out])]

@@ -3,10 +3,21 @@ per-row exact-span decomposition of oversized rects, and instance expansion
 into KeyPlan sort keys.
 
 Port of ``gsm_renderer_tpu/kernels/expand.py``: ``binning_prep_pallas``
-(``_prep_kernel``, modes "mono" and "stereo", option ``count_rows``),
-``row_expand_pallas`` (``_row_expand_kernel``) and ``expand_slots_pallas``
-(``_expand_kernel``, prebuilt table with KeyPlan keys, exact tests "mono" and
-"stereo").  The kernels are ``csrc/binning.cu``.
+(``_prep_kernel``, modes "mono", "stereo" and "warped" with ``lod_min``,
+option ``count_rows``), ``row_expand_pallas`` (``_row_expand_kernel``),
+``expand_slots_pallas`` (``_expand_kernel``, prebuilt table with KeyPlan
+keys, exact tests "mono", "stereo" and "warped") and
+``warped_bounds_gather_pallas`` (``_bgather_kernel``).  The kernels are
+``csrc/binning.cu``.
+
+Mode "warped" is the foveated stereo frame's: the physical tile grid is
+non-uniform in display space, and a tile's display-space pixel rect is read
+from the (2, 128) float32 bounds table of
+:func:`gsm_renderer_tpu_torch.stereo.foveated_raster_tables` (indices
+clamped to 127).  Its tests are the stereo ones (either eye q <= 9) on those
+rects; with ``lod_min`` > 0 the prep also drops periphery instances whose
+opacity-weighted footprint the local sampling rate cannot resolve.  The
+expand re-tests pre-counted (MASKED) entries in this mode.
 
 The JAX package packs its tables as (planes, rows, 128) for the TPU; here
 every table is a flat array: ``offsets`` (N + 1,) with ``offsets[N]`` the slot
@@ -36,12 +47,15 @@ THETA_UNIT = 3.14159265358979 / 65535.0
 #: minQuadRect over the tile exceeds it leaves the image unchanged
 STEREO_R2_CUTOFF = 9.0
 #: record words carried per mode
-MODE_WORDS = {"mono": 4, "stereo": 8}
+MODE_WORDS = {"mono": 4, "stereo": 8, "warped": 8}
+#: entries per axis row of the foveated bounds table
+BOUNDS_LANES = 128
 
 PREP = _native.Kernel("prep", "binning", "gsm_prep", [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
     _native.F, _native.F, _native.F,
-    _native.P, _native.P, _native.P, _native.P, _native.I])
+    _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.P, _native.F])
 ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.F, _native.F, _native.F,
@@ -49,8 +63,9 @@ ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
 EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.F, _native.F, _native.F, _native.P])
-
+    _native.F, _native.F, _native.F, _native.P, _native.P])
+BOUNDS_GATHER = _native.Kernel("bounds_gather", "binning", "gsm_bounds_gather", [
+    _native.P, _native.P, _native.P, _native.I, _native.P])
 
 
 def _popcount(v):
@@ -189,22 +204,109 @@ def _exact_tile_test(w0, w1, w2, w3, tx, ty, tile_w, tile_h, alpha_threshold):
     return d2min <= _d2_cutoff(w3, alpha_threshold)
 
 
-def _record_d2min(w0, w1, w2, x0, y0, tile_w, tile_h):
-    """minQuadRect of a quantized record over the pixel rect [x0, x0 +
-    tile_w] x [y0, y0 + tile_h]."""
+def _record_d2min(w0, w1, w2, x0, x1, y0, y1):
+    """minQuadRect of a quantized record over the pixel rect [x0, x1] x
+    [y0, y1]."""
     con = _conic_from_words(w0, w1, w2)
-    return _d2min_rect(con, x0 - con["mx"], (x0 + tile_w) - con["mx"],
-                       y0 - con["my"], (y0 + tile_h) - con["my"])
+    return _d2min_rect(con, x0 - con["mx"], x1 - con["mx"], y0 - con["my"],
+                       y1 - con["my"])
 
 
-def _stereo_tile_test(w, tx, ty, tile_w, tile_h):
-    """Dual-eye tile test of the stereo expand: either eye's record (words
-    0..2 left, 4..6 right) reaches q <= STEREO_R2_CUTOFF inside the tile."""
-    x0 = tx.to(torch.float32) * tile_w
-    y0 = ty.to(torch.float32) * tile_h
-    d2l = _record_d2min(w[0], w[1], w[2], x0, y0, tile_w, tile_h)
-    d2r = _record_d2min(w[4], w[5], w[6], x0, y0, tile_w, tile_h)
+def _stereo_rect_test(w, x0, x1, y0, y1):
+    """Dual-eye test of the stereo expand: either eye's record (words 0..2
+    left, 4..6 right) reaches q <= STEREO_R2_CUTOFF inside the pixel rect
+    [x0, x1] x [y0, y1]."""
+    d2l = _record_d2min(w[0], w[1], w[2], x0, x1, y0, y1)
+    d2r = _record_d2min(w[4], w[5], w[6], x0, x1, y0, y1)
     return torch.minimum(d2l, d2r) <= STEREO_R2_CUTOFF
+
+
+def _bound_index(t, d: int = 0):
+    """Index t + d into a bounds row, clamped to the row."""
+    return torch.clamp(t.to(torch.int64) + d, 0, BOUNDS_LANES - 1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: the foveated window's display-space boundaries
+# ---------------------------------------------------------------------------
+
+def warped_bounds_gather_plain(bounds, min_tx, min_ty):
+    """Plain version of the bounds gather: for each gaussian the display
+    coordinates of the physical tile boundaries min_t + d of its 8x4 window,
+    ``bounds[axis][min(min_t + d, 127)]``.  ``bounds``: the (2, 128) float32
+    table; ``min_tx`` / ``min_ty``: (N,) integer tensors >= 0.  Returns (fx,
+    a list of MASK_W + 1 (N,) float32 tensors, fy, a list of MASK_H + 1)."""
+    fx = [bounds[0][_bound_index(min_tx, d)] for d in range(MASK_W + 1)]
+    fy = [bounds[1][_bound_index(min_ty, d)] for d in range(MASK_H + 1)]
+    return fx, fy
+
+
+def warped_bounds_gather_cuda(bounds, min_tx, min_ty):
+    """Launch ``gsm_bounds_gather`` of ``csrc/binning.cu`` (one thread per
+    gaussian, the table staged in shared memory).  The warped prep runs the
+    same gather inside its own kernel; this launch serves the callers that
+    need the boundaries themselves."""
+    dev = min_tx.device
+    n = min_tx.shape[0]
+    _native.check(bounds, "bounds", torch.float32, (2, BOUNDS_LANES), dev)
+    _native.check(min_tx, "min_tx", torch.int32, (n,), dev)
+    _native.check(min_ty, "min_ty", torch.int32, (n,), dev)
+    out = torch.empty((MASK_W + MASK_H + 2, n), dtype=torch.float32, device=dev)
+    BOUNDS_GATHER.launch(_native.ptr(bounds), _native.ptr(min_tx),
+                         _native.ptr(min_ty), n, _native.ptr(out))
+    return list(out[:MASK_W + 1]), list(out[MASK_W + 1:])
+
+
+def warped_bounds_gather(bounds, min_tx, min_ty):
+    """Bounds gather: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if min_tx.is_cuda:
+        return warped_bounds_gather_cuda(bounds, min_tx, min_ty)
+    return warped_bounds_gather_plain(bounds, min_tx, min_ty)
+
+
+def stereo_warped_tile_masks(wl, wr, rect_w, rect_h, fx, fy, *, w3=None,
+                             lod_min: float = 0.0, tile_w: int = 16,
+                             tile_h: int = 16):
+    """Dual-eye exact pass mask of the foveated frame: position (dx, dy) of
+    the 8x4 window is tested against the physical tile's display-space
+    pixel rect [fx[dx], fx[dx + 1]] x [fy[dy], fy[dy + 1]].
+
+    With ``lod_min`` > 0 (periphery LOD; needs ``w3``, the eye-shared
+    colour/opacity word) a position is also dropped where op * max(sigma1 *
+    sigma2 over the eyes) * ar < lod_min * (1 - min(ar, 1)), ar =
+    (tile_w / rect width) * (tile_h / rect height) the local rate product:
+    in the fovea ar = 1 and the threshold vanishes.  ``wl`` / ``wr``: the
+    (w0, w1, w2) int64 word triples of the eyes; ``fx`` / ``fy``: from
+    :func:`warped_bounds_gather`.  Returns (mask int64, count int64)."""
+    con_l = _conic_from_words(*wl)
+    con_r = _conic_from_words(*wr)
+    if lod_min > 0.0:
+        if w3 is None:
+            raise ValueError("lod_min > 0 needs the opacity word w3")
+
+        def sig(w, shift):
+            return torch.clamp(_f16_bits_to_f32(w >> shift), min=1e-4)
+
+        ink = _u8f(w3, 24) * torch.maximum(sig(wl[1], 16) * sig(wl[2], 0),
+                                           sig(wr[1], 16) * sig(wr[2], 0))
+    mask = torch.zeros_like(rect_w)
+    for p in range(MASK_W * MASK_H):
+        dx, dy = p % MASK_W, p // MASK_W
+        x0, x1, y0, y1 = fx[dx], fx[dx + 1], fy[dy], fy[dy + 1]
+        d2l = _d2min_rect(con_l, x0 - con_l["mx"], x1 - con_l["mx"],
+                          y0 - con_l["my"], y1 - con_l["my"])
+        d2r = _d2min_rect(con_r, x0 - con_r["mx"], x1 - con_r["mx"],
+                          y0 - con_r["my"], y1 - con_r["my"])
+        passes = ((dx < rect_w) & (dy < rect_h)
+                  & (torch.minimum(d2l, d2r) <= STEREO_R2_CUTOFF))
+        if lod_min > 0.0:
+            ar = (M.rdiv(float(tile_w), torch.clamp(x1 - x0, min=1e-6))
+                  * M.rdiv(float(tile_h), torch.clamp(y1 - y0, min=1e-6)))
+            passes = passes & (ink * ar >= lod_min
+                               * (1.0 - torch.clamp(ar, max=1.0)))
+        mask = mask | (passes.to(torch.int64) << p)
+    return mask, _popcount(mask)
 
 
 def row_tile_span(w0, w1, w2, w3, ty, min_tx, rect_w, tile_w: float,
@@ -279,16 +381,26 @@ def _check_mode(mode: str, words):
 # Kernel 2: binning prep
 # ---------------------------------------------------------------------------
 
+def _check_warped(mode: str, warped_bounds):
+    if (mode == "warped") != (warped_bounds is not None):
+        raise ValueError("mode 'warped' and warped_bounds go together")
+
+
 def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
                        count_rows: bool = False, tile_w: int = 16,
-                       tile_h: int = 16, alpha_threshold: float = 0.005):
+                       tile_h: int = 16, alpha_threshold: float = 0.005,
+                       warped_bounds=None, lod_min: float = 0.0):
     """Plain version of the prep kernel.  ``mode`` "mono" (4 words, the
-    alpha-cutoff exact masks) or "stereo" (8 words, the dual-eye q <= 9
-    masks).  With ``count_rows`` the counts are virtual tile rows (one per
-    mask-eligible or culled gaussian, ``rect_h`` per oversized rect) for
-    :func:`row_expand`.  Returns (offsets (N+1,) int32 with offsets[N] the
-    total, rect' (N,) int32 with MASKED/CULLED bits, mask (N,) int32)."""
+    alpha-cutoff exact masks), "stereo" (8 words, the dual-eye q <= 9
+    masks) or "warped" (8 words, the dual-eye masks on the display-space
+    rects of the (2, 128) ``warped_bounds`` table, with the periphery LOD
+    drop when ``lod_min`` > 0).  With ``count_rows`` the counts are virtual
+    tile rows (one per mask-eligible or culled gaussian, ``rect_h`` per
+    oversized rect) for :func:`row_expand`.  Returns (offsets (N+1,) int32
+    with offsets[N] the total, rect' (N,) int32 with MASKED/CULLED bits,
+    mask (N,) int32)."""
     _check_mode(mode, words)
+    _check_warped(mode, warped_bounds)
     rw = M.u32(rect_word)
     min_tx = rw & 0x3FF
     min_ty = (rw >> 10) & 0x3FF
@@ -296,7 +408,12 @@ def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
     culled0 = (rw & CULLED_BIT) != 0
     rh = rect_h.to(torch.int64)
     w = [M.u32(x) for x in words]
-    if mode == "stereo":
+    if mode == "warped":
+        fx, fy = warped_bounds_gather_plain(warped_bounds, min_tx, min_ty)
+        mask, cnt = stereo_warped_tile_masks(w[0:3], w[4:7], rect_w, rh, fx,
+                                             fy, w3=w[3], lod_min=lod_min,
+                                             tile_w=tile_w, tile_h=tile_h)
+    elif mode == "stereo":
         mask, cnt = stereo_tile_masks(w[0:3], w[4:7], min_tx, min_ty, rect_w,
                                       rh, tile_w, tile_h)
     else:
@@ -321,17 +438,24 @@ def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
 
 def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
                       count_rows: bool = False, tile_w: int = 16,
-                      tile_h: int = 16, alpha_threshold: float = 0.005):
+                      tile_h: int = 16, alpha_threshold: float = 0.005,
+                      warped_bounds=None, lod_min: float = 0.0):
     """Launch the prep kernels of ``csrc/binning.cu`` (per-gaussian masks
-    and counts with block scans, a pass over the block sums, an add-back)."""
+    and counts with block scans, a pass over the block sums, an add-back);
+    in mode "warped" the kernel gathers the window's boundaries from the
+    bounds table it stages in shared memory."""
     if tile_w != 16 or tile_h != 16:
         raise NotImplementedError("the prep kernel takes 16x16 tiles only")
     _check_mode(mode, words)
+    _check_warped(mode, warped_bounds)
     dev = rect_word.device
     n = rect_word.shape[0]
     for name, t in (("rect_word", rect_word), ("rect_h", rect_h),
                     *((f"w{k}", w) for k, w in enumerate(words))):
         _native.check(t, name, torch.int32, (n,), dev)
+    if warped_bounds is not None:
+        _native.check(warped_bounds, "warped_bounds", torch.float32,
+                      (2, BOUNDS_LANES), dev)
     offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
     rect_out = torch.empty(n, dtype=torch.int32, device=dev)
     mask = torch.empty(n, dtype=torch.int32, device=dev)
@@ -341,7 +465,9 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
                 M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                 M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr(rect_out),
                 _native.ptr(mask), _native.ptr(block_sums),
-                block_sums.shape[0])
+                block_sums.shape[0],
+                None if warped_bounds is None else _native.ptr(warped_bounds),
+                M.f32(lod_min))
     return offsets, rect_out, mask
 
 
@@ -455,7 +581,7 @@ def row_expand(offsets, rect, mask, dsw, words, **kw):
 def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
                        tiles_x: int, key_plan, mode: str = "mono",
                        tile_w: int = 16, tile_h: int = 16,
-                       alpha_threshold: float = 0.005):
+                       alpha_threshold: float = 0.005, warped_bounds=None):
     """Plain version of the expand kernel.
 
     Slot s < total belongs to the entry g (a gaussian, or a virtual row of a
@@ -463,12 +589,16 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     over the live entries, and a row table's dead tail repeats the total, so
     a live slot never lands on a dead row.  The tile is the j-th set bit of
     the mask (MASKED entries) or a row-major walk of the rect plus the exact
-    test: the alpha cutoff (``mode`` "mono") or the dual-eye q <= 9 test
-    ("stereo").  Returns (key1 (C,), key2 (C,), words (K, C)) int32 with the
-    sentinel in both keys and zero words for dead slots, then the unclamped
-    slot total and the overflow flag as 0-d int32 tensors.
+    test: the alpha cutoff (``mode`` "mono"), the dual-eye q <= 9 test
+    ("stereo"), or the dual-eye test on the display-space rect of the
+    physical tile from the (2, 128) ``warped_bounds`` table ("warped").
+    MASKED entries skip the test, except under the warp.  Returns (key1
+    (C,), key2 (C,), words (K, C)) int32 with the sentinel in both keys and
+    zero words for dead slots, then the unclamped slot total and the
+    overflow flag as 0-d int32 tensors.
     """
     _check_mode(mode, words)
+    _check_warped(mode, warped_bounds)
     d_hi, d_lo, idx_bits = key_plan.kernel_tuple
     dev = offsets.device
     n = rect.shape[0]
@@ -493,12 +623,24 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     t_x = min_tx + r
     tile = t_y * tiles_x + t_x
     w = [M.u32(x)[g] for x in words]
-    if mode == "stereo":
-        passes = _stereo_tile_test(w, t_x, t_y, float(tile_w), float(tile_h))
+    if mode == "warped":
+        bx, by = warped_bounds[0], warped_bounds[1]
+        passes = _stereo_rect_test(w, bx[_bound_index(t_x)],
+                                   bx[_bound_index(t_x, 1)],
+                                   by[_bound_index(t_y)],
+                                   by[_bound_index(t_y, 1)])
+    elif mode == "stereo":
+        x0 = t_x.to(torch.float32) * float(tile_w)
+        y0 = t_y.to(torch.float32) * float(tile_h)
+        passes = _stereo_rect_test(w, x0, x0 + float(tile_w), y0,
+                                   y0 + float(tile_h))
     else:
         passes = _exact_tile_test(w[0], w[1], w[2], w[3], t_x, t_y,
                                   float(tile_w), float(tile_h), alpha_threshold)
-    passes = passes | is_masked
+    if mode != "warped":
+        # a pre-counted entry passed this very test at prep; under the warp
+        # the JAX expand re-tests it, so the port does too
+        passes = passes | is_masked
     dead = (slot >= total) | culled | ~passes
     dn = M.u32(dsw)[g]
     key1 = ((tile << d_hi) | (dn >> d_lo)) & M.U32
@@ -512,25 +654,31 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
 def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
                       tiles_x: int, key_plan, mode: str = "mono",
                       tile_w: int = 16, tile_h: int = 16,
-                      alpha_threshold: float = 0.005):
+                      alpha_threshold: float = 0.005, warped_bounds=None):
     """Launch the expand kernel of ``csrc/binning.cu`` (one thread per
-    slot, upper-bound binary search over the offsets)."""
+    slot, upper-bound binary search over the offsets; in mode "warped" the
+    bounds table staged in shared memory)."""
     if tile_w != 16 or tile_h != 16:
         raise NotImplementedError("the expand kernel takes 16x16 tiles only")
     _check_mode(mode, words)
+    _check_warped(mode, warped_bounds)
     dev = offsets.device
     n = rect.shape[0]
     _native.check(offsets, "offsets", torch.int32, (n + 1,), dev)
     for name, t in (("rect", rect), ("mask", mask), ("dsw", dsw),
                     *((f"w{k}", w) for k, w in enumerate(words))):
         _native.check(t, name, torch.int32, (n,), dev)
+    if warped_bounds is not None:
+        _native.check(warped_bounds, "warped_bounds", torch.float32,
+                      (2, BOUNDS_LANES), dev)
     d_hi, d_lo, idx_bits = key_plan.kernel_tuple
     out = torch.empty((2 + len(words), capacity), dtype=torch.int32, device=dev)
     EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
                   _native.ptr(dsw), _native.ptr_array(words), len(words), n,
                   capacity, tiles_x, d_hi, d_lo, idx_bits,
                   M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
-                  M.f32(1.0 / 255.0), _native.ptr(out))
+                  M.f32(1.0 / 255.0), _native.ptr(out),
+                  None if warped_bounds is None else _native.ptr(warped_bounds))
     total = offsets[n]
     return out[0], out[1], out[2:], total, (total > capacity).to(torch.int32)
 

@@ -1,6 +1,6 @@
 """Shared pipeline machinery: record-word packing, the binning chain up to
-the instance sort (mono, mono with the row decomposition, stereo), the sort
-itself, and sorted tile ids.
+the instance sort (mono, mono with the row decomposition, stereo, foveated
+stereo), the sort itself, and sorted tile ids.
 
 Port of the packed branch of ``gsm_renderer_tpu/pipelines/common.py``.
 The JAX package sorts the (key1, key2) pair with ``jax.lax.sort``; here one
@@ -65,11 +65,15 @@ def unpack_record_words(words):
 def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
                           mode: str = "mono", row_capacity: int = 0,
                           tile_w: int = 16, tile_h: int = 16,
-                          alpha_threshold: float = 0.005):
+                          alpha_threshold: float = 0.005, warped_bounds=None,
+                          lod_min: float = 0.0):
     """Prep + (row expansion) + expand of a packed projection.
 
     ``mode`` "mono" carries the 4 record words, "stereo" the 8 of a
-    :class:`StereoPackedProjection`.  ``row_capacity`` > 0 (mono only)
+    :class:`StereoPackedProjection`, "warped" the same 8 over the foveated
+    physical tile grid, whose display-space tile rects come from the (2,
+    128) ``warped_bounds`` table (with the periphery LOD drop at prep when
+    ``lod_min`` > 0).  ``row_capacity`` > 0 (mono only)
     counts virtual rows at prep, narrows oversized rects to their exact
     per-row spans and expands over the R = ``row_capacity`` rows; the
     KeyPlan's index bits must then address R rows.  Returns (key1 (C,), key2
@@ -80,14 +84,16 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
     kw = dict(tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
     offsets, rect, mask = binning_prep(packed.rect_word, packed.rect_h,
                                        packed.words, mode=mode,
-                                       count_rows=row_capacity > 0, **kw)
+                                       count_rows=row_capacity > 0,
+                                       warped_bounds=warped_bounds,
+                                       lod_min=lod_min, **kw)
     dsw, words, row_overflow = packed.dsw, packed.words, None
     if row_capacity > 0:
         offsets, rect, mask, dsw, words, row_overflow = row_expand(
             offsets, rect, mask, dsw, words, row_capacity=row_capacity, **kw)
     key1, key2, words, total, overflow = expand_slots(
         offsets, rect, mask, dsw, words, capacity=capacity, tiles_x=tiles_x,
-        key_plan=key_plan, mode=mode, **kw)
+        key_plan=key_plan, mode=mode, warped_bounds=warped_bounds, **kw)
     if row_overflow is not None:
         overflow = torch.maximum(overflow, row_overflow)
     return (key1, key2, words), total, overflow

@@ -1,9 +1,12 @@
-"""DepthFirstRenderer: the flagship pipeline, mono and side-by-side stereo.
+"""DepthFirstRenderer: the flagship pipeline, mono, side-by-side stereo and
+foveated stereo.
 
-Port of ``gsm_renderer_tpu/pipelines/depth_first.py`` (``depth_first_frame``
-on its packed path, ``depth_first_stereo_frame`` on its packed path,
-``DepthFirstRenderer.render`` / ``render_stereo``, ``_mono_render`` and
-``_stereo_render``).  A mono frame is
+Port of ``gsm_renderer_tpu/pipelines/depth_first.py`` (``depth_first_frame``,
+``depth_first_stereo_frame`` and ``depth_first_stereo_foveated_frame`` on
+their packed paths, ``DepthFirstRenderer.render`` / ``render_stereo`` /
+``render_stereo_foveated`` / ``render_stereo_foveated_compress``,
+``_mono_render``, ``_stereo_render`` and ``_stereo_foveated_render``).  A
+mono frame is
 
   1. project + cull + quantize + pack        kernels/project.py   (kernel 1)
   2. binning prep: masks, counts, scan       kernels/expand.py    (kernel 2)
@@ -15,23 +18,34 @@ on its packed path, ``depth_first_stereo_frame`` on its packed path,
 
 A stereo frame projects both eyes in one pass (kernel 6), bins the union
 rects with the dual-eye q <= 9 test carrying 8 record words, and blends both
-eyes in one pass into an (H, 2W) image.  No host read except the capacity
-lock-in (pipelines/base.py).  Options that are not ported yet raise
-NotImplementedError naming their ROADMAP item.
+eyes in one pass into an (H, 2W) image.  A foveated stereo frame
+rasterizes directly into the reduced-rate physical target of a
+:class:`~gsm_renderer_tpu_torch.stereo.FoveatedStereoTarget`: the dual-eye
+projection runs at the display size, each gaussian's display pixel bounds
+are re-binned onto the physical tile grid through the fitted inverse warp
+(plain torch on the device, :func:`foveated_rects`), prep and expand run in
+mode "warped" (display-space tile rects from the bounds table), and the
+blend samples each physical pixel at its display-space coordinate.  No host
+read except the capacity lock-in (pipelines/base.py).  Options that are not
+ported yet raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .. import config as cfg
+from .. import mathlib as M
 from ..kernels.blend import blend_image
 from ..kernels.expand import CULLED_BIT, MASK_H, MASK_W, STEREO_R2_CUTOFF
 from ..kernels.project import (cached_projection_inputs, project_and_cull_packed,
                                stereo_project_and_cull_packed)
 from ..mathlib import u32
 from ..ops import binning as B
+from ..stereo import compress_foveated, foveated_raster_tables
 from ..types import FrameHeader, RenderOutput
 from .base import GaussianRenderer
 from .common import binning_sort_operands, binning_sorted_tile, sort_instances
@@ -192,6 +206,158 @@ def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
             total_live.to(torch.int32))
 
 
+def foveated_rects(pp, inv_fit, *, tiles_x: int, tiles_y: int,
+                   tile_w: int = 16, tile_h: int = 16):
+    """Re-bin a dual-eye projection made at the display size onto the
+    physical tile grid of a foveated target.
+
+    Each union pixel bound goes through the degree-9 inverse-warp fit
+    ``inv_fit`` (2, 13) of :func:`~gsm_renderer_tpu_torch.stereo.
+    foveated_raster_tables` (Horner in float32, in the JAX order, with true
+    divisions), widened by the fit's error margin, floored to physical tiles
+    and clamped to the grid.  Returns (min_tx, max_tx, min_ty, max_ty) int32,
+    ``visible`` (the projection's, and a non-empty rect) and ``rect_count``
+    (int32, 0 where not visible)."""
+    fit = np.asarray(inv_fit, np.float32)
+
+    def inv_map(v, axis):
+        row = fit[axis]
+        t = M.div(v - float(row[10]), float(row[11] - row[10])) * 2.0 - 1.0
+        acc = torch.full_like(t, float(row[0]))
+        for k in range(1, 10):
+            acc = acc * t + float(row[k])
+        return acc, float(row[12])
+
+    def tile(v, size, n_tiles):
+        return torch.clamp(torch.floor(v * (1.0 / size)).to(torch.int32), 0,
+                           n_tiles - 1)
+
+    sx0, mx = inv_map(pp.px_min, 0)
+    sx1, _ = inv_map(pp.px_max, 0)
+    sy0, my = inv_map(pp.py_min, 1)
+    sy1, _ = inv_map(pp.py_max, 1)
+    min_tx = tile(sx0 - mx, tile_w, tiles_x)
+    max_tx = tile(sx1 + mx, tile_w, tiles_x)
+    min_ty = tile(sy0 - my, tile_h, tiles_y)
+    max_ty = tile(sy1 + my, tile_h, tiles_y)
+    visible = pp.visible & (min_tx <= max_tx) & (min_ty <= max_ty)
+    rect_count = torch.where(visible, (max_tx - min_tx + 1) * (max_ty - min_ty + 1),
+                             0).to(torch.int32)
+    return (min_tx, max_tx, min_ty, max_ty), visible, rect_count
+
+
+def foveated_packed(pp, inv_fit, *, tiles_x: int, tiles_y: int,
+                    tile_w: int = 16, tile_h: int = 16):
+    """The prep input of a foveated frame: ``pp`` (a display-size
+    :class:`StereoPackedProjection`) with its rect word, rect_h and
+    visibility replaced by the physical rects of :func:`foveated_rects`
+    (CULLED_BIT where not visible, rect_h 0 there).  Returns (that
+    projection, the re-binned rect counts)."""
+    (min_tx, max_tx, min_ty, _), visible, rect_count = foveated_rects(
+        pp, inv_fit, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+        tile_h=tile_h)
+    rect_w = max_tx - min_tx + 1
+    rect_word = u32(B.pack_rect_word(min_tx, min_ty, rect_w))
+    rect_word = torch.where(visible, rect_word, rect_word | CULLED_BIT)
+    rect_h = torch.div(rect_count, torch.clamp(rect_w, min=1),
+                       rounding_mode="floor").to(torch.int32)
+    return dataclasses.replace(pp, rect_word=M.to_i32(rect_word),
+                               rect_h=rect_h, visible=visible), rect_count
+
+
+def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
+                         key_plan, tables, *, display_width, display_height,
+                         capacity, tiles_x, tiles_y, sh_degree,
+                         alpha_threshold, total_ink_threshold, near_plane,
+                         far_plane, input_is_srgb, tile_w, tile_h,
+                         foveated_lod):
+    """Dual-eye projection at the display size, re-binning onto the
+    physical tiles, warped prep / expand up to the sort operands.  Returns
+    ((key1, key2, words (8, C)), slot_total, overflow, visible_count = the
+    projection's visible gaussians, total_live = the re-binned rect
+    total)."""
+    pp = stereo_project_and_cull_packed(
+        gi, views, projs, centers, scene_transform, prepared=prepared,
+        width=display_width, height=display_height, tile_w=tile_w,
+        tile_h=tile_h, sh_degree=sh_degree, near_plane=near_plane,
+        far_plane=far_plane, alpha_threshold=alpha_threshold,
+        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
+        key_plan=key_plan)
+    warped, rect_count = foveated_packed(pp, tables["inv_fit"],
+                                         tiles_x=tiles_x, tiles_y=tiles_y,
+                                         tile_w=tile_w, tile_h=tile_h)
+    ops, slot_total, overflow = binning_sort_operands(
+        warped, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
+        mode="warped", tile_w=tile_w, tile_h=tile_h,
+        warped_bounds=tables["bounds"], lod_min=foveated_lod)
+    return (ops, slot_total, overflow, pp.visible.sum().to(torch.int32),
+            rect_count.sum().to(torch.int32))
+
+
+def depth_first_stereo_foveated_frame(
+        gi, views, projs, centers, scene_transform, tables, prepared=None, *,
+        display_width: int, display_height: int, render_width: int,
+        render_height: int, capacity: int, sh_degree: int,
+        alpha_threshold: float, total_ink_threshold: float, near_plane: float,
+        far_plane: float, input_is_srgb: bool, tile_w: int = 16,
+        tile_h: int = 16, foveated_lod: float = 0.0) -> RenderOutput:
+    """One foveated stereo frame on the device of ``gi``, rasterized
+    directly into the (render_height, 2 * render_width) physical target.
+
+    ``tables``: :func:`foveated_device_tables` of the target (``inv_fit`` on
+    the host, ``coord_x``, ``coord_y`` and ``bounds`` on the device).  The
+    KeyPlan addresses the physical tiles; the header's ``visible_count``
+    counts the projection's visible gaussians before re-binning and
+    ``total_instances`` is the re-binned rect total."""
+    tiles_x, tiles_y = cfg.tiles_for(render_width, render_height, tile_w, tile_h)
+    num_tiles = tiles_x * tiles_y
+    key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
+                               far_plane=far_plane)
+    if key_plan is None:
+        raise not_ported("the stable-sort foveated fallback (no tie-free "
+                         "KeyPlan fits)", "Queue 1, Global and Local renderers")
+    (key1, key2, words), slot_total, overflow, visible_count, total_live = \
+        _foveated_packed_ops(
+            gi, views, projs, centers, scene_transform, prepared, key_plan,
+            tables, display_width=display_width,
+            display_height=display_height, capacity=capacity,
+            tiles_x=tiles_x, tiles_y=tiles_y, sh_degree=sh_degree,
+            alpha_threshold=alpha_threshold,
+            total_ink_threshold=total_ink_threshold, near_plane=near_plane,
+            far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
+            tile_h=tile_h, foveated_lod=foveated_lod)
+    sorted_key, table = sort_instances(key1, key2, words)
+    sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
+    starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
+    color, depth = blend_image(table, starts, counts, tiles_x=tiles_x,
+                               tiles_y=tiles_y, width=render_width,
+                               height=render_height, n_eyes=2,
+                               r2_cutoff=STEREO_R2_CUTOFF,
+                               pixel_coords=(tables["coord_x"],
+                                             tables["coord_y"]))
+    header = FrameHeader(visible_count=visible_count,
+                         total_instances=total_live, overflow=overflow,
+                         slot_total=slot_total)
+    return RenderOutput(color=color, depth=depth, header=header)
+
+
+def foveated_device_tables(target, device) -> dict:
+    """The raster tables of a foveated target for frames on ``device``:
+    ``inv_fit`` (host numpy), ``coord_x``, ``coord_y`` and ``bounds``
+    (tensors on the device).  Built once per device and cached on the
+    target."""
+    cache = target.__dict__.setdefault("_torch_tabs", {})
+    key = str(torch.device(device))
+    tabs = cache.get(key)
+    if tabs is None:
+        host = foveated_raster_tables(target)
+        tabs = dict(inv_fit=host["inv_fit"])
+        for name in ("coord_x", "coord_y", "bounds"):
+            tabs[name] = torch.from_numpy(host[name]).to(device)
+        cache[key] = tabs
+    return tabs
+
+
 class DepthFirstRenderer(GaussianRenderer):
     """Flagship renderer: depth-ordered tile lists from one instance sort."""
 
@@ -207,8 +373,25 @@ class DepthFirstRenderer(GaussianRenderer):
         returns an (H, 2W) frame, the left eye first."""
         return _stereo_render(self, gi, camera, width, height)
 
-    def render_stereo_foveated(self, gi, camera, target):
-        raise not_ported("foveated stereo", "Queue 1, foveated stereo")
+    def render_stereo_foveated(self, gi, camera, target) -> RenderOutput:
+        """Foveated stereo: ``camera`` a :class:`StereoCameraParams`,
+        ``target`` a :class:`~gsm_renderer_tpu_torch.stereo.
+        FoveatedStereoTarget`.  Rasterizes directly into the reduced-rate
+        physical target and returns a (render_height, 2 * render_width)
+        frame, the left eye first (``stereo.expand_foveated`` resamples it
+        to the display)."""
+        return _stereo_foveated_render(self, gi, camera, target)
+
+    def render_stereo_foveated_compress(self, gi, camera,
+                                        target) -> RenderOutput:
+        """The render-full-then-compress foveated path: a full-resolution
+        stereo frame resampled into the physical target (kept for
+        comparison)."""
+        out = self.render_stereo(gi, camera, target.display_width,
+                                 target.display_height)
+        depth = compress_foveated(out.depth[..., None], target)[..., 0]
+        return RenderOutput(color=compress_foveated(out.color, target),
+                            depth=depth, header=out.header)
 
 
 def _check_ported_options(c):
@@ -251,20 +434,26 @@ def _mono_render(self, gi, camera, width, height):
     return self.finalize_output(out)
 
 
+def _stereo_rig(camera):
+    """(views (2, 4, 4), projs (2, 4, 4), centers (2, 3), scene transform
+    (4, 4)) host arrays of a StereoCameraParams."""
+    left, right = camera.left, camera.right
+    st = (np.eye(4, dtype=np.float32) if camera.scene_transform is None
+          else np.asarray(camera.scene_transform, np.float32))
+    return (np.stack([left.view_matrix, right.view_matrix]),
+            np.stack([left.projection_matrix, right.projection_matrix]),
+            np.stack([left.position, right.position]), st)
+
+
 def _stereo_render(self, gi, camera, width, height):
     self.validate_inputs(gi, width, height)
     c = self.config
     _check_ported_options(c)
     n = gi.count
-    left, right = camera.left, camera.right
-    st = (np.eye(4, dtype=np.float32) if camera.scene_transform is None
-          else np.asarray(camera.scene_transform, np.float32))
+    left = camera.left
     sh_degree = _sh_degree(c, gi)
     out = depth_first_stereo_frame(
-        gi, np.stack([left.view_matrix, right.view_matrix]),
-        np.stack([left.projection_matrix, right.projection_matrix]),
-        np.stack([left.position, right.position]), st,
-        cached_projection_inputs(gi, sh_degree),
+        gi, *_stereo_rig(camera), cached_projection_inputs(gi, sh_degree),
         width=width, height=height,
         # union rects are expanded in full (the dual-eye test prunes them)
         capacity=self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
@@ -274,6 +463,33 @@ def _stereo_render(self, gi, camera, width, height):
         near_plane=left.near_plane, far_plane=left.far_plane,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB)
     self.note_frame(n, out.header, kind=self._stereo_key)
+    return self.finalize_output(out)
+
+
+def _stereo_foveated_render(self, gi, camera, target):
+    self.validate_inputs(gi, target.display_width, target.display_height)
+    c = self.config
+    _check_ported_options(c)
+    n = gi.count
+    left = camera.left
+    sh_degree = _sh_degree(c, gi)
+    kind = self._stereo_key + "_fov"
+    out = depth_first_stereo_foveated_frame(
+        gi, *_stereo_rig(camera), foveated_device_tables(target, self.device),
+        cached_projection_inputs(gi, sh_degree),
+        display_width=target.display_width,
+        display_height=target.display_height,
+        render_width=target.render_width, render_height=target.render_height,
+        # re-binned union rects are expanded in full (the warped dual-eye
+        # test prunes them)
+        capacity=self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
+                                    kind=kind),
+        sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
+        total_ink_threshold=c.total_ink_threshold,
+        near_plane=left.near_plane, far_plane=left.far_plane,
+        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
+        foveated_lod=c.foveated_lod)
+    self.note_frame(n, out.header, kind=kind)
     return self.finalize_output(out)
 
 

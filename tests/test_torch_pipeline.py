@@ -236,9 +236,12 @@ def test_unported_renderers_and_modes_raise():
     for cls in (T.GlobalRenderer, T.LocalRenderer, T.HardwareRenderer):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(device="cpu")
-    r = renderer()
+    # foveated stereo is ported; its unported options still raise
+    gi = generate_visible_gaussians(50, sh_degree=0).to_input(device="cpu")
+    stereo = T.make_side_by_side_stereo(T.make_camera(64, 48))
+    r = renderer(depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render_stereo_foveated(None, None, None)
+        r.render_stereo_foveated(gi, stereo, T.make_rate_maps(64, 48))
 
 
 def test_import_loads_no_jax():
