@@ -8,7 +8,10 @@ Run from the root of a checkout, with no arguments:
 Phases (each raises on failure, and the script then exits non-zero):
 
 1. Build the CUDA kernels from ``gsm_renderer_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) and print the card's name and power limit.
+   source, in parallel); print each kernel's ``-Xptxas -v`` registers,
+   shared memory and spills (a spill in the blend or the expand fails the
+   run), the SASS counts of the blend's composite loop where ``cuobjdump``
+   sits beside ``nvcc``, and the card's name and power limit.
 2. The headline frame through the user entry point
    ``DepthFirstRenderer(config).render`` with the default configuration
    (row expansion on): 1M gaussians, SH3, float32, 1920x1080.  Two capacity
@@ -16,7 +19,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    kernel's launch count is set to 0 just before these frames and read just
    after.  Requires overflow 0, a finite image, some non-black pixels, and
    the colour and depth bit-equal to the same scene rendered with
-   ``row_expand=False`` (8 frames, with launch counts of their own).
+   ``row_expand=False`` (8 frames, with launch counts of their own).  Each
+   frame loop of phases 2-4f also prints its host/device split
+   (``frame_split``: the host's enqueue time per frame, and the device time
+   of frames queued back to back).
 3. The realistic heavy-tailed scene (``generate_realistic_gaussians``, 1M,
    SH3, recentred, camera before the nearest splats, far 80) rendered with
    rows on and off: frame times, slot totals and a device-time split by
@@ -38,16 +44,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    stereo modes, and in mode "warped" on the foveated frame's tensors with
    the bounds gather and the blend with pixel coordinates) against its
    plain PyTorch version on the card: integer outputs equal (counted
-   mismatches capped at 1e-4 of the elements), float outputs within 1e-3
-   (the bounds gather's planes bit-equal, and they must reproduce the warped
-   prep's mask; the warped prep is also checked with lod_min 5), the blends
-   within 1e-4 on the 64 heaviest and 64 random tiles.  Times each kernel, plain
+   mismatches capped at 1e-4 of the elements; none for the expand), float
+   outputs within 1e-3 (the bounds gather's planes bit-equal, and they must
+   reproduce the warped prep's mask; the warped prep is also checked with
+   lod_min 5), the blends (reading records through the sorted keys) bit-equal
+   on the 64 heaviest and 64 random tiles, the mono blend on the whole frame
+   too.  Times each kernel, plain
    version, the instance sort and the tile ranges with CUDA events: kernels
    and library calls queued behind a sleep kernel, so that the host's
    per-call cost stays out; the plain versions, host-paced, as they run.
-   Computes each kernel's bound from this run's inputs.  For the blends and
+   Computes each kernel's bound from this run's inputs (for the dual-eye
+   blends, the pairs within the r2 cutoff from the plain version's q).  For
+   the blends and
    the bounds gather it also prints CUDA-event times of the same calls,
    back to back and with the L2 cache overwritten before each.
+5t. The expand on built entry tables (entries owning more slots than 4 of
+   its CTAs, a run of 1-slot and culled entries, a row table's dead tail, a
+   total equal to the capacity and one above it) in modes mono, stereo and
+   warped: bit-equal to its plain version, overflow as the capacity says.
 6. Small frames (20k gaussians, 512x384) on the card vs the same renderer on
    the CPU (plain versions): rows off, rows on, stereo and foveated
    (min_rate 0.4); colour within 1e-3.
@@ -57,15 +71,22 @@ Phases (each raises on failure, and the script then exits non-zero):
 
 Without a CUDA device, or outside the repository, it prints no result and
 exits 2.
+
+``python3 chip_smoke.py --frames`` runs only the mono frame loops (the
+headline and the realistic scene, rows on and off) with their host/device
+split and traced idle share, and prints one JSON line: copied into a
+checkout of another commit, it times that commit's package the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # NVIDIA H100 SXM data sheet (dense, full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -81,6 +102,7 @@ ROW_SPAN_FLOPS = 75        # per oversized row: decode and closed-form span
 EXPAND_DECODE_FLOPS = 30   # per tested slot and eye, plus one tile test
 BLEND_DECODE_FLOPS = 30    # per record and eye decoded
 BLEND_PAIR_FLOPS = 25      # per (pixel, record, eye) composited
+BLEND_Q_FLOPS = 11         # per pair the r2 cutoff zeroes: dx, dy, u, v, q
 
 KERNEL_SOURCES = {
     "project": ("gsm_renderer_tpu_torch/csrc/project.cu",
@@ -230,14 +252,104 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_label(mangled: str) -> str:
+    """``blend_kernel<2>`` from a mangled name such as
+    ``_ZN12_GLOBAL__N_112blend_kernelILi2EEEvPKj...`` (the length-prefixed
+    names read in order until one ends in ``_kernel``)."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while True:
+        d = re.match(r"\d+", mangled[pos:])
+        if d is None:
+            return mangled[:40]
+        pos += d.end()
+        name = mangled[pos:pos + int(d.group())]
+        pos += len(name)
+        if name.endswith("_kernel"):
+            t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+            if t is None:
+                return name
+            args = [("true" if v == "1" else "false") if k == "b" else v
+                    for k, v in re.findall(r"L([ib])(\d+)E", t.group(1))]
+            return f"{name}<{','.join(args)}>"
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers, shared memory and spill bytes of each kernel from an
+    ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            name = kernel_label(m.group(1))
+            out.setdefault(name, {})
+        elif name and "spill" in line:
+            st = re.search(r"(\d+) bytes spill stores", line)
+            ld = re.search(r"(\d+) bytes spill loads", line)
+            out[name]["spill_bytes"] = int(st.group(1)) + int(ld.group(1))
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["registers"] = int(regs.group(1))
+            out[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def sass_loop_counts(sass: str) -> dict:
+    """Per kernel of a ``cuobjdump -sass`` listing, the static instruction
+    counts of the innermost loop that holds an exp (MUFU.EX2): the blend's
+    composite loop, one record of every eye an iteration.  Loops are read
+    from conditional backward branches (the unconditional ones return from
+    the compiler's divergent-vote fallback)."""
+    res = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = kernel_label(chunk.split()[0])
+        ins = []
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk):
+            raw = m.group(2).strip()
+            text = re.sub(r"^@!?U?P\w+\s+", "", raw)
+            ins.append((int(m.group(1), 16), text, raw != text))
+        ins_ops = [(a, x) for a, x, _ in ins]
+        loops = []
+        for addr, text, predicated in ins:
+            t = re.match(r"BRA(?:\.\S+)?\s.*?0x([0-9a-f]+)", text)
+            if t and predicated and int(t.group(1), 16) <= addr:
+                body = [x for a, x in ins_ops if int(t.group(1), 16) <= a <= addr]
+                if any(x.startswith("MUFU.EX2") for x in body):
+                    loops.append(body)
+        if not loops:
+            continue
+        body = min(loops, key=len)
+        ops = [x.split()[0] for x in body]
+        count = lambda pre: sum(o.startswith(pre) for o in ops)  # noqa: E731
+        res[name] = dict(instructions=len(ops), LDS=count("LDS"),
+                         LDS_128=count("LDS.128"), FMUL=count("FMUL"),
+                         FADD=count("FADD"), FFMA=count("FFMA"),
+                         MUFU=count("MUFU"), MUFU_EX2=count("MUFU.EX2"),
+                         VOTE=count("VOTE"))
+    return res
+
+
 def phase_build(native):
     t0 = time.perf_counter()
     out = native.build_all()
     log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s into {out}")
     for name in native.SOURCES:
-        for line in (out / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        report = ptxas_report((out / f"{name}.log").read_text())
+        log(f"[build] {name}.cu ptxas: " + json.dumps(report))
+        for label, r in report.items():
+            if label.startswith(("blend_kernel", "expand_kernel")) and \
+                    r.get("spill_bytes", 0) > 0:
+                raise RuntimeError(f"{label} spills registers: {r}")
+    cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(out / "libblend.so")],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        log("[build] blend inner loop SASS (static counts): "
+            + json.dumps(sass_loop_counts(sass)))
+    else:
+        log("[build] no cuobjdump beside nvcc: SASS counts not printed")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -272,6 +384,36 @@ def timed_frames(torch, render, n_lock: int = 2, n_warm: int = 3,
     if hd.row_total is not None:
         stats["row_total"] = int(hd.row_total)
     return out, stats
+
+
+def frame_split(torch, render, frames: int = 5) -> dict:
+    """Host and device time of a frame, apart.  ``host_ms``: the host's time
+    to enqueue one frame while a sleep kernel holds the device, so that it
+    never waits on the device; ``device_ms``: the device time per frame of
+    those frames, which run back to back behind the sleep, so that no host
+    gap enters it.  Frames timed back to back (``timed_frames``) take about
+    the larger of the two: the frame is host-bound where ``host_ms`` is.
+    ``host_ahead`` is false where a frame waited on the device (a host
+    read), and the split is then not valid."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render()
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_cycles_per_ms(torch)
+                          * (2.0 * frames * one_ms + 1.0)))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        render()
+    host_ms = (time.perf_counter() - t0) * 1e3 / frames
+    ahead = not start.query()
+    end.record()
+    end.synchronize()
+    return dict(host_ms=host_ms, device_ms=start.elapsed_time(end) / frames,
+                host_ahead=ahead)
 
 
 def check_frame(torch, out, label: str, halves: int = 1):
@@ -322,7 +464,8 @@ def phase_headline(torch, T, kernels, n: int = 1_000_000):
     if row_capacity <= 0:
         raise RuntimeError("headline: the row decomposition was not on")
     stats.update(capacity=capacity, row_capacity=row_capacity,
-                 msplats_per_s=n / stats["avg"] / 1e3)
+                 msplats_per_s=n / stats["avg"] / 1e3,
+                 split=frame_split(torch, lambda: r.render(gi, cam, W, H)))
     check_frame(torch, out, "headline")
 
     r_off = T.DepthFirstRenderer(dataclasses.replace(cfg, row_expand=False))
@@ -331,9 +474,10 @@ def phase_headline(torch, T, kernels, n: int = 1_000_000):
         lambda: timed_frames(torch, lambda: r_off.render(gi, cam, W, H),
                              n_warm=1, n_timed=5))
     off_capacity = r_off._cap_state[(r_off._mono_key, n)]["cap"]
-    stats["rows_off"] = dict(avg=off_stats["avg"],
-                             slot_total=off_stats["slot_total"],
-                             capacity=off_capacity)
+    stats["rows_off"] = dict(
+        avg=off_stats["avg"], slot_total=off_stats["slot_total"],
+        capacity=off_capacity,
+        split=frame_split(torch, lambda: r_off.render(gi, cam, W, H)))
     log("[headline] " + json.dumps({"headline_frame_ms": stats}))
     if not (torch.equal(out.color, off.color) and torch.equal(out.depth, off.depth)):
         raise RuntimeError("headline: rows-on frame differs from rows-off")
@@ -376,9 +520,9 @@ def trace_frames(torch, render, label: str, frames: int = 10):
     return res
 
 
-def phase_realistic(torch, T, n: int = 1_000_000):
-    """The heavy-tailed scene the row decomposition is for, rows on and
-    off.  Recentred on its bounding box; the camera just before the nearest
+def realistic_scene(T, n: int = 1_000_000):
+    """(input, camera) of the heavy-tailed scene the row decomposition is
+    for: recentred on its bounding box, the camera just before the nearest
     splats looking +z, far 80."""
     import numpy as np
     from gsm_renderer_tpu_torch.io.scene import generate_realistic_gaussians
@@ -390,7 +534,12 @@ def phase_realistic(torch, T, n: int = 1_000_000):
     view = np.eye(4, dtype=np.float32)
     view[2, 3] = -(ds.positions[:, 2].min() - 1.0)
     cam = T.make_camera(W, H, view_matrix=view, far=80.0)
-    gi = ds.to_input(T.Precision.FLOAT32)
+    return ds.to_input(T.Precision.FLOAT32), cam
+
+
+def phase_realistic(torch, T, n: int = 1_000_000):
+    """The heavy-tailed scene, rows on and off."""
+    gi, cam = realistic_scene(T, n)
     outs, res = {}, {}
     for label, rows in (("rows_on", True), ("rows_off", False)):
         r = T.DepthFirstRenderer(T.RendererConfig(
@@ -398,6 +547,8 @@ def phase_realistic(torch, T, n: int = 1_000_000):
             max_height=H, row_expand=rows))
         outs[label], res[label] = timed_frames(
             torch, lambda r=r: r.render(gi, cam, W, H))
+        res[label]["split"] = frame_split(torch,
+                                          lambda r=r: r.render(gi, cam, W, H))
         trace_frames(torch, lambda r=r: r.render(gi, cam, W, H),
                      f"realistic {label} trace", frames=5)
         check_frame(torch, outs[label], f"realistic {label}")
@@ -419,7 +570,9 @@ def phase_stereo(torch, T, kernels, hl):
         torch, kernels, STEREO_PATH, "stereo",
         lambda: timed_frames(torch, lambda: r.render_stereo(gi, stereo, W, H)))
     capacity = r._cap_state[(r._stereo_key, n)]["cap"]
-    stats.update(capacity=capacity, shape=list(out.color.shape))
+    stats.update(capacity=capacity, shape=list(out.color.shape),
+                 split=frame_split(torch,
+                                   lambda: r.render_stereo(gi, stereo, W, H)))
     log("[stereo] " + json.dumps({"stereo_frame_ms": stats}))
     if tuple(out.color.shape) != (H, 2 * W, 4):
         raise RuntimeError(f"stereo: frame shape {tuple(out.color.shape)}")
@@ -444,7 +597,7 @@ def phase_foveated(torch, T, kernels, hl, st):
     capacity = r._cap_state[(r._stereo_key + "_fov", n)]["cap"]
     shape = (target.render_height, 2 * target.render_width, 4)
     stats.update(capacity=capacity, shape=list(out.color.shape),
-                 min_rate=FOV_MIN_RATE)
+                 min_rate=FOV_MIN_RATE, split=frame_split(torch, render))
     if tuple(out.color.shape) != shape:
         raise RuntimeError(f"foveated: frame shape {tuple(out.color.shape)}, "
                            f"expected {shape}")
@@ -475,17 +628,80 @@ def phase_foveated(torch, T, kernels, hl, st):
                 launches=launches, stats=stats)
 
 
-def blend_subset_err(torch, KB, table, starts, counts, color, depth, *,
+def composited_ranks(torch, starts, processed):
+    """(tile, sorted rank) of every record the blend composited: the first
+    ``processed[t]`` ranks of tile t's span."""
+    tile = torch.repeat_interleave(
+        torch.arange(starts.shape[0], device=starts.device), processed)
+    rank = (starts.to(torch.int64)[tile]
+            + torch.arange(tile.numel(), device=starts.device)
+            - torch.repeat_interleave(
+                torch.cumsum(processed, 0) - processed, processed))
+    return tile, rank
+
+
+def blend_bytes(torch, KB, ent, starts, processed, n_words, out_pixels):
+    """Bytes the blend must move on this run's data: the key (8 B) of each
+    record composited, the ``n_words`` distinct words of each entry
+    composited, the tile spans, and the colour (16 B) and depth (4 B) of
+    each of the ``out_pixels`` pixels (all eyes)."""
+    sorted_key, _words, idx_bits = ent
+    _tile, rank = composited_ranks(torch, starts, processed)
+    entries = int(torch.unique(KB.entry_index(sorted_key[rank], idx_bits)).numel())
+    return (8 * rank.numel() + 4 * n_words * entries + 8 * starts.shape[0]
+            + (16 + 4) * out_pixels)
+
+
+def blend_cutoff_flops(torch, KB, ent, starts, processed, *, tiles_x,
+                       r2_cutoff, pixel_coords=None, chunk: int = 1 << 15):
+    """Float operations the dual-eye blend needs on this run's data: each
+    record composited is decoded once an eye; each (pixel, record, eye)
+    within the cutoff (q <= r2_cutoff) costs the whole composite, each one
+    beyond it only its q, since its alpha is exactly 0.  q is the plain
+    version's, from the same decode.  Returns (flops, pairs within the
+    cutoff, pairs)."""
+    sorted_key, words, idx_bits = ent
+    words = list(words)
+    tile, rank = composited_ranks(torch, starts, processed)
+    g = KB.entry_index(sorted_key[rank], idx_bits)
+    t_x, t_y = tile % tiles_x, tile // tiles_x
+    if pixel_coords is None:
+        pix = torch.arange(256, device=starts.device)
+        lx, ly = (pix % 16).to(torch.float32), (pix // 16).to(torch.float32)
+    inside = 0
+    for e in range(2):
+        rec = KB.decode_records(words[4 * e:4 * e + 4])
+        for c0 in range(0, g.numel(), chunk):
+            gc, txc, tyc = g[c0:c0 + chunk], t_x[c0:c0 + chunk], t_y[c0:c0 + chunk]
+            if pixel_coords is None:
+                px = lx[None, :] + (txc * 16).to(torch.float32)[:, None]
+                py = ly[None, :] + (tyc * 16).to(torch.float32)[:, None]
+            else:
+                px = pixel_coords[0][txc]
+                py = pixel_coords[1][tyc]
+            dx = px - rec["mx"][gc][:, None]
+            dy = py - rec["my"][gc][:, None]
+            u = rec["a1"][gc][:, None] * dx + rec["b1"][gc][:, None] * dy
+            v = rec["a2"][gc][:, None] * dx + rec["b2"][gc][:, None] * dy
+            inside += int(((u * u + v * v) <= r2_cutoff).sum())
+    pairs = 2 * 256 * g.numel()
+    flops = (2 * BLEND_DECODE_FLOPS * g.numel() + BLEND_PAIR_FLOPS * inside
+             + BLEND_Q_FLOPS * (pairs - inside))
+    return flops, inside, pairs
+
+
+def blend_subset_err(torch, KB, ent, starts, counts, color, depth, *,
                      tiles_x, tiles_y, w, h, n_eyes=1, r2_cutoff=0.0,
                      pixel_coords=None):
     """Max |kernel - plain| over the 64 heaviest and 64 random tiles of
     each eye (the kernel's (H, n_eyes * W) images against the plain tiles;
-    pixels of the padded edge tiles, outside w x h, are not written)."""
+    pixels of the padded edge tiles, outside w x h, are not written).
+    ``ent``: (sorted_key, entry words, idx_bits)."""
     gen = torch.Generator().manual_seed(0)
     heavy = torch.argsort(counts.cpu(), descending=True)[:64]
     rand = torch.randperm(tiles_x * tiles_y, generator=gen)[:64]
     sub = torch.unique(torch.cat([heavy, rand])).to(counts.device)
-    plain = KB.blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
+    plain = KB.blend_tiles_plain(*ent, starts, counts, tiles_x=tiles_x,
                                  tiles=sub, n_eyes=n_eyes, r2_cutoff=r2_cutoff,
                                  pixel_coords=pixel_coords)
     eyes = plain if n_eyes == 2 else [plain]
@@ -542,6 +758,26 @@ def phase_kernels(torch, T, hl, st, fv):
         if bad > 1e-4 * total:
             raise RuntimeError(f"{name}: {bad} of {total} outputs differ")
         return worst, bad / total
+
+    def check_exact(name, pairs):
+        bad, total, worst = mismatches(torch, pairs)
+        if bad:
+            raise RuntimeError(f"{name}: {bad} of {total} outputs differ "
+                               f"(max |d| {worst})")
+        return 0.0, 0.0
+
+    def tested_entries(off, rect, masked_too=False):
+        # live entries whose words the expand's exact test reads
+        owns = (off[1:] - off[:-1]) > 0
+        ru = rect.to(torch.int64) & 0xFFFFFFFF
+        bits = 1 if masked_too else 3   # culled (and, unless warped, masked)
+        return float((owns & (((ru >> 30) & bits) == 0)).sum())
+
+    def expand_bytes(n_entries, capacity, words_read):
+        # offsets, rect, mask and depth word of each entry, the tested
+        # entries' words, the two keys of each slot
+        return (n_entries + 1) * 4 + 3 * 4 * n_entries + 4 * words_read \
+            + 2 * 4 * capacity
 
     def tile_tests(rect_word, rect_h):
         rw = rect_word.to(torch.int64) & 0xFFFFFFFF
@@ -620,48 +856,51 @@ def phase_kernels(torch, T, hl, st, fv):
     exp_in = (rk[0], rk[1], rk[2], rk[3], rk[4])
     ek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp_in, **ekw), 20)
     ep, plain_ms = cuda_ms(torch, lambda: KE.expand_slots_plain(*exp_in, **ekw), 3)
-    # key1, key2, the (4, C) words, the slot total and the overflow flag
-    err, flips = check_ints("expand", list(zip(ek, ep)))
+    # key1, key2, the slot total and the overflow flag
+    err, flips = check_exact("expand", list(zip(ek, ep)))
     record("expand", "expand", mono_l["expand"], ms, plain_ms, err, flips,
-           (r_cap + 1) * 4 + 7 * 4 * r_cap + 6 * 4 * cap,
+           expand_bytes(r_cap, cap, 4 * tested_entries(rk[0], rk[1])),
            (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(rk[0], rk[1]))
 
-    # instance sort and tile ranges (library calls)
-    (sorted_key, table), sort_ms = device_ms(
-        torch, lambda: PC.sort_instances(ek[0], ek[1], ek[2]), 10)
+    # instance sort of the keys alone and tile ranges (library calls)
+    sorted_key, sort_ms = device_ms(
+        torch, lambda: PC.sort_instances(ek[0], ek[1]), 10)
     def ranges():
         tile = PC.binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)
         return OB.extract_tile_ranges(tile, tiles_x * tiles_y)
     (starts, counts), ranges_ms = device_ms(torch, ranges, 20)
-    other += [dict(name="instance sort (torch.sort on int64 + gather)",
+    other += [dict(name="instance sort (torch.sort of the int64 keys alone)",
                    ms=sort_ms, elements=cap),
               dict(name="tile ranges (torch.searchsorted)", ms=ranges_ms,
                    tiles=tiles_x * tiles_y)]
-    log(f"[library] sort {sort_ms:.4f} ms over {cap} slots, ranges "
-        f"{ranges_ms:.4f} ms")
+    log(f"[library] sort (keys only) {sort_ms:.4f} ms over {cap} slots, "
+        f"ranges {ranges_ms:.4f} ms")
 
-    # kernel 5: blend (the staged frame must reproduce the renderer's frame)
+    # kernel 5: blend through the sorted keys into the row table's words
+    # (the staged frame must reproduce the renderer's frame)
     bkw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=w, height=h)
-    blend_fn = lambda: KB.blend_image_cuda(table, starts, counts, **bkw)
+    ent = (sorted_key, rk[4], plan.idx_bits)
+    blend_fn = lambda: KB.blend_image_cuda(*ent, starts, counts, **bkw)
     (color, depth), ms = device_ms(torch, blend_fn, 10)
     time_check("blend", blend_fn, ms)
     if not torch.equal(color, hl["out"].color):
         raise RuntimeError("staged frame differs from the renderer's frame")
     (pc, pd, processed), plain_ms = cuda_ms(
-        torch, lambda: KB.blend_tiles_plain(table, starts, counts,
+        torch, lambda: KB.blend_tiles_plain(*ent, starts, counts,
                                             tiles_x=tiles_x,
                                             return_processed=True), 1)
-    err = blend_subset_err(torch, KB, table, starts, counts, color, depth,
+    err = blend_subset_err(torch, KB, ent, starts, counts, color, depth,
                            tiles_x=tiles_x, tiles_y=tiles_y, w=w, h=h)
-    if err > 1e-4:
-        raise RuntimeError(f"blend: kernel vs plain max |d| {err}")
     full_err = float((pc.reshape(tiles_y, tiles_x, 16, 16, 4).permute(
         0, 2, 1, 3, 4).reshape(tiles_y * 16, tiles_x * 16, 4)[:h, :w]
         - color).abs().max())
     log(f"[kernels] blend: full-frame plain vs kernel max |d| {full_err:.3g}")
+    if err != 0.0 or full_err != 0.0:
+        raise RuntimeError(f"blend: kernel vs plain max |d| {err}, full "
+                           f"frame {full_err}")
     n_live = int(counts.sum())
     record("blend", "blend", mono_l["blend"], ms, plain_ms, err, 0.0,
-           16 * n_live + 8 * tiles_x * tiles_y + (16 + 4) * w * h,
+           blend_bytes(torch, KB, ent, starts, processed, 4, w * h),
            BLEND_DECODE_FLOPS * float(processed.sum())
            + BLEND_PAIR_FLOPS * 256.0 * float(processed.sum()))
     stages = dict(project=rows["project"]["ms"], prep=rows["prep"]["ms"],
@@ -694,14 +933,15 @@ def phase_kernels(torch, T, hl, st, fv):
     ek0, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp0_in, **ekw0), 20)
     ep0, plain_ms = cuda_ms(torch,
                               lambda: KE.expand_slots_plain(*exp0_in, **ekw0), 3)
-    err, flips = check_ints("expand.rows_off", list(zip(ek0, ep0)))
+    err, flips = check_exact("expand.rows_off", list(zip(ek0, ep0)))
     record("expand.rows_off", "expand", off_l["expand"], ms, plain_ms, err,
-           flips, (n + 1) * 4 + 7 * 4 * n + 6 * 4 * cap0,
+           flips, expand_bytes(n, cap0, 4 * tested_entries(off0, rect0)),
            (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(off0, rect0))
-    sorted0, table0 = PC.sort_instances(ek0[0], ek0[1], ek0[2])
+    sorted0 = PC.sort_instances(ek0[0], ek0[1])
     tile0 = PC.binning_sorted_tile(sorted0, plan_tuple=plan0.kernel_tuple)
     color0, _ = KB.blend_image_cuda(
-        table0, *OB.extract_tile_ranges(tile0, tiles_x * tiles_y), **bkw)
+        sorted0, pk0.words, plan0.idx_bits,
+        *OB.extract_tile_ranges(tile0, tiles_x * tiles_y), **bkw)
     if not torch.equal(color0, hl["out"].color):
         raise RuntimeError("staged rows-off frame differs from the renderer's")
 
@@ -748,41 +988,45 @@ def phase_kernels(torch, T, hl, st, fv):
     sek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*sexp_in, **sekw), 20)
     sep, plain_ms = cuda_ms(torch,
                               lambda: KE.expand_slots_plain(*sexp_in, **sekw), 3)
-    err, flips = check_ints("expand.stereo", list(zip(sek, sep)))
+    err, flips = check_exact("expand.stereo", list(zip(sek, sep)))
     record("expand.stereo", "expand", st_l["expand"], ms, plain_ms, err, flips,
-           # words 3 and 7 are one shared plane, read once
-           (n + 1) * 4 + (3 + 7) * 4 * n + 10 * 4 * scap,
+           # the test reads words 0-2 and 4-6
+           expand_bytes(n, scap, 6 * tested_entries(soff, srect)),
            (2 * EXPAND_DECODE_FLOPS + 2 * TILE_TEST_FLOPS)
            * tested_slots(soff, srect))
 
-    s_sorted, s_table = PC.sort_instances(sek[0], sek[1], sek[2])
+    s_sorted = PC.sort_instances(sek[0], sek[1])
     s_tile = PC.binning_sorted_tile(s_sorted, plan_tuple=st_plan.kernel_tuple)
     s_starts, s_counts = OB.extract_tile_ranges(s_tile, tiles_x * tiles_y)
     sbkw = dict(bkw, n_eyes=2, r2_cutoff=9.0)
-    blend_fn = lambda: KB.blend_image_cuda(s_table, s_starts, s_counts, **sbkw)
+    s_ent = (s_sorted, sk.words, st_plan.idx_bits)
+    blend_fn = lambda: KB.blend_image_cuda(*s_ent, s_starts, s_counts, **sbkw)
     (scolor, sdepth), ms = device_ms(torch, blend_fn, 10)
     time_check("blend.stereo", blend_fn, ms)
     if not torch.equal(scolor, st["out"].color):
         raise RuntimeError("staged stereo frame differs from the renderer's")
     (_eyes, sprocessed), plain_ms = cuda_ms(
-        torch, lambda: KB.blend_tiles_plain(s_table, s_starts, s_counts,
+        torch, lambda: KB.blend_tiles_plain(*s_ent, s_starts, s_counts,
                                             tiles_x=tiles_x, n_eyes=2,
                                             r2_cutoff=9.0,
                                             return_processed=True), 1)
-    err = blend_subset_err(torch, KB, s_table, s_starts, s_counts, scolor,
+    err = blend_subset_err(torch, KB, s_ent, s_starts, s_counts, scolor,
                            sdepth, tiles_x=tiles_x, tiles_y=tiles_y, w=w, h=h,
                            n_eyes=2, r2_cutoff=9.0)
-    if err > 1e-4:
+    if err != 0.0:
         raise RuntimeError(f"blend.stereo: kernel vs plain max |d| {err}")
     s_live = int(s_counts.sum())
+    s_flops, s_inside, s_pairs = blend_cutoff_flops(
+        torch, KB, s_ent, s_starts, sprocessed, tiles_x=tiles_x, r2_cutoff=9.0)
     record("blend.stereo", "blend", st_l["blend"], ms, plain_ms, err, 0.0,
-           32 * s_live + 8 * tiles_x * tiles_y + 2 * (16 + 4) * w * h,
-           2 * BLEND_DECODE_FLOPS * float(sprocessed.sum())
-           + 2 * BLEND_PAIR_FLOPS * 256.0 * float(sprocessed.sum()))
+           # w3 is one shared plane: 7 distinct words an entry
+           blend_bytes(torch, KB, s_ent, s_starts, sprocessed, 7, 2 * w * h),
+           s_flops)
     log("[stages] " + json.dumps({"stereo_stage_ms": {
         k: rows[k]["ms"] for k in ("stereo_project", "prep.stereo",
                                    "expand.stereo", "blend.stereo")},
         "records_composited": float(sprocessed.sum()),
+        "pairs_within_cutoff": s_inside, "pairs": s_pairs,
         "live_instances": s_live}))
 
     # kernel 7 and the warped modes of 2, 4 and 5 on the foveated frame's
@@ -847,43 +1091,47 @@ def phase_kernels(torch, T, hl, st, fv):
     fek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*fexp_in, **fekw), 20)
     fep, plain_ms = cuda_ms(torch,
                               lambda: KE.expand_slots_plain(*fexp_in, **fekw), 3)
-    err, flips = check_ints("expand.warped", list(zip(fek, fep)))
+    err, flips = check_exact("expand.warped", list(zip(fek, fep)))
     record("expand.warped", "expand", fv_l["expand"], ms, plain_ms, err, flips,
-           (n + 1) * 4 + (3 + 7) * 4 * n + 10 * 4 * fcap + 2 * 128 * 4,
+           expand_bytes(n, fcap, 6 * tested_entries(foff, frect, masked_too=True))
+           + 2 * 128 * 4,
            (2 * EXPAND_DECODE_FLOPS + 2 * TILE_TEST_FLOPS)
            * tested_slots(foff, frect, masked_too=True))
 
-    f_sorted, f_table = PC.sort_instances(fek[0], fek[1], fek[2])
+    f_sorted = PC.sort_instances(fek[0], fek[1])
     f_tile = PC.binning_sorted_tile(f_sorted, plan_tuple=f_plan.kernel_tuple)
     f_starts, f_counts = OB.extract_tile_ranges(f_tile, ftx * fty)
     coords = (tables["coord_x"], tables["coord_y"])
     fbkw = dict(tiles_x=ftx, tiles_y=fty, width=pw, height=ph, n_eyes=2,
                 r2_cutoff=9.0, pixel_coords=coords)
-    blend_fn = lambda: KB.blend_image_cuda(f_table, f_starts, f_counts, **fbkw)
+    f_ent = (f_sorted, fpk.words, f_plan.idx_bits)
+    blend_fn = lambda: KB.blend_image_cuda(*f_ent, f_starts, f_counts, **fbkw)
     (fcolor, fdepth), ms = device_ms(torch, blend_fn, 10)
     time_check("blend.warped", blend_fn, ms)
     if not torch.equal(fcolor, fv["out"].color):
         raise RuntimeError("staged foveated frame differs from the renderer's")
     (_eyes, fprocessed), plain_ms = cuda_ms(
-        torch, lambda: KB.blend_tiles_plain(f_table, f_starts, f_counts,
+        torch, lambda: KB.blend_tiles_plain(*f_ent, f_starts, f_counts,
                                             tiles_x=ftx, n_eyes=2,
                                             r2_cutoff=9.0, pixel_coords=coords,
                                             return_processed=True), 1)
-    err = blend_subset_err(torch, KB, f_table, f_starts, f_counts, fcolor,
+    err = blend_subset_err(torch, KB, f_ent, f_starts, f_counts, fcolor,
                            fdepth, tiles_x=ftx, tiles_y=fty, w=pw, h=ph,
                            n_eyes=2, r2_cutoff=9.0, pixel_coords=coords)
-    if err > 1e-4:
+    if err != 0.0:
         raise RuntimeError(f"blend.warped: kernel vs plain max |d| {err}")
     f_live = int(f_counts.sum())
+    f_flops, f_inside, f_pairs = blend_cutoff_flops(
+        torch, KB, f_ent, f_starts, fprocessed, tiles_x=ftx, r2_cutoff=9.0,
+        pixel_coords=coords)
     record("blend.warped", "blend", fv_l["blend"], ms, plain_ms, err, 0.0,
-           32 * f_live + 8 * ftx * fty + 2 * (16 + 4) * pw * ph
-           + (ftx + fty) * 256 * 4,
-           2 * BLEND_DECODE_FLOPS * float(fprocessed.sum())
-           + 2 * BLEND_PAIR_FLOPS * 256.0 * float(fprocessed.sum()))
+           blend_bytes(torch, KB, f_ent, f_starts, fprocessed, 7, 2 * pw * ph)
+           + (ftx + fty) * 256 * 4, f_flops)
     log("[stages] " + json.dumps({"foveated_stage_ms": {
         k: rows[k]["ms"] for k in ("prep.warped", "expand.warped",
                                    "blend.warped")},
         "records_composited": float(fprocessed.sum()),
+        "pairs_within_cutoff": f_inside, "pairs": f_pairs,
         "live_instances": f_live, "tiles": [ftx, fty]}))
     log("[timing check] " + json.dumps(timing_check))
     order = ("project", "prep", "prep.rows_off", "row_expand", "expand",
@@ -891,6 +1139,132 @@ def phase_kernels(torch, T, hl, st, fv):
              "expand.stereo", "blend.stereo", "bounds_gather", "prep.warped",
              "expand.warped", "blend.warped")
     return [rows[k] for k in order], other
+
+
+def built_expand_tables(torch, M, KE, device, seed: int = 5):
+    """Entry tables that put the expand's CTA-level search at its edges
+    (1024 slots a CTA), each (label, offsets, rect, mask, dsw, 8 word rows,
+    capacity), made from ``seed`` on the host and moved to ``device``:
+    entries owning 6,000 slots (more than 4 CTAs), a run of 1-slot and
+    culled entries, a row table's dead tail (offsets repeating the total), a
+    total equal to the capacity and one above it.  Ordinary entries mix
+    unmasked rects (exact test per slot), MASKED windows and culled entries;
+    the records are random ellipses over a 1920x1080 grid."""
+    g = torch.Generator().manual_seed(seed)
+
+    def uni(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=g)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int64)
+
+    def f16(x):
+        return x.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+    def words(n):
+        rows = []
+        for shift in (0.0, -25.0):  # the right eye's record sits 25 px left
+            mx, my = uni(0, 1920, n) + shift, uni(0, 1080, n)
+            rows += [f16(mx) | (f16(my) << 16),
+                     ints(0, 65536, n) | (f16(uni(0.5, 40.0, n)) << 16),
+                     f16(uni(0.5, 40.0, n)) | (f16(uni(0.5, 30.0, n)) << 16),
+                     ints(0, 1 << 32, n)]
+        rows[7] = rows[3]  # the eyes share the colour/opacity word
+        return rows
+
+    def entries(kinds):
+        n = len(kinds)
+        kinds = torch.tensor(kinds, dtype=torch.int64)
+        min_tx, min_ty = ints(0, 110, n), ints(0, 62, n)
+        rect_w, rect_h = ints(1, 11, n), ints(1, 7, n)
+        win_w, win_h = ints(1, 9, n), ints(1, 5, n)
+        window = torch.zeros(n, dtype=torch.int64)
+        for dy in range(4):
+            for dx in range(8):
+                window |= ((dx < win_w) & (dy < win_h)).to(torch.int64) << (dy * 8 + dx)
+        mask = ints(0, 1 << 32, n) & window
+        mask = torch.where(mask == 0, 1, mask)
+        one = kinds == 4                    # 1-slot unmasked entry
+        rect_w = torch.where(one, 1, torch.where(kinds == 1, win_w, rect_w))
+        rect_h = torch.where(one, 1, rect_h)
+        mask = torch.where(kinds == 5, torch.ones_like(mask) << ints(0, 32, n),
+                           mask)              # 1-slot MASKED entry
+        big = kinds == 3                    # 100 x 60 tiles: 6,000 slots
+        min_tx, min_ty = torch.where(big, 5, min_tx), torch.where(big, 2, min_ty)
+        rect_w, rect_h = torch.where(big, 100, rect_w), torch.where(big, 60, rect_h)
+        masked = (kinds == 1) | (kinds == 5)
+        count = torch.where(masked, KE._popcount(mask), rect_w * rect_h)
+        count = torch.where(kinds == 2, 1, count)   # culled: one dead slot
+        count = torch.where(kinds == 6, 0, count)   # a row table's dead tail
+        rect = (min_tx | (min_ty << 10) | (rect_w << 20)
+                | torch.where(masked, KE.MASKED_BIT, 0)
+                | torch.where(kinds == 2, KE.CULLED_BIT, 0))
+        rect = torch.where(kinds == 6, 0, rect)
+        mask = torch.where(masked, mask, 0)
+        offsets = torch.zeros(n + 1, dtype=torch.int64)
+        offsets[1:] = torch.cumsum(count, 0)
+        return offsets, rect, mask, ints(0, 1 << 31, n), words(n)
+
+    def ordinary(n):  # 60% unmasked rects, 30% MASKED windows, 10% culled
+        return [0 if k < 6 else 1 if k < 9 else 2
+                for k in ints(0, 10, n).tolist()]
+
+    specs = [
+        ("entries over 4 CTAs", ordinary(300) + [3] + ordinary(300) + [3]
+         + ordinary(300), None),
+        ("1-slot and culled run", ordinary(50) + [2, 4, 2, 5] * 1500
+         + ordinary(50), None),
+        ("row dead tail", ordinary(2000) + [6] * 1500, None),
+        ("total == capacity", ordinary(300) + [3] + ordinary(700), 0),
+        ("total > capacity", ordinary(2500) + [6] * 300, -1000),
+    ]
+    out = []
+    for label, kinds, cap_delta in specs:
+        off, rect, mask, dsw, w = entries(kinds)
+        total = int(off[-1])
+        cap = total + cap_delta if cap_delta is not None \
+            else -(-total // 1024) * 1024 + 1024 + 37
+        out.append((label, off.to(torch.int32).to(device),
+                    M.to_i32(rect).to(device), M.to_i32(mask).to(device),
+                    dsw.to(torch.int32).to(device),
+                    [M.to_i32(x).to(device) for x in w], cap))
+    return out
+
+
+def phase_expand_tables(torch, bounds):
+    """The expand on built tables against its plain version, in modes mono,
+    stereo and warped: all outputs bit-equal, the overflow flag as the
+    capacity says."""
+    from gsm_renderer_tpu_torch import mathlib as M
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.ops import binning as OB
+
+    for label, off, rect, mask, dsw, words, cap in built_expand_tables(
+            torch, M, KE, bounds.device):
+        n = rect.shape[0]
+        total = int(off[n])
+        plan = OB.make_key_plan(120 * 68, n, near_plane=0.1, far_plane=50.0)
+        counts = (off[1:] - off[:-1]).to(torch.int64)
+        live = {}
+        for mode in ("mono", "stereo", "warped"):
+            kw = dict(capacity=cap, tiles_x=120, key_plan=plan, mode=mode,
+                      warped_bounds=bounds if mode == "warped" else None)
+            w = words[:4] if mode == "mono" else words
+            got = KE.expand_slots_cuda(off, rect, mask, dsw, w, **kw)
+            want = KE.expand_slots_plain(off, rect, mask, dsw, w, **kw)
+            bad, elems, worst = mismatches(torch, list(zip(got, want)))
+            if bad:
+                raise RuntimeError(f"expand tables, {label}, {mode}: {bad} of "
+                                   f"{elems} outputs differ (max |d| {worst})")
+            if int(got[3]) != int(total > cap):
+                raise RuntimeError(f"expand tables, {label}: overflow flag "
+                                   f"{int(got[3])} with total {total}, "
+                                   f"capacity {cap}")
+            live[mode] = int((got[0] != -1).sum())
+        log(f"[expand tables] {label}: {n} entries, total {total}, capacity "
+            f"{cap}, largest entry {int(counts.max())} slots, "
+            f"{int((counts == 1).sum())} 1-slot, {int((counts == 0).sum())} "
+            f"0-slot; live slots {json.dumps(live)}; bit-equal to plain")
 
 
 def phase_small(torch, T):
@@ -931,6 +1305,44 @@ def phase_small(torch, T):
                                f"|d| {cerr}")
 
 
+def frames_only(torch, T, native, n: int = 1_000_000) -> int:
+    """``--frames``: the mono frame loops alone -- the headline and the
+    realistic scene, rows on and off -- each with its CUDA-event frame
+    times, its host/device split and a traced idle share; one JSON line.
+    Copied into another checkout, it times that checkout's package, so two
+    trees compare in one session (parent, change, change, parent)."""
+    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
+
+    native.build_all()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    ds = generate_visible_gaussians(n, sh_degree=3, seed=7,
+                                    scale_range=(0.002, 0.012))
+    scenes = dict(headline=(ds.to_input(T.Precision.FLOAT32),
+                            T.make_camera(W, H, far=50.0)),
+                  realistic=realistic_scene(T, n))
+    res = {}
+    for scene, (gi, cam) in scenes.items():
+        for rows in (True, False):
+            r = T.DepthFirstRenderer(T.RendererConfig(
+                sh_degree=3, precision=T.Precision.FLOAT32, max_width=W,
+                max_height=H, row_expand=rows))
+            render = lambda r=r, gi=gi, cam=cam: r.render(gi, cam, W, H)
+            label = f"{scene} rows_{'on' if rows else 'off'}"
+            out, st = timed_frames(torch, render)
+            check_frame(torch, out, label)
+            tr = trace_frames(torch, render, f"{label} trace", frames=5)
+            res[label] = dict(
+                avg=st["avg"], min=st["min"], max=st["max"],
+                wall_avg=st["wall_avg"], split=frame_split(torch, render),
+                trace=None if tr is None else {
+                    k: tr[k] for k in ("frame_wall_ms", "device_busy_ms",
+                                       "idle_share", "uneven_launches")})
+    print(json.dumps({"frames": res, "card": smi.stdout.strip()}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -946,6 +1358,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--frames"]:
+        return frames_only(torch, T, _native)
     kernels = [project.PROJECT, expand.PREP, expand.ROW_EXPAND, expand.EXPAND,
                blend.BLEND, project.STEREO_PROJECT, expand.BOUNDS_GATHER]
     t0 = time.perf_counter()
@@ -957,6 +1371,9 @@ def main() -> int:
     st = phase_stereo(torch, T, kernels, hl)
     fv = phase_foveated(torch, T, kernels, hl, st)
     rows, other = phase_kernels(torch, T, hl, st, fv)
+    from gsm_renderer_tpu_torch.pipelines.depth_first import foveated_device_tables
+    phase_expand_tables(torch, foveated_device_tables(
+        fv["target"], hl["gi"].positions.device)["bounds"])
     phase_small(torch, T)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"library_ops": other}))

@@ -28,20 +28,31 @@
 // and count 0.
 //
 // Slot expansion replaces _expand_kernel (expand_slots_pallas with a
-// prebuilt table and a KeyPlan): one thread per slot.  The owning entry (a
-// gaussian, or a row of a row table) is an upper-bound binary search over
-// the offsets.  Offsets rise strictly over live entries; a row table's dead
-// tail repeats the total, and since slot < total the search, which keeps
-// offsets[lo] <= slot < offsets[hi], never stops on a dead row.  The tile is
-// the j-th set bit of the mask (MASKED entries) or the row-major walk of the
-// rect plus the exact test (mono alpha cutoff, stereo either eye q <= 9,
+// prebuilt table and a KeyPlan).  Slot s belongs to the entry g (a gaussian,
+// or a row of a row table) with offsets[g] <= s < offsets[g + 1].  Offsets
+// rise strictly over live entries; a row table's dead tail repeats the
+// total, and since slot < total no live slot lands on a dead row.  The tile
+// is the j-th set bit of the mask (MASKED entries) or the row-major walk of
+// the rect plus the exact test (mono alpha cutoff, stereo either eye q <= 9,
 // warped the same on the tile's display-space rect; under the warp MASKED
 // entries are re-tested, as the Pallas kernel does, so that a mask made
 // elsewhere, a widened one included, puts no failing tile in the blend).
 // Keys: key1 = [tile | depth_hi], key2 = [depth_lo | entry index]; dead
 // slots (slot >= total, culled entry, failed test) get the sentinel in both
-// keys and zero words.  Slots at or beyond the capacity are not written (the
-// grid covers the capacity); the caller derives overflow = total > capacity.
+// keys.  The keys are the whole output: the blend reads an entry's record
+// words through the index in key2, so no word is carried per slot.  Slots
+// at or beyond the capacity are not written (the grid covers the capacity);
+// the caller derives overflow = total > capacity.
+//
+// The expand is a load-balanced search.  CTA b owns the 1024 slots [1024 b,
+// 1024 (b + 1)), four per thread, strided so that writes coalesce.  One
+// k-ary search over the offsets in device memory (three rounds of one load
+// a thread for a million entries) finds the entry g0 of its first slot; the
+// CTA stages the offsets, rect, mask and depth word of entries g0 ..
+// g0 + 1024 in shared memory (16 KB; they cover every slot of the CTA), and
+// each slot finds its entry with a 10-step binary search there.  Record
+// words are read from device memory (L1 serves neighbours) only where the
+// exact test reads them.
 //
 // Bounds gather replaces _bgather_kernel (warped_bounds_gather_pallas): one
 // thread per gaussian reads the 9 x and 5 y display coordinates of the
@@ -60,16 +71,23 @@
 // gaussian whose rect fills the window, twice in stereo and warped) against
 // 36-52 B of traffic per gaussian.  Bounds gather: device memory (8 B
 // read, 56 B written per gaussian).  Row expansion: device memory (~40 B
-// read and 32 B written per row, ~100 flops for the span).  Expand: device memory (24-40 B
-// written per slot); the binary search's ~21 dependent loads hit L2 (the
-// offsets of 1-2M entries are 4-8 MB).  All are one thread per element,
-// coalesced.
+// read and 32 B written per row, ~100 flops for the span).  Prep, row
+// expansion and the bounds gather are one thread per element, coalesced.
+// Expand: device memory, 8 B written per slot (the two keys) and 16 B read
+// per entry (offset, rect, mask, depth word) plus the words of the tested
+// entries; the per-slot search that bound the first port (~21 dependent
+// loads in device memory a slot) is one k-ary search a CTA.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kPrepThreads = 256;
 constexpr int kScanThreads = 1024;
+constexpr int kExpandThreads = 256;
+constexpr int kSlotsPerThread = 4;
+constexpr int kExpandSlots = kExpandThreads * kSlotsPerThread;
 constexpr float kStereoR2Cutoff = 9.0f;
 constexpr int kBoundsLanes = 128;
 
@@ -78,10 +96,6 @@ enum Mode { kMono = 0, kStereo = 1, kWarped = 2 };
 
 template <int kMode>
 __host__ __device__ constexpr int words_of() { return kMode == kMono ? 4 : 8; }
-
-struct WordPtrs {
-  const int32_t* w[8];
-};
 
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
   const int lane = threadIdx.x & 31;
@@ -474,92 +488,140 @@ __device__ __forceinline__ float rect_d2(uint32_t a0, uint32_t a1, uint32_t a2,
   return d2min_rect(k, x0 - k.mx, x1 - k.mx, y0 - k.my, y1 - k.my);
 }
 
-// out: (2 + words, capacity) = key1, key2, the carried words.
-template <int kMode>
-__global__ void expand_kernel(const int32_t* __restrict__ offsets,
-                              const int32_t* __restrict__ rect,
-                              const int32_t* __restrict__ mask,
-                              const int32_t* __restrict__ dsw, WordPtrs W,
-                              int n, int capacity, int tiles_x, int d_hi,
-                              int d_lo, int idx_bits, float tau,
-                              float theta_unit, float inv255,
-                              int32_t* __restrict__ out,
-                              const float* __restrict__ bounds) {
-  constexpr int kWords = words_of<kMode>();
-  __shared__ float sb[kMode == kWarped ? 2 * kBoundsLanes : 1];
-  if constexpr (kMode == kWarped) stage_bounds(bounds, sb);
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= capacity) return;
-  const int total = offsets[n];
-  bool dead = s >= total;
-  uint32_t k1 = GSM_SENTINEL, k2 = GSM_SENTINEL;
-  uint32_t a[kWords];
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) a[k] = 0;
-  if (!dead) {
-    const int g = upper_bound_entry(offsets, n, s);
-    const int jj = s - offsets[g];
-    const uint32_t rw = static_cast<uint32_t>(rect[g]);
-    const int min_tx = rw & 0x3FFu;
-    const int min_ty = (rw >> 10) & 0x3FFu;
-    const int rect_w = max(static_cast<int>((rw >> 20) & 0x3FFu), 1);
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) a[k] = word(W, k, g);
-    int tx, ty;
-    const bool masked = (rw & GSM_MASKED_BIT) != 0;
-    if (masked) {
-      const int pbit = nth_set_bit(static_cast<uint32_t>(mask[g]), jj);
-      ty = min_ty + (pbit >> 3);
-      tx = min_tx + (pbit & 7);
-    } else {
-      const int q = jj / rect_w;
-      ty = min_ty + q;
-      tx = min_tx + (jj - q * rect_w);
-    }
-    bool passes = true;
-    if constexpr (kMode == kWarped) {
-      // no bypass for MASKED entries under the warp
-      const float x0 = bound_at(sb, tx), x1 = bound_at(sb, tx + 1);
-      const float y0 = bound_at(sb + kBoundsLanes, ty);
-      const float y1 = bound_at(sb + kBoundsLanes, ty + 1);
-      passes = jmin(rect_d2(a[0], a[1], a[2], x0, x1, y0, y1, theta_unit),
-                    rect_d2(a[4], a[5], a[6], x0, x1, y0, y1, theta_unit)) <=
-               kStereoR2Cutoff;
-    } else if (!masked) {
-      const float x0 = static_cast<float>(tx) * 16.0f;
-      const float y0 = static_cast<float>(ty) * 16.0f;
-      const float x1 = x0 + 16.0f, y1 = y0 + 16.0f;
-      const float d2 = rect_d2(a[0], a[1], a[2], x0, x1, y0, y1, theta_unit);
-      if constexpr (kMode == kStereo) {
-        passes = jmin(d2, rect_d2(a[4], a[5], a[6], x0, x1, y0, y1,
-                                  theta_unit)) <= kStereoR2Cutoff;
-      } else {
-        passes = d2 <= d2_cutoff(u8f(a[3], 24, inv255), tau);
-      }
-    }
-    dead = (rw & GSM_CULLED_BIT) || !passes;
-    if (!dead) {
-      const uint32_t tile = static_cast<uint32_t>(ty * tiles_x + tx);
-      const uint32_t dn = static_cast<uint32_t>(dsw[g]);
-      k1 = (tile << d_hi) | (dn >> d_lo);
-      const uint32_t dlo = d_lo > 0 ? (dn & ((1u << d_lo) - 1u)) : 0u;
-      k2 = (idx_bits < 32 ? (dlo << idx_bits) : 0u) | static_cast<uint32_t>(g);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) a[k] = 0;
-    }
+// The CTA's first entry: the largest g in [0, n) with offsets[g] <= s0, for
+// offsets[0] <= s0 < offsets[n].  A k-ary search: each round every thread
+// probes one of kExpandThreads evenly spaced offsets and __syncthreads_count
+// counts the probes at or below s0 (a prefix, the offsets being
+// non-decreasing), which narrows [lo, hi) kExpandThreads + 1-fold: three
+// rounds of one load each for a million entries.  Every thread of the block
+// calls it and gets the same result.
+__device__ __forceinline__ int block_upper_bound(const int32_t* offsets, int n,
+                                                 int s0) {
+  int lo = 0, hi = n;  // offsets[lo] <= s0 < offsets[hi]
+  while (hi - lo > 1) {
+    const int step = (hi - lo + kExpandThreads) / (kExpandThreads + 1);
+    const int p = lo + (static_cast<int>(threadIdx.x) + 1) * step;
+    const int below = __syncthreads_count(p < hi && offsets[p] <= s0);
+    const int lo2 = lo + below * step;
+    hi = min(lo2 + step, hi);
+    lo = lo2;
   }
-  const size_t C = static_cast<size_t>(capacity);
-  out[s] = static_cast<int32_t>(k1);
-  out[C + s] = static_cast<int32_t>(k2);
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) out[(2 + k) * C + s] = static_cast<int32_t>(a[k]);
+  return lo;
 }
 
-WordPtrs load_words(const void* const* words) {
-  WordPtrs W;
-  for (int k = 0; k < 8; ++k) W.w[k] = static_cast<const int32_t*>(words[k]);
-  return W;
+// out: (2, capacity) = key1, key2.  CTA b expands slots [b * kExpandSlots,
+// (b + 1) * kExpandSlots); slot s0 + k * kExpandThreads + threadIdx.x is
+// the thread's k-th.
+template <int kMode>
+__global__ void __launch_bounds__(kExpandThreads)
+expand_kernel(const int32_t* __restrict__ offsets,
+              const int32_t* __restrict__ rect,
+              const int32_t* __restrict__ mask,
+              const int32_t* __restrict__ dsw, WordPtrs W, int n,
+              int capacity, int tiles_x, int d_hi, int d_lo, int idx_bits,
+              float tau, float theta_unit, float inv255,
+              int32_t* __restrict__ out, const float* __restrict__ bounds) {
+  __shared__ float sb[kMode == kWarped ? 2 * kBoundsLanes : 1];
+  // the CTA's entries g0 + i, i <= kExpandSlots: their offsets (INT_MAX past
+  // offsets[n]), rect, mask and depth word
+  __shared__ int32_t s_off[kExpandSlots + 1], s_rect[kExpandSlots + 1],
+      s_mask[kExpandSlots + 1], s_dsw[kExpandSlots + 1];
+  if constexpr (kMode == kWarped) stage_bounds(bounds, sb);
+  const int s0 = blockIdx.x * kExpandSlots;
+  const int total = offsets[n];
+  int g0 = 0;
+  if (s0 < total) {
+    g0 = block_upper_bound(offsets, n, s0);
+    // Slot s0 + m lies in an entry <= g0 + m (g0 holds s0, and every entry
+    // below the total owns >= 1 slot; a row table's dead tail, which
+    // repeats the total, lies past them), so offsets[g0 + kExpandSlots] >
+    // every live slot of the CTA and bounds the local search.
+    for (int i = threadIdx.x; i <= kExpandSlots; i += kExpandThreads) {
+      const int g = g0 + i;
+      s_off[i] = g <= n ? offsets[g] : INT_MAX;
+      if (g < n) {
+        s_rect[i] = rect[g];
+        s_mask[i] = mask[g];
+        s_dsw[i] = dsw[g];
+      }
+    }
+    __syncthreads();
+  }
+  const size_t C = static_cast<size_t>(capacity);
+#pragma unroll
+  for (int it = 0; it < kSlotsPerThread; ++it) {
+    const int s = s0 + it * kExpandThreads + static_cast<int>(threadIdx.x);
+    if (s >= capacity) break;
+    uint32_t k1 = GSM_SENTINEL, k2 = GSM_SENTINEL;
+    if (s < total) {
+      int lo = 0, hi = kExpandSlots;  // s_off[lo] <= s < s_off[hi]
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (s_off[mid] <= s) lo = mid; else hi = mid;
+      }
+      const int g = g0 + lo;
+      const int jj = s - s_off[lo];
+      const uint32_t rw = static_cast<uint32_t>(s_rect[lo]);
+      const int min_tx = rw & 0x3FFu;
+      const int min_ty = (rw >> 10) & 0x3FFu;
+      const int rect_w = max(static_cast<int>((rw >> 20) & 0x3FFu), 1);
+      int tx, ty;
+      const bool masked = (rw & GSM_MASKED_BIT) != 0;
+      if (masked) {
+        const int pbit = nth_set_bit(static_cast<uint32_t>(s_mask[lo]), jj);
+        ty = min_ty + (pbit >> 3);
+        tx = min_tx + (pbit & 7);
+      } else {
+        const int q = jj / rect_w;
+        ty = min_ty + q;
+        tx = min_tx + (jj - q * rect_w);
+      }
+      bool dead = (rw & GSM_CULLED_BIT) != 0;
+      // the exact test, and the words it reads, only where it decides:
+      // every live slot under the warp (no bypass for MASKED entries),
+      // else the unmasked ones
+      if (!dead && (kMode == kWarped || !masked)) {
+        const uint32_t a0 = word(W, 0, g), a1 = word(W, 1, g),
+                       a2 = word(W, 2, g);
+        bool passes;
+        if constexpr (kMode == kMono) {
+          const float x0 = static_cast<float>(tx) * 16.0f;
+          const float y0 = static_cast<float>(ty) * 16.0f;
+          passes = rect_d2(a0, a1, a2, x0, x0 + 16.0f, y0, y0 + 16.0f,
+                           theta_unit) <=
+                   d2_cutoff(u8f(word(W, 3, g), 24, inv255), tau);
+        } else {
+          const uint32_t b0 = word(W, 4, g), b1 = word(W, 5, g),
+                         b2 = word(W, 6, g);
+          float x0, x1, y0, y1;
+          if constexpr (kMode == kWarped) {
+            x0 = bound_at(sb, tx);
+            x1 = bound_at(sb, tx + 1);
+            y0 = bound_at(sb + kBoundsLanes, ty);
+            y1 = bound_at(sb + kBoundsLanes, ty + 1);
+          } else {
+            x0 = static_cast<float>(tx) * 16.0f;
+            y0 = static_cast<float>(ty) * 16.0f;
+            x1 = x0 + 16.0f;
+            y1 = y0 + 16.0f;
+          }
+          passes = jmin(rect_d2(a0, a1, a2, x0, x1, y0, y1, theta_unit),
+                        rect_d2(b0, b1, b2, x0, x1, y0, y1, theta_unit)) <=
+                   kStereoR2Cutoff;
+        }
+        dead = !passes;
+      }
+      if (!dead) {
+        const uint32_t tile = static_cast<uint32_t>(ty * tiles_x + tx);
+        const uint32_t dn = static_cast<uint32_t>(s_dsw[lo]);
+        k1 = (tile << d_hi) | (dn >> d_lo);
+        const uint32_t dlo = d_lo > 0 ? (dn & ((1u << d_lo) - 1u)) : 0u;
+        k2 = (idx_bits < 32 ? (dlo << idx_bits) : 0u) | static_cast<uint32_t>(g);
+      }
+    }
+    out[s] = static_cast<int32_t>(k1);
+    out[C + s] = static_cast<int32_t>(k2);
+  }
 }
 
 }  // namespace
@@ -582,7 +644,7 @@ extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
                         cudaStream_t stream) {
   const int mode = launch_mode(n_words, bounds);
   if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const WordPtrs W = load_words(words);
+  const WordPtrs W = load_words(words, n_words);
   if (n > 0) {
     auto kernel = mode == kWarped   ? prep_kernel<kWarped>
                   : mode == kStereo ? prep_kernel<kStereo>
@@ -602,7 +664,7 @@ extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
                               int32_t* off2, int32_t* planes,
                               int32_t* block_sums, int n_blocks,
                               cudaStream_t stream) {
-  const WordPtrs W = load_words(words);
+  const WordPtrs W = load_words(words, 4);  // mono records
   if (r_cap > 0) {
     row_expand_kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
         off1, rect1, mask1, dsw1, W, n, r_cap, tau, theta_unit, inv255, off2,
@@ -612,7 +674,8 @@ extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bounds: the (2, 128) table for mode "warped", else null.
+// out: (2, capacity) = key1, key2; bounds: the (2, 128) table for mode
+// "warped", else null.
 extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                           const int32_t* mask, const int32_t* dsw,
                           const void* const* words, int n_words, int n,
@@ -622,17 +685,15 @@ extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                           cudaStream_t stream) {
   const int mode = launch_mode(n_words, bounds);
   if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const WordPtrs W = load_words(words);
+  const WordPtrs W = load_words(words, n_words);
   if (capacity > 0) {
-    const int threads = 256;
-    const int blocks = (capacity + threads - 1) / threads;
+    const int blocks = (capacity + kExpandSlots - 1) / kExpandSlots;
     auto kernel = mode == kWarped   ? expand_kernel<kWarped>
                   : mode == kStereo ? expand_kernel<kStereo>
                                     : expand_kernel<kMono>;
-    kernel<<<blocks, threads, 0, stream>>>(offsets, rect, mask, dsw, W, n,
-                                           capacity, tiles_x, d_hi, d_lo,
-                                           idx_bits, tau, theta_unit, inv255,
-                                           out, bounds);
+    kernel<<<blocks, kExpandThreads, 0, stream>>>(
+        offsets, rect, mask, dsw, W, n, capacity, tiles_x, d_hi, d_lo,
+        idx_bits, tau, theta_unit, inv255, out, bounds);
   }
   return static_cast<int>(cudaGetLastError());
 }

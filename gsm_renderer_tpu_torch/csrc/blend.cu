@@ -1,26 +1,38 @@
-// Kernel 5: front-to-back tile blend, one CTA per 16x16 tile, one thread
-// per pixel, writing the color and depth images directly (assemble fused,
-// ragged edge masked).  kEyes = 2 is the single-pass dual-eye stereo blend:
-// the sorted table carries both eyes' records (8 words: left w0..w3, right
-// w0..w3), each pixel keeps one accumulator and transmittance per eye, and
-// eye e writes columns [e * width, (e + 1) * width) of an (H, 2W) image.
+// Kernel 5: front-to-back tile blend, one CTA of 256 threads per 16x16
+// tile, one pixel a thread, writing the color and depth images directly
+// (assemble fused, ragged edge masked).  kEyes = 2 is the single-pass
+// dual-eye stereo blend: each entry carries both eyes' records (8 words:
+// left w0..w3, right w0..w3), each pixel keeps one accumulator and
+// transmittance per eye, and eye e writes columns [e * width, (e + 1) *
+// width) of an (H, 2W) image.
 //
 // Replaces the Pallas kernel gsm_renderer_tpu/kernels/blend.py::
 // _row_blend_kernel (blend_tiles_pallas, exponent_mode "vpu", depth modes
 // "weighted" and "none", n_eyes 1 and 2, r2_cutoff, pixel_coords) and the
 // XLA assemble_image after it.
 //
+// Records through the sorted keys: rank k of the sorted instance list is
+// entry g = key2(k) & (2^idx_bits - 1) (the KeyPlan index field, the low
+// bits of the int64 sort key), and its record is word row w of the entry
+// table at column g (the projection's words, or a row table's).  The Pallas
+// blend reads a table gathered into sorted order, a TPU habit (no cheap
+// gather in the kernel); here the blend reads only the records it
+// composites, and nothing gathers the table after the sort.
+//
 // Pixel coordinates: pixel p = ly * 16 + lx of tile (tx, ty) sits at (tx *
 // 16 + lx, ty * 16 + ly), or, with the foveated coordinate tables coord_x
 // (tiles_x, 256) and coord_y (tiles_y, 256), at the display-space point
-// (coord_x[tx][p], coord_y[ty][p]) it samples (256 consecutive floats per
-// tile: coalesced).  Writes stay clipped to width x height either way.
+// (coord_x[tx][p], coord_y[ty][p]) it samples.  Writes stay clipped to width
+// x height either way.
 //
 // Per record: centred linear forms u = a1 dx + b1 dy, v = a2 dx + b2 dy with
 // dx = px - mx at integer pixel corners (no +0.5), alpha = min(exp(-q/2 +
-// log op), 0.99), then alpha = 0 where q > r2_cutoff (when r2_cutoff > 0:
-// the stereo blend's r^2 <= 9 cutoff); f16 fields decode with subnormals
-// flushed to zero.
+// log op), 0.99), then, in the dual-eye blend, alpha = 0 where q >
+// r2_cutoff (the stereo blend's r^2 <= 9 cutoff); f16 fields decode with
+// subnormals flushed to zero.  Every path that blends two eyes sets the
+// cutoff and the mono path never does, so the dual-eye kernel alone carries
+// it and gsm_blend refuses the other pairings.  The float sequence is the
+// plain version's, operation for operation (--fmad=false).
 //
 // Batches and early exit: the tile's span [start, start + count) is walked
 // in batches of 256 records aligned to 128-record blocks -- batch 0 ends at
@@ -31,50 +43,112 @@
 // pixel's transmittance is below 1/255 in every eye (__syncthreads_or over
 // the larger of the eyes' transmittances): the Pallas kernel's tile-level
 // exit, which for two eyes waits until both saturate.  The plain version
-// (kernels/blend.py) applies the same rule; the XLA reference blend never
-// exits.
+// (kernels/blend.py) applies the same rule.
 //
-// Bound on the H100: float operations (~25 per pixel, record and eye
-// processed) and the SFU's exp; the records (16 B per eye) are read once per
-// tile.
+// Design for the H100, and what each choice does (times: chip_smoke.py and
+// same-call variants on one H100 at 700 W, PERF.md):
+// - Shared-memory pipe.  A record is decoded into shared memory as three
+//   float4s, {mx, my, a1, b1}, {a2, b2, lop, d}, {r, g, b, 0}: reading it
+//   is three broadcast LDS.128 per eye instead of eleven LDS.32.
+//   An LDS.128 still returns 16 B to every lane, so the shared-memory pipe
+//   moves about as many bytes as before; the loads a record takes in
+//   instructions, not in bytes, are what fell.
+// - Exact zeros, warp by warp (the dual-eye blend).  A pixel's alpha is
+//   exactly 0 where q > r2_cutoff.  When no pixel of a warp is within the
+//   cutoff, the warp skips expf and the accumulations (w = 0 leaves the
+//   sums and T bit-for-bit unchanged: T and the decoded fields are finite)
+//   and never loads the third float4.  A warp covers an 8x4 block of the
+//   tile, the most compact 32 pixels, so that the test fires for as many
+//   warps as it can.  The mono blend has no cutoff and no test: exact zeros
+//   are rare there, the vote and branch serialised the records, and without
+//   them the compiler overlaps consecutive records (the loop is
+//   latency-bound).
+// - One pixel a thread.  Two pixels a thread (128 threads; 1.5 LDS per
+//   pixel and record) measured slower in every mode and spilled: the loop
+//   is bound by latency and by the warps that can hide it, and 256 threads
+//   at 40-48 registers keep 48 warps on an SM.
+// - Gather latency.  The key and the words of the next batch's record are
+//   loaded into registers before the current batch is composited, and the
+//   key of the batch after that too, so the dependent key -> entry -> word
+//   loads run behind the compositing.
+// - Tile order.  Launching the heaviest tiles first (an argsort of the
+//   counts) cut the foveated blend's tail but cost more than it saved in
+//   mono: tiles run in index order.
+//
+// Bound on the H100: float operations.  A composited (pixel, record, eye)
+// costs about 25 FP32 operations and one MUFU (exp), or 11 (dx, dy, u, v,
+// q) where the cutoff zeroes it; the records read are 8 B of key plus 16 B
+// of words per eye.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;
-constexpr int kBatch = 256;
+constexpr int kThreads = kPix;  // one pixel a thread
+constexpr int kBatch = 256;     // records staged per round, one a thread
+constexpr int kBlock = 128;     // batch alignment (the Pallas chunk)
+// a warp covers a kWarpW x kWarpH block of the tile
+constexpr int kWarpW = 8;
+constexpr int kWarpH = 32 / kWarpW;
 
-struct Batch {
-  float mx[kBatch], my[kBatch], a1[kBatch], b1[kBatch], a2[kBatch],
-      b2[kBatch], lop[kBatch], r[kBatch], g[kBatch], b[kBatch], d[kBatch];
+static_assert(kBatch == kThreads, "each thread stages one record a batch");
+
+// A decoded record: {mx, my, a1, b1}, {a2, b2, lop, d}, {r, g, b, 0}.
+struct Rec {
+  float4 a, b, c;
 };
 
+__device__ __forceinline__ Rec decode_record(uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3,
+                                             float theta_unit, float inv255) {
+  const float theta =
+      static_cast<float>(static_cast<int>(a1 & 0xFFFFu)) * theta_unit;
+  const float s1 = jmax(f16_bits_to_f32(a1 >> 16), 1e-4f);
+  const float s2 = jmax(f16_bits_to_f32(a2), 1e-4f);
+  const float cth = cosf(theta), sth = sinf(theta);
+  const float i1 = 1.0f / s1, i2 = 1.0f / s2;
+  Rec r;
+  r.a = make_float4(f16_bits_to_f32(a0), f16_bits_to_f32(a0 >> 16), cth * i1,
+                    sth * i1);
+  r.b = make_float4(-sth * i2, cth * i2, logf(u8f(a3, 24, inv255)),
+                    f16_bits_to_f32(a2 >> 16));
+  r.c = make_float4(u8f(a3, 0, inv255), u8f(a3, 8, inv255),
+                    u8f(a3, 16, inv255), 0.0f);
+  return r;
+}
+
+// kEyes = 2: alpha zeroed where q > r2_cutoff, the warp test for exact
+// zeros (see the head comment).
 template <int kEyes>
-__global__ void __launch_bounds__(kPix)
-blend_kernel(const int32_t* __restrict__ table, int capacity,
-             const int32_t* __restrict__ starts,
+__global__ void __launch_bounds__(kThreads)
+blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
+             WordPtrs W, const int32_t* __restrict__ starts,
              const int32_t* __restrict__ counts, int tiles_x, int width,
              int height, int with_depth, float theta_unit, float inv255,
              float min_transmittance, float r2_cutoff,
              const float* __restrict__ coord_x,
              const float* __restrict__ coord_y,
              float* __restrict__ color, float* __restrict__ depth) {
-  __shared__ Batch sb[kEyes];
+  constexpr int kWords = 4 * kEyes;
+  constexpr bool kCutoff = kEyes == 2;
+  __shared__ Rec sr[kEyes][kBatch];
 
   const int tile = blockIdx.x;
   const int tx = tile % tiles_x, ty = tile / tiles_x;
-  const int lx = threadIdx.x % kTile, ly = threadIdx.x / kTile;
-  const int x = tx * kTile + lx, y = ty * kTile + ly;
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int lx = (warp % (kTile / kWarpW)) * kWarpW + lane % kWarpW;
+  const int ly = (warp / (kTile / kWarpW)) * kWarpH + lane / kWarpW;
   float pxf, pyf;
   if (coord_x != nullptr) {
-    pxf = coord_x[static_cast<size_t>(tx) * kPix + threadIdx.x];
-    pyf = coord_y[static_cast<size_t>(ty) * kPix + threadIdx.x];
+    const int p = ly * kTile + lx;
+    pxf = coord_x[static_cast<size_t>(tx) * kPix + p];
+    pyf = coord_y[static_cast<size_t>(ty) * kPix + p];
   } else {
     pxf = static_cast<float>(lx) + static_cast<float>(tx * kTile);
     pyf = static_cast<float>(ly) + static_cast<float>(ty * kTile);
   }
-  const size_t C = static_cast<size_t>(capacity);
 
   const int start = starts[tile];
   const int end = start + counts[tile];
@@ -85,54 +159,66 @@ blend_kernel(const int32_t* __restrict__ table, int capacity,
     acc_r[e] = acc_g[e] = acc_b[e] = acc_d[e] = 0.0f;
   }
 
-  for (int b0 = (start / 128) * 128; b0 < end; b0 += kBatch) {
+  // Entry of this thread's record in the batch at b0, or -1 outside the
+  // span (the key's low word is key2: the entry index in its low bits).
+  auto entry_at = [&](int b0) -> int {
+    const int s = b0 + t;
+    return (s >= start && s < end)
+               ? static_cast<int>(key_words[2 * static_cast<size_t>(s)] & idx_mask)
+               : -1;
+  };
+  uint32_t raw[kWords];
+  auto fetch = [&](int g) {
+    if (g >= 0) {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {
+        raw[k] = static_cast<uint32_t>(__ldg(W.w[k] + g));
+      }
+    }
+  };
+
+  const int base = (start / kBlock) * kBlock;
+  int g = entry_at(base);
+  int g_next = entry_at(base + kBatch);
+  fetch(g);
+  for (int b0 = base; b0 < end; b0 += kBatch) {
     const int lo = max(b0, start) - b0, hi = min(b0 + kBatch, end) - b0;
-    const int j = threadIdx.x;
-    if (j >= lo && j < hi) {
-      const size_t idx = static_cast<size_t>(b0 + j);
+    if (g >= 0) {
 #pragma unroll
       for (int e = 0; e < kEyes; ++e) {
-        const uint32_t a0 = static_cast<uint32_t>(table[(4 * e + 0) * C + idx]);
-        const uint32_t a1 = static_cast<uint32_t>(table[(4 * e + 1) * C + idx]);
-        const uint32_t a2 = static_cast<uint32_t>(table[(4 * e + 2) * C + idx]);
-        const uint32_t a3 = static_cast<uint32_t>(table[(4 * e + 3) * C + idx]);
-        const float theta =
-            static_cast<float>(static_cast<int>(a1 & 0xFFFFu)) * theta_unit;
-        const float s1 = jmax(f16_bits_to_f32(a1 >> 16), 1e-4f);
-        const float s2 = jmax(f16_bits_to_f32(a2), 1e-4f);
-        const float cth = cosf(theta), sth = sinf(theta);
-        const float i1 = 1.0f / s1, i2 = 1.0f / s2;
-        Batch& B = sb[e];
-        B.mx[j] = f16_bits_to_f32(a0);
-        B.my[j] = f16_bits_to_f32(a0 >> 16);
-        B.d[j] = f16_bits_to_f32(a2 >> 16);
-        B.r[j] = u8f(a3, 0, inv255);
-        B.g[j] = u8f(a3, 8, inv255);
-        B.b[j] = u8f(a3, 16, inv255);
-        B.lop[j] = logf(u8f(a3, 24, inv255));
-        B.a1[j] = cth * i1;
-        B.b1[j] = sth * i1;
-        B.a2[j] = -sth * i2;
-        B.b2[j] = cth * i2;
+        sr[e][t] = decode_record(raw[4 * e], raw[4 * e + 1], raw[4 * e + 2],
+                                 raw[4 * e + 3], theta_unit, inv255);
       }
     }
     __syncthreads();
+    // the next batch's words (its key arrived during this one) and the key
+    // of the batch after it, in flight while this batch is composited
+    g = g_next;
+    g_next = entry_at(b0 + 2 * kBatch);
+    fetch(g);
+
     for (int k = lo; k < hi; ++k) {
 #pragma unroll
       for (int e = 0; e < kEyes; ++e) {
-        const Batch& B = sb[e];
-        const float dx = pxf - B.mx[k];
-        const float dy = pyf - B.my[k];
-        const float u = B.a1[k] * dx + B.b1[k] * dy;
-        const float v = B.a2[k] * dx + B.b2[k] * dy;
+        const float4 A = sr[e][k].a;
+        const float4 B = sr[e][k].b;
+        const float dx = pxf - A.x;
+        const float dy = pyf - A.y;
+        const float u = A.z * dx + A.w * dy;
+        const float v = B.x * dx + B.y * dy;
         const float q = u * u + v * v;
-        float alpha = jmin(expf(q * -0.5f + B.lop[k]), 0.99f);
-        if (r2_cutoff > 0.0f && q > r2_cutoff) alpha = 0.0f;
+        const bool cut = kCutoff && q > r2_cutoff;
+        if constexpr (kCutoff) {
+          if (!__any_sync(0xFFFFFFFFu, !cut)) continue;
+        }
+        const float4 Cc = sr[e][k].c;
+        float alpha = jmin(expf(q * -0.5f + B.z), 0.99f);
+        if (cut) alpha = 0.0f;
         const float w = alpha * trans[e];
-        acc_r[e] = acc_r[e] + w * B.r[k];
-        acc_g[e] = acc_g[e] + w * B.g[k];
-        acc_b[e] = acc_b[e] + w * B.b[k];
-        acc_d[e] = acc_d[e] + w * B.d[k];
+        acc_r[e] = acc_r[e] + w * Cc.x;
+        acc_g[e] = acc_g[e] + w * Cc.y;
+        acc_b[e] = acc_b[e] + w * Cc.z;
+        acc_d[e] = acc_d[e] + w * B.w;
         trans[e] = trans[e] * (1.0f - alpha);
       }
     }
@@ -143,6 +229,7 @@ blend_kernel(const int32_t* __restrict__ table, int capacity,
     if (!__syncthreads_or(tmax >= min_transmittance)) break;
   }
 
+  const int x = tx * kTile + lx, y = ty * kTile + ly;
   if (x < width && y < height) {
 #pragma unroll
     for (int e = 0; e < kEyes; ++e) {
@@ -160,24 +247,35 @@ blend_kernel(const int32_t* __restrict__ table, int capacity,
 
 }  // namespace
 
-// table: (4 * n_eyes, capacity) record words; coord_x (tiles_x, 256) and
-// coord_y (tiles_y, 256) the foveated pixel coordinates, or both null;
-// color (H, n_eyes * W, 4), depth (H, n_eyes * W) when with_depth.
-extern "C" int gsm_blend(const int32_t* table, int capacity, int n_eyes,
+// sorted_key: (capacity,) int64 sort keys (key2 in the low 32 bits, the
+// entry index in its low idx_bits); words: 4 * n_eyes pointers to the (N,)
+// int32 word rows of the entry table; coord_x (tiles_x, 256) and coord_y
+// (tiles_y, 256) the foveated pixel coordinates, or both null; color (H,
+// n_eyes * W, 4), depth (H, n_eyes * W) when with_depth.  Two eyes (8
+// words) take r2_cutoff > 0, one eye (4 words) r2_cutoff = 0.
+extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
+                         const void* const* words, int n_words,
                          const int32_t* starts, const int32_t* counts,
                          int tiles_x, int tiles_y, int width, int height,
                          int with_depth, float theta_unit, float inv255,
                          float min_transmittance, float r2_cutoff,
                          const float* coord_x, const float* coord_y,
                          float* color, float* depth, cudaStream_t stream) {
-  if (n_eyes != 1 && n_eyes != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if ((n_words != 4 && n_words != 8) || idx_bits < 1 || idx_bits > 32 ||
+      (n_words == 8) != (r2_cutoff > 0.0f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const WordPtrs W = load_words(words, n_words);
+  const uint32_t idx_mask =
+      idx_bits == 32 ? 0xFFFFFFFFu : ((1u << idx_bits) - 1u);
+  const uint32_t* key_words = reinterpret_cast<const uint32_t*>(sorted_key);
   const int n_tiles = tiles_x * tiles_y;
   if (n_tiles > 0) {
-    auto kernel = n_eyes == 2 ? blend_kernel<2> : blend_kernel<1>;
-    kernel<<<n_tiles, kPix, 0, stream>>>(
-        table, capacity, starts, counts, tiles_x, width, height, with_depth,
-        theta_unit, inv255, min_transmittance, r2_cutoff, coord_x, coord_y,
-        color, depth);
+    auto kernel = n_words == 8 ? blend_kernel<2> : blend_kernel<1>;
+    kernel<<<n_tiles, kThreads, 0, stream>>>(
+        key_words, idx_mask, W, starts, counts, tiles_x, width, height,
+        with_depth, theta_unit, inv255, min_transmittance, r2_cutoff, coord_x,
+        coord_y, color, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }

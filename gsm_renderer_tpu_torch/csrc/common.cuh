@@ -43,6 +43,21 @@ __device__ __forceinline__ float f16_bits_to_f32(uint32_t bits) {
   return e == 0 ? 0.0f : __uint_as_float(f);
 }
 
+// The record word rows of an entry table (up to 8: left eye w0..w3, right
+// eye w0..w3), passed to a kernel by value.
+struct WordPtrs {
+  const int32_t* w[8];
+};
+
+// WordPtrs from a host array of n_words device pointers (the rest null).
+static inline WordPtrs load_words(const void* const* words, int n_words) {
+  WordPtrs W;
+  for (int k = 0; k < 8; ++k) {
+    W.w[k] = k < n_words ? static_cast<const int32_t*>(words[k]) : nullptr;
+  }
+  return W;
+}
+
 // float(u8 field) * (1/255): the quantized opacity / color decode.
 __device__ __forceinline__ float u8f(uint32_t w, int shift, float inv255) {
   return static_cast<float>(static_cast<int>((w >> shift) & 0xFFu)) * inv255;

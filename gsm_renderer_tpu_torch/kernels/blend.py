@@ -1,11 +1,20 @@
 """Tile blending (front-to-back alpha compositing) and image assembly.
 
-Port of ``gsm_renderer_tpu/kernels/blend.py``: ``build_words_table``,
-``blend_tiles_pallas`` (``_row_blend_kernel``, depth modes "weighted" and
-"none", ``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``) and
-``assemble_image``.  The kernel is ``csrc/blend.cu``; it writes the (H, W, 4)
-image and the (H, W) depth directly -- (H, 2W) for two eyes side by side --
-so assembly is fused into it on the card.
+Port of ``gsm_renderer_tpu/kernels/blend.py``: ``blend_tiles_pallas``
+(``_row_blend_kernel``, depth modes "weighted" and "none", ``n_eyes`` 1 and
+2, ``r2_cutoff``, ``pixel_coords``) and ``assemble_image``.  The kernel is
+``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W) depth
+directly -- (H, 2W) for two eyes side by side -- so assembly is fused into it
+on the card.
+
+Records through the sorted keys: the blend takes the sorted int64 instance
+keys and the entry table's word rows (``entry_words``: 4 * n_eyes (N,) int32
+tensors, or a (4 * n_eyes, N) tensor -- the projection's words, or a row
+table's).  Rank k composites entry ``sorted_key[k] & (2**idx_bits - 1)`` (the
+KeyPlan index field).  The JAX package gathers the words into sorted order
+after the sort; here nothing does: the kernel reads the records it
+composites through the index.  A table already in sorted order is blended
+through the identity key, ``sorted_key = arange(C)`` with ``idx_bits = 32``.
 
 ``pixel_coords`` = (coord_x (tiles_x, 256), coord_y (tiles_y, 256)) float32
 is the foveated frame's: pixel p of tile (tx, ty) evaluates the gaussians at
@@ -34,22 +43,33 @@ BATCH = 256
 BLOCK = 128
 
 BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
-    _native.P, _native.I, _native.I, _native.P, _native.P,
+    _native.P, _native.I, _native.P, _native.I, _native.P, _native.P,
     _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.F, _native.F, _native.F, _native.F, _native.P, _native.P,
     _native.P, _native.P])
 
 
-def build_words_table(sorted_word_list):
-    """Sorted record words -> the (4, C) int32 table the blend reads."""
-    return torch.stack([w.to(torch.int32) for w in sorted_word_list]).contiguous()
+def _check_words(entry_words, n_eyes: int) -> list:
+    if n_eyes not in (1, 2):
+        raise ValueError(f"n_eyes must be 1 or 2, got {n_eyes}")
+    words = list(entry_words)
+    if len(words) != WORD_ROWS * n_eyes:
+        raise ValueError(f"{n_eyes} eye(s) read {WORD_ROWS * n_eyes} word rows, "
+                         f"got {len(words)}")
+    return words
 
 
-def decode_records(table):
-    """Per-record blend attributes of a (4, C) word table: the centred linear
-    forms (a1, b1, a2, b2), mean, log opacity, color and depth (each (C,)
-    float32)."""
-    w0, w1, w2, w3 = (M.u32(table[k]) for k in range(WORD_ROWS))
+def entry_index(sorted_key, idx_bits: int):
+    """Entry index (int64) of each sorted instance: the low ``idx_bits``
+    bits of the sort key (of key2)."""
+    return sorted_key & ((1 << idx_bits) - 1)
+
+
+def decode_records(words):
+    """Per-record blend attributes of 4 word rows: the centred linear forms
+    (a1, b1, a2, b2), mean, log opacity, color and depth (float32, one per
+    column)."""
+    w0, w1, w2, w3 = (M.u32(words[k]) for k in range(WORD_ROWS))
     theta = (w1 & 0xFFFF).to(torch.int32).to(torch.float32) * THETA_UNIT
     s1 = torch.clamp(_f16_bits_to_f32(w1 >> 16), min=1e-4)
     s2 = torch.clamp(_f16_bits_to_f32(w2), min=1e-4)
@@ -63,20 +83,22 @@ def decode_records(table):
                 a1=cth * i1, b1=sth * i1, a2=-sth * i2, b2=cth * i2)
 
 
-def blend_tiles_plain(table, starts, counts, *, tiles_x: int, tile_w: int = 16,
-                      tile_h: int = 16, depth_mode: str = "weighted",
-                      n_eyes: int = 1, r2_cutoff: float = 0.0, tiles=None,
-                      pixel_coords=None, return_processed: bool = False):
+def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
+                      *, tiles_x: int, tile_w: int = 16, tile_h: int = 16,
+                      depth_mode: str = "weighted", n_eyes: int = 1,
+                      r2_cutoff: float = 0.0, tiles=None, pixel_coords=None,
+                      return_processed: bool = False):
     """Plain version of the blend kernel on any device.
 
-    ``table``: (4 * n_eyes, C) int32 sorted record words (left eye first);
-    ``starts``/``counts``: (T,) int32 tile spans; ``tiles``: optional subset
-    of tile ids (default all); ``pixel_coords``: optional foveated
-    (coord_x, coord_y) tables (see the module docstring).  With
-    ``r2_cutoff`` > 0 alpha is zeroed where q > r2_cutoff.  Returns
-    (tile_color (T', 256, 4), tile_depth (T', 256) or None) for one eye, a
-    list of such pairs for two, plus the number of records each tile
-    composited before its exit when ``return_processed``.
+    ``sorted_key``: (C,) int64 sorted instance keys; ``entry_words``: the
+    4 * n_eyes word rows of the entry table (left eye first), read at
+    :func:`entry_index`; ``starts``/``counts``: (T,) int32 tile spans over
+    the sorted ranks; ``tiles``: optional subset of tile ids (default all);
+    ``pixel_coords``: optional foveated (coord_x, coord_y) tables (see the
+    module docstring).  With ``r2_cutoff`` > 0 alpha is zeroed where q >
+    r2_cutoff.  Returns (tile_color (T', 256, 4), tile_depth (T', 256) or
+    None) for one eye, a list of such pairs for two, plus the number of
+    records each tile composited before its exit when ``return_processed``.
     Records are composited one rank at a time across all tiles, each tile
     stopping by the kernel's rule.
     """
@@ -84,16 +106,18 @@ def blend_tiles_plain(table, starts, counts, *, tiles_x: int, tile_w: int = 16,
         raise NotImplementedError("the blend takes 16x16 tiles only")
     if depth_mode not in ("weighted", "none"):
         raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
-    if n_eyes not in (1, 2):
-        raise ValueError(f"n_eyes must be 1 or 2, got {n_eyes}")
-    dev = table.device
+    words = _check_words(entry_words, n_eyes)
+    dev = sorted_key.device
     if tiles is None:
         tiles = torch.arange(starts.shape[0], device=dev)
     tiles = tiles.to(torch.int64)
     pix = tile_w * tile_h
-    recs = [decode_records(table[WORD_ROWS * e:WORD_ROWS * (e + 1)])
+    recs = [decode_records(words[WORD_ROWS * e:WORD_ROWS * (e + 1)])
             for e in range(n_eyes)]
-    cap = table.shape[1]
+    # ranks outside every span (dead slots) may carry any index
+    entry = torch.clamp(entry_index(sorted_key, idx_bits), 0,
+                        max(words[0].shape[0] - 1, 0))
+    cap = sorted_key.shape[0]
     start = starts.to(torch.int64)[tiles]
     count = counts.to(torch.int64)[tiles]
     end = start + count
@@ -120,9 +144,9 @@ def blend_tiles_plain(table, starts, counts, *, tiles_x: int, tile_w: int = 16,
     max_k = int(count.max()) if n_t else 0
     for k in range(max_k):
         valid = active & (k < count)
-        idx = torch.clamp(start + k, 0, max(cap - 1, 0))
+        g = entry[torch.clamp(start + k, 0, max(cap - 1, 0))]
         for e, rec in enumerate(recs):
-            at = {name: v[idx][:, None] for name, v in rec.items()}
+            at = {name: v[g][:, None] for name, v in rec.items()}
             dx = pxa - at["mx"]
             dy = pya - at["my"]
             u = at["a1"] * dx + at["b1"] * dy
@@ -167,20 +191,30 @@ def assemble_image(tile_color, tile_depth, *, tiles_x: int, tiles_y: int,
     return color, unpack(tile_depth[..., None], 1)[..., 0].contiguous()
 
 
-def blend_image_cuda(table, starts, counts, *, tiles_x: int, tiles_y: int,
-                     width: int, height: int, depth_mode: str = "weighted",
-                     n_eyes: int = 1, r2_cutoff: float = 0.0,
-                     pixel_coords=None):
+def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
+                     *, tiles_x: int, tiles_y: int, width: int, height: int,
+                     depth_mode: str = "weighted", n_eyes: int = 1,
+                     r2_cutoff: float = 0.0, pixel_coords=None):
     """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
-    (H, n_eyes * W) or None), the eyes side by side."""
+    (H, n_eyes * W) or None), the eyes side by side.  The kernel blends one
+    eye without a cutoff (the mono frame) or two with ``r2_cutoff`` > 0 (the
+    stereo and foveated frames); it raises on the other pairings."""
     if depth_mode not in ("weighted", "none"):
         raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
-    if n_eyes not in (1, 2):
-        raise ValueError(f"n_eyes must be 1 or 2, got {n_eyes}")
-    dev = table.device
+    words = _check_words(entry_words, n_eyes)
+    if (n_eyes == 2) != (r2_cutoff > 0.0):
+        raise NotImplementedError(
+            f"the blend kernel takes n_eyes=2 with r2_cutoff > 0 or n_eyes=1 "
+            f"without, got n_eyes={n_eyes}, r2_cutoff={r2_cutoff}")
+    if not 1 <= idx_bits <= 32:
+        raise ValueError(f"idx_bits must lie in [1, 32], got {idx_bits}")
+    dev = sorted_key.device
     n_t = tiles_x * tiles_y
-    _native.check(table, "table", torch.int32,
-                  (WORD_ROWS * n_eyes, table.shape[1]), dev)
+    _native.check(sorted_key, "sorted_key", torch.int64, (sorted_key.shape[0],),
+                  dev)
+    for k, w in enumerate(words):
+        _native.check(w, f"entry_words[{k}]", torch.int32, (words[0].shape[0],),
+                      dev)
     _native.check(starts, "starts", torch.int32, (n_t,), dev)
     _native.check(counts, "counts", torch.int32, (n_t,), dev)
     coords = (None, None)
@@ -194,29 +228,32 @@ def blend_image_cuda(table, starts, counts, *, tiles_x: int, tiles_y: int,
                         device=dev)
     depth = torch.empty((height, n_eyes * width) if with_depth else (1,),
                         dtype=torch.float32, device=dev)
-    BLEND.launch(_native.ptr(table), table.shape[1], n_eyes,
-                 _native.ptr(starts), _native.ptr(counts), tiles_x, tiles_y,
-                 width, height, int(with_depth), M.f32(THETA_UNIT),
+    BLEND.launch(_native.ptr(sorted_key), idx_bits, _native.ptr_array(words),
+                 len(words), _native.ptr(starts), _native.ptr(counts), tiles_x,
+                 tiles_y, width, height, int(with_depth), M.f32(THETA_UNIT),
                  M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),
                  M.f32(r2_cutoff), *coords, _native.ptr(color),
                  _native.ptr(depth))
     return color, (depth if with_depth else None)
 
 
-def blend_image(table, starts, counts, *, tiles_x: int, tiles_y: int,
-                width: int, height: int, depth_mode: str = "weighted",
-                n_eyes: int = 1, r2_cutoff: float = 0.0, pixel_coords=None):
+def blend_image(sorted_key, entry_words, idx_bits: int, starts, counts, *,
+                tiles_x: int, tiles_y: int, width: int, height: int,
+                depth_mode: str = "weighted", n_eyes: int = 1,
+                r2_cutoff: float = 0.0, pixel_coords=None):
     """Blend + assemble: the CUDA kernel for CUDA tensors, the plain version
     (then :func:`assemble_image`, the eyes concatenated along the width) for
     CPU tensors."""
-    if table.is_cuda:
-        return blend_image_cuda(table, starts, counts, tiles_x=tiles_x,
-                                tiles_y=tiles_y, width=width, height=height,
+    if sorted_key.is_cuda:
+        return blend_image_cuda(sorted_key, entry_words, idx_bits, starts,
+                                counts, tiles_x=tiles_x, tiles_y=tiles_y,
+                                width=width, height=height,
                                 depth_mode=depth_mode, n_eyes=n_eyes,
                                 r2_cutoff=r2_cutoff, pixel_coords=pixel_coords)
-    out = blend_tiles_plain(table, starts, counts, tiles_x=tiles_x,
-                            depth_mode=depth_mode, n_eyes=n_eyes,
-                            r2_cutoff=r2_cutoff, pixel_coords=pixel_coords)
+    out = blend_tiles_plain(sorted_key, entry_words, idx_bits, starts, counts,
+                            tiles_x=tiles_x, depth_mode=depth_mode,
+                            n_eyes=n_eyes, r2_cutoff=r2_cutoff,
+                            pixel_coords=pixel_coords)
     eyes = [assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
                            width=width, height=height)
             for tc, td in (out if n_eyes == 2 else [out])]

@@ -575,7 +575,7 @@ def row_expand(offsets, rect, mask, dsw, words, **kw):
 
 
 # ---------------------------------------------------------------------------
-# Kernel 3: slot expansion with KeyPlan keys
+# Kernel 4: slot expansion with KeyPlan keys
 # ---------------------------------------------------------------------------
 
 def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
@@ -585,17 +585,23 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     """Plain version of the expand kernel.
 
     Slot s < total belongs to the entry g (a gaussian, or a virtual row of a
-    row table) with offsets[g] <= s < offsets[g + 1]; offsets rise strictly
-    over the live entries, and a row table's dead tail repeats the total, so
-    a live slot never lands on a dead row.  The tile is the j-th set bit of
+    row table) with offsets[g] <= s < offsets[g + 1].  Precondition: every
+    entry below the total owns at least one slot -- offsets rise strictly up
+    to the total, and only a row table's dead tail repeats it -- as prep and
+    the row expansion guarantee (a culled entry keeps one dead slot).  The
+    kernel relies on it (:func:`expand_slots_cuda`); this version would
+    also take a zero-count entry in the middle, where the kernel would write
+    wrong keys.  A live slot never lands on a dead row.  The tile is the j-th set bit of
     the mask (MASKED entries) or a row-major walk of the rect plus the exact
     test: the alpha cutoff (``mode`` "mono"), the dual-eye q <= 9 test
     ("stereo"), or the dual-eye test on the display-space rect of the
     physical tile from the (2, 128) ``warped_bounds`` table ("warped").
     MASKED entries skip the test, except under the warp.  Returns (key1
-    (C,), key2 (C,), words (K, C)) int32 with the sentinel in both keys and
-    zero words for dead slots, then the unclamped slot total and the
-    overflow flag as 0-d int32 tensors.
+    (C,), key2 (C,)) int32 with the sentinel in both keys for dead slots,
+    then the unclamped slot total and the overflow flag as 0-d int32
+    tensors.  No record word is carried per slot: a live slot's entry index
+    is the low ``key_plan.idx_bits`` bits of key2, and the blend reads the
+    entry's words through it.
     """
     _check_mode(mode, words)
     _check_warped(mode, warped_bounds)
@@ -645,9 +651,8 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     dn = M.u32(dsw)[g]
     key1 = ((tile << d_hi) | (dn >> d_lo)) & M.U32
     key2 = (((dn & ((1 << d_lo) - 1)) << idx_bits) | g) & M.U32
-    table = torch.stack([M.to_i32(torch.where(dead, 0, x)) for x in w])
     return (M.to_i32(torch.where(dead, SENTINEL, key1)),
-            M.to_i32(torch.where(dead, SENTINEL, key2)), table,
+            M.to_i32(torch.where(dead, SENTINEL, key2)),
             total.to(torch.int32), (total > capacity).to(torch.int32))
 
 
@@ -655,9 +660,17 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
                       tiles_x: int, key_plan, mode: str = "mono",
                       tile_w: int = 16, tile_h: int = 16,
                       alpha_threshold: float = 0.005, warped_bounds=None):
-    """Launch the expand kernel of ``csrc/binning.cu`` (one thread per
-    slot, upper-bound binary search over the offsets; in mode "warped" the
-    bounds table staged in shared memory)."""
+    """Launch the expand kernel of ``csrc/binning.cu`` (1024 slots a CTA:
+    one k-ary search over the offsets, the CTA's entries staged in shared
+    memory and searched there; in mode "warped" the bounds table staged in
+    shared memory too).  Writes the two key planes only.
+
+    Precondition (unchecked, as for :func:`expand_slots_plain`): every entry
+    below the total owns at least one slot, so that the 1025 entries from a
+    CTA's first one cover all its 1024 slots; a table with a zero-count
+    entry before the total gets wrong keys.  Prep and the row expansion
+    make tables that meet it; a row table's dead tail past the total is
+    allowed."""
     if tile_w != 16 or tile_h != 16:
         raise NotImplementedError("the expand kernel takes 16x16 tiles only")
     _check_mode(mode, words)
@@ -672,7 +685,7 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
         _native.check(warped_bounds, "warped_bounds", torch.float32,
                       (2, BOUNDS_LANES), dev)
     d_hi, d_lo, idx_bits = key_plan.kernel_tuple
-    out = torch.empty((2 + len(words), capacity), dtype=torch.int32, device=dev)
+    out = torch.empty((2, capacity), dtype=torch.int32, device=dev)
     EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
                   _native.ptr(dsw), _native.ptr_array(words), len(words), n,
                   capacity, tiles_x, d_hi, d_lo, idx_bits,
@@ -680,7 +693,7 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
                   M.f32(1.0 / 255.0), _native.ptr(out),
                   None if warped_bounds is None else _native.ptr(warped_bounds))
     total = offsets[n]
-    return out[0], out[1], out[2:], total, (total > capacity).to(torch.int32)
+    return out[0], out[1], total, (total > capacity).to(torch.int32)
 
 
 def expand_slots(offsets, rect, mask, dsw, words, **kw):

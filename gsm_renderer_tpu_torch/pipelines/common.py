@@ -8,7 +8,10 @@ The JAX package sorts the (key1, key2) pair with ``jax.lax.sort``; here one
 it: flipping bit 31 of key1 keeps the unsigned order under the signed sort
 (otherwise the sentinel and the upper tile ids would sort first).  KeyPlan
 keys are unique for live slots, so the unstable sort is exact; dead slots
-carry zero words, so their order does not matter.
+lie outside every tile span, so their order does not matter.  The sort moves
+keys only: the blend reads each instance's record words through the entry
+index in the key's low bits, so no word table is gathered into sorted order
+(the JAX package's gather is a TPU habit).
 """
 
 from __future__ import annotations
@@ -76,9 +79,11 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
     ``lod_min`` > 0).  ``row_capacity`` > 0 (mono only)
     counts virtual rows at prep, narrows oversized rects to their exact
     per-row spans and expands over the R = ``row_capacity`` rows; the
-    KeyPlan's index bits must then address R rows.  Returns (key1 (C,), key2
-    (C,), words (K, C)) int32, the unclamped slot total and the overflow
-    flag (0-d int32; with rows, also set when the row demand exceeds R)."""
+    KeyPlan's index bits must then address R rows.  Returns ((key1 (C,),
+    key2 (C,)) int32, the entry words the blend reads through key2's index
+    field (K rows of (N,) int32: the projection's words, or the row table's
+    (R,) rows), the unclamped slot total and the overflow flag (0-d int32;
+    with rows, also set when the row demand exceeds R))."""
     if row_capacity > 0 and mode != "mono":
         raise ValueError("the row decomposition is a mono binning mode")
     kw = dict(tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
@@ -91,12 +96,12 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
     if row_capacity > 0:
         offsets, rect, mask, dsw, words, row_overflow = row_expand(
             offsets, rect, mask, dsw, words, row_capacity=row_capacity, **kw)
-    key1, key2, words, total, overflow = expand_slots(
+    key1, key2, total, overflow = expand_slots(
         offsets, rect, mask, dsw, words, capacity=capacity, tiles_x=tiles_x,
         key_plan=key_plan, mode=mode, warped_bounds=warped_bounds, **kw)
     if row_overflow is not None:
         overflow = torch.maximum(overflow, row_overflow)
-    return (key1, key2, words), total, overflow
+    return (key1, key2), words, total, overflow
 
 
 def sort_key64(key1, key2):
@@ -104,11 +109,9 @@ def sort_key64(key1, key2):
     return ((M.u32(key1) ^ 0x80000000) << 32) | M.u32(key2)
 
 
-def sort_instances(key1, key2, words):
-    """Unstable instance sort by (key1, key2); returns (sorted int64 keys,
-    the (K, C) word table gathered into sorted order)."""
-    sorted_key, order = torch.sort(sort_key64(key1, key2), stable=False)
-    return sorted_key, words.index_select(1, order)
+def sort_instances(key1, key2):
+    """Unstable instance sort by (key1, key2): the sorted int64 keys."""
+    return torch.sort(sort_key64(key1, key2), stable=False).values
 
 
 def binning_sorted_tile(sorted_key, *, plan_tuple):

@@ -12,9 +12,10 @@ mono frame is
   2. binning prep: masks, counts, scan       kernels/expand.py    (kernel 2)
   3. row expansion (``row_expand``)          kernels/expand.py    (kernel 3)
   4. slot expansion into KeyPlan keys        kernels/expand.py    (kernel 4)
-  5. unstable instance sort on an int64 key  pipelines/common.py  (torch.sort)
+  5. unstable sort of the int64 keys alone   pipelines/common.py  (torch.sort)
   6. tile ranges                             ops/binning.py       (searchsorted)
-  7. blend + assemble                        kernels/blend.py     (kernel 5)
+  7. blend + assemble, records read through
+     the keys' entry index                   kernels/blend.py     (kernel 5)
 
 A stereo frame projects both eyes in one pass (kernel 6), bins the union
 rects with the dual-eye q <= 9 test carrying 8 record words, and blends both
@@ -119,14 +120,15 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
         alpha_threshold=alpha_threshold,
         total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
         key_plan=key_plan)
-    (key1, key2, words), slot_total, overflow = binning_sort_operands(
+    (key1, key2), entry_words, slot_total, overflow = binning_sort_operands(
         packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         row_capacity=row_capacity, tile_w=tile_w, tile_h=tile_h,
         alpha_threshold=alpha_threshold)
-    sorted_key, table = sort_instances(key1, key2, words)
+    sorted_key = sort_instances(key1, key2)
     sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
     starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
-    color, depth = blend_image(table, starts, counts, tiles_x=tiles_x,
+    color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
+                               starts, counts, tiles_x=tiles_x,
                                tiles_y=tiles_y, width=width, height=height,
                                depth_mode=depth_mode)
     header = FrameHeader(
@@ -162,18 +164,19 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     if key_plan is None:
         raise not_ported("the stable-sort stereo fallback (no tie-free "
                          "KeyPlan fits)", "Queue 1, side-by-side stereo")
-    (key1, key2, words), slot_total, overflow, visible_count, total_live = \
-        _stereo_packed_ops(
+    ((key1, key2), entry_words, slot_total, overflow, visible_count,
+     total_live) = _stereo_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
             width=width, height=height, capacity=capacity, tiles_x=tiles_x,
             sh_degree=sh_degree, alpha_threshold=alpha_threshold,
             total_ink_threshold=total_ink_threshold, near_plane=near_plane,
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h)
-    sorted_key, table = sort_instances(key1, key2, words)
+    sorted_key = sort_instances(key1, key2)
     sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
     starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
-    color, depth = blend_image(table, starts, counts, tiles_x=tiles_x,
+    color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
+                               starts, counts, tiles_x=tiles_x,
                                tiles_y=tiles_y, width=width, height=height,
                                n_eyes=2, r2_cutoff=STEREO_R2_CUTOFF)
     header = FrameHeader(visible_count=visible_count,
@@ -187,7 +190,7 @@ def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                        sh_degree, alpha_threshold, total_ink_threshold,
                        near_plane, far_plane, input_is_srgb, tile_w, tile_h):
     """Dual-eye projection + stereo prep / expand up to the sort operands.
-    Returns ((key1, key2, words (8, C)), slot_total, overflow,
+    Returns ((key1, key2), the 8 entry word rows, slot_total, overflow,
     visible_count, total_live = the union-rect total of the visible
     gaussians)."""
     pp = stereo_project_and_cull_packed(
@@ -197,13 +200,13 @@ def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
         alpha_threshold=alpha_threshold,
         total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
         key_plan=key_plan)
-    ops, slot_total, overflow = binning_sort_operands(
+    keys, entry_words, slot_total, overflow = binning_sort_operands(
         pp, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode="stereo", tile_w=tile_w, tile_h=tile_h)
     rect_w = (u32(pp.rect_word) >> 20) & 0x3FF
     total_live = torch.where(pp.visible, rect_w * pp.rect_h, 0).sum()
-    return (ops, slot_total, overflow, pp.visible.sum().to(torch.int32),
-            total_live.to(torch.int32))
+    return (keys, entry_words, slot_total, overflow,
+            pp.visible.sum().to(torch.int32), total_live.to(torch.int32))
 
 
 def foveated_rects(pp, inv_fit, *, tiles_x: int, tiles_y: int,
@@ -273,9 +276,9 @@ def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                          foveated_lod):
     """Dual-eye projection at the display size, re-binning onto the
     physical tiles, warped prep / expand up to the sort operands.  Returns
-    ((key1, key2, words (8, C)), slot_total, overflow, visible_count = the
-    projection's visible gaussians, total_live = the re-binned rect
-    total)."""
+    ((key1, key2), the 8 entry word rows, slot_total, overflow,
+    visible_count = the projection's visible gaussians, total_live = the
+    re-binned rect total)."""
     pp = stereo_project_and_cull_packed(
         gi, views, projs, centers, scene_transform, prepared=prepared,
         width=display_width, height=display_height, tile_w=tile_w,
@@ -286,12 +289,12 @@ def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
     warped, rect_count = foveated_packed(pp, tables["inv_fit"],
                                          tiles_x=tiles_x, tiles_y=tiles_y,
                                          tile_w=tile_w, tile_h=tile_h)
-    ops, slot_total, overflow = binning_sort_operands(
+    keys, entry_words, slot_total, overflow = binning_sort_operands(
         warped, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode="warped", tile_w=tile_w, tile_h=tile_h,
         warped_bounds=tables["bounds"], lod_min=foveated_lod)
-    return (ops, slot_total, overflow, pp.visible.sum().to(torch.int32),
-            rect_count.sum().to(torch.int32))
+    return (keys, entry_words, slot_total, overflow,
+            pp.visible.sum().to(torch.int32), rect_count.sum().to(torch.int32))
 
 
 def depth_first_stereo_foveated_frame(
@@ -316,8 +319,8 @@ def depth_first_stereo_foveated_frame(
     if key_plan is None:
         raise not_ported("the stable-sort foveated fallback (no tie-free "
                          "KeyPlan fits)", "Queue 1, Global and Local renderers")
-    (key1, key2, words), slot_total, overflow, visible_count, total_live = \
-        _foveated_packed_ops(
+    ((key1, key2), entry_words, slot_total, overflow, visible_count,
+     total_live) = _foveated_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
             tables, display_width=display_width,
             display_height=display_height, capacity=capacity,
@@ -326,10 +329,11 @@ def depth_first_stereo_foveated_frame(
             total_ink_threshold=total_ink_threshold, near_plane=near_plane,
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h, foveated_lod=foveated_lod)
-    sorted_key, table = sort_instances(key1, key2, words)
+    sorted_key = sort_instances(key1, key2)
     sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
     starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
-    color, depth = blend_image(table, starts, counts, tiles_x=tiles_x,
+    color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
+                               starts, counts, tiles_x=tiles_x,
                                tiles_y=tiles_y, width=render_width,
                                height=render_height, n_eyes=2,
                                r2_cutoff=STEREO_R2_CUTOFF,

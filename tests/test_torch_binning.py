@@ -10,12 +10,15 @@ Each port stage is fed the JAX stage's own inputs:
   and PyTorch), counted (at most 0.2% of the gaussians) and each checked to
   lie within 1e-4 (relative) of its cutoff in float64.
 * expand: the port's plain ``expand_slots`` on the JAX prep table vs
-  ``expand_slots_pallas(prebuilt_tab=..., key_plan=...)``: key1, key2, the
-  four words, total and overflow exactly equal, including an overflowing
-  capacity.
-* sort + ranges: the port's int64-key ``torch.sort`` and
+  ``expand_slots_pallas(prebuilt_tab=..., key_plan=...)``: key1, key2,
+  total and overflow exactly equal, including an overflowing capacity.  The
+  port carries no words per slot; the four words JAX carries equal the
+  entry table's words at each live slot's index (key2's KeyPlan index
+  field) and are zero at dead slots.
+* sort + ranges: the port's int64-key ``torch.sort`` of the keys alone and
   ``extract_tile_ranges`` vs ``jax.lax.sort`` + the JAX ranges: exactly
-  equal.
+  equal, and the words JAX sorts along equal the entry words read through
+  the sorted keys.
 * the all-ties scene of tests/test_exact_ordering.py through the port:
   per-tile instance order equals the NumPy oracle's.
 """
@@ -35,7 +38,6 @@ from gsm_renderer_tpu.pipelines.common import binning_sorted_tile as jax_sorted_
 from reference_impl import min_quad_rect, render_reference
 
 import gsm_renderer_tpu_torch as T
-from gsm_renderer_tpu_torch.kernels import blend as TK
 from gsm_renderer_tpu_torch.kernels import expand as TE
 from gsm_renderer_tpu_torch.kernels import project as TP
 from gsm_renderer_tpu_torch.ops import binning as TB
@@ -105,6 +107,20 @@ def chain():
         counts=np.asarray(counts))
 
 
+def assert_words_at_entries(key1, key2, idx_bits, entry_words, ref_words):
+    """The words the JAX chain carries per slot (``ref_words``) equal the
+    entry table's words at each live slot's entry index, the low
+    ``idx_bits`` bits of key2, and are zero at dead slots (sentinel key1)."""
+    k1, k2 = u32(key1), u32(key2)
+    live = k1 != TE.SENTINEL
+    entry = k2[live] & ((1 << idx_bits) - 1)
+    assert live.any()
+    for k, (w, r) in enumerate(zip(entry_words, ref_words, strict=True)):
+        np.testing.assert_array_equal(u32(w)[entry], u32(r)[live],
+                                      err_msg=f"word {k}")
+        assert (u32(r)[~live] == 0).all(), f"word {k} at dead slots"
+
+
 def port_plan():
     return TB.make_key_plan(TILES_X * TILES_Y, N, near_plane=NEAR, far_plane=FAR)
 
@@ -167,13 +183,14 @@ def test_prep_matches_pallas(chain):
 def test_expand_matches_pallas(chain, which):
     ref = chain["expand"][which]
     capacity = chain["capacity"][which]
-    key1, key2, words, total, overflow = TE.expand_slots(
+    key1, key2, total, overflow = TE.expand_slots(
         i32(chain["offsets"]), i32(chain["rect"]), i32(chain["mask"]),
         i32(chain["dsw"]), [i32(w) for w in chain["words"]], capacity=capacity,
         tiles_x=TILES_X, key_plan=port_plan())
-    got = [key1, key2] + list(words.unbind(0))
-    for k, (r, g) in enumerate(zip(ref[:6], got)):
+    for k, (r, g) in enumerate(zip(ref[:2], [key1, key2])):
         np.testing.assert_array_equal(u32(g.numpy()), u32(r), err_msg=f"output {k}")
+    assert_words_at_entries(key1, key2, port_plan().idx_bits, chain["words"],
+                            ref[2:6])
     assert int(total) == int(ref[6])
     assert int(overflow) == int(ref[7])
     assert int(overflow) == (1 if which == "small" else 0)
@@ -181,13 +198,15 @@ def test_expand_matches_pallas(chain, which):
 
 def test_sort_and_ranges_match_jax(chain):
     ref = chain["expand"]["full"]
-    sorted_key, table = TC.sort_instances(
-        i32(ref[0]), i32(ref[1]), TK.build_words_table([i32(w) for w in ref[2:6]]))
+    sorted_key = TC.sort_instances(i32(ref[0]), i32(ref[1]))
     tile = TC.binning_sorted_tile(sorted_key, plan_tuple=port_plan().kernel_tuple)
     np.testing.assert_array_equal(tile.numpy(), u32(chain["sorted_tile"]))
-    for k in range(4):
-        np.testing.assert_array_equal(u32(table[k].numpy()),
-                                      u32(chain["sorted"][2 + k]))
+    sk = sorted_key.numpy()
+    k1, k2 = ((sk >> 32) & 0xFFFFFFFF) ^ 0x80000000, sk & 0xFFFFFFFF
+    np.testing.assert_array_equal(k1, u32(chain["sorted"][0]))
+    np.testing.assert_array_equal(k2, u32(chain["sorted"][1]))
+    assert_words_at_entries(k1, k2, port_plan().idx_bits, chain["words"],
+                            chain["sorted"][2:6])
     starts, counts = TB.extract_tile_ranges(tile, TILES_X * TILES_Y)
     np.testing.assert_array_equal(starts.numpy(), chain["starts"])
     np.testing.assert_array_equal(counts.numpy(), chain["counts"])
@@ -206,10 +225,10 @@ def _port_tile_lists(ds, cam, w, h):
         height=h, tile_w=16, tile_h=16, sh_degree=0, near_plane=0.1,
         far_plane=10.0, alpha_threshold=0.005, total_ink_threshold=2.0,
         input_is_srgb=False, key_plan=plan)
-    (k1, k2, words), _total, overflow = TC.binning_sort_operands(
+    (k1, k2), _words, _total, overflow = TC.binning_sort_operands(
         packed, capacity=8192, tiles_x=tiles_x, key_plan=plan)
     assert int(overflow) == 0
-    sorted_key, _table = TC.sort_instances(k1, k2, words)
+    sorted_key = TC.sort_instances(k1, k2)
     tile = TC.binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)
     starts, counts = TB.extract_tile_ranges(tile, tiles_x * tiles_y)
     idx = (sorted_key & ((1 << plan.idx_bits) - 1)).numpy()

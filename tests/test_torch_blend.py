@@ -11,6 +11,13 @@ record; the XLA blend never stops.
 Tolerances: colour and alpha within 5e-3 of both (the 1/255 early-exit
 bound); depth within 5e-2 of both (the residual transmittance < 1/255 times
 depths up to 12 in the heavy scene, plus float32 summation order).
+
+The port reads records through the sorted keys (entry index = the key's low
+``idx_bits`` bits); the JAX package's sorted table goes in through the
+identity key, ``arange(C)`` with ``idx_bits = 32``.  One more test holds the
+plain blend through permuted keys and an entry table bit-equal to the plain
+blend of the same records gathered into sorted order (mono, stereo, pixel
+coordinates).
 """
 
 import jax.numpy as jnp
@@ -103,8 +110,13 @@ def case(request):
     return d
 
 
+def identity_key(cap):
+    return torch.arange(cap, dtype=torch.int64)
+
+
 def port_blend(d, **kw):
-    return TK.blend_tiles_plain(d["port"], torch.from_numpy(d["starts"]),
+    return TK.blend_tiles_plain(identity_key(d["port"].shape[1]), d["port"], 32,
+                                torch.from_numpy(d["starts"]),
                                 torch.from_numpy(d["counts"]),
                                 tiles_x=d["tiles_x"], **kw)
 
@@ -148,3 +160,66 @@ def test_blend_tile_subset_and_assembly(case):
     ty, tx = divmod(t, case["tiles_x"])
     np.testing.assert_array_equal(img[ty * 16 + 2, tx * 16 + 3].numpy(),
                                   color[t, 2 * 16 + 3].numpy())
+
+
+def entry_records(rng, n, n_eyes, extent):
+    """4 * n_eyes (n,) int32 word rows of random quantized records whose
+    means lie within ``extent`` = (width, height) pixels."""
+    rows = []
+    for _ in range(n_eyes):
+        mx = rng.uniform(0, extent[0], n).astype(np.float32)
+        my = rng.uniform(0, extent[1], n).astype(np.float32)
+        s1 = rng.uniform(0.6, 12.0, n).astype(np.float32)
+        s2 = rng.uniform(0.6, 12.0, n).astype(np.float32)
+        th = rng.integers(0, 65536, n).astype(np.uint32)
+        col = rng.integers(0, 256, (n, 4)).astype(np.uint32)
+        rows += [f16b(mx) | (f16b(my) << 16), th | (f16b(s1) << 16),
+                 f16b(s2) | (f16b(rng.uniform(0.1, 50.0, n)) << 16),
+                 col[:, 0] | (col[:, 1] << 8) | (col[:, 2] << 16) | (col[:, 3] << 24)]
+    return torch.from_numpy(np.stack(rows).view(np.int32).copy())
+
+
+@pytest.mark.parametrize("mode", ["mono", "stereo", "pixel_coords"])
+def test_blend_through_keys_equals_gathered_table(mode):
+    """The plain blend reading entry g = key & (2**idx_bits - 1) of each
+    sorted rank is bit-equal to the plain blend of the same records gathered
+    into sorted order and read through the identity key."""
+    rng = np.random.default_rng({"mono": 1, "stereo": 2, "pixel_coords": 3}[mode])
+    tiles_x, tiles_y, n_ent, idx_bits = 3, 2, 300, 9
+    n_eyes = 1 if mode == "mono" else 2
+    words = entry_records(rng, n_ent, n_eyes, (tiles_x * 16, tiles_y * 16))
+    counts = rng.integers(60, 330, tiles_x * tiles_y).astype(np.int32)
+    counts[2] = 0
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    n_live = int(counts.sum())
+    cap = n_live + 200
+    entry = rng.integers(0, n_ent, n_live)
+    # a depth field above the index bits, a tile field in the high word,
+    # and sentinel keys on the dead slots after the spans
+    key2 = (rng.integers(0, 1 << (32 - idx_bits), n_live) << idx_bits) | entry
+    key1 = rng.integers(0, 1 << 20, n_live)
+    sorted_key = np.full(cap, (0x7FFFFFFF << 32) | 0xFFFFFFFF, np.int64)
+    sorted_key[:n_live] = (key1 << 32) | key2
+    table = torch.zeros((4 * n_eyes, cap), dtype=torch.int32)
+    table[:, :n_live] = words[:, torch.from_numpy(entry)]
+    kw = dict(tiles_x=tiles_x, n_eyes=n_eyes, return_processed=True)
+    if mode != "mono":
+        kw["r2_cutoff"] = 9.0
+    if mode == "pixel_coords":
+        base = np.arange(16, dtype=np.float32)
+        cx = (np.arange(tiles_x)[:, None] * 16.0 + np.tile(base, 16)[None, :]
+              + rng.uniform(-3.0, 3.0, (tiles_x, 256)))
+        cy = (np.arange(tiles_y)[:, None] * 16.0 + np.repeat(base, 16)[None, :]
+              + rng.uniform(-3.0, 3.0, (tiles_y, 256)))
+        kw["pixel_coords"] = (torch.from_numpy(cx.astype(np.float32)),
+                              torch.from_numpy(cy.astype(np.float32)))
+    st, ct = torch.from_numpy(starts), torch.from_numpy(counts)
+    keyed = TK.blend_tiles_plain(torch.from_numpy(sorted_key), words, idx_bits,
+                                 st, ct, **kw)
+    gathered = TK.blend_tiles_plain(identity_key(cap), table, 32, st, ct, **kw)
+    if n_eyes == 1:  # (color, depth, processed)
+        keyed, gathered = ([keyed[:2]], keyed[2]), ([gathered[:2]], gathered[2])
+    assert torch.equal(keyed[1], gathered[1])  # records composited
+    for (kc, kd), (gc, gd) in zip(keyed[0], gathered[0], strict=True):
+        assert torch.equal(kc, gc) and torch.equal(kd, gd)
+        assert float(kc[..., :3].max()) > 0.05

@@ -22,13 +22,15 @@ Tolerances:
 * prep "warped" fed the JAX stage's own inputs, ``lod_min`` 0 and 5:
   offsets, rect words and masks equal up to counted mask flips (<= 0.2%,
   as the stereo test allows).
-* expand "warped" fed the JAX prep table: keys and the 8 words equal.  A
+* expand "warped" fed the JAX prep table: keys equal, and the 8 words JAX
+  carries equal to the entry words at each live slot's index.  A
   table whose MASKED entries carry their whole window keeps exactly the
   slots of the exact-mask table: the expand re-tests MASKED entries under
   the warp (a bypass would keep the extra slots).
 * blend with ``pixel_coords`` (plain, ``n_eyes=2, r2_cutoff=9``) against
   ``blend_tiles_pallas(..., pixel_coords=..., n_eyes=2, r2_cutoff=9.0,
-  interpret=True)`` on the same sorted table: max |d| <= 1e-5 in both eyes.
+  interpret=True)`` on the same sorted table (the port reads it through the
+  identity key): max |d| <= 1e-5 in both eyes.
 * the frame vs JAX ``depth_first_stereo_foveated_frame(interpret=True)``:
   colour <= 1e-2, depth <= 5e-2, equal visible_count / total_instances, and
   slot_total equal up to 32 slots per gaussian whose prep output differs
@@ -63,6 +65,7 @@ from gsm_renderer_tpu_torch.kernels import expand as TE
 from gsm_renderer_tpu_torch.kernels.project import StereoPackedProjection
 from gsm_renderer_tpu_torch.ops import binning as TB
 from gsm_renderer_tpu_torch.pipelines import depth_first as TD
+from test_torch_binning import assert_words_at_entries
 
 # the suite runs files in parallel workers: one intra-op thread per worker
 torch.set_num_threads(1)
@@ -347,12 +350,14 @@ def _expand(c, offsets, rect, mask):
 def test_warped_expand_matches_pallas(fov_chain):
     c = fov_chain
     prep = c["preps"][0.0]
-    key1, key2, words, total, overflow = _expand(c, prep["offsets"],
-                                                 prep["rect"], prep["mask"])
+    key1, key2, total, overflow = _expand(c, prep["offsets"], prep["rect"],
+                                          prep["mask"])
     ref = c["expand"]
-    for k, g in enumerate([key1, key2] + list(words.unbind(0))):
+    for k, g in enumerate([key1, key2]):
         np.testing.assert_array_equal(u32(g.numpy()), u32(ref[k]),
                                       err_msg=f"output {k}")
+    assert_words_at_entries(key1, key2, c["plan"].idx_bits, c["words"],
+                            ref[2:10])
     assert int(total) == int(ref[10]) and int(overflow) == int(ref[11]) == 0
 
 
@@ -398,8 +403,9 @@ def test_pixel_coords_blend_matches_pallas(fov_chain):
         jnp.asarray(c["starts"]), jnp.asarray(c["counts"]),
         tiles_x=c["tiles_x"], tiles_y=c["tiles_y"], n_eyes=2, r2_cutoff=9.0,
         pixel_coords=tuple(jnp.asarray(x) for x in coords), interpret=True)
-    got = TK.blend_tiles_plain(table, starts, counts, tiles_x=c["tiles_x"],
-                               n_eyes=2, r2_cutoff=9.0,
+    identity = torch.arange(c["cap"], dtype=torch.int64)
+    got = TK.blend_tiles_plain(identity, table, 32, starts, counts,
+                               tiles_x=c["tiles_x"], n_eyes=2, r2_cutoff=9.0,
                                pixel_coords=tuple(f32(x) for x in coords))
     for (rc, rd), (gc, gd) in zip(ref, got):
         np.testing.assert_allclose(gc.numpy(), np.asarray(rc), atol=1e-5)
@@ -407,8 +413,8 @@ def test_pixel_coords_blend_matches_pallas(fov_chain):
     assert float(got[0][0][..., :3].max()) > 0.05
     assert float(got[1][0][..., :3].max()) > 0.05
     # the warped coordinates are not the uniform grid's
-    uniform = TK.blend_tiles_plain(table, starts, counts, tiles_x=c["tiles_x"],
-                                   n_eyes=2, r2_cutoff=9.0)
+    uniform = TK.blend_tiles_plain(identity, table, 32, starts, counts,
+                                   tiles_x=c["tiles_x"], n_eyes=2, r2_cutoff=9.0)
     assert float((uniform[0][0] - got[0][0]).abs().max()) > 1e-3
 
 

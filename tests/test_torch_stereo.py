@@ -22,11 +22,13 @@ Tolerances:
   into FMAs; the kernels build with --fmad=false, as the plain version
   computes).
 * prep "stereo" and the expand's dual-eye q <= 9 test, each fed the JAX
-  stage's own inputs: offsets, rect words, keys and the 8 carried words
-  equal; masks up to counted boundary flips (<= 0.2%).
+  stage's own inputs: offsets, rect words and keys equal, and the 8 words
+  JAX carries equal to the entry words at each live slot's index; masks up
+  to counted boundary flips (<= 0.2%).
 * dual-eye blend (plain, ``n_eyes=2, r2_cutoff=9``) vs
   ``blend_tiles_pallas(..., n_eyes=2, r2_cutoff=9.0, interpret=True)`` on
-  the same sorted table: max |d| <= 1e-5 in both eyes.  Early-exit rule of
+  the same sorted table (the port reads it through the identity key): max
+  |d| <= 1e-5 in both eyes.  Early-exit rule of
   both: after each 256-record batch (2 x 128 aligned) a tile stops once
   every pixel of BOTH eyes has transmittance below 1/255.
 * the whole frame vs JAX ``depth_first_stereo_frame(interpret=True)``:
@@ -58,6 +60,7 @@ from gsm_renderer_tpu_torch.kernels import expand as TE
 from gsm_renderer_tpu_torch.kernels import project as TP
 from gsm_renderer_tpu_torch.ops import binning as TB
 from gsm_renderer_tpu_torch.pipelines import depth_first as TD
+from test_torch_binning import assert_words_at_entries
 from test_torch_project import THETA_TOL, f16_steps, theta_error
 
 # the suite runs files in parallel workers: one intra-op thread per worker
@@ -262,16 +265,17 @@ def test_stereo_prep_matches_pallas(stereo_chain):
 
 def test_stereo_expand_matches_pallas(stereo_chain):
     c = stereo_chain
-    key1, key2, words, total, overflow = TE.expand_slots(
+    plan = TB.make_key_plan(c["tiles_x"] * c["tiles_y"], c["n"],
+                            near_plane=NEAR, far_plane=FAR)
+    key1, key2, total, overflow = TE.expand_slots(
         i32(c["offsets"]), i32(c["rect"]), i32(c["mask"]), i32(c["dsw"]),
         [i32(x) for x in c["words"]], capacity=c["cap"],
-        tiles_x=c["tiles_x"], mode="stereo",
-        key_plan=TB.make_key_plan(c["tiles_x"] * c["tiles_y"], c["n"],
-                                  near_plane=NEAR, far_plane=FAR))
+        tiles_x=c["tiles_x"], mode="stereo", key_plan=plan)
     ref = c["expand"]
-    for k, g in enumerate([key1, key2] + list(words.unbind(0))):
+    for k, g in enumerate([key1, key2]):
         np.testing.assert_array_equal(u32(g.numpy()), u32(ref[k]),
                                       err_msg=f"output {k}")
+    assert_words_at_entries(key1, key2, plan.idx_bits, c["words"], ref[2:10])
     assert int(total) == int(ref[10]) and int(overflow) == int(ref[11]) == 0
     # the dual-eye test pruned some union-rect slots
     assert (u32(key1.numpy()) == TE.SENTINEL).sum() > c["cap"] - int(total)
@@ -287,7 +291,8 @@ def test_dual_eye_blend_matches_pallas(stereo_chain):
         jnp.asarray(c["starts"]), jnp.asarray(c["counts"]),
         tiles_x=c["tiles_x"], tiles_y=c["tiles_y"], n_eyes=2, r2_cutoff=9.0,
         interpret=True)
-    got, _processed = TK.blend_tiles_plain(table, starts, counts,
+    identity = torch.arange(c["cap"], dtype=torch.int64)
+    got, _processed = TK.blend_tiles_plain(identity, table, 32, starts, counts,
                                            tiles_x=c["tiles_x"], n_eyes=2,
                                            r2_cutoff=9.0, return_processed=True)
     for (rc, rd), (gc, gd) in zip(ref, got):
@@ -317,12 +322,13 @@ def test_dual_eye_exit_waits_for_both_eyes():
                          for x in left + right])
     starts = torch.zeros(1, dtype=torch.int32)
     counts = torch.full((1,), n_rec, dtype=torch.int32)
-    both, processed = TK.blend_tiles_plain(table, starts, counts, tiles_x=1,
-                                           n_eyes=2, r2_cutoff=9.0,
+    identity = torch.arange(n_rec, dtype=torch.int64)
+    both, processed = TK.blend_tiles_plain(identity, table, 32, starts, counts,
+                                           tiles_x=1, n_eyes=2, r2_cutoff=9.0,
                                            return_processed=True)
     assert int(processed[0]) == n_rec
-    mono = TK.blend_tiles_plain(table[:4], starts, counts, tiles_x=1,
-                                return_processed=True)
+    mono = TK.blend_tiles_plain(identity, table[:4], 32, starts, counts,
+                                tiles_x=1, return_processed=True)
     assert int(mono[2][0]) == 256     # the left eye alone stops after batch 0
 
 
