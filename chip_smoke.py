@@ -9,8 +9,9 @@ Phases (each raises on failure, and the script then exits non-zero):
 
 1. Build the CUDA kernels from ``gsm_renderer_tpu_torch/csrc`` (one nvcc per
    source, in parallel); print each kernel's ``-Xptxas -v`` registers,
-   shared memory and spills (a spill in the blend or the expand fails the
-   run), the SASS counts of the blend's composite loop where ``cuobjdump``
+   shared memory and spills (a spill in the blend, the expand, prep or the
+   row expand fails the run), the SASS counts of the blend's composite
+   loop where ``cuobjdump``
    sits beside ``nvcc``, and the card's name and power limit.
 2. The headline frame through the user entry point
    ``DepthFirstRenderer(config).render`` with the default configuration
@@ -22,7 +23,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``row_expand=False`` (8 frames, with launch counts of their own).  Each
    frame loop of phases 2-4f also prints its host/device split
    (``frame_split``: the host's enqueue time per frame, and the device time
-   of frames queued back to back).
+   of frames queued back to back).  Each traced frame (phases 2-4f) prints
+   its device time by stage, every kernel attributed to one, and fails if
+   it launched a separate scan kernel (prep and the row expand scan in
+   their own pass).
 3. The realistic heavy-tailed scene (``generate_realistic_gaussians``, 1M,
    SH3, recentred, camera before the nearest splats, far 80) rendered with
    rows on and off: frame times, slot totals and a device-time split by
@@ -38,7 +42,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    expand and blend each > 0; bounds_gather runs fused into the prep);
    requires overflow 0, a finite frame and both halves non-black; prints its
    frame times, slot total and device split beside the stereo frame's, and
-   one timed line at min_rate 0.15.
+   one timed line at min_rate 0.15.  One frame runs under
+   ``torch.cuda.set_sync_debug_mode("warn")`` and one under a host-clock
+   probe with the device held (``host_syncs``, ``host_waits``; the latter
+   for the stereo frame too): each prints where the host waited, if it
+   did.
 5. Each kernel and mode on the frames' own intermediate tensors (prep and
    expand both as the rows-on and as the rows-off frame run them, in their
    stereo modes, and in mode "warped" on the foveated frame's tensors with
@@ -62,6 +70,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    its CTAs, a run of 1-slot and culled entries, a row table's dead tail, a
    total equal to the capacity and one above it) in modes mono, stereo and
    warped: bit-equal to its plain version, overflow as the capacity says.
+5p. Prep and the row expand on built inputs (``built_prep_inputs``: 1 to
+   1,000,001 gaussians; all culled, all oversized, one lane of 32 tests in
+   each warp of 1-test lanes, mixed): prep in mono ``count_rows`` and full
+   rects, stereo, warped at lod_min 0 and 5; the row expand with the row
+   capacity below, at and above the row total.  Three back-to-back calls
+   must be equal, and the first within ``check_ints`` of the plain version;
+   prints each mode's flip share and a digest of its outputs.
 6. Small frames (20k gaussians, 512x384) on the card vs the same renderer on
    the CPU (plain versions): rows off, rows on, stereo and foveated
    (min_rate 0.4); colour within 1e-3.
@@ -76,6 +91,9 @@ exits 2.
 headline and the realistic scene, rows on and off) with their host/device
 split and traced idle share, and prints one JSON line: copied into a
 checkout of another commit, it times that commit's package the same way.
+``python3 chip_smoke.py --kernels`` runs phases 1, 2, 4, 4f, 5 and 5p and
+prints one JSON line of the kernel rows and the built-input flip shares and
+digests, for the same use (it does not require the one-pass scan there).
 """
 
 from __future__ import annotations
@@ -120,6 +138,24 @@ KERNEL_SOURCES = {
     "bounds_gather": ("gsm_renderer_tpu_torch/csrc/binning.cu",
                       "gsm_renderer_tpu/kernels/expand.py:202"),
 }
+#: kernels whose -Xptxas -v report must show no spill
+SPILL_CHECKED = ("blend_kernel", "expand_kernel", "prep_kernel",
+                 "row_expand_kernel")
+#: the separate scan kernels of the prep and row expansion before the
+#: one-pass scan; no frame may launch them
+OLD_SCAN_KERNELS = ("scan_block_sums_kernel", "add_block_offsets_kernel")
+#: (stage, substrings of its device kernels' names), first match wins; the
+#: rest is "torch ops" (elementwise, fills, reductions, copies)
+STAGE_KERNELS = (
+    ("project", ("project_kernel",)),
+    ("prep", ("prep_kernel",) + OLD_SCAN_KERNELS),
+    ("row expand", ("row_expand_kernel",)),
+    ("expand", ("expand_kernel",)),
+    ("blend", ("blend_kernel",)),
+    ("bounds gather", ("bounds_gather_kernel",)),
+    ("instance sort", ("Radix", "radix", "Sort", "sort")),
+    ("tile ranges", ("searchsorted",)),
+)
 #: the kernels each path must launch
 MONO_ROWS_PATH = ("project", "prep", "row_expand", "expand", "blend")
 MONO_RECTS_PATH = ("project", "prep", "expand", "blend")
@@ -246,6 +282,24 @@ def mismatches(torch, pairs):
     return bad, total, worst
 
 
+def check_ints(torch, name, pairs):
+    """(max |d|, share of mismatching elements) of int tensor pairs; fails
+    above 1e-4 of the elements (float-boundary flips of a minQuadRect or
+    span test)."""
+    bad, total, worst = mismatches(torch, pairs)
+    if bad > 1e-4 * total:
+        raise RuntimeError(f"{name}: {bad} of {total} outputs differ")
+    return worst, bad / total
+
+
+def stage_of(kernel: str) -> str:
+    """The frame stage of a device kernel, by name (STAGE_KERNELS)."""
+    for stage, keys in STAGE_KERNELS:
+        if any(k in kernel for k in keys):
+            return stage
+    return "torch ops"
+
+
 def bound(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
@@ -338,8 +392,7 @@ def phase_build(native):
         report = ptxas_report((out / f"{name}.log").read_text())
         log(f"[build] {name}.cu ptxas: " + json.dumps(report))
         for label, r in report.items():
-            if label.startswith(("blend_kernel", "expand_kernel")) and \
-                    r.get("spill_bytes", 0) > 0:
+            if label.startswith(SPILL_CHECKED) and r.get("spill_bytes", 0) > 0:
                 raise RuntimeError(f"{label} spills registers: {r}")
     cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
     if cuobjdump.exists():
@@ -393,8 +446,9 @@ def frame_split(torch, render, frames: int = 5) -> dict:
     those frames, which run back to back behind the sleep, so that no host
     gap enters it.  Frames timed back to back (``timed_frames``) take about
     the larger of the two: the frame is host-bound where ``host_ms`` is.
-    ``host_ahead`` is false where a frame waited on the device (a host
-    read), and the split is then not valid."""
+    ``host_ahead`` is false where the host waited on the device (a host
+    read, or a launch queue filled by the frames queued behind the sleep),
+    and the split is then not valid."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     render()
@@ -414,6 +468,76 @@ def frame_split(torch, render, frames: int = 5) -> dict:
     end.synchronize()
     return dict(host_ms=host_ms, device_ms=start.elapsed_time(end) / frames,
                 host_ahead=ahead)
+
+
+def host_syncs(torch, render, label: str) -> list:
+    """The host synchronisations of one frame: ``render`` once under
+    ``torch.cuda.set_sync_debug_mode("warn")``, each warning's message with
+    the innermost frames of this repository's code that led to it."""
+    import traceback
+    import warnings
+
+    sites = []
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "gsm_renderer_tpu_torch" in f.filename]
+        sites.append(dict(message=str(message)[:160],
+                          at=[f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                              for f in frames[-4:]]))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = keep
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            render()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the warning that the mode itself is a prototype is no sync
+    sites = [x for x in sites if "prototype feature" not in x["message"]]
+    log(f"[{label}] host syncs in one frame (sync debug mode): {len(sites)} "
+        + json.dumps(sites))
+    return sites
+
+
+def host_waits(torch, render, label: str, hold_ms: float = 50.0,
+               min_ms: float = 1.0) -> list:
+    """Where one frame's host waits on the device, found by the clock: a
+    sleep kernel holds the device for ``hold_ms``, ``render`` runs once
+    under ``sys.setprofile``, and every call made from this repository's
+    package (Python functions and the C functions they call) that took
+    ``min_ms`` or more on the host is kept, innermost first.  A frame that
+    never waits keeps none; one that waits keeps the chain of calls down to
+    the one that blocked.  Catches what the sync debug mode does not see."""
+    torch.cuda.synchronize()
+    stack, slow = [], []
+
+    def prof(frame, event, arg):
+        if event in ("call", "c_call"):
+            stack.append(time.perf_counter())
+        elif event in ("return", "c_return", "c_exception") and stack:
+            ms = (time.perf_counter() - stack.pop()) * 1e3
+            where = frame.f_code.co_filename
+            if ms >= min_ms and "gsm_renderer_tpu_torch" in where:
+                what = (getattr(arg, "__qualname__", repr(arg))
+                        if event.startswith("c_") else frame.f_code.co_name)
+                slow.append(dict(ms=ms, depth=len(stack), call=str(what)[:60],
+                                 at=f"{Path(where).name}:{frame.f_lineno}"))
+
+    torch.cuda._sleep(int(sleep_cycles_per_ms(torch) * hold_ms))
+    sys.setprofile(prof)
+    try:
+        render()
+    finally:
+        sys.setprofile(None)
+    torch.cuda.synchronize()
+    slow.sort(key=lambda x: -x["depth"])
+    log(f"[{label}] host calls of {min_ms} ms or more in one frame with the "
+        f"device held {hold_ms} ms: " + json.dumps(slow[:12]))
+    return slow[:12]
 
 
 def check_frame(torch, out, label: str, halves: int = 1):
@@ -501,15 +625,24 @@ def trace_frames(torch, render, label: str, frames: int = 10):
             render()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = device_kernel_stats(prof)
     rows = sorted(((ms / frames, name[:60], count) for name, (ms, count) in
-                   device_kernel_stats(prof).items()), reverse=True)
+                   stats.items()), reverse=True)
     busy = sum(ms for ms, _, _ in rows)
+    stages = {}
+    for name, (ms, _count) in stats.items():
+        stages[stage_of(name)] = stages.get(stage_of(name), 0.0) + ms / frames
     if busy == 0.0:
         log(f"[{label}] the profiler recorded no device time: idle share "
             "not measured")
         return None
     res = {"frame_wall_ms": wall_ms / frames, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / (wall_ms / frames),
+           "launches_per_frame": sum(c for _ms, c in stats.values()) / frames,
+           "stages": dict(sorted(stages.items(), key=lambda kv: -kv[1])),
+           "old_scan_launches": sum(
+               count for name, (_ms, count) in stats.items()
+               if any(k in name for k in OLD_SCAN_KERNELS)),
            "kernels": [dict(ms=ms, name=name, launches=count)
                        for ms, name, count in rows[:16]],
            # kernels a frame launches a fixed number of times, seen a number
@@ -518,6 +651,18 @@ def trace_frames(torch, render, label: str, frames: int = 10):
                                if count % frames]}
     log(f"[{label}] " + json.dumps(res))
     return res
+
+
+#: off under --kernels, which may time another tree's package
+REQUIRE_ONE_PASS_SCAN = True
+
+
+def require_one_pass_scan(trace, label: str) -> None:
+    """Fails if a traced frame launched a separate scan kernel."""
+    if (REQUIRE_ONE_PASS_SCAN and trace is not None
+            and trace["old_scan_launches"]):
+        raise RuntimeError(f"{label}: {trace['old_scan_launches']} launches of "
+                           f"{OLD_SCAN_KERNELS} in the traced frames")
 
 
 def realistic_scene(T, n: int = 1_000_000):
@@ -549,8 +694,9 @@ def phase_realistic(torch, T, n: int = 1_000_000):
             torch, lambda r=r: r.render(gi, cam, W, H))
         res[label]["split"] = frame_split(torch,
                                           lambda r=r: r.render(gi, cam, W, H))
-        trace_frames(torch, lambda r=r: r.render(gi, cam, W, H),
-                     f"realistic {label} trace", frames=5)
+        require_one_pass_scan(trace_frames(
+            torch, lambda r=r: r.render(gi, cam, W, H),
+            f"realistic {label} trace", frames=5), f"realistic {label}")
         check_frame(torch, outs[label], f"realistic {label}")
     log("[realistic] " + json.dumps({"realistic_frame_ms": res}))
     on, off = outs["rows_on"], outs["rows_off"]
@@ -577,8 +723,11 @@ def phase_stereo(torch, T, kernels, hl):
     if tuple(out.color.shape) != (H, 2 * W, 4):
         raise RuntimeError(f"stereo: frame shape {tuple(out.color.shape)}")
     check_frame(torch, out, "stereo", halves=2)
+    stats["host_waits"] = host_waits(
+        torch, lambda: r.render_stereo(gi, stereo, W, H), "stereo")
     trace = trace_frames(torch, lambda: r.render_stereo(gi, stereo, W, H),
                          "stereo trace", frames=5)
+    require_one_pass_scan(trace, "stereo")
     return dict(r=r, stereo=stereo, out=out, capacity=capacity,
                 launches=launches, stats=stats, trace=trace)
 
@@ -596,13 +745,20 @@ def phase_foveated(torch, T, kernels, hl, st):
         lambda: timed_frames(torch, render))
     capacity = r._cap_state[(r._stereo_key + "_fov", n)]["cap"]
     shape = (target.render_height, 2 * target.render_width, 4)
+    # five frames of about 200 launches each fill the launch queue
+    # behind the sleep kernel, and the host then waits for room: two frames
+    # fit
     stats.update(capacity=capacity, shape=list(out.color.shape),
-                 min_rate=FOV_MIN_RATE, split=frame_split(torch, render))
+                 min_rate=FOV_MIN_RATE, split=frame_split(torch, render),
+                 split_2=frame_split(torch, render, frames=2))
     if tuple(out.color.shape) != shape:
         raise RuntimeError(f"foveated: frame shape {tuple(out.color.shape)}, "
                            f"expected {shape}")
     check_frame(torch, out, "foveated", halves=2)
+    stats["host_syncs"] = host_syncs(torch, render, "foveated")
+    stats["host_waits"] = host_waits(torch, render, "foveated")
     trace = trace_frames(torch, render, "foveated trace", frames=5)
+    require_one_pass_scan(trace, "foveated")
 
     low = T.make_rate_maps(W, H, min_rate=FOV_MIN_RATE_LOW, radius=FOV_RADIUS)
     r_low = T.DepthFirstRenderer(hl["cfg"])
@@ -753,12 +909,6 @@ def phase_kernels(torch, T, hl, st, fv):
         log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
             f"{b:.4f} ms by {by}), max_abs_err {err}, flips {flips}")
 
-    def check_ints(name, pairs):
-        bad, total, worst = mismatches(torch, pairs)
-        if bad > 1e-4 * total:
-            raise RuntimeError(f"{name}: {bad} of {total} outputs differ")
-        return worst, bad / total
-
     def check_exact(name, pairs):
         bad, total, worst = mismatches(torch, pairs)
         if bad:
@@ -814,7 +964,7 @@ def phase_kernels(torch, T, hl, st, fv):
     # kernel 1: project (with the row-addressing KeyPlan of the frame)
     pk, ms = device_ms(torch, lambda: KP.project_cuda(*args, **pkw), 20)
     pp, plain_ms = cuda_ms(torch, lambda: KP.project_plain(*args, **pkw), 3)
-    err, flips = check_ints("project", [
+    err, flips = check_ints(torch, "project", [
         (pk.rect_word, pp.rect_word), (pk.rect_h, pp.rect_h), (pk.dsw, pp.dsw),
         (pk.visible, pp.visible)] + list(zip(pk.words, pp.words)))
     record("project", "project", mono_l["project"], ms, plain_ms, err, flips,
@@ -826,7 +976,8 @@ def phase_kernels(torch, T, hl, st, fv):
         torch, lambda: KE.binning_prep_cuda(*prep_in, count_rows=True), 20)
     (off_p, rect_p, mask_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*prep_in, count_rows=True), 3)
-    err, flips = check_ints("prep", [(off, off_p), (rect, rect_p), (mask, mask_p)])
+    err, flips = check_ints(torch, "prep", [(off, off_p), (rect, rect_p),
+                                            (mask, mask_p)])
     record("prep", "prep", mono_l["prep"], ms, plain_ms, err, flips,
            (6 + 3) * 4 * n + 4,
            PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(pk.rect_word,
@@ -837,7 +988,7 @@ def phase_kernels(torch, T, hl, st, fv):
     row_in = (off, rect, mask, pk.dsw, pk.words)
     rk, ms = device_ms(torch, lambda: KE.row_expand_cuda(*row_in, **rkw), 20)
     rp, plain_ms = cuda_ms(torch, lambda: KE.row_expand_plain(*row_in, **rkw), 3)
-    err, flips = check_ints("row_expand", [
+    err, flips = check_ints(torch, "row_expand", [
         (rk[0], rp[0]), (rk[1], rp[1]), (rk[2], rp[2]), (rk[3], rp[3]),
         (rk[5], rp[5])] + list(zip(rk[4], rp[4])))
     ru = rect.to(torch.int64) & 0xFFFFFFFF
@@ -922,8 +1073,8 @@ def phase_kernels(torch, T, hl, st, fv):
         torch, lambda: KE.binning_prep_cuda(*prep0_in, count_rows=False), 20)
     (off0_p, rect0_p, mask0_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*prep0_in, count_rows=False), 3)
-    err, flips = check_ints("prep.rows_off", [(off0, off0_p), (rect0, rect0_p),
-                                              (mask0, mask0_p)])
+    err, flips = check_ints(torch, "prep.rows_off", [
+        (off0, off0_p), (rect0, rect0_p), (mask0, mask0_p)])
     record("prep.rows_off", "prep", off_l["prep"], ms, plain_ms, err, flips,
            (6 + 3) * 4 * n + 4,
            PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(pk0.rect_word,
@@ -957,7 +1108,7 @@ def phase_kernels(torch, T, hl, st, fv):
     skw = dict(pkw, key_plan=st_plan)
     sk, ms = device_ms(torch, lambda: KP.stereo_project_cuda(*sargs, **skw), 20)
     sp, plain_ms = cuda_ms(torch, lambda: KP.stereo_project_plain(*sargs, **skw), 3)
-    err, flips = check_ints("stereo_project", [
+    err, flips = check_ints(torch, "stereo_project", [
         (sk.rect_word, sp.rect_word), (sk.rect_h, sp.rect_h), (sk.dsw, sp.dsw),
         (sk.visible, sp.visible)] + list(zip(sk.words, sp.words)))
     ferr = max(float((getattr(sk, f) - getattr(sp, f)).abs().max())
@@ -974,8 +1125,8 @@ def phase_kernels(torch, T, hl, st, fv):
         torch, lambda: KE.binning_prep_cuda(*sprep_in, mode="stereo"), 20)
     (soff_p, srect_p, smask_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*sprep_in, mode="stereo"), 3)
-    err, flips = check_ints("prep.stereo", [(soff, soff_p), (srect, srect_p),
-                                            (smask, smask_p)])
+    err, flips = check_ints(torch, "prep.stereo", [
+        (soff, soff_p), (srect, srect_p), (smask, smask_p)])
     record("prep.stereo", "prep", st_l["prep"], ms, plain_ms, err, flips,
            # words 0-2 and 4-6: the stereo cutoff needs no opacity word
            (2 + 6 + 3) * 4 * n + 4,
@@ -1064,18 +1215,18 @@ def phase_kernels(torch, T, hl, st, fv):
         torch, lambda: KE.binning_prep_cuda(*fprep_in, **fprep_kw), 20)
     (foff_p, frect_p, fmask_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*fprep_in, **fprep_kw), 3)
-    err, flips = check_ints("prep.warped", [(foff, foff_p), (frect, frect_p),
-                                            (fmask, fmask_p)])
+    err, flips = check_ints(torch, "prep.warped", [
+        (foff, foff_p), (frect, frect_p), (fmask, fmask_p)])
     # the gather's planes reproduce the kernel's masks through the plain
     # warped masks
     w64 = [x.to(torch.int64) & 0xFFFFFFFF for x in fpk.words]
     gmask, _ = KE.stereo_warped_tile_masks(
         w64[0:3], w64[4:7], (fru >> 20) & 0x3FF, fpk.rect_h.to(torch.int64),
         gfx, gfy, w3=w64[3], lod_min=lod)
-    check_ints("prep.warped mask from bounds_gather", [(gmask, fmask)])
+    check_ints(torch, "prep.warped mask from bounds_gather", [(gmask, fmask)])
     # the periphery LOD (foveated_lod > 0) on the same tensors
     lod_kw = dict(fprep_kw, lod_min=5.0)
-    check_ints("prep.warped lod_min=5", list(zip(
+    check_ints(torch, "prep.warped lod_min=5", list(zip(
         KE.binning_prep_cuda(*fprep_in, **lod_kw),
         KE.binning_prep_plain(*fprep_in, **lod_kw))))
     record("prep.warped", "prep", fv_l["prep"], ms, plain_ms, err, flips,
@@ -1231,6 +1382,68 @@ def built_expand_tables(torch, M, KE, device, seed: int = 5):
     return out
 
 
+#: sizes of the built prep inputs: one gaussian, part of a warp, a block
+#: and its edges, the edge of a look-back window of 32 tiles (4097 = 16
+#: tiles + 1) and the headline's 1M + 1
+BUILT_PREP_SIZES = (1, 31, 255, 256, 257, 4097, 1_000_001)
+BUILT_PREP_SCENES = ("culled", "oversized", "skewed", "mixed")
+
+
+def built_prep_inputs(torch, M, n: int, scene: str, seed: int = 9):
+    """(rect_word, rect_h, 8 word rows) int32 CPU tensors of ``n`` built
+    gaussians, made from ``seed``, that put prep's per-warp test balancing
+    and its look-back scan at their edges.  Scenes: "culled" (every
+    gaussian CULLED, its window still tested); "oversized" (rects of 9-30 x
+    5-12 tiles: 32 tests each, counted as rows or full rects); "skewed" (in
+    each warp one lane, a different one per warp, holds an 8x4 window of 32
+    tests and the rest a 1x1 rect of 1 test); "mixed" (rects of 0-12 x 0-6
+    tiles, 10% culled).  Records: ellipses of sigma 0.5-40 px centred within
+    a tile of their window on a 120 x 68 tile grid (the right eye 25 px to
+    the left), random orientation, colour and opacity; the eyes share w3."""
+    g = torch.Generator().manual_seed(seed)
+
+    def uni(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int64)
+
+    def f16(x):
+        return x.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+    min_tx, min_ty = ints(0, 112), ints(0, 64)
+    culled = torch.zeros(n, dtype=torch.bool)
+    if scene == "culled":
+        rect_w, rect_h = ints(0, 13), ints(0, 7)
+        culled[:] = True
+    elif scene == "oversized":
+        rect_w, rect_h = ints(9, 31), ints(5, 13)
+    elif scene == "skewed":
+        idx = torch.arange(n)
+        heavy = (idx % 32) == (idx // 32) % 32
+        rect_w = torch.where(heavy, 8, 1)
+        rect_h = torch.where(heavy, 4, 1)
+    else:
+        rect_w, rect_h = ints(0, 13), ints(0, 7)
+        culled = uni(0.0, 1.0) < 0.1
+    rect_word = (min_tx | (min_ty << 10) | (rect_w << 20)
+                 | torch.where(culled, 1 << 30, 0))
+    # means within one tile of the window, so that tests pass and fail
+    span_x = torch.clamp(rect_w, max=8).to(torch.float32) + 2.0
+    span_y = torch.clamp(rect_h, max=4).to(torch.float32) + 2.0
+    mx = (min_tx.to(torch.float32) - 1.0 + span_x * uni(0.0, 1.0)) * 16.0
+    my = (min_ty.to(torch.float32) - 1.0 + span_y * uni(0.0, 1.0)) * 16.0
+    rows = []
+    for shift in (0.0, -25.0):
+        rows += [f16(mx + shift) | (f16(my) << 16),
+                 ints(0, 65536) | (f16(uni(0.5, 40.0)) << 16),
+                 f16(uni(0.5, 40.0)) | (f16(uni(0.5, 30.0)) << 16),
+                 ints(0, 1 << 32)]
+    rows[7] = rows[3]
+    return (M.to_i32(rect_word), rect_h.to(torch.int32),
+            [M.to_i32(r) for r in rows])
+
+
 def phase_expand_tables(torch, bounds):
     """The expand on built tables against its plain version, in modes mono,
     stereo and warped: all outputs bit-equal, the overflow flag as the
@@ -1265,6 +1478,91 @@ def phase_expand_tables(torch, bounds):
             f"{cap}, largest entry {int(counts.max())} slots, "
             f"{int((counts == 1).sum())} 1-slot, {int((counts == 0).sum())} "
             f"0-slot; live slots {json.dumps(live)}; bit-equal to plain")
+
+
+#: prep modes of the built-input phase: (label, record words, options)
+PREP_MODES = (("mono count_rows", 4, dict(count_rows=True)),
+              ("mono full rects", 4, dict()),
+              ("stereo", 8, dict(mode="stereo")),
+              ("warped lod_min 0", 8, dict(mode="warped", lod_min=0.0)),
+              ("warped lod_min 5", 8, dict(mode="warped", lod_min=5.0)))
+
+
+def phase_prep_tables(torch, bounds) -> dict:
+    """Prep and the row expand on built inputs (``built_prep_inputs``, every
+    size and scene): prep in each of PREP_MODES, the row expand over the
+    count_rows table with the row capacity below the row total (half of
+    it), equal to it and above it (+ 300).  Each kernel runs three times
+    back to back and the three outputs must be equal (stale look-back
+    state would show); the first is held against the plain version with
+    ``check_ints``.  Prints each mode's flip share and a digest of its
+    outputs over all cases (equal digests on two trees: equal outputs).
+    Returns {mode: dict(flips, elements, digest)}."""
+    import hashlib
+
+    from gsm_renderer_tpu_torch import mathlib as M
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+
+    dev = bounds.device
+    res = {}
+
+    def flat(out):
+        return [t for x in out for t in (x if isinstance(x, list) else [x])]
+
+    def hold(mode, label, kernel, args, kw, want):
+        outs = [flat(kernel(*args, **kw)) for _ in range(3)]
+        for other in outs[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(outs[0], other)):
+                raise RuntimeError(f"{label}: back-to-back calls differ")
+        pairs = list(zip(outs[0], flat(want)))
+        bad, total, _worst = mismatches(torch, pairs)
+        check_ints(torch, label, pairs)
+        r = res.setdefault(mode, dict(flips=0, elements=0,
+                                      digest=hashlib.sha256()))
+        r["flips"] += bad
+        r["elements"] += total
+        for t in outs[0]:
+            r["digest"].update(t.cpu().numpy().tobytes())
+        return outs[0]
+
+    for n in BUILT_PREP_SIZES:
+        for scene in BUILT_PREP_SCENES:
+            rw, rh, w8 = built_prep_inputs(torch, M, n, scene)
+            rw, rh, w8 = rw.to(dev), rh.to(dev), [w.to(dev) for w in w8]
+            gen = torch.Generator().manual_seed(n)
+            dsw = torch.randint(0, 1 << 31, (n,), dtype=torch.int32,
+                                generator=gen).to(dev)
+            for mode, k, kw in PREP_MODES:
+                if kw.get("mode") == "warped":
+                    kw = dict(kw, warped_bounds=bounds)
+                args = (rw, rh, w8[:k])
+                off, rect, mask = hold(
+                    mode, f"prep tables {mode} n={n} {scene}",
+                    KE.binning_prep_cuda, args, kw,
+                    KE.binning_prep_plain(*args, **kw))
+                if not kw.get("count_rows"):
+                    continue
+                total = int(off[n])
+                for cap in (max(total // 2, 1), total, total + 300):
+                    rargs, rkw = (off, rect, mask, dsw, w8[:4]), dict(
+                        row_capacity=cap)
+                    got = hold("row expand", f"row tables cap={cap} n={n} "
+                               f"{scene} (total {total})", KE.row_expand_cuda,
+                               rargs, rkw, KE.row_expand_plain(*rargs, **rkw))
+                    # got: offsets2, rect2, mask2, dsw2, w0..w3, row_overflow
+                    if int(got[-1]) != int(total > cap):
+                        raise RuntimeError(f"row tables n={n} {scene}: row "
+                                           f"overflow {int(got[-1])}, total "
+                                           f"{total}, capacity {cap}")
+        log(f"[prep tables] n={n}: {len(BUILT_PREP_SCENES)} scenes x "
+            f"{len(PREP_MODES)} modes and 3 row capacities: calls equal, "
+            "within check_ints of plain")
+    out = {m: dict(flips=r["flips"], elements=r["elements"],
+                   flip_share=r["flips"] / r["elements"],
+                   digest=r["digest"].hexdigest()[:16])
+           for m, r in res.items()}
+    log("[prep tables] " + json.dumps(out))
+    return out
 
 
 def phase_small(torch, T):
@@ -1360,20 +1658,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--frames"]:
         return frames_only(torch, T, _native)
+    kernels_only = sys.argv[1:] == ["--kernels"]
+    if kernels_only:
+        # another tree's kernels may still launch the separate scan kernels
+        global REQUIRE_ONE_PASS_SCAN
+        REQUIRE_ONE_PASS_SCAN = False
     kernels = [project.PROJECT, expand.PREP, expand.ROW_EXPAND, expand.EXPAND,
                blend.BLEND, project.STEREO_PROJECT, expand.BOUNDS_GATHER]
     t0 = time.perf_counter()
     smi = phase_build(_native)
     hl = phase_headline(torch, T, kernels)
-    trace_frames(torch, lambda: hl["r"].render(hl["gi"], hl["cam"], W, H),
-                 "trace")
-    phase_realistic(torch, T)
+    if not kernels_only:
+        require_one_pass_scan(trace_frames(
+            torch, lambda: hl["r"].render(hl["gi"], hl["cam"], W, H),
+            "trace"), "headline")
+        phase_realistic(torch, T)
     st = phase_stereo(torch, T, kernels, hl)
     fv = phase_foveated(torch, T, kernels, hl, st)
     rows, other = phase_kernels(torch, T, hl, st, fv)
     from gsm_renderer_tpu_torch.pipelines.depth_first import foveated_device_tables
-    phase_expand_tables(torch, foveated_device_tables(
-        fv["target"], hl["gi"].positions.device)["bounds"])
+    bounds = foveated_device_tables(fv["target"],
+                                    hl["gi"].positions.device)["bounds"]
+    if not kernels_only:
+        phase_expand_tables(torch, bounds)
+    tables = phase_prep_tables(torch, bounds)
+    if kernels_only:
+        print(json.dumps({"kernels": rows, "prep_tables": tables,
+                          "card": smi}))
+        return 0
     phase_small(torch, T)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"library_ops": other}))

@@ -11,21 +11,72 @@
 // physical tile and, with lod_min > 0, applies the periphery LOD drop), its
 // popcount, the MASKED / CULLED bits and the count -- instances, or virtual
 // tile rows under count_rows (every gaussian owns >= 1); then the global
-// exclusive scan of the counts.  The Pallas kernel carries the scan across
-// its sequential grid in SMEM; blocks here run in no order, so the scan is
-// three passes written by hand: a block scan (warp shuffles) that also
-// stores each block's sum, one block that scans the block sums and writes
-// offsets[n] (the total), and an add-back of the block offsets.
+// exclusive scan of the counts, offsets[n] the total.
 //
-// Row expansion replaces _row_expand_kernel (row_expand_pallas): one thread
-// per virtual row r < R.  An upper-bound binary search over the prep
-// offsets (strictly increasing: every gaussian owns >= 1 row) finds the
-// gaussian g and its tile row jj = r - offsets[g]; an oversized rect's row
-// is narrowed to the closed-form column span of the ellipse (row_span, the
-// formulas of _row_tile_span), and the per-row instance counts go through
-// the same three-pass scan, so the output is again a complete table of R
-// entries plus offsets[R].  Rows at or past the row total carry zero planes
-// and count 0.
+// On the H100 prep is bound by issued instructions, not bytes (36-52 B a
+// gaussian).  A gaussian needs min(rect_w, 8) * min(rect_h, 4) tests, 3.7
+// on average in the 1M headline frame; a thread per gaussian looping over
+// its own tests makes each warp run its longest lane's loop (11.2 tests on
+// average, 3x the work), twice that in stereo.  So the tests are balanced
+// across the warp, a gaussian a thread and 256 a block:
+//   1. each lane loads its gaussian once, decodes its conic(s) and cutoff
+//      (or LOD ink), computes the per-conic terms of minQuadRect once
+//      (QuadRect), and stages them in its column of shared memory (mono 8
+//      floats, stereo 14, warped 15 and the window corner);
+//   2. the warp scans its lanes' test counts and walks the flattened list
+//      of (gaussian, window position) tests 32 at a time (4 rounds in the
+//      headline warp against 11.2 loop trips); a lane finds its test's
+//      owner by a 5-step shuffle search over the scan, reads the owner's
+//      staged record and runs one test, d2min_quad: d2min_rect's operations
+//      with one-instruction NaN-propagating min / max, which pass or fail
+//      every test as d2min_rect does (common.cuh);
+//   3. a ballot of the round's results goes back to the owners: each owner
+//      ORs its lanes' bits, in test order, into a register, and turns that
+//      into the 8x4 window mask after the last round.
+// Blocks of 1024 gaussians (four a thread) ran the dual-eye modes slower
+// on the H100 (more registers, a quarter of the blocks) and mono no
+// faster, so a thread preps one.
+//
+// The scan is one pass with decoupled look-back (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016),
+// written here: a block takes its tile index from an atomic ticket (so every
+// tile it waits on belongs to a block that has started), scans its counts,
+// publishes its aggregate in a status word, walks back over its
+// predecessors' words 32 at a time until it meets an inclusive prefix,
+// publishes its own inclusive prefix and writes final offsets; the last
+// tile writes offsets[n].  It replaces the block scans, the single block
+// that walked all block sums in series and the add-back pass.
+//
+// Look-back state and its reset: the wrapper owns one scratch per device
+// and stream, a ticket word (epoch << 32 | next tile) and a status word per
+// tile (tag << 32 | value << 1 | is_prefix, tag = epoch + 1, never 0).  The
+// block that draws the launch's last ticket sets the ticket word to the
+// next epoch with the count 0: every ticket is out by then, and the next
+// launch on the stream starts after this one ends.  A status word counts
+// only when its tag is the launch's, so nothing is zeroed per call and the
+// kernel is one launch.  Zeroed scratch reads as no status.  The epoch
+// skips the value that would give tag 0; a status word of 2^32 - 1 launches
+// ago would read as current if no launch since had reached its tile.
+//
+// Row expansion replaces _row_expand_kernel (row_expand_pallas): row r < R
+// belongs to the gaussian g with offsets[g] <= r < offsets[g + 1] (strictly
+// increasing: every gaussian owns >= 1 row) and is its tile row jj = r -
+// offsets[g]; an oversized rect's row is narrowed to the closed-form column
+// span of the ellipse (row_span, the formulas of _row_tile_span), and the
+// per-row instance counts go through the same one-pass scan, so the output
+// is again a complete table of R entries plus offsets[R].  Rows at or past
+// the row total carry zero planes and count 0.  Bound on the H100: device
+// memory (~36 B read and 32 B written a row; only the oversized rows run
+// the span's ~75 flops).  The first port searched 20 dependent loads of
+// the offsets in device memory for every row.  Here a block of 2048 rows
+// (eight a thread, strided so that writes coalesce) finds the gaussian of
+// its first row with one k-ary search (block_upper_bound); its rows lie in
+// the 2048 gaussians from there, whose offsets it stages in shared memory
+// (8 KB), and each row searches 11 steps there and reads its gaussian's
+// words from device memory (neighbouring rows mostly belong to neighbouring
+// gaussians, so the reads coalesce).  Smaller blocks, and larger ones,
+// were slower on the H100: the search, the staging and the look-back are
+// paid once a block, and a larger block holds more registers.
 //
 // Slot expansion replaces _expand_kernel (expand_slots_pallas with a
 // prebuilt table and a KeyPlan).  Slot s belongs to the entry g (a gaussian,
@@ -52,31 +103,22 @@
 // g0 + 1024 in shared memory (16 KB; they cover every slot of the CTA), and
 // each slot finds its entry with a 10-step binary search there.  Record
 // words are read from device memory (L1 serves neighbours) only where the
-// exact test reads them.
+// exact test reads them.  Bound on the H100: device memory, 8 B written per
+// slot (the two keys) and 16 B read per entry (offset, rect, mask, depth
+// word) plus the words of the tested entries.
 //
 // Bounds gather replaces _bgather_kernel (warped_bounds_gather_pallas): one
 // thread per gaussian reads the 9 x and 5 y display coordinates of the
 // physical tile boundaries min_t + d of its window, bounds[axis][min(min_t +
 // d, 127)], from the (2, 128) float table staged in shared memory (1 KB),
-// and writes 14 planes.  The gather is the device function window_bounds,
-// which the warped prep calls itself (the JAX production path fuses it the
-// same way), so the standalone kernel runs only for callers that want the
-// planes.
+// and writes 14 planes (bound: device memory, 8 B read and 56 B written a
+// gaussian).  The standalone kernel runs only for callers that want the
+// planes: the warped prep reads the same entries (bound_at) from its own
+// staged table per test, as the JAX production path fuses the gather.
 //
 // The warped modes read the bounds table from shared memory: every thread
 // of the block stages part of it and passes one barrier before any thread
 // leaves.
-//
-// Bounds on the H100.  Prep: float operations (32 tests of ~65 flops for a
-// gaussian whose rect fills the window, twice in stereo and warped) against
-// 36-52 B of traffic per gaussian.  Bounds gather: device memory (8 B
-// read, 56 B written per gaussian).  Row expansion: device memory (~40 B
-// read and 32 B written per row, ~100 flops for the span).  Prep, row
-// expansion and the bounds gather are one thread per element, coalesced.
-// Expand: device memory, 8 B written per slot (the two keys) and 16 B read
-// per entry (offset, rect, mask, depth word) plus the words of the tested
-// entries; the per-slot search that bound the first port (~21 dependent
-// loads in device memory a slot) is one k-ary search a CTA.
 #include <climits>
 
 #include "common.cuh"
@@ -84,61 +126,179 @@
 namespace {
 
 constexpr int kPrepThreads = 256;
-constexpr int kScanThreads = 1024;
+constexpr int kRowThreads = 256;
+constexpr int kRowItems = 8;  // rows a thread, strided by 256
+constexpr int kRowTile = kRowThreads * kRowItems;
 constexpr int kExpandThreads = 256;
 constexpr int kSlotsPerThread = 4;
 constexpr int kExpandSlots = kExpandThreads * kSlotsPerThread;
 constexpr float kStereoR2Cutoff = 9.0f;
 constexpr int kBoundsLanes = 128;
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
 // Binning modes: the record words they carry and the test they apply.
 enum Mode { kMono = 0, kStereo = 1, kWarped = 2 };
-
-template <int kMode>
-__host__ __device__ constexpr int words_of() { return kMode == kMono ? 4 : 8; }
 
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(0xFFFFFFFFu, v, d);
+    const int o = __shfl_up_sync(kFullWarp, v, d);
     if (lane >= d) v += o;
   }
   return v;
 }
 
-// Block-wide exclusive scan of one int per thread; returns the exclusive
-// prefix and stores the block total in *total.
-template <int kThreads>
-__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[kThreads / 32];
+// Block-wide exclusive scan of kItems ints a thread in the order (item,
+// thread): excl[k] = the sum of the values before (k, threadIdx.x); *total =
+// the block's sum.  Three barriers for any kItems.
+template <int kThreads, int kItems>
+__device__ __forceinline__ void block_exclusive_scan(const int (&v)[kItems],
+                                                     int (&excl)[kItems],
+                                                     int* total) {
+  constexpr int kWarps = kThreads / 32, kSums = kItems * kWarps;
+  __shared__ int sums[kSums];  // warp totals, then their exclusive scan
+  __shared__ int s_total;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int inc = warp_inclusive_scan(v);
-  if (lane == 31) warp_sums[warp] = inc;
+  int inc[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    inc[k] = warp_inclusive_scan(v[k]);
+    if (lane == 31) sums[k * kWarps + warp] = inc[k];
+  }
   __syncthreads();
   if (warp == 0) {
-    const int s = lane < kThreads / 32 ? warp_sums[lane] : 0;
-    const int si = warp_inclusive_scan(s);
-    if (lane < kThreads / 32) warp_sums[lane] = si;
+    int carry = 0;
+#pragma unroll
+    for (int c = 0; c < kSums; c += 32) {
+      const int j = c + lane;
+      const int x = j < kSums ? sums[j] : 0;
+      const int xi = warp_inclusive_scan(x);
+      if (j < kSums) sums[j] = carry + xi - x;
+      carry += __shfl_sync(kFullWarp, xi, 31);
+    }
+    if (lane == 0) s_total = carry;
   }
   __syncthreads();
-  const int base = warp == 0 ? 0 : warp_sums[warp - 1];
-  *total = warp_sums[kThreads / 32 - 1];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    excl[k] = sums[k * kWarps + warp] + inc[k] - v[k];
+  }
+  *total = s_total;
   __syncthreads();
-  return base + inc - v;
 }
 
-// Index lo in [0, n) with offsets[lo] <= s < offsets[lo + 1], for
-// offsets[0] <= s < offsets[n] and non-decreasing offsets.
-__device__ __forceinline__ int upper_bound_entry(const int32_t* offsets, int n,
-                                                 int s) {
-  int lo = 0, hi = n;  // offsets[lo] <= s < offsets[hi]
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (offsets[mid] <= s) lo = mid; else hi = mid;
-  }
-  return lo;
+// ---------------------------------------------------------------------------
+// One-pass scan with decoupled look-back (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// The look-back scratch of a launch: the ticket word and the tile statuses.
+struct ScanState {
+  unsigned long long* ticket;
+  unsigned long long* status;
+  int num_tiles;
+};
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.b64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             uint32_t tag, int value,
+                                             bool is_prefix) {
+  const unsigned long long v =
+      (static_cast<unsigned long long>(tag) << 32) |
+      (static_cast<uint32_t>(value) << 1) | (is_prefix ? 1u : 0u);
+  asm volatile("st.relaxed.gpu.b64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// The block's tile, in the order blocks start; *tag = the launch's status
+// tag.  Every thread calls it (it ends in a barrier).
+__device__ __forceinline__ int take_tile(const ScanState& st, uint32_t* tag) {
+  __shared__ int s_tile;
+  __shared__ uint32_t s_tag;
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(st.ticket, 1ull);
+    const uint32_t epoch = static_cast<uint32_t>(t >> 32);
+    const int tile = static_cast<int>(static_cast<uint32_t>(t));
+    if (tile == st.num_tiles - 1) {
+      // the last ticket: hand the word to the next launch
+      const uint32_t next = epoch + 1u == 0xFFFFFFFFu ? 0u : epoch + 1u;
+      atomicExch(st.ticket, static_cast<unsigned long long>(next) << 32);
+    }
+    s_tile = tile;
+    s_tag = epoch + 1u;
+  }
+  __syncthreads();
+  *tag = s_tag;
+  return s_tile;
+}
+
+// Warp 0 of a block: publishes the tile's aggregate, finds the sum of the
+// counts of every earlier tile from the predecessors' status words, and
+// publishes the tile's inclusive prefix.  Returns the exclusive prefix.
+__device__ __forceinline__ int look_back(const ScanState& st, int tile,
+                                         uint32_t tag, int aggregate) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) store_status(st.status, tag, aggregate, true);
+    return 0;
+  }
+  if (lane == 0) store_status(st.status + tile, tag, aggregate, false);
+  int prefix = 0;
+  for (int last = tile - 1;; last -= 32) {
+    // lane k reads tile last - k; before tile 0 reads as a prefix of 0
+    const int j = last - lane;
+    int value = 0;
+    bool is_prefix = true;
+    if (j >= 0) {
+      unsigned long long s;
+      while (static_cast<uint32_t>((s = load_status(st.status + j)) >> 32) !=
+             tag) {
+        __nanosleep(32);
+      }
+      value = static_cast<int>(static_cast<uint32_t>(s) >> 1);
+      is_prefix = (s & 1ull) != 0;
+    }
+    const uint32_t prefixes = __ballot_sync(kFullWarp, is_prefix);
+    // the nearest predecessor holding a prefix ends the walk
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    prefix += __reduce_add_sync(kFullWarp, lane <= stop ? value : 0);
+    if (prefixes) break;
+  }
+  if (lane == 0) store_status(st.status + tile, tag, prefix + aggregate, true);
+  return prefix;
+}
+
+// The scan of kItems counts a thread over the launch's tiles, in the order
+// (item, thread): excl[k] = the global exclusive offset of the thread's
+// k-th count; *end = the tile's inclusive prefix.  Every thread calls it.
+template <int kThreads, int kItems>
+__device__ __forceinline__ void scan_counts(const ScanState& st, int tile,
+                                            uint32_t tag,
+                                            const int (&count)[kItems],
+                                            int (&excl)[kItems], int* end) {
+  __shared__ int s_prefix;
+  int aggregate;
+  block_exclusive_scan<kThreads, kItems>(count, excl, &aggregate);
+  if (threadIdx.x < 32) {
+    const int p = look_back(st, tile, tag, aggregate);
+    if (threadIdx.x == 0) s_prefix = p;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) excl[k] += s_prefix;
+  *end = s_prefix + aggregate;
+}
+
+// ---------------------------------------------------------------------------
+// Shared helpers
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t word(const WordPtrs& W, int k, int i) {
   return static_cast<uint32_t>(W.w[k][i]);
@@ -191,175 +351,257 @@ __global__ void bounds_gather_kernel(const float* __restrict__ bounds,
   for (int d = 0; d <= GSM_MASK_H; ++d) out[(GSM_MASK_W + 1 + d) * N + i] = fy[d];
 }
 
-// Warped 8x4 window mask: position (dx, dy) tests both eyes' records
-// against the display-space rect [fx[dx], fx[dx + 1]] x [fy[dy], fy[dy + 1]]
-// (q <= 9), and with lod_min > 0 drops it where op * max_eye(s1 * s2) * ar
-// < lod_min * (1 - min(ar, 1)), ar = (16 / rect width) * (16 / rect height)
-// (expand.py::stereo_warped_tile_masks).
-__device__ __forceinline__ uint32_t warped_window_mask(
-    const WordPtrs& W, int i, int min_tx, int min_ty, int rect_w, int rh,
-    const float* sb, float lod_min, float theta_unit, float inv255) {
-  const uint32_t l1 = word(W, 1, i), l2 = word(W, 2, i);
-  const uint32_t r1 = word(W, 5, i), r2 = word(W, 6, i);
-  const Conic kl = decode_conic(word(W, 0, i), l1, l2, theta_unit);
-  const Conic kr = decode_conic(word(W, 4, i), r1, r2, theta_unit);
-  float fx[GSM_MASK_W + 1], fy[GSM_MASK_H + 1];
-  window_bounds(sb, min_tx, min_ty, fx, fy);
-  float ink = 0.0f;
-  if (lod_min > 0.0f) {
-    const float s1l = jmax(f16_bits_to_f32(l1 >> 16), 1e-4f);
-    const float s2l = jmax(f16_bits_to_f32(l2), 1e-4f);
-    const float s1r = jmax(f16_bits_to_f32(r1 >> 16), 1e-4f);
-    const float s2r = jmax(f16_bits_to_f32(r2), 1e-4f);
-    ink = u8f(word(W, 3, i), 24, inv255) * jmax(s1l * s2l, s1r * s2r);
+// ---------------------------------------------------------------------------
+// Kernel 2: prep
+// ---------------------------------------------------------------------------
+
+// The staged record of a gaussian, one column of shared memory per thread:
+// float fields, then int fields.
+//   mono:   x0, y0 (window corner minus the mean), QuadRect, d2 cutoff
+//   stereo: x0, y0, QuadRect of the left eye, then of the right
+//   warped: mx, my, QuadRect of each eye, then the LOD ink
+// ints: window width, its division magic, and (warped) the window corner.
+template <int kMode>
+struct PrepRecord {
+  static constexpr int kEyeFloats = 7;
+  static constexpr int kFloats =
+      kMode == kMono ? kEyeFloats + 1 : kMode == kStereo ? 2 * kEyeFloats
+                                                         : 2 * kEyeFloats + 1;
+  static constexpr int kInts = kMode == kWarped ? 4 : 2;
+};
+
+__device__ __forceinline__ void stage_eye(float (*f)[kPrepThreads], int e,
+                                          float ox, float oy,
+                                          const QuadRect& q) {
+  const int t = threadIdx.x, b = 7 * e;
+  f[b + 0][t] = ox;
+  f[b + 1][t] = oy;
+  f[b + 2][t] = q.ca;
+  f[b + 3][t] = q.cb2;
+  f[b + 4][t] = q.cc;
+  f[b + 5][t] = q.cb_ic;
+  f[b + 6][t] = q.cb_ia;
+}
+
+__device__ __forceinline__ QuadRect staged_quad(float (*f)[kPrepThreads],
+                                                int e, int s) {
+  const int b = 7 * e;
+  return QuadRect{f[b + 2][s], f[b + 3][s], f[b + 4][s], f[b + 5][s],
+                  f[b + 6][s]};
+}
+
+// One test of the staged gaussian in slot s at window position (dx, dy):
+// the expressions of the per-gaussian window loops they replace, operation
+// for operation.
+template <int kMode>
+__device__ __forceinline__ bool prep_test(float (*f)[kPrepThreads],
+                                          int (*in)[kPrepThreads], int s,
+                                          int dx, int dy, const float* sb,
+                                          float lod_min) {
+  if constexpr (kMode == kWarped) {
+    const int min_tx = in[2][s], min_ty = in[3][s];
+    const float x0 = bound_at(sb, min_tx + dx);
+    const float x1 = bound_at(sb, min_tx + dx + 1);
+    const float y0 = bound_at(sb + kBoundsLanes, min_ty + dy);
+    const float y1 = bound_at(sb + kBoundsLanes, min_ty + dy + 1);
+    const float mxl = f[0][s], myl = f[1][s], mxr = f[7][s], myr = f[8][s];
+    const float d2 = jmin(
+        d2min_quad(staged_quad(f, 0, s), x0 - mxl, x1 - mxl, y0 - myl, y1 - myl),
+        d2min_quad(staged_quad(f, 1, s), x0 - mxr, x1 - mxr, y0 - myr, y1 - myr));
+    bool pass = d2 <= kStereoR2Cutoff;
+    if (lod_min > 0.0f) {
+      const float ar = (16.0f / jmax(x1 - x0, 1e-6f)) *
+                       (16.0f / jmax(y1 - y0, 1e-6f));
+      pass = pass && (f[14][s] * ar >= lod_min * (1.0f - jmin(ar, 1.0f)));
+    }
+    return pass;
+  } else {
+    const float ox = static_cast<float>(dx * 16);
+    const float oy = static_cast<float>(dy * 16);
+    const float xa = f[0][s] + ox, ya = f[1][s] + oy;
+    float d2 = d2min_quad(staged_quad(f, 0, s), xa, xa + 16.0f, ya, ya + 16.0f);
+    if constexpr (kMode == kStereo) {
+      const float xb = f[7][s] + ox, yb = f[8][s] + oy;
+      d2 = jmin(d2, d2min_quad(staged_quad(f, 1, s), xb, xb + 16.0f, yb,
+                               yb + 16.0f));
+      return d2 <= kStereoR2Cutoff;
+    } else {
+      return d2 <= f[7][s];
+    }
   }
+}
+
+// Gaussian i (< n, else nothing and a count of 0) of the thread: its mask
+// and rect word, its window tests balanced across the warp; returns its
+// count.  Every lane of the warp calls it.
+template <int kMode>
+__device__ __forceinline__ int prep_gaussian(
+    int i, const int32_t* __restrict__ rect_word,
+    const int32_t* __restrict__ rect_h, const WordPtrs& W, int count_rows,
+    int n, float tau, float theta_unit, float inv255,
+    int32_t* __restrict__ rect_out, int32_t* __restrict__ mask_out,
+    float (*f)[kPrepThreads], int (*in)[kPrepThreads], const float* sb,
+    float lod_min) {
+  const int lane = threadIdx.x & 31;
+  const int warp0 = threadIdx.x & ~31;
+
+  // 1. the gaussian, decoded once and staged
+  uint32_t rw = 0;
+  int rh = 0, cw = 0, tests = 0;
+  if (i < n) {
+    rw = static_cast<uint32_t>(rect_word[i]);
+    rh = rect_h[i];
+    const int min_tx = rw & 0x3FFu;
+    const int min_ty = (rw >> 10) & 0x3FFu;
+    cw = min(static_cast<int>((rw >> 20) & 0x3FFu), GSM_MASK_W);
+    tests = cw * min(max(rh, 0), GSM_MASK_H);
+    const int t = threadIdx.x;
+    in[0][t] = cw;
+    // dy = local * magic >> 16 is local / cw for local < 32 and cw <= 8
+    in[1][t] = cw > 0 ? (65536 + cw - 1) / cw : 0;
+    const Conic k0 = decode_conic(word(W, 0, i), word(W, 1, i), word(W, 2, i),
+                                  theta_unit);
+    if constexpr (kMode == kWarped) {
+      in[2][t] = min_tx;
+      in[3][t] = min_ty;
+      const uint32_t l1 = word(W, 1, i), l2 = word(W, 2, i);
+      const uint32_t r1 = word(W, 5, i), r2 = word(W, 6, i);
+      const Conic k1 = decode_conic(word(W, 4, i), r1, r2, theta_unit);
+      stage_eye(f, 0, k0.mx, k0.my, quad_rect(k0));
+      stage_eye(f, 1, k1.mx, k1.my, quad_rect(k1));
+      float ink = 0.0f;
+      if (lod_min > 0.0f) {
+        const float s1l = jmax(f16_bits_to_f32(l1 >> 16), 1e-4f);
+        const float s2l = jmax(f16_bits_to_f32(l2), 1e-4f);
+        const float s1r = jmax(f16_bits_to_f32(r1 >> 16), 1e-4f);
+        const float s2r = jmax(f16_bits_to_f32(r2), 1e-4f);
+        ink = u8f(word(W, 3, i), 24, inv255) * jmax(s1l * s2l, s1r * s2r);
+      }
+      f[14][t] = ink;
+    } else {
+      const float cx = static_cast<float>(min_tx) * 16.0f;
+      const float cy = static_cast<float>(min_ty) * 16.0f;
+      stage_eye(f, 0, cx - k0.mx, cy - k0.my, quad_rect(k0));
+      if constexpr (kMode == kStereo) {
+        const Conic k1 = decode_conic(word(W, 4, i), word(W, 5, i),
+                                      word(W, 6, i), theta_unit);
+        stage_eye(f, 1, cx - k1.mx, cy - k1.my, quad_rect(k1));
+      } else {
+        f[7][t] = d2_cutoff(u8f(word(W, 3, i), 24, inv255), tau);
+      }
+    }
+  }
+  __syncwarp();
+
+  // 2. the warp's tests, 32 a round; the owner of test t is the lane whose
+  // [incl - tests, incl) holds t
+  const int incl = warp_inclusive_scan(tests);
+  const int first = incl - tests;
+  const int warp_tests = __shfl_sync(kFullWarp, incl, 31);
+  uint32_t passed = 0;  // bit l: the thread's l-th test (row-major) passed
+  for (int base = 0; base < warp_tests; base += 32) {
+    const int t = base + lane;
+    int owner = 0;
+#pragma unroll
+    for (int step = 16; step >= 1; step >>= 1) {
+      if (__shfl_sync(kFullWarp, incl, owner + step - 1) <= t) owner += step;
+    }
+    const int local = t - __shfl_sync(kFullWarp, first, owner);
+    bool pass = false;
+    if (t < warp_tests) {
+      const int s = warp0 + owner;
+      const int dy = (local * in[1][s]) >> 16;
+      pass = prep_test<kMode>(f, in, s, local - dy * in[0][s], dy, sb,
+                              lod_min);
+    }
+    // 3. the round's results back to their owners
+    const uint32_t ballot = __ballot_sync(kFullWarp, pass);
+    const int lo = max(first - base, 0), hi = min(incl - base, 32);
+    if (hi > lo) {
+      const int len = hi - lo;
+      const uint32_t seg = (ballot >> lo) & (len == 32 ? ~0u : (1u << len) - 1u);
+      passed |= seg << (base + lo - first);
+    }
+  }
+  if (i >= n) return 0;
   uint32_t mask = 0;
 #pragma unroll
   for (int dy = 0; dy < GSM_MASK_H; ++dy) {
-    if (dy >= rh) break;
-    const float y0 = fy[dy], y1 = fy[dy + 1];
-#pragma unroll
-    for (int dx = 0; dx < GSM_MASK_W; ++dx) {
-      if (dx >= rect_w) break;
-      const float x0 = fx[dx], x1 = fx[dx + 1];
-      const float d2 =
-          jmin(d2min_rect(kl, x0 - kl.mx, x1 - kl.mx, y0 - kl.my, y1 - kl.my),
-               d2min_rect(kr, x0 - kr.mx, x1 - kr.mx, y0 - kr.my, y1 - kr.my));
-      bool pass = d2 <= kStereoR2Cutoff;
-      if (lod_min > 0.0f) {
-        const float ar = (16.0f / jmax(x1 - x0, 1e-6f)) *
-                         (16.0f / jmax(y1 - y0, 1e-6f));
-        pass = pass && (ink * ar >= lod_min * (1.0f - jmin(ar, 1.0f)));
-      }
-      if (pass) mask |= 1u << (dy * GSM_MASK_W + dx);
+    if (dy * cw < tests) {
+      mask |= ((passed >> (dy * cw)) & ((1u << cw) - 1u)) << (dy * GSM_MASK_W);
     }
   }
-  return mask;
-}
-
-// 8x4 window pass mask at the rect's corner: mono (kWords == 4) tests
-// minQuadRect <= the alpha d2 cutoff of the record; stereo (kWords == 8)
-// tests min(left, right) <= 9.
-template <int kWords>
-__device__ __forceinline__ uint32_t window_mask(const WordPtrs& W, int i,
-                                                int min_tx, int min_ty,
-                                                int rect_w, int rh, float tau,
-                                                float theta_unit,
-                                                float inv255) {
-  const Conic k0 = decode_conic(word(W, 0, i), word(W, 1, i), word(W, 2, i),
-                                theta_unit);
-  Conic k1 = k0;
-  float cutoff;
-  if constexpr (kWords == 8) {
-    k1 = decode_conic(word(W, 4, i), word(W, 5, i), word(W, 6, i), theta_unit);
-    cutoff = kStereoR2Cutoff;
+  // the count: instances (the mask's popcount where the rect fits the
+  // window, else the whole rect; none when culled), or virtual tile rows
+  // under count_rows (rect_h for an oversized rect, else one); >= 1
+  const int rect_w = (rw >> 20) & 0x3FFu;
+  const int cnt = __popc(mask);
+  const bool visible = (rw & GSM_CULLED_BIT) == 0;
+  const bool eligible = visible && rect_w <= GSM_MASK_W && rh <= GSM_MASK_H;
+  int count;
+  if (count_rows) {
+    count = (visible && !eligible) ? rh : 1;
   } else {
-    cutoff = d2_cutoff(u8f(word(W, 3, i), 24, inv255), tau);
+    count = visible ? (eligible ? cnt : rect_w * rh) : 0;
   }
-  const float x0 = static_cast<float>(min_tx) * 16.0f - k0.mx;
-  const float y0 = static_cast<float>(min_ty) * 16.0f - k0.my;
-  const float x1 = static_cast<float>(min_tx) * 16.0f - k1.mx;
-  const float y1 = static_cast<float>(min_ty) * 16.0f - k1.my;
-  uint32_t mask = 0;
-  for (int dy = 0; dy < GSM_MASK_H && dy < rh; ++dy) {
-    const float oy = static_cast<float>(dy * 16);
-    for (int dx = 0; dx < GSM_MASK_W && dx < rect_w; ++dx) {
-      const float ox = static_cast<float>(dx * 16);
-      const float xa = x0 + ox, ya = y0 + oy;
-      float d2 = d2min_rect(k0, xa, xa + 16.0f, ya, ya + 16.0f);
-      if constexpr (kWords == 8) {
-        const float xb = x1 + ox, yb = y1 + oy;
-        d2 = jmin(d2, d2min_rect(k1, xb, xb + 16.0f, yb, yb + 16.0f));
-      }
-      if (d2 <= cutoff) mask |= 1u << (dy * GSM_MASK_W + dx);
-    }
-  }
-  return mask;
+  const bool culled = !visible || (eligible && cnt == 0);
+  rect_out[i] = static_cast<int32_t>(rw | (eligible ? GSM_MASKED_BIT : 0u) |
+                                     (culled ? GSM_CULLED_BIT : 0u));
+  mask_out[i] = static_cast<int32_t>(mask);
+  return max(count, 1);
 }
 
+// The block of tile b preps gaussians [256 b, 256 (b + 1)), one a thread.
 template <int kMode>
-__global__ void prep_kernel(const int32_t* __restrict__ rect_word,
-                            const int32_t* __restrict__ rect_h, WordPtrs W,
-                            int count_rows, int n, float tau,
-                            float theta_unit, float inv255,
-                            int32_t* __restrict__ offsets,
-                            int32_t* __restrict__ rect_out,
-                            int32_t* __restrict__ mask_out,
-                            int32_t* __restrict__ block_sums,
-                            const float* __restrict__ bounds, float lod_min) {
+__global__ void __launch_bounds__(kPrepThreads)
+prep_kernel(const int32_t* __restrict__ rect_word,
+            const int32_t* __restrict__ rect_h, WordPtrs W, int count_rows,
+            int n, float tau, float theta_unit, float inv255,
+            int32_t* __restrict__ offsets, int32_t* __restrict__ rect_out,
+            int32_t* __restrict__ mask_out, ScanState st,
+            const float* __restrict__ bounds, float lod_min) {
+  using Rec = PrepRecord<kMode>;
   __shared__ float sb[kMode == kWarped ? 2 * kBoundsLanes : 1];
+  __shared__ float f[Rec::kFloats][kPrepThreads];
+  __shared__ int in[Rec::kInts][kPrepThreads];
   if constexpr (kMode == kWarped) stage_bounds(bounds, sb);
-  const int i = blockIdx.x * kPrepThreads + threadIdx.x;
-  int count = 0;
-  if (i < n) {
-    const uint32_t rw = static_cast<uint32_t>(rect_word[i]);
-    const int min_tx = rw & 0x3FFu;
-    const int min_ty = (rw >> 10) & 0x3FFu;
-    const int rect_w = (rw >> 20) & 0x3FFu;
-    const int rh = rect_h[i];
-    const bool culled0 = (rw & GSM_CULLED_BIT) != 0;
-    uint32_t mask;
-    if constexpr (kMode == kWarped) {
-      mask = warped_window_mask(W, i, min_tx, min_ty, rect_w, rh, sb, lod_min,
-                                theta_unit, inv255);
-    } else {
-      mask = window_mask<words_of<kMode>()>(W, i, min_tx, min_ty, rect_w, rh,
-                                            tau, theta_unit, inv255);
-    }
-    const int cnt = __popc(mask);
-    const bool visible = !culled0;
-    const bool eligible = visible && rect_w <= GSM_MASK_W && rh <= GSM_MASK_H;
-    if (count_rows) {
-      count = (visible && !eligible) ? rh : 1;
-    } else {
-      count = visible ? (eligible ? cnt : rect_w * rh) : 0;
-    }
-    const bool culled = culled0 || (eligible && cnt == 0);
-    const uint32_t ro = rw | (eligible ? GSM_MASKED_BIT : 0u) |
-                        (culled ? GSM_CULLED_BIT : 0u);
-    count = max(count, 1);
-    rect_out[i] = static_cast<int32_t>(ro);
-    mask_out[i] = static_cast<int32_t>(mask);
-  }
-  int block_total;
-  const int excl = block_exclusive_scan<kPrepThreads>(count, &block_total);
-  if (i < n) offsets[i] = excl;
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = block_total;
+  uint32_t tag;
+  const int tile = take_tile(st, &tag);
+  const int i = tile * kPrepThreads + threadIdx.x;
+  const int count[1] = {prep_gaussian<kMode>(i, rect_word, rect_h, W,
+                                             count_rows, n, tau, theta_unit,
+                                             inv255, rect_out, mask_out, f, in,
+                                             sb, lod_min)};
+  int excl[1], end;
+  scan_counts<kPrepThreads, 1>(st, tile, tag, count, excl, &end);
+  if (i < n) offsets[i] = excl[0];
+  if (tile == st.num_tiles - 1 && threadIdx.x == 0) offsets[n] = end;
 }
 
-// One block: exclusive scan of the block sums in place (chunks of 1024 with
-// a running carry) and offsets[n] = the grand total.
-__global__ void scan_block_sums_kernel(int32_t* __restrict__ block_sums,
-                                       int n_blocks,
-                                       int32_t* __restrict__ offsets, int n) {
-  int carry = 0;
-  for (int base = 0; base < n_blocks; base += kScanThreads) {
-    const int j = base + threadIdx.x;
-    const int v = j < n_blocks ? block_sums[j] : 0;
-    int chunk_total;
-    const int excl = block_exclusive_scan<kScanThreads>(v, &chunk_total);
-    if (j < n_blocks) block_sums[j] = carry + excl;
-    carry += chunk_total;
-  }
-  if (threadIdx.x == 0) offsets[n] = carry;
-}
+// ---------------------------------------------------------------------------
+// Kernel 3: row expansion
+// ---------------------------------------------------------------------------
 
-__global__ void add_block_offsets_kernel(const int32_t* __restrict__ block_offs,
-                                         int32_t* __restrict__ offsets, int n) {
-  const int i = blockIdx.x * kPrepThreads + threadIdx.x;
-  if (i < n) offsets[i] += block_offs[blockIdx.x];
-}
-
-// Scan pass 2 and 3 after a kernel that left per-thread exclusive prefixes
-// in offsets[0, n) and the block sums in block_sums.
-void finish_scan(int32_t* offsets, int n, int32_t* block_sums, int n_blocks,
-                 cudaStream_t stream) {
-  scan_block_sums_kernel<<<1, kScanThreads, 0, stream>>>(
-      block_sums, n > 0 ? n_blocks : 0, offsets, n);
-  if (n > 0) {
-    add_block_offsets_kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
-        block_sums, offsets, n);
+// The block's first entry: the largest g in [0, n) with offsets[g] <= s0, for
+// offsets[0] <= s0 < offsets[n].  A k-ary search: each round every thread
+// probes one of kThreads evenly spaced offsets and __syncthreads_count
+// counts the probes at or below s0 (a prefix, the offsets being
+// non-decreasing), which narrows [lo, hi) kThreads + 1-fold: three
+// rounds of one load each for a million entries.  Every thread of the block
+// calls it and gets the same result.
+template <int kThreads>
+__device__ __forceinline__ int block_upper_bound(const int32_t* offsets, int n,
+                                                 int s0) {
+  int lo = 0, hi = n;  // offsets[lo] <= s0 < offsets[hi]
+  while (hi - lo > 1) {
+    const int step = (hi - lo + kThreads) / (kThreads + 1);
+    const int p = lo + (static_cast<int>(threadIdx.x) + 1) * step;
+    const int below = __syncthreads_count(p < hi && offsets[p] <= s0);
+    const int lo2 = lo + below * step;
+    hi = min(lo2 + step, hi);
+    lo = lo2;
   }
+  return lo;
 }
 
 // Widened tile-column span [t_lo, t_lo + span) of the record's ellipse
@@ -412,62 +654,100 @@ __device__ __forceinline__ void row_span(uint32_t a0, uint32_t a1, uint32_t a2,
   *span_out = empty ? 0 : max(t_hi - t_lo + 1, 0);
 }
 
-// planes: (7, r_cap) = rect', mask, dsw, w0..w3 of each row.
-__global__ void row_expand_kernel(const int32_t* __restrict__ off1,
-                                  const int32_t* __restrict__ rect1,
-                                  const int32_t* __restrict__ mask1,
-                                  const int32_t* __restrict__ dsw1, WordPtrs W,
-                                  int n, int r_cap, float tau,
-                                  float theta_unit, float inv255,
-                                  int32_t* __restrict__ off2,
-                                  int32_t* __restrict__ planes,
-                                  int32_t* __restrict__ block_sums) {
-  const int r = blockIdx.x * kPrepThreads + threadIdx.x;
-  int count = 0;
-  if (r < r_cap) {
-    uint32_t rect2 = 0, mask = 0, dsw = 0, a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-    if (r < off1[n]) {
-      const int g = upper_bound_entry(off1, n, r);
-      const int jj = r - off1[g];
-      const uint32_t ru = static_cast<uint32_t>(rect1[g]);
-      mask = static_cast<uint32_t>(mask1[g]);
-      dsw = static_cast<uint32_t>(dsw1[g]);
-      a0 = word(W, 0, g);
-      a1 = word(W, 1, g);
-      a2 = word(W, 2, g);
-      a3 = word(W, 3, g);
-      const bool culled = (ru & GSM_CULLED_BIT) != 0;
-      const bool masked = (ru & GSM_MASKED_BIT) != 0;
-      const int min_tx = ru & 0x3FFu;
-      const int min_ty = (ru >> 10) & 0x3FFu;
-      const int rect_w = (ru >> 20) & 0x3FFu;
-      const int ty = min_ty + jj;
-      int t_lo, span;
-      row_span(a0, a1, a2, a3, ty, min_tx, rect_w, tau, theta_unit, inv255,
-               &t_lo, &span);
-      const bool passthrough = masked || culled;
-      const bool empty = !passthrough && span == 0;
-      rect2 = passthrough ? ru
-                          : (static_cast<uint32_t>(t_lo) |
-                             (static_cast<uint32_t>(ty) << 10) |
-                             (static_cast<uint32_t>(span) << 20));
-      if (empty) rect2 |= GSM_CULLED_BIT;
-      count = (culled || empty) ? 1 : (masked ? __popc(mask) : span);
-    }
-    const size_t R = static_cast<size_t>(r_cap);
-    planes[0 * R + r] = static_cast<int32_t>(rect2);
-    planes[1 * R + r] = static_cast<int32_t>(mask);
-    planes[2 * R + r] = static_cast<int32_t>(dsw);
-    planes[3 * R + r] = static_cast<int32_t>(a0);
-    planes[4 * R + r] = static_cast<int32_t>(a1);
-    planes[5 * R + r] = static_cast<int32_t>(a2);
-    planes[6 * R + r] = static_cast<int32_t>(a3);
-  }
-  int block_total;
-  const int excl = block_exclusive_scan<kPrepThreads>(count, &block_total);
-  if (r < r_cap) off2[r] = excl;
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = block_total;
+// A live row of the row table, tile row jj of gaussian g: its planes
+// (rect', mask, dsw, w0..w3) in e, and its instance count.
+__device__ __forceinline__ int expand_row(int g, int jj,
+                                          const int32_t* __restrict__ rect1,
+                                          const int32_t* __restrict__ mask1,
+                                          const int32_t* __restrict__ dsw1,
+                                          const WordPtrs& W, float tau,
+                                          float theta_unit, float inv255,
+                                          uint32_t (&e)[7]) {
+  e[0] = static_cast<uint32_t>(rect1[g]);
+  e[1] = static_cast<uint32_t>(mask1[g]);
+  e[2] = static_cast<uint32_t>(dsw1[g]);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) e[3 + w] = word(W, w, g);
+  const uint32_t ru = e[0];
+  if ((ru & GSM_CULLED_BIT) != 0) return 1;
+  if ((ru & GSM_MASKED_BIT) != 0) return __popc(e[1]);
+  // an oversized rect's row: the ellipse's column span in tile row ty
+  const int min_tx = ru & 0x3FFu;
+  const int ty = ((ru >> 10) & 0x3FFu) + jj;
+  const int rect_w = (ru >> 20) & 0x3FFu;
+  int t_lo, span;
+  row_span(e[3], e[4], e[5], e[6], ty, min_tx, rect_w, tau, theta_unit,
+           inv255, &t_lo, &span);
+  e[0] = static_cast<uint32_t>(t_lo) | (static_cast<uint32_t>(ty) << 10) |
+         (static_cast<uint32_t>(span) << 20);
+  if (span == 0) e[0] |= GSM_CULLED_BIT;
+  return span == 0 ? 1 : span;
 }
+
+// planes: (7, r_cap) = rect', mask, dsw, w0..w3 of each row.  The block of
+// tile b expands rows [kRowTile b, kRowTile (b + 1)); row r0 + k * 256 +
+// threadIdx.x is the thread's k-th, so that the plane writes coalesce.
+__global__ void __launch_bounds__(kRowThreads)
+row_expand_kernel(const int32_t* __restrict__ off1,
+                  const int32_t* __restrict__ rect1,
+                  const int32_t* __restrict__ mask1,
+                  const int32_t* __restrict__ dsw1, WordPtrs W, int n,
+                  int r_cap, float tau, float theta_unit, float inv255,
+                  int32_t* __restrict__ off2, int32_t* __restrict__ planes,
+                  int32_t* __restrict__ row_overflow, ScanState st) {
+  // the offsets of the block's gaussians g0 + k, k <= kRowTile (INT_MAX past
+  // off1[n])
+  __shared__ int32_t s_off[kRowTile + 1];
+  uint32_t tag;
+  const int tile = take_tile(st, &tag);
+  const int r0 = tile * kRowTile;
+  const int total1 = off1[n];
+  int g0 = 0;
+  if (r0 < total1) {
+    g0 = block_upper_bound<kRowThreads>(off1, n, r0);
+    // Row r0 + m lies in a gaussian <= g0 + m (every gaussian owns >= 1
+    // row), so off1[g0 + kRowTile] > every row of the block.
+    for (int k = threadIdx.x; k <= kRowTile; k += kRowThreads) {
+      s_off[k] = g0 + k <= n ? off1[g0 + k] : INT_MAX;
+    }
+    __syncthreads();
+  }
+  const size_t R = static_cast<size_t>(r_cap);
+  int count[kRowItems];
+#pragma unroll
+  for (int it = 0; it < kRowItems; ++it) {
+    const int r = r0 + it * kRowThreads + threadIdx.x;
+    count[it] = 0;
+    if (r >= r_cap) continue;
+    uint32_t e[7] = {0, 0, 0, 0, 0, 0, 0};
+    if (r < total1) {
+      int lo = 0;  // the largest lo with s_off[lo] <= r (< s_off[kRowTile])
+#pragma unroll
+      for (int half = kRowTile / 2; half >= 1; half >>= 1) {
+        if (s_off[lo + half] <= r) lo += half;
+      }
+      count[it] = expand_row(g0 + lo, r - s_off[lo], rect1, mask1, dsw1, W,
+                             tau, theta_unit, inv255, e);
+    }
+#pragma unroll
+    for (int p = 0; p < 7; ++p) planes[p * R + r] = static_cast<int32_t>(e[p]);
+  }
+  int excl[kRowItems], end;
+  scan_counts<kRowThreads, kRowItems>(st, tile, tag, count, excl, &end);
+#pragma unroll
+  for (int it = 0; it < kRowItems; ++it) {
+    const int r = r0 + it * kRowThreads + threadIdx.x;
+    if (r < r_cap) off2[r] = excl[it];
+  }
+  if (tile == st.num_tiles - 1 && threadIdx.x == 0) {
+    off2[r_cap] = end;
+    *row_overflow = total1 > r_cap ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 4: slot expansion
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ int nth_set_bit(uint32_t mask, int jj) {
   int p = 0;
@@ -486,27 +766,6 @@ __device__ __forceinline__ float rect_d2(uint32_t a0, uint32_t a1, uint32_t a2,
                                          float y1, float theta_unit) {
   const Conic k = decode_conic(a0, a1, a2, theta_unit);
   return d2min_rect(k, x0 - k.mx, x1 - k.mx, y0 - k.my, y1 - k.my);
-}
-
-// The CTA's first entry: the largest g in [0, n) with offsets[g] <= s0, for
-// offsets[0] <= s0 < offsets[n].  A k-ary search: each round every thread
-// probes one of kExpandThreads evenly spaced offsets and __syncthreads_count
-// counts the probes at or below s0 (a prefix, the offsets being
-// non-decreasing), which narrows [lo, hi) kExpandThreads + 1-fold: three
-// rounds of one load each for a million entries.  Every thread of the block
-// calls it and gets the same result.
-__device__ __forceinline__ int block_upper_bound(const int32_t* offsets, int n,
-                                                 int s0) {
-  int lo = 0, hi = n;  // offsets[lo] <= s0 < offsets[hi]
-  while (hi - lo > 1) {
-    const int step = (hi - lo + kExpandThreads) / (kExpandThreads + 1);
-    const int p = lo + (static_cast<int>(threadIdx.x) + 1) * step;
-    const int below = __syncthreads_count(p < hi && offsets[p] <= s0);
-    const int lo2 = lo + below * step;
-    hi = min(lo2 + step, hi);
-    lo = lo2;
-  }
-  return lo;
 }
 
 // out: (2, capacity) = key1, key2.  CTA b expands slots [b * kExpandSlots,
@@ -531,7 +790,7 @@ expand_kernel(const int32_t* __restrict__ offsets,
   const int total = offsets[n];
   int g0 = 0;
   if (s0 < total) {
-    g0 = block_upper_bound(offsets, n, s0);
+    g0 = block_upper_bound<kExpandThreads>(offsets, n, s0);
     // Slot s0 + m lies in an entry <= g0 + m (g0 holds s0, and every entry
     // below the total owns >= 1 slot; a row table's dead tail, which
     // repeats the total, lies past them), so offsets[g0 + kExpandSlots] >
@@ -634,43 +893,55 @@ static int launch_mode(int n_words, const float* bounds) {
   return n_words == 4 ? kMono : n_words == 8 ? kStereo : -1;
 }
 
-// bounds: the (2, 128) table for mode "warped", else null.
+// The look-back scratch of a launch over `elements` elements, `per_tile` a
+// block: `ticket` one word, `status` at least one word a tile (see the note
+// at the top; the caller allocates them zeroed once and keeps them).
+static ScanState scan_state(void* ticket, void* status, int elements,
+                            int per_tile) {
+  ScanState st;
+  st.ticket = static_cast<unsigned long long*>(ticket);
+  st.status = static_cast<unsigned long long*>(status);
+  st.num_tiles = elements > 0 ? (elements + per_tile - 1) / per_tile : 1;
+  return st;
+}
+
+// bounds: the (2, 128) table for mode "warped", else null.  ticket /
+// status: the look-back scratch, status >= max(ceil(n / 256), 1) words.
+// One launch, even at n == 0 (its one block writes offsets[0] = 0).
 extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
                         const void* const* words, int n_words, int count_rows,
                         int n, float tau, float theta_unit, float inv255,
                         int32_t* offsets, int32_t* rect_out, int32_t* mask_out,
-                        int32_t* block_sums, int n_blocks,
-                        const float* bounds, float lod_min,
-                        cudaStream_t stream) {
+                        void* ticket, void* status, const float* bounds,
+                        float lod_min, cudaStream_t stream) {
   const int mode = launch_mode(n_words, bounds);
   if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
   const WordPtrs W = load_words(words, n_words);
-  if (n > 0) {
-    auto kernel = mode == kWarped   ? prep_kernel<kWarped>
-                  : mode == kStereo ? prep_kernel<kStereo>
-                                    : prep_kernel<kMono>;
-    kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
-        rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255, offsets,
-        rect_out, mask_out, block_sums, bounds, lod_min);
-  }
-  finish_scan(offsets, n, block_sums, n_blocks, stream);
+  const ScanState st = scan_state(ticket, status, n, kPrepThreads);
+  auto kernel = mode == kWarped   ? prep_kernel<kWarped>
+                : mode == kStereo ? prep_kernel<kStereo>
+                                  : prep_kernel<kMono>;
+  kernel<<<st.num_tiles, kPrepThreads, 0, stream>>>(
+      rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255, offsets,
+      rect_out, mask_out, st, bounds, lod_min);
   return static_cast<int>(cudaGetLastError());
 }
 
+// planes: (7, r_cap); row_overflow: one int, 1 when the row total exceeds
+// r_cap; ticket / status as for gsm_prep, status >= max(ceil(r_cap / 2048),
+// 1) words.  One launch, even at r_cap == 0.
 extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
                               const int32_t* mask1, const int32_t* dsw1,
                               const void* const* words, int n, int r_cap,
                               float tau, float theta_unit, float inv255,
                               int32_t* off2, int32_t* planes,
-                              int32_t* block_sums, int n_blocks,
-                              cudaStream_t stream) {
+                              int32_t* row_overflow, void* ticket,
+                              void* status, cudaStream_t stream) {
   const WordPtrs W = load_words(words, 4);  // mono records
-  if (r_cap > 0) {
-    row_expand_kernel<<<n_blocks, kPrepThreads, 0, stream>>>(
-        off1, rect1, mask1, dsw1, W, n, r_cap, tau, theta_unit, inv255, off2,
-        planes, block_sums);
-  }
-  finish_scan(off2, r_cap, block_sums, n_blocks, stream);
+  const ScanState st = scan_state(ticket, status, r_cap, kRowTile);
+  row_expand_kernel<<<st.num_tiles, kRowThreads, 0, stream>>>(
+      off1, rect1, mask1, dsw1, W, n, r_cap, tau, theta_unit, inv255, off2,
+      planes, row_overflow, st);
   return static_cast<int>(cudaGetLastError());
 }
 

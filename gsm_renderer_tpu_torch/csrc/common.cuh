@@ -110,6 +110,63 @@ __device__ __forceinline__ float d2min_rect(const Conic& k, float xmin,
   return inside ? 0.0f : jmin(jmin(q1, q2), jmin(q3, q4));
 }
 
+// What minQuadRect reads of a conic, with the per-conic terms computed
+// once: ca, 2 cb, cc, cb / cc and cb / ca (as cb * (1 / max(c, 1e-20))),
+// for callers that test one record against many rects (d2min_quad).
+struct QuadRect {
+  float ca, cb2, cc, cb_ic, cb_ia;
+};
+
+__device__ __forceinline__ QuadRect quad_rect(const Conic& k) {
+  const float inv_a = 1.0f / jmax(k.ca, 1e-20f);
+  const float inv_c = 1.0f / jmax(k.cc, 1e-20f);
+  return QuadRect{k.ca, 2.0f * k.cb, k.cc, k.cb * inv_c, k.cb * inv_a};
+}
+
+// max / min that return NaN when either input is NaN: one instruction
+// (max.NaN, min.NaN, sm_80+) where jmax / jmin take three.  They differ
+// from jmax / jmin only in which zero of two opposite-signed zeros and which
+// NaN they return.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// d2min_rect of a QuadRect, the same operations in the same order, with
+// max_nan / min_nan for jmax / jmin.  The result is d2min_rect's, up to
+// the sign of a zero and the bits of a NaN, which no comparison sees: a
+// clipped coordinate of either sign squares, and multiplies a non-zero
+// coordinate, to the same quadratic form; the form's terms of a zero
+// coordinate are zeros whose sum is +0 either way; and a NaN anywhere gives
+// NaN in both.  So a test d2 <= cutoff passes for both or neither.
+__device__ __forceinline__ float d2min_quad(const QuadRect& q, float xmin,
+                                            float xmax, float ymin,
+                                            float ymax) {
+  const bool inside = (xmin <= 0.0f) && (0.0f <= xmax) && (ymin <= 0.0f) &&
+                      (0.0f <= ymax);
+#define GSM_QUAD(x, y) \
+  (q.ca * (x) * (x) + q.cb2 * (x) * (y) + q.cc * (y) * (y))
+#define GSM_CLIP(x, lo, hi) min_nan(max_nan(x, lo), hi)
+  const float y1 = GSM_CLIP(-q.cb_ic * xmin, ymin, ymax);
+  const float q1 = GSM_QUAD(xmin, y1);
+  const float y2 = GSM_CLIP(-q.cb_ic * xmax, ymin, ymax);
+  const float q2 = GSM_QUAD(xmax, y2);
+  const float x3 = GSM_CLIP(-q.cb_ia * ymin, xmin, xmax);
+  const float q3 = GSM_QUAD(x3, ymin);
+  const float x4 = GSM_CLIP(-q.cb_ia * ymax, xmin, xmax);
+  const float q4 = GSM_QUAD(x4, ymax);
+#undef GSM_CLIP
+#undef GSM_QUAD
+  return inside ? 0.0f : min_nan(min_nan(q1, q2), min_nan(q3, q4));
+}
+
 // d2 alpha cutoff of a quantized opacity: -1 below tau.
 __device__ __forceinline__ float d2_cutoff(float op, float tau) {
   return op < tau ? -1.0f : -2.0f * logf(tau / jmax(op, 1e-30f));

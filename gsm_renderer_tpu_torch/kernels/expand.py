@@ -54,18 +54,44 @@ BOUNDS_LANES = 128
 PREP = _native.Kernel("prep", "binning", "gsm_prep", [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
     _native.F, _native.F, _native.F,
-    _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.P, _native.P, _native.P, _native.P, _native.P,
     _native.P, _native.F])
 ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.F, _native.F, _native.F,
-    _native.P, _native.P, _native.P, _native.I])
+    _native.P, _native.P, _native.P, _native.P, _native.P])
 EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.F, _native.F, _native.F, _native.P, _native.P])
 BOUNDS_GATHER = _native.Kernel("bounds_gather", "binning", "gsm_bounds_gather", [
     _native.P, _native.P, _native.P, _native.I, _native.P])
+
+
+#: the fewest elements a block of the prep and row-expand kernels scans
+SCAN_TILE = 256
+#: (device, stream) -> (ticket, status) of the one-pass scan
+_scan_scratch_cache: dict = {}
+
+
+def scan_scratch(device, elements: int):
+    """The look-back scratch of the prep and row-expand kernels' one-pass
+    scan on ``device`` and its current stream: ``ticket`` (1,) and
+    ``status`` (>= one word a tile of SCAN_TILE elements) int64, zeroed when
+    made and kept.  The kernels leave them valid for the next launch on the
+    stream (the epoch scheme of ``csrc/binning.cu``), so a call zeroes
+    nothing; a larger launch gets a new, larger pair."""
+    device = torch.device(device)
+    stream = (torch.cuda.current_stream(device).cuda_stream
+              if device.type == "cuda" else 0)
+    tiles = max(-(-elements // SCAN_TILE), 1)
+    pair = _scan_scratch_cache.get((device, stream))
+    if pair is None or pair[1].numel() < tiles:
+        pair = (torch.zeros(1, dtype=torch.int64, device=device),
+                torch.zeros(1 << (tiles - 1).bit_length(), dtype=torch.int64,
+                            device=device))
+        _scan_scratch_cache[(device, stream)] = pair
+    return pair
 
 
 def _popcount(v):
@@ -440,10 +466,12 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
                       count_rows: bool = False, tile_w: int = 16,
                       tile_h: int = 16, alpha_threshold: float = 0.005,
                       warped_bounds=None, lod_min: float = 0.0):
-    """Launch the prep kernels of ``csrc/binning.cu`` (per-gaussian masks
-    and counts with block scans, a pass over the block sums, an add-back);
-    in mode "warped" the kernel gathers the window's boundaries from the
-    bounds table it stages in shared memory."""
+    """Launch the prep kernel of ``csrc/binning.cu``: one launch, a block
+    of 256 gaussians each decoded once, their window tests balanced across
+    each warp, and the global offset scan in the same pass (decoupled
+    look-back over :func:`scan_scratch`).  In mode "warped" the tests read
+    the window's boundaries from the bounds table staged in shared
+    memory."""
     if tile_w != 16 or tile_h != 16:
         raise NotImplementedError("the prep kernel takes 16x16 tiles only")
     _check_mode(mode, words)
@@ -459,13 +487,12 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
     offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
     rect_out = torch.empty(n, dtype=torch.int32, device=dev)
     mask = torch.empty(n, dtype=torch.int32, device=dev)
-    block_sums = torch.empty(max(-(-n // 256), 1), dtype=torch.int32, device=dev)
+    ticket, status = scan_scratch(dev, n)
     PREP.launch(_native.ptr(rect_word), _native.ptr(rect_h), _native.ptr_array(words),
                 len(words), int(count_rows), n,
                 M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                 M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr(rect_out),
-                _native.ptr(mask), _native.ptr(block_sums),
-                block_sums.shape[0],
+                _native.ptr(mask), _native.ptr(ticket), _native.ptr(status),
                 None if warped_bounds is None else _native.ptr(warped_bounds),
                 M.f32(lod_min))
     return offsets, rect_out, mask
@@ -541,8 +568,13 @@ def row_expand_plain(offsets, rect, mask, dsw, words, *, row_capacity: int,
 def row_expand_cuda(offsets, rect, mask, dsw, words, *, row_capacity: int,
                     tile_w: int = 16, tile_h: int = 16,
                     alpha_threshold: float = 0.005):
-    """Launch the row-expand kernels of ``csrc/binning.cu`` (one thread per
-    row with block scans, a pass over the block sums, an add-back)."""
+    """Launch the row-expand kernel of ``csrc/binning.cu``: one launch, a
+    block of 2048 rows that finds its first row's gaussian with one k-ary
+    search, stages the offsets of the 2048 gaussians from there in shared
+    memory and searches them per row, and the offset scan in the same pass
+    (decoupled look-back over :func:`scan_scratch`); the kernel also writes
+    row_overflow.  Needs every gaussian to own >= 1 row, as prep
+    ``count_rows`` makes them (unchecked)."""
     if tile_w != 16 or tile_h != 16:
         raise NotImplementedError("the row-expand kernel takes 16x16 tiles only")
     _check_mode("mono", words)
@@ -555,15 +587,16 @@ def row_expand_cuda(offsets, rect, mask, dsw, words, *, row_capacity: int,
     r = row_capacity
     offsets2 = torch.empty(r + 1, dtype=torch.int32, device=dev)
     planes = torch.empty((7, r), dtype=torch.int32, device=dev)
-    block_sums = torch.empty(max(-(-r // 256), 1), dtype=torch.int32, device=dev)
+    row_overflow = torch.empty((), dtype=torch.int32, device=dev)
+    ticket, status = scan_scratch(dev, r)
     ROW_EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
                       _native.ptr(dsw), _native.ptr_array(words), n, r,
                       M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                       M.f32(1.0 / 255.0), _native.ptr(offsets2),
-                      _native.ptr(planes), _native.ptr(block_sums),
-                      block_sums.shape[0])
+                      _native.ptr(planes), _native.ptr(row_overflow),
+                      _native.ptr(ticket), _native.ptr(status))
     return (offsets2, planes[0], planes[1], planes[2], list(planes[3:]),
-            (offsets[n] > r).to(torch.int32))
+            row_overflow)
 
 
 def row_expand(offsets, rect, mask, dsw, words, **kw):

@@ -71,10 +71,11 @@ def _row_demand(rect_word, rect_h):
 
 def _mono_key_statics(n_gaussians: int, *, width, height, tile_w, tile_h,
                       near_plane, far_plane, row_capacity: int = 0):
-    """The mono frame's KeyPlan (32-bit depth keys, 16-bit tile ids: the
-    fused depth16 key is not ported).  With ``row_capacity`` > 0 its index
-    bits address virtual rows; None when the index field no longer fits --
-    callers then run with ``row_capacity=0``."""
+    """The mono frame's KeyPlan (32-bit depth keys; the same plan for 16-
+    and 32-bit tile ids, the fused depth16 key not being ported).  With
+    ``row_capacity`` > 0 its index bits address virtual rows; None when the
+    index field no longer fits -- callers then run with
+    ``row_capacity=0``."""
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     key_n = row_capacity if row_capacity > 0 else n_gaussians
     return B.make_key_plan(tiles_x * tiles_y, key_n, near_plane=near_plane,
@@ -87,16 +88,20 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
                       near_plane: float, far_plane: float,
                       input_is_srgb: bool, tile_w: int = 16, tile_h: int = 16,
                       depth_mode: str = "weighted",
-                      row_capacity: int = 0) -> RenderOutput:
+                      row_capacity: int = 0,
+                      tile_id_bits: int = 16) -> RenderOutput:
     """One mono DepthFirst frame on the device of ``gi``.  ``view``/``proj``
     (4, 4) and ``center`` (3,) are host arrays; ``prepared`` an optional
     cached (comp, harm) projection layout.  ``row_capacity`` > 0 runs the
     per-row exact-span decomposition of oversized rects over that many
     virtual rows (bitwise-identical image, smaller slot volume) when the
-    row-addressing KeyPlan fits, else the full-rect expansion."""
+    row-addressing KeyPlan fits, else the full-rect expansion.  With 32-bit
+    depth keys the KeyPlan frame is the same for ``tile_id_bits`` 16 and 32
+    (as in JAX, the bits only gate the 16-bit tile-id guard below and the
+    fused depth16 key, which is not ported)."""
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
-    if num_tiles > 0xFFFF:
+    if tile_id_bits == 16 and num_tiles > 0xFFFF:
         raise ValueError(
             f"tile_id_precision BITS16 cannot address {num_tiles} tiles; use "
             "TileIdPrecision.BITS32")
@@ -399,11 +404,10 @@ class DepthFirstRenderer(GaussianRenderer):
 
 
 def _check_ported_options(c):
+    """The mono frame's unported option.  Stereo and foveated frames take
+    neither key precision, as in JAX, and render the same frame under any."""
     if c.depth_sort_key_precision != cfg.DepthSortKeyPrecision.BITS32:
         raise not_ported("depth_sort_key_precision=BITS16",
-                         "Queue 1, Global and Local renderers")
-    if c.tile_id_precision != cfg.TileIdPrecision.BITS16:
-        raise not_ported("tile_id_precision=BITS32",
                          "Queue 1, Global and Local renderers")
 
 
@@ -433,7 +437,7 @@ def _mono_render(self, gi, camera, width, height):
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
         tile_w=tile_w, tile_h=tile_h,
         depth_mode="weighted" if c.depth_output else "none",
-        row_capacity=row_cap)
+        row_capacity=row_cap, tile_id_bits=c.tile_id_precision.value)
     self.note_frame(n, out.header, kind=self._mono_key)
     return self.finalize_output(out)
 
@@ -452,7 +456,6 @@ def _stereo_rig(camera):
 def _stereo_render(self, gi, camera, width, height):
     self.validate_inputs(gi, width, height)
     c = self.config
-    _check_ported_options(c)
     n = gi.count
     left = camera.left
     sh_degree = _sh_degree(c, gi)
@@ -473,7 +476,6 @@ def _stereo_render(self, gi, camera, width, height):
 def _stereo_foveated_render(self, gi, camera, target):
     self.validate_inputs(gi, target.display_width, target.display_height)
     c = self.config
-    _check_ported_options(c)
     n = gi.count
     left = camera.left
     sh_degree = _sh_degree(c, gi)

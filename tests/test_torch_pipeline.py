@@ -197,14 +197,69 @@ def test_capacity_policy():
 @pytest.mark.parametrize("cfg,what", [
     (dict(row_expand=False,
           depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16), "BITS16"),
-    (dict(row_expand=False, tile_id_precision=T.TileIdPrecision.BITS32),
-     "BITS32"),
+    (dict(depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16,
+          tile_id_precision=T.TileIdPrecision.BITS32), "BITS16 rows"),
 ])
 def test_unported_options_raise(cfg, what):
+    """Mono frames with 16-bit depth keys are not ported (they belong with
+    the Global and Local renderers), whatever the tile ids and rows."""
     r = T.DepthFirstRenderer(T.RendererConfig(**cfg), device="cpu")
     gi = generate_visible_gaussians(50).to_input(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.render(gi, T.make_camera(64, 64), 64, 64)
+
+
+@pytest.mark.parametrize("frame", ["stereo", "foveated"])
+@pytest.mark.parametrize("option", [
+    dict(depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16),
+    dict(tile_id_precision=T.TileIdPrecision.BITS32)],
+    ids=["depth16", "tile32"])
+def test_key_precision_options_render_the_default_stereo_frames(option, frame):
+    """The JAX stereo and foveated frames take neither key precision: under
+    each option they render, equal to the default config's frame."""
+    w, h = 64, 48
+    gi = generate_visible_gaussians(120, sh_degree=1).to_input(device="cpu")
+    stereo = T.make_side_by_side_stereo(T.make_camera(w, h))
+
+    def render(**opt):
+        r = T.DepthFirstRenderer(T.RendererConfig(sh_degree=1, **opt),
+                                 device="cpu")
+        if frame == "stereo":
+            return r.render_stereo(gi, stereo, w, h)
+        return r.render_stereo_foveated(gi, stereo, T.make_rate_maps(w, h))
+
+    out, base = render(**option), render()
+    assert float(base.color[..., :3].max()) > 0.05
+    np.testing.assert_array_equal(out.color.numpy(), base.color.numpy())
+    np.testing.assert_array_equal(out.depth.numpy(), base.depth.numpy())
+
+
+def test_mono_tile_ids_bits32_equal_bits16():
+    """With 32-bit depth keys, BITS32 tile ids render the same KeyPlan
+    frame as BITS16 (rows on, the default), as in JAX."""
+    w, h = 96, 64
+    gi = generate_visible_gaussians(200, sh_degree=3).to_input(device="cpu")
+    cam = T.make_camera(w, h)
+    out = T.DepthFirstRenderer(T.RendererConfig(
+        tile_id_precision=T.TileIdPrecision.BITS32), device="cpu").render(
+            gi, cam, w, h)
+    base = T.DepthFirstRenderer(T.RendererConfig(), device="cpu").render(
+        gi, cam, w, h)
+    assert int(out.header.visible_count) > 0
+    np.testing.assert_array_equal(out.color.numpy(), base.color.numpy())
+    np.testing.assert_array_equal(out.depth.numpy(), base.depth.numpy())
+    for f in ("visible_count", "total_instances", "slot_total", "row_total"):
+        assert int(getattr(out.header, f)) == int(getattr(base.header, f)), f
+
+
+def test_bits16_tile_ids_raise_above_65535_tiles():
+    """16-bit tile ids cannot address 257 x 256 tiles: the JAX message."""
+    w, h = 4112, 4096
+    r = T.DepthFirstRenderer(T.RendererConfig(max_width=w, max_height=h),
+                             device="cpu")
+    gi = generate_visible_gaussians(50).to_input(device="cpu")
+    with pytest.raises(ValueError, match="BITS16 cannot address 65792 tiles"):
+        r.render(gi, T.make_camera(w, h), w, h)
 
 
 def test_default_config_renders():
@@ -236,12 +291,6 @@ def test_unported_renderers_and_modes_raise():
     for cls in (T.GlobalRenderer, T.LocalRenderer, T.HardwareRenderer):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(device="cpu")
-    # foveated stereo is ported; its unported options still raise
-    gi = generate_visible_gaussians(50, sh_degree=0).to_input(device="cpu")
-    stereo = T.make_side_by_side_stereo(T.make_camera(64, 48))
-    r = renderer(depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render_stereo_foveated(gi, stereo, T.make_rate_maps(64, 48))
 
 
 def test_import_loads_no_jax():
