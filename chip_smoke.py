@@ -42,7 +42,19 @@ Phases (each raises on failure, and the script then exits non-zero):
    expand and blend each > 0; bounds_gather runs fused into the prep);
    requires overflow 0, a finite frame and both halves non-black; prints its
    frame times, slot total and device split beside the stereo frame's, and
-   one timed line at min_rate 0.15.  One frame runs under
+   one timed line at min_rate 0.15.
+4d. The 16-bit-depth-key renderers on the headline scene:
+   ``GlobalRenderer(config).render`` (32x16 tiles), ``LocalRenderer`` (16x16,
+   per-tile clamp at 2048, first-hit depth) and ``DepthFirstRenderer`` with
+   ``depth_sort_key_precision=BITS16`` under tile ids BITS16 and BITS32;
+   each 2 lock-in, 3 warm-up and 10 timed frames with launch counts of its
+   own (project, prep, expand and blend each > 0), overflow 0, finite,
+   non-black, its split and a traced device split by stage.  Requires the
+   two DepthFirst BITS16 frames bit-equal, the Local colour bit-equal to
+   theirs on every tile the clamp leaves alone (prints the clamped tiles),
+   and the Global colour within a mean |d| of 0.01 of the headline frame's.
+   Local also renders the realistic scene of phase 3 (its clamped tiles
+   printed).  One frame runs under
    ``torch.cuda.set_sync_debug_mode("warn")`` and one under a host-clock
    probe with the device held (``host_syncs``, ``host_waits``; the latter
    for the stereo frame too): each prints where the host waited, if it
@@ -65,7 +77,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    blends, the pairs within the r2 cutoff from the plain version's q).  For
    the blends and
    the bounds gather it also prints CUDA-event times of the same calls,
-   back to back and with the L2 cache overwritten before each.
+   back to back and with the L2 cache overwritten before each.  On the
+   Global and Local frames' tensors: the projection's depth_key16 mode at
+   32x16 and 16x16, prep and the expand at 32x16 over the 16-bit KeyPlan,
+   the blend at 32x16 and with first_hit depth, each bit-equal to its plain
+   version (whole frames for the blends, which must also reproduce the
+   renderers' frames).
 5t. The expand on built entry tables (entries owning more slots than 4 of
    its CTAs, a run of 1-slot and culled entries, a row table's dead tail, a
    total equal to the capacity and one above it) in modes mono, stereo and
@@ -78,8 +95,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    must be equal, and the first within ``check_ints`` of the plain version;
    prints each mode's flip share and a digest of its outputs.
 6. Small frames (20k gaussians, 512x384) on the card vs the same renderer on
-   the CPU (plain versions): rows off, rows on, stereo and foveated
-   (min_rate 0.4); colour within 1e-3.
+   the CPU (plain versions): rows off, rows on, stereo, foveated (min_rate
+   0.4), Global, Local and DepthFirst BITS16; colour within 1e-3.
    After phase 2 a torch.profiler trace of 10 headline frames prints the
    device busy time and the kernel time by name.
 7. The last line is {"ok": true, "device": {...}}.
@@ -91,7 +108,8 @@ exits 2.
 headline and the realistic scene, rows on and off) with their host/device
 split and traced idle share, and prints one JSON line: copied into a
 checkout of another commit, it times that commit's package the same way.
-``python3 chip_smoke.py --kernels`` runs phases 1, 2, 4, 4f, 5 and 5p and
+``python3 chip_smoke.py --kernels`` runs phases 1, 2, 4, 4f, 4d (without
+the realistic Local frame), 5 and 5p and
 prints one JSON line of the kernel rows and the built-input flip shares and
 digests, for the same use (it does not require the one-pass scan there).
 """
@@ -161,6 +179,7 @@ MONO_ROWS_PATH = ("project", "prep", "row_expand", "expand", "blend")
 MONO_RECTS_PATH = ("project", "prep", "expand", "blend")
 STEREO_PATH = ("stereo_project", "prep", "expand", "blend")
 FOVEATED_PATH = ("stereo_project", "prep", "expand", "blend")
+D16_PATH = ("project", "prep", "expand", "blend")
 W, H = 1920, 1080
 #: the foveated rate maps of the JAX bench's foveated rows
 FOV_MIN_RATE, FOV_RADIUS, FOV_MIN_RATE_LOW = 0.4, 0.3, 0.15
@@ -705,6 +724,103 @@ def phase_realistic(torch, T, n: int = 1_000_000):
     if not res["rows_on"]["slot_total"] < res["rows_off"]["slot_total"]:
         raise RuntimeError("realistic: rows did not shrink the slot total")
     log("[realistic] rows-on colour and depth bit-equal to rows-off")
+    return dict(res=res, gi=gi, cam=cam)
+
+
+def d16_tile_counts(torch, T, gi, cam, cfg, tile_w: int, capacity: int):
+    """(starts, counts) of the 16-bit-key chain's tiles for a frame, on the
+    device (the unclamped counts a Local frame clamps)."""
+    from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    tiles_x, tiles_y = -(-W // tile_w), -(-H // 16)
+    sorted_key, _packed, plan, _total, _overflow = PC.d16_packed_sorted(
+        gi, cam.view_matrix, cam.projection_matrix, cam.position,
+        cached_projection_inputs(gi, 3), width=W, height=H, capacity=capacity,
+        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=16,
+        sh_degree=3, alpha_threshold=cfg.alpha_threshold,
+        total_ink_threshold=cfg.total_ink_threshold,
+        near_plane=cam.near_plane, far_plane=cam.far_plane,
+        input_is_srgb=False)
+    return PC.tile_ranges(sorted_key, plan, tiles_x * tiles_y)
+
+
+def tile_pixels(torch, tiles, tiles_x: int, tile_w: int, device):
+    """(H, W) bool image of the pixels of ``tiles`` (tile_w x 16 tiles)."""
+    on = torch.zeros(-(-H // 16) * 16, tiles_x * tile_w, dtype=torch.bool,
+                     device=device)
+    for t in tiles.tolist():
+        ty, tx = divmod(int(t), tiles_x)
+        on[ty * 16:(ty + 1) * 16, tx * tile_w:(tx + 1) * tile_w] = True
+    return on[:H, :W]
+
+
+def phase_d16(torch, T, kernels, hl, real=None):
+    """The 16-bit-depth-key renderers on the headline scene: Global (32x16
+    tiles), Local (16x16, per-tile clamp, first-hit depth) and DepthFirst
+    with depth_sort_key_precision=BITS16 under both tile-id precisions,
+    each with its own launch counts, frame times, split and trace.  Then
+    the cross-frame checks, and Local on the realistic scene (``real``)."""
+    gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
+    bits16 = T.DepthSortKeyPrecision.BITS16
+    paths = {
+        "global": (T.GlobalRenderer, {}),
+        "local": (T.LocalRenderer, {}),
+        "df16_tile16": (T.DepthFirstRenderer,
+                        dict(depth_sort_key_precision=bits16)),
+        "df16_tile32": (T.DepthFirstRenderer,
+                        dict(depth_sort_key_precision=bits16,
+                             tile_id_precision=T.TileIdPrecision.BITS32)),
+    }
+    res, frames = {}, {}
+    for label, (cls, opt) in paths.items():
+        r = cls(dataclasses.replace(cfg, **opt))
+        render = lambda r=r: r.render(gi, cam, W, H)
+        out, stats, launches = drive_path(
+            torch, kernels, D16_PATH, label,
+            lambda render=render: timed_frames(torch, render))
+        check_frame(torch, out, label)
+        stats.update(capacity=r._cap_state[(r._mono_key, n)]["cap"],
+                     split=frame_split(torch, render))
+        trace = trace_frames(torch, render, f"{label} trace", frames=5)
+        require_one_pass_scan(trace, label)
+        stats["trace"] = trace
+        res[label] = dict(r=r, out=out, stats=stats, launches=launches)
+        frames[label] = stats
+    log("[d16] " + json.dumps({"d16_frame_ms": frames}))
+
+    a, b = res["df16_tile16"]["out"], res["df16_tile32"]["out"]
+    if not (torch.equal(a.color, b.color) and torch.equal(a.depth, b.depth)):
+        raise RuntimeError("d16: the two DepthFirst BITS16 frames differ")
+    log("[d16] DepthFirst BITS16 frames bit-equal under tile ids 16 and 32")
+    loc = res["local"]
+    starts, counts = d16_tile_counts(torch, T, gi, cam, cfg, 16,
+                                     loc["stats"]["capacity"])
+    clamped = torch.nonzero(counts > T.config.LOCAL_MAX_PER_TILE).flatten()
+    keep = ~tile_pixels(torch, clamped, -(-W // 16), 16, gi.positions.device)
+    if not torch.equal(loc["out"].color[keep], a.color[keep]):
+        raise RuntimeError("d16: Local colour differs from DepthFirst BITS16 "
+                           "on unclamped tiles")
+    dg = float((res["global"]["out"].color[..., :3]
+                - hl["out"].color[..., :3]).abs().mean())
+    log("[d16] " + json.dumps({
+        "local_clamped_tiles": int(clamped.numel()),
+        "max_tile_count": int(counts.max()),
+        "local_equals_df16_on_unclamped_tiles": True,
+        "global_vs_depth_first_mean_abs_diff": dg}))
+    if not dg < 0.01:
+        raise RuntimeError(f"d16: Global vs DepthFirst mean |d| {dg}")
+
+    if real is not None:
+        r = T.LocalRenderer(cfg)
+        render = lambda: r.render(real["gi"], real["cam"], W, H)
+        out, stats = timed_frames(torch, render, n_timed=5)
+        check_frame(torch, out, "realistic local")
+        _s, rc = d16_tile_counts(torch, T, real["gi"], real["cam"], cfg, 16,
+                                 r._cap_state[(r._mono_key, n)]["cap"])
+        stats["clamped_tiles"] = int((rc > T.config.LOCAL_MAX_PER_TILE).sum())
+        stats["max_tile_count"] = int(rc.max())
+        log("[d16] " + json.dumps({"realistic_local_frame_ms": stats}))
     return res
 
 
@@ -874,7 +990,7 @@ def blend_subset_err(torch, KB, ent, starts, counts, color, depth, *,
     return err
 
 
-def phase_kernels(torch, T, hl, st, fv):
+def phase_kernels(torch, T, hl, st, fv, d16):
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.kernels import project as KP
@@ -1284,11 +1400,103 @@ def phase_kernels(torch, T, hl, st, fv):
         "records_composited": float(fprocessed.sum()),
         "pairs_within_cutoff": f_inside, "pairs": f_pairs,
         "live_instances": f_live, "tiles": [ftx, fty]}))
+    # the 16-bit-key modes on the Global (32x16) and Local (16x16) frames'
+    # tensors: project depth_key16 at both widths, prep and the expand at
+    # tile_w=32 over the d16 KeyPlan, the blend at 32x16 and with first_hit
+    # depth; each bit-equal to its plain version
+    gl_l, lo_l = d16["global"]["launches"], d16["local"]["launches"]
+    d16_stages = {}
+    for tw, label, launches in ((32, "global", gl_l), (16, "local", lo_l)):
+        dtx, dty = -(-w // tw), -(-h // 16)
+        dkw = dict(pkw, tile_w=tw, key_plan=None, depth_key16=True)
+        dk, ms = device_ms(torch, lambda: KP.project_cuda(*args, **dkw), 20)
+        dp, plain_ms = cuda_ms(torch, lambda: KP.project_plain(*args, **dkw), 3)
+        err, flips = check_exact(f"project.d16_{tw}", [
+            (dk.rect_word, dp.rect_word), (dk.rect_h, dp.rect_h),
+            (dk.dsw, dp.dsw), (dk.visible, dp.visible)]
+            + list(zip(dk.words, dp.words)))
+        record(f"project.d16_{tw}", "project", launches["project"], ms,
+               plain_ms, err, flips,
+               (11 + n_coeffs) * 4 * n + (7 * 4 + 1) * n, PROJECT_FLOPS * n)
+        d_plan = OB.make_key_plan(dtx * dty, n, depth_span_bits=16)
+        dprep_in = (dk.rect_word, dk.rect_h, dk.words)
+        if tw == 32:
+            (doff, drect, dmask), ms = device_ms(
+                torch, lambda: KE.binning_prep_cuda(*dprep_in, tile_w=32), 20)
+            dprep_p, plain_ms = cuda_ms(
+                torch, lambda: KE.binning_prep_plain(*dprep_in, tile_w=32), 3)
+            err, flips = check_exact("prep.tile32", list(zip(
+                (doff, drect, dmask), dprep_p)))
+            record("prep.tile32", "prep", launches["prep"], ms, plain_ms, err,
+                   flips, (6 + 3) * 4 * n + 4,
+                   PREP_DECODE_FLOPS * n
+                   + TILE_TEST_FLOPS * tile_tests(dk.rect_word, dk.rect_h))
+        else:
+            doff, drect, dmask = KE.binning_prep_cuda(*dprep_in)
+        dcap = d16[label]["stats"]["capacity"]
+        dekw = dict(capacity=dcap, tiles_x=dtx, key_plan=d_plan, tile_w=tw)
+        dexp_in = (doff, drect, dmask, dk.dsw, dk.words)
+        if tw == 32:
+            dek, ms = device_ms(
+                torch, lambda: KE.expand_slots_cuda(*dexp_in, **dekw), 20)
+            dep, plain_ms = cuda_ms(
+                torch, lambda: KE.expand_slots_plain(*dexp_in, **dekw), 3)
+            err, flips = check_exact("expand.d16_32", list(zip(dek, dep)))
+            record("expand.d16_32", "expand", launches["expand"], ms, plain_ms,
+                   err, flips,
+                   expand_bytes(n, dcap, 4 * tested_entries(doff, drect)),
+                   (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS)
+                   * tested_slots(doff, drect))
+        else:
+            dek = KE.expand_slots_cuda(*dexp_in, **dekw)
+        d_sorted = PC.sort_instances(dek[0], dek[1])
+        d_starts, d_counts = PC.tile_ranges(d_sorted, d_plan, dtx * dty)
+        mode = "weighted" if tw == 32 else "first_hit"
+        name = "blend.tile32" if tw == 32 else "blend.first_hit"
+        if tw == 16:  # Local's per-tile clamp
+            d_counts = torch.clamp(d_counts, max=T.config.LOCAL_MAX_PER_TILE)
+        d_ent = (d_sorted, dk.words, d_plan.idx_bits)
+        dbkw = dict(tiles_x=dtx, tiles_y=dty, width=w, height=h, tile_w=tw,
+                    depth_mode=mode)
+        blend_fn = lambda: KB.blend_image_cuda(*d_ent, d_starts, d_counts,
+                                               **dbkw)
+        (dcolor, ddepth), ms = device_ms(torch, blend_fn, 10)
+        time_check(name, blend_fn, ms)
+        frame = d16[label]["out"]
+        if not (torch.equal(dcolor, frame.color)
+                and torch.equal(ddepth, frame.depth)):
+            raise RuntimeError(f"staged {label} frame differs from the "
+                               "renderer's")
+        (pc, pd, dprocessed), plain_ms = cuda_ms(
+            torch, lambda: KB.blend_tiles_plain(
+                *d_ent, d_starts, d_counts, tiles_x=dtx, tile_w=tw,
+                depth_mode=mode, return_processed=True), 1)
+        pcol, pdep = KB.assemble_image(pc, pd, tiles_x=dtx, tiles_y=dty,
+                                       width=w, height=h, tile_w=tw)
+        err = max(float((pcol - dcolor).abs().max()),
+                  float((pdep - ddepth).abs().max()))
+        if err != 0.0:
+            raise RuntimeError(f"{name}: kernel vs plain max |d| {err}")
+        record(name, "blend", launches["blend"], ms, plain_ms, err, 0.0,
+               blend_bytes(torch, KB, d_ent, d_starts, dprocessed, 4, w * h),
+               BLEND_DECODE_FLOPS * float(dprocessed.sum())
+               + BLEND_PAIR_FLOPS * float(tw * 16) * float(dprocessed.sum()))
+        d16_stages[label] = dict(
+            records_composited=float(dprocessed.sum()),
+            live_instances=int(d_counts.sum()), tiles=[dtx, dty],
+            max_tile_count=int(d_counts.max()))
+    log("[stages] " + json.dumps({"d16_stage_ms": {
+        k: rows[k]["ms"] for k in ("project.d16_32", "project.d16_16",
+                                   "prep.tile32", "expand.d16_32",
+                                   "blend.tile32", "blend.first_hit")},
+        "d16": d16_stages}))
     log("[timing check] " + json.dumps(timing_check))
     order = ("project", "prep", "prep.rows_off", "row_expand", "expand",
              "expand.rows_off", "blend", "stereo_project", "prep.stereo",
              "expand.stereo", "blend.stereo", "bounds_gather", "prep.warped",
-             "expand.warped", "blend.warped")
+             "expand.warped", "blend.warped", "project.d16_32",
+             "project.d16_16", "prep.tile32", "expand.d16_32", "blend.tile32",
+             "blend.first_hit")
     return [rows[k] for k in order], other
 
 
@@ -1575,13 +1783,18 @@ def phase_small(torch, T):
     gi_g, gi_c = ds.to_input(), ds.to_input(device="cpu")
     stereo = T.make_side_by_side_stereo(cam, ipd=0.1)
     target = T.make_rate_maps(w, h, min_rate=FOV_MIN_RATE, radius=FOV_RADIUS)
-    for label, rows, frame in (("rows off", False, "mono"),
-                               ("rows on", True, "mono"),
-                               ("stereo", True, "stereo"),
-                               ("foveated", True, "foveated")):
+    bits16 = dict(depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16)
+    for label, cls, opt, frame in (
+            ("rows off", T.DepthFirstRenderer, dict(row_expand=False), "mono"),
+            ("rows on", T.DepthFirstRenderer, {}, "mono"),
+            ("stereo", T.DepthFirstRenderer, {}, "stereo"),
+            ("foveated", T.DepthFirstRenderer, {}, "foveated"),
+            ("global", T.GlobalRenderer, {}, "mono"),
+            ("local", T.LocalRenderer, {}, "mono"),
+            ("depth16", T.DepthFirstRenderer, bits16, "mono")):
         cfg = T.RendererConfig(sh_degree=3, precision=T.Precision.FLOAT32,
-                               max_width=w, max_height=h, row_expand=rows)
-        rg, rc = T.DepthFirstRenderer(cfg), T.DepthFirstRenderer(cfg, device="cpu")
+                               max_width=w, max_height=h, **opt)
+        rg, rc = cls(cfg), cls(cfg, device="cpu")
         if frame == "foveated":
             og = rg.render_stereo_foveated(gi_g, stereo, target)
             oc = rc.render_stereo_foveated(gi_c, stereo, target)
@@ -1668,14 +1881,16 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_build(_native)
     hl = phase_headline(torch, T, kernels)
+    real = None
     if not kernels_only:
         require_one_pass_scan(trace_frames(
             torch, lambda: hl["r"].render(hl["gi"], hl["cam"], W, H),
             "trace"), "headline")
-        phase_realistic(torch, T)
+        real = phase_realistic(torch, T)
     st = phase_stereo(torch, T, kernels, hl)
     fv = phase_foveated(torch, T, kernels, hl, st)
-    rows, other = phase_kernels(torch, T, hl, st, fv)
+    d16 = phase_d16(torch, T, kernels, hl, real)
+    rows, other = phase_kernels(torch, T, hl, st, fv, d16)
     from gsm_renderer_tpu_torch.pipelines.depth_first import foveated_device_tables
     bounds = foveated_device_tables(fv["target"],
                                     hl["gi"].positions.device)["bounds"]

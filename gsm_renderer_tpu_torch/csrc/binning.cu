@@ -119,6 +119,12 @@
 // The warped modes read the bounds table from shared memory: every thread
 // of the block stages part of it and passes one barrier before any thread
 // leaves.
+//
+// Tile width: prep and the expand take tiles of kTileW x 16 pixels, kTileW
+// 16 or 32 in mode mono (the Global renderer's 32x16 tiles), 16 in stereo
+// and warped.  The 8x4 window keeps its geometry in tiles; only the pixel
+// extents of each test change (x0 = tx * kTileW, x1 = x0 + kTileW).  The
+// row expansion takes 16x16 tiles.
 #include <climits>
 
 #include "common.cuh"
@@ -393,7 +399,7 @@ __device__ __forceinline__ QuadRect staged_quad(float (*f)[kPrepThreads],
 // One test of the staged gaussian in slot s at window position (dx, dy):
 // the expressions of the per-gaussian window loops they replace, operation
 // for operation.
-template <int kMode>
+template <int kMode, int kTileW>
 __device__ __forceinline__ bool prep_test(float (*f)[kPrepThreads],
                                           int (*in)[kPrepThreads], int s,
                                           int dx, int dy, const float* sb,
@@ -416,13 +422,14 @@ __device__ __forceinline__ bool prep_test(float (*f)[kPrepThreads],
     }
     return pass;
   } else {
-    const float ox = static_cast<float>(dx * 16);
+    constexpr float kW = static_cast<float>(kTileW);
+    const float ox = static_cast<float>(dx * kTileW);
     const float oy = static_cast<float>(dy * 16);
     const float xa = f[0][s] + ox, ya = f[1][s] + oy;
-    float d2 = d2min_quad(staged_quad(f, 0, s), xa, xa + 16.0f, ya, ya + 16.0f);
+    float d2 = d2min_quad(staged_quad(f, 0, s), xa, xa + kW, ya, ya + 16.0f);
     if constexpr (kMode == kStereo) {
       const float xb = f[7][s] + ox, yb = f[8][s] + oy;
-      d2 = jmin(d2, d2min_quad(staged_quad(f, 1, s), xb, xb + 16.0f, yb,
+      d2 = jmin(d2, d2min_quad(staged_quad(f, 1, s), xb, xb + kW, yb,
                                yb + 16.0f));
       return d2 <= kStereoR2Cutoff;
     } else {
@@ -434,7 +441,7 @@ __device__ __forceinline__ bool prep_test(float (*f)[kPrepThreads],
 // Gaussian i (< n, else nothing and a count of 0) of the thread: its mask
 // and rect word, its window tests balanced across the warp; returns its
 // count.  Every lane of the warp calls it.
-template <int kMode>
+template <int kMode, int kTileW>
 __device__ __forceinline__ int prep_gaussian(
     int i, const int32_t* __restrict__ rect_word,
     const int32_t* __restrict__ rect_h, const WordPtrs& W, int count_rows,
@@ -479,7 +486,7 @@ __device__ __forceinline__ int prep_gaussian(
       }
       f[14][t] = ink;
     } else {
-      const float cx = static_cast<float>(min_tx) * 16.0f;
+      const float cx = static_cast<float>(min_tx) * static_cast<float>(kTileW);
       const float cy = static_cast<float>(min_ty) * 16.0f;
       stage_eye(f, 0, cx - k0.mx, cy - k0.my, quad_rect(k0));
       if constexpr (kMode == kStereo) {
@@ -511,8 +518,8 @@ __device__ __forceinline__ int prep_gaussian(
     if (t < warp_tests) {
       const int s = warp0 + owner;
       const int dy = (local * in[1][s]) >> 16;
-      pass = prep_test<kMode>(f, in, s, local - dy * in[0][s], dy, sb,
-                              lod_min);
+      pass = prep_test<kMode, kTileW>(f, in, s, local - dy * in[0][s], dy, sb,
+                                      lod_min);
     }
     // 3. the round's results back to their owners
     const uint32_t ballot = __ballot_sync(kFullWarp, pass);
@@ -552,7 +559,7 @@ __device__ __forceinline__ int prep_gaussian(
 }
 
 // The block of tile b preps gaussians [256 b, 256 (b + 1)), one a thread.
-template <int kMode>
+template <int kMode, int kTileW>
 __global__ void __launch_bounds__(kPrepThreads)
 prep_kernel(const int32_t* __restrict__ rect_word,
             const int32_t* __restrict__ rect_h, WordPtrs W, int count_rows,
@@ -568,10 +575,9 @@ prep_kernel(const int32_t* __restrict__ rect_word,
   uint32_t tag;
   const int tile = take_tile(st, &tag);
   const int i = tile * kPrepThreads + threadIdx.x;
-  const int count[1] = {prep_gaussian<kMode>(i, rect_word, rect_h, W,
-                                             count_rows, n, tau, theta_unit,
-                                             inv255, rect_out, mask_out, f, in,
-                                             sb, lod_min)};
+  const int count[1] = {prep_gaussian<kMode, kTileW>(
+      i, rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255,
+      rect_out, mask_out, f, in, sb, lod_min)};
   int excl[1], end;
   scan_counts<kPrepThreads, 1>(st, tile, tag, count, excl, &end);
   if (i < n) offsets[i] = excl[0];
@@ -771,7 +777,7 @@ __device__ __forceinline__ float rect_d2(uint32_t a0, uint32_t a1, uint32_t a2,
 // out: (2, capacity) = key1, key2.  CTA b expands slots [b * kExpandSlots,
 // (b + 1) * kExpandSlots); slot s0 + k * kExpandThreads + threadIdx.x is
 // the thread's k-th.
-template <int kMode>
+template <int kMode, int kTileW>
 __global__ void __launch_bounds__(kExpandThreads)
 expand_kernel(const int32_t* __restrict__ offsets,
               const int32_t* __restrict__ rect,
@@ -844,9 +850,10 @@ expand_kernel(const int32_t* __restrict__ offsets,
                        a2 = word(W, 2, g);
         bool passes;
         if constexpr (kMode == kMono) {
-          const float x0 = static_cast<float>(tx) * 16.0f;
+          constexpr float kW = static_cast<float>(kTileW);
+          const float x0 = static_cast<float>(tx) * kW;
           const float y0 = static_cast<float>(ty) * 16.0f;
-          passes = rect_d2(a0, a1, a2, x0, x0 + 16.0f, y0, y0 + 16.0f,
+          passes = rect_d2(a0, a1, a2, x0, x0 + kW, y0, y0 + 16.0f,
                            theta_unit) <=
                    d2_cutoff(u8f(word(W, 3, g), 24, inv255), tau);
         } else {
@@ -907,20 +914,25 @@ static ScanState scan_state(void* ticket, void* status, int elements,
 
 // bounds: the (2, 128) table for mode "warped", else null.  ticket /
 // status: the look-back scratch, status >= max(ceil(n / 256), 1) words.
-// One launch, even at n == 0 (its one block writes offsets[0] = 0).
+// tile_w: 16, or 32 in mode mono.  One launch, even at n == 0 (its one
+// block writes offsets[0] = 0).
 extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
                         const void* const* words, int n_words, int count_rows,
-                        int n, float tau, float theta_unit, float inv255,
-                        int32_t* offsets, int32_t* rect_out, int32_t* mask_out,
-                        void* ticket, void* status, const float* bounds,
-                        float lod_min, cudaStream_t stream) {
+                        int n, int tile_w, float tau, float theta_unit,
+                        float inv255, int32_t* offsets, int32_t* rect_out,
+                        int32_t* mask_out, void* ticket, void* status,
+                        const float* bounds, float lod_min,
+                        cudaStream_t stream) {
   const int mode = launch_mode(n_words, bounds);
-  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < 0 || !(tile_w == 16 || (tile_w == 32 && mode == kMono))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const WordPtrs W = load_words(words, n_words);
   const ScanState st = scan_state(ticket, status, n, kPrepThreads);
-  auto kernel = mode == kWarped   ? prep_kernel<kWarped>
-                : mode == kStereo ? prep_kernel<kStereo>
-                                  : prep_kernel<kMono>;
+  auto kernel = mode == kWarped   ? prep_kernel<kWarped, 16>
+                : mode == kStereo ? prep_kernel<kStereo, 16>
+                : tile_w == 32    ? prep_kernel<kMono, 32>
+                                  : prep_kernel<kMono, 16>;
   kernel<<<st.num_tiles, kPrepThreads, 0, stream>>>(
       rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255, offsets,
       rect_out, mask_out, st, bounds, lod_min);
@@ -946,22 +958,25 @@ extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
 }
 
 // out: (2, capacity) = key1, key2; bounds: the (2, 128) table for mode
-// "warped", else null.
+// "warped", else null; tile_w: 16, or 32 in mode mono.
 extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                           const int32_t* mask, const int32_t* dsw,
                           const void* const* words, int n_words, int n,
-                          int capacity, int tiles_x, int d_hi, int d_lo,
-                          int idx_bits, float tau, float theta_unit,
+                          int capacity, int tiles_x, int tile_w, int d_hi,
+                          int d_lo, int idx_bits, float tau, float theta_unit,
                           float inv255, int32_t* out, const float* bounds,
                           cudaStream_t stream) {
   const int mode = launch_mode(n_words, bounds);
-  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < 0 || !(tile_w == 16 || (tile_w == 32 && mode == kMono))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const WordPtrs W = load_words(words, n_words);
   if (capacity > 0) {
     const int blocks = (capacity + kExpandSlots - 1) / kExpandSlots;
-    auto kernel = mode == kWarped   ? expand_kernel<kWarped>
-                  : mode == kStereo ? expand_kernel<kStereo>
-                                    : expand_kernel<kMono>;
+    auto kernel = mode == kWarped   ? expand_kernel<kWarped, 16>
+                  : mode == kStereo ? expand_kernel<kStereo, 16>
+                  : tile_w == 32    ? expand_kernel<kMono, 32>
+                                    : expand_kernel<kMono, 16>;
     kernel<<<blocks, kExpandThreads, 0, stream>>>(
         offsets, rect, mask, dsw, W, n, capacity, tiles_x, d_hi, d_lo,
         idx_bits, tau, theta_unit, inv255, out, bounds);

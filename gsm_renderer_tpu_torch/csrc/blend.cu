@@ -1,6 +1,7 @@
-// Kernel 5: front-to-back tile blend, one CTA of 256 threads per 16x16
-// tile, one pixel a thread, writing the color and depth images directly
-// (assemble fused, ragged edge masked).  kEyes = 2 is the single-pass
+// Kernel 5: front-to-back tile blend, one CTA per tile of kTileW x 16
+// pixels (16x16, or the Global renderer's 32x16), one pixel a thread,
+// writing the color and depth images directly (assemble fused, ragged edge
+// masked).  kEyes = 2 is the single-pass
 // dual-eye stereo blend: each entry carries both eyes' records (8 words:
 // left w0..w3, right w0..w3), each pixel keeps one accumulator and
 // transmittance per eye, and eye e writes columns [e * width, (e + 1) *
@@ -8,8 +9,9 @@
 //
 // Replaces the Pallas kernel gsm_renderer_tpu/kernels/blend.py::
 // _row_blend_kernel (blend_tiles_pallas, exponent_mode "vpu", depth modes
-// "weighted" and "none", n_eyes 1 and 2, r2_cutoff, pixel_coords) and the
-// XLA assemble_image after it.
+// "weighted", "none" and "first_hit", n_eyes 1 and 2, r2_cutoff,
+// pixel_coords, 16x16 and 32x16 tiles) and the XLA assemble_image after it.
+// The dual-eye blend takes 16x16 tiles and weighted depth.
 //
 // Records through the sorted keys: rank k of the sorted instance list is
 // entry g = key2(k) & (2^idx_bits - 1) (the KeyPlan index field, the low
@@ -19,11 +21,18 @@
 // gather in the kernel); here the blend reads only the records it
 // composites, and nothing gathers the table after the sort.
 //
-// Pixel coordinates: pixel p = ly * 16 + lx of tile (tx, ty) sits at (tx *
-// 16 + lx, ty * 16 + ly), or, with the foveated coordinate tables coord_x
-// (tiles_x, 256) and coord_y (tiles_y, 256), at the display-space point
-// (coord_x[tx][p], coord_y[ty][p]) it samples.  Writes stay clipped to width
-// x height either way.
+// Pixel coordinates: pixel p = ly * kTileW + lx of tile (tx, ty) sits at
+// (tx * kTileW + lx, ty * 16 + ly), or, with the foveated coordinate tables
+// coord_x (tiles_x, 256) and coord_y (tiles_y, 256), at the display-space
+// point (coord_x[tx][p], coord_y[ty][p]) it samples.  Writes stay clipped to
+// width x height either way.
+//
+// Depth: weighted (sum of w * d), or first_hit (the Local renderer's, the
+// Pallas kernel's first_hit branch): the depth of the first record whose
+// composited alpha -- after the 0.99 clamp, the same float sequence as the
+// weighted blend -- exceeds 0.1, 0 for a pixel with no such record.  A
+// pixel keeps its hit flag and depth in registers and keeps compositing
+// until the tile exits, so a hit after the pixel saturated still counts.
 //
 // Per record: centred linear forms u = a1 dx + b1 dy, v = a2 dx + b2 dy with
 // dx = px - mx at integer pixel corners (no +0.5), alpha = min(exp(-q/2 +
@@ -66,7 +75,8 @@
 // - One pixel a thread.  Two pixels a thread (128 threads; 1.5 LDS per
 //   pixel and record) measured slower in every mode and spilled: the loop
 //   is bound by latency and by the warps that can hide it, and 256 threads
-//   at 40-48 registers keep 48 warps on an SM.
+//   at 40-48 registers keep 48 warps on an SM.  A 32x16 tile takes 512
+//   threads for the same reason; the first 256 of them stage the batch.
 // - Gather latency.  The key and the words of the next batch's record are
 //   loaded into registers before the current batch is composited, and the
 //   key of the batch after that too, so the dependent key -> entry -> word
@@ -83,16 +93,15 @@
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
-constexpr int kThreads = kPix;  // one pixel a thread
-constexpr int kBatch = 256;     // records staged per round, one a thread
-constexpr int kBlock = 128;     // batch alignment (the Pallas chunk)
+constexpr int kTileH = 16;
+constexpr int kBatch = 256;  // records staged per round, one a thread
+constexpr int kBlock = 128;  // batch alignment (the Pallas chunk)
 // a warp covers a kWarpW x kWarpH block of the tile
 constexpr int kWarpW = 8;
 constexpr int kWarpH = 32 / kWarpW;
-
-static_assert(kBatch == kThreads, "each thread stages one record a batch");
+// depth modes (gsm_blend's depth_mode)
+enum DepthMode { kDepthNone = 0, kDepthWeighted = 1, kDepthFirstHit = 2 };
+constexpr float kFirstHitAlpha = 0.1f;
 
 // A decoded record: {mx, my, a1, b1}, {a2, b2, lop, d}, {r, g, b, 0}.
 struct Rec {
@@ -119,9 +128,11 @@ __device__ __forceinline__ Rec decode_record(uint32_t a0, uint32_t a1,
 }
 
 // kEyes = 2: alpha zeroed where q > r2_cutoff, the warp test for exact
-// zeros (see the head comment).
-template <int kEyes>
-__global__ void __launch_bounds__(kThreads)
+// zeros (see the head comment).  kTileW x 16 pixels a tile, a thread a
+// pixel; threads below kBatch stage the batch.  kFirstHit: first_hit depth
+// in place of the weighted sum.
+template <int kEyes, int kTileW, bool kFirstHit>
+__global__ void __launch_bounds__(kTileW * kTileH)
 blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
              WordPtrs W, const int32_t* __restrict__ starts,
              const int32_t* __restrict__ counts, int tiles_x, int width,
@@ -130,40 +141,45 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
              const float* __restrict__ coord_x,
              const float* __restrict__ coord_y,
              float* __restrict__ color, float* __restrict__ depth) {
+  constexpr int kPix = kTileW * kTileH;
   constexpr int kWords = 4 * kEyes;
   constexpr bool kCutoff = kEyes == 2;
+  static_assert(kPix >= kBatch, "each staging thread stages one record");
   __shared__ Rec sr[kEyes][kBatch];
 
   const int tile = blockIdx.x;
   const int tx = tile % tiles_x, ty = tile / tiles_x;
   const int t = threadIdx.x;
   const int warp = t / 32, lane = t % 32;
-  const int lx = (warp % (kTile / kWarpW)) * kWarpW + lane % kWarpW;
-  const int ly = (warp / (kTile / kWarpW)) * kWarpH + lane / kWarpW;
+  const int lx = (warp % (kTileW / kWarpW)) * kWarpW + lane % kWarpW;
+  const int ly = (warp / (kTileW / kWarpW)) * kWarpH + lane / kWarpW;
   float pxf, pyf;
   if (coord_x != nullptr) {
-    const int p = ly * kTile + lx;
+    const int p = ly * kTileW + lx;
     pxf = coord_x[static_cast<size_t>(tx) * kPix + p];
     pyf = coord_y[static_cast<size_t>(ty) * kPix + p];
   } else {
-    pxf = static_cast<float>(lx) + static_cast<float>(tx * kTile);
-    pyf = static_cast<float>(ly) + static_cast<float>(ty * kTile);
+    pxf = static_cast<float>(lx) + static_cast<float>(tx * kTileW);
+    pyf = static_cast<float>(ly) + static_cast<float>(ty * kTileH);
   }
 
   const int start = starts[tile];
   const int end = start + counts[tile];
   float trans[kEyes], acc_r[kEyes], acc_g[kEyes], acc_b[kEyes], acc_d[kEyes];
+  bool hit[kEyes];
 #pragma unroll
   for (int e = 0; e < kEyes; ++e) {
     trans[e] = 1.0f;
     acc_r[e] = acc_g[e] = acc_b[e] = acc_d[e] = 0.0f;
+    hit[e] = false;
   }
 
   // Entry of this thread's record in the batch at b0, or -1 outside the
-  // span (the key's low word is key2: the entry index in its low bits).
+  // span or for a thread past the batch (the key's low word is key2: the
+  // entry index in its low bits).
   auto entry_at = [&](int b0) -> int {
     const int s = b0 + t;
-    return (s >= start && s < end)
+    return (t < kBatch && s >= start && s < end)
                ? static_cast<int>(key_words[2 * static_cast<size_t>(s)] & idx_mask)
                : -1;
   };
@@ -218,7 +234,15 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
         acc_r[e] = acc_r[e] + w * Cc.x;
         acc_g[e] = acc_g[e] + w * Cc.y;
         acc_b[e] = acc_b[e] + w * Cc.z;
-        acc_d[e] = acc_d[e] + w * B.w;
+        if constexpr (kFirstHit) {
+          // acc_d holds the first hit's depth
+          if (!hit[e] && alpha > kFirstHitAlpha) {
+            hit[e] = true;
+            acc_d[e] = B.w;
+          }
+        } else {
+          acc_d[e] = acc_d[e] + w * B.w;
+        }
         trans[e] = trans[e] * (1.0f - alpha);
       }
     }
@@ -229,7 +253,7 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
     if (!__syncthreads_or(tmax >= min_transmittance)) break;
   }
 
-  const int x = tx * kTile + lx, y = ty * kTile + ly;
+  const int x = tx * kTileW + lx, y = ty * kTileH + ly;
   if (x < width && y < height) {
 #pragma unroll
     for (int e = 0; e < kEyes; ++e) {
@@ -249,20 +273,27 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
 
 // sorted_key: (capacity,) int64 sort keys (key2 in the low 32 bits, the
 // entry index in its low idx_bits); words: 4 * n_eyes pointers to the (N,)
-// int32 word rows of the entry table; coord_x (tiles_x, 256) and coord_y
-// (tiles_y, 256) the foveated pixel coordinates, or both null; color (H,
-// n_eyes * W, 4), depth (H, n_eyes * W) when with_depth.  Two eyes (8
-// words) take r2_cutoff > 0, one eye (4 words) r2_cutoff = 0.
+// int32 word rows of the entry table; tile_w: 16 or 32 (tiles tile_w x 16);
+// depth_mode: a DepthMode; coord_x (tiles_x, 256) and coord_y (tiles_y,
+// 256) the foveated pixel coordinates, or both null; color (H, n_eyes * W,
+// 4), depth (H, n_eyes * W) unless depth_mode is none.  Two eyes (8 words)
+// take r2_cutoff > 0, 16x16 tiles and weighted depth; one eye (4 words)
+// r2_cutoff = 0.
 extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                          const void* const* words, int n_words,
                          const int32_t* starts, const int32_t* counts,
                          int tiles_x, int tiles_y, int width, int height,
-                         int with_depth, float theta_unit, float inv255,
-                         float min_transmittance, float r2_cutoff,
-                         const float* coord_x, const float* coord_y,
-                         float* color, float* depth, cudaStream_t stream) {
-  if ((n_words != 4 && n_words != 8) || idx_bits < 1 || idx_bits > 32 ||
-      (n_words == 8) != (r2_cutoff > 0.0f)) {
+                         int tile_w, int depth_mode, float theta_unit,
+                         float inv255, float min_transmittance,
+                         float r2_cutoff, const float* coord_x,
+                         const float* coord_y, float* color, float* depth,
+                         cudaStream_t stream) {
+  const bool two = n_words == 8;
+  if ((n_words != 4 && !two) || idx_bits < 1 || idx_bits > 32 ||
+      two != (r2_cutoff > 0.0f) || (tile_w != 16 && tile_w != 32) ||
+      depth_mode < kDepthNone || depth_mode > kDepthFirstHit ||
+      (two && (tile_w != 16 || depth_mode == kDepthFirstHit)) ||
+      (coord_x != nullptr && tile_w != 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WordPtrs W = load_words(words, n_words);
@@ -270,12 +301,17 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
       idx_bits == 32 ? 0xFFFFFFFFu : ((1u << idx_bits) - 1u);
   const uint32_t* key_words = reinterpret_cast<const uint32_t*>(sorted_key);
   const int n_tiles = tiles_x * tiles_y;
+  const bool first_hit = depth_mode == kDepthFirstHit;
   if (n_tiles > 0) {
-    auto kernel = n_words == 8 ? blend_kernel<2> : blend_kernel<1>;
-    kernel<<<n_tiles, kThreads, 0, stream>>>(
+    auto kernel = two             ? blend_kernel<2, 16, false>
+                  : tile_w == 32  ? (first_hit ? blend_kernel<1, 32, true>
+                                               : blend_kernel<1, 32, false>)
+                  : first_hit     ? blend_kernel<1, 16, true>
+                                  : blend_kernel<1, 16, false>;
+    kernel<<<n_tiles, tile_w * kTileH, 0, stream>>>(
         key_words, idx_mask, W, starts, counts, tiles_x, width, height,
-        with_depth, theta_unit, inv255, min_transmittance, r2_cutoff, coord_x,
-        coord_y, color, depth);
+        depth_mode != kDepthNone, theta_unit, inv255, min_transmittance,
+        r2_cutoff, coord_x, coord_y, color, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }

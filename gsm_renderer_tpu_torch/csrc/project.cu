@@ -10,6 +10,12 @@
 // project.py::_f32_to_f16_bits (NaN -> 0x7E00, overflow -> inf), not
 // __float2half_rn.
 //
+// Modes: 16x16 or 32x16 tiles in the tile rect (ProjInts::tile_w; the
+// Global renderer's 32x16), and the 16-bit half-depth key (ProjInts::key16,
+// the Pallas kernel's depth_key16: half_key16 of the record's f16 depth
+// bits, 0xFFFFFFFF where culled, no KeyPlan) in place of the 32-bit depth
+// word.  The dual-eye kernel takes 16x16 tiles and the 32-bit word.
+//
 // Bound on the H100: device memory.  Each gaussian reads 11 component floats
 // plus 3 * n_coeffs SH floats (236 B at SH3) and writes 29 B, against a few
 // hundred float operations, far below the card's ~20 flop/B balance point.
@@ -31,7 +37,7 @@ struct ProjParams {
 };
 
 struct ProjInts {
-  int n, tiles_x, tiles_y, sh_degree, srgb, has_plan;
+  int n, tiles_x, tiles_y, sh_degree, srgb, has_plan, tile_w, key16;
   uint32_t near_key, span;
 };
 
@@ -304,18 +310,21 @@ __device__ __forceinline__ uint32_t theta_u16(float evx, float evy, bool vis,
       static_cast<int>(jclip(tq * P.theta_scale + 0.5f, 0.0f, 65535.0f)));
 }
 
-// compute_tile_bounds_c: clamped inclusive tile rect (16x16 tiles).
+// compute_tile_bounds_c: clamped inclusive tile rect (tile_w x 16 tiles;
+// tile_w a power of two, so the division is exact either way it is done).
 __device__ __forceinline__ void tile_bounds(float sx, float sy, float ex,
                                             float ey, const ProjParams& P,
                                             int tiles_x, int tiles_y,
-                                            int* min_tx, int* max_tx,
-                                            int* min_ty, int* max_ty) {
+                                            int tile_w, int* min_tx,
+                                            int* max_tx, int* min_ty,
+                                            int* max_ty) {
   const float xmin = jclip(sx - ex, 0.0f, P.wm1);
   const float xmax = jclip(sx + ex, 0.0f, P.wm1);
   const float ymin = jclip(sy - ey, 0.0f, P.hm1);
   const float ymax = jclip(sy + ey, 0.0f, P.hm1);
-  *min_tx = max(static_cast<int>(floorf(xmin / 16.0f)), 0);
-  *max_tx = min(static_cast<int>(ceilf(xmax / 16.0f)) - 1, tiles_x - 1);
+  const float tw = static_cast<float>(tile_w);
+  *min_tx = max(static_cast<int>(floorf(xmin / tw)), 0);
+  *max_tx = min(static_cast<int>(ceilf(xmax / tw)) - 1, tiles_x - 1);
   *min_ty = max(static_cast<int>(floorf(ymin / 16.0f)), 0);
   *max_ty = min(static_cast<int>(ceilf(ymax / 16.0f)) - 1, tiles_y - 1);
 }
@@ -340,6 +349,13 @@ __device__ __forceinline__ uint32_t depth_word(float depth, bool alive,
     dsw = alive ? dsw : Q.span;
   }
   return dsw;
+}
+
+// The 16-bit half-depth key (mathlib.half_depth_key16) of the record's
+// quantized f16 depth bits d16; 0xFFFFFFFF where culled.
+__device__ __forceinline__ uint32_t depth_key16(uint32_t d16, bool alive) {
+  const uint32_t dk16 = (d16 & 0x8000u) ? (~d16 & 0xFFFFu) : (d16 ^ 0x8000u);
+  return alive ? dk16 : 0xFFFFFFFFu;
 }
 
 __device__ __forceinline__ uint32_t rect_word_of(int min_tx, int min_ty,
@@ -416,7 +432,7 @@ __global__ void project_kernel(const float* __restrict__ comp,
   // clamped tile rect and the d2 cutoff of the quantized opacity
   int min_tx, max_tx, min_ty, max_ty;
   tile_bounds(screen_x, screen_y, obb_x, obb_y, P, Q.tiles_x, Q.tiles_y,
-              &min_tx, &max_tx, &min_ty, &max_ty);
+              Q.tile_w, &min_tx, &max_tx, &min_ty, &max_ty);
   alive = alive && (min_tx <= max_tx) && (min_ty <= max_ty);
   const float opacity_q = static_cast<float>(static_cast<int>(op_u8)) * P.inv255;
   alive = alive && (d2_cutoff(opacity_q, P.tau) >= 0.0f);
@@ -428,7 +444,8 @@ __global__ void project_kernel(const float* __restrict__ comp,
 
   rect_word[i] = static_cast<int32_t>(rect_word_of(min_tx, min_ty, rect_w, alive));
   rect_h_out[i] = rect_h;
-  dsw_out[i] = static_cast<int32_t>(depth_word(depth, alive, Q));
+  dsw_out[i] = static_cast<int32_t>(Q.key16 ? depth_key16(w2 >> 16, alive)
+                                             : depth_word(depth, alive, Q));
   w0_out[i] = static_cast<int32_t>(w0);
   w1_out[i] = static_cast<int32_t>(w1);
   w2_out[i] = static_cast<int32_t>(w2);
@@ -481,7 +498,7 @@ __device__ __forceinline__ Eye eye_chain(float px, float py, float pz,
   float obb_x, obb_y;
   obb_extents(ca, cb, cd, &obb_x, &obb_y);
   ok = ok && !off_screen(e.screen_x, e.screen_y, obb_x, obb_y, P);
-  tile_bounds(e.screen_x, e.screen_y, obb_x, obb_y, P, tiles_x, tiles_y,
+  tile_bounds(e.screen_x, e.screen_y, obb_x, obb_y, P, tiles_x, tiles_y, 16,
               &e.min_tx, &e.max_tx, &e.min_ty, &e.max_ty);
   e.ok = ok && (e.min_tx <= e.max_tx) && (e.min_ty <= e.max_ty);
   e.px_min = jclip(e.screen_x - obb_x, 0.0f, P.width);
@@ -597,6 +614,8 @@ ProjInts load_ints(const int* ints, const uint32_t* plan) {
   Q.sh_degree = ints[3];
   Q.srgb = ints[4];
   Q.has_plan = ints[5];
+  Q.tile_w = ints[6];
+  Q.key16 = ints[7];
   Q.near_key = plan[0];
   Q.span = plan[1];
   return Q;

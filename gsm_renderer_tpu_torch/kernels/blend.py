@@ -1,8 +1,9 @@
 """Tile blending (front-to-back alpha compositing) and image assembly.
 
 Port of ``gsm_renderer_tpu/kernels/blend.py``: ``blend_tiles_pallas``
-(``_row_blend_kernel``, depth modes "weighted" and "none", ``n_eyes`` 1 and
-2, ``r2_cutoff``, ``pixel_coords``) and ``assemble_image``.  The kernel is
+(``_row_blend_kernel``, depth modes "weighted", "none" and "first_hit",
+``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``, 16x16 and 32x16 tiles)
+and ``assemble_image``.  The kernel is
 ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W) depth
 directly -- (H, 2W) for two eyes side by side -- so assembly is fused into it
 on the card.
@@ -21,6 +22,13 @@ is the foveated frame's: pixel p of tile (tx, ty) evaluates the gaussians at
 the display-space point (coord_x[tx, p], coord_y[ty, p]) instead of its own
 integer corner (``stereo.foveated_raster_tables``).
 
+Depth mode "first_hit" (the Local renderer's): a pixel's depth is that of
+the first record whose alpha -- after the 0.99 clamp -- exceeds
+``FIRST_HIT_ALPHA``, 0 where none does; the pixel keeps compositing until
+its tile exits, so a hit after it saturated still counts.  The kernel
+blends 32x16 tiles (the Global renderer's; pixel p = ly * 32 + lx) in one
+eye without pixel coordinates, and first_hit depth in one eye.
+
 Early-exit rule, shared by the kernel and :func:`blend_tiles_plain`: a tile's
 span is walked in 256-record batches aligned to 128-record blocks (the Pallas
 kernel's 2 x 128-slot chunks); after each batch the tile stops once every
@@ -38,15 +46,24 @@ from .expand import THETA_UNIT, _f16_bits_to_f32, _u8f
 
 MIN_TRANSMITTANCE = 1.0 / 255.0
 ALPHA_CLAMP = 0.99
+#: first_hit depth: the first record with alpha above this
+FIRST_HIT_ALPHA = 0.1
+#: gsm_blend's depth_mode codes
+DEPTH_MODES = {"none": 0, "weighted": 1, "first_hit": 2}
 WORD_ROWS = 4
 BATCH = 256
 BLOCK = 128
 
 BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
     _native.P, _native.I, _native.P, _native.I, _native.P, _native.P,
-    _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.F, _native.F, _native.F, _native.F, _native.P, _native.P,
     _native.P, _native.P])
+
+
+def _check_depth_mode(depth_mode: str) -> None:
+    if depth_mode not in DEPTH_MODES:
+        raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
 
 
 def _check_words(entry_words, n_eyes: int) -> list:
@@ -96,16 +113,13 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
     the sorted ranks; ``tiles``: optional subset of tile ids (default all);
     ``pixel_coords``: optional foveated (coord_x, coord_y) tables (see the
     module docstring).  With ``r2_cutoff`` > 0 alpha is zeroed where q >
-    r2_cutoff.  Returns (tile_color (T', 256, 4), tile_depth (T', 256) or
-    None) for one eye, a list of such pairs for two, plus the number of
-    records each tile composited before its exit when ``return_processed``.
-    Records are composited one rank at a time across all tiles, each tile
-    stopping by the kernel's rule.
+    r2_cutoff.  Returns (tile_color (T', P, 4), tile_depth (T', P) or
+    None), P = tile_w * tile_h, for one eye, a list of such pairs for two,
+    plus the number of records each tile composited before its exit when
+    ``return_processed``.  Records are composited one rank at a time across
+    all tiles, each tile stopping by the kernel's rule.
     """
-    if tile_w != 16 or tile_h != 16:
-        raise NotImplementedError("the blend takes 16x16 tiles only")
-    if depth_mode not in ("weighted", "none"):
-        raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
+    _check_depth_mode(depth_mode)
     words = _check_words(entry_words, n_eyes)
     dev = sorted_key.device
     if tiles is None:
@@ -139,6 +153,9 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
              for _ in range(n_eyes)]
     acc = [[torch.zeros((n_t, pix), dtype=torch.float32, device=dev)
             for _ in range(4)] for _ in range(n_eyes)]
+    first_hit = depth_mode == "first_hit"
+    hit = [torch.zeros((n_t, pix), dtype=torch.bool, device=dev)
+           for _ in range(n_eyes)]
     active = count > 0
     processed = torch.zeros(n_t, dtype=torch.int64, device=dev)
     max_k = int(count.max()) if n_t else 0
@@ -158,8 +175,14 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
                 alpha = torch.where(q > r2_cutoff, 0.0, alpha)
             alpha = torch.where(valid[:, None], alpha, 0.0)
             w = alpha * trans[e]
-            for c, name in enumerate(("r", "g", "b", "depth")):
+            for c, name in enumerate(("r", "g", "b")):
                 acc[e][c] = acc[e][c] + w * at[name]
+            if first_hit:
+                took = ~hit[e] & (alpha > FIRST_HIT_ALPHA)
+                acc[e][3] = torch.where(took, at["depth"], acc[e][3])
+                hit[e] = hit[e] | took
+            else:
+                acc[e][3] = acc[e][3] + w * at["depth"]
             trans[e] = trans[e] * (1.0 - alpha)
         processed += valid.to(torch.int64)
         pos = start + k + 1
@@ -193,19 +216,28 @@ def assemble_image(tile_color, tile_depth, *, tiles_x: int, tiles_y: int,
 
 def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                      *, tiles_x: int, tiles_y: int, width: int, height: int,
+                     tile_w: int = 16, tile_h: int = 16,
                      depth_mode: str = "weighted", n_eyes: int = 1,
                      r2_cutoff: float = 0.0, pixel_coords=None):
     """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
     (H, n_eyes * W) or None), the eyes side by side.  The kernel blends one
-    eye without a cutoff (the mono frame) or two with ``r2_cutoff`` > 0 (the
-    stereo and foveated frames); it raises on the other pairings."""
-    if depth_mode not in ("weighted", "none"):
-        raise NotImplementedError(f"depth_mode {depth_mode!r} is not ported yet")
+    eye without a cutoff (the mono frames: 16x16 or 32x16 tiles, any depth
+    mode) or two with ``r2_cutoff`` > 0 (the stereo and foveated frames:
+    16x16 tiles, weighted or no depth); it raises on the other pairings."""
+    _check_depth_mode(depth_mode)
     words = _check_words(entry_words, n_eyes)
     if (n_eyes == 2) != (r2_cutoff > 0.0):
         raise NotImplementedError(
             f"the blend kernel takes n_eyes=2 with r2_cutoff > 0 or n_eyes=1 "
             f"without, got n_eyes={n_eyes}, r2_cutoff={r2_cutoff}")
+    if tile_h != 16 or tile_w not in (16, 32):
+        raise NotImplementedError(
+            f"the blend kernel takes 16x16 and 32x16 tiles, got {tile_w}x{tile_h}")
+    if (n_eyes == 2 or pixel_coords is not None) and (
+            tile_w != 16 or depth_mode == "first_hit"):
+        raise NotImplementedError(
+            "the dual-eye and pixel-coordinate blends take 16x16 tiles and "
+            "weighted or no depth")
     if not 1 <= idx_bits <= 32:
         raise ValueError(f"idx_bits must lie in [1, 32], got {idx_bits}")
     dev = sorted_key.device
@@ -230,7 +262,8 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                         dtype=torch.float32, device=dev)
     BLEND.launch(_native.ptr(sorted_key), idx_bits, _native.ptr_array(words),
                  len(words), _native.ptr(starts), _native.ptr(counts), tiles_x,
-                 tiles_y, width, height, int(with_depth), M.f32(THETA_UNIT),
+                 tiles_y, width, height, tile_w, DEPTH_MODES[depth_mode],
+                 M.f32(THETA_UNIT),
                  M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),
                  M.f32(r2_cutoff), *coords, _native.ptr(color),
                  _native.ptr(depth))
@@ -239,6 +272,7 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
 
 def blend_image(sorted_key, entry_words, idx_bits: int, starts, counts, *,
                 tiles_x: int, tiles_y: int, width: int, height: int,
+                tile_w: int = 16, tile_h: int = 16,
                 depth_mode: str = "weighted", n_eyes: int = 1,
                 r2_cutoff: float = 0.0, pixel_coords=None):
     """Blend + assemble: the CUDA kernel for CUDA tensors, the plain version
@@ -247,15 +281,17 @@ def blend_image(sorted_key, entry_words, idx_bits: int, starts, counts, *,
     if sorted_key.is_cuda:
         return blend_image_cuda(sorted_key, entry_words, idx_bits, starts,
                                 counts, tiles_x=tiles_x, tiles_y=tiles_y,
-                                width=width, height=height,
-                                depth_mode=depth_mode, n_eyes=n_eyes,
-                                r2_cutoff=r2_cutoff, pixel_coords=pixel_coords)
+                                width=width, height=height, tile_w=tile_w,
+                                tile_h=tile_h, depth_mode=depth_mode,
+                                n_eyes=n_eyes, r2_cutoff=r2_cutoff,
+                                pixel_coords=pixel_coords)
     out = blend_tiles_plain(sorted_key, entry_words, idx_bits, starts, counts,
-                            tiles_x=tiles_x, depth_mode=depth_mode,
-                            n_eyes=n_eyes, r2_cutoff=r2_cutoff,
-                            pixel_coords=pixel_coords)
+                            tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+                            depth_mode=depth_mode, n_eyes=n_eyes,
+                            r2_cutoff=r2_cutoff, pixel_coords=pixel_coords)
     eyes = [assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
-                           width=width, height=height)
+                           width=width, height=height, tile_w=tile_w,
+                           tile_h=tile_h)
             for tc, td in (out if n_eyes == 2 else [out])]
     if n_eyes == 1:
         return eyes[0]

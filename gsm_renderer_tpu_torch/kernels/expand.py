@@ -8,7 +8,12 @@ option ``count_rows``), ``row_expand_pallas`` (``_row_expand_kernel``),
 ``expand_slots_pallas`` (``_expand_kernel``, prebuilt table with KeyPlan
 keys, exact tests "mono", "stereo" and "warped") and
 ``warped_bounds_gather_pallas`` (``_bgather_kernel``).  The kernels are
-``csrc/binning.cu``.
+``csrc/binning.cu``.  Prep and the expand take 16x16 tiles, and in mode
+"mono" also the Global renderer's 32x16 (the 8x4 window keeps its geometry
+in tiles; only each test's pixel extents change); the row expansion takes
+16x16.  The JAX expand's ``fused_depth16`` key [tile:16 | depth16:16]
+needs no key layout of its own here: the KeyPlan with ``depth_span_bits=16``
+orders the slots the same way (``pipelines/common.py``).
 
 Mode "warped" is the foveated stereo frame's: the physical tile grid is
 non-uniform in display space, and a tile's display-space pixel rect is read
@@ -53,7 +58,7 @@ BOUNDS_LANES = 128
 
 PREP = _native.Kernel("prep", "binning", "gsm_prep", [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
-    _native.F, _native.F, _native.F,
+    _native.I, _native.F, _native.F, _native.F,
     _native.P, _native.P, _native.P, _native.P, _native.P,
     _native.P, _native.F])
 ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
@@ -63,7 +68,7 @@ ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
 EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.F, _native.F, _native.F, _native.P, _native.P])
+    _native.I, _native.F, _native.F, _native.F, _native.P, _native.P])
 BOUNDS_GATHER = _native.Kernel("bounds_gather", "binning", "gsm_bounds_gather", [
     _native.P, _native.P, _native.P, _native.I, _native.P])
 
@@ -403,6 +408,14 @@ def _check_mode(mode: str, words):
                          f"words, got {len(words)}")
 
 
+def _check_tiles(mode: str, tile_w: int, tile_h: int, what: str):
+    """The tiles a kernel takes: 16x16, and 32x16 in mode mono."""
+    if tile_h != 16 or not (tile_w == 16 or (tile_w == 32 and mode == "mono")):
+        raise NotImplementedError(
+            f"the {what} kernel takes 16x16 tiles, and 32x16 in mode mono; "
+            f"got {tile_w}x{tile_h} in mode {mode!r}")
+
+
 # ---------------------------------------------------------------------------
 # Kernel 2: binning prep
 # ---------------------------------------------------------------------------
@@ -472,9 +485,8 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
     look-back over :func:`scan_scratch`).  In mode "warped" the tests read
     the window's boundaries from the bounds table staged in shared
     memory."""
-    if tile_w != 16 or tile_h != 16:
-        raise NotImplementedError("the prep kernel takes 16x16 tiles only")
     _check_mode(mode, words)
+    _check_tiles(mode, tile_w, tile_h, "prep")
     _check_warped(mode, warped_bounds)
     dev = rect_word.device
     n = rect_word.shape[0]
@@ -489,7 +501,7 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
     mask = torch.empty(n, dtype=torch.int32, device=dev)
     ticket, status = scan_scratch(dev, n)
     PREP.launch(_native.ptr(rect_word), _native.ptr(rect_h), _native.ptr_array(words),
-                len(words), int(count_rows), n,
+                len(words), int(count_rows), n, tile_w,
                 M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                 M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr(rect_out),
                 _native.ptr(mask), _native.ptr(ticket), _native.ptr(status),
@@ -704,9 +716,8 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
     entry before the total gets wrong keys.  Prep and the row expansion
     make tables that meet it; a row table's dead tail past the total is
     allowed."""
-    if tile_w != 16 or tile_h != 16:
-        raise NotImplementedError("the expand kernel takes 16x16 tiles only")
     _check_mode(mode, words)
+    _check_tiles(mode, tile_w, tile_h, "expand")
     _check_warped(mode, warped_bounds)
     dev = offsets.device
     n = rect.shape[0]
@@ -721,7 +732,7 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
     out = torch.empty((2, capacity), dtype=torch.int32, device=dev)
     EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
                   _native.ptr(dsw), _native.ptr_array(words), len(words), n,
-                  capacity, tiles_x, d_hi, d_lo, idx_bits,
+                  capacity, tiles_x, tile_w, d_hi, d_lo, idx_bits,
                   M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                   M.f32(1.0 / 255.0), _native.ptr(out),
                   None if warped_bounds is None else _native.ptr(warped_bounds))

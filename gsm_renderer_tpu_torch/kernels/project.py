@@ -7,6 +7,13 @@ with ``_stereo_project_kernel``).  The kernels are ``csrc/project.cu``; they
 also fold in the JAX versions' XLA theta epilogues (atan2 and the u16
 packing), so one launch yields the finished record words.
 
+The mono projection takes 16x16 and 32x16 tiles (the Global renderer's),
+and with ``depth_key16`` emits the 16-bit half-depth key of the Global,
+Local and 16-bit-key DepthFirst frames in place of the 32-bit depth word:
+:func:`mathlib.half_key16` of the record's quantized f16 depth bits, and
+0xFFFFFFFF where culled (a KeyPlan, if given, is then not applied, as in
+JAX).  The dual-eye projection takes 16x16 tiles only.
+
 :func:`project_plain` and :func:`stereo_project_plain` are the same
 functions in plain PyTorch, operation for operation.  The dispatchers run
 them for CPU tensors and the CUDA kernels for CUDA tensors; there is no
@@ -232,14 +239,19 @@ def _depth_word(depth, alive, key_plan):
     return torch.where(alive, key_plan.normalize(dkey), key_plan.span)
 
 
+def _check_mono_tiles(tile_w: int, tile_h: int) -> None:
+    if tile_w not in (16, 32) or tile_h != 16:
+        raise NotImplementedError(
+            f"the projection takes 16x16 and 32x16 tiles, got {tile_w}x{tile_h}")
+
+
 def project_plain(comp, harm, view, proj, center, *, width: int, height: int,
                   tile_w: int, tile_h: int, sh_degree: int, near_plane: float,
                   far_plane: float, alpha_threshold: float,
                   total_ink_threshold: float, input_is_srgb: bool,
-                  key_plan=None) -> PackedProjection:
+                  key_plan=None, depth_key16: bool = False) -> PackedProjection:
     """Plain PyTorch version of the projection kernel, on any device."""
-    if tile_w != 16 or tile_h != 16:
-        raise NotImplementedError("the projection takes 16x16 tiles only")
+    _check_mono_tiles(tile_w, tile_h)
     view_m, proj_m, cen = M.mat(view), M.mat(proj), M.mat(center)
     k = frame_constants(proj, width=width, height=height,
                         near_plane=near_plane, far_plane=far_plane,
@@ -298,9 +310,12 @@ def project_plain(comp, harm, view, proj, center, *, width: int, height: int,
 
     rw = M.u32(pack_rect_word(min_tx, min_ty, rect_w))
     rw = torch.where(alive, rw, rw | CULLED_BIT)
+    if depth_key16:
+        dsw = torch.where(alive, M.half_key16(w2 >> 16), M.U32)
+    else:
+        dsw = _depth_word(depth, alive, key_plan)
     return PackedProjection(
-        rect_word=M.to_i32(rw), rect_h=rect_h,
-        dsw=M.to_i32(_depth_word(depth, alive, key_plan)),
+        rect_word=M.to_i32(rw), rect_h=rect_h, dsw=M.to_i32(dsw),
         words=[M.to_i32(w) for w in (w0, w1, w2, w3)], visible=alive)
 
 
@@ -308,10 +323,9 @@ def project_cuda(comp, harm, view, proj, center, *, width: int, height: int,
                  tile_w: int, tile_h: int, sh_degree: int, near_plane: float,
                  far_plane: float, alpha_threshold: float,
                  total_ink_threshold: float, input_is_srgb: bool,
-                 key_plan=None) -> PackedProjection:
+                 key_plan=None, depth_key16: bool = False) -> PackedProjection:
     """Launch ``csrc/project.cu`` on CUDA tensors."""
-    if tile_w != 16 or tile_h != 16:
-        raise NotImplementedError("the projection kernel takes 16x16 tiles only")
+    _check_mono_tiles(tile_w, tile_h)
     dev = comp.device
     n = comp.shape[1]
     n_coeffs = (sh_degree + 1) ** 2
@@ -328,7 +342,8 @@ def project_cuda(comp, harm, view, proj, center, *, width: int, height: int,
         np.asarray([k[name] for name in _PARAM_NAMES], np.float32)])
     tiles_x, tiles_y = -(-width // tile_w), -(-height // tile_h)
     ints = np.asarray([n, tiles_x, tiles_y, sh_degree, int(input_is_srgb),
-                       int(key_plan is not None)], np.int32)
+                       int(key_plan is not None), tile_w, int(depth_key16)],
+                      np.int32)
     plan = np.asarray([key_plan.near_key, key_plan.span] if key_plan else [0, 0],
                       np.uint32)
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(7)]
@@ -529,7 +544,7 @@ def stereo_project_cuda(comp, harm, views, projs, centers, scene_transform,
         np.asarray([scene_scale], np.float32), mid.reshape(-1)])
     tiles_x, tiles_y = -(-width // tile_w), -(-height // tile_h)
     ints = np.asarray([n, tiles_x, tiles_y, sh_degree, int(input_is_srgb),
-                       int(key_plan is not None)], np.int32)
+                       int(key_plan is not None), tile_w, 0], np.int32)
     plan = np.asarray([key_plan.near_key, key_plan.span] if key_plan else [0, 0],
                       np.uint32)
     out_i = torch.empty((10, n), dtype=torch.int32, device=dev)

@@ -327,3 +327,25 @@ def float_to_sortable_uint(v):
     bits = u32(v.contiguous().view(torch.int32))
     mask = torch.where((bits & 0x80000000) != 0, 0xFFFFFFFF, 0x80000000)
     return bits ^ mask
+
+
+def sortable_uint_to_float(u):
+    """Inverse of :func:`float_to_sortable_uint`: int64 tensor holding u32
+    keys -> float32."""
+    u = u & U32
+    bits = torch.where((u & 0x80000000) != 0, u ^ 0x80000000, u ^ U32)
+    return to_i32(bits).view(torch.float32)
+
+
+def half_key16(h):
+    """16-bit sortable key of float16 bits ``h`` (int64): bits ^ 0x8000,
+    with the order of negative halves reversed so that the mapping is
+    monotonic over all finite values."""
+    return torch.where((h & 0x8000) != 0, (~h) & 0xFFFF, h ^ 0x8000)
+
+
+def half_depth_key16(depth):
+    """Depth -> 16-bit sortable key (int64): the float16 bits of ``depth``
+    (round to nearest even) through :func:`half_key16`."""
+    h = depth.to(torch.float32).to(torch.float16).view(torch.int16)
+    return half_key16(h.to(torch.int64) & 0xFFFF)

@@ -25,6 +25,17 @@ ADAPTIVE_MARGIN = 1.04
 ADAPTIVE_REFRESH = 64
 
 
+#: the ROADMAP item of the stable-sort fallbacks (no tie-free KeyPlan fits)
+STABLE_SORT_ITEM = "Queue 2 A, the stable-sort fallback"
+
+
+def not_ported(what: str, item: str):
+    """The error for an option of the JAX package that this package does not
+    implement yet; ``item`` names its ROADMAP.md entry."""
+    return NotImplementedError(
+        f"{what} is not ported to gsm_renderer_tpu_torch yet (ROADMAP.md: {item})")
+
+
 def instance_capacity(config: RendererConfig, n: int,
                       factor: int | None = None) -> int:
     """Static instance capacity: ``config.max_instances`` or ``factor`` x
@@ -139,6 +150,11 @@ class GaussianRenderer:
 
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
         raise NotImplementedError
+
+    def render_stereo(self, gi, camera, width: int,
+                      height: int) -> RenderOutput:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support stereo rendering")
 
     def render_timed(self, gi, camera, width: int, height: int) -> RenderOutput:
         """render() with its device time in ``last_gpu_time`` (seconds):

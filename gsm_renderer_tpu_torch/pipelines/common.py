@@ -1,6 +1,7 @@
 """Shared pipeline machinery: record-word packing, the binning chain up to
 the instance sort (mono, mono with the row decomposition, stereo, foveated
-stereo), the sort itself, and sorted tile ids.
+stereo), the sort itself, sorted tile ids, and the 16-bit-depth-key chain
+of the Global, Local and DepthFirst BITS16 frames (:func:`d16_packed_sorted`).
 
 Port of the packed branch of ``gsm_renderer_tpu/pipelines/common.py``.
 The JAX package sorts the (key1, key2) pair with ``jax.lax.sort``; here one
@@ -12,15 +13,32 @@ lie outside every tile span, so their order does not matter.  The sort moves
 keys only: the blend reads each instance's record words through the entry
 index in the key's low bits, so no word table is gathered into sorted order
 (the JAX package's gather is a TPU habit).
+
+One key order for the 16-bit depth keys.  The JAX Global and Local frames,
+and its DepthFirst frame with 16-bit depth keys and tile ids, sort one fused
+key [tile:16 | depth16:16] with a stable sort over slots emitted in
+gaussian order; its DepthFirst frame with 16-bit depth keys and 32-bit tile
+ids uses the KeyPlan ``make_key_plan(num_tiles, n, depth_span_bits=16)``.
+That plan has d_hi = 32 - tile_bits >= 16 and d_lo = 0, so key1 = tile <<
+d_hi | depth16 and key2 = the gaussian index: the pair orders slots by
+(tile, depth16, gaussian index).  A gaussian has at most one slot per tile
+and the expand emits slots in gaussian order, so that is exactly the stable
+fused-key order.  All four configurations therefore go through the same
+KeyPlan expand, unstable keys-only sort and blend through the entry index;
+the fused key needs no layout of its own.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import config as cfg
 from .. import mathlib as M
 from ..kernels.expand import SENTINEL, binning_prep, expand_slots, row_expand
+from ..kernels.project import cached_projection_inputs, project_and_cull_packed
+from ..ops import binning as B
 from ..types import RenderRecord
+from .base import STABLE_SORT_ITEM, not_ported
 
 
 def pack_record_words(record: RenderRecord):
@@ -119,3 +137,61 @@ def binning_sorted_tile(sorted_key, *, plan_tuple):
     int64 keys."""
     k1 = ((sorted_key >> 32) & M.U32) ^ 0x80000000
     return torch.where(k1 == SENTINEL, SENTINEL, k1 >> plan_tuple[0])
+
+
+def d16_packed_sorted(gi, view, proj, center, prepared=None, *, width: int,
+                      height: int, capacity: int, tiles_x: int, tiles_y: int,
+                      tile_w: int, tile_h: int, sh_degree: int,
+                      alpha_threshold: float, total_ink_threshold: float,
+                      near_plane: float, far_plane: float,
+                      input_is_srgb: bool):
+    """The 16-bit-depth-key chain up to the sorted keys, shared by the
+    Global, Local and DepthFirst BITS16 frames (the JAX
+    ``d16_packed_sorted``): the projection emitting the half-depth key, prep
+    and expand with the d16 KeyPlan (see the module docstring) and the
+    unstable keys-only sort.  Returns (sorted int64 keys, the projection,
+    the plan, the unclamped slot total, the overflow flag)."""
+    plan = B.make_key_plan(tiles_x * tiles_y, gi.count, depth_span_bits=16)
+    if plan is None:  # more than 16 tile bits and too many gaussians
+        raise not_ported("the stable-sort fallback (no tie-free KeyPlan fits)",
+                         STABLE_SORT_ITEM)
+    packed = project_and_cull_packed(
+        gi, view, proj, center, prepared=prepared, width=width, height=height,
+        tile_w=tile_w, tile_h=tile_h, sh_degree=sh_degree,
+        near_plane=near_plane, far_plane=far_plane,
+        alpha_threshold=alpha_threshold,
+        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
+        depth_key16=True)
+    (key1, key2), _words, slot_total, overflow = binning_sort_operands(
+        packed, capacity=capacity, tiles_x=tiles_x, key_plan=plan,
+        tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
+    return sort_instances(key1, key2), packed, plan, slot_total, overflow
+
+
+def tile_ranges(sorted_key, plan, num_tiles: int):
+    """(starts, counts) int32 of each tile's span of the sorted int64 keys
+    of a KeyPlan ``plan``."""
+    sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)
+    return B.extract_tile_ranges(sorted_tile, num_tiles)
+
+
+def used_sh_degree(config, gi) -> int:
+    """The SH degree a frame evaluates: the config's, capped by the
+    input's coefficients."""
+    return min(config.sh_degree, {1: 0, 4: 1, 9: 2, 16: 3}[gi.sh_n_coeffs])
+
+
+def d16_frame_kwargs(renderer, gi, camera, width: int, height: int) -> dict:
+    """The keyword arguments a Global or Local frame takes from the
+    renderer's config, the input and the camera (the capacity of the
+    renderer's own kind, the cached projection layout)."""
+    c = renderer.config
+    sh_degree = used_sh_degree(c, gi)
+    return dict(
+        width=width, height=height,
+        capacity=renderer.pick_capacity(gi.count, kind=renderer._mono_key),
+        sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
+        total_ink_threshold=c.total_ink_threshold,
+        near_plane=camera.near_plane, far_plane=camera.far_plane,
+        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
+        prepared=cached_projection_inputs(gi, sh_degree))

@@ -17,6 +17,12 @@ mono frame is
   7. blend + assemble, records read through
      the keys' entry index                   kernels/blend.py     (kernel 5)
 
+With 16-bit depth keys (``depth_sort_key_precision=BITS16``) the mono frame
+takes the Global and Local renderers' chain instead
+(:func:`~gsm_renderer_tpu_torch.pipelines.common.d16_packed_sorted`: the
+projection emits the half-depth key, no row decomposition, the d16 KeyPlan
+for both tile-id precisions).
+
 A stereo frame projects both eyes in one pass (kernel 6), bins the union
 rects with the dual-eye q <= 9 test carrying 8 record words, and blends both
 eyes in one pass into an (H, 2W) image.  A foveated stereo frame
@@ -27,8 +33,8 @@ are re-binned onto the physical tile grid through the fitted inverse warp
 (plain torch on the device, :func:`foveated_rects`), prep and expand run in
 mode "warped" (display-space tile rects from the bounds table), and the
 blend samples each physical pixel at its display-space coordinate.  No host
-read except the capacity lock-in (pipelines/base.py).  Options that are not
-ported yet raise NotImplementedError naming their ROADMAP item.
+read except the capacity lock-in (pipelines/base.py).  ``HardwareRenderer``
+is not ported yet and raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,14 +54,9 @@ from ..mathlib import u32
 from ..ops import binning as B
 from ..stereo import compress_foveated, foveated_raster_tables
 from ..types import FrameHeader, RenderOutput
-from .base import GaussianRenderer
-from .common import binning_sort_operands, binning_sorted_tile, sort_instances
-
-def not_ported(what: str, item: str):
-    """The error for an option of the JAX package that this package does not
-    implement yet; ``item`` names its ROADMAP.md entry."""
-    return NotImplementedError(
-        f"{what} is not ported to gsm_renderer_tpu_torch yet (ROADMAP.md: {item})")
+from .base import STABLE_SORT_ITEM, GaussianRenderer, not_ported
+from .common import (binning_sort_operands, d16_packed_sorted,
+                     sort_instances, tile_ranges, used_sh_degree)
 
 
 def _row_demand(rect_word, rect_h):
@@ -71,8 +72,8 @@ def _row_demand(rect_word, rect_h):
 
 def _mono_key_statics(n_gaussians: int, *, width, height, tile_w, tile_h,
                       near_plane, far_plane, row_capacity: int = 0):
-    """The mono frame's KeyPlan (32-bit depth keys; the same plan for 16-
-    and 32-bit tile ids, the fused depth16 key not being ported).  With
+    """The mono frame's KeyPlan for 32-bit depth keys (the same plan for 16-
+    and 32-bit tile ids).  With
     ``row_capacity`` > 0 its index bits address virtual rows; None when the
     index field no longer fits -- callers then run with
     ``row_capacity=0``."""
@@ -88,17 +89,19 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
                       near_plane: float, far_plane: float,
                       input_is_srgb: bool, tile_w: int = 16, tile_h: int = 16,
                       depth_mode: str = "weighted",
-                      row_capacity: int = 0,
-                      tile_id_bits: int = 16) -> RenderOutput:
+                      row_capacity: int = 0, tile_id_bits: int = 16,
+                      depth_key_bits: int = 32) -> RenderOutput:
     """One mono DepthFirst frame on the device of ``gi``.  ``view``/``proj``
     (4, 4) and ``center`` (3,) are host arrays; ``prepared`` an optional
     cached (comp, harm) projection layout.  ``row_capacity`` > 0 runs the
     per-row exact-span decomposition of oversized rects over that many
     virtual rows (bitwise-identical image, smaller slot volume) when the
-    row-addressing KeyPlan fits, else the full-rect expansion.  With 32-bit
-    depth keys the KeyPlan frame is the same for ``tile_id_bits`` 16 and 32
-    (as in JAX, the bits only gate the 16-bit tile-id guard below and the
-    fused depth16 key, which is not ported)."""
+    row-addressing KeyPlan fits, else the full-rect expansion.
+    ``depth_key_bits`` 16 sorts by the 16-bit half-depth key (the d16 chain
+    of pipelines/common.py; rows off, as in JAX).  The frame is the same
+    for ``tile_id_bits`` 16 and 32 under either depth key: the bits only
+    gate the 16-bit tile-id guard below (in JAX also the choice between the
+    fused depth16 key and the d16 KeyPlan, which order the slots alike)."""
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
     if tile_id_bits == 16 and num_tiles > 0xFFFF:
@@ -107,34 +110,38 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
             "TileIdPrecision.BITS32")
     statics = dict(width=width, height=height, tile_w=tile_w, tile_h=tile_h,
                    near_plane=near_plane, far_plane=far_plane)
-    key_plan = None
-    if row_capacity > 0:
-        key_plan = _mono_key_statics(gi.count, row_capacity=row_capacity,
-                                     **statics)
-    if key_plan is None:
-        row_capacity = 0
-        key_plan = _mono_key_statics(gi.count, **statics)
-    if key_plan is None:
-        raise not_ported("the stable-sort fallback (no tie-free KeyPlan fits)",
-                         "Queue 1, Global and Local renderers")
-
-    packed = project_and_cull_packed(
-        gi, view, proj, center, prepared=prepared, width=width, height=height,
-        tile_w=tile_w, tile_h=tile_h, sh_degree=sh_degree,
-        near_plane=near_plane, far_plane=far_plane,
-        alpha_threshold=alpha_threshold,
-        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
-        key_plan=key_plan)
-    (key1, key2), entry_words, slot_total, overflow = binning_sort_operands(
-        packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
-        row_capacity=row_capacity, tile_w=tile_w, tile_h=tile_h,
-        alpha_threshold=alpha_threshold)
-    sorted_key = sort_instances(key1, key2)
-    sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
-    starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
+    proj_kw = dict(sh_degree=sh_degree, alpha_threshold=alpha_threshold,
+                   total_ink_threshold=total_ink_threshold,
+                   input_is_srgb=input_is_srgb)
+    if depth_key_bits == 16:
+        sorted_key, packed, key_plan, slot_total, overflow = d16_packed_sorted(
+            gi, view, proj, center, prepared, capacity=capacity,
+            tiles_x=tiles_x, tiles_y=tiles_y, **statics, **proj_kw)
+        entry_words = packed.words
+    else:
+        key_plan = None
+        if row_capacity > 0:
+            key_plan = _mono_key_statics(gi.count, row_capacity=row_capacity,
+                                         **statics)
+        if key_plan is None:
+            row_capacity = 0
+            key_plan = _mono_key_statics(gi.count, **statics)
+        if key_plan is None:
+            raise not_ported("the stable-sort fallback (no tie-free KeyPlan "
+                             "fits)", STABLE_SORT_ITEM)
+        packed = project_and_cull_packed(
+            gi, view, proj, center, prepared=prepared, key_plan=key_plan,
+            **statics, **proj_kw)
+        (key1, key2), entry_words, slot_total, overflow = binning_sort_operands(
+            packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
+            row_capacity=row_capacity, tile_w=tile_w, tile_h=tile_h,
+            alpha_threshold=alpha_threshold)
+        sorted_key = sort_instances(key1, key2)
+    starts, counts = tile_ranges(sorted_key, key_plan, num_tiles)
     color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
                                starts, counts, tiles_x=tiles_x,
                                tiles_y=tiles_y, width=width, height=height,
+                               tile_w=tile_w, tile_h=tile_h,
                                depth_mode=depth_mode)
     header = FrameHeader(
         visible_count=packed.visible.sum().to(torch.int32),
@@ -168,7 +175,7 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
                                far_plane=far_plane)
     if key_plan is None:
         raise not_ported("the stable-sort stereo fallback (no tie-free "
-                         "KeyPlan fits)", "Queue 1, side-by-side stereo")
+                         "KeyPlan fits)", STABLE_SORT_ITEM)
     ((key1, key2), entry_words, slot_total, overflow, visible_count,
      total_live) = _stereo_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
@@ -178,8 +185,7 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h)
     sorted_key = sort_instances(key1, key2)
-    sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
-    starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
+    starts, counts = tile_ranges(sorted_key, key_plan, num_tiles)
     color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
                                starts, counts, tiles_x=tiles_x,
                                tiles_y=tiles_y, width=width, height=height,
@@ -323,7 +329,7 @@ def depth_first_stereo_foveated_frame(
                                far_plane=far_plane)
     if key_plan is None:
         raise not_ported("the stable-sort foveated fallback (no tie-free "
-                         "KeyPlan fits)", "Queue 1, Global and Local renderers")
+                         "KeyPlan fits)", STABLE_SORT_ITEM)
     ((key1, key2), entry_words, slot_total, overflow, visible_count,
      total_live) = _foveated_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
@@ -335,8 +341,7 @@ def depth_first_stereo_foveated_frame(
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h, foveated_lod=foveated_lod)
     sorted_key = sort_instances(key1, key2)
-    sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=key_plan.kernel_tuple)
-    starts, counts = B.extract_tile_ranges(sorted_tile, num_tiles)
+    starts, counts = tile_ranges(sorted_key, key_plan, num_tiles)
     color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
                                starts, counts, tiles_x=tiles_x,
                                tiles_y=tiles_y, width=render_width,
@@ -403,29 +408,20 @@ class DepthFirstRenderer(GaussianRenderer):
                             depth=depth, header=out.header)
 
 
-def _check_ported_options(c):
-    """The mono frame's unported option.  Stereo and foveated frames take
-    neither key precision, as in JAX, and render the same frame under any."""
-    if c.depth_sort_key_precision != cfg.DepthSortKeyPrecision.BITS32:
-        raise not_ported("depth_sort_key_precision=BITS16",
-                         "Queue 1, Global and Local renderers")
-
-
-def _sh_degree(c, gi):
-    return min(c.sh_degree, {1: 0, 4: 1, 9: 2, 16: 3}[gi.sh_n_coeffs])
-
-
 def _mono_render(self, gi, camera, width, height):
+    """The mono frame.  Stereo and foveated frames take neither key
+    precision, as in JAX, and render the same frame under any."""
     self.validate_inputs(gi, width, height)
     c = self.config
-    _check_ported_options(c)
     n = gi.count
     tile_w, tile_h = cfg.DEPTH_FIRST_TILE
+    depth_key_bits = c.depth_sort_key_precision.value
     # depth_first_frame falls back to the full-rect path when the
-    # row-addressing KeyPlan does not fit
+    # row-addressing KeyPlan does not fit; 16-bit depth keys run without
+    # rows, as in JAX
     row_cap = (self.pick_row_capacity(n, kind=self._mono_key)
-               if c.row_expand else 0)
-    sh_degree = _sh_degree(c, gi)
+               if c.row_expand and depth_key_bits == 32 else 0)
+    sh_degree = used_sh_degree(c, gi)
     out = depth_first_frame(
         gi, camera.view_matrix, camera.projection_matrix, camera.position,
         cached_projection_inputs(gi, sh_degree),
@@ -437,7 +433,8 @@ def _mono_render(self, gi, camera, width, height):
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
         tile_w=tile_w, tile_h=tile_h,
         depth_mode="weighted" if c.depth_output else "none",
-        row_capacity=row_cap, tile_id_bits=c.tile_id_precision.value)
+        row_capacity=row_cap, tile_id_bits=c.tile_id_precision.value,
+        depth_key_bits=depth_key_bits)
     self.note_frame(n, out.header, kind=self._mono_key)
     return self.finalize_output(out)
 
@@ -458,7 +455,7 @@ def _stereo_render(self, gi, camera, width, height):
     c = self.config
     n = gi.count
     left = camera.left
-    sh_degree = _sh_degree(c, gi)
+    sh_degree = used_sh_degree(c, gi)
     out = depth_first_stereo_frame(
         gi, *_stereo_rig(camera), cached_projection_inputs(gi, sh_degree),
         width=width, height=height,
@@ -478,7 +475,7 @@ def _stereo_foveated_render(self, gi, camera, target):
     c = self.config
     n = gi.count
     left = camera.left
-    sh_degree = _sh_degree(c, gi)
+    sh_degree = used_sh_degree(c, gi)
     kind = self._stereo_key + "_fov"
     out = depth_first_stereo_foveated_frame(
         gi, *_stereo_rig(camera), foveated_device_tables(target, self.device),
@@ -499,20 +496,8 @@ def _stereo_foveated_render(self, gi, camera, target):
     return self.finalize_output(out)
 
 
-class _NotPortedRenderer(GaussianRenderer):
-    _item = ""
+class HardwareRenderer(GaussianRenderer):
+    """Not ported yet: raises NotImplementedError naming its ROADMAP item."""
 
     def __init__(self, *args, **kwargs):
-        raise not_ported(type(self).__name__, self._item)
-
-
-class GlobalRenderer(_NotPortedRenderer):
-    _item = "Queue 1, Global and Local renderers"
-
-
-class LocalRenderer(_NotPortedRenderer):
-    _item = "Queue 1, Global and Local renderers"
-
-
-class HardwareRenderer(_NotPortedRenderer):
-    _item = "Queue 1, HardwareRenderer"
+        raise not_ported(type(self).__name__, "Queue 1, HardwareRenderer")

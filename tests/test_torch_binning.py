@@ -21,6 +21,15 @@ Each port stage is fed the JAX stage's own inputs:
   the sorted keys.
 * the all-ties scene of tests/test_exact_ordering.py through the port:
   per-tile instance order equals the NumPy oracle's.
+* 32x16 tiles with 16-bit depth keys (the Global renderer's chain, fixture
+  ``chain32``): the JAX projection in mode ``depth_key16``, then prep at
+  ``tile_w=32`` (held as above) and the JAX ``fused_depth16`` expand
+  against the port's expand over the d16 KeyPlan: per slot the tile and
+  the 16-bit depth key of the fused key equal the port key1's fields
+  (key1 = tile << d_hi | depth16), the carried words equal the entry words
+  at key2's index, total and overflow equal; and JAX's stable sort of the
+  fused key orders the records exactly as the port's unstable sort of its
+  key pair: equal tile ranges, equal words at every rank.
 """
 
 import jax
@@ -125,15 +134,60 @@ def port_plan():
     return TB.make_key_plan(TILES_X * TILES_Y, N, near_plane=NEAR, far_plane=FAR)
 
 
+TILES_X32 = -(-W // 32)
+
+
+@pytest.fixture(scope="module")
+def chain32():
+    """The JAX Global chain (interpret mode) at 32x16 tiles: projection
+    with the half-depth key, prep, fused_depth16 expand and its stable
+    sort, as numpy."""
+    ds = generate_visible_gaussians(N, sh_degree=1, seed=12,
+                                    scale_range=(0.005, 0.12))
+    cam = G.make_camera(W, H, far=FAR)
+    view, proj, center = cam.astuple_jax()
+    packed = jax_project(ds.to_input(), view, proj, center, width=W, height=H,
+                         tile_w=32, tile_h=16, sh_degree=1, near_plane=NEAR,
+                         far_plane=FAR, alpha_threshold=0.005,
+                         total_ink_threshold=2.0, input_is_srgb=False,
+                         depth_key16=True, interpret=True)
+    tab = JE.binning_prep_pallas(packed.rect_word, packed.rect_h, packed.dsw,
+                                 packed.words, tile_w=32, interpret=True)
+    flat = np.asarray(tab).reshape(tab.shape[0], -1)
+    cap = (int(flat[0, N]) // 4096 + 1) * 4096
+    outs = JE.expand_slots_pallas(
+        None, None, None, capacity=cap, tiles_x=TILES_X32, exact_test=True,
+        fused_depth16=True, prebuilt_tab=tab, n_gaussians=N, tile_w=32,
+        interpret=True)
+    # (key, dsw, w0..w3) in slot order, then total and overflow
+    srt = jax.lax.sort((outs[0],) + tuple(outs[2:6]), num_keys=1,
+                       is_stable=True)
+    sorted_tile = jax_sorted_tile(srt[0], fused_depth16=True, plan_tuple=None)
+    starts, counts = JB.extract_tile_ranges(sorted_tile, TILES_X32 * TILES_Y)
+    return dict(
+        packed=dict(rect_word=np.asarray(packed.rect_word),
+                    rect_h=np.asarray(packed.rect_h), dsw=np.asarray(packed.dsw),
+                    words=[np.asarray(w) for w in packed.words]),
+        offsets=flat[0, :N + 1], rect=flat[1, :N], mask=flat[2, :N],
+        dsw=flat[3, :N], words=[flat[4 + k, :N] for k in range(4)],
+        capacity=cap, expand=[np.asarray(o) for o in outs],
+        sorted=[np.asarray(o) for o in srt], starts=np.asarray(starts),
+        counts=np.asarray(counts))
+
+
+def d16_plan():
+    return TB.make_key_plan(TILES_X32 * TILES_Y, N, depth_span_bits=16)
+
+
 def test_key_plan_matches_jax(chain):
     assert port_plan().kernel_tuple == chain["plan"].kernel_tuple
     assert (port_plan().near_key, port_plan().span) == (chain["plan"].near_key,
                                                         chain["plan"].span)
 
 
-def _mask_flip_gaps(mask_ref, mask_got, p, flips):
+def _mask_flip_gaps(mask_ref, mask_got, p, flips, tile_w=16):
     """Relative gap |d2min - cutoff| / cutoff, in float64, of every flipped
-    mask bit (computed from the quantized record)."""
+    mask bit (computed from the quantized record; tiles of tile_w x 16)."""
     gaps = []
     w0, w1, w2, w3 = (u32(w) for w in p["words"])
     rw = u32(p["rect_word"])
@@ -148,23 +202,35 @@ def _mask_flip_gaps(mask_ref, mask_got, p, flips):
         ca, cb, cc = c * c * iv1 + s * s * iv2, c * s * (iv1 - iv2), s * s * iv1 + c * c * iv2
         op = float((w3[i] >> 24) & 0xFF) / 255.0
         cut = -2.0 * np.log(0.005 / op)
-        x0, y0 = (rw[i] & 0x3FF) * 16.0 - mx, ((rw[i] >> 10) & 0x3FF) * 16.0 - my
+        x0 = (rw[i] & 0x3FF) * float(tile_w) - mx
+        y0 = ((rw[i] >> 10) & 0x3FF) * 16.0 - my
         for b in range(32):
             if ((int(mask_ref[i]) ^ int(mask_got[i])) >> b) & 1:
-                xmin, ymin = x0 + (b % 8) * 16.0, y0 + (b // 8) * 16.0
-                d2 = min_quad_rect(xmin, xmin + 16.0, ymin, ymin + 16.0, ca, cb, cc)
+                xmin, ymin = x0 + (b % 8) * float(tile_w), y0 + (b // 8) * 16.0
+                d2 = min_quad_rect(xmin, xmin + tile_w, ymin, ymin + 16.0, ca,
+                                   cb, cc)
                 gaps.append(abs(d2 - cut) / cut)
     return gaps
 
 
 def test_prep_matches_pallas(chain):
+    _assert_prep_matches(chain, 16)
+
+
+def test_prep_tile_w32_matches_pallas(chain32):
+    _assert_prep_matches(chain32, 32)
+
+
+def _assert_prep_matches(chain, tile_w):
     p = chain["packed"]
     offsets, rect, mask = TE.binning_prep(
-        i32(p["rect_word"]), i32(p["rect_h"]), [i32(w) for w in p["words"]])
+        i32(p["rect_word"]), i32(p["rect_h"]), [i32(w) for w in p["words"]],
+        tile_w=tile_w)
     mask_ref, mask_got = u32(chain["mask"]), u32(mask.numpy())
     flips = mask_ref != mask_got
     assert flips.sum() <= int(0.002 * N), f"{flips.sum()} mask flips"
-    assert all(g < 1e-4 for g in _mask_flip_gaps(mask_ref, mask_got, p, flips))
+    assert all(g < 1e-4 for g in _mask_flip_gaps(mask_ref, mask_got, p, flips,
+                                                  tile_w))
     same = ~flips
     off_ref, off_got = chain["offsets"].astype(np.int64), offsets.numpy()
     cnt_ref, cnt_got = np.diff(off_ref), np.diff(off_got)
@@ -194,6 +260,54 @@ def test_expand_matches_pallas(chain, which):
     assert int(total) == int(ref[6])
     assert int(overflow) == int(ref[7])
     assert int(overflow) == (1 if which == "small" else 0)
+
+
+def test_expand_d16_tile_w32_matches_fused_key(chain32):
+    """The port's expand over the d16 KeyPlan against JAX's fused
+    [tile:16 | depth16:16] key, slot for slot."""
+    plan = d16_plan()
+    d_hi, d_lo, idx_bits = plan.kernel_tuple
+    assert d_lo == 0 and d_hi >= 16
+    ref = chain32["expand"]
+    key1, key2, total, overflow = TE.expand_slots(
+        i32(chain32["offsets"]), i32(chain32["rect"]), i32(chain32["mask"]),
+        i32(chain32["dsw"]), [i32(w) for w in chain32["words"]],
+        capacity=chain32["capacity"], tiles_x=TILES_X32, key_plan=plan,
+        tile_w=32)
+    k1, jkey = u32(key1.numpy()), u32(ref[0])
+    live = jkey != TE.SENTINEL
+    np.testing.assert_array_equal(k1 != TE.SENTINEL, live)
+    np.testing.assert_array_equal(k1[live] >> d_hi, jkey[live] >> 16)
+    np.testing.assert_array_equal(k1[live] & ((1 << d_hi) - 1),
+                                  jkey[live] & 0xFFFF)
+    assert_words_at_entries(key1, key2, idx_bits, chain32["words"], ref[2:6])
+    assert int(total) == int(ref[6])
+    assert int(overflow) == int(ref[7]) == 0
+    assert live.sum() > N
+
+
+def test_sort_d16_tile_w32_matches_stable_fused_sort(chain32):
+    """JAX's stable sort of the fused key and the port's unstable sort of
+    the d16 KeyPlan pair give the same records at every rank."""
+    plan = d16_plan()
+    sorted_key = TC.sort_instances(*_port_keys(chain32, plan))
+    starts, counts = TC.tile_ranges(sorted_key, plan, TILES_X32 * TILES_Y)
+    np.testing.assert_array_equal(starts.numpy(), chain32["starts"])
+    np.testing.assert_array_equal(counts.numpy(), chain32["counts"])
+    sk = sorted_key.numpy()
+    k1, k2 = ((sk >> 32) & 0xFFFFFFFF) ^ 0x80000000, sk & 0xFFFFFFFF
+    assert_words_at_entries(k1, k2, plan.idx_bits, chain32["words"],
+                            chain32["sorted"][1:5])
+    assert counts.sum() > N
+
+
+def _port_keys(chain32, plan):
+    key1, key2, _total, _overflow = TE.expand_slots(
+        i32(chain32["offsets"]), i32(chain32["rect"]), i32(chain32["mask"]),
+        i32(chain32["dsw"]), [i32(w) for w in chain32["words"]],
+        capacity=chain32["capacity"], tiles_x=TILES_X32, key_plan=plan,
+        tile_w=32)
+    return key1, key2
 
 
 def test_sort_and_ranges_match_jax(chain):

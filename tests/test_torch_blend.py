@@ -18,6 +18,13 @@ identity key, ``arange(C)`` with ``idx_bits = 32``.  One more test holds the
 plain blend through permuted keys and an entry table bit-equal to the plain
 blend of the same records gathered into sorted order (mono, stereo, pixel
 coordinates).
+
+Depth mode "first_hit" (the Local renderer's) and 32x16 tiles (the Global
+renderer's) against the Pallas kernel: colour and alpha within COLOR_TOL,
+weighted depth within DEPTH_TOL; the first-hit depth equals the Pallas
+kernel's at every pixel but those whose first alpha > 0.1 record differs
+(an alpha within float noise of 0.1: XLA and PyTorch exp / log differ by an
+ulp), counted and capped at 0.5% of the pixels.
 """
 
 import jax.numpy as jnp
@@ -41,14 +48,14 @@ def f16b(x):
 
 
 def synth(rng, tiles_x, tiles_y, per_tile, sigma=(0.6, 12.0), op=(1, 256),
-          depth=(0.1, 50.0)):
+          depth=(0.1, 50.0), tile_w=16):
     """Quantized records for ``per_tile`` instances in each tile (a few tiles
     empty or short, dead zero slots after the last span), with the XLA
     oracle's attribute table built from the decoded values."""
     n_t = tiles_x * tiles_y
     n_live = n_t * per_tile
     cap = -(-(n_live + 300) // 128) * 128
-    mx = rng.uniform(0, tiles_x * 16, n_live).astype(np.float32)
+    mx = rng.uniform(0, tiles_x * tile_w, n_live).astype(np.float32)
     my = rng.uniform(0, tiles_y * 16, n_live).astype(np.float32)
     s1 = rng.uniform(*sigma, n_live).astype(np.float32)
     s2 = rng.uniform(*sigma, n_live).astype(np.float32)
@@ -136,6 +143,61 @@ def test_blend_matches_pallas_and_xla(case):
     else:
         assert (processed == counts).all()
     assert float(color[..., :3].max()) > 0.05
+
+
+@pytest.mark.parametrize("depth_mode,tile_w", [("first_hit", 16),
+                                               ("weighted", 32),
+                                               ("first_hit", 32)])
+def test_blend_modes_match_pallas(depth_mode, tile_w):
+    rng = np.random.default_rng(27)
+    tiles_x, tiles_y = 3, 2
+    # half the tiles saturate mid-span: the early exit and late hits count
+    d = synth(rng, tiles_x, tiles_y, 300, sigma=(1.0, 16.0), op=(20, 256),
+              depth=(1.0, 12.0), tile_w=tile_w)
+    starts, counts = jnp.asarray(d["starts"]), jnp.asarray(d["counts"])
+    ref_color, ref_depth = (np.asarray(x) for x in JK.blend_tiles_pallas(
+        d["words"], starts, counts, tiles_x=tiles_x, tiles_y=tiles_y,
+        tile_w=tile_w, depth_mode=depth_mode, interpret=True))
+    color, depth = port_blend(dict(d, tiles_x=tiles_x), tile_w=tile_w,
+                              depth_mode=depth_mode)
+    assert color.shape == (tiles_x * tiles_y, tile_w * 16, 4)
+    np.testing.assert_allclose(color.numpy(), ref_color, atol=COLOR_TOL)
+    if depth_mode == "weighted":
+        np.testing.assert_allclose(depth.numpy(), ref_depth, atol=DEPTH_TOL)
+    else:
+        flips = depth.numpy() != ref_depth
+        assert flips.sum() <= 0.005 * depth.numel(), f"{flips.sum()} flips"
+        assert (depth.numpy() > 0).mean() > 0.5  # most pixels hit
+        assert (depth.numpy() == 0).any() or (counts == 0).any()
+    assert float(color[..., :3].max()) > 0.05
+
+
+def test_blend_first_hit_semantics():
+    """First-hit depth on hand-made records: the first record with alpha >
+    0.1 sets the depth even when later ones are more opaque; a faint first
+    record (alpha <= 0.1) is skipped; no hit gives 0; the colour equals the
+    weighted blend's."""
+    def rec(mx, my, s, op, d):
+        return [int(f16b(mx) | (f16b(my) << 16)), int(f16b(s) << 16),
+                int(f16b(s) | (f16b(d) << 16)), int(0x808080 | (op << 24))]
+
+    # pixel (8, 8) of tile 0: records at its centre; tile 1 gets a faint one
+    recs = [rec(8, 8, 6.0, 20, 3.0),     # alpha ~ 0.078: no hit
+            rec(8, 8, 6.0, 100, 5.0),    # alpha ~ 0.39: the first hit
+            rec(8, 8, 6.0, 250, 7.0),    # more opaque, later
+            rec(24, 8, 6.0, 20, 9.0)]    # tile 1: faint only
+    table = torch.tensor(np.array(recs, np.int64).T.astype(np.uint32).view(np.int32))
+    starts, counts = torch.tensor([0, 3], dtype=torch.int32), torch.tensor(
+        [3, 1], dtype=torch.int32)
+    kw = dict(tiles_x=2)
+    c_fh, d_fh = TK.blend_tiles_plain(identity_key(4), table, 32, starts,
+                                      counts, depth_mode="first_hit", **kw)
+    c_w, _ = TK.blend_tiles_plain(identity_key(4), table, 32, starts, counts,
+                                  **kw)
+    assert torch.equal(c_fh, c_w)
+    p = 8 * 16 + 8
+    assert float(d_fh[0, p]) == 5.0
+    assert float(d_fh[1, p]) == 0.0
 
 
 def test_blend_no_depth(case):

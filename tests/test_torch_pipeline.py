@@ -201,12 +201,27 @@ def test_capacity_policy():
           tile_id_precision=T.TileIdPrecision.BITS32), "BITS16 rows"),
 ])
 def test_unported_options_raise(cfg, what):
-    """Mono frames with 16-bit depth keys are not ported (they belong with
-    the Global and Local renderers), whatever the tile ids and rows."""
+    """Mono frames with 16-bit depth keys, the last mono option that raised
+    as unported, now render whatever the tile ids and rows: rows off (as in
+    JAX), the frame of ``depth_first_frame(depth_key_bits=16)``.  The one
+    renderer still unported raises, naming its ROADMAP item."""
+    from gsm_renderer_tpu_torch.pipelines.depth_first import depth_first_frame
+
     r = T.DepthFirstRenderer(T.RendererConfig(**cfg), device="cpu")
     gi = generate_visible_gaussians(50).to_input(device="cpu")
+    cam = T.make_camera(64, 64)
+    out = r.render(gi, cam, 64, 64)
+    ref = depth_first_frame(
+        gi, cam.view_matrix, cam.projection_matrix, cam.position, width=64,
+        height=64, capacity=instance_capacity(r.config, 50), sh_degree=0,
+        alpha_threshold=0.005, total_ink_threshold=2.0, near_plane=0.1,
+        far_plane=cam.far_plane, input_is_srgb=False, depth_key_bits=16)
+    assert int(out.header.visible_count) > 0
+    np.testing.assert_array_equal(out.color.numpy(), ref.color.numpy())
+    np.testing.assert_array_equal(out.depth.numpy(), ref.depth.numpy())
+    assert int(out.header.slot_total) == int(ref.header.slot_total)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render(gi, T.make_camera(64, 64), 64, 64)
+        T.HardwareRenderer(T.RendererConfig(**cfg), device="cpu")
 
 
 @pytest.mark.parametrize("frame", ["stereo", "foveated"])
@@ -288,9 +303,17 @@ def test_render_stereo_renders():
 
 
 def test_unported_renderers_and_modes_raise():
-    for cls in (T.GlobalRenderer, T.LocalRenderer, T.HardwareRenderer):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(device="cpu")
+    """HardwareRenderer is not ported and raises naming its ROADMAP item;
+    the Global and Local renderers are mono only and refuse stereo with
+    the JAX package's message."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.HardwareRenderer(device="cpu")
+    gi = generate_visible_gaussians(20).to_input(device="cpu")
+    stereo = T.make_side_by_side_stereo(T.make_camera(64, 48))
+    for cls in (T.GlobalRenderer, T.LocalRenderer):
+        with pytest.raises(NotImplementedError,
+                           match=f"{cls.__name__} does not support stereo"):
+            cls(device="cpu").render_stereo(gi, stereo, 64, 48)
 
 
 def test_import_loads_no_jax():
