@@ -59,6 +59,18 @@ Phases (each raises on failure, and the script then exits non-zero):
    probe with the device held (``host_syncs``, ``host_waits``; the latter
    for the stereo frame too): each prints where the host waited, if it
    did.
+4h. The HardwareRenderer on the headline scene: ``HardwareRenderer(config)
+   .render`` (full rects: prep and the expand in mode "none", the blend with
+   the r^2 <= 9 cutoff and normalized depth; 8 x gaussians of capacity
+   before the lock-in), 2 lock-in, 3 warm-up and 10 timed frames with
+   launch counts of its own (project, prep, expand and blend each > 0),
+   overflow 0, finite, non-black, no row total, its split and a traced
+   device split by stage; the INSTANCED and back_to_front frames bit-equal
+   to it, its colour within a mean |d| of 0.01 of the headline's.  Then
+   ``render_stereo`` and ``render_stereo_foveated`` through the same
+   renderer (launch counts, times, split, trace): colour bit-equal to the
+   DepthFirst frames of phases 4 and 4f, depth bit-equal to their depth
+   over max(alpha, 1e-6).
 5. Each kernel and mode on the frames' own intermediate tensors (prep and
    expand both as the rows-on and as the rows-off frame run them, in their
    stereo modes, and in mode "warped" on the foveated frame's tensors with
@@ -82,21 +94,30 @@ Phases (each raises on failure, and the script then exits non-zero):
    32x16 and 16x16, prep and the expand at 32x16 over the 16-bit KeyPlan,
    the blend at 32x16 and with first_hit depth, each bit-equal to its plain
    version (whole frames for the blends, which must also reproduce the
-   renderers' frames).
+   renderers' frames).  On the Hardware frames' tensors: prep and the
+   expand in mode "none", the one-eye blend with the cutoff and normalized
+   depth, the dual-eye blend with normalized depth, each bit-equal to its
+   plain version over the whole frame and to the renderer's frame; the
+   Hardware frame's instance sort timed.  The instance sort and tile
+   ranges carry byte floors (one read and one write of the int64 keys; one
+   read of the sorted keys).
 5t. The expand on built entry tables (entries owning more slots than 4 of
    its CTAs, a run of 1-slot and culled entries, a row table's dead tail, a
    total equal to the capacity and one above it) in modes mono, stereo and
-   warped: bit-equal to its plain version, overflow as the capacity says.
+   warped, and in mode none with the tables' MASKED bits cleared and no
+   mask: bit-equal to its plain version, overflow as the capacity says.
 5p. Prep and the row expand on built inputs (``built_prep_inputs``: 1 to
    1,000,001 gaussians; all culled, all oversized, one lane of 32 tests in
    each warp of 1-test lanes, mixed): prep in mono ``count_rows`` and full
-   rects, stereo, warped at lod_min 0 and 5; the row expand with the row
+   rects, stereo, warped at lod_min 0 and 5, and none (no test: offsets
+   alone); the row expand with the row
    capacity below, at and above the row total.  Three back-to-back calls
    must be equal, and the first within ``check_ints`` of the plain version;
    prints each mode's flip share and a digest of its outputs.
 6. Small frames (20k gaussians, 512x384) on the card vs the same renderer on
    the CPU (plain versions): rows off, rows on, stereo, foveated (min_rate
-   0.4), Global, Local and DepthFirst BITS16; colour within 1e-3.
+   0.4), Global, Local, DepthFirst BITS16, and Hardware mono, BITS16,
+   stereo and foveated; colour within 1e-3.
    After phase 2 a torch.profiler trace of 10 headline frames prints the
    device busy time and the kernel time by name.
 7. The last line is {"ok": true, "device": {...}}.
@@ -109,7 +130,7 @@ headline and the realistic scene, rows on and off) with their host/device
 split and traced idle share, and prints one JSON line: copied into a
 checkout of another commit, it times that commit's package the same way.
 ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 4, 4f, 4d (without
-the realistic Local frame), 5 and 5p and
+the realistic Local frame), 4h, 5 and 5p and
 prints one JSON line of the kernel rows and the built-input flip shares and
 digests, for the same use (it does not require the one-pass scan there).
 """
@@ -180,6 +201,7 @@ MONO_RECTS_PATH = ("project", "prep", "expand", "blend")
 STEREO_PATH = ("stereo_project", "prep", "expand", "blend")
 FOVEATED_PATH = ("stereo_project", "prep", "expand", "blend")
 D16_PATH = ("project", "prep", "expand", "blend")
+HARDWARE_PATH = ("project", "prep", "expand", "blend")
 W, H = 1920, 1080
 #: the foveated rate maps of the JAX bench's foveated rows
 FOV_MIN_RATE, FOV_RADIUS, FOV_MIN_RATE_LOW = 0.4, 0.3, 0.15
@@ -824,6 +846,70 @@ def phase_d16(torch, T, kernels, hl, real=None):
     return res
 
 
+def phase_hardware(torch, T, kernels, hl, st, fv):
+    """Phase 4h: the HardwareRenderer on the headline scene -- the mono
+    frame (full rects: prep and the expand in mode "none", the blend with
+    the r^2 <= 9 cutoff and normalized depth) with its own launch counts,
+    frame times, split and trace; the INSTANCED and back_to_front frames
+    bit-equal to it, its colour within a mean |d| of 0.01 of the DepthFirst
+    headline's; then the stereo and foveated frames, whose colour must be
+    the DepthFirst frames' (``st``, ``fv``) and whose depth their depth
+    over max(alpha, 1e-6), bit for bit."""
+    gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
+    r = T.HardwareRenderer(cfg)
+    render = lambda: r.render(gi, cam, W, H)
+    out, stats, launches = drive_path(
+        torch, kernels, HARDWARE_PATH, "hardware",
+        lambda: timed_frames(torch, render))
+    check_frame(torch, out, "hardware")
+    if out.header.row_total is not None:
+        raise RuntimeError("hardware: the header carries a row total")
+    capacity = r._cap_state[(r._mono_key, n)]["cap"]
+    stats.update(capacity=capacity, split=frame_split(torch, render))
+    trace = trace_frames(torch, render, "hardware trace", frames=5)
+    require_one_pass_scan(trace, "hardware")
+    stats["trace"] = trace
+    for label, opt in (
+            ("INSTANCED", dict(hardware_backend=T.HardwareBackend.INSTANCED)),
+            ("back_to_front", dict(back_to_front=True))):
+        o = T.HardwareRenderer(dataclasses.replace(cfg, **opt)).render(
+            gi, cam, W, H)
+        if not (torch.equal(o.color, out.color) and torch.equal(o.depth, out.depth)):
+            raise RuntimeError(f"hardware: the {label} frame differs")
+    dh = float((out.color[..., :3] - hl["out"].color[..., :3]).abs().mean())
+    log("[hardware] " + json.dumps({
+        "hardware_frame_ms": stats, "instanced_and_back_to_front_bit_equal":
+        True, "hardware_vs_depth_first_mean_abs_diff": dh}))
+    if not dh < 0.01:
+        raise RuntimeError(f"hardware: vs DepthFirst mean |d| {dh}")
+
+    res = dict(r=r, out=out, capacity=capacity, launches=launches,
+               stats=stats)
+    for label, path, df, fn in (
+            ("stereo", STEREO_PATH, st["out"],
+             lambda: r.render_stereo(gi, st["stereo"], W, H)),
+            ("foveated", FOVEATED_PATH, fv["out"],
+             lambda: r.render_stereo_foveated(gi, st["stereo"], fv["target"]))):
+        o, s2, l2 = drive_path(
+            torch, kernels, path, f"hardware {label}",
+            lambda fn=fn: timed_frames(torch, fn, n_warm=1, n_timed=5))
+        check_frame(torch, o, f"hardware {label}", halves=2)
+        if not torch.equal(o.color, df.color):
+            raise RuntimeError(f"hardware {label}: colour differs from the "
+                               "DepthFirst frame's")
+        if not torch.equal(o.depth, df.depth / df.color[..., 3].clamp_min(1e-6)):
+            raise RuntimeError(f"hardware {label}: depth is not the DepthFirst "
+                               "depth over max(alpha, 1e-6)")
+        s2.update(split=frame_split(torch, fn, frames=2),
+                  trace=trace_frames(torch, fn, f"hardware {label} trace",
+                                     frames=5))
+        log(f"[hardware] {label}: colour bit-equal to DepthFirst, depth its "
+            "depth over max(alpha, 1e-6); " + json.dumps(
+                {f"hardware_{label}_frame_ms": s2}))
+        res[f"{label}_out"], res[f"{label}_launches"] = o, l2
+    return res
+
+
 def phase_stereo(torch, T, kernels, hl):
     r = T.DepthFirstRenderer(hl["cfg"])
     stereo = T.make_side_by_side_stereo(hl["cam"])
@@ -925,13 +1011,14 @@ def blend_bytes(torch, KB, ent, starts, processed, n_words, out_pixels):
 
 
 def blend_cutoff_flops(torch, KB, ent, starts, processed, *, tiles_x,
-                       r2_cutoff, pixel_coords=None, chunk: int = 1 << 15):
-    """Float operations the dual-eye blend needs on this run's data: each
-    record composited is decoded once an eye; each (pixel, record, eye)
-    within the cutoff (q <= r2_cutoff) costs the whole composite, each one
-    beyond it only its q, since its alpha is exactly 0.  q is the plain
-    version's, from the same decode.  Returns (flops, pairs within the
-    cutoff, pairs)."""
+                       r2_cutoff, n_eyes: int = 2, pixel_coords=None,
+                       chunk: int = 1 << 15):
+    """Float operations a blend with a cutoff (one eye or two) needs on
+    this run's data: each record composited is decoded once an eye; each
+    (pixel, record, eye) within the cutoff (q <= r2_cutoff) costs the whole
+    composite, each one beyond it only its q, since its alpha is exactly 0.
+    q is the plain version's, from the same decode.  Returns (flops, pairs
+    within the cutoff, pairs)."""
     sorted_key, words, idx_bits = ent
     words = list(words)
     tile, rank = composited_ranks(torch, starts, processed)
@@ -941,7 +1028,7 @@ def blend_cutoff_flops(torch, KB, ent, starts, processed, *, tiles_x,
         pix = torch.arange(256, device=starts.device)
         lx, ly = (pix % 16).to(torch.float32), (pix // 16).to(torch.float32)
     inside = 0
-    for e in range(2):
+    for e in range(n_eyes):
         rec = KB.decode_records(words[4 * e:4 * e + 4])
         for c0 in range(0, g.numel(), chunk):
             gc, txc, tyc = g[c0:c0 + chunk], t_x[c0:c0 + chunk], t_y[c0:c0 + chunk]
@@ -956,15 +1043,15 @@ def blend_cutoff_flops(torch, KB, ent, starts, processed, *, tiles_x,
             u = rec["a1"][gc][:, None] * dx + rec["b1"][gc][:, None] * dy
             v = rec["a2"][gc][:, None] * dx + rec["b2"][gc][:, None] * dy
             inside += int(((u * u + v * v) <= r2_cutoff).sum())
-    pairs = 2 * 256 * g.numel()
-    flops = (2 * BLEND_DECODE_FLOPS * g.numel() + BLEND_PAIR_FLOPS * inside
+    pairs = n_eyes * 256 * g.numel()
+    flops = (n_eyes * BLEND_DECODE_FLOPS * g.numel() + BLEND_PAIR_FLOPS * inside
              + BLEND_Q_FLOPS * (pairs - inside))
     return flops, inside, pairs
 
 
 def blend_subset_err(torch, KB, ent, starts, counts, color, depth, *,
                      tiles_x, tiles_y, w, h, n_eyes=1, r2_cutoff=0.0,
-                     pixel_coords=None):
+                     pixel_coords=None, depth_mode="weighted"):
     """Max |kernel - plain| over the 64 heaviest and 64 random tiles of
     each eye (the kernel's (H, n_eyes * W) images against the plain tiles;
     pixels of the padded edge tiles, outside w x h, are not written).
@@ -975,7 +1062,8 @@ def blend_subset_err(torch, KB, ent, starts, counts, color, depth, *,
     sub = torch.unique(torch.cat([heavy, rand])).to(counts.device)
     plain = KB.blend_tiles_plain(*ent, starts, counts, tiles_x=tiles_x,
                                  tiles=sub, n_eyes=n_eyes, r2_cutoff=r2_cutoff,
-                                 pixel_coords=pixel_coords)
+                                 pixel_coords=pixel_coords,
+                                 depth_mode=depth_mode)
     eyes = plain if n_eyes == 2 else [plain]
     pix = torch.arange(256, device=sub.device)
     ys = (sub // tiles_x)[:, None] * 16 + pix[None, :] // 16
@@ -990,7 +1078,7 @@ def blend_subset_err(torch, KB, ent, starts, counts, color, depth, *,
     return err
 
 
-def phase_kernels(torch, T, hl, st, fv, d16):
+def phase_kernels(torch, T, hl, st, fv, d16, hw):
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.kernels import project as KP
@@ -1136,10 +1224,14 @@ def phase_kernels(torch, T, hl, st, fv, d16):
         tile = PC.binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)
         return OB.extract_tile_ranges(tile, tiles_x * tiles_y)
     (starts, counts), ranges_ms = device_ms(torch, ranges, 20)
+    # byte floors: one read and one write of the int64 keys (a radix sort
+    # takes several passes), one read of the sorted keys
     other += [dict(name="instance sort (torch.sort of the int64 keys alone)",
-                   ms=sort_ms, elements=cap),
+                   ms=sort_ms, elements=cap,
+                   bound_ms=16 * cap / HBM_BYTES_PER_S * 1e3),
               dict(name="tile ranges (torch.searchsorted)", ms=ranges_ms,
-                   tiles=tiles_x * tiles_y)]
+                   tiles=tiles_x * tiles_y,
+                   bound_ms=8 * cap / HBM_BYTES_PER_S * 1e3)]
     log(f"[library] sort (keys only) {sort_ms:.4f} ms over {cap} slots, "
         f"ranges {ranges_ms:.4f} ms")
 
@@ -1490,13 +1582,103 @@ def phase_kernels(torch, T, hl, st, fv, d16):
                                    "prep.tile32", "expand.d16_32",
                                    "blend.tile32", "blend.first_hit")},
         "d16": d16_stages}))
+    # the Hardware frames' modes: prep and the expand in mode "none" on the
+    # mono frame's projection (pk0: the same KeyPlan), the one-eye blend
+    # with the r^2 <= 9 cutoff and normalized depth, and the dual-eye
+    # blend with normalized depth on the stereo frame's tensors; each
+    # bit-equal to its plain version and to the renderer's frame
+    hw_l, hs_l = hw["launches"], hw["stereo_launches"]
+    (hoff, hrect, hmask), ms = device_ms(
+        torch, lambda: KE.binning_prep_cuda(*prep0_in, mode="none"), 20)
+    (hoff_p, _hrect_p, hmask_p), plain_ms = cuda_ms(
+        torch, lambda: KE.binning_prep_plain(*prep0_in, mode="none"), 3)
+    if hmask is not None or hmask_p is not None or hrect is not pk0.rect_word:
+        raise RuntimeError("prep.none: wrote a mask or a rect word")
+    err, flips = check_exact("prep.none", [(hoff, hoff_p)])
+    # the rect word and rect_h of each gaussian read, its offset written
+    record("prep.none", "prep", hw_l["prep"], ms, plain_ms, err, flips,
+           3 * 4 * n + 4, 0.0)
+    hcap = hw["capacity"]
+    hekw = dict(capacity=hcap, tiles_x=tiles_x, key_plan=plan0, mode="none")
+    hexp_in = (hoff, hrect, None, pk0.dsw, pk0.words)
+    hek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*hexp_in, **hekw), 20)
+    hep, plain_ms = cuda_ms(torch,
+                            lambda: KE.expand_slots_plain(*hexp_in, **hekw), 3)
+    err, flips = check_exact("expand.none", list(zip(hek, hep)))
+    # the offset, rect word and depth word of each entry, two keys a slot
+    record("expand.none", "expand", hw_l["expand"], ms, plain_ms, err, flips,
+           (n + 1) * 4 + 2 * 4 * n + 2 * 4 * hcap, 0.0)
+    h_sorted, hsort_ms = device_ms(
+        torch, lambda: PC.sort_instances(hek[0], hek[1]), 10)
+    h_starts, h_counts = PC.tile_ranges(h_sorted, plan0, tiles_x * tiles_y)
+    other.append(dict(name="instance sort, Hardware frame (torch.sort of the "
+                      "int64 keys alone)", ms=hsort_ms, elements=hcap,
+                      bound_ms=16 * hcap / HBM_BYTES_PER_S * 1e3))
+    log(f"[library] Hardware sort (keys only) {hsort_ms:.4f} ms over {hcap} "
+        f"slots, {int(hek[2])} of them filled")
+    hbkw = dict(bkw, r2_cutoff=9.0, depth_mode="normalized")
+    h_ent = (h_sorted, pk0.words, plan0.idx_bits)
+    blend_fn = lambda: KB.blend_image_cuda(*h_ent, h_starts, h_counts, **hbkw)
+    (hcolor, hdepth), ms = device_ms(torch, blend_fn, 10)
+    time_check("blend.cutoff_normalized", blend_fn, ms)
+    if not (torch.equal(hcolor, hw["out"].color)
+            and torch.equal(hdepth, hw["out"].depth)):
+        raise RuntimeError("staged Hardware frame differs from the renderer's")
+    (pc, pd, hprocessed), plain_ms = cuda_ms(
+        torch, lambda: KB.blend_tiles_plain(
+            *h_ent, h_starts, h_counts, tiles_x=tiles_x, r2_cutoff=9.0,
+            depth_mode="normalized", return_processed=True), 1)
+    pcol, pdep = KB.assemble_image(pc, pd, tiles_x=tiles_x, tiles_y=tiles_y,
+                                   width=w, height=h)
+    err = max(float((pcol - hcolor).abs().max()),
+              float((pdep - hdepth).abs().max()))
+    if err != 0.0:
+        raise RuntimeError(f"blend.cutoff_normalized: kernel vs plain max |d| "
+                           f"{err}")
+    h_flops, h_inside, h_pairs = blend_cutoff_flops(
+        torch, KB, h_ent, h_starts, hprocessed, tiles_x=tiles_x, r2_cutoff=9.0,
+        n_eyes=1)
+    record("blend.cutoff_normalized", "blend", hw_l["blend"], ms, plain_ms,
+           err, 0.0, blend_bytes(torch, KB, h_ent, h_starts, hprocessed, 4,
+                                 w * h), h_flops)
+    nbkw = dict(sbkw, depth_mode="normalized")
+    blend_fn = lambda: KB.blend_image_cuda(*s_ent, s_starts, s_counts, **nbkw)
+    (ncolor, ndepth), ms = device_ms(torch, blend_fn, 10)
+    time_check("blend.stereo_normalized", blend_fn, ms)
+    if not (torch.equal(ncolor, hw["stereo_out"].color)
+            and torch.equal(ndepth, hw["stereo_out"].depth)):
+        raise RuntimeError("staged Hardware stereo frame differs from the "
+                           "renderer's")
+    (eyes, nprocessed), plain_ms = cuda_ms(
+        torch, lambda: KB.blend_tiles_plain(
+            *s_ent, s_starts, s_counts, tiles_x=tiles_x, n_eyes=2,
+            r2_cutoff=9.0, depth_mode="normalized", return_processed=True), 1)
+    full = [KB.assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
+                              width=w, height=h) for tc, td in eyes]
+    err = max(float((torch.cat([c for c, _ in full], 1) - ncolor).abs().max()),
+              float((torch.cat([d for _, d in full], 1) - ndepth).abs().max()))
+    if err != 0.0:
+        raise RuntimeError(f"blend.stereo_normalized: kernel vs plain max |d| "
+                           f"{err}")
+    record("blend.stereo_normalized", "blend", hs_l["blend"], ms, plain_ms,
+           err, 0.0, blend_bytes(torch, KB, s_ent, s_starts, nprocessed, 7,
+                                 2 * w * h), s_flops)
+    log("[stages] " + json.dumps({"hardware_stage_ms": {
+        k: rows[k]["ms"] for k in ("project", "prep.none", "expand.none",
+                                   "blend.cutoff_normalized",
+                                   "blend.stereo_normalized")},
+        "sort": hsort_ms, "records_composited": float(hprocessed.sum()),
+        "pairs_within_cutoff": h_inside, "pairs": h_pairs,
+        "slot_total": int(hek[2]), "live_instances": int(h_counts.sum())}))
+
     log("[timing check] " + json.dumps(timing_check))
     order = ("project", "prep", "prep.rows_off", "row_expand", "expand",
              "expand.rows_off", "blend", "stereo_project", "prep.stereo",
              "expand.stereo", "blend.stereo", "bounds_gather", "prep.warped",
              "expand.warped", "blend.warped", "project.d16_32",
              "project.d16_16", "prep.tile32", "expand.d16_32", "blend.tile32",
-             "blend.first_hit")
+             "blend.first_hit", "prep.none", "expand.none",
+             "blend.cutoff_normalized", "blend.stereo_normalized")
     return [rows[k] for k in order], other
 
 
@@ -1654,7 +1836,8 @@ def built_prep_inputs(torch, M, n: int, scene: str, seed: int = 9):
 
 def phase_expand_tables(torch, bounds):
     """The expand on built tables against its plain version, in modes mono,
-    stereo and warped: all outputs bit-equal, the overflow flag as the
+    stereo, warped and none (the tables' MASKED bits cleared and no mask:
+    a full-rect table): all outputs bit-equal, the overflow flag as the
     capacity says."""
     from gsm_renderer_tpu_torch import mathlib as M
     from gsm_renderer_tpu_torch.kernels import expand as KE
@@ -1667,12 +1850,15 @@ def phase_expand_tables(torch, bounds):
         plan = OB.make_key_plan(120 * 68, n, near_plane=0.1, far_plane=50.0)
         counts = (off[1:] - off[:-1]).to(torch.int64)
         live = {}
-        for mode in ("mono", "stereo", "warped"):
+        for mode in ("mono", "stereo", "warped", "none"):
             kw = dict(capacity=cap, tiles_x=120, key_plan=plan, mode=mode,
                       warped_bounds=bounds if mode == "warped" else None)
-            w = words[:4] if mode == "mono" else words
-            got = KE.expand_slots_cuda(off, rect, mask, dsw, w, **kw)
-            want = KE.expand_slots_plain(off, rect, mask, dsw, w, **kw)
+            w = words[:KE.MODE_WORDS[mode]]
+            r, m = rect, mask
+            if mode == "none":
+                r, m = rect & 0x7FFFFFFF, None
+            got = KE.expand_slots_cuda(off, r, m, dsw, w, **kw)
+            want = KE.expand_slots_plain(off, r, m, dsw, w, **kw)
             bad, elems, worst = mismatches(torch, list(zip(got, want)))
             if bad:
                 raise RuntimeError(f"expand tables, {label}, {mode}: {bad} of "
@@ -1693,7 +1879,8 @@ PREP_MODES = (("mono count_rows", 4, dict(count_rows=True)),
               ("mono full rects", 4, dict()),
               ("stereo", 8, dict(mode="stereo")),
               ("warped lod_min 0", 8, dict(mode="warped", lod_min=0.0)),
-              ("warped lod_min 5", 8, dict(mode="warped", lod_min=5.0)))
+              ("warped lod_min 5", 8, dict(mode="warped", lod_min=5.0)),
+              ("none", 4, dict(mode="none")))
 
 
 def phase_prep_tables(torch, bounds) -> dict:
@@ -1715,7 +1902,9 @@ def phase_prep_tables(torch, bounds) -> dict:
     res = {}
 
     def flat(out):
-        return [t for x in out for t in (x if isinstance(x, list) else [x])]
+        # mode none returns no mask
+        return [t for x in out if x is not None
+                for t in (x if isinstance(x, list) else [x])]
 
     def hold(mode, label, kernel, args, kw, want):
         outs = [flat(kernel(*args, **kw)) for _ in range(3)]
@@ -1744,12 +1933,12 @@ def phase_prep_tables(torch, bounds) -> dict:
                 if kw.get("mode") == "warped":
                     kw = dict(kw, warped_bounds=bounds)
                 args = (rw, rh, w8[:k])
-                off, rect, mask = hold(
-                    mode, f"prep tables {mode} n={n} {scene}",
-                    KE.binning_prep_cuda, args, kw,
-                    KE.binning_prep_plain(*args, **kw))
+                out = hold(mode, f"prep tables {mode} n={n} {scene}",
+                           KE.binning_prep_cuda, args, kw,
+                           KE.binning_prep_plain(*args, **kw))
                 if not kw.get("count_rows"):
                     continue
+                off, rect, mask = out
                 total = int(off[n])
                 for cap in (max(total // 2, 1), total, total + 300):
                     rargs, rkw = (off, rect, mask, dsw, w8[:4]), dict(
@@ -1791,7 +1980,11 @@ def phase_small(torch, T):
             ("foveated", T.DepthFirstRenderer, {}, "foveated"),
             ("global", T.GlobalRenderer, {}, "mono"),
             ("local", T.LocalRenderer, {}, "mono"),
-            ("depth16", T.DepthFirstRenderer, bits16, "mono")):
+            ("depth16", T.DepthFirstRenderer, bits16, "mono"),
+            ("hardware", T.HardwareRenderer, {}, "mono"),
+            ("hardware depth16", T.HardwareRenderer, bits16, "mono"),
+            ("hardware stereo", T.HardwareRenderer, {}, "stereo"),
+            ("hardware foveated", T.HardwareRenderer, {}, "foveated")):
         cfg = T.RendererConfig(sh_degree=3, precision=T.Precision.FLOAT32,
                                max_width=w, max_height=h, **opt)
         rg, rc = cls(cfg), cls(cfg, device="cpu")
@@ -1890,7 +2083,8 @@ def main() -> int:
     st = phase_stereo(torch, T, kernels, hl)
     fv = phase_foveated(torch, T, kernels, hl, st)
     d16 = phase_d16(torch, T, kernels, hl, real)
-    rows, other = phase_kernels(torch, T, hl, st, fv, d16)
+    hw = phase_hardware(torch, T, kernels, hl, st, fv)
+    rows, other = phase_kernels(torch, T, hl, st, fv, d16, hw)
     from gsm_renderer_tpu_torch.pipelines.depth_first import foveated_device_tables
     bounds = foveated_device_tables(fv["target"],
                                     hl["gi"].positions.device)["bounds"]

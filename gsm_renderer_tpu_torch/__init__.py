@@ -18,7 +18,8 @@ from .pipelines import (DepthFirstRenderer, GaussianRenderer, GlobalRenderer,
 from .stereo import (FoveatedStereoTarget, compress_foveated, expand_foveated,
                      foveated_raster_tables, make_rate_maps, warp_tables)
 from .types import (FrameHeader, GaussianInput, RendererError, RenderOutput,
-                    make_gaussian_input)
+                    make_gaussian_input, pack_world_gaussians,
+                    unpack_world_gaussians)
 
 __version__ = "0.1.0"
 
@@ -34,5 +35,5 @@ __all__ = [
     "FoveatedStereoTarget", "compress_foveated", "expand_foveated",
     "foveated_raster_tables", "make_rate_maps", "warp_tables",
     "FrameHeader", "GaussianInput", "RendererError", "RenderOutput",
-    "make_gaussian_input",
+    "make_gaussian_input", "pack_world_gaussians", "unpack_world_gaussians",
 ]

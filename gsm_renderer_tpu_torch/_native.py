@@ -141,6 +141,11 @@ def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def ptr_or_null(t: torch.Tensor | None) -> int | None:
+    """The device pointer of ``t``, or a null pointer for None."""
+    return None if t is None else t.data_ptr()
+
+
 MAX_PTRS = 8
 
 

@@ -1,7 +1,7 @@
 // Binning kernels: prep (kernel 2), row expansion (kernel 3), slot
 // expansion (kernel 4) and the foveated bounds gather (kernel 7), for the
-// mono (4 record words), stereo and warped (8 words: the left record, then
-// the right; w3 shared) tables with KeyPlan keys.
+// mono and full-rect "none" (4 record words), stereo and warped (8 words:
+// the left record, then the right; w3 shared) tables with KeyPlan keys.
 //
 // Prep replaces the Pallas kernel gsm_renderer_tpu/kernels/expand.py::
 // _prep_kernel (binning_prep_pallas, modes "mono", "stereo" and "warped",
@@ -36,6 +36,15 @@
 // Blocks of 1024 gaussians (four a thread) ran the dual-eye modes slower
 // on the H100 (more registers, a quarter of the blocks) and mono no
 // faster, so a thread preps one.
+//
+// Mode "none" (the Hardware renderer's full rects, exact_test=False) tests
+// nothing: a visible gaussian counts its whole clamped rect, rect_w *
+// rect_h, and a culled one a single dead slot (the JAX package's XLA
+// binning_inputs, counts = max(rect_count, 1), and the cumsum of
+// expand_slots_pallas).  Its prep reads the rect word and rect_h alone
+// (8 B a gaussian), writes no mask and no MASKED bit, leaves the rect word
+// as the projection wrote it and runs the same one-pass scan: it writes the
+// offsets only.  Bound: device memory.
 //
 // The scan is one pass with decoupled look-back (Merrill and Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016),
@@ -93,7 +102,10 @@
 // keys.  The keys are the whole output: the blend reads an entry's record
 // words through the index in key2, so no word is carried per slot.  Slots
 // at or beyond the capacity are not written (the grid covers the capacity);
-// the caller derives overflow = total > capacity.
+// the caller derives overflow = total > capacity.  In mode "none" the
+// expand reads no mask and no record word: every slot of a visible
+// entry's rect is live (the Hardware frame's quads cover their whole rect,
+// and its blend cuts each pixel at r^2 > 9 instead).
 //
 // The expand is a load-balanced search.  CTA b owns the 1024 slots [1024 b,
 // 1024 (b + 1)), four per thread, strided so that writes coalesce.  One
@@ -142,8 +154,9 @@ constexpr float kStereoR2Cutoff = 9.0f;
 constexpr int kBoundsLanes = 128;
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
-// Binning modes: the record words they carry and the test they apply.
-enum Mode { kMono = 0, kStereo = 1, kWarped = 2 };
+// Binning modes: the record words they carry and the test they apply
+// (kernels/expand.py MODE_CODES).
+enum Mode { kMono = 0, kStereo = 1, kWarped = 2, kNone = 3 };
 
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
   const int lane = threadIdx.x & 31;
@@ -367,13 +380,16 @@ __global__ void bounds_gather_kernel(const float* __restrict__ bounds,
 //   stereo: x0, y0, QuadRect of the left eye, then of the right
 //   warped: mx, my, QuadRect of each eye, then the LOD ink
 // ints: window width, its division magic, and (warped) the window corner.
+//   none:   nothing (one unused column of each)
 template <int kMode>
 struct PrepRecord {
   static constexpr int kEyeFloats = 7;
   static constexpr int kFloats =
-      kMode == kMono ? kEyeFloats + 1 : kMode == kStereo ? 2 * kEyeFloats
-                                                         : 2 * kEyeFloats + 1;
-  static constexpr int kInts = kMode == kWarped ? 4 : 2;
+      kMode == kNone     ? 1
+      : kMode == kMono   ? kEyeFloats + 1
+      : kMode == kStereo ? 2 * kEyeFloats
+                         : 2 * kEyeFloats + 1;
+  static constexpr int kInts = kMode == kWarped ? 4 : kMode == kNone ? 1 : 2;
 };
 
 __device__ __forceinline__ void stage_eye(float (*f)[kPrepThreads], int e,
@@ -575,9 +591,20 @@ prep_kernel(const int32_t* __restrict__ rect_word,
   uint32_t tag;
   const int tile = take_tile(st, &tag);
   const int i = tile * kPrepThreads + threadIdx.x;
-  const int count[1] = {prep_gaussian<kMode, kTileW>(
-      i, rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255,
-      rect_out, mask_out, f, in, sb, lod_min)};
+  int count[1];
+  if constexpr (kMode == kNone) {
+    // the whole clamped rect, or one dead slot when culled
+    count[0] = 0;
+    if (i < n) {
+      const uint32_t rw = static_cast<uint32_t>(rect_word[i]);
+      const int rect_w = static_cast<int>((rw >> 20) & 0x3FFu);
+      count[0] = (rw & GSM_CULLED_BIT) != 0 ? 1 : max(rect_w * rect_h[i], 1);
+    }
+  } else {
+    count[0] = prep_gaussian<kMode, kTileW>(
+        i, rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255,
+        rect_out, mask_out, f, in, sb, lod_min);
+  }
   int excl[1], end;
   scan_counts<kPrepThreads, 1>(st, tile, tag, count, excl, &end);
   if (i < n) offsets[i] = excl[0];
@@ -806,7 +833,7 @@ expand_kernel(const int32_t* __restrict__ offsets,
       s_off[i] = g <= n ? offsets[g] : INT_MAX;
       if (g < n) {
         s_rect[i] = rect[g];
-        s_mask[i] = mask[g];
+        if constexpr (kMode != kNone) s_mask[i] = mask[g];
         s_dsw[i] = dsw[g];
       }
     }
@@ -831,7 +858,7 @@ expand_kernel(const int32_t* __restrict__ offsets,
       const int min_ty = (rw >> 10) & 0x3FFu;
       const int rect_w = max(static_cast<int>((rw >> 20) & 0x3FFu), 1);
       int tx, ty;
-      const bool masked = (rw & GSM_MASKED_BIT) != 0;
+      const bool masked = kMode != kNone && (rw & GSM_MASKED_BIT) != 0;
       if (masked) {
         const int pbit = nth_set_bit(static_cast<uint32_t>(s_mask[lo]), jj);
         ty = min_ty + (pbit >> 3);
@@ -844,8 +871,8 @@ expand_kernel(const int32_t* __restrict__ offsets,
       bool dead = (rw & GSM_CULLED_BIT) != 0;
       // the exact test, and the words it reads, only where it decides:
       // every live slot under the warp (no bypass for MASKED entries),
-      // else the unmasked ones
-      if (!dead && (kMode == kWarped || !masked)) {
+      // else the unmasked ones; none in mode none
+      if (!dead && kMode != kNone && (kMode == kWarped || !masked)) {
         const uint32_t a0 = word(W, 0, g), a1 = word(W, 1, g),
                        a2 = word(W, 2, g);
         bool passes;
@@ -892,12 +919,15 @@ expand_kernel(const int32_t* __restrict__ offsets,
 
 }  // namespace
 
-// Mode of a launch: warped when a bounds table is given (8 words), else
-// mono (4 words) or stereo (8 words); -1 for a word count the mode does not
-// carry.
-static int launch_mode(int n_words, const float* bounds) {
-  if (bounds != nullptr) return n_words == 8 ? kWarped : -1;
-  return n_words == 4 ? kMono : n_words == 8 ? kStereo : -1;
+// Whether a launch's mode, record words, bounds table and tile width go
+// together: mono 4 words (16 or 32 px tiles), none 4 words, stereo 8,
+// warped 8 with the bounds table; all but mono take 16 px tiles.
+static bool launch_ok(int mode, int n_words, const float* bounds,
+                      int tile_w) {
+  const int words = mode == kMono || mode == kNone ? 4 : 8;
+  return mode >= kMono && mode <= kNone && n_words == words &&
+         (bounds != nullptr) == (mode == kWarped) &&
+         (tile_w == 16 || (tile_w == 32 && mode == kMono));
 }
 
 // The look-back scratch of a launch over `elements` elements, `per_tile` a
@@ -912,25 +942,26 @@ static ScanState scan_state(void* ticket, void* status, int elements,
   return st;
 }
 
-// bounds: the (2, 128) table for mode "warped", else null.  ticket /
-// status: the look-back scratch, status >= max(ceil(n / 256), 1) words.
-// tile_w: 16, or 32 in mode mono.  One launch, even at n == 0 (its one
-// block writes offsets[0] = 0).
+// mode: a Mode (see launch_ok); bounds: the (2, 128) table for mode
+// "warped", else null.  ticket / status: the look-back scratch, status >=
+// max(ceil(n / 256), 1) words.  tile_w: 16, or 32 in mode mono.  Mode none
+// writes the offsets alone (rect_out and mask_out may be null).  One
+// launch, even at n == 0 (its one block writes offsets[0] = 0).
 extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
-                        const void* const* words, int n_words, int count_rows,
-                        int n, int tile_w, float tau, float theta_unit,
-                        float inv255, int32_t* offsets, int32_t* rect_out,
-                        int32_t* mask_out, void* ticket, void* status,
-                        const float* bounds, float lod_min,
+                        const void* const* words, int n_words, int mode,
+                        int count_rows, int n, int tile_w, float tau,
+                        float theta_unit, float inv255, int32_t* offsets,
+                        int32_t* rect_out, int32_t* mask_out, void* ticket,
+                        void* status, const float* bounds, float lod_min,
                         cudaStream_t stream) {
-  const int mode = launch_mode(n_words, bounds);
-  if (mode < 0 || !(tile_w == 16 || (tile_w == 32 && mode == kMono))) {
+  if (!launch_ok(mode, n_words, bounds, tile_w)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WordPtrs W = load_words(words, n_words);
   const ScanState st = scan_state(ticket, status, n, kPrepThreads);
   auto kernel = mode == kWarped   ? prep_kernel<kWarped, 16>
                 : mode == kStereo ? prep_kernel<kStereo, 16>
+                : mode == kNone   ? prep_kernel<kNone, 16>
                 : tile_w == 32    ? prep_kernel<kMono, 32>
                                   : prep_kernel<kMono, 16>;
   kernel<<<st.num_tiles, kPrepThreads, 0, stream>>>(
@@ -957,17 +988,17 @@ extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: (2, capacity) = key1, key2; bounds: the (2, 128) table for mode
-// "warped", else null; tile_w: 16, or 32 in mode mono.
+// out: (2, capacity) = key1, key2; mode: a Mode (see launch_ok); bounds:
+// the (2, 128) table for mode "warped", else null; tile_w: 16, or 32 in
+// mode mono.  Mode none reads no mask (it may be null) and no word.
 extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                           const int32_t* mask, const int32_t* dsw,
-                          const void* const* words, int n_words, int n,
-                          int capacity, int tiles_x, int tile_w, int d_hi,
-                          int d_lo, int idx_bits, float tau, float theta_unit,
-                          float inv255, int32_t* out, const float* bounds,
-                          cudaStream_t stream) {
-  const int mode = launch_mode(n_words, bounds);
-  if (mode < 0 || !(tile_w == 16 || (tile_w == 32 && mode == kMono))) {
+                          const void* const* words, int n_words, int mode,
+                          int n, int capacity, int tiles_x, int tile_w,
+                          int d_hi, int d_lo, int idx_bits, float tau,
+                          float theta_unit, float inv255, int32_t* out,
+                          const float* bounds, cudaStream_t stream) {
+  if (!launch_ok(mode, n_words, bounds, tile_w)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WordPtrs W = load_words(words, n_words);
@@ -975,6 +1006,7 @@ extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
     const int blocks = (capacity + kExpandSlots - 1) / kExpandSlots;
     auto kernel = mode == kWarped   ? expand_kernel<kWarped, 16>
                   : mode == kStereo ? expand_kernel<kStereo, 16>
+                  : mode == kNone   ? expand_kernel<kNone, 16>
                   : tile_w == 32    ? expand_kernel<kMono, 32>
                                     : expand_kernel<kMono, 16>;
     kernel<<<blocks, kExpandThreads, 0, stream>>>(

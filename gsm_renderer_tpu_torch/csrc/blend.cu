@@ -9,9 +9,10 @@
 //
 // Replaces the Pallas kernel gsm_renderer_tpu/kernels/blend.py::
 // _row_blend_kernel (blend_tiles_pallas, exponent_mode "vpu", depth modes
-// "weighted", "none" and "first_hit", n_eyes 1 and 2, r2_cutoff,
-// pixel_coords, 16x16 and 32x16 tiles) and the XLA assemble_image after it.
-// The dual-eye blend takes 16x16 tiles and weighted depth.
+// "weighted", "none", "first_hit" and "normalized", n_eyes 1 and 2,
+// r2_cutoff, pixel_coords, 16x16 and 32x16 tiles) and the XLA
+// assemble_image after it.  The dual-eye blend and every blend with a
+// cutoff take 16x16 tiles and weighted, normalized or no depth.
 //
 // Records through the sorted keys: rank k of the sorted instance list is
 // entry g = key2(k) & (2^idx_bits - 1) (the KeyPlan index field, the low
@@ -27,20 +28,22 @@
 // point (coord_x[tx][p], coord_y[ty][p]) it samples.  Writes stay clipped to
 // width x height either way.
 //
-// Depth: weighted (sum of w * d), or first_hit (the Local renderer's, the
-// Pallas kernel's first_hit branch): the depth of the first record whose
-// composited alpha -- after the 0.99 clamp, the same float sequence as the
-// weighted blend -- exceeds 0.1, 0 for a pixel with no such record.  A
-// pixel keeps its hit flag and depth in registers and keeps compositing
+// Depth: weighted (sum of w * d); normalized (the Hardware renderer's:
+// that sum over the pixel's alpha, sum(w * d) / max(1 - T, 1e-6), an IEEE
+// division as in the plain version); or first_hit (the Local renderer's,
+// the Pallas kernel's first_hit branch): the depth of the first record
+// whose composited alpha -- after the 0.99 clamp, the same float sequence
+// as the weighted blend -- exceeds 0.1, 0 for a pixel with no such record.
+// A pixel keeps its hit flag and depth in registers and keeps compositing
 // until the tile exits, so a hit after the pixel saturated still counts.
 //
 // Per record: centred linear forms u = a1 dx + b1 dy, v = a2 dx + b2 dy with
 // dx = px - mx at integer pixel corners (no +0.5), alpha = min(exp(-q/2 +
-// log op), 0.99), then, in the dual-eye blend, alpha = 0 where q >
-// r2_cutoff (the stereo blend's r^2 <= 9 cutoff); f16 fields decode with
-// subnormals flushed to zero.  Every path that blends two eyes sets the
-// cutoff and the mono path never does, so the dual-eye kernel alone carries
-// it and gsm_blend refuses the other pairings.  The float sequence is the
+// log op), 0.99), then, with a cutoff (kCutoff: the stereo blend's and the
+// Hardware renderer's r^2 <= 9), alpha = 0 where q > r2_cutoff; f16 fields
+// decode with subnormals flushed to zero.  The cutoff is a template
+// parameter: the dual-eye blend always has one, a one-eye blend has one in
+// the Hardware frame and none in the others.  The float sequence is the
 // plain version's, operation for operation (--fmad=false).
 //
 // Batches and early exit: the tile's span [start, start + count) is walked
@@ -62,15 +65,15 @@
 //   An LDS.128 still returns 16 B to every lane, so the shared-memory pipe
 //   moves about as many bytes as before; the loads a record takes in
 //   instructions, not in bytes, are what fell.
-// - Exact zeros, warp by warp (the dual-eye blend).  A pixel's alpha is
+// - Exact zeros, warp by warp (every blend with a cutoff).  A pixel's alpha is
 //   exactly 0 where q > r2_cutoff.  When no pixel of a warp is within the
 //   cutoff, the warp skips expf and the accumulations (w = 0 leaves the
 //   sums and T bit-for-bit unchanged: T and the decoded fields are finite)
 //   and never loads the third float4.  A warp covers an 8x4 block of the
 //   tile, the most compact 32 pixels, so that the test fires for as many
-//   warps as it can.  The mono blend has no cutoff and no test: exact zeros
-//   are rare there, the vote and branch serialised the records, and without
-//   them the compiler overlaps consecutive records (the loop is
+//   warps as it can.  The mono blends without a cutoff have no test: exact
+//   zeros are rare there, the vote and branch serialised the records, and
+//   without them the compiler overlaps consecutive records (the loop is
 //   latency-bound).
 // - One pixel a thread.  Two pixels a thread (128 threads; 1.5 LDS per
 //   pixel and record) measured slower in every mode and spilled: the loop
@@ -100,7 +103,12 @@ constexpr int kBlock = 128;  // batch alignment (the Pallas chunk)
 constexpr int kWarpW = 8;
 constexpr int kWarpH = 32 / kWarpW;
 // depth modes (gsm_blend's depth_mode)
-enum DepthMode { kDepthNone = 0, kDepthWeighted = 1, kDepthFirstHit = 2 };
+enum DepthMode {
+  kDepthNone = 0,
+  kDepthWeighted = 1,
+  kDepthFirstHit = 2,
+  kDepthNormalized = 3
+};
 constexpr float kFirstHitAlpha = 0.1f;
 
 // A decoded record: {mx, my, a1, b1}, {a2, b2, lop, d}, {r, g, b, 0}.
@@ -127,23 +135,22 @@ __device__ __forceinline__ Rec decode_record(uint32_t a0, uint32_t a1,
   return r;
 }
 
-// kEyes = 2: alpha zeroed where q > r2_cutoff, the warp test for exact
-// zeros (see the head comment).  kTileW x 16 pixels a tile, a thread a
-// pixel; threads below kBatch stage the batch.  kFirstHit: first_hit depth
-// in place of the weighted sum.
-template <int kEyes, int kTileW, bool kFirstHit>
+// kCutoff: alpha zeroed where q > r2_cutoff, the warp test for exact zeros
+// (see the head comment).  kTileW x 16 pixels a tile, a thread a pixel;
+// threads below kBatch stage the batch.  kFirstHit: first_hit depth in
+// place of the weighted sum; depth_mode (a DepthMode) picks what is written.
+template <int kEyes, int kTileW, bool kFirstHit, bool kCutoff>
 __global__ void __launch_bounds__(kTileW * kTileH)
 blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
              WordPtrs W, const int32_t* __restrict__ starts,
              const int32_t* __restrict__ counts, int tiles_x, int width,
-             int height, int with_depth, float theta_unit, float inv255,
+             int height, int depth_mode, float theta_unit, float inv255,
              float min_transmittance, float r2_cutoff,
              const float* __restrict__ coord_x,
              const float* __restrict__ coord_y,
              float* __restrict__ color, float* __restrict__ depth) {
   constexpr int kPix = kTileW * kTileH;
   constexpr int kWords = 4 * kEyes;
-  constexpr bool kCutoff = kEyes == 2;
   static_assert(kPix >= kBatch, "each staging thread stages one record");
   __shared__ Rec sr[kEyes][kBatch];
 
@@ -264,7 +271,11 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
       c.z = acc_b[e];
       c.w = 1.0f - trans[e];
       reinterpret_cast<float4*>(color)[p] = c;
-      if (with_depth) depth[p] = acc_d[e];
+      if (depth_mode == kDepthNormalized) {
+        depth[p] = acc_d[e] / jmax(c.w, 1e-6f);
+      } else if (depth_mode != kDepthNone) {
+        depth[p] = acc_d[e];
+      }
     }
   }
 }
@@ -277,8 +288,9 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
 // depth_mode: a DepthMode; coord_x (tiles_x, 256) and coord_y (tiles_y,
 // 256) the foveated pixel coordinates, or both null; color (H, n_eyes * W,
 // 4), depth (H, n_eyes * W) unless depth_mode is none.  Two eyes (8 words)
-// take r2_cutoff > 0, 16x16 tiles and weighted depth; one eye (4 words)
-// r2_cutoff = 0.
+// take r2_cutoff > 0; one eye (4 words) r2_cutoff >= 0 (0: no cutoff).  A
+// blend with two eyes, a cutoff or pixel coordinates takes 16x16 tiles and
+// no first_hit depth.
 extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                          const void* const* words, int n_words,
                          const int32_t* starts, const int32_t* counts,
@@ -289,11 +301,12 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                          const float* coord_y, float* color, float* depth,
                          cudaStream_t stream) {
   const bool two = n_words == 8;
+  const bool cutoff = r2_cutoff > 0.0f;
   if ((n_words != 4 && !two) || idx_bits < 1 || idx_bits > 32 ||
-      two != (r2_cutoff > 0.0f) || (tile_w != 16 && tile_w != 32) ||
-      depth_mode < kDepthNone || depth_mode > kDepthFirstHit ||
-      (two && (tile_w != 16 || depth_mode == kDepthFirstHit)) ||
-      (coord_x != nullptr && tile_w != 16)) {
+      (two && !cutoff) || r2_cutoff < 0.0f || (tile_w != 16 && tile_w != 32) ||
+      depth_mode < kDepthNone || depth_mode > kDepthNormalized ||
+      ((two || cutoff || coord_x != nullptr) &&
+       (tile_w != 16 || depth_mode == kDepthFirstHit))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WordPtrs W = load_words(words, n_words);
@@ -303,15 +316,17 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
   const int n_tiles = tiles_x * tiles_y;
   const bool first_hit = depth_mode == kDepthFirstHit;
   if (n_tiles > 0) {
-    auto kernel = two             ? blend_kernel<2, 16, false>
-                  : tile_w == 32  ? (first_hit ? blend_kernel<1, 32, true>
-                                               : blend_kernel<1, 32, false>)
-                  : first_hit     ? blend_kernel<1, 16, true>
-                                  : blend_kernel<1, 16, false>;
+    auto kernel =
+        two            ? blend_kernel<2, 16, false, true>
+        : cutoff       ? blend_kernel<1, 16, false, true>
+        : tile_w == 32 ? (first_hit ? blend_kernel<1, 32, true, false>
+                                    : blend_kernel<1, 32, false, false>)
+        : first_hit    ? blend_kernel<1, 16, true, false>
+                       : blend_kernel<1, 16, false, false>;
     kernel<<<n_tiles, tile_w * kTileH, 0, stream>>>(
         key_words, idx_mask, W, starts, counts, tiles_x, width, height,
-        depth_mode != kDepthNone, theta_unit, inv255, min_transmittance,
-        r2_cutoff, coord_x, coord_y, color, depth);
+        depth_mode, theta_unit, inv255, min_transmittance, r2_cutoff, coord_x,
+        coord_y, color, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,9 @@
 """Tile blending (front-to-back alpha compositing) and image assembly.
 
 Port of ``gsm_renderer_tpu/kernels/blend.py``: ``blend_tiles_pallas``
-(``_row_blend_kernel``, depth modes "weighted", "none" and "first_hit",
-``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``, 16x16 and 32x16 tiles)
-and ``assemble_image``.  The kernel is
+(``_row_blend_kernel``, depth modes "weighted", "none", "first_hit" and
+"normalized", ``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``, 16x16
+and 32x16 tiles) and ``assemble_image``.  The kernel is
 ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W) depth
 directly -- (H, 2W) for two eyes side by side -- so assembly is fused into it
 on the card.
@@ -25,9 +25,12 @@ integer corner (``stereo.foveated_raster_tables``).
 Depth mode "first_hit" (the Local renderer's): a pixel's depth is that of
 the first record whose alpha -- after the 0.99 clamp -- exceeds
 ``FIRST_HIT_ALPHA``, 0 where none does; the pixel keeps compositing until
-its tile exits, so a hit after it saturated still counts.  The kernel
-blends 32x16 tiles (the Global renderer's; pixel p = ly * 32 + lx) in one
-eye without pixel coordinates, and first_hit depth in one eye.
+its tile exits, so a hit after it saturated still counts.  Depth mode
+"normalized" (the Hardware renderer's) divides the weighted depth by the
+pixel's alpha: sum(w * d) / max(1 - T, 1e-6), T the final transmittance.
+The kernel blends 32x16 tiles (the Global renderer's; pixel p = ly * 32 +
+lx) in one eye without a cutoff or pixel coordinates, and first_hit depth
+in one eye without a cutoff.
 
 Early-exit rule, shared by the kernel and :func:`blend_tiles_plain`: a tile's
 span is walked in 256-record batches aligned to 128-record blocks (the Pallas
@@ -49,7 +52,9 @@ ALPHA_CLAMP = 0.99
 #: first_hit depth: the first record with alpha above this
 FIRST_HIT_ALPHA = 0.1
 #: gsm_blend's depth_mode codes
-DEPTH_MODES = {"none": 0, "weighted": 1, "first_hit": 2}
+DEPTH_MODES = {"none": 0, "weighted": 1, "first_hit": 2, "normalized": 3}
+#: normalized depth: the weighted depth over max(alpha, NORMALIZED_MIN_ALPHA)
+NORMALIZED_MIN_ALPHA = 1e-6
 WORD_ROWS = 4
 BATCH = 256
 BLOCK = 128
@@ -192,9 +197,13 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
             tmax = torch.maximum(tmax, t)
         saturated = (tmax < MIN_TRANSMITTANCE).all(dim=1)
         active = active & ~(batch_end & saturated)
-    eyes = [(torch.stack([a[0], a[1], a[2], 1.0 - t], dim=-1),
-             None if depth_mode == "none" else a[3])
-            for a, t in zip(acc, trans)]
+    eyes = []
+    for a, t in zip(acc, trans):
+        alpha = 1.0 - t
+        depth = None if depth_mode == "none" else a[3]
+        if depth_mode == "normalized":
+            depth = depth / torch.clamp(alpha, min=NORMALIZED_MIN_ALPHA)
+        eyes.append((torch.stack([a[0], a[1], a[2], alpha], dim=-1), depth))
     out = eyes[0] if n_eyes == 1 else eyes
     if return_processed:
         return (*out, processed) if n_eyes == 1 else (out, processed)
@@ -221,23 +230,25 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                      r2_cutoff: float = 0.0, pixel_coords=None):
     """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
     (H, n_eyes * W) or None), the eyes side by side.  The kernel blends one
-    eye without a cutoff (the mono frames: 16x16 or 32x16 tiles, any depth
-    mode) or two with ``r2_cutoff`` > 0 (the stereo and foveated frames:
-    16x16 tiles, weighted or no depth); it raises on the other pairings."""
+    eye without a cutoff (16x16 or 32x16 tiles, any depth mode), one eye
+    with ``r2_cutoff`` > 0 (the Hardware mono frame) or two eyes with
+    ``r2_cutoff`` > 0 (the stereo and foveated frames); a blend with a
+    cutoff or pixel coordinates takes 16x16 tiles and no first_hit depth.
+    It raises on the other pairings."""
     _check_depth_mode(depth_mode)
     words = _check_words(entry_words, n_eyes)
-    if (n_eyes == 2) != (r2_cutoff > 0.0):
+    if r2_cutoff < 0.0 or (n_eyes == 2 and r2_cutoff == 0.0):
         raise NotImplementedError(
-            f"the blend kernel takes n_eyes=2 with r2_cutoff > 0 or n_eyes=1 "
-            f"without, got n_eyes={n_eyes}, r2_cutoff={r2_cutoff}")
+            f"the blend kernel takes n_eyes=2 with r2_cutoff > 0 and n_eyes=1 "
+            f"with r2_cutoff >= 0, got n_eyes={n_eyes}, r2_cutoff={r2_cutoff}")
     if tile_h != 16 or tile_w not in (16, 32):
         raise NotImplementedError(
             f"the blend kernel takes 16x16 and 32x16 tiles, got {tile_w}x{tile_h}")
-    if (n_eyes == 2 or pixel_coords is not None) and (
+    if (n_eyes == 2 or r2_cutoff > 0.0 or pixel_coords is not None) and (
             tile_w != 16 or depth_mode == "first_hit"):
         raise NotImplementedError(
-            "the dual-eye and pixel-coordinate blends take 16x16 tiles and "
-            "weighted or no depth")
+            "the dual-eye, cutoff and pixel-coordinate blends take 16x16 "
+            "tiles and weighted, normalized or no depth")
     if not 1 <= idx_bits <= 32:
         raise ValueError(f"idx_bits must lie in [1, 32], got {idx_bits}")
     dev = sorted_key.device

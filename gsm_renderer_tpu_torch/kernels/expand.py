@@ -7,7 +7,11 @@ Port of ``gsm_renderer_tpu/kernels/expand.py``: ``binning_prep_pallas``
 option ``count_rows``), ``row_expand_pallas`` (``_row_expand_kernel``),
 ``expand_slots_pallas`` (``_expand_kernel``, prebuilt table with KeyPlan
 keys, exact tests "mono", "stereo" and "warped") and
-``warped_bounds_gather_pallas`` (``_bgather_kernel``).  The kernels are
+``warped_bounds_gather_pallas`` (``_bgather_kernel``), and mode "none" of
+the expand (``exact_test=False``: the Hardware renderer's full rects) with
+its offsets from prep, where the JAX package computes them in XLA
+(``pipelines/common.py::binning_inputs`` and the cumsum of
+``expand_slots_pallas``).  The kernels are
 ``csrc/binning.cu``.  Prep and the expand take 16x16 tiles, and in mode
 "mono" also the Global renderer's 32x16 (the 8x4 window keeps its geometry
 in tiles; only each test's pixel extents change); the row expansion takes
@@ -51,14 +55,17 @@ THETA_UNIT = 3.14159265358979 / 65535.0
 #: per-pixel cutoff of the stereo blend (q <= 9); dropping an instance whose
 #: minQuadRect over the tile exceeds it leaves the image unchanged
 STEREO_R2_CUTOFF = 9.0
-#: record words carried per mode
-MODE_WORDS = {"mono": 4, "stereo": 8, "warped": 8}
+#: record words carried per mode ("none" carries the mono record for the
+#: blend; its prep and expand read none of it)
+MODE_WORDS = {"mono": 4, "stereo": 8, "warped": 8, "none": 4}
+#: the kernels' mode codes (``enum Mode`` of csrc/binning.cu)
+MODE_CODES = {"mono": 0, "stereo": 1, "warped": 2, "none": 3}
 #: entries per axis row of the foveated bounds table
 BOUNDS_LANES = 128
 
 PREP = _native.Kernel("prep", "binning", "gsm_prep", [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
-    _native.I, _native.F, _native.F, _native.F,
+    _native.I, _native.I, _native.F, _native.F, _native.F,
     _native.P, _native.P, _native.P, _native.P, _native.P,
     _native.P, _native.F])
 ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
@@ -67,7 +74,7 @@ ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P])
 EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
-    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
+    _native.I, _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.F, _native.F, _native.F, _native.P, _native.P])
 BOUNDS_GATHER = _native.Kernel("bounds_gather", "binning", "gsm_bounds_gather", [
     _native.P, _native.P, _native.P, _native.I, _native.P])
@@ -409,7 +416,8 @@ def _check_mode(mode: str, words):
 
 
 def _check_tiles(mode: str, tile_w: int, tile_h: int, what: str):
-    """The tiles a kernel takes: 16x16, and 32x16 in mode mono."""
+    """The tiles a kernel takes: 16x16, and 32x16 in mode mono (mode
+    "none" takes 16x16, the Hardware renderer's)."""
     if tile_h != 16 or not (tile_w == 16 or (tile_w == 32 and mode == "mono")):
         raise NotImplementedError(
             f"the {what} kernel takes 16x16 tiles, and 32x16 in mode mono; "
@@ -431,21 +439,27 @@ def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
                        warped_bounds=None, lod_min: float = 0.0):
     """Plain version of the prep kernel.  ``mode`` "mono" (4 words, the
     alpha-cutoff exact masks), "stereo" (8 words, the dual-eye q <= 9
-    masks) or "warped" (8 words, the dual-eye masks on the display-space
+    masks), "warped" (8 words, the dual-eye masks on the display-space
     rects of the (2, 128) ``warped_bounds`` table, with the periphery LOD
-    drop when ``lod_min`` > 0).  With ``count_rows`` the counts are virtual
-    tile rows (one per mask-eligible or culled gaussian, ``rect_h`` per
-    oversized rect) for :func:`row_expand`.  Returns (offsets (N+1,) int32
-    with offsets[N] the total, rect' (N,) int32 with MASKED/CULLED bits,
-    mask (N,) int32)."""
+    drop when ``lod_min`` > 0) or "none" (no test: the whole rect of a
+    visible gaussian, one dead slot for a culled one).  With ``count_rows``
+    the counts are virtual tile rows (one per mask-eligible or culled
+    gaussian, ``rect_h`` per oversized rect) for :func:`row_expand`.
+    Returns (offsets (N+1,) int32 with offsets[N] the total, rect' (N,)
+    int32 with MASKED/CULLED bits, mask (N,) int32); in mode "none" rect'
+    is ``rect_word`` itself and the mask None."""
     _check_mode(mode, words)
     _check_warped(mode, warped_bounds)
+    _check_count_rows(mode, count_rows)
     rw = M.u32(rect_word)
     min_tx = rw & 0x3FF
     min_ty = (rw >> 10) & 0x3FF
     rect_w = (rw >> 20) & 0x3FF
     culled0 = (rw & CULLED_BIT) != 0
     rh = rect_h.to(torch.int64)
+    if mode == "none":
+        counts = torch.clamp(torch.where(culled0, 0, rect_w * rh), min=1)
+        return _exclusive_offsets(counts), rect_word, None
     w = [M.u32(x) for x in words]
     if mode == "warped":
         fx, fy = warped_bounds_gather_plain(warped_bounds, min_tx, min_ty)
@@ -470,9 +484,20 @@ def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
                 | torch.where(culled, CULLED_BIT, 0))
     # every gaussian owns >= 1 slot: offsets strictly increase
     counts = torch.clamp(counts, min=1)
-    offsets = torch.zeros(rw.shape[0] + 1, dtype=torch.int64, device=rw.device)
+    return _exclusive_offsets(counts), M.to_i32(rect_out), M.to_i32(mask)
+
+
+def _exclusive_offsets(counts):
+    """(N + 1,) int32 exclusive scan of int64 counts, the total last."""
+    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
+                          device=counts.device)
     offsets[1:] = torch.cumsum(counts, 0)
-    return offsets.to(torch.int32), M.to_i32(rect_out), M.to_i32(mask)
+    return offsets.to(torch.int32)
+
+
+def _check_count_rows(mode: str, count_rows: bool):
+    if count_rows and mode != "mono":
+        raise ValueError("count_rows is a mono prep option")
 
 
 def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
@@ -484,10 +509,13 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
     each warp, and the global offset scan in the same pass (decoupled
     look-back over :func:`scan_scratch`).  In mode "warped" the tests read
     the window's boundaries from the bounds table staged in shared
-    memory."""
+    memory.  In mode "none" it reads the rect word and rect_h alone and
+    writes the offsets alone: it returns ``rect_word`` as rect' and no
+    mask, as the plain version does."""
     _check_mode(mode, words)
     _check_tiles(mode, tile_w, tile_h, "prep")
     _check_warped(mode, warped_bounds)
+    _check_count_rows(mode, count_rows)
     dev = rect_word.device
     n = rect_word.shape[0]
     for name, t in (("rect_word", rect_word), ("rect_h", rect_h),
@@ -497,17 +525,18 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
         _native.check(warped_bounds, "warped_bounds", torch.float32,
                       (2, BOUNDS_LANES), dev)
     offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    rect_out = torch.empty(n, dtype=torch.int32, device=dev)
-    mask = torch.empty(n, dtype=torch.int32, device=dev)
+    rect_out = mask = None
+    if mode != "none":
+        rect_out = torch.empty(n, dtype=torch.int32, device=dev)
+        mask = torch.empty(n, dtype=torch.int32, device=dev)
     ticket, status = scan_scratch(dev, n)
     PREP.launch(_native.ptr(rect_word), _native.ptr(rect_h), _native.ptr_array(words),
-                len(words), int(count_rows), n, tile_w,
+                len(words), MODE_CODES[mode], int(count_rows), n, tile_w,
                 M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
-                M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr(rect_out),
-                _native.ptr(mask), _native.ptr(ticket), _native.ptr(status),
-                None if warped_bounds is None else _native.ptr(warped_bounds),
-                M.f32(lod_min))
-    return offsets, rect_out, mask
+                M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr_or_null(rect_out),
+                _native.ptr_or_null(mask), _native.ptr(ticket), _native.ptr(status),
+                _native.ptr_or_null(warped_bounds), M.f32(lod_min))
+    return offsets, rect_word if mode == "none" else rect_out, mask
 
 
 def binning_prep(rect_word, rect_h, words, **kw):
@@ -639,9 +668,11 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     wrong keys.  A live slot never lands on a dead row.  The tile is the j-th set bit of
     the mask (MASKED entries) or a row-major walk of the rect plus the exact
     test: the alpha cutoff (``mode`` "mono"), the dual-eye q <= 9 test
-    ("stereo"), or the dual-eye test on the display-space rect of the
-    physical tile from the (2, 128) ``warped_bounds`` table ("warped").
-    MASKED entries skip the test, except under the warp.  Returns (key1
+    ("stereo"), the dual-eye test on the display-space rect of the
+    physical tile from the (2, 128) ``warped_bounds`` table ("warped"), or
+    none ("none": every slot of a visible entry's rect is live; the mask
+    may be None).  MASKED entries skip the test, except under the warp.
+    Returns (key1
     (C,), key2 (C,)) int32 with the sentinel in both keys for dead slots,
     then the unclamped slot total and the overflow flag as 0-d int32
     tensors.  No record word is carried per slot: a live slot's entry index
@@ -664,17 +695,20 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     min_ty = (rw >> 10) & 0x3FF
     rect_w = torch.clamp((rw >> 20) & 0x3FF, min=1)
     culled = (rw & CULLED_BIT) != 0
-    is_masked = (rw & MASKED_BIT) != 0
     q = torch.div(jj, rect_w, rounding_mode="floor")
     r = jj - q * rect_w
-    pbit = _nth_set_bit(M.u32(mask)[g], jj)
-    q = torch.where(is_masked, pbit >> 3, q)
-    r = torch.where(is_masked, pbit & 7, r)
+    if mode != "none":
+        is_masked = (rw & MASKED_BIT) != 0
+        pbit = _nth_set_bit(M.u32(mask)[g], jj)
+        q = torch.where(is_masked, pbit >> 3, q)
+        r = torch.where(is_masked, pbit & 7, r)
     t_y = min_ty + q
     t_x = min_tx + r
     tile = t_y * tiles_x + t_x
     w = [M.u32(x)[g] for x in words]
-    if mode == "warped":
+    if mode == "none":
+        passes = torch.ones_like(culled)
+    elif mode == "warped":
         bx, by = warped_bounds[0], warped_bounds[1]
         passes = _stereo_rect_test(w, bx[_bound_index(t_x)],
                                    bx[_bound_index(t_x, 1)],
@@ -688,7 +722,7 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     else:
         passes = _exact_tile_test(w[0], w[1], w[2], w[3], t_x, t_y,
                                   float(tile_w), float(tile_h), alpha_threshold)
-    if mode != "warped":
+    if mode in ("mono", "stereo"):
         # a pre-counted entry passed this very test at prep; under the warp
         # the JAX expand re-tests it, so the port does too
         passes = passes | is_masked
@@ -715,27 +749,31 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
     CTA's first one cover all its 1024 slots; a table with a zero-count
     entry before the total gets wrong keys.  Prep and the row expansion
     make tables that meet it; a row table's dead tail past the total is
-    allowed."""
+    allowed.  In mode "none" the mask may be None: the kernel reads no mask
+    and no record word there."""
     _check_mode(mode, words)
     _check_tiles(mode, tile_w, tile_h, "expand")
     _check_warped(mode, warped_bounds)
     dev = offsets.device
     n = rect.shape[0]
     _native.check(offsets, "offsets", torch.int32, (n + 1,), dev)
+    if mask is None and mode != "none":
+        raise ValueError(f"mode {mode!r} reads the prep mask")
     for name, t in (("rect", rect), ("mask", mask), ("dsw", dsw),
                     *((f"w{k}", w) for k, w in enumerate(words))):
-        _native.check(t, name, torch.int32, (n,), dev)
+        if t is not None:
+            _native.check(t, name, torch.int32, (n,), dev)
     if warped_bounds is not None:
         _native.check(warped_bounds, "warped_bounds", torch.float32,
                       (2, BOUNDS_LANES), dev)
     d_hi, d_lo, idx_bits = key_plan.kernel_tuple
     out = torch.empty((2, capacity), dtype=torch.int32, device=dev)
-    EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
-                  _native.ptr(dsw), _native.ptr_array(words), len(words), n,
-                  capacity, tiles_x, tile_w, d_hi, d_lo, idx_bits,
-                  M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
+    EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr_or_null(mask),
+                  _native.ptr(dsw), _native.ptr_array(words), len(words),
+                  MODE_CODES[mode], n, capacity, tiles_x, tile_w, d_hi, d_lo,
+                  idx_bits, M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                   M.f32(1.0 / 255.0), _native.ptr(out),
-                  None if warped_bounds is None else _native.ptr(warped_bounds))
+                  _native.ptr_or_null(warped_bounds))
     total = offsets[n]
     return out[0], out[1], total, (total > capacity).to(torch.int32)
 

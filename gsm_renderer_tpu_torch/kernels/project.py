@@ -154,38 +154,6 @@ def f32_to_f16_bits(v):
     return (sign | h) & 0xFFFF
 
 
-def _jmod(x, y: float):
-    """jnp.mod for float32: fmod, then + y where the signs differ."""
-    r = torch.fmod(x, y)
-    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
-
-
-def _theta_sigmas(ca, cb, cd):
-    """covariance_to_theta_sigmas_c minus atan2: (unit major eigenvector x,
-    y, sigma1, sigma2, eig_ok)."""
-    a = torch.clamp(ca, min=1e-8)
-    d = torch.clamp(cd, min=1e-8)
-    b = cb
-    finite = torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(d)
-    det = a * d - b * b
-    eig_ok = finite & torch.isfinite(det) & (det > 0.0)
-    mid = 0.5 * (a + d)
-    disc = torch.clamp(mid * mid - det, min=0.0)
-    sqrt_disc = torch.sqrt(disc)
-    lam1 = torch.clamp(mid + sqrt_disc, min=1e-8)
-    lam2 = torch.clamp(mid - sqrt_disc, min=1e-8)
-    use_b = b.abs() > 1e-8
-    evx = torch.where(use_b, b, torch.where(a >= d, 1.0, 0.0))
-    evy = torch.where(use_b, lam1 - a, torch.where(a >= d, 0.0, 1.0))
-    vlen = torch.sqrt(evx * evx + evy * evy)
-    evx = evx / torch.clamp(vlen, min=1e-12)
-    evy = evy / torch.clamp(vlen, min=1e-12)
-    sigma1 = torch.sqrt(lam1)
-    sigma2 = torch.sqrt(lam2)
-    eig_ok &= torch.isfinite(sigma1) & torch.isfinite(sigma2)
-    return evx, evy, sigma1, sigma2, eig_ok
-
-
 def _sh_color(harm, px, py, pz, cen, sh_degree: int, input_is_srgb: bool):
     """SH colour seen from the centre ``cen`` (3 floats), + 0.5, clamped at
     0, optionally sRGB-decoded: 3 (N,) tensors."""
@@ -217,11 +185,11 @@ def _theta_u16(evx, evy, k, visible=None):
     """The JAX theta epilogue: atan2, mod pi, (zero where not ``visible``),
     mod pi, packed to u16 (int64)."""
     theta = torch.atan2(evy, evx)
-    theta = _jmod(theta, k["pi"])
+    theta = M.jmod(theta, k["pi"])
     theta = torch.where(theta >= k["pi"], theta - k["pi"], theta)
     if visible is not None:
         theta = torch.where(visible, theta, 0.0)
-    t = _jmod(theta, k["pi"])
+    t = M.jmod(theta, k["pi"])
     t = torch.where(t < 0.0, t + k["pi"], t)
     return torch.clamp(t * k["theta_scale"] + 0.5, 0.0, 65535.0).to(
         torch.int32).to(torch.int64)
@@ -276,7 +244,7 @@ def project_plain(comp, harm, view, proj, center, *, width: int, height: int,
                                            float(width), float(height))
     ca, cb, cd = M.stabilize_covariance_2d_c(ca, cb, cd, float(width),
                                              float(height))
-    evx, evy, sigma1, sigma2, eig_ok = _theta_sigmas(ca, cb, cd)
+    evx, evy, sigma1, sigma2, eig_ok = M.major_axis_sigmas_c(ca, cb, cd)
     alive &= eig_ok
 
     radius = 3.0 * torch.maximum(sigma1, sigma2)
@@ -403,7 +371,7 @@ def _eye_chain(px, py, pz, c3d, view, proj, *, width, height, tile_w, tile_h,
                                            float(width), float(height))
     ca, cb, cd = M.stabilize_covariance_2d_c(ca, cb, cd, float(width),
                                              float(height))
-    evx, evy, sigma1, sigma2, eig_ok = _theta_sigmas(ca, cb, cd)
+    evx, evy, sigma1, sigma2, eig_ok = M.major_axis_sigmas_c(ca, cb, cd)
     ok &= eig_ok
     det2d = ca * cd - cb * cb
     ok &= ~M.cull_by_radius(3.0 * torch.maximum(sigma1, sigma2))

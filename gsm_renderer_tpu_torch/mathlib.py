@@ -1,13 +1,17 @@
-"""Gaussian-splatting math: the part of ``gsm_renderer_tpu/mathlib.py`` that
-projection and binning call, in PyTorch.
+"""Gaussian-splatting math: ``gsm_renderer_tpu/mathlib.py`` in PyTorch.
 
-Every function works on (N,) float32 component tensors and repeats the JAX
-function's arithmetic operation for operation (same association order, same
-float32 constants), so the plain path and the CUDA kernels that copy it agree
-with the reference up to the last-ulp differences of the transcendental
-functions.  Matrix arguments are (4, 4) host arrays; their entries enter the
-arithmetic as float32 scalars.  ``rsqrt`` is written ``1 / sqrt``: the CUDA
-kernels do the same, since ``rsqrtf`` is an approximation.
+The component (``_c``) functions work on (N,) float32 tensors and repeat the
+JAX function's arithmetic operation for operation (same association order,
+same float32 constants), so the plain path and the CUDA kernels that copy it
+agree with the reference up to the last-ulp differences of the
+transcendental functions; the array-shaped functions are the JAX package's
+wrappers around them.  Matrix arguments of the component functions are
+nested float32 values (:func:`mat`); the array-shaped ones also take (4, 4)
+host arrays.  Their entries enter the arithmetic as float32 scalars.
+``rsqrt`` is written ``1 / sqrt``: the CUDA kernels do the same, since
+``rsqrtf`` is an approximation.  A Python scalar divided by a tensor, or a
+tensor by a Python scalar, goes through :func:`rdiv` / :func:`div` (true
+division, as JAX computes it).
 """
 
 from __future__ import annotations
@@ -89,10 +93,64 @@ def sh_basis_c(x, y, z, degree: int):
     return out
 
 
+def sh_basis(direction, degree: int):
+    """SH basis of unit ``direction`` (..., 3) -> (..., n_coeffs)."""
+    return torch.stack(sh_basis_c(direction[..., 0], direction[..., 1],
+                                  direction[..., 2], degree), dim=-1)
+
+
+def compute_sh_color_c(harmonics, px, py, pz, camera_center, degree: int):
+    """SH colour of N gaussians seen from ``camera_center`` (3,): channel-
+    planar ``harmonics`` (3, n_coeffs, N), position components (N,).
+    Returns (N, 3) linear colour (before the +0.5 offset)."""
+    hp = harmonics.to(torch.float32)
+    if degree == 0:
+        return torch.stack([hp[ch, 0] * SH_C0 for ch in range(3)], dim=-1)
+    cen = mat(camera_center)
+    dx = cen[0] - px
+    dy = cen[1] - py
+    dz = cen[2] - pz
+    inv = 1.0 / torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-24))
+    basis = sh_basis_c(dx * inv, dy * inv, dz * inv, degree)
+    out = []
+    for ch in range(3):
+        acc = hp[ch, 0] * basis[0]
+        for c in range(1, (degree + 1) ** 2):
+            acc = acc + hp[ch, c] * basis[c]
+        out.append(acc)
+    return torch.stack(out, dim=-1)
+
+
+def compute_sh_color(harmonics, positions, camera_center, degree: int):
+    """SH colour for (N, 3) ``positions`` (see :func:`compute_sh_color_c`)."""
+    return compute_sh_color_c(harmonics, positions[..., 0], positions[..., 1],
+                              positions[..., 2], camera_center, degree)
+
+
+def srgb_to_linear(c):
+    """Per-channel sRGB decode."""
+    c = torch.clamp(c, 0.0, 1.0)
+    return torch.where(c <= 0.04045, div(c, 12.92),
+                       torch.pow(div(c + 0.055, 1.055), 2.4))
+
+
+def ndc_to_screen(ndc, width, height):
+    """NDC [-1, 1] (..., 2) -> screen pixels [0, size] (..., 2)."""
+    return torch.stack([(ndc[..., 0] + 1.0) * 0.5 * width,
+                        (ndc[..., 1] + 1.0) * 0.5 * height], dim=-1)
+
+
 def apply_mat4_c(m, x, y, z):
     """(4, 4) nested floats applied to homogeneous component vectors."""
     return tuple(m[i][0] * x + m[i][1] * y + m[i][2] * z + m[i][3]
                  for i in range(4))
+
+
+def apply_mat4(m, positions):
+    """(4, 4) x (N, 3) homogeneous points -> (N, 4)."""
+    return torch.stack(apply_mat4_c(mat(m), positions[..., 0],
+                                    positions[..., 1], positions[..., 2]),
+                       dim=-1)
 
 
 def project_points_c(px, py, pz, view, proj, near):
@@ -105,6 +163,34 @@ def project_points_c(px, py, pz, view, proj, near):
     safe_w = torch.where(depth.abs() > 1e-12, depth, 1e-12)
     inv_w = 1.0 / safe_w
     return vx, vy, vz, cx * inv_w, cy * inv_w, depth, in_front
+
+
+def project_points(positions, view, proj, near):
+    """Project (N, 3) world points: (view positions (N, 3), ndc (N, 2),
+    depth, in_front)."""
+    vx, vy, vz, nx, ny, depth, in_front = project_points_c(
+        positions[..., 0], positions[..., 1], positions[..., 2], mat(view),
+        mat(proj), near)
+    return (torch.stack([vx, vy, vz], -1), torch.stack([nx, ny], -1), depth,
+            in_front)
+
+
+def normalize_quaternion(quat):
+    """(N, 4) quaternions (x, y, z, w) -> unit quaternions."""
+    norm = torch.sqrt(torch.clamp((quat * quat).sum(dim=-1, keepdim=True),
+                                  min=1e-8))
+    return quat / norm
+
+
+def quaternion_to_matrix(quat):
+    """(N, 4) unit quaternions (x, y, z, r) -> (N, 3, 3) rotations."""
+    x, y, z, r = quat[..., 0], quat[..., 1], quat[..., 2], quat[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    row0 = torch.stack([1 - 2 * (yy + zz), 2 * (xy - r * z), 2 * (xz + r * y)], -1)
+    row1 = torch.stack([2 * (xy + r * z), 1 - 2 * (xx + zz), 2 * (yz - r * x)], -1)
+    row2 = torch.stack([2 * (xz - r * y), 2 * (yz + r * x), 1 - 2 * (xx + yy)], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
 
 
 def build_covariance_3d_c(sx, sy, sz, qx, qy, qz, qw):
@@ -125,6 +211,26 @@ def build_covariance_3d_c(sx, sy, sz, qx, qy, qz, qw):
         return rs[i][0] * rs[j][0] + rs[i][1] * rs[j][1] + rs[i][2] * rs[j][2]
 
     return dot(0, 0), dot(0, 1), dot(0, 2), dot(1, 1), dot(1, 2), dot(2, 2)
+
+
+def build_covariance_3d(scales, quats):
+    """Sigma = R S S^T R^T for (N, 3) scales and (N, 4) quaternions ->
+    (N, 3, 3)."""
+    c00, c01, c02, c11, c12, c22 = build_covariance_3d_c(
+        scales[..., 0], scales[..., 1], scales[..., 2],
+        quats[..., 0], quats[..., 1], quats[..., 2], quats[..., 3])
+    return _sym3(c00, c01, c02, c11, c12, c22)
+
+
+def _sym3(c00, c01, c02, c11, c12, c22):
+    return torch.stack([torch.stack([c00, c01, c02], -1),
+                        torch.stack([c01, c11, c12], -1),
+                        torch.stack([c02, c12, c22], -1)], dim=-2)
+
+
+def _sym2(a, b, d):
+    return torch.stack([torch.stack([a, b], -1), torch.stack([b, d], -1)],
+                       dim=-2)
 
 
 def covariance_2d_consts(proj, width, height):
@@ -176,6 +282,17 @@ def project_covariance_2d_c(c3d, vx, vy, vz, view, proj, width, height):
     b = m0[0] * t1[0] + m0[1] * t1[1] + m0[2] * t1[2]
     d = m1[0] * t1[0] + m1[1] * t1[1] + m1[2] * t1[2] + 0.3
     return a, b, d
+
+
+def project_covariance_2d(cov3d, view_pos, view_rot, proj, width, height):
+    """(N, 3, 3) cov3d and (N, 3) view-space positions -> (N, 2, 2)
+    covariance; ``view_rot`` the (3, 3) upper left of the view matrix."""
+    c3d = (cov3d[..., 0, 0], cov3d[..., 0, 1], cov3d[..., 0, 2],
+           cov3d[..., 1, 1], cov3d[..., 1, 2], cov3d[..., 2, 2])
+    a, b, d = project_covariance_2d_c(
+        c3d, view_pos[..., 0], view_pos[..., 1], view_pos[..., 2],
+        mat(view_rot), mat(proj), width, height)
+    return _sym2(a, b, d)
 
 
 def max_eigenvalue(width, height) -> float:
@@ -232,6 +349,89 @@ def stabilize_covariance_2d_c(a, b, d, width, height):
             torch.where(finite, out_d, 1.0))
 
 
+def stabilize_covariance_2d(cov2d, width, height):
+    """(N, 2, 2) -> (N, 2, 2) stabilized covariance (see
+    :func:`stabilize_covariance_2d_c`; the off-diagonal symmetrized)."""
+    a, b, d = stabilize_covariance_2d_c(
+        cov2d[..., 0, 0], 0.5 * (cov2d[..., 0, 1] + cov2d[..., 1, 0]),
+        cov2d[..., 1, 1], width, height)
+    return _sym2(a, b, d)
+
+
+def jmod(x, y: float):
+    """``jnp.mod`` for float32: fmod, then + y where the signs differ."""
+    r = torch.fmod(x, y)
+    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+
+
+def major_axis_sigmas_c(a, b, d):
+    """:func:`covariance_to_theta_sigmas_c` up to its atan2: (unit major
+    eigenvector x, y, sigma1, sigma2, ok)."""
+    a = torch.clamp(a, min=1e-8)
+    d = torch.clamp(d, min=1e-8)
+    finite = torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(d)
+    det = a * d - b * b
+    ok = finite & torch.isfinite(det) & (det > 0.0)
+    mid = 0.5 * (a + d)
+    disc = torch.clamp(mid * mid - det, min=0.0)
+    sqrt_disc = torch.sqrt(disc)
+    lam1 = torch.clamp(mid + sqrt_disc, min=1e-8)
+    lam2 = torch.clamp(mid - sqrt_disc, min=1e-8)
+    use_b = b.abs() > 1e-8
+    vx = torch.where(use_b, b, torch.where(a >= d, 1.0, 0.0))
+    vy = torch.where(use_b, lam1 - a, torch.where(a >= d, 0.0, 1.0))
+    vlen = torch.sqrt(vx * vx + vy * vy)
+    vx = vx / torch.clamp(vlen, min=1e-12)
+    vy = vy / torch.clamp(vlen, min=1e-12)
+    sigma1 = torch.sqrt(lam1)
+    sigma2 = torch.sqrt(lam2)
+    ok &= torch.isfinite(sigma1) & torch.isfinite(sigma2)
+    return vx, vy, sigma1, sigma2, ok
+
+
+def covariance_to_theta_sigmas_c(a, b, d):
+    """Eigen-decomposition of the covariance (a, b, d): (theta in [0, pi),
+    sigma1, sigma2, ok)."""
+    vx, vy, sigma1, sigma2, ok = major_axis_sigmas_c(a, b, d)
+    theta = jmod(torch.atan2(vy, vx), PI)
+    theta = torch.where(theta >= PI, theta - PI, theta)
+    return theta, sigma1, sigma2, ok & torch.isfinite(theta)
+
+
+def covariance_to_theta_sigmas(cov2d):
+    """(N, 2, 2) -> (theta, sigma1, sigma2, ok); the off-diagonal
+    symmetrized."""
+    return covariance_to_theta_sigmas_c(
+        cov2d[..., 0, 0], 0.5 * (cov2d[..., 0, 1] + cov2d[..., 1, 0]),
+        cov2d[..., 1, 1])
+
+
+def pack_theta_u16(theta):
+    """theta [0, pi) -> u16 (int32 holding it)."""
+    t = jmod(theta, PI)
+    t = torch.where(t < 0.0, t + PI, t)
+    u = t * (65535.0 / PI)
+    return torch.clamp(u + 0.5, 0.0, 65535.0).to(torch.int32)
+
+
+def unpack_theta_u16(packed):
+    """u16 -> theta (float32)."""
+    return packed.to(torch.float32) * (PI / 65535.0)
+
+
+def conic_from_theta_sigmas(theta, sigma1, sigma2, min_sigma: float = 1e-4):
+    """(theta, s1, s2) -> conic (A, B, C), q = A dx^2 + 2B dx dy + C dy^2,
+    the sigmas floored at ``min_sigma``."""
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    s1 = torch.clamp(sigma1, min=min_sigma)
+    s2 = torch.clamp(sigma2, min=min_sigma)
+    iv1 = rdiv(1.0, s1 * s1)
+    iv2 = rdiv(1.0, s2 * s2)
+    cc, ss, cs = c * c, s * s, c * s
+    return cc * iv1 + ss * iv2, cs * (iv1 - iv2), ss * iv1 + cc * iv2
+
+
 def compute_obb_extents_c(a, b, d, sigma_multiplier=3.0):
     """Axis-aligned extents of the oriented 3-sigma box: (x_ext, y_ext)."""
     det = a * d - b * b
@@ -250,8 +450,92 @@ def compute_obb_extents_c(a, b, d, sigma_multiplier=3.0):
     return vx.abs() * e1 + vy.abs() * e2, vy.abs() * e1 + vx.abs() * e2
 
 
+def compute_obb_extents(cov2d, sigma_multiplier=3.0):
+    """Axis-aligned extents (N, 2) of the oriented box of (N, 2, 2)."""
+    ex, ey = compute_obb_extents_c(cov2d[..., 0, 0], cov2d[..., 0, 1],
+                                   cov2d[..., 1, 1], sigma_multiplier)
+    return torch.stack([ex, ey], dim=-1)
+
+
+def compute_conic_and_radius(cov2d):
+    """Inverse conic (N, 3) and conservative radius of (N, 2, 2)."""
+    a, b = cov2d[..., 0, 0], cov2d[..., 0, 1]
+    c, d = cov2d[..., 1, 0], cov2d[..., 1, 1]
+    det = a * d - b * c
+    inv_det = rdiv(1.0, torch.clamp(det, min=1e-8))
+    conic = torch.stack([d * inv_det, -b * inv_det, a * inv_det], dim=-1)
+    mid = 0.5 * (a + d)
+    delta = torch.clamp(mid * mid - det, min=1e-5)
+    max_eig = mid + torch.sqrt(delta)
+    radius = 3.0 * torch.ceil(torch.sqrt(torch.clamp(max_eig, min=1e-5)))
+    return conic, radius
+
+
+def eval_quad(x, y, a, b, c):
+    """q(x, y) = a x^2 + 2 b x y + c y^2."""
+    return a * x * x + 2.0 * b * x * y + c * y * y
+
+
+def min_quad_rect(xmin, xmax, ymin, ymax, a, b, c):
+    """Exact minimum of the conic quadratic over an axis-aligned rect
+    relative to the mean (broadcastable)."""
+    inside = (xmin <= 0.0) & (0.0 <= xmax) & (ymin <= 0.0) & (0.0 <= ymax)
+    inv_a = rdiv(1.0, torch.clamp(a, min=1e-20))
+    inv_c = rdiv(1.0, torch.clamp(c, min=1e-20))
+
+    def clip(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    q1 = eval_quad(xmin, clip(-(b * inv_c) * xmin, ymin, ymax), a, b, c)
+    q2 = eval_quad(xmax, clip(-(b * inv_c) * xmax, ymin, ymax), a, b, c)
+    q3 = eval_quad(clip(-(b * inv_a) * ymin, xmin, xmax), ymin, a, b, c)
+    q4 = eval_quad(clip(-(b * inv_a) * ymax, xmin, xmax), ymax, a, b, c)
+    qmin = torch.minimum(torch.minimum(q1, q2), torch.minimum(q3, q4))
+    return torch.where(inside, 0.0, qmin)
+
+
+def gaussian_compute_power(opacity):
+    """ln2 * 8 + ln2 * log2(opacity)."""
+    ln2 = 0.693147180559945
+    return ln2 * 8.0 + ln2 * torch.log2(torch.clamp(opacity, min=1e-6))
+
+
+def _segment_intersect_ellipse(a, b, c, d, lo, hi):
+    delta = b * b - 4.0 * a * c
+    t1 = (lo - d) * (2.0 * a) + b
+    t2 = (hi - d) * (2.0 * a) + b
+    return ((delta >= 0.0) & ((t1 <= 0.0) | (t1 * t1 <= delta))
+            & ((t2 >= 0.0) | (t2 * t2 <= delta)))
+
+
+def gaussian_intersects_tile(pix_min_x, pix_min_y, pix_max_x, pix_max_y,
+                             center_x, center_y, conic_a, conic_b, conic_c,
+                             power):
+    """Ellipse vs tile test; ``conic_*`` the inverse-covariance triple,
+    ``power`` from :func:`gaussian_compute_power` (broadcastable)."""
+    contains = ((center_x >= pix_min_x) & (center_x <= pix_max_x)
+                & (center_y >= pix_min_y) & (center_y <= pix_max_y))
+    w = 2.0 * power
+    dx = torch.where(center_x * 2.0 < pix_min_x + pix_max_x,
+                     center_x - pix_min_x, center_x - pix_max_x)
+    hit_v = _segment_intersect_ellipse(
+        conic_c, -2.0 * conic_b * dx, conic_a * dx * dx - w, center_y,
+        pix_min_y, pix_max_y)
+    dy = torch.where(center_y * 2.0 < pix_min_y + pix_max_y,
+                     center_y - pix_min_y, center_y - pix_max_y)
+    hit_h = _segment_intersect_ellipse(
+        conic_a, -2.0 * conic_b * dy, conic_c * dy * dy - w, center_x,
+        pix_min_x, pix_max_x)
+    return contains | hit_v | hit_h
+
+
 def cull_by_scale_c(sx, sy, sz):
     return torch.maximum(torch.maximum(sx, sy), sz) < MIN_GAUSSIAN_SCALE
+
+
+def cull_by_scale(scales):
+    """Max scale of (N, 3) below MIN_GAUSSIAN_SCALE."""
+    return cull_by_scale_c(scales[..., 0], scales[..., 1], scales[..., 2])
 
 
 def cull_by_radius(radius):
@@ -269,20 +553,34 @@ def depth_factor_consts(near_plane, far_plane):
     return f32(adjusted_far), f32(adjusted_far - near_plane)
 
 
+def compute_depth_factor(depth, near_plane, far_plane):
+    """LOD depth factor 1 - t^2, t = clip((far/50 - depth) / (far/50 -
+    near), 0, 1)."""
+    af, den = depth_factor_consts(near_plane, far_plane)
+    t = torch.clamp(div(af - depth, den), 0.0, 1.0)
+    return 1.0 - t * t
+
+
 def cull_by_total_ink(opacity, det_cov2d, depth, near_plane, far_plane,
                       threshold):
     """Total-ink cull with the depth-adaptive threshold."""
     if threshold <= 0.0:
         return torch.zeros_like(depth, dtype=torch.bool)
-    af, den = depth_factor_consts(near_plane, far_plane)
     total_ink = opacity * 6.283185 * torch.sqrt(torch.clamp(det_cov2d, min=1e-12))
-    t = torch.clamp(div(af - depth, den), 0.0, 1.0)
-    return total_ink < (1.0 - t * t) * threshold
+    return total_ink < compute_depth_factor(depth, near_plane,
+                                            far_plane) * threshold
 
 
 def cull_by_screen_bounds_c(sx, sy, ex, ey, width, height):
     return ((sx + ex < 0.0) | (sx - ex > width)
             | (sy + ey < 0.0) | (sy - ey > height))
+
+
+def cull_by_screen_bounds(screen, obb_extents, width, height):
+    """Off-screen cull of (N, 2) screen means with (N, 2) extents."""
+    return cull_by_screen_bounds_c(screen[..., 0], screen[..., 1],
+                                   obb_extents[..., 0], obb_extents[..., 1],
+                                   width, height)
 
 
 def compute_tile_bounds_c(sx, sy, ex, ey, width, height, tile_w, tile_h,
@@ -299,6 +597,15 @@ def compute_tile_bounds_c(sx, sy, ex, ey, width, height, tile_w, tile_h,
     min_ty = torch.clamp(torch.floor(ymin / tile_h).to(i32), min=0)
     max_ty = torch.clamp(torch.ceil(ymax / tile_h).to(i32) - 1, max=tiles_y - 1)
     return min_tx, max_tx, min_ty, max_ty
+
+
+def compute_tile_bounds(screen, obb_extents, width, height, tile_w, tile_h,
+                        tiles_x, tiles_y):
+    """Clamped inclusive tile rect of (N, 2) screen means and extents."""
+    return compute_tile_bounds_c(screen[..., 0], screen[..., 1],
+                                 obb_extents[..., 0], obb_extents[..., 1],
+                                 width, height, tile_w, tile_h, tiles_x,
+                                 tiles_y)
 
 
 def compute_d2_cutoff(opacity, tau):

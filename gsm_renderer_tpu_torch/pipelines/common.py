@@ -90,7 +90,8 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
                           lod_min: float = 0.0):
     """Prep + (row expansion) + expand of a packed projection.
 
-    ``mode`` "mono" carries the 4 record words, "stereo" the 8 of a
+    ``mode`` "mono" carries the 4 record words (exact-tested), "none" the
+    same 4 over full rects (the Hardware frame), "stereo" the 8 of a
     :class:`StereoPackedProjection`, "warped" the same 8 over the foveated
     physical tile grid, whose display-space tile rects come from the (2,
     128) ``warped_bounds`` table (with the periphery LOD drop at prep when
@@ -144,13 +145,14 @@ def d16_packed_sorted(gi, view, proj, center, prepared=None, *, width: int,
                       tile_w: int, tile_h: int, sh_degree: int,
                       alpha_threshold: float, total_ink_threshold: float,
                       near_plane: float, far_plane: float,
-                      input_is_srgb: bool):
+                      input_is_srgb: bool, mode: str = "mono"):
     """The 16-bit-depth-key chain up to the sorted keys, shared by the
-    Global, Local and DepthFirst BITS16 frames (the JAX
+    Global, Local, DepthFirst BITS16 and Hardware BITS16 frames (the JAX
     ``d16_packed_sorted``): the projection emitting the half-depth key, prep
-    and expand with the d16 KeyPlan (see the module docstring) and the
-    unstable keys-only sort.  Returns (sorted int64 keys, the projection,
-    the plan, the unclamped slot total, the overflow flag)."""
+    and expand with the d16 KeyPlan (see the module docstring) in binning
+    ``mode`` "mono" (exact-tested) or "none" (full rects), and the unstable
+    keys-only sort.  Returns (sorted int64 keys, the projection, the plan,
+    the unclamped slot total, the overflow flag)."""
     plan = B.make_key_plan(tiles_x * tiles_y, gi.count, depth_span_bits=16)
     if plan is None:  # more than 16 tile bits and too many gaussians
         raise not_ported("the stable-sort fallback (no tie-free KeyPlan fits)",
@@ -163,7 +165,7 @@ def d16_packed_sorted(gi, view, proj, center, prepared=None, *, width: int,
         total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
         depth_key16=True)
     (key1, key2), _words, slot_total, overflow = binning_sort_operands(
-        packed, capacity=capacity, tiles_x=tiles_x, key_plan=plan,
+        packed, capacity=capacity, tiles_x=tiles_x, key_plan=plan, mode=mode,
         tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
     return sort_instances(key1, key2), packed, plan, slot_total, overflow
 

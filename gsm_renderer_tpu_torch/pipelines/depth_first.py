@@ -33,8 +33,13 @@ are re-binned onto the physical tile grid through the fitted inverse warp
 (plain torch on the device, :func:`foveated_rects`), prep and expand run in
 mode "warped" (display-space tile rects from the bounds table), and the
 blend samples each physical pixel at its display-space coordinate.  No host
-read except the capacity lock-in (pipelines/base.py).  ``HardwareRenderer``
-is not ported yet and raises NotImplementedError naming its ROADMAP item.
+read except the capacity lock-in (pipelines/base.py).
+
+The Hardware renderer (pipelines/hardware.py) is this class with other
+settings: its mono frame expands full rects (``exact_tile_test=False``:
+prep and the expand in mode "none") and blends with the r^2 <= 9 cutoff
+and normalized depth; its stereo and foveated frames are these frames with
+normalized depth.
 """
 
 from __future__ import annotations
@@ -90,7 +95,8 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
                       input_is_srgb: bool, tile_w: int = 16, tile_h: int = 16,
                       depth_mode: str = "weighted",
                       row_capacity: int = 0, tile_id_bits: int = 16,
-                      depth_key_bits: int = 32) -> RenderOutput:
+                      depth_key_bits: int = 32, exact_tile_test: bool = True,
+                      r2_cutoff: float = 0.0) -> RenderOutput:
     """One mono DepthFirst frame on the device of ``gi``.  ``view``/``proj``
     (4, 4) and ``center`` (3,) are host arrays; ``prepared`` an optional
     cached (comp, harm) projection layout.  ``row_capacity`` > 0 runs the
@@ -101,7 +107,13 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     of pipelines/common.py; rows off, as in JAX).  The frame is the same
     for ``tile_id_bits`` 16 and 32 under either depth key: the bits only
     gate the 16-bit tile-id guard below (in JAX also the choice between the
-    fused depth16 key and the d16 KeyPlan, which order the slots alike)."""
+    fused depth16 key and the d16 KeyPlan, which order the slots alike).
+
+    ``exact_tile_test=False`` + ``depth_mode="normalized"`` + ``r2_cutoff=9``
+    is the Hardware renderer's frame: every tile of a visible gaussian's
+    clamped rect is an instance (prep and the expand in mode "none", rows
+    off), the blend zeroes alpha past q = r2_cutoff, and the header has no
+    ``row_total``, as in JAX."""
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
     if tile_id_bits == 16 and num_tiles > 0xFFFF:
@@ -113,10 +125,13 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     proj_kw = dict(sh_degree=sh_degree, alpha_threshold=alpha_threshold,
                    total_ink_threshold=total_ink_threshold,
                    input_is_srgb=input_is_srgb)
+    mode = "mono" if exact_tile_test else "none"
+    if not exact_tile_test:
+        row_capacity = 0  # rows narrow exact-tested rects only, as in JAX
     if depth_key_bits == 16:
         sorted_key, packed, key_plan, slot_total, overflow = d16_packed_sorted(
             gi, view, proj, center, prepared, capacity=capacity,
-            tiles_x=tiles_x, tiles_y=tiles_y, **statics, **proj_kw)
+            tiles_x=tiles_x, tiles_y=tiles_y, mode=mode, **statics, **proj_kw)
         entry_words = packed.words
     else:
         key_plan = None
@@ -134,21 +149,22 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
             **statics, **proj_kw)
         (key1, key2), entry_words, slot_total, overflow = binning_sort_operands(
             packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
-            row_capacity=row_capacity, tile_w=tile_w, tile_h=tile_h,
-            alpha_threshold=alpha_threshold)
+            mode=mode, row_capacity=row_capacity, tile_w=tile_w,
+            tile_h=tile_h, alpha_threshold=alpha_threshold)
         sorted_key = sort_instances(key1, key2)
     starts, counts = tile_ranges(sorted_key, key_plan, num_tiles)
     color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
                                starts, counts, tiles_x=tiles_x,
                                tiles_y=tiles_y, width=width, height=height,
                                tile_w=tile_w, tile_h=tile_h,
-                               depth_mode=depth_mode)
+                               depth_mode=depth_mode, r2_cutoff=r2_cutoff)
     header = FrameHeader(
         visible_count=packed.visible.sum().to(torch.int32),
         total_instances=counts.sum().to(torch.int32),
         overflow=overflow,
         slot_total=slot_total,
-        row_total=_row_demand(packed.rect_word, packed.rect_h),
+        row_total=(_row_demand(packed.rect_word, packed.rect_h)
+                   if exact_tile_test else None),
     )
     return RenderOutput(color=color, depth=depth, header=header)
 
@@ -159,12 +175,13 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
                              alpha_threshold: float,
                              total_ink_threshold: float, near_plane: float,
                              far_plane: float, input_is_srgb: bool,
-                             tile_w: int = 16,
-                             tile_h: int = 16) -> RenderOutput:
+                             tile_w: int = 16, tile_h: int = 16,
+                             depth_mode: str = "weighted") -> RenderOutput:
     """One side-by-side stereo DepthFirst frame on the device of ``gi``:
     one shared instance list over the union of both eyes' tile rects, the
     dual-eye q <= 9 tile test at expansion, and a single-pass dual-eye blend
-    with alpha zeroed past q = 9, composited into an (H, 2W) image.
+    with alpha zeroed past q = 9, composited into an (H, 2W) image
+    (``depth_mode`` "normalized" is the Hardware renderer's).
     ``views``/``projs`` (2, 4, 4), ``centers`` (2, 3) and
     ``scene_transform`` (4, 4) are host arrays.  The header's
     ``total_instances`` is the union-rect total of the visible gaussians;
@@ -189,7 +206,8 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
                                starts, counts, tiles_x=tiles_x,
                                tiles_y=tiles_y, width=width, height=height,
-                               n_eyes=2, r2_cutoff=STEREO_R2_CUTOFF)
+                               n_eyes=2, r2_cutoff=STEREO_R2_CUTOFF,
+                               depth_mode=depth_mode)
     header = FrameHeader(visible_count=visible_count,
                          total_instances=total_live, overflow=overflow,
                          slot_total=slot_total)
@@ -314,12 +332,14 @@ def depth_first_stereo_foveated_frame(
         render_height: int, capacity: int, sh_degree: int,
         alpha_threshold: float, total_ink_threshold: float, near_plane: float,
         far_plane: float, input_is_srgb: bool, tile_w: int = 16,
-        tile_h: int = 16, foveated_lod: float = 0.0) -> RenderOutput:
+        tile_h: int = 16, foveated_lod: float = 0.0,
+        depth_mode: str = "weighted") -> RenderOutput:
     """One foveated stereo frame on the device of ``gi``, rasterized
     directly into the (render_height, 2 * render_width) physical target.
 
     ``tables``: :func:`foveated_device_tables` of the target (``inv_fit`` on
-    the host, ``coord_x``, ``coord_y`` and ``bounds`` on the device).  The
+    the host, ``coord_x``, ``coord_y`` and ``bounds`` on the device);
+    ``depth_mode`` "normalized" is the Hardware renderer's.  The
     KeyPlan addresses the physical tiles; the header's ``visible_count``
     counts the projection's visible gaussians before re-binning and
     ``total_instances`` is the re-binned rect total."""
@@ -348,7 +368,8 @@ def depth_first_stereo_foveated_frame(
                                height=render_height, n_eyes=2,
                                r2_cutoff=STEREO_R2_CUTOFF,
                                pixel_coords=(tables["coord_x"],
-                                             tables["coord_y"]))
+                                             tables["coord_y"]),
+                               depth_mode=depth_mode)
     header = FrameHeader(visible_count=visible_count,
                          total_instances=total_live, overflow=overflow,
                          slot_total=slot_total)
@@ -377,6 +398,13 @@ class DepthFirstRenderer(GaussianRenderer):
 
     _mono_key = "df"
     _stereo_key = "df_stereo"
+    #: the frame settings the Hardware renderer overrides: the mono
+    #: capacity factor (None: the config's), the exact per-tile test, the
+    #: blend's per-pixel cutoff (0: none) and the depth every frame writes
+    _mono_capacity_factor: int | None = None
+    _exact_tile_test = True
+    _r2_cutoff = 0.0
+    _depth_mode = "weighted"
 
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
         return _mono_render(self, gi, camera, width, height)
@@ -417,24 +445,27 @@ def _mono_render(self, gi, camera, width, height):
     tile_w, tile_h = cfg.DEPTH_FIRST_TILE
     depth_key_bits = c.depth_sort_key_precision.value
     # depth_first_frame falls back to the full-rect path when the
-    # row-addressing KeyPlan does not fit; 16-bit depth keys run without
-    # rows, as in JAX
+    # row-addressing KeyPlan does not fit; 16-bit depth keys and full rects
+    # run without rows, as in JAX
     row_cap = (self.pick_row_capacity(n, kind=self._mono_key)
-               if c.row_expand and depth_key_bits == 32 else 0)
+               if c.row_expand and depth_key_bits == 32
+               and self._exact_tile_test else 0)
     sh_degree = used_sh_degree(c, gi)
     out = depth_first_frame(
         gi, camera.view_matrix, camera.projection_matrix, camera.position,
         cached_projection_inputs(gi, sh_degree),
         width=width, height=height,
-        capacity=self.pick_capacity(n, kind=self._mono_key),
+        capacity=self.pick_capacity(n, self._mono_capacity_factor,
+                                    kind=self._mono_key),
         sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
         total_ink_threshold=c.total_ink_threshold,
         near_plane=camera.near_plane, far_plane=camera.far_plane,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
         tile_w=tile_w, tile_h=tile_h,
-        depth_mode="weighted" if c.depth_output else "none",
+        depth_mode=self._depth_mode if c.depth_output else "none",
         row_capacity=row_cap, tile_id_bits=c.tile_id_precision.value,
-        depth_key_bits=depth_key_bits)
+        depth_key_bits=depth_key_bits, exact_tile_test=self._exact_tile_test,
+        r2_cutoff=self._r2_cutoff)
     self.note_frame(n, out.header, kind=self._mono_key)
     return self.finalize_output(out)
 
@@ -465,7 +496,8 @@ def _stereo_render(self, gi, camera, width, height):
         sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
         total_ink_threshold=c.total_ink_threshold,
         near_plane=left.near_plane, far_plane=left.far_plane,
-        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB)
+        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
+        depth_mode=self._depth_mode)
     self.note_frame(n, out.header, kind=self._stereo_key)
     return self.finalize_output(out)
 
@@ -491,13 +523,6 @@ def _stereo_foveated_render(self, gi, camera, target):
         total_ink_threshold=c.total_ink_threshold,
         near_plane=left.near_plane, far_plane=left.far_plane,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
-        foveated_lod=c.foveated_lod)
+        foveated_lod=c.foveated_lod, depth_mode=self._depth_mode)
     self.note_frame(n, out.header, kind=kind)
     return self.finalize_output(out)
-
-
-class HardwareRenderer(GaussianRenderer):
-    """Not ported yet: raises NotImplementedError naming its ROADMAP item."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported(type(self).__name__, "Queue 1, HardwareRenderer")

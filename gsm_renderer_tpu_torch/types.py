@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .config import Precision
+from .config import Precision, sh_components
 
 
 class RendererError(ValueError):
@@ -109,6 +109,83 @@ def make_gaussian_input(positions, scales, rotations, opacities, harmonics,
     )
     gi.validate()
     return gi
+
+
+# --- Packed byte-layout codecs (host side, numpy) ----------------------------
+
+_PACKED_F32_DTYPE = np.dtype([
+    ("px", "<f4"), ("py", "<f4"), ("pz", "<f4"),
+    ("opacity", "<f4"),
+    ("sx", "<f4"), ("sy", "<f4"), ("sz", "<f4"),
+    ("_pad0", "<f4"),
+    ("rx", "<f4"), ("ry", "<f4"), ("rz", "<f4"), ("rw", "<f4"),
+])  # 48 bytes a gaussian
+
+_PACKED_F16_DTYPE = np.dtype([
+    ("px", "<f4"), ("py", "<f4"), ("pz", "<f4"),
+    ("opacity", "<f2"),
+    ("sx", "<f2"), ("sy", "<f2"), ("sz", "<f2"),
+    ("rx", "<f2"), ("ry", "<f2"), ("rz", "<f2"), ("rw", "<f2"),
+    ("_pad0", "<f2"), ("_pad1", "<f2"),
+])  # 32 bytes a gaussian
+
+
+def unpack_world_gaussians(buf, precision: Precision, harmonics_buf=None,
+                           sh_degree: int = 0, device=None) -> GaussianInput:
+    """Decode the reference's packed byte layouts (48-byte float32 or
+    32-byte float16 records) into a :class:`GaussianInput` on ``device``
+    (the card by default).  ``harmonics_buf``: the planar per-channel SH
+    buffer, count * n_coeffs * 3 values ([R0..Rn, G0..Gn, B0..Bn] a
+    gaussian), float32 or float16 as ``precision``; zeros when None."""
+    dtype = _PACKED_F32_DTYPE if precision == Precision.FLOAT32 else _PACKED_F16_DTYPE
+    if isinstance(buf, (bytes, bytearray, memoryview)):
+        rec = np.frombuffer(buf, dtype=dtype)
+    else:
+        rec = np.ascontiguousarray(buf).view(dtype).reshape(-1)
+    n = rec.shape[0]
+    positions = np.stack([rec["px"], rec["py"], rec["pz"]], axis=-1)
+    scales = np.stack([rec["sx"], rec["sy"], rec["sz"]], axis=-1)
+    rotations = np.stack([rec["rx"], rec["ry"], rec["rz"], rec["rw"]], axis=-1)
+    n_coeffs = sh_components(sh_degree)
+    hdt = np.float32 if precision == Precision.FLOAT32 else np.float16
+    if harmonics_buf is None:
+        harmonics = np.zeros((n, n_coeffs, 3), hdt)
+    else:
+        flat = (np.frombuffer(harmonics_buf, dtype=hdt)
+                if isinstance(harmonics_buf, (bytes, bytearray, memoryview))
+                else np.asarray(harmonics_buf, hdt).reshape(-1))
+        expected = n * n_coeffs * 3
+        if flat.size != expected:
+            raise RendererError(
+                f"harmonics buffer: expected {expected} values "
+                f"(count={n} x coeffs={n_coeffs} x 3), got {flat.size}")
+        harmonics = flat.reshape(n, 3, n_coeffs).transpose(0, 2, 1)
+    return make_gaussian_input(positions, scales, rotations, rec["opacity"],
+                               harmonics, precision, device=device)
+
+
+def pack_world_gaussians(gi: GaussianInput,
+                         precision: Precision) -> tuple[bytes, bytes]:
+    """Encode a :class:`GaussianInput` into the reference's packed byte
+    layouts: (world bytes, planar harmonics bytes)."""
+    dtype = _PACKED_F32_DTYPE if precision == Precision.FLOAT32 else _PACKED_F16_DTYPE
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    rec = np.zeros(gi.count, dtype)
+    pos = host(gi.positions).astype(np.float32)
+    rec["px"], rec["py"], rec["pz"] = pos[:, 0], pos[:, 1], pos[:, 2]
+    sc = host(gi.scales)
+    rec["sx"], rec["sy"], rec["sz"] = sc[:, 0], sc[:, 1], sc[:, 2]
+    rot = host(gi.rotations)
+    rec["rx"], rec["ry"], rec["rz"], rec["rw"] = (rot[:, 0], rot[:, 1],
+                                                  rot[:, 2], rot[:, 3])
+    rec["opacity"] = host(gi.opacities)
+    hdt = np.float32 if precision == Precision.FLOAT32 else np.float16
+    # stored (3, n_coeffs, N) -> the reference's (N, 3, n_coeffs) planar
+    harm = host(gi.harmonics).astype(hdt).transpose(2, 0, 1)
+    return rec.tobytes(), np.ascontiguousarray(harm).tobytes()
 
 
 @dataclasses.dataclass

@@ -1,0 +1,212 @@
+"""The 27 public functions of gsm_renderer_tpu_torch.mathlib that the port
+added for the unpacked projection (``ops/project.py``) against
+gsm_renderer_tpu.mathlib, on seeded numpy inputs given to both.
+
+Tolerances (the ROADMAP parity contract): integer and boolean outputs are
+equal.  A float output is within ULPS float32 ulps of the JAX value (the
+ulp of the larger of the two), or within SCALE_ULPS ulps of the largest
+JAX output of the call, where a value is a small difference of large
+terms.  Two sources of difference, both measured here: PyTorch's CPU sqrt
+is not correctly rounded (an ulp off in about 0.6% of inputs; XLA's is),
+JAX's ``lax.rsqrt`` is not ``1 / sqrt``, and the transcendentals (exp,
+log, log2, pow, sin, cos, atan2) of XLA:CPU and PyTorch differ by about
+an ulp.  Per function (CASES), measured worst cases in brackets:
+* arithmetic alone (apply_mat4, quaternion_to_matrix, eval_quad,
+  min_quad_rect, project_points, ...): 0 -- bit-equal (JAX runs op by op
+  here: nothing is contracted into an FMA);
+* the SH colour (rsqrt; sums that cancel near 0): 4 ulps or 4 ulps of the
+  scale [3];
+* build_covariance_3d (rsqrt of the quaternion norm; off-diagonal
+  cancellation): 4 ulps or 16 of the scale [11.5];
+* stabilize_covariance_2d and the eigen-decomposition
+  (covariance_to_theta_sigmas, compute_obb_extents): the small eigenvalue
+  is mid - sqrt(disc), so an ulp of the CPU sqrt becomes an ulp of the
+  large eigenvalue: 4 ulps or 8 / 32 / 32 of the scale [4 / 22.6 / 16.3];
+* through sin, cos, log, log2, pow: a few ulps [4 or less];
+* the u16 theta packing, the tile bounds and the culls: equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gsm_renderer_tpu.mathlib as JM
+
+import gsm_renderer_tpu_torch.mathlib as TM
+
+torch.set_num_threads(1)
+
+N = 4096
+W, H = 1920.0, 1080.0
+
+
+def rng():
+    return np.random.default_rng(1234)
+
+
+def unit(r, n, k):
+    v = r.normal(size=(n, k)).astype(np.float32)
+    return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def uni(r, lo, hi, shape):
+    return r.uniform(lo, hi, shape).astype(np.float32)
+
+
+def spd(r, n):
+    """(n, 2, 2) covariances of sigmas 0.3-60 px at random angles."""
+    s1, s2 = uni(r, 0.3, 60.0, n), uni(r, 0.3, 60.0, n)
+    t = uni(r, 0.0, np.pi, n)
+    c, s = np.cos(t), np.sin(t)
+    a = c * c * s1 * s1 + s * s * s2 * s2
+    b = c * s * (s1 * s1 - s2 * s2)
+    d = s * s * s1 * s1 + c * c * s2 * s2
+    return np.stack([np.stack([a, b], -1), np.stack([b, d], -1)], -2).astype(np.float32)
+
+
+def camera():
+    import gsm_renderer_tpu as G
+    cam = G.make_camera(1920, 1080, position=(0.3, -0.2, 0.5), far=50.0)
+    return (np.asarray(cam.view_matrix, np.float32),
+            np.asarray(cam.projection_matrix, np.float32))
+
+
+def points(r, n):
+    return np.stack([uni(r, -4, 4, n), uni(r, -3, 3, n), uni(r, 1, 20, n)], -1)
+
+
+def mat4(r):
+    m = r.normal(size=(4, 4)).astype(np.float32)
+    m[3] = [0, 0, 0, 1]
+    return m
+
+
+def harmonics(r, n, degree):
+    return uni(r, -0.5, 0.5, (3, (degree + 1) ** 2, n))
+
+
+def cov3d(r, n):
+    q = unit(r, n, 4)
+    return np.asarray(JM.build_covariance_3d(jnp.asarray(uni(r, 0.01, 0.3, (n, 3))),
+                                             jnp.asarray(q)))
+
+
+def theta_sigmas(r, n):
+    return uni(r, -1.0, 4.0, n), uni(r, 0.0, 50.0, n), uni(r, 0.0, 50.0, n)
+
+
+def tile_test_args(r, n):
+    cov = spd(r, n)
+    conic, _ = JM.compute_conic_and_radius(jnp.asarray(cov))
+    conic = np.asarray(conic)
+    x0, y0 = uni(r, 0, 1900, n), uni(r, 0, 1060, n)
+    cx, cy = x0 + uni(r, -60, 76, n), y0 + uni(r, -60, 76, n)
+    power = np.asarray(JM.gaussian_compute_power(jnp.asarray(uni(r, 0.01, 1, n))))
+    return (x0, y0, x0 + 16.0, y0 + 16.0, cx, cy, conic[:, 0], conic[:, 1],
+            conic[:, 2], power)
+
+
+def quad_args(r, n):
+    a, b, c = (np.asarray(x) for x in JM.conic_from_theta_sigmas(
+        *(jnp.asarray(v) for v in (uni(r, 0, 3.1, n), uni(r, 0.5, 40, n),
+                                   uni(r, 0.5, 40, n)))))
+    xmin, ymin = uni(r, -80, 80, n), uni(r, -80, 80, n)
+    return xmin, xmin + 16.0, ymin, ymin + 16.0, a, b, c
+
+
+#: name -> (argument builder, keyword arguments, ULPS, SCALE_ULPS)
+CASES = {
+    "sh_basis": (lambda r: (unit(r, N, 3), 3), {}, 0, 0),
+    "compute_sh_color": (lambda r: (harmonics(r, N, 3), points(r, N),
+                                    np.float32([0.3, -0.2, 0.5]), 3), {}, 4, 4),
+    "compute_sh_color_c": (lambda r: (harmonics(r, N, 2), *points(r, N).T,
+                                      np.float32([0.1, 0.2, -0.3]), 2), {}, 4, 4),
+    "srgb_to_linear": (lambda r: (uni(r, -0.2, 1.2, N),), {}, 2, 0),
+    "ndc_to_screen": (lambda r: (uni(r, -1.5, 1.5, (N, 2)), W, H), {}, 0, 0),
+    "apply_mat4": (lambda r: (mat4(r), points(r, N)), {}, 0, 0),
+    "project_points": (lambda r: (points(r, N), *camera(), 0.1), {}, 0, 0),
+    "normalize_quaternion": (lambda r: (uni(r, -1, 1, (N, 4)),), {}, 2, 0),
+    "quaternion_to_matrix": (lambda r: (unit(r, N, 4),), {}, 0, 0),
+    "build_covariance_3d": (lambda r: (uni(r, 0.01, 0.3, (N, 3)),
+                                       uni(r, -1, 1, (N, 4))), {}, 4, 16),
+    "project_covariance_2d": (lambda r: (cov3d(r, N), points(r, N),
+                                         camera()[0][:3, :3], camera()[1], W, H),
+                              {}, 2, 0),
+    "stabilize_covariance_2d": (lambda r: (spd(r, N), W, H), {}, 4, 8),
+    "covariance_to_theta_sigmas": (lambda r: (spd(r, N),), {}, 4, 32),
+    "covariance_to_theta_sigmas_c": (
+        lambda r: tuple(spd(r, N).reshape(N, 4)[:, [0, 1, 3]].T), {}, 4, 32),
+    "pack_theta_u16": (lambda r: (uni(r, -4, 7, N),), {}, 0, 0),
+    "unpack_theta_u16": (lambda r: (r.integers(0, 65536, N).astype(np.int32),),
+                         {}, 0, 0),
+    "conic_from_theta_sigmas": (lambda r: theta_sigmas(r, N), {}, 6, 0),
+    "compute_obb_extents": (lambda r: (spd(r, N), 3.0), {}, 4, 32),
+    "compute_conic_and_radius": (lambda r: (spd(r, N),), {}, 2, 0),
+    "eval_quad": (lambda r: tuple(uni(r, -5, 5, N) for _ in range(5)), {}, 0, 0),
+    "min_quad_rect": (lambda r: quad_args(r, N), {}, 0, 0),
+    "gaussian_compute_power": (lambda r: (uni(r, 0.0, 1.0, N),), {}, 2, 2),
+    "gaussian_intersects_tile": (lambda r: tile_test_args(r, N), {}, 0, 0),
+    "cull_by_scale": (lambda r: (uni(r, 0.0, 0.002, (N, 3)),), {}, 0, 0),
+    "compute_depth_factor": (lambda r: (uni(r, 0.0, 2.0, N), 0.1, 50.0), {}, 2, 0),
+    "cull_by_screen_bounds": (lambda r: (uni(r, -100, 2000, (N, 2)),
+                                         uni(r, 0, 80, (N, 2)), W, H), {}, 0, 0),
+    "compute_tile_bounds": (lambda r: (uni(r, -100, 2000, (N, 2)),
+                                       uni(r, 0, 80, (N, 2)), W, H, 16, 16,
+                                       120, 68), {}, 0, 0),
+}
+
+def to_jax(a):
+    return jnp.asarray(a) if isinstance(a, np.ndarray) else a
+
+
+def to_torch(a):
+    return torch.from_numpy(a.copy()) if isinstance(a, np.ndarray) else a
+
+
+def flat(out):
+    if isinstance(out, (tuple, list)):
+        return [y for x in out for y in flat(x)]
+    return [out]
+
+
+def ulps_apart(want, got):
+    """|got - want| in float32 ulps of the larger magnitude."""
+    want, got = want.astype(np.float64), got.astype(np.float64)
+    scale = np.spacing(np.maximum(np.abs(want), np.abs(got)).astype(np.float32))
+    return np.abs(got - want) / scale.astype(np.float64)
+
+
+def test_every_public_jax_function_is_ported():
+    import inspect
+    jax_fns = {n for n, v in vars(JM).items() if inspect.isfunction(v)
+               and not n.startswith("_") and v.__module__ == JM.__name__}
+    port_fns = {n for n, v in vars(TM).items() if inspect.isfunction(v)}
+    assert jax_fns <= port_fns, sorted(jax_fns - port_fns)
+    assert set(CASES) | {n for n in jax_fns if n.endswith("_c") or n in (
+        "compute_d2_cutoff", "cull_by_radius", "cull_by_far_plane",
+        "cull_by_total_ink", "float_to_sortable_uint",
+        "sortable_uint_to_float", "half_depth_key16")} >= jax_fns
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_matches_jax(name):
+    build, kw, ulps, scale_ulps = CASES[name]
+    args = build(rng())
+    want = flat(getattr(JM, name)(*(to_jax(a) for a in args), **kw))
+    got = flat(getattr(TM, name)(*(to_torch(a) for a in args), **kw))
+    assert len(want) == len(got)
+    for w, g in zip(want, got):
+        w, g = np.asarray(w), g.numpy()
+        assert w.shape == g.shape, (w.shape, g.shape)
+        if w.dtype.kind in "biu":
+            np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64))
+            continue
+        assert g.dtype == np.float32, g.dtype
+        err = ulps_apart(w, g)
+        scale = np.spacing(np.float32(np.abs(w).max()))
+        ok = (err <= ulps) | (np.abs(g.astype(np.float64) - w)
+                              <= scale_ulps * float(scale))
+        assert ok.all(), (f"{(~ok).sum()} of {ok.size} beyond {ulps} ulps / "
+                          f"{scale_ulps} ulps of the scale; worst {err.max()} "
+                          "ulps")

@@ -203,8 +203,10 @@ def test_capacity_policy():
 def test_unported_options_raise(cfg, what):
     """Mono frames with 16-bit depth keys, the last mono option that raised
     as unported, now render whatever the tile ids and rows: rows off (as in
-    JAX), the frame of ``depth_first_frame(depth_key_bits=16)``.  The one
-    renderer still unported raises, naming its ROADMAP item."""
+    JAX), the frame of ``depth_first_frame(depth_key_bits=16)``.  The
+    HardwareRenderer, the last renderer that raised as unported, renders
+    under the same options: the Hardware frame with 16-bit depth keys."""
+    from gsm_renderer_tpu_torch.pipelines.hardware import hardware_frame
     from gsm_renderer_tpu_torch.pipelines.depth_first import depth_first_frame
 
     r = T.DepthFirstRenderer(T.RendererConfig(**cfg), device="cpu")
@@ -220,8 +222,16 @@ def test_unported_options_raise(cfg, what):
     np.testing.assert_array_equal(out.color.numpy(), ref.color.numpy())
     np.testing.assert_array_equal(out.depth.numpy(), ref.depth.numpy())
     assert int(out.header.slot_total) == int(ref.header.slot_total)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.HardwareRenderer(T.RendererConfig(**cfg), device="cpu")
+    hw = T.HardwareRenderer(T.RendererConfig(**cfg), device="cpu")
+    out = hw.render(gi, cam, 64, 64)
+    ref = hardware_frame(
+        gi, cam.view_matrix, cam.projection_matrix, cam.position, width=64,
+        height=64, capacity=instance_capacity(hw.config, 50, 8), sh_degree=0,
+        alpha_threshold=0.005, total_ink_threshold=2.0, near_plane=0.1,
+        far_plane=cam.far_plane, input_is_srgb=False, depth_key_bits=16)
+    assert int(out.header.visible_count) > 0 and out.header.row_total is None
+    np.testing.assert_array_equal(out.color.numpy(), ref.color.numpy())
+    np.testing.assert_array_equal(out.depth.numpy(), ref.depth.numpy())
 
 
 @pytest.mark.parametrize("frame", ["stereo", "foveated"])
@@ -303,12 +313,16 @@ def test_render_stereo_renders():
 
 
 def test_unported_renderers_and_modes_raise():
-    """HardwareRenderer is not ported and raises naming its ROADMAP item;
-    the Global and Local renderers are mono only and refuse stereo with
-    the JAX package's message."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.HardwareRenderer(device="cpu")
+    """HardwareRenderer, once unported, renders mono and stereo frames; the
+    Global and Local renderers are mono only and refuse stereo with the JAX
+    package's message."""
     gi = generate_visible_gaussians(20).to_input(device="cpu")
+    hw = T.HardwareRenderer(device="cpu")
+    out = hw.render(gi, T.make_camera(64, 48), 64, 48)
+    assert out.color.shape == (48, 64, 4) and int(out.header.overflow) == 0
+    out = hw.render_stereo(gi, T.make_side_by_side_stereo(
+        T.make_camera(64, 48)), 64, 48)
+    assert out.color.shape == (48, 128, 4)
     stereo = T.make_side_by_side_stereo(T.make_camera(64, 48))
     for cls in (T.GlobalRenderer, T.LocalRenderer):
         with pytest.raises(NotImplementedError,
