@@ -71,6 +71,37 @@ Phases (each raises on failure, and the script then exits non-zero):
    renderer (launch counts, times, split, trace): colour bit-equal to the
    DepthFirst frames of phases 4 and 4f, depth bit-equal to their depth
    over max(alpha, 1e-6).
+4m. The band-sharded frame (``parallel/multichip.py``) of the headline
+   scene.  A world of one over NCCL in this process, with the KeyPlan and
+   with the stable fallback (``use_keyplan=False``): launch counts of its
+   own (project, prep, prep_band, expand and blend each > 0), overflow 0,
+   colour and depth bit-equal to the headline frame, frame times, split
+   and trace beside the headline's rows-off frame.  On band 1 of 4: prep
+   "band", the expand with a tile row offset and the blend with one, each
+   bit-equal to its plain version (the blend over the whole band); over
+   the whole frame's slots the tile-key expand against its plain version,
+   and the stable sort timed beside the keys-only sort (the same ranks).
+   Worlds of 2 and 4 over gloo, each rank a spawned process on this card,
+   with equal bands and bands balanced from ``row_instance_histogram``
+   (capacity: the padded count plus the largest band load, rounded up to
+   4096): every rank launches each kernel of the path, overflow 0; the
+   stitched image equals the headline frame bit for bit with the blend's
+   early exit off, and within the exit threshold (1/255) with it on (a
+   saturated tile stops at a batch end aligned to its band's sorted list;
+   the pixels that differ are counted); a run at a capacity of 4096
+   reports overflow 1 on every rank.  The band kernels' rows report the
+   launches of rank 1 in the world of 4 with equal bands (band 1 of 4,
+   the band they are checked on: a non-zero tile row offset), the
+   tile-key expand's those of the world of one's stable frame.
+4s. The stable-sort fallback: ``make_key_plan`` is None for 4M gaussians
+   at 3840x2160, far 1000 (printed); that mono ``DepthFirstRenderer``
+   frame (scale range halved from the headline's, so the splats cover as
+   many pixels at 4K) with 2 lock-in, 3 warm-up and 10 timed frames, its
+   own launch counts (no row expand), overflow 0, finite, non-black, its
+   split and trace; its tile-key expand bit-equal to its plain version and
+   the staged frame equal to the renderer's; and the headline scene
+   through ``mono_packed_sorted`` with the plan set to None, bit-equal to
+   the headline frame.
 5. Each kernel and mode on the frames' own intermediate tensors (prep and
    expand both as the rows-on and as the rows-off frame run them, in their
    stereo modes, and in mode "warped" on the foveated frame's tensors with
@@ -79,7 +110,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    mismatches capped at 1e-4 of the elements; none for the expand), float
    outputs within 1e-3 (the bounds gather's planes bit-equal, and they must
    reproduce the warped prep's mask; the warped prep is also checked with
-   lod_min 5), the blends (reading records through the sorted keys) bit-equal
+   lod_min 5; the stereo and warped expands also with the plain tile key of
+   the stable fallback, bit-equal to its plain version, the stable sort of
+   its slots in the KeyPlan sort's order), the blends (reading records through the sorted keys) bit-equal
    on the 64 heaviest and 64 random tiles, the mono blend on the whole frame
    too.  Times each kernel, plain
    version, the instance sort and the tile ranges with CUDA events: kernels
@@ -130,7 +163,7 @@ headline and the realistic scene, rows on and off) with their host/device
 split and traced idle share, and prints one JSON line: copied into a
 checkout of another commit, it times that commit's package the same way.
 ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 4, 4f, 4d (without
-the realistic Local frame), 4h, 5 and 5p and
+the realistic Local frame), 4h, 5 and 5p (not 4m and 4s) and
 prints one JSON line of the kernel rows and the built-input flip shares and
 digests, for the same use (it does not require the one-pass scan there).
 """
@@ -202,7 +235,11 @@ STEREO_PATH = ("stereo_project", "prep", "expand", "blend")
 FOVEATED_PATH = ("stereo_project", "prep", "expand", "blend")
 D16_PATH = ("project", "prep", "expand", "blend")
 HARDWARE_PATH = ("project", "prep", "expand", "blend")
+BAND_PATH = ("project", "prep", "prep_band", "expand", "blend")
 W, H = 1920, 1080
+#: phase 4s's frame, where no tie-free KeyPlan fits: gaussians, width,
+#: height, far plane
+FALLBACK_N, FALLBACK_W, FALLBACK_H, FALLBACK_FAR = 4_000_000, 3840, 2160, 1000.0
 #: the foveated rate maps of the JAX bench's foveated rows
 FOV_MIN_RATE, FOV_RADIUS, FOV_MIN_RATE_LOW = 0.4, 0.3, 0.15
 
@@ -756,15 +793,17 @@ def d16_tile_counts(torch, T, gi, cam, cfg, tile_w: int, capacity: int):
     from gsm_renderer_tpu_torch.pipelines import common as PC
 
     tiles_x, tiles_y = -(-W // tile_w), -(-H // 16)
-    sorted_key, _packed, plan, _total, _overflow = PC.d16_packed_sorted(
+    srt, _packed, _total, _overflow = PC.d16_packed_sorted(
         gi, cam.view_matrix, cam.projection_matrix, cam.position,
-        cached_projection_inputs(gi, 3), width=W, height=H, capacity=capacity,
-        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=16,
-        sh_degree=3, alpha_threshold=cfg.alpha_threshold,
+        cached_projection_inputs(gi, 3),
+        key_plan=PC.d16_key_plan(tiles_x * tiles_y, gi.count), width=W,
+        height=H, capacity=capacity, tiles_x=tiles_x, tiles_y=tiles_y,
+        tile_w=tile_w, tile_h=16, sh_degree=3,
+        alpha_threshold=cfg.alpha_threshold,
         total_ink_threshold=cfg.total_ink_threshold,
         near_plane=cam.near_plane, far_plane=cam.far_plane,
         input_is_srgb=False)
-    return PC.tile_ranges(sorted_key, plan, tiles_x * tiles_y)
+    return srt.starts, srt.counts
 
 
 def tile_pixels(torch, tiles, tiles_x: int, tile_w: int, device):
@@ -1078,6 +1117,463 @@ def blend_subset_err(torch, KB, ent, starts, counts, color, depth, *,
     return err
 
 
+def band_frame_fn(render, gi, cam):
+    """``render`` (a world of one's band frame, whose rows are the whole
+    image) as a frame loop's callable: an output with the colour, the depth
+    and a header of the overflow flag (the header counts it does not
+    report read -1)."""
+    from types import SimpleNamespace
+
+    def fn():
+        color, depth, overflow = render(gi, cam.view_matrix,
+                                        cam.projection_matrix, cam.position)
+        return SimpleNamespace(color=color, depth=depth, header=SimpleNamespace(
+            overflow=overflow, visible_count=-1, total_instances=-1,
+            slot_total=-1, row_total=None))
+    return fn
+
+
+def band_slots(hist, band_starts, n_padded: int) -> int:
+    """A band's slots: the padded count (every gathered gaussian takes a
+    slot in every band) plus the largest band load of the row histogram,
+    rounded up to a multiple of 4096."""
+    load = max(int(hist[b0:b1].sum()) for b0, b1 in zip(band_starts,
+                                                        band_starts[1:]))
+    return -(-(n_padded + load) // 4096) * 4096
+
+
+def _band_rank(rank: int, world: int, n: int, configs: list):
+    """One spawned rank of phase 4m's gloo worlds on cuda:0: the headline
+    scene's shard, then each (label, keywords of build_sharded_depth_first,
+    early exit) of ``configs``: one warm-up frame, one frame with every
+    kernel's count set to 0 just before it and read just after, the image
+    gathered.  Rank 0 also renders the mono headline frame (the blend's
+    early exit on and off) and compares the stitched image with it."""
+    import torch
+    import gsm_renderer_tpu_torch as T
+    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.kernels import project as KP
+    from gsm_renderer_tpu_torch.parallel import multichip as MC
+
+    ds = generate_visible_gaussians(n, sh_degree=3, seed=7,
+                                    scale_range=(0.002, 0.012))
+    cam = T.make_camera(W, H, far=50.0)
+    args = (cam.view_matrix, cam.projection_matrix, cam.position)
+    exit_t = KB.MIN_TRANSMITTANCE
+    mono = {}
+    if rank == 0:
+        gi = ds.to_input(T.Precision.FLOAT32)
+        r = T.DepthFirstRenderer(T.RendererConfig(
+            sh_degree=3, precision=T.Precision.FLOAT32, max_width=W,
+            max_height=H))
+        for early_exit in (True, False):
+            KB.MIN_TRANSMITTANCE = exit_t if early_exit else 0.0
+            for _ in range(3):
+                out = r.render(gi, cam, W, H)
+            mono[early_exit] = out
+        KB.MIN_TRANSMITTANCE = exit_t
+    gi = MC.shard_gaussian_input(ds.to_input(T.Precision.FLOAT32), rank, world)
+    kernels = (KP.PROJECT, KE.PREP, KE.PREP_BAND, KE.EXPAND, KB.BLEND)
+    res = []
+    for label, kw, early_exit in configs:
+        KB.MIN_TRANSMITTANCE = exit_t if early_exit else 0.0
+        try:
+            render = MC.build_sharded_depth_first(
+                width=W, height=H, n_total=n, sh_degree=3,
+                near_plane=cam.near_plane, far_plane=cam.far_plane, **kw)
+            render(gi, *args)
+            for k in kernels:
+                k.launches = 0
+            color, depth, overflow = render(gi, *args)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in kernels}
+            color, depth = render.gather(color, depth)
+        finally:
+            KB.MIN_TRANSMITTANCE = exit_t
+        row = dict(label=label, overflow=int(overflow), launches=launches,
+                   band_starts=list(render.band_starts),
+                   capacity=render.capacity,
+                   plan=None if render.key_plan is None
+                   else list(render.key_plan.kernel_tuple))
+        if rank == 0:
+            ref = mono[early_exit]
+            d = (color - ref.color).abs()
+            row.update(
+                equal=bool(torch.equal(color, ref.color)
+                           and torch.equal(depth, ref.depth)),
+                max_abs_err=float(d.max()),
+                depth_max_abs_err=float((depth - ref.depth).abs().max()),
+                pixels_differ=int((d.amax(-1) > 0).sum()),
+                finite=bool(torch.isfinite(color).all()),
+                nonblack=float((color[..., :3].amax(-1) > 0.02).float().mean()))
+        res.append(row)
+    return res
+
+
+def phase_multichip(torch, T, kernels, hl):
+    """Phase 4m: the band-sharded frame of the headline scene.  A world of
+    one over NCCL in this process (the KeyPlan and the stable fallback, each
+    bit-equal to the headline frame; frame times, split and trace beside the
+    headline's rows-off frame); prep "band", the expand with a tile row
+    offset and the blend with one on band 1 of 4 against their plain
+    versions; worlds of 2 and 4 spawned gloo ranks on this card with equal
+    and balanced bands (stitched image against the headline frame, bit for
+    bit with the blend's early exit off), and at a tiny capacity
+    (overflow 1 on every rank)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.parallel import multichip as MC
+
+    gi, cam, n = hl["gi"], hl["cam"], hl["n"]
+    args = (cam.view_matrix, cam.projection_matrix, cam.position)
+    kw = dict(width=W, height=H, n_total=n, sh_degree=3,
+              near_plane=cam.near_plane, far_plane=cam.far_plane)
+    tiles_y = -(-H // 16)
+    hist = MC.row_instance_histogram(
+        gi, *args, width=W, height=H, sh_degree=3, near_plane=cam.near_plane,
+        far_plane=cam.far_plane)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            for label, use_kp in (("keyplan", True), ("tile_key", False)):
+                render = MC.build_sharded_depth_first(
+                    use_keyplan=use_kp, capacity_per_device=hl["off_capacity"],
+                    **kw)
+                fn = band_frame_fn(render, gi, cam)
+                out, stats, launches = drive_path(
+                    torch, kernels, BAND_PATH, f"band world 1 {label}",
+                    lambda fn=fn: timed_frames(torch, fn, n_lock=0))
+                if int(out.header.overflow) != 0:
+                    raise RuntimeError(f"band world 1 {label}: overflow")
+                if not (torch.equal(out.color, hl["out"].color)
+                        and torch.equal(out.depth, hl["out"].depth)):
+                    raise RuntimeError(f"band world 1 {label}: differs from "
+                                       "the headline frame")
+                stats = dict(avg=stats["avg"], min=stats["min"],
+                             max=stats["max"], split=frame_split(torch, fn),
+                             launches=launches, equal_to_headline=True)
+                trace = trace_frames(torch, fn, f"band world 1 {label} trace",
+                                     frames=5)
+                require_one_pass_scan(trace, f"band world 1 {label}")
+                stats["trace"] = trace
+                res[f"world_1_{label}"] = stats
+            log("[multichip] " + json.dumps({
+                "band_world_1": res, "headline_rows_off": hl["stats"]["rows_off"],
+                "headline": {k: hl["stats"][k] for k in ("avg", "min", "max",
+                                                         "split")}}))
+        finally:
+            dist.destroy_process_group()
+
+    n_padded = {w: n + (-n) % w for w in (2, 4)}
+    for world in (2, 4):
+        eq, _bands = MC.resolve_band_starts(tiles_y, world)
+        bal = MC.balance_band_starts(hist, world)
+        configs = []
+        for label, bs in (("equal", None), ("balanced", bal)):
+            cap = band_slots(hist, eq if bs is None else bs,
+                                n_padded[world])
+            for early_exit in (True, False):
+                configs.append((f"{label}{'' if early_exit else ' no exit'}",
+                                dict(band_starts=bs, capacity_per_device=cap),
+                                early_exit))
+        if world == 4:
+            configs.append(("tiny capacity", dict(capacity_per_device=4096),
+                            True))
+        t0 = time.perf_counter()
+        ranks = MC.run_ranks(_band_rank, world, n, configs)
+        seconds = time.perf_counter() - t0
+        if world == 4:
+            # the launches of rank 1 (band 1 of 4, a non-zero tile row
+            # offset) in the equal-band frame, for the band kernels' rows
+            band_launches = ranks[1][0]["launches"]
+            if ranks[1][0]["band_starts"][1] <= 0:
+                raise RuntimeError("world 4: rank 1's band starts at row 0")
+        for k, (label, _kw, early_exit) in enumerate(configs):
+            per = [r[k] for r in ranks]
+            ref = per[0]
+            tiny = label == "tiny capacity"
+            for rank, row in enumerate(per):
+                bad = [p for p in BAND_PATH if row["launches"][p] <= 0]
+                if bad:
+                    raise RuntimeError(f"world {world} {label} rank {rank}: "
+                                       f"{bad} not launched")
+                if row["overflow"] != int(tiny):
+                    raise RuntimeError(f"world {world} {label} rank {rank}: "
+                                       f"overflow {row['overflow']}")
+            if not (ref["finite"] and ref["nonblack"] > 0.0):
+                raise RuntimeError(f"world {world} {label}: not finite or black")
+            if tiny:
+                continue
+            if not early_exit and not ref["equal"]:
+                raise RuntimeError(f"world {world} {label}: the stitched image "
+                                   "differs from the headline frame with the "
+                                   "early exit off")
+            if (ref["max_abs_err"] >= KB.MIN_TRANSMITTANCE
+                    or ref["depth_max_abs_err"] >= KB.MIN_TRANSMITTANCE * 50.0):
+                raise RuntimeError(f"world {world} {label}: differs from the "
+                                   f"headline frame beyond the exit bound: "
+                                   f"{ref}")
+        log(f"[multichip] world {world}: " + json.dumps(
+            dict(seconds=seconds, configs=[
+                dict(per_rank=[{k: r[j][k] for k in ("overflow", "launches")}
+                               for r in ranks], **{
+                    k: v for k, v in ranks[0][j].items()
+                    if k not in ("overflow", "launches")})
+                for j in range(len(configs))])))
+    return band_kernel_rows(torch, hl, res, band_launches)
+
+
+def band_kernel_rows(torch, hl, world_1, band_launches):
+    """Prep "band", the expand with a tile row offset and the blend with one
+    on band 1 of 4 of the headline scene, each against its plain version;
+    the tile-key expand over the whole frame's slots, and the stable sort
+    beside the keys-only sort over them.  Returns the kernel rows and the
+    library ops.  The band rows' launches are ``band_launches``, rank 1's
+    in the gloo world of 4 with equal bands (the same band, a non-zero
+    offset); the tile-key row's are the world of one's (``world_1``)."""
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.parallel import multichip as MC
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
+    tiles_x, tiles_y = -(-W // 16), -(-H // 16)
+    bs, bands = MC.resolve_band_starts(tiles_y, 4)
+    band0, band1 = bs[1], bs[2]
+    block = MC.project_block(
+        gi, cam.view_matrix, cam.projection_matrix, cam.position, width=W,
+        height=H, tile_w=16, tile_h=16, sh_degree=3,
+        near_plane=cam.near_plane, far_plane=cam.far_plane,
+        alpha_threshold=cfg.alpha_threshold,
+        total_ink_threshold=cfg.total_ink_threshold, input_is_srgb=False)
+    words = list(block[:4])
+    plan = OB.make_key_plan(tiles_x * bands, n, near_plane=cam.near_plane,
+                            far_plane=cam.far_plane)
+    tk_l = world_1["world_1_tile_key"]["launches"]
+    rows = []
+
+    def record(name, kernel, launches, ms, plain_ms, err, nbytes, flops):
+        b, by = bound(nbytes, flops)
+        src, replaces = KERNEL_SOURCES[kernel]
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=launches,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by, library_ms=None, flips=0.0))
+        log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{b:.4f} ms by {by}), max_abs_err {err}")
+
+    def exact(name, pairs):
+        bad, total, worst = mismatches(torch, pairs)
+        if bad:
+            raise RuntimeError(f"{name}: {bad} of {total} outputs differ "
+                               f"(max |d| {worst})")
+
+    bkw = dict(band0=band0, band1=band1, key_plan=plan)
+    prep_in = (block[4], block[5], block[6], block[7])
+    pk, ms = device_ms(torch, lambda: KE.binning_prep_band_cuda(*prep_in, **bkw),
+                       20)
+    pp, plain_ms = cuda_ms(torch,
+                           lambda: KE.binning_prep_band_plain(*prep_in, **bkw), 3)
+    exact("prep.band", list(zip(pk, pp)))
+    # four planes read, the offsets and three planes written
+    record("prep.band", "prep", band_launches["prep_band"], ms, plain_ms, 0.0,
+           4 * 4 * n + 4 * (n + 1) + 3 * 4 * n, 0.0)
+    offsets, rect, mask, dsw = pk
+    total = int(offsets[n])
+    cap = -(-total // 4096) * 4096
+    counts_g = (offsets[1:] - offsets[:-1]).to(torch.int64)
+    ru = rect.to(torch.int64) & 0xFFFFFFFF
+    tested = ((ru >> 30) & 3) == 0   # live and not pre-counted
+    tested_slots = float(counts_g[tested].sum())
+    tested_words = 4 * 4 * float(tested.sum())
+    ekw = dict(capacity=cap, tiles_x=tiles_x, key_plan=plan,
+               tile_row_offset=band0)
+    exp_in = (offsets, rect, mask, dsw, words)
+    ek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp_in, **ekw), 20)
+    ep, plain_ms = cuda_ms(torch, lambda: KE.expand_slots_plain(*exp_in, **ekw),
+                           3)
+    exact("expand.offset", list(zip(ek, ep)))
+    # the offset, rect, mask and depth word of each entry, the tested
+    # entries' words, two keys a slot
+    record("expand.offset", "expand", band_launches["expand"], ms, plain_ms, 0.0,
+           4 * (n + 1) + 3 * 4 * n + tested_words + 2 * 4 * cap,
+           (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots)
+    log(f"[multichip] band 1 of 4 (tile rows {band0}-{band1}): {total} slots "
+        f"of {cap}, {int((ek[0] != -1).sum())} live")
+
+    srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * bands)
+    ent = (srt.key, words, srt.idx_bits)
+    bl_kw = dict(tiles_x=tiles_x, tiles_y=bands, width=W,
+                 height=bands * 16, tile_row_offset=band0)
+    (color, depth), ms = device_ms(
+        torch, lambda: KB.blend_image_cuda(*ent, srt.starts, srt.counts,
+                                           **bl_kw), 10)
+    (pc, pd, processed), plain_ms = cuda_ms(
+        torch, lambda: KB.blend_tiles_plain(
+            *ent, srt.starts, srt.counts, tiles_x=tiles_x,
+            tile_row_offset=band0, return_processed=True), 1)
+    pcol, pdep = KB.assemble_image(pc, pd, tiles_x=tiles_x, tiles_y=bands,
+                                   width=W, height=bands * 16)
+    err = max(float((pcol - color).abs().max()),
+              float((pdep - depth).abs().max()))
+    if err != 0.0:
+        raise RuntimeError(f"blend.offset: kernel vs plain max |d| {err}")
+    record("blend.offset", "blend", band_launches["blend"], ms, plain_ms, err,
+           blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * bands * 16),
+           BLEND_DECODE_FLOPS * float(processed.sum())
+           + BLEND_PAIR_FLOPS * 256.0 * float(processed.sum()))
+    d_head = float((color[:(band1 - band0) * 16]
+                    - hl["out"].color[band0 * 16:band1 * 16]).abs().max())
+    log(f"[multichip] band 1 of 4 blended: max |d| {d_head:.3g} to the "
+        "headline frame's rows (the exit aligned to the band's list)")
+
+    # the stable sort beside the keys-only sort, over the slots of the
+    # whole frame (a band of all 68 rows: a world of one)
+    full_plan = OB.make_key_plan(tiles_x * tiles_y, n,
+                                 near_plane=cam.near_plane,
+                                 far_plane=cam.far_plane)
+    cap_f = hl["off_capacity"]
+    ops = {}
+    for label, p in (("keyplan", full_plan), ("tile_key", None)):
+        off_f, rect_f, mask_f, dsw_f = KE.binning_prep_band_cuda(
+            *prep_in, band0=0, band1=tiles_y, key_plan=p)
+        fin = (off_f, rect_f, mask_f, dsw_f, words)
+        fkw = dict(capacity=cap_f, tiles_x=tiles_x, key_plan=p)
+        ops[label] = KE.expand_slots_cuda(*fin, **fkw)
+        if label == "tile_key":
+            fk, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*fin, **fkw),
+                               20)
+            fp, plain_ms = cuda_ms(
+                torch, lambda: KE.expand_slots_plain(*fin, **fkw), 3)
+            exact("expand.tile_key", list(zip(fk, fp)))
+            ru = rect_f.to(torch.int64) & 0xFFFFFFFF
+            cg = (off_f[1:] - off_f[:-1]).to(torch.int64)
+            tst = ((ru >> 30) & 3) == 0
+            # as the KeyPlan expand, plus the entry plane
+            record("expand.tile_key", "expand", tk_l["expand"], ms, plain_ms,
+                   0.0, 4 * (n + 1) + 3 * 4 * n + 16 * float(tst.sum())
+                   + 3 * 4 * cap_f,
+                   (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * float(cg[tst].sum()))
+    k1, k2 = ops["keyplan"][:2]
+    t1, t2, entry = ops["tile_key"][:3]
+    _, unstable_ms = device_ms(torch, lambda: PC.sort_instances(k1, k2), 10)
+    stable, stable_ms = device_ms(
+        torch, lambda: PC.sort_instances_stable(t1, t2, entry), 10)
+    srt_u = PC.sort_and_ranges(ops["keyplan"][:2], full_plan, tiles_x * tiles_y)
+    srt_s = PC.sort_and_ranges(ops["tile_key"][:3], None, tiles_x * tiles_y)
+    live = int(srt_u.counts.sum())
+    if not (torch.equal(srt_u.starts, srt_s.starts)
+            and torch.equal(KB.entry_index(srt_u.key[:live], srt_u.idx_bits),
+                            srt_s.key[:live])):
+        raise RuntimeError("stable sort: ranks differ from the KeyPlan sort's")
+    other = [dict(name="stable sort (torch.sort(stable=True) of the (tile, "
+                  "depth) int64 keys, with indices, and the entry gather)",
+                  ms=stable_ms, elements=cap_f,
+                  # keys read and written, indices written, entries gathered
+                  bound_ms=(16 + 8 + 12) * cap_f / HBM_BYTES_PER_S * 1e3,
+                  keys_only_unstable_ms=unstable_ms)]
+    log(f"[library] stable sort {stable_ms:.4f} ms vs keys-only unstable "
+        f"sort {unstable_ms:.4f} ms over {cap_f} slots ({live} live); same "
+        "ranks")
+    return rows, other
+
+
+def phase_fallback(torch, T, kernels, hl):
+    """Phase 4s: the stable-sort fallback.  A mono DepthFirst frame of 4M
+    gaussians, SH3, 3840x2160, far 1000, where no tie-free KeyPlan fits
+    (frame times, launch counts, overflow 0, finite, non-black), its
+    tile-key expand bit-equal to the plain version on the frame's tensors;
+    and the headline frame through the chain with the plan set to None,
+    bit-equal to the headline frame."""
+    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.kernels import project as KP
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    n, w, h, far = FALLBACK_N, FALLBACK_W, FALLBACK_H, FALLBACK_FAR
+    tiles_x, tiles_y = -(-w // 16), -(-h // 16)
+    plan = OB.make_key_plan(tiles_x * tiles_y, n, near_plane=0.1,
+                            far_plane=far)
+    log(f"[fallback] make_key_plan({tiles_x * tiles_y}, {n}, near_plane=0.1, "
+        f"far_plane={far}) = {plan}")
+    if plan is not None:
+        raise RuntimeError("fallback: a KeyPlan fits, the fallback is not run")
+    ds = generate_visible_gaussians(n, sh_degree=3, seed=7,
+                                    scale_range=(0.001, 0.006))
+    gi = ds.to_input(T.Precision.FLOAT32)
+    cam = T.make_camera(w, h, far=far)
+    cfg = T.RendererConfig(sh_degree=3, precision=T.Precision.FLOAT32,
+                           max_width=w, max_height=h)
+    r = T.DepthFirstRenderer(cfg)
+    render = lambda: r.render(gi, cam, w, h)
+    out, stats, launches = drive_path(torch, kernels, MONO_RECTS_PATH,
+                                      "fallback 4K",
+                                      lambda: timed_frames(torch, render))
+    check_frame(torch, out, "fallback 4K")
+    if launches["row_expand"] != 0:
+        raise RuntimeError("fallback 4K: rows ran without a KeyPlan")
+    capacity = r._cap_state[(r._mono_key, n)]["cap"]
+    stats.update(capacity=capacity, split=frame_split(torch, render),
+                 trace=trace_frames(torch, render, "fallback 4K trace",
+                                    frames=5))
+    log("[fallback] " + json.dumps({"fallback_4k_frame_ms": stats}))
+
+    pk = KP.project_cuda(*KP.cached_projection_inputs(gi, 3), cam.view_matrix,
+                         cam.projection_matrix, cam.position, width=w,
+                         height=h, tile_w=16, tile_h=16, sh_degree=3,
+                         near_plane=cam.near_plane, far_plane=far,
+                         alpha_threshold=cfg.alpha_threshold,
+                         total_ink_threshold=cfg.total_ink_threshold,
+                         input_is_srgb=False, key_plan=None)
+    off, rect, mask = KE.binning_prep_cuda(pk.rect_word, pk.rect_h, pk.words)
+    ekw = dict(capacity=capacity, tiles_x=tiles_x, key_plan=None)
+    exp_in = (off, rect, mask, pk.dsw, pk.words)
+    ek = KE.expand_slots_cuda(*exp_in, **ekw)
+    ep = KE.expand_slots_plain(*exp_in, **ekw)
+    bad, total, worst = mismatches(torch, list(zip(ek, ep)))
+    if bad:
+        raise RuntimeError(f"fallback 4K: the tile-key expand differs from "
+                           f"its plain version at {bad} of {total}")
+    srt = PC.sort_and_ranges(ek[:3], None, tiles_x * tiles_y)
+    color, _depth = KB.blend_image_cuda(srt.key, pk.words, 32, srt.starts,
+                                        srt.counts, tiles_x=tiles_x,
+                                        tiles_y=tiles_y, width=w, height=h)
+    if not torch.equal(color, out.color):
+        raise RuntimeError("fallback 4K: the staged frame differs from the "
+                           "renderer's")
+    log(f"[fallback] 4K tile-key expand bit-equal to its plain version over "
+        f"{capacity} slots ({int(ek[3])} filled); staged frame equal")
+
+    hkw = dict(width=W, height=H, capacity=hl["off_capacity"],
+               tiles_x=-(-W // 16), tiles_y=-(-H // 16), tile_w=16, tile_h=16,
+               sh_degree=3, alpha_threshold=hl["cfg"].alpha_threshold,
+               total_ink_threshold=hl["cfg"].total_ink_threshold,
+               near_plane=hl["cam"].near_plane, far_plane=hl["cam"].far_plane,
+               input_is_srgb=False)
+    hcam = hl["cam"]
+    hs, _packed, words, _total, overflow = PC.mono_packed_sorted(
+        hl["gi"], hcam.view_matrix, hcam.projection_matrix, hcam.position,
+        key_plan=None, **hkw)
+    hc, hd = KB.blend_image_cuda(hs.key, words, hs.idx_bits, hs.starts,
+                                 hs.counts, tiles_x=hkw["tiles_x"],
+                                 tiles_y=hkw["tiles_y"], width=W, height=H)
+    if int(overflow) != 0 or not (torch.equal(hc, hl["out"].color)
+                                  and torch.equal(hd, hl["out"].depth)):
+        raise RuntimeError("fallback: the headline chain with no KeyPlan "
+                           "differs from the headline frame")
+    log("[fallback] the headline chain with the plan set to None is "
+        "bit-equal to the headline frame")
+
+
 def phase_kernels(torch, T, hl, st, fv, d16, hw):
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
@@ -1119,6 +1615,25 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
             raise RuntimeError(f"{name}: {bad} of {total} outputs differ "
                                f"(max |d| {worst})")
         return 0.0, 0.0
+
+    def tile_key_order(name, exp_in, ekw, ref_keys, plan, num_tiles):
+        # the stable fallback's plain tile key on the same table: bit-equal
+        # to its plain version, and sorted stably into the KeyPlan's order
+        kw = dict(ekw, key_plan=None)
+        tk = KE.expand_slots_cuda(*exp_in, **kw)
+        check_exact(f"{name} tile key", list(zip(
+            tk, KE.expand_slots_plain(*exp_in, **kw))))
+        srt_u = PC.sort_and_ranges(ref_keys[:2], plan, num_tiles)
+        srt_s = PC.sort_and_ranges(tk[:3], None, num_tiles)
+        live = int(srt_u.counts.sum())
+        if not (torch.equal(srt_u.starts, srt_s.starts)
+                and torch.equal(KB.entry_index(srt_u.key[:live],
+                                               srt_u.idx_bits),
+                                srt_s.key[:live])):
+            raise RuntimeError(f"{name} tile key: the stable order differs "
+                               "from the KeyPlan's")
+        log(f"[kernels] {name} tile key: bit-equal to its plain version; "
+            f"{live} live slots sort stably into the KeyPlan order")
 
     def tested_entries(off, rect, masked_too=False):
         # live entries whose words the expand's exact test reads
@@ -1353,6 +1868,8 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
            expand_bytes(n, scap, 6 * tested_entries(soff, srect)),
            (2 * EXPAND_DECODE_FLOPS + 2 * TILE_TEST_FLOPS)
            * tested_slots(soff, srect))
+    tile_key_order("expand.stereo", sexp_in, sekw, sek, st_plan,
+                   tiles_x * tiles_y)
 
     s_sorted = PC.sort_instances(sek[0], sek[1])
     s_tile = PC.binning_sorted_tile(s_sorted, plan_tuple=st_plan.kernel_tuple)
@@ -1456,6 +1973,7 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
            + 2 * 128 * 4,
            (2 * EXPAND_DECODE_FLOPS + 2 * TILE_TEST_FLOPS)
            * tested_slots(foff, frect, masked_too=True))
+    tile_key_order("expand.warped", fexp_in, fekw, fek, f_plan, ftx * fty)
 
     f_sorted = PC.sort_instances(fek[0], fek[1])
     f_tile = PC.binning_sorted_tile(f_sorted, plan_tuple=f_plan.kernel_tuple)
@@ -2070,7 +2588,8 @@ def main() -> int:
         global REQUIRE_ONE_PASS_SCAN
         REQUIRE_ONE_PASS_SCAN = False
     kernels = [project.PROJECT, expand.PREP, expand.ROW_EXPAND, expand.EXPAND,
-               blend.BLEND, project.STEREO_PROJECT, expand.BOUNDS_GATHER]
+               blend.BLEND, project.STEREO_PROJECT, expand.BOUNDS_GATHER,
+               expand.PREP_BAND]
     t0 = time.perf_counter()
     smi = phase_build(_native)
     hl = phase_headline(torch, T, kernels)
@@ -2084,7 +2603,15 @@ def main() -> int:
     fv = phase_foveated(torch, T, kernels, hl, st)
     d16 = phase_d16(torch, T, kernels, hl, real)
     hw = phase_hardware(torch, T, kernels, hl, st, fv)
+    band_rows, band_other = [], []
+    if not kernels_only:
+        t1 = time.perf_counter()
+        band_rows, band_other = phase_multichip(torch, T, kernels, hl)
+        phase_fallback(torch, T, kernels, hl)
+        log(f"[multichip, fallback] phases 4m and 4s took "
+            f"{time.perf_counter() - t1:.1f} s")
     rows, other = phase_kernels(torch, T, hl, st, fv, d16, hw)
+    rows, other = rows + band_rows, other + band_other
     from gsm_renderer_tpu_torch.pipelines.depth_first import foveated_device_tables
     bounds = foveated_device_tables(fv["target"],
                                     hl["gi"].positions.device)["bounds"]

@@ -108,6 +108,7 @@ def load(name: str) -> ctypes.CDLL:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint32
 F = ctypes.c_float
 
 

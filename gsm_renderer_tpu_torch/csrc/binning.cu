@@ -67,6 +67,20 @@
 // skips the value that would give tag 0; a status word of 2^32 - 1 launches
 // ago would read as current if no launch since had reached its tile.
 //
+// Mode band (gsm_prep_band, the band-sharded frame's) replaces the JAX
+// package's XLA band clamp (gsm_renderer_tpu/parallel/multichip.py:245-283
+// with binning_inputs' mask_override) and the exclusive scan of
+// expand_slots_pallas.  Its inputs are the planes gathered from every
+// rank: the rect word, the rect rows (min_ty | max_ty << 10), the raw
+// depth key (0xFFFFFFFF where culled) and the 8x4 mask.  A thread clamps
+// its gaussian's rows to the band [band0, band1), rebases the mask to the
+// clamp (mask >> 8 * clip(bty0 - min_ty, 0, 3), cut to the rows in the
+// band), counts the sub-mask's popcount where the rect fits the window and
+// rect_w * rows-in-band otherwise (one dead slot when culled or outside the
+// band), writes the band-local rect word, the sub-mask and the depth word
+// normalized under the band's KeyPlan, and scans like the other modes.  No
+// test: bound by device memory (16 B read, 16 B written a gaussian).
+//
 // Row expansion replaces _row_expand_kernel (row_expand_pallas): row r < R
 // belongs to the gaussian g with offsets[g] <= r < offsets[g + 1] (strictly
 // increasing: every gaussian owns >= 1 row) and is its tile row jj = r -
@@ -105,7 +119,12 @@
 // the caller derives overflow = total > capacity.  In mode "none" the
 // expand reads no mask and no record word: every slot of a visible
 // entry's rect is live (the Hardware frame's quads cover their whole rect,
-// and its blend cuts each pixel at r^2 > 9 instead).
+// and its blend cuts each pixel at r^2 > 9 instead).  A band frame's mono
+// expand runs its test at tile row ty + row_offset (the band's first row
+// in the frame) and keys band-local tiles.  With plain_key (no tie-free
+// KeyPlan fits: the stable fallback) key1 is the tile id, key2 the depth
+// word, and a third plane holds the slot's entry index, which the sort
+// carries to the blend (the JAX expand's plain key = tile).
 //
 // The expand is a load-balanced search.  CTA b owns the 1024 slots [1024 b,
 // 1024 (b + 1)), four per thread, strided so that writes coalesce.  One
@@ -155,8 +174,9 @@ constexpr int kBoundsLanes = 128;
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
 // Binning modes: the record words they carry and the test they apply
-// (kernels/expand.py MODE_CODES).
-enum Mode { kMono = 0, kStereo = 1, kWarped = 2, kNone = 3 };
+// (kernels/expand.py MODE_CODES).  kBand is a prep mode only: the band
+// clamp of gathered planes (gsm_prep_band).
+enum Mode { kMono = 0, kStereo = 1, kWarped = 2, kNone = 3, kBand = 4 };
 
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
   const int lane = threadIdx.x & 31;
@@ -385,12 +405,72 @@ template <int kMode>
 struct PrepRecord {
   static constexpr int kEyeFloats = 7;
   static constexpr int kFloats =
-      kMode == kNone     ? 1
-      : kMode == kMono   ? kEyeFloats + 1
-      : kMode == kStereo ? 2 * kEyeFloats
-                         : 2 * kEyeFloats + 1;
-  static constexpr int kInts = kMode == kWarped ? 4 : kMode == kNone ? 1 : 2;
+      kMode == kNone || kMode == kBand ? 1
+      : kMode == kMono                 ? kEyeFloats + 1
+      : kMode == kStereo               ? 2 * kEyeFloats
+                                       : 2 * kEyeFloats + 1;
+  static constexpr int kInts =
+      kMode == kWarped ? 4 : kMode == kNone || kMode == kBand ? 1 : 2;
 };
+
+// The inputs and extra outputs of prep mode band (see gsm_prep_band): the
+// gathered rect rows (min_ty | max_ty << 10), raw depth keys (0xFFFFFFFF
+// where culled) and 8x4 masks, the band's tile rows [band0, band1), the
+// KeyPlan normalization of the depth word (near_key 0 and span 0xFFFFFFFF
+// leave it as it is) and the normalized depth words written.
+struct BandArgs {
+  const int32_t* rows;
+  const int32_t* dkey;
+  const int32_t* mask;
+  int band0, band1;
+  uint32_t near_key, span;
+  int32_t* dsw_out;
+};
+
+// Gaussian i (< n) of a band frame: its band-local rect word, band
+// sub-mask and normalized depth word written, its count returned (>= 1).
+// The operations of gsm_renderer_tpu/parallel/multichip.py:245-283 and of
+// binning_inputs with that mask_override, on u32 words.
+__device__ __forceinline__ int prep_band(int i,
+                                         const int32_t* __restrict__ rect_word,
+                                         const BandArgs& b,
+                                         int32_t* __restrict__ rect_out,
+                                         int32_t* __restrict__ mask_out) {
+  const uint32_t rw = static_cast<uint32_t>(rect_word[i]);
+  const uint32_t rows = static_cast<uint32_t>(b.rows[i]);
+  const uint32_t dk = static_cast<uint32_t>(b.dkey[i]);
+  const int min_tx = rw & 0x3FFu;
+  const int rect_w = (rw >> 20) & 0x3FFu;
+  const int min_ty = rows & 0x3FFu;
+  const int max_ty = (rows >> 10) & 0x3FFu;
+  const int bty0 = max(min_ty, b.band0);
+  const int bty1 = min(max_ty, b.band1 - 1);
+  const int rows_in_band = max(bty1 - bty0 + 1, 0);
+  const bool visible_here = dk != GSM_SENTINEL && rows_in_band > 0;
+  // the global mask's rows rebased to the band clamp, cut to its rows
+  const int shift = min(max(bty0 - min_ty, 0), GSM_MASK_H - 1);
+  const uint32_t rows_bits =
+      rows_in_band >= GSM_MASK_H
+          ? 0xFFFFFFFFu
+          : (1u << (8 * min(max(rows_in_band, 0), GSM_MASK_H - 1))) - 1u;
+  const uint32_t sub = (static_cast<uint32_t>(b.mask[i]) >> (8 * shift)) &
+                       rows_bits;
+  const int sub_cnt = __popc(sub);
+  const bool eligible = visible_here && rect_w <= GSM_MASK_W &&
+                        max_ty - min_ty + 1 <= GSM_MASK_H;
+  const bool visible = visible_here && (!eligible || sub_cnt > 0);
+  const int count =
+      eligible ? sub_cnt : (visible_here ? rect_w * rows_in_band : 0);
+  rect_out[i] = static_cast<int32_t>(
+      static_cast<uint32_t>(min_tx) |
+      (static_cast<uint32_t>(bty0 - b.band0) << 10) |
+      (static_cast<uint32_t>(rect_w) << 20) |
+      (eligible ? GSM_MASKED_BIT : 0u) | (visible ? 0u : GSM_CULLED_BIT));
+  mask_out[i] = static_cast<int32_t>(sub);
+  b.dsw_out[i] = static_cast<int32_t>(min(max(dk, b.near_key) - b.near_key,
+                                          b.span));
+  return max(count, 1);
+}
 
 __device__ __forceinline__ void stage_eye(float (*f)[kPrepThreads], int e,
                                           float ox, float oy,
@@ -582,7 +662,7 @@ prep_kernel(const int32_t* __restrict__ rect_word,
             int n, float tau, float theta_unit, float inv255,
             int32_t* __restrict__ offsets, int32_t* __restrict__ rect_out,
             int32_t* __restrict__ mask_out, ScanState st,
-            const float* __restrict__ bounds, float lod_min) {
+            const float* __restrict__ bounds, float lod_min, BandArgs band) {
   using Rec = PrepRecord<kMode>;
   __shared__ float sb[kMode == kWarped ? 2 * kBoundsLanes : 1];
   __shared__ float f[Rec::kFloats][kPrepThreads];
@@ -600,6 +680,8 @@ prep_kernel(const int32_t* __restrict__ rect_word,
       const int rect_w = static_cast<int>((rw >> 20) & 0x3FFu);
       count[0] = (rw & GSM_CULLED_BIT) != 0 ? 1 : max(rect_w * rect_h[i], 1);
     }
+  } else if constexpr (kMode == kBand) {
+    count[0] = i < n ? prep_band(i, rect_word, band, rect_out, mask_out) : 0;
   } else {
     count[0] = prep_gaussian<kMode, kTileW>(
         i, rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255,
@@ -801,9 +883,11 @@ __device__ __forceinline__ float rect_d2(uint32_t a0, uint32_t a1, uint32_t a2,
   return d2min_rect(k, x0 - k.mx, x1 - k.mx, y0 - k.my, y1 - k.my);
 }
 
-// out: (2, capacity) = key1, key2.  CTA b expands slots [b * kExpandSlots,
-// (b + 1) * kExpandSlots); slot s0 + k * kExpandThreads + threadIdx.x is
-// the thread's k-th.
+// out: (2, capacity) = key1, key2, or with plain_key (3, capacity) = the
+// tile, the depth word and the entry index.  CTA b expands slots [b *
+// kExpandSlots, (b + 1) * kExpandSlots); slot s0 + k * kExpandThreads +
+// threadIdx.x is the thread's k-th.  row_offset: the tile row of the
+// table's row 0 in the frame (a band's first row), for the mono test.
 template <int kMode, int kTileW>
 __global__ void __launch_bounds__(kExpandThreads)
 expand_kernel(const int32_t* __restrict__ offsets,
@@ -811,8 +895,9 @@ expand_kernel(const int32_t* __restrict__ offsets,
               const int32_t* __restrict__ mask,
               const int32_t* __restrict__ dsw, WordPtrs W, int n,
               int capacity, int tiles_x, int d_hi, int d_lo, int idx_bits,
-              float tau, float theta_unit, float inv255,
-              int32_t* __restrict__ out, const float* __restrict__ bounds) {
+              int row_offset, int plain_key, float tau, float theta_unit,
+              float inv255, int32_t* __restrict__ out,
+              const float* __restrict__ bounds) {
   __shared__ float sb[kMode == kWarped ? 2 * kBoundsLanes : 1];
   // the CTA's entries g0 + i, i <= kExpandSlots: their offsets (INT_MAX past
   // offsets[n]), rect, mask and depth word
@@ -844,7 +929,7 @@ expand_kernel(const int32_t* __restrict__ offsets,
   for (int it = 0; it < kSlotsPerThread; ++it) {
     const int s = s0 + it * kExpandThreads + static_cast<int>(threadIdx.x);
     if (s >= capacity) break;
-    uint32_t k1 = GSM_SENTINEL, k2 = GSM_SENTINEL;
+    uint32_t k1 = GSM_SENTINEL, k2 = GSM_SENTINEL, entry = GSM_SENTINEL;
     if (s < total) {
       int lo = 0, hi = kExpandSlots;  // s_off[lo] <= s < s_off[hi]
       while (hi - lo > 1) {
@@ -879,7 +964,7 @@ expand_kernel(const int32_t* __restrict__ offsets,
         if constexpr (kMode == kMono) {
           constexpr float kW = static_cast<float>(kTileW);
           const float x0 = static_cast<float>(tx) * kW;
-          const float y0 = static_cast<float>(ty) * 16.0f;
+          const float y0 = static_cast<float>(ty + row_offset) * 16.0f;
           passes = rect_d2(a0, a1, a2, x0, x0 + kW, y0, y0 + 16.0f,
                            theta_unit) <=
                    d2_cutoff(u8f(word(W, 3, g), 24, inv255), tau);
@@ -907,13 +992,21 @@ expand_kernel(const int32_t* __restrict__ offsets,
       if (!dead) {
         const uint32_t tile = static_cast<uint32_t>(ty * tiles_x + tx);
         const uint32_t dn = static_cast<uint32_t>(s_dsw[lo]);
-        k1 = (tile << d_hi) | (dn >> d_lo);
-        const uint32_t dlo = d_lo > 0 ? (dn & ((1u << d_lo) - 1u)) : 0u;
-        k2 = (idx_bits < 32 ? (dlo << idx_bits) : 0u) | static_cast<uint32_t>(g);
+        if (plain_key) {
+          k1 = tile;
+          k2 = dn;
+          entry = static_cast<uint32_t>(g);
+        } else {
+          k1 = (tile << d_hi) | (dn >> d_lo);
+          const uint32_t dlo = d_lo > 0 ? (dn & ((1u << d_lo) - 1u)) : 0u;
+          k2 = (idx_bits < 32 ? (dlo << idx_bits) : 0u) |
+               static_cast<uint32_t>(g);
+        }
       }
     }
     out[s] = static_cast<int32_t>(k1);
     out[C + s] = static_cast<int32_t>(k2);
+    if (plain_key) out[2 * C + s] = static_cast<int32_t>(entry);
   }
 }
 
@@ -966,7 +1059,32 @@ extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
                                   : prep_kernel<kMono, 16>;
   kernel<<<st.num_tiles, kPrepThreads, 0, stream>>>(
       rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255, offsets,
-      rect_out, mask_out, st, bounds, lod_min);
+      rect_out, mask_out, st, bounds, lod_min, BandArgs{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Prep mode band: the gathered planes of a band frame (rect words, rect rows
+// min_ty | max_ty << 10, raw depth keys with 0xFFFFFFFF where culled, 8x4
+// masks; n entries) clamped to the tile rows [band0, band1): rect_out the
+// band-local rect words (min_tx | (max(min_ty, band0) - band0) << 10 |
+// rect_w << 20, MASKED / CULLED), mask_out the band sub-masks, dsw_out the
+// depth words normalized to [near_key, near_key + span]; offsets (n + 1) as
+// gsm_prep writes them.  ticket / status as for gsm_prep.  One launch.
+extern "C" int gsm_prep_band(const int32_t* rect_word, const int32_t* rows,
+                             const int32_t* dkey, const int32_t* mask, int n,
+                             int band0, int band1, uint32_t near_key,
+                             uint32_t span, int32_t* offsets,
+                             int32_t* rect_out, int32_t* mask_out,
+                             int32_t* dsw_out, void* ticket, void* status,
+                             cudaStream_t stream) {
+  if (band0 < 0 || band1 <= band0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ScanState st = scan_state(ticket, status, n, kPrepThreads);
+  const BandArgs band{rows, dkey, mask, band0, band1, near_key, span, dsw_out};
+  prep_kernel<kBand, 16><<<st.num_tiles, kPrepThreads, 0, stream>>>(
+      rect_word, nullptr, WordPtrs{}, 0, n, 0.0f, 0.0f, 0.0f, offsets,
+      rect_out, mask_out, st, nullptr, 0.0f, band);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -988,17 +1106,22 @@ extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: (2, capacity) = key1, key2; mode: a Mode (see launch_ok); bounds:
-// the (2, 128) table for mode "warped", else null; tile_w: 16, or 32 in
-// mode mono.  Mode none reads no mask (it may be null) and no word.
+// out: (2, capacity) = key1, key2, or with plain_key (3, capacity) = the
+// tile, the depth word and the entry index (the sentinel in all three at
+// dead slots); mode: a Mode (see launch_ok); bounds: the (2, 128) table for
+// mode "warped", else null; tile_w: 16, or 32 in mode mono; row_offset:
+// mode mono's, else 0.  Mode none reads no mask (it may be null) and no
+// word.
 extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                           const int32_t* mask, const int32_t* dsw,
                           const void* const* words, int n_words, int mode,
                           int n, int capacity, int tiles_x, int tile_w,
-                          int d_hi, int d_lo, int idx_bits, float tau,
-                          float theta_unit, float inv255, int32_t* out,
-                          const float* bounds, cudaStream_t stream) {
-  if (!launch_ok(mode, n_words, bounds, tile_w)) {
+                          int d_hi, int d_lo, int idx_bits, int row_offset,
+                          int plain_key, float tau, float theta_unit,
+                          float inv255, int32_t* out, const float* bounds,
+                          cudaStream_t stream) {
+  if (!launch_ok(mode, n_words, bounds, tile_w) ||
+      (row_offset != 0 && mode != kMono)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WordPtrs W = load_words(words, n_words);
@@ -1011,7 +1134,8 @@ extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                                     : expand_kernel<kMono, 16>;
     kernel<<<blocks, kExpandThreads, 0, stream>>>(
         offsets, rect, mask, dsw, W, n, capacity, tiles_x, d_hi, d_lo,
-        idx_bits, tau, theta_unit, inv255, out, bounds);
+        idx_bits, row_offset, plain_key, tau, theta_unit, inv255, out,
+        bounds);
   }
   return static_cast<int>(cudaGetLastError());
 }

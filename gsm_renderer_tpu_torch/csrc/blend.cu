@@ -10,9 +10,9 @@
 // Replaces the Pallas kernel gsm_renderer_tpu/kernels/blend.py::
 // _row_blend_kernel (blend_tiles_pallas, exponent_mode "vpu", depth modes
 // "weighted", "none", "first_hit" and "normalized", n_eyes 1 and 2,
-// r2_cutoff, pixel_coords, 16x16 and 32x16 tiles) and the XLA
-// assemble_image after it.  The dual-eye blend and every blend with a
-// cutoff take 16x16 tiles and weighted, normalized or no depth.
+// r2_cutoff, pixel_coords, tile_row_offset, 16x16 and 32x16 tiles) and
+// the XLA assemble_image after it.  The dual-eye blend and every blend
+// with a cutoff take 16x16 tiles and weighted, normalized or no depth.
 //
 // Records through the sorted keys: rank k of the sorted instance list is
 // entry g = key2(k) & (2^idx_bits - 1) (the KeyPlan index field, the low
@@ -23,10 +23,13 @@
 // composites, and nothing gathers the table after the sort.
 //
 // Pixel coordinates: pixel p = ly * kTileW + lx of tile (tx, ty) sits at
-// (tx * kTileW + lx, ty * 16 + ly), or, with the foveated coordinate tables
-// coord_x (tiles_x, 256) and coord_y (tiles_y, 256), at the display-space
-// point (coord_x[tx][p], coord_y[ty][p]) it samples.  Writes stay clipped to
-// width x height either way.
+// (tx * kTileW + lx, (ty + tile_row_offset) * 16 + ly), or, with the
+// foveated coordinate tables coord_x (tiles_x, 256) and coord_y (tiles_y,
+// 256), at the display-space point (coord_x[tx][p], coord_y[ty][p]) it
+// samples.  tile_row_offset is a band frame's first tile row
+// (gsm_renderer_tpu/kernels/blend.py:505): the band's raster of tiles_y
+// rows samples the frame's rows from there, and is written from its own row
+// 0.  Writes stay clipped to width x height either way.
 //
 // Depth: weighted (sum of w * d); normalized (the Hardware renderer's:
 // that sum over the pixel's alpha, sum(w * d) / max(1 - T, 1e-6), an IEEE
@@ -144,7 +147,8 @@ __global__ void __launch_bounds__(kTileW * kTileH)
 blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
              WordPtrs W, const int32_t* __restrict__ starts,
              const int32_t* __restrict__ counts, int tiles_x, int width,
-             int height, int depth_mode, float theta_unit, float inv255,
+             int height, int tile_row_offset, int depth_mode,
+             float theta_unit, float inv255,
              float min_transmittance, float r2_cutoff,
              const float* __restrict__ coord_x,
              const float* __restrict__ coord_y,
@@ -167,7 +171,8 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
     pyf = coord_y[static_cast<size_t>(ty) * kPix + p];
   } else {
     pxf = static_cast<float>(lx) + static_cast<float>(tx * kTileW);
-    pyf = static_cast<float>(ly) + static_cast<float>(ty * kTileH);
+    pyf = static_cast<float>(ly) +
+          static_cast<float>((ty + tile_row_offset) * kTileH);
   }
 
   const int start = starts[tile];
@@ -286,8 +291,8 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
 // entry index in its low idx_bits); words: 4 * n_eyes pointers to the (N,)
 // int32 word rows of the entry table; tile_w: 16 or 32 (tiles tile_w x 16);
 // depth_mode: a DepthMode; coord_x (tiles_x, 256) and coord_y (tiles_y,
-// 256) the foveated pixel coordinates, or both null; color (H, n_eyes * W,
-// 4), depth (H, n_eyes * W) unless depth_mode is none.  Two eyes (8 words)
+// 256) the foveated pixel coordinates, or both null; tile_row_offset >= 0
+// (0 with coordinate tables); color (H, n_eyes * W, 4), depth (H, n_eyes * W) unless depth_mode is none.  Two eyes (8 words)
 // take r2_cutoff > 0; one eye (4 words) r2_cutoff >= 0 (0: no cutoff).  A
 // blend with two eyes, a cutoff or pixel coordinates takes 16x16 tiles and
 // no first_hit depth.
@@ -295,9 +300,10 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                          const void* const* words, int n_words,
                          const int32_t* starts, const int32_t* counts,
                          int tiles_x, int tiles_y, int width, int height,
-                         int tile_w, int depth_mode, float theta_unit,
-                         float inv255, float min_transmittance,
-                         float r2_cutoff, const float* coord_x,
+                         int tile_row_offset, int tile_w, int depth_mode,
+                         float theta_unit, float inv255,
+                         float min_transmittance, float r2_cutoff,
+                         const float* coord_x,
                          const float* coord_y, float* color, float* depth,
                          cudaStream_t stream) {
   const bool two = n_words == 8;
@@ -305,6 +311,7 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
   if ((n_words != 4 && !two) || idx_bits < 1 || idx_bits > 32 ||
       (two && !cutoff) || r2_cutoff < 0.0f || (tile_w != 16 && tile_w != 32) ||
       depth_mode < kDepthNone || depth_mode > kDepthNormalized ||
+      tile_row_offset < 0 || (tile_row_offset != 0 && coord_x != nullptr) ||
       ((two || cutoff || coord_x != nullptr) &&
        (tile_w != 16 || depth_mode == kDepthFirstHit))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -325,8 +332,8 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                        : blend_kernel<1, 16, false, false>;
     kernel<<<n_tiles, tile_w * kTileH, 0, stream>>>(
         key_words, idx_mask, W, starts, counts, tiles_x, width, height,
-        depth_mode, theta_unit, inv255, min_transmittance, r2_cutoff, coord_x,
-        coord_y, color, depth);
+        tile_row_offset, depth_mode, theta_unit, inv255, min_transmittance,
+        r2_cutoff, coord_x, coord_y, color, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }

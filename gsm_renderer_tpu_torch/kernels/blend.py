@@ -2,11 +2,11 @@
 
 Port of ``gsm_renderer_tpu/kernels/blend.py``: ``blend_tiles_pallas``
 (``_row_blend_kernel``, depth modes "weighted", "none", "first_hit" and
-"normalized", ``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``, 16x16
-and 32x16 tiles) and ``assemble_image``.  The kernel is
-``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W) depth
-directly -- (H, 2W) for two eyes side by side -- so assembly is fused into it
-on the card.
+"normalized", ``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``,
+``tile_row_offset``, 16x16 and 32x16 tiles) and ``assemble_image``.  The
+kernel is ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W)
+depth directly -- (H, 2W) for two eyes side by side -- so assembly is fused
+into it on the card.
 
 Records through the sorted keys: the blend takes the sorted int64 instance
 keys and the entry table's word rows (``entry_words``: 4 * n_eyes (N,) int32
@@ -31,6 +31,10 @@ pixel's alpha: sum(w * d) / max(1 - T, 1e-6), T the final transmittance.
 The kernel blends 32x16 tiles (the Global renderer's; pixel p = ly * 32 +
 lx) in one eye without a cutoff or pixel coordinates, and first_hit depth
 in one eye without a cutoff.
+
+``tile_row_offset`` is a band frame's: the raster's tile row t samples
+the frame's pixel rows of tile row t + tile_row_offset and is written to
+the raster's own rows (``parallel/multichip.py``).
 
 Early-exit rule, shared by the kernel and :func:`blend_tiles_plain`: a tile's
 span is walked in 256-record batches aligned to 128-record blocks (the Pallas
@@ -62,8 +66,8 @@ BLOCK = 128
 BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
     _native.P, _native.I, _native.P, _native.I, _native.P, _native.P,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.F, _native.F, _native.F, _native.F, _native.P, _native.P,
-    _native.P, _native.P])
+    _native.I, _native.F, _native.F, _native.F, _native.F, _native.P,
+    _native.P, _native.P, _native.P])
 
 
 def _check_depth_mode(depth_mode: str) -> None:
@@ -109,6 +113,7 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
                       *, tiles_x: int, tile_w: int = 16, tile_h: int = 16,
                       depth_mode: str = "weighted", n_eyes: int = 1,
                       r2_cutoff: float = 0.0, tiles=None, pixel_coords=None,
+                      tile_row_offset: int = 0,
                       return_processed: bool = False):
     """Plain version of the blend kernel on any device.
 
@@ -117,7 +122,9 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
     :func:`entry_index`; ``starts``/``counts``: (T,) int32 tile spans over
     the sorted ranks; ``tiles``: optional subset of tile ids (default all);
     ``pixel_coords``: optional foveated (coord_x, coord_y) tables (see the
-    module docstring).  With ``r2_cutoff`` > 0 alpha is zeroed where q >
+    module docstring); ``tile_row_offset``: the frame's tile row of tile
+    row 0 (a band's first row; pixel rows sit at (t_y + tile_row_offset) *
+    tile_h + ly).  With ``r2_cutoff`` > 0 alpha is zeroed where q >
     r2_cutoff.  Returns (tile_color (T', P, 4), tile_depth (T', P) or
     None), P = tile_w * tile_h, for one eye, a list of such pairs for two,
     plus the number of records each tile composited before its exit when
@@ -126,6 +133,7 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
     """
     _check_depth_mode(depth_mode)
     words = _check_words(entry_words, n_eyes)
+    _check_row_offset(tile_row_offset, pixel_coords)
     dev = sorted_key.device
     if tiles is None:
         tiles = torch.arange(starts.shape[0], device=dev)
@@ -151,7 +159,8 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
         lx = (pidx % tile_w).to(torch.float32)
         ly = torch.div(pidx, tile_w, rounding_mode="floor").to(torch.float32)
         pxa = lx[None, :] + (t_x * tile_w).to(torch.float32)[:, None]
-        pya = ly[None, :] + (t_y * tile_h).to(torch.float32)[:, None]
+        pya = ly[None, :] + ((t_y + tile_row_offset)
+                             * tile_h).to(torch.float32)[:, None]
 
     n_t = tiles.shape[0]
     trans = [torch.ones((n_t, pix), dtype=torch.float32, device=dev)
@@ -210,6 +219,12 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
     return out
 
 
+def _check_row_offset(tile_row_offset: int, pixel_coords) -> None:
+    if tile_row_offset < 0 or (tile_row_offset and pixel_coords is not None):
+        raise ValueError("a tile row offset is >= 0 and takes no pixel "
+                         f"coordinate tables, got {tile_row_offset}")
+
+
 def assemble_image(tile_color, tile_depth, *, tiles_x: int, tiles_y: int,
                    width: int, height: int, tile_w: int = 16, tile_h: int = 16):
     """(T, P, C) tile rasters -> (H, W, C) image + (H, W) depth."""
@@ -227,7 +242,8 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                      *, tiles_x: int, tiles_y: int, width: int, height: int,
                      tile_w: int = 16, tile_h: int = 16,
                      depth_mode: str = "weighted", n_eyes: int = 1,
-                     r2_cutoff: float = 0.0, pixel_coords=None):
+                     r2_cutoff: float = 0.0, pixel_coords=None,
+                     tile_row_offset: int = 0):
     """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
     (H, n_eyes * W) or None), the eyes side by side.  The kernel blends one
     eye without a cutoff (16x16 or 32x16 tiles, any depth mode), one eye
@@ -237,6 +253,7 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
     It raises on the other pairings."""
     _check_depth_mode(depth_mode)
     words = _check_words(entry_words, n_eyes)
+    _check_row_offset(tile_row_offset, pixel_coords)
     if r2_cutoff < 0.0 or (n_eyes == 2 and r2_cutoff == 0.0):
         raise NotImplementedError(
             f"the blend kernel takes n_eyes=2 with r2_cutoff > 0 and n_eyes=1 "
@@ -273,7 +290,8 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                         dtype=torch.float32, device=dev)
     BLEND.launch(_native.ptr(sorted_key), idx_bits, _native.ptr_array(words),
                  len(words), _native.ptr(starts), _native.ptr(counts), tiles_x,
-                 tiles_y, width, height, tile_w, DEPTH_MODES[depth_mode],
+                 tiles_y, width, height, tile_row_offset, tile_w,
+                 DEPTH_MODES[depth_mode],
                  M.f32(THETA_UNIT),
                  M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),
                  M.f32(r2_cutoff), *coords, _native.ptr(color),
@@ -285,7 +303,8 @@ def blend_image(sorted_key, entry_words, idx_bits: int, starts, counts, *,
                 tiles_x: int, tiles_y: int, width: int, height: int,
                 tile_w: int = 16, tile_h: int = 16,
                 depth_mode: str = "weighted", n_eyes: int = 1,
-                r2_cutoff: float = 0.0, pixel_coords=None):
+                r2_cutoff: float = 0.0, pixel_coords=None,
+                tile_row_offset: int = 0):
     """Blend + assemble: the CUDA kernel for CUDA tensors, the plain version
     (then :func:`assemble_image`, the eyes concatenated along the width) for
     CPU tensors."""
@@ -295,11 +314,13 @@ def blend_image(sorted_key, entry_words, idx_bits: int, starts, counts, *,
                                 width=width, height=height, tile_w=tile_w,
                                 tile_h=tile_h, depth_mode=depth_mode,
                                 n_eyes=n_eyes, r2_cutoff=r2_cutoff,
-                                pixel_coords=pixel_coords)
+                                pixel_coords=pixel_coords,
+                                tile_row_offset=tile_row_offset)
     out = blend_tiles_plain(sorted_key, entry_words, idx_bits, starts, counts,
                             tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
                             depth_mode=depth_mode, n_eyes=n_eyes,
-                            r2_cutoff=r2_cutoff, pixel_coords=pixel_coords)
+                            r2_cutoff=r2_cutoff, pixel_coords=pixel_coords,
+                            tile_row_offset=tile_row_offset)
     eyes = [assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
                            width=width, height=height, tile_w=tile_w,
                            tile_h=tile_h)

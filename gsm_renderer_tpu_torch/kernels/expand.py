@@ -19,6 +19,15 @@ in tiles; only each test's pixel extents change); the row expansion takes
 needs no key layout of its own here: the KeyPlan with ``depth_span_bits=16``
 orders the slots the same way (``pipelines/common.py``).
 
+The band-sharded frame (``parallel/multichip.py``) adds prep mode "band"
+(:func:`binning_prep_band`), which replaces the JAX package's XLA band
+clamp (``parallel/multichip.py:245-283``, ``binning_inputs`` with its
+``mask_override``) and the exclusive scan of ``expand_slots_pallas``, and
+the expand's ``tile_row_offset`` (its exact test at the band's global tile
+rows, ``_expand_kernel``'s ``rowoff``).  With no KeyPlan (the stable
+fallback) the expand writes the plain tile key, the depth word and the
+entry index (``_expand_kernel``'s plain ``key = tile``).
+
 Mode "warped" is the foveated stereo frame's: the physical tile grid is
 non-uniform in display space, and a tile's display-space pixel rect is read
 from the (2, 128) float32 bounds table of
@@ -75,7 +84,12 @@ ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
 EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.F, _native.F, _native.F, _native.P, _native.P])
+    _native.I, _native.I, _native.I, _native.F, _native.F, _native.F,
+    _native.P, _native.P])
+PREP_BAND = _native.Kernel("prep_band", "binning", "gsm_prep_band", [
+    _native.P, _native.P, _native.P, _native.P, _native.I, _native.I,
+    _native.I, _native.U, _native.U, _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P])
 BOUNDS_GATHER = _native.Kernel("bounds_gather", "binning", "gsm_bounds_gather", [
     _native.P, _native.P, _native.P, _native.I, _native.P])
 
@@ -548,6 +562,101 @@ def binning_prep(rect_word, rect_h, words, **kw):
 
 
 # ---------------------------------------------------------------------------
+# Kernel 2, mode "band": the band clamp of a band-sharded frame
+# ---------------------------------------------------------------------------
+
+def _band_normalization(key_plan):
+    """(near_key, span) of the depth-word normalization: the KeyPlan's, or
+    the identity for the plain tile key."""
+    return (0, SENTINEL) if key_plan is None else (key_plan.near_key,
+                                                   key_plan.span)
+
+
+def _check_band(band0: int, band1: int):
+    if not 0 <= band0 < band1:
+        raise ValueError(f"a band is tile rows [band0, band1) with 0 <= band0 "
+                         f"< band1, got [{band0}, {band1})")
+
+
+def binning_prep_band_plain(rect_word, rect_rows, dkey, mask, *, band0: int,
+                            band1: int, key_plan=None):
+    """Plain version of prep mode "band" (the JAX package's XLA band clamp,
+    ``parallel/multichip.py:245-283``, and ``binning_inputs`` with its
+    ``mask_override``).  Inputs are the gathered planes of every gaussian of
+    the frame (int32 holding u32 bits): ``rect_word`` (min_tx | . | rect_w
+    << 20; bits 10-19 and 30-31 unread), ``rect_rows`` (min_ty | max_ty <<
+    10), ``dkey`` (the raw sortable depth key, 0xFFFFFFFF where culled) and
+    ``mask`` (the 8x4 exact-test mask at the rect's corner).  Each rect is
+    clamped to the tile rows [band0, band1); a gaussian whose rect fits the
+    window counts its band sub-mask (the mask's rows from the clamp on), any
+    other visible one its rect_w x rows-in-band, and one culled or outside
+    the band one dead slot.  The depth word is normalized under
+    ``key_plan`` (unchanged without one, the stable fallback's key).
+    Returns (offsets (N+1,), the band-local rect' (min_tx | (bty0 - band0)
+    << 10 | rect_w << 20, MASKED / CULLED), the sub-mask, the depth word),
+    int32."""
+    _check_band(band0, band1)
+    rw, rows, dk = M.u32(rect_word), M.u32(rect_rows), M.u32(dkey)
+    min_tx = rw & 0x3FF
+    rect_w = (rw >> 20) & 0x3FF
+    min_ty = rows & 0x3FF
+    max_ty = (rows >> 10) & 0x3FF
+    bty0 = torch.clamp(min_ty, min=band0)
+    bty1 = torch.clamp(max_ty, max=band1 - 1)
+    rows_in_band = torch.clamp(bty1 - bty0 + 1, min=0)
+    visible_here = (dk != SENTINEL) & (rows_in_band > 0)
+    shift = torch.clamp(bty0 - min_ty, 0, MASK_H - 1)
+    rows_bits = torch.where(
+        rows_in_band >= MASK_H, SENTINEL,
+        (1 << (8 * torch.clamp(rows_in_band, 0, MASK_H - 1))) - 1)
+    sub = (M.u32(mask) >> (8 * shift)) & rows_bits
+    sub_cnt = _popcount(sub)
+    eligible = (visible_here & (rect_w <= MASK_W)
+                & (max_ty - min_ty + 1 <= MASK_H))
+    visible = visible_here & (~eligible | (sub_cnt > 0))
+    counts = torch.where(eligible, sub_cnt,
+                         torch.where(visible_here, rect_w * rows_in_band, 0))
+    rect_out = (min_tx | ((bty0 - band0) << 10) | (rect_w << 20)
+                | torch.where(eligible, MASKED_BIT, 0)
+                | torch.where(visible, 0, CULLED_BIT))
+    near_key, span = _band_normalization(key_plan)
+    dsw = torch.clamp(torch.clamp(dk, min=near_key) - near_key, max=span)
+    return (_exclusive_offsets(torch.clamp(counts, min=1)), M.to_i32(rect_out),
+            M.to_i32(sub), M.to_i32(dsw))
+
+
+def binning_prep_band_cuda(rect_word, rect_rows, dkey, mask, *, band0: int,
+                           band1: int, key_plan=None):
+    """Launch ``gsm_prep_band`` of ``csrc/binning.cu``: one launch, a
+    gaussian a thread, 256 a block, with the one-pass look-back scan of the
+    other prep modes (:func:`scan_scratch`)."""
+    _check_band(band0, band1)
+    dev = rect_word.device
+    n = rect_word.shape[0]
+    for name, t in (("rect_word", rect_word), ("rect_rows", rect_rows),
+                    ("dkey", dkey), ("mask", mask)):
+        _native.check(t, name, torch.int32, (n,), dev)
+    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    ticket, status = scan_scratch(dev, n)
+    near_key, span = _band_normalization(key_plan)
+    PREP_BAND.launch(_native.ptr(rect_word), _native.ptr(rect_rows),
+                     _native.ptr(dkey), _native.ptr(mask), n, band0, band1,
+                     near_key, span, _native.ptr(offsets), _native.ptr(out[0]),
+                     _native.ptr(out[1]), _native.ptr(out[2]),
+                     _native.ptr(ticket), _native.ptr(status))
+    return offsets, out[0], out[1], out[2]
+
+
+def binning_prep_band(rect_word, rect_rows, dkey, mask, **kw):
+    """Prep mode "band": the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if rect_word.is_cuda:
+        return binning_prep_band_cuda(rect_word, rect_rows, dkey, mask, **kw)
+    return binning_prep_band_plain(rect_word, rect_rows, dkey, mask, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Row expansion: virtual tile rows narrowed to their exact column spans
 # ---------------------------------------------------------------------------
 
@@ -655,7 +764,8 @@ def row_expand(offsets, rect, mask, dsw, words, **kw):
 def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
                        tiles_x: int, key_plan, mode: str = "mono",
                        tile_w: int = 16, tile_h: int = 16,
-                       alpha_threshold: float = 0.005, warped_bounds=None):
+                       alpha_threshold: float = 0.005, warped_bounds=None,
+                       tile_row_offset: int = 0):
     """Plain version of the expand kernel.
 
     Slot s < total belongs to the entry g (a gaussian, or a virtual row of a
@@ -672,16 +782,22 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
     physical tile from the (2, 128) ``warped_bounds`` table ("warped"), or
     none ("none": every slot of a visible entry's rect is live; the mask
     may be None).  MASKED entries skip the test, except under the warp.
+    ``tile_row_offset`` (mode "mono"): the frame's tile row of the table's
+    row 0, a band's first row; the test runs at (t_x, t_y +
+    tile_row_offset), the keys keep the table's (band-local) tiles.
     Returns (key1
     (C,), key2 (C,)) int32 with the sentinel in both keys for dead slots,
     then the unclamped slot total and the overflow flag as 0-d int32
     tensors.  No record word is carried per slot: a live slot's entry index
     is the low ``key_plan.idx_bits`` bits of key2, and the blend reads the
-    entry's words through it.
+    entry's words through it.  With ``key_plan`` None (the stable
+    fallback) key1 is the plain tile id, key2 the depth word itself, and a
+    third plane, the entry index, follows the keys: (key1, key2, entry,
+    total, overflow), the sentinel in all three at dead slots.
     """
     _check_mode(mode, words)
     _check_warped(mode, warped_bounds)
-    d_hi, d_lo, idx_bits = key_plan.kernel_tuple
+    _check_row_offset(mode, tile_row_offset)
     dev = offsets.device
     n = rect.shape[0]
     off = offsets.to(torch.int64)
@@ -720,29 +836,41 @@ def expand_slots_plain(offsets, rect, mask, dsw, words, *, capacity: int,
         passes = _stereo_rect_test(w, x0, x0 + float(tile_w), y0,
                                    y0 + float(tile_h))
     else:
-        passes = _exact_tile_test(w[0], w[1], w[2], w[3], t_x, t_y,
-                                  float(tile_w), float(tile_h), alpha_threshold)
+        passes = _exact_tile_test(w[0], w[1], w[2], w[3], t_x,
+                                  t_y + tile_row_offset, float(tile_w),
+                                  float(tile_h), alpha_threshold)
     if mode in ("mono", "stereo"):
         # a pre-counted entry passed this very test at prep; under the warp
         # the JAX expand re-tests it, so the port does too
         passes = passes | is_masked
     dead = (slot >= total) | culled | ~passes
     dn = M.u32(dsw)[g]
-    key1 = ((tile << d_hi) | (dn >> d_lo)) & M.U32
-    key2 = (((dn & ((1 << d_lo) - 1)) << idx_bits) | g) & M.U32
-    return (M.to_i32(torch.where(dead, SENTINEL, key1)),
-            M.to_i32(torch.where(dead, SENTINEL, key2)),
+    if key_plan is None:
+        keys = (tile, dn, g)
+    else:
+        d_hi, d_lo, idx_bits = key_plan.kernel_tuple
+        keys = (((tile << d_hi) | (dn >> d_lo)) & M.U32,
+                (((dn & ((1 << d_lo) - 1)) << idx_bits) | g) & M.U32)
+    return (*(M.to_i32(torch.where(dead, SENTINEL, k)) for k in keys),
             total.to(torch.int32), (total > capacity).to(torch.int32))
+
+
+def _check_row_offset(mode: str, tile_row_offset: int):
+    if tile_row_offset < 0 or (tile_row_offset and mode != "mono"):
+        raise ValueError(f"a tile row offset >= 0 is a mono expand option, "
+                         f"got {tile_row_offset} in mode {mode!r}")
 
 
 def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
                       tiles_x: int, key_plan, mode: str = "mono",
                       tile_w: int = 16, tile_h: int = 16,
-                      alpha_threshold: float = 0.005, warped_bounds=None):
+                      alpha_threshold: float = 0.005, warped_bounds=None,
+                      tile_row_offset: int = 0):
     """Launch the expand kernel of ``csrc/binning.cu`` (1024 slots a CTA:
     one k-ary search over the offsets, the CTA's entries staged in shared
     memory and searched there; in mode "warped" the bounds table staged in
-    shared memory too).  Writes the two key planes only.
+    shared memory too).  Writes the two key planes only, or with no
+    ``key_plan`` the plain tile key, the depth word and the entry index.
 
     Precondition (unchecked, as for :func:`expand_slots_plain`): every entry
     below the total owns at least one slot, so that the 1025 entries from a
@@ -754,6 +882,7 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
     _check_mode(mode, words)
     _check_tiles(mode, tile_w, tile_h, "expand")
     _check_warped(mode, warped_bounds)
+    _check_row_offset(mode, tile_row_offset)
     dev = offsets.device
     n = rect.shape[0]
     _native.check(offsets, "offsets", torch.int32, (n + 1,), dev)
@@ -766,16 +895,19 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
     if warped_bounds is not None:
         _native.check(warped_bounds, "warped_bounds", torch.float32,
                       (2, BOUNDS_LANES), dev)
-    d_hi, d_lo, idx_bits = key_plan.kernel_tuple
-    out = torch.empty((2, capacity), dtype=torch.int32, device=dev)
+    plain_key = key_plan is None
+    d_hi, d_lo, idx_bits = (0, 0, 32) if plain_key else key_plan.kernel_tuple
+    out = torch.empty((3 if plain_key else 2, capacity), dtype=torch.int32,
+                      device=dev)
     EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr_or_null(mask),
                   _native.ptr(dsw), _native.ptr_array(words), len(words),
                   MODE_CODES[mode], n, capacity, tiles_x, tile_w, d_hi, d_lo,
-                  idx_bits, M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
+                  idx_bits, tile_row_offset, int(plain_key),
+                  M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                   M.f32(1.0 / 255.0), _native.ptr(out),
                   _native.ptr_or_null(warped_bounds))
     total = offsets[n]
-    return out[0], out[1], total, (total > capacity).to(torch.int32)
+    return (*out, total, (total > capacity).to(torch.int32))
 
 
 def expand_slots(offsets, rect, mask, dsw, words, **kw):

@@ -25,10 +25,6 @@ ADAPTIVE_MARGIN = 1.04
 ADAPTIVE_REFRESH = 64
 
 
-#: the ROADMAP item of the stable-sort fallbacks (no tie-free KeyPlan fits)
-STABLE_SORT_ITEM = "Queue 2 A, the stable-sort fallback"
-
-
 def not_ported(what: str, item: str):
     """The error for an option of the JAX package that this package does not
     implement yet; ``item`` names its ROADMAP.md entry."""

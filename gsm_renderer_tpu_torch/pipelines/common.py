@@ -26,9 +26,21 @@ and the expand emits slots in gaussian order, so that is exactly the stable
 fused-key order.  All four configurations therefore go through the same
 KeyPlan expand, unstable keys-only sort and blend through the entry index;
 the fused key needs no layout of its own.
+
+The stable fallback.  Where no tie-free KeyPlan fits (``make_key_plan``
+returns None: more tile, depth-span and index bits than 64 hold, as for 4M
+gaussians on a 3840x2160 grid at 32-bit depth keys), the JAX package keys
+each slot by the plain tile id with the depth word beside it and sorts the
+pair stably.  Here the expand writes the tile, the depth word and the
+slot's entry index; one stable ``torch.sort`` of the (tile, depth) int64
+key orders ties by slot, which is the gaussian order; the blend reads the
+entries in sorted order (:func:`sort_and_ranges`).  Both orders are
+(tile, depth, gaussian index), so the fallback renders the KeyPlan frame.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +50,6 @@ from ..kernels.expand import SENTINEL, binning_prep, expand_slots, row_expand
 from ..kernels.project import cached_projection_inputs, project_and_cull_packed
 from ..ops import binning as B
 from ..types import RenderRecord
-from .base import STABLE_SORT_ITEM, not_ported
 
 
 def pack_record_words(record: RenderRecord):
@@ -102,9 +113,12 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
     key2 (C,)) int32, the entry words the blend reads through key2's index
     field (K rows of (N,) int32: the projection's words, or the row table's
     (R,) rows), the unclamped slot total and the overflow flag (0-d int32;
-    with rows, also set when the row demand exceeds R))."""
-    if row_capacity > 0 and mode != "mono":
-        raise ValueError("the row decomposition is a mono binning mode")
+    with rows, also set when the row demand exceeds R)).  With ``key_plan``
+    None (the stable fallback; no rows) the keys are (the tile, the depth
+    word, the entry index), for :func:`sort_and_ranges`."""
+    if row_capacity > 0 and (mode != "mono" or key_plan is None):
+        raise ValueError("the row decomposition is a mono binning mode with "
+                         "a KeyPlan")
     kw = dict(tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
     offsets, rect, mask = binning_prep(packed.rect_word, packed.rect_h,
                                        packed.words, mode=mode,
@@ -115,12 +129,12 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
     if row_capacity > 0:
         offsets, rect, mask, dsw, words, row_overflow = row_expand(
             offsets, rect, mask, dsw, words, row_capacity=row_capacity, **kw)
-    key1, key2, total, overflow = expand_slots(
+    *keys, total, overflow = expand_slots(
         offsets, rect, mask, dsw, words, capacity=capacity, tiles_x=tiles_x,
         key_plan=key_plan, mode=mode, warped_bounds=warped_bounds, **kw)
     if row_overflow is not None:
         overflow = torch.maximum(overflow, row_overflow)
-    return (key1, key2), words, total, overflow
+    return tuple(keys), words, total, overflow
 
 
 def sort_key64(key1, key2):
@@ -133,30 +147,113 @@ def sort_instances(key1, key2):
     return torch.sort(sort_key64(key1, key2), stable=False).values
 
 
+def sort_instances_stable(tile, depth, entry):
+    """The stable fallback's instance sort (no tie-free KeyPlan fits): a
+    stable sort by (tile, depth word), ties in slot order -- the gaussian
+    order, a gaussian owning at most one slot a tile -- as the JAX
+    package's stable 2-key ``jax.lax.sort``.  Returns (the sorted int64
+    keys, the entry index of each rank as int64)."""
+    sorted_key, perm = torch.sort(sort_key64(tile, depth), stable=True)
+    return sorted_key, M.u32(entry)[perm]
+
+
 def binning_sorted_tile(sorted_key, *, plan_tuple):
     """Sorted tile ids (int64; SENTINEL for dead slots) from the sorted
-    int64 keys."""
+    int64 keys; ``plan_tuple`` None for the stable fallback's plain tile
+    key."""
     k1 = ((sorted_key >> 32) & M.U32) ^ 0x80000000
-    return torch.where(k1 == SENTINEL, SENTINEL, k1 >> plan_tuple[0])
+    shift = 0 if plan_tuple is None else plan_tuple[0]
+    return torch.where(k1 == SENTINEL, SENTINEL, k1 >> shift)
 
 
-def d16_packed_sorted(gi, view, proj, center, prepared=None, *, width: int,
-                      height: int, capacity: int, tiles_x: int, tiles_y: int,
-                      tile_w: int, tile_h: int, sh_degree: int,
+def tile_ranges(sorted_key, plan, num_tiles: int):
+    """(starts, counts) int32 of each tile's span of the sorted int64 keys
+    of a KeyPlan ``plan``, or of the plain tile key when ``plan`` is
+    None."""
+    sorted_tile = binning_sorted_tile(
+        sorted_key, plan_tuple=None if plan is None else plan.kernel_tuple)
+    return B.extract_tile_ranges(sorted_tile, num_tiles)
+
+
+class SortedInstances(NamedTuple):
+    """The sorted instance list the blend reads: rank k composites entry
+    ``key[k] & (2**idx_bits - 1)``; tile t's ranks are [starts[t],
+    starts[t] + counts[t])."""
+
+    key: torch.Tensor
+    idx_bits: int
+    starts: torch.Tensor
+    counts: torch.Tensor
+
+
+def sort_and_ranges(keys, key_plan, num_tiles: int) -> SortedInstances:
+    """The instance sort and the tile ranges of the expand's ``keys``: with
+    a KeyPlan the unstable sort of the (key1, key2) pair, whose sorted keys
+    the blend reads through the plan's index field; without one (the
+    stable fallback) the stable sort of (tile, depth word, entry index),
+    the blend reading the sorted entries (32 index bits)."""
+    if key_plan is None:
+        sorted_key, entry = sort_instances_stable(*keys)
+        return SortedInstances(entry, 32,
+                               *tile_ranges(sorted_key, None, num_tiles))
+    sorted_key = sort_instances(*keys)
+    return SortedInstances(sorted_key, key_plan.idx_bits,
+                           *tile_ranges(sorted_key, key_plan, num_tiles))
+
+
+def mono_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
+                       width: int, height: int, capacity: int, tiles_x: int,
+                       tiles_y: int, tile_w: int, tile_h: int, sh_degree: int,
+                       alpha_threshold: float, total_ink_threshold: float,
+                       near_plane: float, far_plane: float,
+                       input_is_srgb: bool, mode: str = "mono",
+                       row_capacity: int = 0):
+    """The 32-bit-depth-key mono chain up to the tile ranges (the JAX
+    ``depth_first_frame``'s packed path): the projection (the depth word
+    normalized under ``key_plan``), prep in binning ``mode`` "mono" or
+    "none", the row expansion when ``row_capacity`` > 0 (the plan's index
+    bits then address its rows), the expand, the sort and the ranges.  With
+    ``key_plan`` None -- no tie-free KeyPlan fits -- the raw depth key, the
+    plain tile key and the stable sort, as in JAX.  Returns
+    (:class:`SortedInstances`, the projection, the entry words, the
+    unclamped slot total, the overflow flag)."""
+    packed = project_and_cull_packed(
+        gi, view, proj, center, prepared=prepared, width=width, height=height,
+        tile_w=tile_w, tile_h=tile_h, sh_degree=sh_degree,
+        near_plane=near_plane, far_plane=far_plane,
+        alpha_threshold=alpha_threshold,
+        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
+        key_plan=key_plan)
+    keys, entry_words, slot_total, overflow = binning_sort_operands(
+        packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
+        mode=mode, row_capacity=row_capacity, tile_w=tile_w, tile_h=tile_h,
+        alpha_threshold=alpha_threshold)
+    return (sort_and_ranges(keys, key_plan, tiles_x * tiles_y), packed,
+            entry_words, slot_total, overflow)
+
+
+def d16_key_plan(num_tiles: int, n: int):
+    """The d16 KeyPlan of a 16-bit-depth-key frame (see the module
+    docstring), or None when its index field does not fit (more than 16
+    tile bits and too many gaussians)."""
+    return B.make_key_plan(num_tiles, n, depth_span_bits=16)
+
+
+def d16_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
+                      width: int, height: int, capacity: int, tiles_x: int,
+                      tiles_y: int, tile_w: int, tile_h: int, sh_degree: int,
                       alpha_threshold: float, total_ink_threshold: float,
                       near_plane: float, far_plane: float,
                       input_is_srgb: bool, mode: str = "mono"):
-    """The 16-bit-depth-key chain up to the sorted keys, shared by the
+    """The 16-bit-depth-key chain up to the tile ranges, shared by the
     Global, Local, DepthFirst BITS16 and Hardware BITS16 frames (the JAX
     ``d16_packed_sorted``): the projection emitting the half-depth key, prep
-    and expand with the d16 KeyPlan (see the module docstring) in binning
-    ``mode`` "mono" (exact-tested) or "none" (full rects), and the unstable
-    keys-only sort.  Returns (sorted int64 keys, the projection, the plan,
-    the unclamped slot total, the overflow flag)."""
-    plan = B.make_key_plan(tiles_x * tiles_y, gi.count, depth_span_bits=16)
-    if plan is None:  # more than 16 tile bits and too many gaussians
-        raise not_ported("the stable-sort fallback (no tie-free KeyPlan fits)",
-                         STABLE_SORT_ITEM)
+    and expand in binning ``mode`` "mono" (exact-tested) or "none" (full
+    rects), and the unstable keys-only sort under the d16 KeyPlan
+    ``key_plan`` (:func:`d16_key_plan`, see the module docstring), or, with
+    ``key_plan`` None, the plain tile key and the stable sort by (tile,
+    depth16).  Returns (:class:`SortedInstances`, the projection, the
+    unclamped slot total, the overflow flag)."""
     packed = project_and_cull_packed(
         gi, view, proj, center, prepared=prepared, width=width, height=height,
         tile_w=tile_w, tile_h=tile_h, sh_degree=sh_degree,
@@ -164,17 +261,12 @@ def d16_packed_sorted(gi, view, proj, center, prepared=None, *, width: int,
         alpha_threshold=alpha_threshold,
         total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
         depth_key16=True)
-    (key1, key2), _words, slot_total, overflow = binning_sort_operands(
-        packed, capacity=capacity, tiles_x=tiles_x, key_plan=plan, mode=mode,
-        tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
-    return sort_instances(key1, key2), packed, plan, slot_total, overflow
-
-
-def tile_ranges(sorted_key, plan, num_tiles: int):
-    """(starts, counts) int32 of each tile's span of the sorted int64 keys
-    of a KeyPlan ``plan``."""
-    sorted_tile = binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)
-    return B.extract_tile_ranges(sorted_tile, num_tiles)
+    keys, _words, slot_total, overflow = binning_sort_operands(
+        packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
+        mode=mode, tile_w=tile_w, tile_h=tile_h,
+        alpha_threshold=alpha_threshold)
+    return (sort_and_ranges(keys, key_plan, tiles_x * tiles_y), packed,
+            slot_total, overflow)
 
 
 def used_sh_degree(config, gi) -> int:

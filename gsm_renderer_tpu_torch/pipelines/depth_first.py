@@ -12,7 +12,8 @@ mono frame is
   2. binning prep: masks, counts, scan       kernels/expand.py    (kernel 2)
   3. row expansion (``row_expand``)          kernels/expand.py    (kernel 3)
   4. slot expansion into KeyPlan keys        kernels/expand.py    (kernel 4)
-  5. unstable sort of the int64 keys alone   pipelines/common.py  (torch.sort)
+  5. unstable sort of the int64 keys alone   pipelines/common.py  (torch.sort;
+     a stable sort of (tile, depth) where no tie-free KeyPlan fits)
   6. tile ranges                             ops/binning.py       (searchsorted)
   7. blend + assemble, records read through
      the keys' entry index                   kernels/blend.py     (kernel 5)
@@ -53,15 +54,15 @@ from .. import config as cfg
 from .. import mathlib as M
 from ..kernels.blend import blend_image
 from ..kernels.expand import CULLED_BIT, MASK_H, MASK_W, STEREO_R2_CUTOFF
-from ..kernels.project import (cached_projection_inputs, project_and_cull_packed,
+from ..kernels.project import (cached_projection_inputs,
                                stereo_project_and_cull_packed)
 from ..mathlib import u32
 from ..ops import binning as B
 from ..stereo import compress_foveated, foveated_raster_tables
 from ..types import FrameHeader, RenderOutput
-from .base import STABLE_SORT_ITEM, GaussianRenderer, not_ported
-from .common import (binning_sort_operands, d16_packed_sorted,
-                     sort_instances, tile_ranges, used_sh_degree)
+from .base import GaussianRenderer
+from .common import (binning_sort_operands, d16_key_plan, d16_packed_sorted,
+                     mono_packed_sorted, sort_and_ranges, used_sh_degree)
 
 
 def _row_demand(rect_word, rect_h):
@@ -81,7 +82,7 @@ def _mono_key_statics(n_gaussians: int, *, width, height, tile_w, tile_h,
     and 32-bit tile ids).  With
     ``row_capacity`` > 0 its index bits address virtual rows; None when the
     index field no longer fits -- callers then run with
-    ``row_capacity=0``."""
+    ``row_capacity=0``, and with no plan at all the stable fallback."""
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     key_n = row_capacity if row_capacity > 0 else n_gaussians
     return B.make_key_plan(tiles_x * tiles_y, key_n, near_plane=near_plane,
@@ -104,7 +105,10 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     virtual rows (bitwise-identical image, smaller slot volume) when the
     row-addressing KeyPlan fits, else the full-rect expansion.
     ``depth_key_bits`` 16 sorts by the 16-bit half-depth key (the d16 chain
-    of pipelines/common.py; rows off, as in JAX).  The frame is the same
+    of pipelines/common.py; rows off, as in JAX).  Where no tie-free
+    KeyPlan fits, the frame sorts stably by the plain tile key with rows off
+    (``pipelines/common.py``), as JAX does, and renders the same image.  The
+    frame is the same
     for ``tile_id_bits`` 16 and 32 under either depth key: the bits only
     gate the 16-bit tile-id guard below (in JAX also the choice between the
     fused depth16 key and the d16 KeyPlan, which order the slots alike).
@@ -122,16 +126,17 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
             "TileIdPrecision.BITS32")
     statics = dict(width=width, height=height, tile_w=tile_w, tile_h=tile_h,
                    near_plane=near_plane, far_plane=far_plane)
-    proj_kw = dict(sh_degree=sh_degree, alpha_threshold=alpha_threshold,
-                   total_ink_threshold=total_ink_threshold,
-                   input_is_srgb=input_is_srgb)
-    mode = "mono" if exact_tile_test else "none"
+    chain_kw = dict(capacity=capacity, tiles_x=tiles_x, tiles_y=tiles_y,
+                    sh_degree=sh_degree, alpha_threshold=alpha_threshold,
+                    total_ink_threshold=total_ink_threshold,
+                    input_is_srgb=input_is_srgb,
+                    mode="mono" if exact_tile_test else "none", **statics)
     if not exact_tile_test:
         row_capacity = 0  # rows narrow exact-tested rects only, as in JAX
     if depth_key_bits == 16:
-        sorted_key, packed, key_plan, slot_total, overflow = d16_packed_sorted(
-            gi, view, proj, center, prepared, capacity=capacity,
-            tiles_x=tiles_x, tiles_y=tiles_y, mode=mode, **statics, **proj_kw)
+        srt, packed, slot_total, overflow = d16_packed_sorted(
+            gi, view, proj, center, prepared,
+            key_plan=d16_key_plan(num_tiles, gi.count), **chain_kw)
         entry_words = packed.words
     else:
         key_plan = None
@@ -139,28 +144,21 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
             key_plan = _mono_key_statics(gi.count, row_capacity=row_capacity,
                                          **statics)
         if key_plan is None:
+            # no rows without a row-addressing plan, as in JAX; with no
+            # plan at all, the stable fallback
             row_capacity = 0
             key_plan = _mono_key_statics(gi.count, **statics)
-        if key_plan is None:
-            raise not_ported("the stable-sort fallback (no tie-free KeyPlan "
-                             "fits)", STABLE_SORT_ITEM)
-        packed = project_and_cull_packed(
-            gi, view, proj, center, prepared=prepared, key_plan=key_plan,
-            **statics, **proj_kw)
-        (key1, key2), entry_words, slot_total, overflow = binning_sort_operands(
-            packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
-            mode=mode, row_capacity=row_capacity, tile_w=tile_w,
-            tile_h=tile_h, alpha_threshold=alpha_threshold)
-        sorted_key = sort_instances(key1, key2)
-    starts, counts = tile_ranges(sorted_key, key_plan, num_tiles)
-    color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
-                               starts, counts, tiles_x=tiles_x,
-                               tiles_y=tiles_y, width=width, height=height,
-                               tile_w=tile_w, tile_h=tile_h,
-                               depth_mode=depth_mode, r2_cutoff=r2_cutoff)
+        srt, packed, entry_words, slot_total, overflow = mono_packed_sorted(
+            gi, view, proj, center, prepared, key_plan=key_plan,
+            row_capacity=row_capacity, **chain_kw)
+    color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
+                               srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
+                               width=width, height=height, tile_w=tile_w,
+                               tile_h=tile_h, depth_mode=depth_mode,
+                               r2_cutoff=r2_cutoff)
     header = FrameHeader(
         visible_count=packed.visible.sum().to(torch.int32),
-        total_instances=counts.sum().to(torch.int32),
+        total_instances=srt.counts.sum().to(torch.int32),
         overflow=overflow,
         slot_total=slot_total,
         row_total=(_row_demand(packed.rect_word, packed.rect_h)
@@ -190,10 +188,7 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     num_tiles = tiles_x * tiles_y
     key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
                                far_plane=far_plane)
-    if key_plan is None:
-        raise not_ported("the stable-sort stereo fallback (no tie-free "
-                         "KeyPlan fits)", STABLE_SORT_ITEM)
-    ((key1, key2), entry_words, slot_total, overflow, visible_count,
+    (keys, entry_words, slot_total, overflow, visible_count,
      total_live) = _stereo_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
             width=width, height=height, capacity=capacity, tiles_x=tiles_x,
@@ -201,12 +196,11 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
             total_ink_threshold=total_ink_threshold, near_plane=near_plane,
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h)
-    sorted_key = sort_instances(key1, key2)
-    starts, counts = tile_ranges(sorted_key, key_plan, num_tiles)
-    color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
-                               starts, counts, tiles_x=tiles_x,
-                               tiles_y=tiles_y, width=width, height=height,
-                               n_eyes=2, r2_cutoff=STEREO_R2_CUTOFF,
+    srt = sort_and_ranges(keys, key_plan, num_tiles)
+    color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
+                               srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
+                               width=width, height=height, n_eyes=2,
+                               r2_cutoff=STEREO_R2_CUTOFF,
                                depth_mode=depth_mode)
     header = FrameHeader(visible_count=visible_count,
                          total_instances=total_live, overflow=overflow,
@@ -219,7 +213,7 @@ def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                        sh_degree, alpha_threshold, total_ink_threshold,
                        near_plane, far_plane, input_is_srgb, tile_w, tile_h):
     """Dual-eye projection + stereo prep / expand up to the sort operands.
-    Returns ((key1, key2), the 8 entry word rows, slot_total, overflow,
+    Returns (the keys, the 8 entry word rows, slot_total, overflow,
     visible_count, total_live = the union-rect total of the visible
     gaussians)."""
     pp = stereo_project_and_cull_packed(
@@ -305,7 +299,7 @@ def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                          foveated_lod):
     """Dual-eye projection at the display size, re-binning onto the
     physical tiles, warped prep / expand up to the sort operands.  Returns
-    ((key1, key2), the 8 entry word rows, slot_total, overflow,
+    (the keys, the 8 entry word rows, slot_total, overflow,
     visible_count = the projection's visible gaussians, total_live = the
     re-binned rect total)."""
     pp = stereo_project_and_cull_packed(
@@ -347,10 +341,7 @@ def depth_first_stereo_foveated_frame(
     num_tiles = tiles_x * tiles_y
     key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
                                far_plane=far_plane)
-    if key_plan is None:
-        raise not_ported("the stable-sort foveated fallback (no tie-free "
-                         "KeyPlan fits)", STABLE_SORT_ITEM)
-    ((key1, key2), entry_words, slot_total, overflow, visible_count,
+    (keys, entry_words, slot_total, overflow, visible_count,
      total_live) = _foveated_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
             tables, display_width=display_width,
@@ -360,12 +351,11 @@ def depth_first_stereo_foveated_frame(
             total_ink_threshold=total_ink_threshold, near_plane=near_plane,
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h, foveated_lod=foveated_lod)
-    sorted_key = sort_instances(key1, key2)
-    starts, counts = tile_ranges(sorted_key, key_plan, num_tiles)
-    color, depth = blend_image(sorted_key, entry_words, key_plan.idx_bits,
-                               starts, counts, tiles_x=tiles_x,
-                               tiles_y=tiles_y, width=render_width,
-                               height=render_height, n_eyes=2,
+    srt = sort_and_ranges(keys, key_plan, num_tiles)
+    color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
+                               srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
+                               width=render_width, height=render_height,
+                               n_eyes=2,
                                r2_cutoff=STEREO_R2_CUTOFF,
                                pixel_coords=(tables["coord_x"],
                                              tables["coord_y"]),

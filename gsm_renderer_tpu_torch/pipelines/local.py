@@ -23,7 +23,7 @@ from .. import config as cfg
 from ..kernels.blend import blend_image
 from ..types import FrameHeader, RenderOutput
 from .base import GaussianRenderer
-from .common import d16_frame_kwargs, d16_packed_sorted, tile_ranges
+from .common import d16_frame_kwargs, d16_key_plan, d16_packed_sorted
 
 
 def local_frame(gi, view, proj, center, prepared=None, *, width: int,
@@ -39,15 +39,15 @@ def local_frame(gi, view, proj, center, prepared=None, *, width: int,
     num_tiles = tiles_x * tiles_y
     if num_tiles > 0xFFFF:
         raise ValueError(f"LocalRenderer tile id must fit 16 bits ({num_tiles})")
-    sorted_key, packed, plan, slot_total, overflow = d16_packed_sorted(
-        gi, view, proj, center, prepared, width=width, height=height,
+    srt, packed, slot_total, overflow = d16_packed_sorted(
+        gi, view, proj, center, prepared,
+        key_plan=d16_key_plan(num_tiles, gi.count), width=width, height=height,
         capacity=capacity, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
         tile_h=tile_h, sh_degree=sh_degree, alpha_threshold=alpha_threshold,
         total_ink_threshold=total_ink_threshold, near_plane=near_plane,
         far_plane=far_plane, input_is_srgb=input_is_srgb)
-    starts, counts = tile_ranges(sorted_key, plan, num_tiles)
-    counts = torch.clamp(counts, max=max_per_tile)
-    color, depth = blend_image(sorted_key, packed.words, plan.idx_bits, starts,
+    counts = torch.clamp(srt.counts, max=max_per_tile)
+    color, depth = blend_image(srt.key, packed.words, srt.idx_bits, srt.starts,
                                counts, tiles_x=tiles_x, tiles_y=tiles_y,
                                width=width, height=height, tile_w=tile_w,
                                tile_h=tile_h, depth_mode="first_hit")

@@ -157,11 +157,13 @@ def test_sorted_order_matches_jax(scene, jax_frames, tile_w):
     ref = jax_frames["chains"][tile_w]
     tiles_x, tiles_y = -(-W // tile_w), -(-H // 16)
     kw = {k: v for k, v in STATICS.items() if k != "capacity"}
-    sorted_key, packed, plan, total, overflow = TC.d16_packed_sorted(
-        scene["gi"], *scene["port_args"], capacity=STATICS["capacity"],
-        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=16, **kw)
+    plan = TC.d16_key_plan(tiles_x * tiles_y, N)
+    srt, packed, total, overflow = TC.d16_packed_sorted(
+        scene["gi"], *scene["port_args"], key_plan=plan,
+        capacity=STATICS["capacity"], tiles_x=tiles_x, tiles_y=tiles_y,
+        tile_w=tile_w, tile_h=16, **kw)
     assert plan.kernel_tuple[1] == 0  # d_lo = 0: key1 = tile | depth16
-    starts, counts = TC.tile_ranges(sorted_key, plan, tiles_x * tiles_y)
+    sorted_key, starts, counts = srt.key, srt.starts, srt.counts
     assert int(overflow) == ref["overflow"] == 0
     assert abs(int(total) - ref["total"]) <= FLIP_CAP
     np.testing.assert_array_equal(counts.numpy(), ref["counts"])

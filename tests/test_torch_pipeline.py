@@ -337,7 +337,8 @@ def test_import_loads_no_jax():
             "gsm_renderer_tpu_torch.io.scene, gsm_renderer_tpu_torch._native, "
             "gsm_renderer_tpu_torch.kernels.expand, "
             "gsm_renderer_tpu_torch.kernels.project, "
-            "gsm_renderer_tpu_torch.kernels.blend; "
+            "gsm_renderer_tpu_torch.kernels.blend, "
+            "gsm_renderer_tpu_torch.parallel.multichip; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'jaxlib' or m == 'gsm_renderer_tpu' "
             "or m.startswith('gsm_renderer_tpu.')]; print(bad); "
