@@ -28,10 +28,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    it launched a separate scan kernel (prep and the row expand scan in
    their own pass).
 3. The realistic heavy-tailed scene (``generate_realistic_gaussians``, 1M,
-   SH3, recentred, camera before the nearest splats, far 80) rendered with
+   SH3) through a PLY file: ``io.ply.write_ply`` to a temporary file,
+   ``load_ply`` with the native decoder (which must build and load), the
+   NumPy decode of the same file held to it (tests/test_io.py's bounds, or
+   2 float32 ulps: the two decoders' exp differ), the file size, the write
+   and both load times printed, the file deleted.  The loaded scene
+   (recentred, camera before the nearest splats, far 80) is rendered with
    rows on and off: frame times, slot totals and a device-time split by
    kernel for each; requires bit-equal images, overflow 0 and a smaller
    rows-on slot total.
+3f. One headline frame each from the headline scene written as a
+   compressed PLY (loaded with the native decoder) and as a .splat, and
+   from the headline camera written to a cameras.json and read back by
+   ``io.poses.load_cameras_json``: launch counts of its own, overflow 0,
+   finite, non-black; file sizes and load times printed.
+3p. ``profiling.profile_depth_first_stages`` on the headline scene at the
+   rows-off frame's capacity: every stage > 0 and the total within 15% of
+   the rows-off frame's queued device time (``frame_split`` of phase 2),
+   printed side by side.
 4. Side-by-side stereo through ``render_stereo``: the headline scene at
    1920x1080 per eye (a 1080x3840 frame), its own launch counts; requires
    overflow 0, a finite frame and both halves non-black.
@@ -73,10 +87,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    over max(alpha, 1e-6).
 4m. The band-sharded frame (``parallel/multichip.py``) of the headline
    scene.  A world of one over NCCL in this process, with the KeyPlan and
-   with the stable fallback (``use_keyplan=False``): launch counts of its
-   own (project, prep, prep_band, expand and blend each > 0), overflow 0,
-   colour and depth bit-equal to the headline frame, frame times, split
-   and trace beside the headline's rows-off frame.  On band 1 of 4: prep
+   with the stable fallback (``use_keyplan=False``), and at 32x16 tiles
+   with the KeyPlan: launch counts of its own (project, prep, prep_band,
+   expand and blend each > 0), overflow 0, colour and depth bit-equal to
+   the headline frame (at 32x16 to ``depth_first_frame(tile_w=32,
+   tile_h=16)``, rows off), frame times, split and trace beside the
+   headline's rows-off frame.  On band 1 of 4, at 16x16 and at 32x16: prep
    "band", the expand with a tile row offset and the blend with one, each
    bit-equal to its plain version (the blend over the whole band); over
    the whole frame's slots the tile-key expand against its plain version,
@@ -84,15 +100,17 @@ Phases (each raises on failure, and the script then exits non-zero):
    Worlds of 2 and 4 over gloo, each rank a spawned process on this card,
    with equal bands and bands balanced from ``row_instance_histogram``
    (capacity: the padded count plus the largest band load, rounded up to
-   4096): every rank launches each kernel of the path, overflow 0; the
-   stitched image equals the headline frame bit for bit with the blend's
+   4096), and in the world of 4 equal bands at 32x16 tiles: every rank
+   launches each kernel of the path, overflow 0; the stitched image equals
+   the mono frame of its tile (as above) bit for bit with the blend's
    early exit off, and within the exit threshold (1/255) with it on (a
    saturated tile stops at a batch end aligned to its band's sorted list;
    the pixels that differ are counted); a run at a capacity of 4096
-   reports overflow 1 on every rank.  The band kernels' rows report the
-   launches of rank 1 in the world of 4 with equal bands (band 1 of 4,
-   the band they are checked on: a non-zero tile row offset), the
-   tile-key expand's those of the world of one's stable frame.
+   reports overflow 1 on every rank.  The band kernels' rows (at 32x16
+   named with the suffix ``.32x16``) report the launches of rank 1 in the
+   world of 4 with equal bands at their tile (band 1 of 4, the band they
+   are checked on: a non-zero tile row offset), the tile-key expand's
+   those of the world of one's stable frame.
 4s. The stable-sort fallback: ``make_key_plan`` is None for 4M gaussians
    at 3840x2160, far 1000 (printed); that mono ``DepthFirstRenderer``
    frame (scale range halved from the headline's, so the splats cover as
@@ -743,14 +761,16 @@ def require_one_pass_scan(trace, label: str) -> None:
                            f"{OLD_SCAN_KERNELS} in the traced frames")
 
 
-def realistic_scene(T, n: int = 1_000_000):
+def realistic_scene(T, n: int = 1_000_000, ds=None):
     """(input, camera) of the heavy-tailed scene the row decomposition is
-    for: recentred on its bounding box, the camera just before the nearest
+    for (``ds``, or ``generate_realistic_gaussians(n, sh_degree=3)``):
+    recentred on its bounding box, the camera just before the nearest
     splats looking +z, far 80."""
     import numpy as np
     from gsm_renderer_tpu_torch.io.scene import generate_realistic_gaussians
 
-    ds = generate_realistic_gaussians(n, sh_degree=3)
+    if ds is None:
+        ds = generate_realistic_gaussians(n, sh_degree=3)
     center = 0.5 * (ds.positions.min(0) + ds.positions.max(0))
     if np.linalg.norm(center) > 1e-6:
         ds.positions = (ds.positions - center).astype(np.float32)
@@ -760,10 +780,99 @@ def realistic_scene(T, n: int = 1_000_000):
     return ds.to_input(T.Precision.FLOAT32), cam
 
 
+def numpy_decode(fn):
+    """``fn()`` with the native library hidden from the loaders: their
+    NumPy decode."""
+    from gsm_renderer_tpu_torch import native
+
+    get_lib = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        return fn()
+    finally:
+        native.get_lib = get_lib
+
+
+#: tests/test_io.py's bounds of the native decode against the NumPy one
+#: (atol, rtol) per array
+DECODE_TOLS = dict(positions=(1e-6, 0.0), scales=(0.0, 1e-6),
+                   rotations=(1e-6, 0.0), opacities=(1e-7, 0.0),
+                   harmonics=(1e-6, 0.0))
+#: float32 ulps by which an element may also differ: the two decoders take
+#: exp (scales) and the logistic (opacities) from different libraries
+#: (glibc's expf, NumPy's float32 exp), which differ by up to 2 ulps; at
+#: opacities in [0.5, 1) 2 ulps exceed the 1e-7 above (11,050 of the
+#: realistic scene's 1M opacities, on a CPU host)
+DECODE_ULPS = 2
+
+
+def decoders_agree(a, b, label: str) -> dict:
+    """Max |d| and max float32 ulps of each array of two decodes of one
+    file; fails where an element is beyond both DECODE_TOLS and
+    DECODE_ULPS."""
+    import numpy as np
+
+    out = {}
+    for name, (atol, rtol) in DECODE_TOLS.items():
+        x, y = getattr(a, name), getattr(b, name)
+        if x.shape != y.shape:
+            raise RuntimeError(f"{label}: native and NumPy {name} shapes differ")
+        d = np.abs(x.astype(np.float64) - y)
+        ulps = d / np.spacing(np.maximum(np.abs(x), np.abs(y)))
+        ok = (d <= atol + rtol * np.abs(y)) | (ulps <= DECODE_ULPS)
+        if not ok.all():
+            raise RuntimeError(f"{label}: native and NumPy {name} differ at "
+                               f"{int((~ok).sum())} elements")
+        out[name] = dict(max_abs=float(d.max()) if d.size else 0.0,
+                         max_ulps=float(ulps.max()) if d.size else 0.0)
+    return out
+
+
+def ply_round_trip(ds, label: str):
+    """Write ``ds`` as a standard PLY to a temporary file, load it with the
+    native decoder (which must build and load) and with the NumPy one,
+    hold them together (DECODE_TOLS) and delete the file.  Returns (the
+    native load, a dict of the file size and both load times)."""
+    import os
+    import tempfile
+    from gsm_renderer_tpu_torch import native
+    from gsm_renderer_tpu_torch.io import ply
+
+    if not native.native_available():
+        raise RuntimeError(f"{label}: the native library did not build or load")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.ply")
+        t0 = time.perf_counter()
+        ply.write_ply(ds, path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = ply.load_ply(path)
+        native_s = time.perf_counter() - t0
+        if ply.last_decoder() != "native":
+            raise RuntimeError(f"{label}: load_ply did not decode natively")
+        t0 = time.perf_counter()
+        slow = numpy_decode(lambda: ply.load_ply(path))
+        numpy_s = time.perf_counter() - t0
+        if ply.last_decoder() != "numpy":
+            raise RuntimeError(f"{label}: the NumPy decode did not run")
+        info = dict(file_bytes=os.path.getsize(path), write_s=write_s,
+                    native_load_s=native_s, numpy_load_s=numpy_s,
+                    decoder="native", gaussians=loaded.count,
+                    native_vs_numpy_max_abs=decoders_agree(loaded, slow, label))
+    log(f"[{label}] " + json.dumps({"ply_round_trip": info}))
+    return loaded, info
+
+
 def phase_realistic(torch, T, n: int = 1_000_000):
-    """The heavy-tailed scene, rows on and off."""
-    gi, cam = realistic_scene(T, n)
-    outs, res = {}, {}
+    """The heavy-tailed scene through a PLY file (written, loaded with the
+    native decoder and checked against the NumPy decode), rows on and
+    off."""
+    from gsm_renderer_tpu_torch.io.scene import generate_realistic_gaussians
+
+    loaded, ply_info = ply_round_trip(
+        generate_realistic_gaussians(n, sh_degree=3), "realistic")
+    gi, cam = realistic_scene(T, n, loaded)
+    outs, res = {}, {"ply": ply_info}
     for label, rows in (("rows_on", True), ("rows_off", False)):
         r = T.DepthFirstRenderer(T.RendererConfig(
             sh_degree=3, precision=T.Precision.FLOAT32, max_width=W,
@@ -784,6 +893,111 @@ def phase_realistic(torch, T, n: int = 1_000_000):
         raise RuntimeError("realistic: rows did not shrink the slot total")
     log("[realistic] rows-on colour and depth bit-equal to rows-off")
     return dict(res=res, gi=gi, cam=cam)
+
+
+def phase_scene_files(torch, T, kernels, hl):
+    """Phase 3f: one headline frame from each other scene file -- the
+    headline scene written as a compressed PLY and as a .splat (DC colour:
+    SH degree 0) and loaded back (the compressed one with the native
+    decoder), and the headline camera written to an INRIA cameras.json and
+    read back by ``load_cameras_json`` -- each through
+    ``DepthFirstRenderer.render`` with launch counts of its own: overflow
+    0, finite, non-black.  The PLY loaders recentre the scene on its
+    bounding box: their camera backs off by that centre."""
+    import numpy as np
+    from gsm_renderer_tpu_torch.io import ply, poses, splat
+    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
+
+    ds = generate_visible_gaussians(hl["n"], sh_degree=3, seed=7,
+                                    scale_range=(0.002, 0.012))
+    cam = hl["cam"]
+    view = np.eye(4, dtype=np.float32)
+    view[:3, 3] = 0.5 * (ds.positions.min(0) + ds.positions.max(0))
+    recentred_cam = T.make_camera(W, H, view_matrix=view, far=cam.far_plane)
+    res, files = {}, {}
+
+    t0 = time.perf_counter()
+    data = ply.write_compressed_ply(ds)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ply.load_ply(data)
+    load_s = time.perf_counter() - t0
+    if ply.last_decoder() != "native":
+        raise RuntimeError("compressed PLY: load_ply did not decode natively")
+    files["compressed_ply"] = (loaded.to_input(T.Precision.FLOAT32),
+                               recentred_cam)
+    res["compressed_ply"] = dict(file_bytes=len(data), write_s=write_s,
+                                 load_s=load_s, decoder="native")
+
+    t0 = time.perf_counter()
+    data = splat.write_splat(ds)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = splat.load_splat(data)
+    res["splat"] = dict(file_bytes=len(data), write_s=write_s,
+                        load_s=time.perf_counter() - t0)
+    files["splat"] = (loaded.to_input(T.Precision.FLOAT32), cam)
+
+    proj = cam.projection_matrix
+    entry = dict(id=0, img_name="headline", width=W, height=H,
+                 position=[float(x) for x in cam.position],
+                 rotation=np.eye(3).tolist(),
+                 fx=float(proj[0, 0]) * W / 2, fy=float(proj[1, 1]) * H / 2)
+    (pose_cam, pw, ph, _name), = poses.load_cameras_json(
+        json.dumps([entry]), near=cam.near_plane, far=cam.far_plane)
+    if (pw, ph) != (W, H):
+        raise RuntimeError(f"cameras.json: read back {pw}x{ph}")
+    files["cameras_json"] = (hl["gi"], pose_cam)
+    res["cameras_json"] = dict(
+        projection_max_abs=float(np.abs(pose_cam.projection_matrix
+                                        - proj).max()))
+
+    for label, (gi, c) in files.items():
+        r = T.DepthFirstRenderer(hl["cfg"])
+        out, stats, launches = drive_path(
+            torch, kernels, MONO_ROWS_PATH, f"scene file {label}",
+            lambda r=r, gi=gi, c=c: timed_frames(
+                torch, lambda: r.render(gi, c, W, H), n_warm=1, n_timed=3))
+        check_frame(torch, out, f"scene file {label}")
+        res[label].update(
+            avg=stats["avg"], slot_total=stats["slot_total"],
+            visible=stats["visible"], launches=launches,
+            headline_mean_abs=float((out.color - hl["out"].color).abs().mean()),
+            equal_to_headline=bool(torch.equal(out.color, hl["out"].color)))
+    log("[scene files] " + json.dumps({"scene_file_frames": res}))
+    return res
+
+
+def phase_profile(torch, hl):
+    """Phase 3p: ``profile_depth_first_stages`` on the headline scene (its
+    chain is the rows-off frame's, at that frame's capacity), beside the
+    same run's rows-off queued device time (``frame_split``).  Requires
+    every stage > 0 and the total within 15% of that time."""
+    from gsm_renderer_tpu_torch.profiling import (STAGES,
+                                                  profile_depth_first_stages)
+
+    cfg = hl["cfg"]
+    split = profile_depth_first_stages(
+        hl["gi"], hl["cam"], W, H, sh_degree=3, capacity=hl["off_capacity"],
+        alpha_threshold=cfg.alpha_threshold,
+        total_ink_threshold=cfg.total_ink_threshold)
+    queued = hl["stats"]["rows_off"]["split"]
+    log("[profile] " + json.dumps({
+        "profile_depth_first_stages_ms": split,
+        "rows_off_queued_device_ms": queued["device_ms"],
+        "rows_off_host_ahead": queued["host_ahead"],
+        "total_over_queued": split["total"] / queued["device_ms"]}))
+    bad = [k for k in STAGES if not split[k] > 0.0]
+    if bad:
+        raise RuntimeError(f"profile: stages {bad} took no time")
+    if not queued["host_ahead"]:
+        raise RuntimeError("profile: the rows-off split is not valid (the host "
+                           "waited on the device)")
+    if abs(split["total"] - queued["device_ms"]) > 0.15 * queued["device_ms"]:
+        raise RuntimeError(f"profile: total {split['total']:.4f} ms is not "
+                           f"within 15% of the rows-off frame's queued device "
+                           f"time {queued['device_ms']:.4f} ms")
+    return split
 
 
 def d16_tile_counts(torch, T, gi, cam, cfg, tile_w: int, capacity: int):
@@ -1142,13 +1356,33 @@ def band_slots(hist, band_starts, n_padded: int) -> int:
     return -(-(n_padded + load) // 4096) * 4096
 
 
+def mono_frame_32x16(T, gi, cam, capacity: int):
+    """The mono DepthFirst chain at 32x16 tiles with a KeyPlan, rows off
+    (``depth_first_frame``; the renderer's tile is 16x16): the frame the
+    32x16 band frames must reproduce."""
+    from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
+    from gsm_renderer_tpu_torch.pipelines.depth_first import depth_first_frame
+
+    out = depth_first_frame(
+        gi, cam.view_matrix, cam.projection_matrix, cam.position,
+        cached_projection_inputs(gi, 3), width=W, height=H, capacity=capacity,
+        sh_degree=3, alpha_threshold=T.config.DEFAULT_ALPHA_THRESHOLD,
+        total_ink_threshold=T.config.DEFAULT_TOTAL_INK_THRESHOLD,
+        near_plane=cam.near_plane, far_plane=cam.far_plane,
+        input_is_srgb=False, tile_w=32, tile_h=16)
+    if int(out.header.overflow) != 0:
+        raise RuntimeError("the mono 32x16 frame overflowed")
+    return out
+
+
 def _band_rank(rank: int, world: int, n: int, configs: list):
     """One spawned rank of phase 4m's gloo worlds on cuda:0: the headline
     scene's shard, then each (label, keywords of build_sharded_depth_first,
     early exit) of ``configs``: one warm-up frame, one frame with every
     kernel's count set to 0 just before it and read just after, the image
     gathered.  Rank 0 also renders the mono headline frame (the blend's
-    early exit on and off) and compares the stitched image with it."""
+    early exit on and off; at 32x16 tiles :func:`mono_frame_32x16`) and
+    compares the stitched image with it."""
     import torch
     import gsm_renderer_tpu_torch as T
     from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
@@ -1168,11 +1402,15 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
         r = T.DepthFirstRenderer(T.RendererConfig(
             sh_degree=3, precision=T.Precision.FLOAT32, max_width=W,
             max_height=H))
+        tiles = {kw.get("tile_w", 16) for _label, kw, _exit in configs}
         for early_exit in (True, False):
             KB.MIN_TRANSMITTANCE = exit_t if early_exit else 0.0
             for _ in range(3):
                 out = r.render(gi, cam, W, H)
-            mono[early_exit] = out
+            mono[(16, early_exit)] = out
+            if 32 in tiles:
+                mono[(32, early_exit)] = mono_frame_32x16(
+                    T, gi, cam, -(-4 * n // 4096) * 4096)
         KB.MIN_TRANSMITTANCE = exit_t
     gi = MC.shard_gaussian_input(ds.to_input(T.Precision.FLOAT32), rank, world)
     kernels = (KP.PROJECT, KE.PREP, KE.PREP_BAND, KE.EXPAND, KB.BLEND)
@@ -1198,7 +1436,7 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
                    plan=None if render.key_plan is None
                    else list(render.key_plan.kernel_tuple))
         if rank == 0:
-            ref = mono[early_exit]
+            ref = mono[(kw.get("tile_w", 16), early_exit)]
             d = (color - ref.color).abs()
             row.update(
                 equal=bool(torch.equal(color, ref.color)
@@ -1236,28 +1474,33 @@ def phase_multichip(torch, T, kernels, hl):
     hist = MC.row_instance_histogram(
         gi, *args, width=W, height=H, sh_degree=3, near_plane=cam.near_plane,
         far_plane=cam.far_plane)
+    mono32 = mono_frame_32x16(T, gi, cam, hl["off_capacity"])
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                 rank=0, world_size=1)
         try:
-            for label, use_kp in (("keyplan", True), ("tile_key", False)):
+            for label, use_kp, tile_w in (("keyplan", True, 16),
+                                          ("tile_key", False, 16),
+                                          ("keyplan_32x16", True, 32)):
                 render = MC.build_sharded_depth_first(
                     use_keyplan=use_kp, capacity_per_device=hl["off_capacity"],
-                    **kw)
+                    tile_w=tile_w, **kw)
                 fn = band_frame_fn(render, gi, cam)
                 out, stats, launches = drive_path(
                     torch, kernels, BAND_PATH, f"band world 1 {label}",
                     lambda fn=fn: timed_frames(torch, fn, n_lock=0))
                 if int(out.header.overflow) != 0:
                     raise RuntimeError(f"band world 1 {label}: overflow")
-                if not (torch.equal(out.color, hl["out"].color)
-                        and torch.equal(out.depth, hl["out"].depth)):
+                ref = hl["out"] if tile_w == 16 else mono32
+                if not (torch.equal(out.color, ref.color)
+                        and torch.equal(out.depth, ref.depth)):
                     raise RuntimeError(f"band world 1 {label}: differs from "
-                                       "the headline frame")
+                                       f"the mono frame at {tile_w}x16")
                 stats = dict(avg=stats["avg"], min=stats["min"],
                              max=stats["max"], split=frame_split(torch, fn),
-                             launches=launches, equal_to_headline=True)
+                             launches=launches, equal_to_mono=True,
+                             tile=f"{tile_w}x16")
                 trace = trace_frames(torch, fn, f"band world 1 {label} trace",
                                      frames=5)
                 require_one_pass_scan(trace, f"band world 1 {label}")
@@ -1283,6 +1526,11 @@ def phase_multichip(torch, T, kernels, hl):
                                 dict(band_starts=bs, capacity_per_device=cap),
                                 early_exit))
         if world == 4:
+            cap = band_slots(hist, eq, n_padded[world])
+            for early_exit in (True, False):
+                configs.append((f"equal 32x16{'' if early_exit else ' no exit'}",
+                                dict(capacity_per_device=cap, tile_w=32),
+                                early_exit))
             configs.append(("tiny capacity", dict(capacity_per_device=4096),
                             True))
         t0 = time.perf_counter()
@@ -1290,8 +1538,11 @@ def phase_multichip(torch, T, kernels, hl):
         seconds = time.perf_counter() - t0
         if world == 4:
             # the launches of rank 1 (band 1 of 4, a non-zero tile row
-            # offset) in the equal-band frame, for the band kernels' rows
-            band_launches = ranks[1][0]["launches"]
+            # offset) in the equal-band frames, for the band kernels' rows
+            labels = [c[0] for c in configs]
+            band_launches = {
+                16: ranks[1][labels.index("equal")]["launches"],
+                32: ranks[1][labels.index("equal 32x16")]["launches"]}
             if ranks[1][0]["band_starts"][1] <= 0:
                 raise RuntimeError("world 4: rank 1's band starts at row 0")
         for k, (label, _kw, early_exit) in enumerate(configs):
@@ -1312,12 +1563,12 @@ def phase_multichip(torch, T, kernels, hl):
                 continue
             if not early_exit and not ref["equal"]:
                 raise RuntimeError(f"world {world} {label}: the stitched image "
-                                   "differs from the headline frame with the "
+                                   "differs from the mono frame with the "
                                    "early exit off")
             if (ref["max_abs_err"] >= KB.MIN_TRANSMITTANCE
                     or ref["depth_max_abs_err"] >= KB.MIN_TRANSMITTANCE * 50.0):
                 raise RuntimeError(f"world {world} {label}: differs from the "
-                                   f"headline frame beyond the exit bound: "
+                                   f"mono frame beyond the exit bound: "
                                    f"{ref}")
         log(f"[multichip] world {world}: " + json.dumps(
             dict(seconds=seconds, configs=[
@@ -1326,17 +1577,40 @@ def phase_multichip(torch, T, kernels, hl):
                     k: v for k, v in ranks[0][j].items()
                     if k not in ("overflow", "launches")})
                 for j in range(len(configs))])))
-    return band_kernel_rows(torch, hl, res, band_launches)
+    rows = [row for tile_w in (16, 32)
+            for row in band_kernel_rows(torch, hl, band_launches[tile_w],
+                                        tile_w)]
+    sort_rows, other = stable_sort_rows(torch, hl, res)
+    return rows + sort_rows, other
 
 
-def band_kernel_rows(torch, hl, world_1, band_launches):
+def kernel_row(name, kernel, launches, ms, plain_ms, err, nbytes, flops):
+    """One row of the ``kernels`` line, its bound from this run's bytes and
+    operations; logged."""
+    b, by = bound(nbytes, flops)
+    src, replaces = KERNEL_SOURCES[kernel]
+    log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{b:.4f} ms by {by}), max_abs_err {err}")
+    return dict(name=name, route="cuda", source=src, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=None, flips=0.0)
+
+
+def require_exact(torch, name, pairs):
+    """Fails unless every int tensor pair is equal."""
+    bad, total, worst = mismatches(torch, pairs)
+    if bad:
+        raise RuntimeError(f"{name}: {bad} of {total} outputs differ "
+                           f"(max |d| {worst})")
+
+
+def band_kernel_rows(torch, hl, band_launches, tile_w: int):
     """Prep "band", the expand with a tile row offset and the blend with one
-    on band 1 of 4 of the headline scene, each against its plain version;
-    the tile-key expand over the whole frame's slots, and the stable sort
-    beside the keys-only sort over them.  Returns the kernel rows and the
-    library ops.  The band rows' launches are ``band_launches``, rank 1's
-    in the gloo world of 4 with equal bands (the same band, a non-zero
-    offset); the tile-key row's are the world of one's (``world_1``)."""
+    on band 1 of 4 of the headline scene at ``tile_w`` x 16 tiles, each
+    against its plain version; returns their kernel rows (at 32x16 named
+    with the suffix ".32x16").  The launches are ``band_launches``, rank 1's
+    in the gloo world of 4 with equal bands at that tile (the same band, a
+    non-zero offset)."""
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.ops import binning as OB
@@ -1344,36 +1618,20 @@ def band_kernel_rows(torch, hl, world_1, band_launches):
     from gsm_renderer_tpu_torch.pipelines import common as PC
 
     gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
-    tiles_x, tiles_y = -(-W // 16), -(-H // 16)
+    tiles_x, tiles_y = -(-W // tile_w), -(-H // 16)
+    suffix = "" if tile_w == 16 else f".{tile_w}x16"
     bs, bands = MC.resolve_band_starts(tiles_y, 4)
     band0, band1 = bs[1], bs[2]
     block = MC.project_block(
         gi, cam.view_matrix, cam.projection_matrix, cam.position, width=W,
-        height=H, tile_w=16, tile_h=16, sh_degree=3,
+        height=H, tile_w=tile_w, tile_h=16, sh_degree=3,
         near_plane=cam.near_plane, far_plane=cam.far_plane,
         alpha_threshold=cfg.alpha_threshold,
         total_ink_threshold=cfg.total_ink_threshold, input_is_srgb=False)
     words = list(block[:4])
     plan = OB.make_key_plan(tiles_x * bands, n, near_plane=cam.near_plane,
                             far_plane=cam.far_plane)
-    tk_l = world_1["world_1_tile_key"]["launches"]
     rows = []
-
-    def record(name, kernel, launches, ms, plain_ms, err, nbytes, flops):
-        b, by = bound(nbytes, flops)
-        src, replaces = KERNEL_SOURCES[kernel]
-        rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=launches,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b, bound_by=by, library_ms=None, flips=0.0))
-        log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b:.4f} ms by {by}), max_abs_err {err}")
-
-    def exact(name, pairs):
-        bad, total, worst = mismatches(torch, pairs)
-        if bad:
-            raise RuntimeError(f"{name}: {bad} of {total} outputs differ "
-                               f"(max |d| {worst})")
 
     bkw = dict(band0=band0, band1=band1, key_plan=plan)
     prep_in = (block[4], block[5], block[6], block[7])
@@ -1381,10 +1639,11 @@ def band_kernel_rows(torch, hl, world_1, band_launches):
                        20)
     pp, plain_ms = cuda_ms(torch,
                            lambda: KE.binning_prep_band_plain(*prep_in, **bkw), 3)
-    exact("prep.band", list(zip(pk, pp)))
+    require_exact(torch, "prep.band" + suffix, list(zip(pk, pp)))
     # four planes read, the offsets and three planes written
-    record("prep.band", "prep", band_launches["prep_band"], ms, plain_ms, 0.0,
-           4 * 4 * n + 4 * (n + 1) + 3 * 4 * n, 0.0)
+    rows.append(kernel_row("prep.band" + suffix, "prep",
+                           band_launches["prep_band"], ms, plain_ms, 0.0,
+                           4 * 4 * n + 4 * (n + 1) + 3 * 4 * n, 0.0))
     offsets, rect, mask, dsw = pk
     total = int(offsets[n])
     cap = -(-total // 4096) * 4096
@@ -1394,53 +1653,80 @@ def band_kernel_rows(torch, hl, world_1, band_launches):
     tested_slots = float(counts_g[tested].sum())
     tested_words = 4 * 4 * float(tested.sum())
     ekw = dict(capacity=cap, tiles_x=tiles_x, key_plan=plan,
-               tile_row_offset=band0)
+               tile_row_offset=band0, tile_w=tile_w)
     exp_in = (offsets, rect, mask, dsw, words)
     ek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp_in, **ekw), 20)
     ep, plain_ms = cuda_ms(torch, lambda: KE.expand_slots_plain(*exp_in, **ekw),
                            3)
-    exact("expand.offset", list(zip(ek, ep)))
+    require_exact(torch, "expand.offset" + suffix, list(zip(ek, ep)))
     # the offset, rect, mask and depth word of each entry, the tested
     # entries' words, two keys a slot
-    record("expand.offset", "expand", band_launches["expand"], ms, plain_ms, 0.0,
-           4 * (n + 1) + 3 * 4 * n + tested_words + 2 * 4 * cap,
-           (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots)
-    log(f"[multichip] band 1 of 4 (tile rows {band0}-{band1}): {total} slots "
-        f"of {cap}, {int((ek[0] != -1).sum())} live")
+    rows.append(kernel_row(
+        "expand.offset" + suffix, "expand", band_launches["expand"], ms,
+        plain_ms, 0.0, 4 * (n + 1) + 3 * 4 * n + tested_words + 2 * 4 * cap,
+        (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots))
+    log(f"[multichip] band 1 of 4 at {tile_w}x16 (tile rows {band0}-{band1}): "
+        f"{total} slots of {cap}, {int((ek[0] != -1).sum())} live")
 
     srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * bands)
     ent = (srt.key, words, srt.idx_bits)
     bl_kw = dict(tiles_x=tiles_x, tiles_y=bands, width=W,
-                 height=bands * 16, tile_row_offset=band0)
+                 height=bands * 16, tile_w=tile_w, tile_row_offset=band0)
     (color, depth), ms = device_ms(
         torch, lambda: KB.blend_image_cuda(*ent, srt.starts, srt.counts,
                                            **bl_kw), 10)
     (pc, pd, processed), plain_ms = cuda_ms(
         torch, lambda: KB.blend_tiles_plain(
-            *ent, srt.starts, srt.counts, tiles_x=tiles_x,
+            *ent, srt.starts, srt.counts, tiles_x=tiles_x, tile_w=tile_w,
             tile_row_offset=band0, return_processed=True), 1)
     pcol, pdep = KB.assemble_image(pc, pd, tiles_x=tiles_x, tiles_y=bands,
-                                   width=W, height=bands * 16)
+                                   width=W, height=bands * 16, tile_w=tile_w)
     err = max(float((pcol - color).abs().max()),
               float((pdep - depth).abs().max()))
     if err != 0.0:
-        raise RuntimeError(f"blend.offset: kernel vs plain max |d| {err}")
-    record("blend.offset", "blend", band_launches["blend"], ms, plain_ms, err,
-           blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * bands * 16),
-           BLEND_DECODE_FLOPS * float(processed.sum())
-           + BLEND_PAIR_FLOPS * 256.0 * float(processed.sum()))
-    d_head = float((color[:(band1 - band0) * 16]
-                    - hl["out"].color[band0 * 16:band1 * 16]).abs().max())
-    log(f"[multichip] band 1 of 4 blended: max |d| {d_head:.3g} to the "
-        "headline frame's rows (the exit aligned to the band's list)")
+        raise RuntimeError(f"blend.offset{suffix}: kernel vs plain max |d| "
+                           f"{err}")
+    rows.append(kernel_row(
+        "blend.offset" + suffix, "blend", band_launches["blend"], ms,
+        plain_ms, err,
+        blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * bands * 16),
+        BLEND_DECODE_FLOPS * float(processed.sum())
+        + BLEND_PAIR_FLOPS * float(tile_w * 16) * float(processed.sum())))
+    if tile_w == 16:
+        d_head = float((color[:(band1 - band0) * 16]
+                        - hl["out"].color[band0 * 16:band1 * 16]).abs().max())
+        log(f"[multichip] band 1 of 4 blended: max |d| {d_head:.3g} to the "
+            "headline frame's rows (the exit aligned to the band's list)")
+    return rows
 
-    # the stable sort beside the keys-only sort, over the slots of the
-    # whole frame (a band of all 68 rows: a world of one)
+
+def stable_sort_rows(torch, hl, world_1):
+    """Over the slots of the whole headline frame (a band of all 68 rows: a
+    world of one), the tile-key expand against its plain version and the
+    stable sort beside the keys-only sort (the same ranks).  Returns the
+    kernel row (the launches of the world of one's stable frame,
+    ``world_1``) and the library op."""
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.parallel import multichip as MC
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
+    tiles_x, tiles_y = -(-W // 16), -(-H // 16)
+    block = MC.project_block(
+        gi, cam.view_matrix, cam.projection_matrix, cam.position, width=W,
+        height=H, tile_w=16, tile_h=16, sh_degree=3,
+        near_plane=cam.near_plane, far_plane=cam.far_plane,
+        alpha_threshold=cfg.alpha_threshold,
+        total_ink_threshold=cfg.total_ink_threshold, input_is_srgb=False)
+    words = list(block[:4])
+    prep_in = (block[4], block[5], block[6], block[7])
     full_plan = OB.make_key_plan(tiles_x * tiles_y, n,
                                  near_plane=cam.near_plane,
                                  far_plane=cam.far_plane)
     cap_f = hl["off_capacity"]
-    ops = {}
+    ops, rows = {}, []
     for label, p in (("keyplan", full_plan), ("tile_key", None)):
         off_f, rect_f, mask_f, dsw_f = KE.binning_prep_band_cuda(
             *prep_in, band0=0, band1=tiles_y, key_plan=p)
@@ -1452,19 +1738,21 @@ def band_kernel_rows(torch, hl, world_1, band_launches):
                                20)
             fp, plain_ms = cuda_ms(
                 torch, lambda: KE.expand_slots_plain(*fin, **fkw), 3)
-            exact("expand.tile_key", list(zip(fk, fp)))
+            require_exact(torch, "expand.tile_key", list(zip(fk, fp)))
             ru = rect_f.to(torch.int64) & 0xFFFFFFFF
             cg = (off_f[1:] - off_f[:-1]).to(torch.int64)
             tst = ((ru >> 30) & 3) == 0
             # as the KeyPlan expand, plus the entry plane
-            record("expand.tile_key", "expand", tk_l["expand"], ms, plain_ms,
-                   0.0, 4 * (n + 1) + 3 * 4 * n + 16 * float(tst.sum())
-                   + 3 * 4 * cap_f,
-                   (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * float(cg[tst].sum()))
+            rows.append(kernel_row(
+                "expand.tile_key", "expand",
+                world_1["world_1_tile_key"]["launches"]["expand"], ms,
+                plain_ms, 0.0, 4 * (n + 1) + 3 * 4 * n + 16 * float(tst.sum())
+                + 3 * 4 * cap_f,
+                (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * float(cg[tst].sum())))
     k1, k2 = ops["keyplan"][:2]
     t1, t2, entry = ops["tile_key"][:3]
     _, unstable_ms = device_ms(torch, lambda: PC.sort_instances(k1, k2), 10)
-    stable, stable_ms = device_ms(
+    _, stable_ms = device_ms(
         torch, lambda: PC.sort_instances_stable(t1, t2, entry), 10)
     srt_u = PC.sort_and_ranges(ops["keyplan"][:2], full_plan, tiles_x * tiles_y)
     srt_s = PC.sort_and_ranges(ops["tile_key"][:3], None, tiles_x * tiles_y)
@@ -2599,6 +2887,8 @@ def main() -> int:
             torch, lambda: hl["r"].render(hl["gi"], hl["cam"], W, H),
             "trace"), "headline")
         real = phase_realistic(torch, T)
+        phase_scene_files(torch, T, kernels, hl)
+        phase_profile(torch, hl)
     st = phase_stereo(torch, T, kernels, hl)
     fv = phase_foveated(torch, T, kernels, hl, st)
     d16 = phase_d16(torch, T, kernels, hl, real)

@@ -1,10 +1,11 @@
 """Scene datasets and synthetic scene generators (numpy).
 
 Copies of ``gsm_renderer_tpu/io/scene.py``'s ``GaussianDataset``, the
-Morton sort and the generators (``generate_grid_gaussians``,
-``generate_visible_gaussians``, ``generate_realistic_gaussians``), so that the
-same seed gives the same scene in both packages; ``to_input`` builds a
-PyTorch :class:`GaussianInput` on a device (the card by default).
+Morton sort (native where the helper builds, as in JAX) and the generators
+(``generate_grid_gaussians``, ``generate_visible_gaussians``,
+``generate_realistic_gaussians``), so that the same seed gives the same
+scene in both packages; ``to_input`` builds a PyTorch
+:class:`GaussianInput` on a device (the card by default).
 """
 
 from __future__ import annotations
@@ -74,9 +75,13 @@ def morton_codes(positions: np.ndarray) -> np.ndarray:
 
 
 def sort_by_morton(ds: GaussianDataset) -> GaussianDataset:
-    """Spatial cache-locality sort: a stable argsort of :func:`morton_codes`
-    (the order the JAX package's native helper gives)."""
-    order = np.argsort(morton_codes(ds.positions), kind="stable")
+    """Spatial cache-locality sort: the native helper's Morton argsort
+    (``native/gsm_native.cpp``) where the library builds, else a stable
+    argsort of :func:`morton_codes`, which gives the same order."""
+    from ..native import morton_sort_indices
+    order = morton_sort_indices(ds.positions)
+    if order is None:
+        order = np.argsort(morton_codes(ds.positions), kind="stable")
     return GaussianDataset(
         positions=ds.positions[order], scales=ds.scales[order],
         rotations=ds.rotations[order], opacities=ds.opacities[order],

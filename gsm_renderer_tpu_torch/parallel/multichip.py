@@ -39,7 +39,9 @@ What the JAX ``build_sharded_depth_first`` takes and this one does not:
 ``mesh`` / ``axis`` (the process group, the caller's, takes their place),
 ``use_xla_blend``, ``pallas_project``, ``split_frame`` and ``interpret``:
 TPU means with no counterpart here (the frame always runs the hand
-kernels on CUDA tensors, their plain versions on CPU tensors).  One card
+kernels on CUDA tensors, their plain versions on CPU tensors).  The JAX
+band frame takes any tile; this one the tiles the JAX renderers use, 16x16
+and 32x16 (:data:`BAND_TILES`; others raise NotImplementedError).  One card
 holds every rank of a gloo group in the port's checks; NCCL refuses two
 ranks on one device.
 """
@@ -68,8 +70,11 @@ from ..pipelines.base import not_ported
 from ..pipelines.common import sort_and_ranges
 from ..types import GaussianInput, resolve_device
 
-#: the ROADMAP item of band frames at other tiles than 16x16
-OTHER_TILES_ITEM = "Queue 2 A, band frames at other tile sizes"
+#: the tiles of the band frame: the JAX renderers' 16x16 (DepthFirst,
+#: Local, Hardware) and 32x16 (Global)
+BAND_TILES = ((16, 16), (32, 16))
+#: the ROADMAP item of band frames at the other tiles
+OTHER_TILES_ITEM = "Queue 2 A, band frames at tiles other than 16x16 and 32x16"
 
 
 def pad_gaussian_input(gi: GaussianInput, multiple: int) -> GaussianInput:
@@ -172,7 +177,7 @@ class ShardedDepthFirst:
                  alpha_threshold: float, total_ink_threshold: float,
                  input_is_srgb: bool, band_starts, use_keyplan: bool,
                  device):
-        if (tile_w, tile_h) != (16, 16):
+        if (tile_w, tile_h) not in BAND_TILES:
             raise not_ported(f"the band frame at {tile_w}x{tile_h} tiles",
                              OTHER_TILES_ITEM)
         self.group = group
@@ -282,8 +287,8 @@ def build_sharded_depth_first(
     n_total / n_dev, which a band reports as overflow when it holds the
     padded count plus its load beyond that).  ``use_keyplan=False`` sorts
     stably by the plain tile key, as happens anyway when no tie-free
-    KeyPlan fits the band.  ``device``: the card by default.  16x16 tiles
-    only (others raise NotImplementedError)."""
+    KeyPlan fits the band.  ``device``: the card by default.  Tiles 16x16
+    or 32x16 (others raise NotImplementedError)."""
     return ShardedDepthFirst(
         group, width=width, height=height, n_total=n_total,
         sh_degree=sh_degree, capacity_per_device=capacity_per_device,

@@ -186,18 +186,25 @@ class SortedInstances(NamedTuple):
     counts: torch.Tensor
 
 
-def sort_and_ranges(keys, key_plan, num_tiles: int) -> SortedInstances:
-    """The instance sort and the tile ranges of the expand's ``keys``: with
-    a KeyPlan the unstable sort of the (key1, key2) pair, whose sorted keys
-    the blend reads through the plan's index field; without one (the
-    stable fallback) the stable sort of (tile, depth word, entry index),
-    the blend reading the sorted entries (32 index bits)."""
+def sort_keys(keys, key_plan):
+    """The instance sort of the expand's ``keys``: (the sorted int64 keys,
+    the key the blend reads, its index bits).  With a KeyPlan the unstable
+    sort of the (key1, key2) pair, whose sorted keys the blend reads
+    through the plan's index field; without one (the stable fallback) the
+    stable sort of (tile, depth word, entry index), the blend reading the
+    sorted entries (32 index bits)."""
     if key_plan is None:
         sorted_key, entry = sort_instances_stable(*keys)
-        return SortedInstances(entry, 32,
-                               *tile_ranges(sorted_key, None, num_tiles))
+        return sorted_key, entry, 32
     sorted_key = sort_instances(*keys)
-    return SortedInstances(sorted_key, key_plan.idx_bits,
+    return sorted_key, sorted_key, key_plan.idx_bits
+
+
+def sort_and_ranges(keys, key_plan, num_tiles: int) -> SortedInstances:
+    """The instance sort (:func:`sort_keys`) and the tile ranges of the
+    expand's ``keys``."""
+    sorted_key, blend_key, idx_bits = sort_keys(keys, key_plan)
+    return SortedInstances(blend_key, idx_bits,
                            *tile_ranges(sorted_key, key_plan, num_tiles))
 
 

@@ -4,8 +4,9 @@
 * Frames.  A 4-rank gloo world (spawned processes, a file store) renders
   tests/test_multichip.py's hot-strip scene (n = 2003, not a multiple of
   4; 128x256) with the KeyPlan and the stable fallback (``use_keyplan``),
-  with equal bands and with bands balanced from the row histogram, and at
-  a capacity of 2048 slots a band.  One JAX subprocess renders the same
+  with equal bands and with bands balanced from the row histogram, at
+  32x16 tiles (the Global renderer's; KeyPlan, equal bands), and at a
+  capacity of 2048 slots a band.  One JAX subprocess renders the same
   frames with ``build_sharded_depth_first(..., use_xla_blend=False,
   interpret=True)`` on a 4-device CPU mesh (set up as
   tests/test_multichip.py does).  Colour within COLOR_TOL (2e-4, that
@@ -19,7 +20,8 @@
   aligned to 128-record blocks of its band's sorted list, not of the mono
   list, so colour differs by less than the exit threshold (1/255) and
   depth by less than it times the far plane.  A world of one is the mono
-  frame bit for bit.
+  frame bit for bit.  At 32x16 the mono frame is ``depth_first_frame(
+  tile_w=32, tile_h=16)`` (the renderer's tile is 16x16).
 * Kernel modes.  Prep "band" against a NumPy transcription of the JAX
   band clamp (``gsm_renderer_tpu/parallel/multichip.py:245-283`` and
   ``binning_inputs`` with its ``mask_override``); the expand with a tile
@@ -27,7 +29,7 @@
   tile_row_offset=, tile_mask=, interpret=True)`` (KeyPlan and plain tile
   key), exactly; the blend with a tile row offset against
   ``blend_tiles_pallas(tile_row_offset=, interpret=True)`` (same records
-  and exit points: float32-close).
+  and exit points: float32-close); each also on 32x16 tiles.
 * Helpers.  ``row_instance_histogram``, ``balance_band_starts`` and
   ``pad_gaussian_input`` equal JAX's; the dry-run twin passes.
 """
@@ -51,6 +53,7 @@ from gsm_renderer_tpu_torch.kernels import blend as TK
 from gsm_renderer_tpu_torch.kernels import expand as TE
 from gsm_renderer_tpu_torch.ops import binning as TB
 from gsm_renderer_tpu_torch.parallel import multichip as TM
+from gsm_renderer_tpu_torch.pipelines.depth_first import depth_first_frame
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import multichip_ranks as R  # noqa: E402
@@ -100,7 +103,9 @@ for name, kw in (("keyplan", dict(capacity_per_device=%(cap)d)),
                                  use_keyplan=False)),
                  ("balanced", dict(capacity_per_device=%(cap)d,
                                    band_starts=starts)),
-                 ("tiny", dict(capacity_per_device=%(tiny)d))):
+                 ("tiny", dict(capacity_per_device=%(tiny)d)),
+                 ("keyplan32", dict(capacity_per_device=%(cap)d, tile_w=32,
+                                    tile_h=16))):
     render = build_sharded_depth_first(
         mesh, width=w, height=h, n_total=n, sh_degree=1, near_plane=0.1,
         far_plane=20.0, use_xla_blend=False, interpret=True, **kw)
@@ -112,7 +117,9 @@ np.savez(%(path)r, **out)
 print("JAX_FRAMES_OK")
 """
 
-FRAMES = ("keyplan", "stable", "balanced")
+FRAMES = ("keyplan", "stable", "balanced", "keyplan32")
+#: each frame's tile width (tiles tile_w x 16)
+TILE_W = dict(keyplan32=32)
 
 
 def scene_input():
@@ -126,6 +133,16 @@ def camera():
 def hist_kw():
     return dict(width=W, height=H, sh_degree=1, near_plane=R.NEAR,
                 far_plane=R.FAR)
+
+
+def mono_frame_32x16(cam):
+    """The port's mono DepthFirst chain at 32x16 tiles with a KeyPlan, rows
+    off (``depth_first_frame``; the renderer's tile is 16x16)."""
+    return depth_first_frame(
+        scene_input(), cam.view_matrix, cam.projection_matrix, cam.position,
+        width=W, height=H, capacity=131072, sh_degree=1,
+        alpha_threshold=0.005, total_ink_threshold=2.0, near_plane=R.NEAR,
+        far_plane=R.FAR, input_is_srgb=False, tile_w=32, tile_h=16)
 
 
 @pytest.fixture(scope="module")
@@ -149,13 +166,15 @@ def frames(tmp_path_factory):
         kws = dict(keyplan=dict(capacity_per_device=CAP),
                    stable=dict(capacity_per_device=CAP, use_keyplan=False),
                    balanced=dict(capacity_per_device=CAP, band_starts=starts),
-                   tiny=dict(capacity_per_device=TINY_CAP))
+                   tiny=dict(capacity_per_device=TINY_CAP),
+                   keyplan32=dict(capacity_per_device=CAP, tile_w=32))
         names = list(kws) + [f"{k}_no_exit" for k in FRAMES]
         world = TM.run_ranks(
             R.render_frames, RANKS, W, H, N,
             [kws[k] for k in kws] + [dict(kws[k], early_exit=False)
                                      for k in FRAMES])
-        one = TM.run_ranks(R.render_frames, 1, W, H, N, [kws["keyplan"]])
+        one = TM.run_ranks(R.render_frames, 1, W, H, N,
+                           [kws["keyplan"], kws["keyplan32"]])
         r = T.DepthFirstRenderer(T.RendererConfig(
             sh_degree=1, row_expand=False, max_instances=131072), device="cpu")
         mono = {}
@@ -164,6 +183,7 @@ def frames(tmp_path_factory):
             TK.MIN_TRANSMITTANCE = t
             try:
                 mono[label] = r.render(scene_input(), cam, W, H)
+                mono[label + "32"] = mono_frame_32x16(cam)
             finally:
                 TK.MIN_TRANSMITTANCE = exit_t
         stdout, stderr = proc.communicate(timeout=900)
@@ -174,8 +194,8 @@ def frames(tmp_path_factory):
     assert proc.returncode == 0, stderr[-3000:]
     assert "JAX_FRAMES_OK" in stdout, stdout
     port = {name: [rank[k] for rank in world] for k, name in enumerate(names)}
-    return dict(jax=dict(np.load(path)), port=port, one=one[0][0], mono=mono,
-                hist=hist, starts=starts)
+    return dict(jax=dict(np.load(path)), port=port, one=one[0][0],
+                one32=one[0][1], mono=mono, hist=hist, starts=starts)
 
 
 @pytest.mark.parametrize("name", FRAMES)
@@ -201,7 +221,9 @@ def test_tiny_capacity_overflows_on_every_rank(frames):
 def test_band_frame_is_the_mono_frame(frames, name):
     """Bit-equal with the early exit off; with it on, within the exit
     threshold (see the module docstring)."""
-    mono, no_exit = frames["mono"]["exit"], frames["mono"]["no_exit"]
+    tile = "32" if TILE_W.get(name) == 32 else ""
+    mono = frames["mono"]["exit" + tile]
+    no_exit = frames["mono"]["no_exit" + tile]
     got = frames["port"][f"{name}_no_exit"][0]
     np.testing.assert_array_equal(got["color"], no_exit.color.numpy())
     np.testing.assert_array_equal(got["depth"], no_exit.depth.numpy())
@@ -216,6 +238,13 @@ def test_band_frame_is_the_mono_frame(frames, name):
 
 def test_world_of_one_is_the_mono_frame(frames):
     mono, one = frames["mono"]["exit"], frames["one"]
+    assert one["overflow"] == 0 and one["band_starts"] == (0, H // 16)
+    np.testing.assert_array_equal(one["color"], mono.color.numpy())
+    np.testing.assert_array_equal(one["depth"], mono.depth.numpy())
+
+
+def test_world_of_one_at_32x16_is_the_mono_frame(frames):
+    mono, one = frames["mono"]["exit32"], frames["one32"]
     assert one["overflow"] == 0 and one["band_starts"] == (0, H // 16)
     np.testing.assert_array_equal(one["color"], mono.color.numpy())
     np.testing.assert_array_equal(one["depth"], mono.depth.numpy())
@@ -277,9 +306,12 @@ def test_dryrun_multichip_twin():
 
 
 def test_band_frame_refuses_other_tiles():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.build_sharded_depth_first(width=W, height=H, n_total=N, tile_w=32,
-                                     device="cpu")
+    """16x16 and 32x16 render (the frames above); other tiles raise."""
+    for tile_w, tile_h in ((64, 16), (16, 32), (8, 8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TM.build_sharded_depth_first(width=W, height=H, n_total=N,
+                                         tile_w=tile_w, tile_h=tile_h,
+                                         device="cpu")
     with pytest.raises(ValueError):
         TM.resolve_band_starts(16, 4, (0, 4, 4, 12, 16))
 
@@ -288,13 +320,23 @@ def test_band_frame_refuses_other_tiles():
 # Kernel modes on the gathered planes of the whole scene
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def block():
+def project_block(tile_w):
     cam = camera()
     return TM.project_block(
         scene_input(), cam.view_matrix, cam.projection_matrix, cam.position,
-        tile_w=16, tile_h=16, alpha_threshold=0.005, total_ink_threshold=2.0,
-        input_is_srgb=False, **hist_kw())
+        tile_w=tile_w, tile_h=16, alpha_threshold=0.005,
+        total_ink_threshold=2.0, input_is_srgb=False, **hist_kw())
+
+
+@pytest.fixture(scope="module")
+def block():
+    return project_block(16)
+
+
+@pytest.fixture(scope="module")
+def block32():
+    """The gathered planes at 32x16 tiles (4 tile columns)."""
+    return project_block(32)
 
 
 def numpy_band_clamp(block, band0, band1, plan):
@@ -339,6 +381,16 @@ BANDS = [(0, 4), (8, 12), (5, 8), (12, 16), (7, 9)]
 @pytest.mark.parametrize("band0,band1", BANDS)
 @pytest.mark.parametrize("keyplan", [True, False])
 def test_prep_band_matches_numpy_transcription(block, band0, band1, keyplan):
+    check_prep_band(block, band0, band1, keyplan)
+
+
+@pytest.mark.parametrize("band0,band1", [(0, 4), (7, 9)])
+def test_prep_band_at_32x16_matches_numpy_transcription(block32, band0,
+                                                         band1):
+    check_prep_band(block32, band0, band1, True)
+
+
+def check_prep_band(block, band0, band1, keyplan):
     plan = (TB.make_key_plan(8 * 4, RANKS * 501, near_plane=R.NEAR,
                              far_plane=R.FAR) if keyplan else None)
     got = TE.binning_prep_band(block[4], block[5], block[6], block[7],
@@ -358,20 +410,31 @@ def band_tables(block, band0, band1, plan):
 @pytest.mark.parametrize("band0,band1", [(8, 12), (12, 16)])
 @pytest.mark.parametrize("keyplan", [True, False])
 def test_expand_with_row_offset_matches_pallas(block, band0, band1, keyplan):
+    check_expand_with_row_offset(block, band0, band1, keyplan, tile_w=16)
+
+
+@pytest.mark.parametrize("keyplan", [True, False])
+def test_expand_32x16_with_row_offset_matches_pallas(block32, keyplan):
+    check_expand_with_row_offset(block32, 8, 12, keyplan, tile_w=32)
+
+
+def check_expand_with_row_offset(block, band0, band1, keyplan, tile_w):
     bands = band1 - band0
-    plan = (TB.make_key_plan(8 * bands, N, near_plane=R.NEAR,
+    tiles_x = W // tile_w
+    plan = (TB.make_key_plan(tiles_x * bands, N, near_plane=R.NEAR,
                              far_plane=R.FAR) if keyplan else None)
     offsets, rect, mask, dsw = band_tables(block, band0, band1, plan)
     words = list(block[:4])
     capacity = (int(offsets[-1]) // 4096 + 1) * 4096
     *keys, total, overflow = TE.expand_slots(
-        offsets, rect, mask, dsw, words, capacity=capacity, tiles_x=8,
-        key_plan=plan, tile_row_offset=band0)
+        offsets, rect, mask, dsw, words, capacity=capacity, tiles_x=tiles_x,
+        key_plan=plan, tile_row_offset=band0, tile_w=tile_w)
     u = lambda t: jnp.asarray(t.numpy().view(np.uint32))  # noqa: E731
     outs = JE.expand_slots_pallas(
         jnp.asarray(np.diff(offsets.numpy())), u(rect),
-        [u(dsw)] + [u(w) for w in words], capacity=capacity, tiles_x=8,
-        exact_test=True, tile_row_offset=jnp.int32(band0), tile_mask=u(mask),
+        [u(dsw)] + [u(w) for w in words], capacity=capacity, tiles_x=tiles_x,
+        exact_test=True, tile_w=tile_w, tile_row_offset=jnp.int32(band0),
+        tile_mask=u(mask),
         key_plan=None if plan is None else plan.kernel_tuple, interpret=True)
     ref_key, ref_d = (np.asarray(o).astype(np.int64) for o in outs[:2])
     k1, k2 = (k.numpy().astype(np.int64) & 0xFFFFFFFF for k in keys[:2])
@@ -399,11 +462,19 @@ def f16b(x):
 def test_blend_with_row_offset_matches_pallas(row_offset):
     """Records around the band's tile rows [row_offset, row_offset + 2);
     half the tiles saturate mid-span, so the exit points count."""
+    check_blend_with_row_offset(row_offset, tile_w=16)
+
+
+def test_blend_32x16_with_row_offset_matches_pallas():
+    check_blend_with_row_offset(5, tile_w=32)
+
+
+def check_blend_with_row_offset(row_offset, tile_w):
     rng = np.random.default_rng(33)
     tiles_x, tiles_y, per = 3, 2, 300
     n_live = tiles_x * tiles_y * per
     cap = -(-(n_live + 200) // 128) * 128
-    mx = rng.uniform(0, tiles_x * 16, n_live)
+    mx = rng.uniform(0, tiles_x * tile_w, n_live)
     my = rng.uniform(row_offset * 16, (row_offset + tiles_y) * 16, n_live)
     s1, s2 = rng.uniform(1.0, 16.0, (2, n_live))
     th = rng.uniform(0, np.pi, n_live)
@@ -422,13 +493,13 @@ def test_blend_with_row_offset_matches_pallas(row_offset):
     ref_color, ref_depth = (np.asarray(x) for x in JK.blend_tiles_pallas(
         JK.build_words_table([jnp.asarray(x) for x in w], cap),
         jnp.asarray(starts), jnp.asarray(counts), tiles_x=tiles_x,
-        tiles_y=tiles_y, tile_row_offset=jnp.int32(row_offset),
+        tiles_y=tiles_y, tile_w=tile_w, tile_row_offset=jnp.int32(row_offset),
         interpret=True))
     color, depth = TK.blend_tiles_plain(
         torch.arange(cap, dtype=torch.int64),
         torch.from_numpy(np.stack(w).view(np.int32).copy()), 32,
         torch.from_numpy(starts), torch.from_numpy(counts), tiles_x=tiles_x,
-        tile_row_offset=row_offset)
+        tile_w=tile_w, tile_row_offset=row_offset)
     np.testing.assert_allclose(color.numpy(), ref_color, atol=1e-5)
     np.testing.assert_allclose(depth.numpy(), ref_depth, atol=1e-4)
     assert float(color[..., 3].mean()) > 0.5
@@ -439,5 +510,5 @@ def test_blend_with_row_offset_matches_pallas(row_offset):
             torch.arange(cap, dtype=torch.int64),
             torch.from_numpy(np.stack(w).view(np.int32).copy()), 32,
             torch.from_numpy(starts), torch.from_numpy(counts),
-            tiles_x=tiles_x)
+            tiles_x=tiles_x, tile_w=tile_w)
         assert float(c0[..., 3].mean()) < 0.5 * float(color[..., 3].mean())

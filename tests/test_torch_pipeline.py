@@ -338,7 +338,11 @@ def test_import_loads_no_jax():
             "gsm_renderer_tpu_torch.kernels.expand, "
             "gsm_renderer_tpu_torch.kernels.project, "
             "gsm_renderer_tpu_torch.kernels.blend, "
-            "gsm_renderer_tpu_torch.parallel.multichip; "
+            "gsm_renderer_tpu_torch.parallel.multichip, "
+            "gsm_renderer_tpu_torch.io.ply, gsm_renderer_tpu_torch.io.splat, "
+            "gsm_renderer_tpu_torch.io.poses, gsm_renderer_tpu_torch.native, "
+            "gsm_renderer_tpu_torch.profiling, "
+            "gsm_renderer_tpu_torch.ops.binning; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'jaxlib' or m == 'gsm_renderer_tpu' "
             "or m.startswith('gsm_renderer_tpu.')]; print(bad); "
