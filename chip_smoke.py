@@ -85,14 +85,32 @@ Phases (each raises on failure, and the script then exits non-zero):
    renderer (launch counts, times, split, trace): colour bit-equal to the
    DepthFirst frames of phases 4 and 4f, depth bit-equal to their depth
    over max(alpha, 1e-6).
+4t. The frame functions at other tiles and frame options, at full width on
+   the headline scene (1M gaussians, SH3, 1920x1080, the headline camera
+   and stereo rig): ``depth_first_frame`` with rows at 8x8, 16x8, 8x16,
+   32x32 and 32x16 (each bit-equal to rows off), the stereo frame at 32x16
+   and 8x8, the foveated frame (min_rate 0.4; 8-pixel sides would pass the
+   127-tile bounds table at 1080p, which JAX refuses too) at 32x16 and
+   32x32, the Hardware frame and ``global_frame(exact_tile_test=False)`` at
+   32x16, and ``depth_first_frame(max_per_tile=2048)`` on the realistic
+   scene of phase 3 (tiles clamp; equal to the unclamped frame on the
+   others, the same slot total).  Each at a capacity probed from its slot
+   total (``fit_capacity``), with launch counts of its own (1 warm-up and
+   5 timed frames), the frame gate (overflow 0, finite, non-black), its
+   split and a traced device split; then every kernel mode of each frame
+   on its own tensors against its plain version (integers bit-equal, the
+   whole-frame blend bit-equal, the staged frame equal to the frame
+   function's), each a kernel row named with its tile (``blend.8x8``,
+   ``prep.warped.32x32``, ``expand.none.d16_32``, ...).
 4m. The band-sharded frame (``parallel/multichip.py``) of the headline
    scene.  A world of one over NCCL in this process, with the KeyPlan and
-   with the stable fallback (``use_keyplan=False``), and at 32x16 tiles
-   with the KeyPlan: launch counts of its own (project, prep, prep_band,
-   expand and blend each > 0), overflow 0, colour and depth bit-equal to
-   the headline frame (at 32x16 to ``depth_first_frame(tile_w=32,
-   tile_h=16)``, rows off), frame times, split and trace beside the
-   headline's rows-off frame.  On band 1 of 4, at 16x16 and at 32x16: prep
+   with the stable fallback (``use_keyplan=False``), and at 32x16 and 8x8
+   tiles with the KeyPlan (8x8 at phase 4t's capacity): launch counts of
+   its own (project, prep, prep_band, expand and blend each > 0), overflow
+   0, colour and depth bit-equal to the headline frame (at 32x16 and 8x8 to
+   ``depth_first_frame`` at that tile, rows off), frame times, split and
+   trace beside the headline's rows-off frame.  On band 1 of 4, at 16x16,
+   32x16 and 8x8 (the 8x8 rows with the world of one's launches): prep
    "band", the expand with a tile row offset and the blend with one, each
    bit-equal to its plain version (the blend over the whole band); over
    the whole frame's slots the tile-key expand against its plain version,
@@ -168,7 +186,9 @@ Phases (each raises on failure, and the script then exits non-zero):
 6. Small frames (20k gaussians, 512x384) on the card vs the same renderer on
    the CPU (plain versions): rows off, rows on, stereo, foveated (min_rate
    0.4), Global, Local, DepthFirst BITS16, and Hardware mono, BITS16,
-   stereo and foveated; colour within 1e-3.
+   stereo and foveated; then the frame functions with rows at 8x8 and
+   32x32, with ``max_per_tile`` 64, Global without the exact tile test,
+   stereo and foveated at 8x8; colour within 1e-3.
    After phase 2 a torch.profiler trace of 10 headline frames prints the
    device busy time and the kernel time by name.
 7. The last line is {"ok": true, "device": {...}}.
@@ -483,7 +503,9 @@ def sass_loop_counts(sass: str) -> dict:
 def phase_build(native):
     t0 = time.perf_counter()
     out = native.build_all()
-    log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s into {out}")
+    seconds = time.perf_counter() - t0
+    log(f"[build] kernels built in {seconds:.1f} s into {out}")
+    log(json.dumps({"build_seconds": seconds}))
     for name in native.SOURCES:
         report = ptxas_report((out / f"{name}.log").read_text())
         log(f"[build] {name}.cu ptxas: " + json.dumps(report))
@@ -1265,6 +1287,7 @@ def blend_bytes(torch, KB, ent, starts, processed, n_words, out_pixels):
 
 def blend_cutoff_flops(torch, KB, ent, starts, processed, *, tiles_x,
                        r2_cutoff, n_eyes: int = 2, pixel_coords=None,
+                       tile_w: int = 16, tile_h: int = 16,
                        chunk: int = 1 << 15):
     """Float operations a blend with a cutoff (one eye or two) needs on
     this run's data: each record composited is decoded once an eye; each
@@ -1278,16 +1301,17 @@ def blend_cutoff_flops(torch, KB, ent, starts, processed, *, tiles_x,
     g = KB.entry_index(sorted_key[rank], idx_bits)
     t_x, t_y = tile % tiles_x, tile // tiles_x
     if pixel_coords is None:
-        pix = torch.arange(256, device=starts.device)
-        lx, ly = (pix % 16).to(torch.float32), (pix // 16).to(torch.float32)
+        pix = torch.arange(tile_w * tile_h, device=starts.device)
+        lx = (pix % tile_w).to(torch.float32)
+        ly = (pix // tile_w).to(torch.float32)
     inside = 0
     for e in range(n_eyes):
         rec = KB.decode_records(words[4 * e:4 * e + 4])
         for c0 in range(0, g.numel(), chunk):
             gc, txc, tyc = g[c0:c0 + chunk], t_x[c0:c0 + chunk], t_y[c0:c0 + chunk]
             if pixel_coords is None:
-                px = lx[None, :] + (txc * 16).to(torch.float32)[:, None]
-                py = ly[None, :] + (tyc * 16).to(torch.float32)[:, None]
+                px = lx[None, :] + (txc * tile_w).to(torch.float32)[:, None]
+                py = ly[None, :] + (tyc * tile_h).to(torch.float32)[:, None]
             else:
                 px = pixel_coords[0][txc]
                 py = pixel_coords[1][tyc]
@@ -1296,7 +1320,7 @@ def blend_cutoff_flops(torch, KB, ent, starts, processed, *, tiles_x,
             u = rec["a1"][gc][:, None] * dx + rec["b1"][gc][:, None] * dy
             v = rec["a2"][gc][:, None] * dx + rec["b2"][gc][:, None] * dy
             inside += int(((u * u + v * v) <= r2_cutoff).sum())
-    pairs = n_eyes * 256 * g.numel()
+    pairs = n_eyes * tile_w * tile_h * g.numel()
     flops = (n_eyes * BLEND_DECODE_FLOPS * g.numel() + BLEND_PAIR_FLOPS * inside
              + BLEND_Q_FLOPS * (pairs - inside))
     return flops, inside, pairs
@@ -1356,10 +1380,10 @@ def band_slots(hist, band_starts, n_padded: int) -> int:
     return -(-(n_padded + load) // 4096) * 4096
 
 
-def mono_frame_32x16(T, gi, cam, capacity: int):
-    """The mono DepthFirst chain at 32x16 tiles with a KeyPlan, rows off
-    (``depth_first_frame``; the renderer's tile is 16x16): the frame the
-    32x16 band frames must reproduce."""
+def mono_frame_at(T, gi, cam, capacity: int, tile_w: int, tile_h: int):
+    """The mono DepthFirst chain at ``tile_w`` x ``tile_h`` tiles with a
+    KeyPlan, rows off (``depth_first_frame``; the renderer's tile is
+    16x16): the frame the band frames at that tile must reproduce."""
     from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
     from gsm_renderer_tpu_torch.pipelines.depth_first import depth_first_frame
 
@@ -1369,9 +1393,9 @@ def mono_frame_32x16(T, gi, cam, capacity: int):
         sh_degree=3, alpha_threshold=T.config.DEFAULT_ALPHA_THRESHOLD,
         total_ink_threshold=T.config.DEFAULT_TOTAL_INK_THRESHOLD,
         near_plane=cam.near_plane, far_plane=cam.far_plane,
-        input_is_srgb=False, tile_w=32, tile_h=16)
+        input_is_srgb=False, tile_w=tile_w, tile_h=tile_h)
     if int(out.header.overflow) != 0:
-        raise RuntimeError("the mono 32x16 frame overflowed")
+        raise RuntimeError(f"the mono {tile_w}x{tile_h} frame overflowed")
     return out
 
 
@@ -1381,7 +1405,7 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
     early exit) of ``configs``: one warm-up frame, one frame with every
     kernel's count set to 0 just before it and read just after, the image
     gathered.  Rank 0 also renders the mono headline frame (the blend's
-    early exit on and off; at 32x16 tiles :func:`mono_frame_32x16`) and
+    early exit on and off; at 32x16 tiles :func:`mono_frame_at`) and
     compares the stitched image with it."""
     import torch
     import gsm_renderer_tpu_torch as T
@@ -1409,8 +1433,8 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
                 out = r.render(gi, cam, W, H)
             mono[(16, early_exit)] = out
             if 32 in tiles:
-                mono[(32, early_exit)] = mono_frame_32x16(
-                    T, gi, cam, -(-4 * n // 4096) * 4096)
+                mono[(32, early_exit)] = mono_frame_at(
+                    T, gi, cam, -(-4 * n // 4096) * 4096, 32, 16)
         KB.MIN_TRANSMITTANCE = exit_t
     gi = MC.shard_gaussian_input(ds.to_input(T.Precision.FLOAT32), rank, world)
     kernels = (KP.PROJECT, KE.PREP, KE.PREP_BAND, KE.EXPAND, KB.BLEND)
@@ -1450,11 +1474,13 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
     return res
 
 
-def phase_multichip(torch, T, kernels, hl):
+def phase_multichip(torch, T, kernels, hl, tiles8):
     """Phase 4m: the band-sharded frame of the headline scene.  A world of
     one over NCCL in this process (the KeyPlan and the stable fallback, each
-    bit-equal to the headline frame; frame times, split and trace beside the
-    headline's rows-off frame); prep "band", the expand with a tile row
+    bit-equal to the headline frame; at 32x16 and at 8x8 tiles, bit-equal to
+    the mono frame at that tile, ``tiles8`` phase 4t's 8x8 frames; frame
+    times, split and trace beside the headline's rows-off frame); prep
+    "band", the expand with a tile row
     offset and the blend with one on band 1 of 4 against their plain
     versions; worlds of 2 and 4 spawned gloo ranks on this card with equal
     and balanced bands (stitched image against the headline frame, bit for
@@ -1474,33 +1500,38 @@ def phase_multichip(torch, T, kernels, hl):
     hist = MC.row_instance_histogram(
         gi, *args, width=W, height=H, sh_degree=3, near_plane=cam.near_plane,
         far_plane=cam.far_plane)
-    mono32 = mono_frame_32x16(T, gi, cam, hl["off_capacity"])
+    refs = {(16, 16): (hl["out"], hl["off_capacity"]),
+            (32, 16): (mono_frame_at(T, gi, cam, hl["off_capacity"], 32, 16),
+                       hl["off_capacity"]),
+            (8, 8): (tiles8["off"], tiles8["cap_off"])}
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                 rank=0, world_size=1)
         try:
-            for label, use_kp, tile_w in (("keyplan", True, 16),
-                                          ("tile_key", False, 16),
-                                          ("keyplan_32x16", True, 32)):
+            for label, use_kp, tile in (("keyplan", True, (16, 16)),
+                                        ("tile_key", False, (16, 16)),
+                                        ("keyplan_32x16", True, (32, 16)),
+                                        ("keyplan_8x8", True, (8, 8))):
+                ref, cap = refs[tile]
                 render = MC.build_sharded_depth_first(
-                    use_keyplan=use_kp, capacity_per_device=hl["off_capacity"],
-                    tile_w=tile_w, **kw)
+                    use_keyplan=use_kp, capacity_per_device=cap,
+                    tile_w=tile[0], tile_h=tile[1], **kw)
                 fn = band_frame_fn(render, gi, cam)
                 out, stats, launches = drive_path(
                     torch, kernels, BAND_PATH, f"band world 1 {label}",
                     lambda fn=fn: timed_frames(torch, fn, n_lock=0))
                 if int(out.header.overflow) != 0:
                     raise RuntimeError(f"band world 1 {label}: overflow")
-                ref = hl["out"] if tile_w == 16 else mono32
                 if not (torch.equal(out.color, ref.color)
                         and torch.equal(out.depth, ref.depth)):
                     raise RuntimeError(f"band world 1 {label}: differs from "
-                                       f"the mono frame at {tile_w}x16")
+                                       f"the mono frame at {tile[0]}x"
+                                       f"{tile[1]}")
                 stats = dict(avg=stats["avg"], min=stats["min"],
                              max=stats["max"], split=frame_split(torch, fn),
                              launches=launches, equal_to_mono=True,
-                             tile=f"{tile_w}x16")
+                             tile=f"{tile[0]}x{tile[1]}", capacity=cap)
                 trace = trace_frames(torch, fn, f"band world 1 {label} trace",
                                      frames=5)
                 require_one_pass_scan(trace, f"band world 1 {label}")
@@ -1580,8 +1611,42 @@ def phase_multichip(torch, T, kernels, hl):
     rows = [row for tile_w in (16, 32)
             for row in band_kernel_rows(torch, hl, band_launches[tile_w],
                                         tile_w)]
+    rows += band_kernel_rows(torch, hl, res["world_1_keyplan_8x8"]["launches"],
+                             8, 8)
     sort_rows, other = stable_sort_rows(torch, hl, res)
     return rows + sort_rows, other
+
+
+def tested_entries(off, rect, masked_too=False) -> float:
+    """Live entries whose words the expand's exact test reads."""
+    owns = (off[1:] - off[:-1]) > 0
+    ru = rect.long() & 0xFFFFFFFF
+    bits = 1 if masked_too else 3   # culled (and, unless warped, masked)
+    return float((owns & (((ru >> 30) & bits) == 0)).sum())
+
+
+def expand_bytes(n_entries, capacity, words_read) -> float:
+    """Bytes of an expand: the offset, rect, mask and depth word of each
+    entry, the tested entries' words, the two keys of each slot."""
+    return (n_entries + 1) * 4 + 3 * 4 * n_entries + 4 * words_read \
+        + 2 * 4 * capacity
+
+
+def tile_tests(rect_word, rect_h) -> float:
+    """Window tests prep runs: min(rect_w, 8) * min(rect_h, 4) a gaussian."""
+    rw = rect_word.long() & 0xFFFFFFFF
+    return float((((rw >> 20) & 0x3FF).clamp(max=8)
+                  * rect_h.long().clamp(max=4)).sum())
+
+
+def tested_slots(off, rect, masked_too=False) -> float:
+    """Slots the expand tests: those of unmasked live entries (with the
+    MASKED ones too under the warp, which re-tests them)."""
+    counts_g = (off[1:] - off[:-1]).long()
+    ru = rect.long() & 0xFFFFFFFF
+    if masked_too:
+        return float(counts_g[((ru >> 30) & 1) == 0].sum())
+    return float(counts_g[((ru >> 30) & 3) == 0].sum())
 
 
 def kernel_row(name, kernel, launches, ms, plain_ms, err, nbytes, flops):
@@ -1604,13 +1669,14 @@ def require_exact(torch, name, pairs):
                            f"(max |d| {worst})")
 
 
-def band_kernel_rows(torch, hl, band_launches, tile_w: int):
+def band_kernel_rows(torch, hl, band_launches, tile_w: int, tile_h: int = 16):
     """Prep "band", the expand with a tile row offset and the blend with one
-    on band 1 of 4 of the headline scene at ``tile_w`` x 16 tiles, each
-    against its plain version; returns their kernel rows (at 32x16 named
-    with the suffix ".32x16").  The launches are ``band_launches``, rank 1's
-    in the gloo world of 4 with equal bands at that tile (the same band, a
-    non-zero offset)."""
+    on band 1 of 4 of the headline scene at ``tile_w`` x ``tile_h`` tiles,
+    each against its plain version; returns their kernel rows (at tiles
+    other than 16x16 named with the suffix ".<w>x<h>").  The launches are
+    ``band_launches``: rank 1's in the gloo world of 4 with equal bands at
+    that tile (the same band, a non-zero offset), or at 8x8 the world of
+    one's (the same kernel modes at row offset 0)."""
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.ops import binning as OB
@@ -1618,13 +1684,13 @@ def band_kernel_rows(torch, hl, band_launches, tile_w: int):
     from gsm_renderer_tpu_torch.pipelines import common as PC
 
     gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
-    tiles_x, tiles_y = -(-W // tile_w), -(-H // 16)
-    suffix = "" if tile_w == 16 else f".{tile_w}x16"
+    tiles_x, tiles_y = -(-W // tile_w), -(-H // tile_h)
+    suffix = "" if (tile_w, tile_h) == (16, 16) else f".{tile_w}x{tile_h}"
     bs, bands = MC.resolve_band_starts(tiles_y, 4)
     band0, band1 = bs[1], bs[2]
     block = MC.project_block(
         gi, cam.view_matrix, cam.projection_matrix, cam.position, width=W,
-        height=H, tile_w=tile_w, tile_h=16, sh_degree=3,
+        height=H, tile_w=tile_w, tile_h=tile_h, sh_degree=3,
         near_plane=cam.near_plane, far_plane=cam.far_plane,
         alpha_threshold=cfg.alpha_threshold,
         total_ink_threshold=cfg.total_ink_threshold, input_is_srgb=False)
@@ -1650,10 +1716,10 @@ def band_kernel_rows(torch, hl, band_launches, tile_w: int):
     counts_g = (offsets[1:] - offsets[:-1]).to(torch.int64)
     ru = rect.to(torch.int64) & 0xFFFFFFFF
     tested = ((ru >> 30) & 3) == 0   # live and not pre-counted
-    tested_slots = float(counts_g[tested].sum())
+    n_tested = float(counts_g[tested].sum())
     tested_words = 4 * 4 * float(tested.sum())
     ekw = dict(capacity=cap, tiles_x=tiles_x, key_plan=plan,
-               tile_row_offset=band0, tile_w=tile_w)
+               tile_row_offset=band0, tile_w=tile_w, tile_h=tile_h)
     exp_in = (offsets, rect, mask, dsw, words)
     ek, ms = device_ms(torch, lambda: KE.expand_slots_cuda(*exp_in, **ekw), 20)
     ep, plain_ms = cuda_ms(torch, lambda: KE.expand_slots_plain(*exp_in, **ekw),
@@ -1664,23 +1730,26 @@ def band_kernel_rows(torch, hl, band_launches, tile_w: int):
     rows.append(kernel_row(
         "expand.offset" + suffix, "expand", band_launches["expand"], ms,
         plain_ms, 0.0, 4 * (n + 1) + 3 * 4 * n + tested_words + 2 * 4 * cap,
-        (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots))
-    log(f"[multichip] band 1 of 4 at {tile_w}x16 (tile rows {band0}-{band1}): "
+        (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * n_tested))
+    log(f"[multichip] band 1 of 4 at {tile_w}x{tile_h} (tile rows "
+        f"{band0}-{band1}): "
         f"{total} slots of {cap}, {int((ek[0] != -1).sum())} live")
 
     srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * bands)
     ent = (srt.key, words, srt.idx_bits)
     bl_kw = dict(tiles_x=tiles_x, tiles_y=bands, width=W,
-                 height=bands * 16, tile_w=tile_w, tile_row_offset=band0)
+                 height=bands * tile_h, tile_w=tile_w, tile_h=tile_h,
+                 tile_row_offset=band0)
     (color, depth), ms = device_ms(
         torch, lambda: KB.blend_image_cuda(*ent, srt.starts, srt.counts,
                                            **bl_kw), 10)
     (pc, pd, processed), plain_ms = cuda_ms(
         torch, lambda: KB.blend_tiles_plain(
             *ent, srt.starts, srt.counts, tiles_x=tiles_x, tile_w=tile_w,
-            tile_row_offset=band0, return_processed=True), 1)
+            tile_h=tile_h, tile_row_offset=band0, return_processed=True), 1)
     pcol, pdep = KB.assemble_image(pc, pd, tiles_x=tiles_x, tiles_y=bands,
-                                   width=W, height=bands * 16, tile_w=tile_w)
+                                   width=W, height=bands * tile_h,
+                                   tile_w=tile_w, tile_h=tile_h)
     err = max(float((pcol - color).abs().max()),
               float((pdep - depth).abs().max()))
     if err != 0.0:
@@ -1689,10 +1758,11 @@ def band_kernel_rows(torch, hl, band_launches, tile_w: int):
     rows.append(kernel_row(
         "blend.offset" + suffix, "blend", band_launches["blend"], ms,
         plain_ms, err,
-        blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * bands * 16),
+        blend_bytes(torch, KB, ent, srt.starts, processed, 4,
+                    W * bands * tile_h),
         BLEND_DECODE_FLOPS * float(processed.sum())
-        + BLEND_PAIR_FLOPS * float(tile_w * 16) * float(processed.sum())))
-    if tile_w == 16:
+        + BLEND_PAIR_FLOPS * float(tile_w * tile_h) * float(processed.sum())))
+    if (tile_w, tile_h) == (16, 16):
         d_head = float((color[:(band1 - band0) * 16]
                         - hl["out"].color[band0 * 16:band1 * 16]).abs().max())
         log(f"[multichip] band 1 of 4 blended: max |d| {d_head:.3g} to the "
@@ -1862,6 +1932,548 @@ def phase_fallback(torch, T, kernels, hl):
         "bit-equal to the headline frame")
 
 
+#: phase 4t: the mono headline frame (rows on) at these tiles, the stereo
+#: frame and the foveated frame at theirs (8-pixel sides put the foveated
+#: 1080p physical grid past the bounds table's 127 tiles an axis, as in
+#: JAX)
+TILE_MONO = ((8, 8), (16, 8), (8, 16), (32, 32), (32, 16))
+TILE_STEREO = ((32, 16), (8, 8))
+TILE_FOVEATED = ((32, 16), (32, 32))
+#: phase 4t's probe capacity, slots a gaussian, before a frame's own
+TILE_PROBE_SLOTS = 32
+#: phase 4t's per-tile clamp on the realistic scene
+TILE_MAX_PER_TILE = 2048
+
+
+def fit_capacity(slots: int) -> int:
+    """A frame's capacity for ``slots``: 10% above, rounded up to 4096."""
+    return -(-int(1.1 * slots + 1) // 4096) * 4096
+
+
+def probed_capacity(run, n: int) -> int:
+    """The capacity of a frame function ``run(capacity)``: one frame at
+    TILE_PROBE_SLOTS slots a gaussian, then :func:`fit_capacity` of its
+    slot total."""
+    out = run(TILE_PROBE_SLOTS * -(-n // 4096) * 4096)
+    if int(out.header.overflow) != 0:
+        raise RuntimeError("probe frame overflowed")
+    return fit_capacity(int(out.header.slot_total))
+
+
+def fixed_frame_loop(torch, kernels, path, label, render, halves=1,
+                     split_frames=5):
+    """A frame function at a fixed capacity through :func:`drive_path` (one
+    warm-up and five timed frames), the frame gate, its split and a traced
+    device split by stage."""
+    out, stats, launches = drive_path(
+        torch, kernels, path, label,
+        lambda: timed_frames(torch, render, n_lock=0, n_warm=1, n_timed=5))
+    check_frame(torch, out, label, halves=halves)
+    stats.update(split=frame_split(torch, render, frames=split_frames),
+                 launches=launches)
+    trace = trace_frames(torch, render, f"{label} trace", frames=5)
+    require_one_pass_scan(trace, label)
+    stats["trace"] = trace
+    return out, stats, launches
+
+
+def timed_pair(torch, name, cuda_fn, plain_fn, reps=10, plain_reps=1):
+    """(kernel result, kernel ms, plain result, plain ms): the kernel timed
+    behind a sleep kernel, its plain version as it runs."""
+    got, ms = device_ms(torch, cuda_fn, reps)
+    want, plain_ms = cuda_ms(torch, plain_fn, plain_reps)
+    return got, ms, want, plain_ms
+
+
+def blend_rows_check(torch, KB, name, ent, starts, counts, kernel_out, plain_kw,
+                     *, tiles_x, tiles_y, width, height, tile_w, tile_h,
+                     n_eyes=1):
+    """The plain blend of the whole frame against the kernel's images
+    (``kernel_out``): (plain ms, records composited a tile), failing unless
+    bit-equal."""
+    res, plain_ms = cuda_ms(torch, lambda: KB.blend_tiles_plain(
+        *ent, starts, counts, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+        n_eyes=n_eyes, return_processed=True, **plain_kw), 1)
+    eyes, processed = ((res[:2],), res[2]) if n_eyes == 1 else res
+    full = [KB.assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
+                              width=width, height=height, tile_w=tile_w,
+                              tile_h=tile_h) for tc, td in eyes]
+    color, depth = kernel_out
+    err = float((torch.cat([c for c, _ in full], 1) - color).abs().max())
+    if depth is not None:
+        err = max(err, float((torch.cat([d for _, d in full], 1)
+                              - depth).abs().max()))
+    if err != 0.0:
+        raise RuntimeError(f"{name}: kernel vs plain max |d| {err}")
+    return plain_ms, processed
+
+
+def mono_tile_rows(torch, T, hl, tile, fr):
+    """The kernels of the mono frame at ``tile`` (rows on) on its own
+    tensors: project, prep counting rows, the row expand, the expand and
+    the blend, each bit-equal to its plain version, the staged frame
+    bit-equal to the frame function's; their kernel rows."""
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.kernels import project as KP
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    tw, th = tile
+    tag = f"{tw}x{th}"
+    n, cam, cfg, launches = hl["n"], hl["cam"], hl["cfg"], fr["launches"]
+    tiles_x, tiles_y = -(-W // tw), -(-H // th)
+    comp, harm = KP.cached_projection_inputs(hl["gi"], 3)
+    plan = OB.make_key_plan(tiles_x * tiles_y, fr["row_cap"],
+                            near_plane=cam.near_plane, far_plane=cam.far_plane)
+    pkw = dict(width=W, height=H, tile_w=tw, tile_h=th, sh_degree=3,
+               near_plane=cam.near_plane, far_plane=cam.far_plane,
+               alpha_threshold=cfg.alpha_threshold,
+               total_ink_threshold=cfg.total_ink_threshold,
+               input_is_srgb=False, key_plan=plan)
+    args = (comp, harm, cam.view_matrix, cam.projection_matrix, cam.position)
+    rows = []
+    pk, ms, pp, plain_ms = timed_pair(
+        torch, "project", lambda: KP.project_cuda(*args, **pkw),
+        lambda: KP.project_plain(*args, **pkw))
+    require_exact(torch, f"project.{tag}", [
+        (pk.rect_word, pp.rect_word), (pk.rect_h, pp.rect_h),
+        (pk.dsw, pp.dsw), (pk.visible, pp.visible)]
+        + list(zip(pk.words, pp.words)))
+    rows.append(kernel_row(f"project.{tag}", "project", launches["project"],
+                           ms, plain_ms, 0.0,
+                           (11 + harm.shape[0]) * 4 * n + (7 * 4 + 1) * n,
+                           PROJECT_FLOPS * n))
+    bkw = dict(tile_w=tw, tile_h=th)
+    prep_in = (pk.rect_word, pk.rect_h, pk.words)
+    (off, rect, mask), ms, prep_p, plain_ms = timed_pair(
+        torch, "prep",
+        lambda: KE.binning_prep_cuda(*prep_in, count_rows=True, **bkw),
+        lambda: KE.binning_prep_plain(*prep_in, count_rows=True, **bkw))
+    require_exact(torch, f"prep.{tag}", list(zip((off, rect, mask), prep_p)))
+    rows.append(kernel_row(
+        f"prep.{tag}", "prep", launches["prep"], ms, plain_ms, 0.0,
+        (6 + 3) * 4 * n + 4,
+        PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(pk.rect_word,
+                                                             pk.rect_h)))
+    r_cap = fr["row_cap"]
+    row_in = (off, rect, mask, pk.dsw, pk.words)
+    rk, ms, rp, plain_ms = timed_pair(
+        torch, "row_expand",
+        lambda: KE.row_expand_cuda(*row_in, row_capacity=r_cap, **bkw),
+        lambda: KE.row_expand_plain(*row_in, row_capacity=r_cap, **bkw))
+    require_exact(torch, f"row_expand.{tag}", [
+        (rk[k], rp[k]) for k in (0, 1, 2, 3, 5)] + list(zip(rk[4], rp[4])))
+    ru = rect.long() & 0xFFFFFFFF
+    oversized_rows = float((off[1:] - off[:-1]).long()[
+        ((ru >> 30) & 3) == 0].sum())
+    rows.append(kernel_row(
+        f"row_expand.{tag}", "row_expand", launches["row_expand"], ms,
+        plain_ms, 0.0,
+        (n + 1) * 4 + 7 * 4 * n + (r_cap + 1) * 4 + 7 * 4 * r_cap,
+        ROW_SPAN_FLOPS * oversized_rows))
+    cap = fr["cap"]
+    ekw = dict(capacity=cap, tiles_x=tiles_x, key_plan=plan, **bkw)
+    exp_in = tuple(rk[:5])
+    ek, ms, ep, plain_ms = timed_pair(
+        torch, "expand", lambda: KE.expand_slots_cuda(*exp_in, **ekw),
+        lambda: KE.expand_slots_plain(*exp_in, **ekw), plain_reps=1)
+    require_exact(torch, f"expand.{tag}", list(zip(ek, ep)))
+    rows.append(kernel_row(
+        f"expand.{tag}", "expand", launches["expand"], ms, plain_ms, 0.0,
+        expand_bytes(r_cap, cap, 4 * tested_entries(rk[0], rk[1])),
+        (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(rk[0], rk[1])))
+    srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * tiles_y)
+    ent = (srt.key, rk[4], srt.idx_bits)
+    frame_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=W, height=H, **bkw)
+    out, ms = device_ms(torch, lambda: KB.blend_image_cuda(
+        *ent, srt.starts, srt.counts, **frame_kw), 10)
+    if not (torch.equal(out[0], fr["out"].color)
+            and torch.equal(out[1], fr["out"].depth)):
+        raise RuntimeError(f"tiles {tag}: staged frame differs from the "
+                           "frame function's")
+    plain_ms, processed = blend_rows_check(
+        torch, KB, f"blend.{tag}", ent, srt.starts, srt.counts, out, {},
+        tiles_x=tiles_x, tiles_y=tiles_y, width=W, height=H, tile_w=tw,
+        tile_h=th)
+    rows.append(kernel_row(
+        f"blend.{tag}", "blend", launches["blend"], ms, plain_ms, 0.0,
+        blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * H),
+        BLEND_DECODE_FLOPS * float(processed.sum())
+        + BLEND_PAIR_FLOPS * float(tw * th) * float(processed.sum())))
+    log(f"[tiles] {tag}: " + json.dumps(dict(
+        rows=int(off[n]), row_capacity=r_cap, slots=int(ek[2]), capacity=cap,
+        live=int(srt.counts.sum()), records_composited=float(processed.sum()),
+        max_tile_count=int(srt.counts.max()))))
+    return rows
+
+
+def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None):
+    """The kernels of the stereo frame (or, with ``fov`` = (target, tables),
+    the foveated frame) at ``tile`` on its own tensors, each bit-equal to
+    its plain version, the staged frame bit-equal to the frame function's;
+    their kernel rows: the dual-eye projection, prep and the expand in
+    mode "stereo" or "warped" (with the bounds gather), the dual-eye
+    blend (with pixel coordinates)."""
+    import numpy as np
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.kernels import project as KP
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+
+    tw, th = tile
+    tag = f"{tw}x{th}"
+    kind = "stereo" if fov is None else "warped"
+    n, cam, cfg, launches = hl["n"], hl["cam"], hl["cfg"], fr["launches"]
+    comp, harm = KP.cached_projection_inputs(hl["gi"], 3)
+    views, projs, centers, stm = PD._stereo_rig(st["stereo"])
+    pw, ph = (W, H) if fov is None else (fov[0].render_width,
+                                         fov[0].render_height)
+    tiles_x, tiles_y = -(-pw // tw), -(-ph // th)
+    plan = OB.make_key_plan(tiles_x * tiles_y, n, near_plane=cam.near_plane,
+                            far_plane=cam.far_plane)
+    pkw = dict(width=W, height=H, tile_w=tw, tile_h=th, sh_degree=3,
+               near_plane=cam.near_plane, far_plane=cam.far_plane,
+               alpha_threshold=cfg.alpha_threshold,
+               total_ink_threshold=cfg.total_ink_threshold,
+               input_is_srgb=False, key_plan=plan)
+    sargs = (comp, harm, views, projs, centers, stm)
+    rows = []
+    sk, ms, sp, plain_ms = timed_pair(
+        torch, "stereo_project", lambda: KP.stereo_project_cuda(*sargs, **pkw),
+        lambda: KP.stereo_project_plain(*sargs, **pkw))
+    require_exact(torch, f"stereo_project.{tag}", [
+        (sk.rect_word, sp.rect_word), (sk.rect_h, sp.rect_h), (sk.dsw, sp.dsw),
+        (sk.visible, sp.visible)] + list(zip(sk.words, sp.words)))
+    ferr = max(float((getattr(sk, f) - getattr(sp, f)).abs().max())
+               for f in ("px_min", "px_max", "py_min", "py_max"))
+    if ferr > 1e-3:
+        raise RuntimeError(f"stereo_project.{tag}: pixel bounds max |d| {ferr}")
+    if fov is None or tile != (32, 16):  # 32x16 stands in the stereo rows
+        rows.append(kernel_row(
+            f"stereo_project.{tag}", "stereo_project",
+            launches["stereo_project"], ms, plain_ms, ferr,
+            (11 + harm.shape[0]) * 4 * n + (10 * 4 + 4 * 4 + 1) * n,
+            STEREO_PROJECT_FLOPS * n))
+    bkw = dict(tile_w=tw, tile_h=th)
+    prep_kw = dict(mode=kind, **bkw)
+    packed, bound_bytes, coords = sk, 0, None
+    if fov is not None:
+        target, tables = fov
+        bounds = tables["bounds"]
+        packed, _ = PD.foveated_packed(sk, tables["inv_fit"], tiles_x=tiles_x,
+                                       tiles_y=tiles_y, **bkw)
+        fru = packed.rect_word.long() & 0xFFFFFFFF
+        mtx, mty = (fru & 0x3FF).int(), ((fru >> 10) & 0x3FF).int()
+        (gfx, gfy), ms, (pfx, pfy), plain_ms = timed_pair(
+            torch, "bounds_gather",
+            lambda: KE.warped_bounds_gather_cuda(bounds, mtx, mty),
+            lambda: KE.warped_bounds_gather_plain(bounds, mtx, mty),
+            reps=20, plain_reps=3)
+        for a, b in zip(gfx + gfy, pfx + pfy):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"bounds_gather.{tag}: kernel differs "
+                                   "from plain")
+        # the gathered boundaries feed this tile's display rects
+        rows.append(kernel_row(
+            f"bounds_gather.{tag}", "bounds_gather",
+            launches["bounds_gather"], ms, plain_ms, 0.0,
+            2 * 128 * 4 + 2 * 4 * n + 14 * 4 * n, 0.0))
+        prep_kw.update(warped_bounds=bounds, lod_min=cfg.foveated_lod)
+        bound_bytes = 2 * 128 * 4
+        coords = (tables["coord_x"], tables["coord_y"])
+    prep_in = (packed.rect_word, packed.rect_h, packed.words)
+    (off, rect, mask), ms, prep_p, plain_ms = timed_pair(
+        torch, "prep", lambda: KE.binning_prep_cuda(*prep_in, **prep_kw),
+        lambda: KE.binning_prep_plain(*prep_in, **prep_kw))
+    require_exact(torch, f"prep.{kind}.{tag}",
+                  list(zip((off, rect, mask), prep_p)))
+    lod_word = fov is not None and cfg.foveated_lod > 0
+    rows.append(kernel_row(
+        f"prep.{kind}.{tag}", "prep", launches["prep"], ms, plain_ms, 0.0,
+        (2 + 6 + lod_word + 3) * 4 * n + 4 + bound_bytes,
+        2 * PREP_DECODE_FLOPS * n
+        + 2 * TILE_TEST_FLOPS * tile_tests(packed.rect_word, packed.rect_h)))
+    cap = fr["cap"]
+    ekw = dict(capacity=cap, tiles_x=tiles_x, key_plan=plan, mode=kind, **bkw)
+    if fov is not None:
+        ekw["warped_bounds"] = bounds
+    exp_in = (off, rect, mask, packed.dsw, packed.words)
+    ek, ms, ep, plain_ms = timed_pair(
+        torch, "expand", lambda: KE.expand_slots_cuda(*exp_in, **ekw),
+        lambda: KE.expand_slots_plain(*exp_in, **ekw))
+    require_exact(torch, f"expand.{kind}.{tag}", list(zip(ek, ep)))
+    warped = fov is not None
+    rows.append(kernel_row(
+        f"expand.{kind}.{tag}", "expand", launches["expand"], ms, plain_ms,
+        0.0, expand_bytes(n, cap, 6 * tested_entries(off, rect, warped))
+        + bound_bytes,
+        (2 * EXPAND_DECODE_FLOPS + 2 * TILE_TEST_FLOPS)
+        * tested_slots(off, rect, warped)))
+    srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * tiles_y)
+    ent = (srt.key, packed.words, srt.idx_bits)
+    frame_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=pw, height=ph,
+                    n_eyes=2, r2_cutoff=9.0, pixel_coords=coords, **bkw)
+    out, ms = device_ms(torch, lambda: KB.blend_image_cuda(
+        *ent, srt.starts, srt.counts, **frame_kw), 10)
+    if not (torch.equal(out[0], fr["out"].color)
+            and torch.equal(out[1], fr["out"].depth)):
+        raise RuntimeError(f"{kind} {tag}: staged frame differs from the "
+                           "frame function's")
+    plain_ms, processed = blend_rows_check(
+        torch, KB, f"blend.{kind}.{tag}", ent, srt.starts, srt.counts, out,
+        dict(r2_cutoff=9.0, pixel_coords=coords), tiles_x=tiles_x,
+        tiles_y=tiles_y, width=pw, height=ph, tile_w=tw, tile_h=th, n_eyes=2)
+    flops, inside, pairs = blend_cutoff_flops(
+        torch, KB, ent, srt.starts, processed, tiles_x=tiles_x, r2_cutoff=9.0,
+        pixel_coords=coords, tile_w=tw, tile_h=th)
+    rows.append(kernel_row(
+        f"blend.{kind}.{tag}", "blend", launches["blend"], ms, plain_ms, 0.0,
+        blend_bytes(torch, KB, ent, srt.starts, processed, 7, 2 * pw * ph)
+        + (0 if coords is None else (tiles_x + tiles_y) * tw * th * 4), flops))
+    log(f"[tiles] {kind} {tag}: " + json.dumps(dict(
+        slots=int(ek[2]), capacity=cap, live=int(srt.counts.sum()),
+        records_composited=float(processed.sum()), pairs_within_cutoff=inside,
+        pairs=pairs, tiles=[tiles_x, tiles_y])))
+    return rows
+
+
+def full_rect_rows(torch, T, hl, hwf, glf):
+    """The full-rect frames at 32x16 on their own tensors: the Hardware
+    frame's prep and expand in mode "none" and its one-eye cutoff blend
+    with normalized depth, and the Global frame's expand in mode "none"
+    over the d16 KeyPlan; each bit-equal to its plain version, the staged
+    frames bit-equal to the frame functions'; their kernel rows."""
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.kernels import project as KP
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    n, cam, cfg = hl["n"], hl["cam"], hl["cfg"]
+    tw, th = 32, 16
+    tiles_x, tiles_y = -(-W // tw), -(-H // th)
+    comp, harm = KP.cached_projection_inputs(hl["gi"], 3)
+    args = (comp, harm, cam.view_matrix, cam.projection_matrix, cam.position)
+    pkw = dict(width=W, height=H, tile_w=tw, tile_h=th, sh_degree=3,
+               near_plane=cam.near_plane, far_plane=cam.far_plane,
+               alpha_threshold=cfg.alpha_threshold,
+               total_ink_threshold=cfg.total_ink_threshold,
+               input_is_srgb=False)
+    bkw = dict(tile_w=tw, tile_h=th)
+    rows = []
+    plan = OB.make_key_plan(tiles_x * tiles_y, n, near_plane=cam.near_plane,
+                            far_plane=cam.far_plane)
+    pk = KP.project_cuda(*args, key_plan=plan, **pkw)
+    prep_in = (pk.rect_word, pk.rect_h, pk.words)
+    (off, rect, mask), ms, (off_p, _r, _m), plain_ms = timed_pair(
+        torch, "prep", lambda: KE.binning_prep_cuda(*prep_in, mode="none",
+                                                    **bkw),
+        lambda: KE.binning_prep_plain(*prep_in, mode="none", **bkw))
+    require_exact(torch, "prep.none.32x16", [(off, off_p)])
+    rows.append(kernel_row("prep.none.32x16", "prep",
+                           hwf["launches"]["prep"], ms, plain_ms, 0.0,
+                           3 * 4 * n + 4, 0.0))
+    for label, fr, p, words, dsw in (
+            ("expand.none.32x16", hwf, plan, pk.words, pk.dsw),
+            ("expand.none.d16_32", glf, None, None, None)):
+        if p is None:  # the Global frame: the half-depth key, its plan
+            dk = KP.project_cuda(*args, key_plan=None, depth_key16=True, **pkw)
+            p = PC.d16_key_plan(tiles_x * tiles_y, n)
+            words, dsw = dk.words, dk.dsw
+            off, rect = KE.binning_prep_cuda(dk.rect_word, dk.rect_h, words,
+                                             mode="none", **bkw)[:2]
+        ekw = dict(capacity=fr["cap"], tiles_x=tiles_x, key_plan=p,
+                   mode="none", **bkw)
+        exp_in = (off, rect, None, dsw, words)
+        ek, ms, ep, plain_ms = timed_pair(
+            torch, "expand", lambda: KE.expand_slots_cuda(*exp_in, **ekw),
+            lambda: KE.expand_slots_plain(*exp_in, **ekw))
+        require_exact(torch, label, list(zip(ek, ep)))
+        rows.append(kernel_row(label, "expand", fr["launches"]["expand"], ms,
+                               plain_ms, 0.0,
+                               (n + 1) * 4 + 2 * 4 * n + 2 * 4 * fr["cap"],
+                               0.0))
+        srt = PC.sort_and_ranges(ek[:2], p, tiles_x * tiles_y)
+        ent = (srt.key, words, srt.idx_bits)
+        hw = fr is hwf
+        blend_kw = dict(r2_cutoff=9.0, depth_mode="normalized") if hw else {}
+        frame_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=W, height=H,
+                        **blend_kw, **bkw)
+        out, ms = device_ms(torch, lambda: KB.blend_image_cuda(
+            *ent, srt.starts, srt.counts, **frame_kw), 10)
+        if not (torch.equal(out[0], fr["out"].color)
+                and torch.equal(out[1], fr["out"].depth)):
+            raise RuntimeError(f"{label}: staged frame differs from the frame "
+                               "function's")
+        if hw:
+            plain_ms, processed = blend_rows_check(
+                torch, KB, "blend.cutoff_normalized.32x16", ent, srt.starts,
+                srt.counts, out, blend_kw, tiles_x=tiles_x, tiles_y=tiles_y,
+                width=W, height=H, tile_w=tw, tile_h=th)
+            flops, _inside, _pairs = blend_cutoff_flops(
+                torch, KB, ent, srt.starts, processed, tiles_x=tiles_x,
+                r2_cutoff=9.0, n_eyes=1, tile_w=tw, tile_h=th)
+            rows.append(kernel_row(
+                "blend.cutoff_normalized.32x16", "blend",
+                fr["launches"]["blend"], ms, plain_ms, 0.0,
+                blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * H),
+                flops))
+    return rows
+
+
+def phase_tiles(torch, T, kernels, hl, st, fv, real):
+    """Phase 4t: the frame functions at other tiles and frame options, at
+    full width on the headline scene: the mono frame with rows at every
+    TILE_MONO tile (bit-equal to rows off), the stereo frame at the
+    TILE_STEREO tiles, the foveated frame at the TILE_FOVEATED tiles, the
+    Hardware frame and ``global_frame(exact_tile_test=False)`` at 32x16,
+    and ``depth_first_frame(max_per_tile=2048)`` on the realistic scene
+    (``real``), where tiles clamp.  Each frame at a capacity probed from
+    its slot total, with launch counts of its own, the frame gate, its
+    split and trace; then each kernel mode on its tensors against its
+    plain version.  Returns (kernel rows, the 8x8 frames for phase 4m)."""
+    from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+    from gsm_renderer_tpu_torch.pipelines.global_ import global_frame
+    from gsm_renderer_tpu_torch.pipelines.hardware import hardware_frame
+
+    t0 = time.perf_counter()
+    gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
+    prepared = cached_projection_inputs(gi, 3)
+    view = (cam.view_matrix, cam.projection_matrix, cam.position)
+    statics = dict(sh_degree=3, alpha_threshold=cfg.alpha_threshold,
+                   total_ink_threshold=cfg.total_ink_threshold,
+                   near_plane=cam.near_plane, far_plane=cam.far_plane,
+                   input_is_srgb=False)
+    frames, rows, tiles8 = {}, [], None
+
+    for tile in TILE_MONO:
+        tag = f"{tile[0]}x{tile[1]}"
+        kw = dict(statics, width=W, height=H, tile_w=tile[0], tile_h=tile[1])
+        run = lambda cap, rc=0, kw=kw: PD.depth_first_frame(
+            gi, *view, prepared, capacity=cap, row_capacity=rc, **kw)
+        probe = run(TILE_PROBE_SLOTS * -(-n // 4096) * 4096)
+        cap_off = fit_capacity(int(probe.header.slot_total))
+        row_cap = 1 << (2 * int(probe.header.row_total) - 1).bit_length()
+        cap = fit_capacity(int(run(cap_off, row_cap).header.slot_total))
+        out, stats, launches = fixed_frame_loop(
+            torch, kernels, MONO_ROWS_PATH, f"tiles {tag}",
+            lambda cap=cap, row_cap=row_cap, run=run: run(cap, row_cap))
+        off = run(cap_off)
+        if not (torch.equal(out.color, off.color)
+                and torch.equal(out.depth, off.depth)):
+            raise RuntimeError(f"tiles {tag}: rows-on frame differs from "
+                               "rows off")
+        stats.update(capacity=cap, row_capacity=row_cap,
+                     rows_off_slot_total=int(off.header.slot_total))
+        frames[f"mono_{tag}"] = stats
+        fr = dict(out=out, cap=cap, row_cap=row_cap, launches=launches)
+        rows += mono_tile_rows(torch, T, hl, tile, fr)
+        if tile == (8, 8):
+            tiles8 = dict(off=off, cap_off=cap_off)
+
+    rig = PD._stereo_rig(st["stereo"])
+    for tile in TILE_STEREO:
+        tag = f"{tile[0]}x{tile[1]}"
+        kw = dict(statics, width=W, height=H, tile_w=tile[0], tile_h=tile[1])
+        run = lambda cap, kw=kw: PD.depth_first_stereo_frame(
+            gi, *rig, prepared, capacity=cap, **kw)
+        cap = probed_capacity(run, n)
+        out, stats, launches = fixed_frame_loop(
+            torch, kernels, STEREO_PATH, f"stereo {tag}",
+            lambda cap=cap, run=run: run(cap), halves=2)
+        stats["capacity"] = cap
+        frames[f"stereo_{tag}"] = stats
+        rows += stereo_tile_rows(torch, T, hl, st, tile,
+                                 dict(out=out, cap=cap, launches=launches))
+
+    target = fv["target"]
+    for tile in TILE_FOVEATED:
+        tag = f"{tile[0]}x{tile[1]}"
+        tables = PD.foveated_device_tables(target, gi.positions.device, *tile)
+        kw = dict(statics, display_width=W, display_height=H,
+                  render_width=target.render_width,
+                  render_height=target.render_height, tile_w=tile[0],
+                  tile_h=tile[1], foveated_lod=cfg.foveated_lod)
+        run = lambda cap, kw=kw, tables=tables: (
+            PD.depth_first_stereo_foveated_frame(gi, *rig, tables, prepared,
+                                                 capacity=cap, **kw))
+        cap = probed_capacity(run, n)
+        out, stats, launches = fixed_frame_loop(
+            torch, kernels, FOVEATED_PATH, f"foveated {tag}",
+            lambda cap=cap, run=run: run(cap), halves=2, split_frames=2)
+        stats["capacity"] = cap
+        frames[f"foveated_{tag}"] = stats
+        rows += stereo_tile_rows(torch, T, hl, st, tile,
+                                 dict(out=out, cap=cap, launches=launches),
+                                 fov=(target, tables))
+
+    full = {}
+    kw = dict(statics, width=W, height=H, tile_w=32, tile_h=16)
+    for label, run in (
+            ("hardware_32x16", lambda cap: hardware_frame(
+                gi, *view, prepared, capacity=cap, **kw)),
+            ("global_no_exact_test", lambda cap: global_frame(
+                gi, *view, prepared, capacity=cap, exact_tile_test=False,
+                **kw))):
+        cap = probed_capacity(run, n)
+        out, stats, launches = fixed_frame_loop(
+            torch, kernels, HARDWARE_PATH, label,
+            lambda cap=cap, run=run: run(cap))
+        stats["capacity"] = cap
+        frames[label] = stats
+        full[label] = dict(out=out, cap=cap, launches=launches)
+    rows += full_rect_rows(torch, T, hl, full["hardware_32x16"],
+                           full["global_no_exact_test"])
+
+    rgi, rcam = real["gi"], real["cam"]
+    rkw = dict(statics, width=W, height=H, near_plane=rcam.near_plane,
+               far_plane=rcam.far_plane)
+    rview = (rcam.view_matrix, rcam.projection_matrix, rcam.position)
+    rprep = cached_projection_inputs(rgi, 3)
+    run = lambda cap, mpt=TILE_MAX_PER_TILE: PD.depth_first_frame(
+        rgi, *rview, rprep, capacity=cap, max_per_tile=mpt, **rkw)
+    cap = probed_capacity(run, n)
+    label = f"max_per_tile {TILE_MAX_PER_TILE}"
+    out, stats, launches = fixed_frame_loop(
+        torch, kernels, MONO_RECTS_PATH, label, lambda: run(cap))
+    full_frame = run(cap, 0)
+    tiles_x, tiles_y = -(-W // 16), -(-H // 16)
+    srt = PC.mono_packed_sorted(
+        rgi, *rview, rprep, key_plan=OB.make_key_plan(
+            tiles_x * tiles_y, rgi.count, near_plane=rcam.near_plane,
+            far_plane=rcam.far_plane), capacity=cap, tiles_x=tiles_x,
+        tiles_y=tiles_y, tile_w=16, tile_h=16, **rkw)[0]
+    clamped_tiles = torch.nonzero(srt.counts > TILE_MAX_PER_TILE).flatten()
+    clamped = int(clamped_tiles.numel())
+    keep = ~tile_pixels(torch, clamped_tiles, tiles_x, 16, rgi.positions.device)
+    if clamped == 0:
+        raise RuntimeError(f"{label}: no tile clamped")
+    if not torch.equal(out.color[keep], full_frame.color[keep]):
+        raise RuntimeError(f"{label}: the frame differs from the unclamped "
+                           "frame on tiles the clamp leaves alone")
+    if int(out.header.slot_total) != int(full_frame.header.slot_total):
+        raise RuntimeError(f"{label}: the clamp moved slot_total")
+    # a clamped tile whose pixels saturate within the clamp keeps its
+    # image; a clamp at 64 records changes the frame
+    if torch.equal(run(cap, 64).color, full_frame.color):
+        raise RuntimeError(f"{label}: a clamp at 64 left the frame unchanged")
+    stats.update(capacity=cap, clamped_tiles=clamped,
+                 max_tile_count=int(srt.counts.max()),
+                 pixels_differ=int((out.color != full_frame.color).any(-1)
+                                   .sum()),
+                 unclamped_total_instances=int(full_frame.header.total_instances))
+    frames[label.replace(" ", "_")] = stats
+    log("[tiles] " + json.dumps({"tile_frames": frames,
+                                 "seconds": time.perf_counter() - t0}))
+    return rows, tiles8
+
+
 def phase_kernels(torch, T, hl, st, fv, d16, hw):
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
@@ -1922,31 +2534,6 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
                                "from the KeyPlan's")
         log(f"[kernels] {name} tile key: bit-equal to its plain version; "
             f"{live} live slots sort stably into the KeyPlan order")
-
-    def tested_entries(off, rect, masked_too=False):
-        # live entries whose words the expand's exact test reads
-        owns = (off[1:] - off[:-1]) > 0
-        ru = rect.to(torch.int64) & 0xFFFFFFFF
-        bits = 1 if masked_too else 3   # culled (and, unless warped, masked)
-        return float((owns & (((ru >> 30) & bits) == 0)).sum())
-
-    def expand_bytes(n_entries, capacity, words_read):
-        # offsets, rect, mask and depth word of each entry, the tested
-        # entries' words, the two keys of each slot
-        return (n_entries + 1) * 4 + 3 * 4 * n_entries + 4 * words_read \
-            + 2 * 4 * capacity
-
-    def tile_tests(rect_word, rect_h):
-        rw = rect_word.to(torch.int64) & 0xFFFFFFFF
-        return float((torch.clamp((rw >> 20) & 0x3FF, max=8)
-                      * torch.clamp(rect_h.to(torch.int64), max=4)).sum())
-
-    def tested_slots(off, rect, masked_too=False):
-        counts_g = (off[1:] - off[:-1]).to(torch.int64)
-        ru = rect.to(torch.int64) & 0xFFFFFFFF
-        if masked_too:  # the warped expand re-tests MASKED entries
-            return float(counts_g[((ru >> 30) & 1) == 0].sum())
-        return float(counts_g[((ru >> 30) & 3) == 0].sum())  # unmasked, live
 
     mono_l, st_l = hl["launches"], st["launches"]
     timing_check = {}
@@ -2802,17 +3389,52 @@ def phase_small(torch, T):
             oc = rc.render_stereo(gi_c, stereo, w, h)
         else:
             og, oc = rg.render(gi_g, cam, w, h), rc.render(gi_c, cam, w, h)
-        cerr = float((og.color.cpu() - oc.color).abs().max())
-        derr = float((og.depth.cpu() - oc.depth).abs().max())
-        log(f"[small] {label}: cuda vs cpu colour max |d| {cerr:.3g}, depth "
-            f"max |d| {derr:.3g}, visible {int(og.header.visible_count)} vs "
-            f"{int(oc.header.visible_count)}, instances "
-            f"{int(og.header.total_instances)} vs "
-            f"{int(oc.header.total_instances)}, slots "
-            f"{int(og.header.slot_total)} vs {int(oc.header.slot_total)}")
-        if cerr > 1e-3:
-            raise RuntimeError(f"small frame {label}: cuda vs cpu colour max "
-                               f"|d| {cerr}")
+        small_compare(label, og, oc)
+    # the frame functions at other tiles and options
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+    from gsm_renderer_tpu_torch.pipelines.global_ import global_frame
+
+    kw = dict(sh_degree=3, alpha_threshold=0.005, total_ink_threshold=2.0,
+              near_plane=cam.near_plane, far_plane=cam.far_plane,
+              input_is_srgb=False, capacity=64 * 4096)
+    view = (cam.view_matrix, cam.projection_matrix, cam.position)
+    rig = PD._stereo_rig(stereo)
+    for label, fn in (
+            ("tiles 8x8 rows", lambda gi: PD.depth_first_frame(
+                gi, *view, width=w, height=h, tile_w=8, tile_h=8,
+                row_capacity=1 << 16, **kw)),
+            ("tiles 32x32 rows", lambda gi: PD.depth_first_frame(
+                gi, *view, width=w, height=h, tile_w=32, tile_h=32,
+                row_capacity=1 << 16, **kw)),
+            ("max_per_tile 64", lambda gi: PD.depth_first_frame(
+                gi, *view, width=w, height=h, max_per_tile=64, **kw)),
+            ("global no exact test", lambda gi: global_frame(
+                gi, *view, width=w, height=h, exact_tile_test=False, **kw)),
+            ("stereo 8x8", lambda gi: PD.depth_first_stereo_frame(
+                gi, *rig, width=w, height=h, tile_w=8, tile_h=8, **kw)),
+            ("foveated 8x8", lambda gi: PD.depth_first_stereo_foveated_frame(
+                gi, *rig, PD.foveated_device_tables(
+                    target, gi.positions.device, 8, 8), display_width=w,
+                display_height=h, render_width=target.render_width,
+                render_height=target.render_height, tile_w=8, tile_h=8,
+                **kw))):
+        small_compare(label, fn(gi_g), fn(gi_c))
+
+
+def small_compare(label, og, oc):
+    """Phase 6's check of a CUDA frame against the CPU frame: colour
+    within 1e-3; the rest logged."""
+    cerr = float((og.color.cpu() - oc.color).abs().max())
+    derr = float((og.depth.cpu() - oc.depth).abs().max())
+    log(f"[small] {label}: cuda vs cpu colour max |d| {cerr:.3g}, depth "
+        f"max |d| {derr:.3g}, visible {int(og.header.visible_count)} vs "
+        f"{int(oc.header.visible_count)}, instances "
+        f"{int(og.header.total_instances)} vs "
+        f"{int(oc.header.total_instances)}, slots "
+        f"{int(og.header.slot_total)} vs {int(oc.header.slot_total)}")
+    if cerr > 1e-3:
+        raise RuntimeError(f"small frame {label}: cuda vs cpu colour max "
+                           f"|d| {cerr}")
 
 
 def frames_only(torch, T, native, n: int = 1_000_000) -> int:
@@ -2893,15 +3515,18 @@ def main() -> int:
     fv = phase_foveated(torch, T, kernels, hl, st)
     d16 = phase_d16(torch, T, kernels, hl, real)
     hw = phase_hardware(torch, T, kernels, hl, st, fv)
-    band_rows, band_other = [], []
+    band_rows, band_other, tile_rows = [], [], []
     if not kernels_only:
         t1 = time.perf_counter()
-        band_rows, band_other = phase_multichip(torch, T, kernels, hl)
+        tile_rows, tiles8 = phase_tiles(torch, T, kernels, hl, st, fv, real)
+        log(f"[tiles] phase 4t took {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        band_rows, band_other = phase_multichip(torch, T, kernels, hl, tiles8)
         phase_fallback(torch, T, kernels, hl)
         log(f"[multichip, fallback] phases 4m and 4s took "
             f"{time.perf_counter() - t1:.1f} s")
     rows, other = phase_kernels(torch, T, hl, st, fv, d16, hw)
-    rows, other = rows + band_rows, other + band_other
+    rows, other = rows + band_rows + tile_rows, other + band_other
     from gsm_renderer_tpu_torch.pipelines.depth_first import foveated_device_tables
     bounds = foveated_device_tables(fv["target"],
                                     hl["gi"].positions.device)["bounds"]

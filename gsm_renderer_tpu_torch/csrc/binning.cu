@@ -151,11 +151,15 @@
 // of the block stages part of it and passes one barrier before any thread
 // leaves.
 //
-// Tile width: prep and the expand take tiles of kTileW x 16 pixels, kTileW
-// 16 or 32 in mode mono (the Global renderer's 32x16 tiles), 16 in stereo
-// and warped.  The 8x4 window keeps its geometry in tiles; only the pixel
-// extents of each test change (x0 = tx * kTileW, x1 = x0 + kTileW).  The
-// row expansion takes 16x16 tiles.
+// Tiles: prep, the row expansion and the expand take tiles of tile_w x
+// tile_h pixels, each side 8, 16 or 32 (tile_side_ok), in every mode, as
+// runtime arguments.  The 8x4 window keeps its geometry in tiles; only the
+// pixel extents of each test change (x0 = tx * tile_w, x1 = x0 + tile_w,
+// y0 = ty * tile_h, y1 = y0 + tile_h; all exact in float32, the sides
+// being powers of two), and the row span divides by tile_w as a multiply
+// by its exact reciprocal.  The sides only scale coordinates, so they are
+// not template parameters: one instance a mode serves every geometry (a
+// multiply by a register where a constant stood).
 #include <climits>
 
 #include "common.cuh"
@@ -495,11 +499,12 @@ __device__ __forceinline__ QuadRect staged_quad(float (*f)[kPrepThreads],
 // One test of the staged gaussian in slot s at window position (dx, dy):
 // the expressions of the per-gaussian window loops they replace, operation
 // for operation.
-template <int kMode, int kTileW>
+template <int kMode>
 __device__ __forceinline__ bool prep_test(float (*f)[kPrepThreads],
                                           int (*in)[kPrepThreads], int s,
                                           int dx, int dy, const float* sb,
-                                          float lod_min) {
+                                          float lod_min, int tile_w,
+                                          int tile_h) {
   if constexpr (kMode == kWarped) {
     const int min_tx = in[2][s], min_ty = in[3][s];
     const float x0 = bound_at(sb, min_tx + dx);
@@ -512,21 +517,23 @@ __device__ __forceinline__ bool prep_test(float (*f)[kPrepThreads],
         d2min_quad(staged_quad(f, 1, s), x0 - mxr, x1 - mxr, y0 - myr, y1 - myr));
     bool pass = d2 <= kStereoR2Cutoff;
     if (lod_min > 0.0f) {
-      const float ar = (16.0f / jmax(x1 - x0, 1e-6f)) *
-                       (16.0f / jmax(y1 - y0, 1e-6f));
+      const float ar =
+          (static_cast<float>(tile_w) / jmax(x1 - x0, 1e-6f)) *
+          (static_cast<float>(tile_h) / jmax(y1 - y0, 1e-6f));
       pass = pass && (f[14][s] * ar >= lod_min * (1.0f - jmin(ar, 1.0f)));
     }
     return pass;
   } else {
-    constexpr float kW = static_cast<float>(kTileW);
-    const float ox = static_cast<float>(dx * kTileW);
-    const float oy = static_cast<float>(dy * 16);
+    const float tw = static_cast<float>(tile_w);
+    const float th = static_cast<float>(tile_h);
+    const float ox = static_cast<float>(dx * tile_w);
+    const float oy = static_cast<float>(dy * tile_h);
     const float xa = f[0][s] + ox, ya = f[1][s] + oy;
-    float d2 = d2min_quad(staged_quad(f, 0, s), xa, xa + kW, ya, ya + 16.0f);
+    float d2 = d2min_quad(staged_quad(f, 0, s), xa, xa + tw, ya, ya + th);
     if constexpr (kMode == kStereo) {
       const float xb = f[7][s] + ox, yb = f[8][s] + oy;
-      d2 = jmin(d2, d2min_quad(staged_quad(f, 1, s), xb, xb + kW, yb,
-                               yb + 16.0f));
+      d2 = jmin(d2, d2min_quad(staged_quad(f, 1, s), xb, xb + tw, yb,
+                               yb + th));
       return d2 <= kStereoR2Cutoff;
     } else {
       return d2 <= f[7][s];
@@ -537,11 +544,11 @@ __device__ __forceinline__ bool prep_test(float (*f)[kPrepThreads],
 // Gaussian i (< n, else nothing and a count of 0) of the thread: its mask
 // and rect word, its window tests balanced across the warp; returns its
 // count.  Every lane of the warp calls it.
-template <int kMode, int kTileW>
+template <int kMode>
 __device__ __forceinline__ int prep_gaussian(
     int i, const int32_t* __restrict__ rect_word,
     const int32_t* __restrict__ rect_h, const WordPtrs& W, int count_rows,
-    int n, float tau, float theta_unit, float inv255,
+    int n, int tile_w, int tile_h, float tau, float theta_unit, float inv255,
     int32_t* __restrict__ rect_out, int32_t* __restrict__ mask_out,
     float (*f)[kPrepThreads], int (*in)[kPrepThreads], const float* sb,
     float lod_min) {
@@ -582,8 +589,8 @@ __device__ __forceinline__ int prep_gaussian(
       }
       f[14][t] = ink;
     } else {
-      const float cx = static_cast<float>(min_tx) * static_cast<float>(kTileW);
-      const float cy = static_cast<float>(min_ty) * 16.0f;
+      const float cx = static_cast<float>(min_tx) * static_cast<float>(tile_w);
+      const float cy = static_cast<float>(min_ty) * static_cast<float>(tile_h);
       stage_eye(f, 0, cx - k0.mx, cy - k0.my, quad_rect(k0));
       if constexpr (kMode == kStereo) {
         const Conic k1 = decode_conic(word(W, 4, i), word(W, 5, i),
@@ -614,8 +621,8 @@ __device__ __forceinline__ int prep_gaussian(
     if (t < warp_tests) {
       const int s = warp0 + owner;
       const int dy = (local * in[1][s]) >> 16;
-      pass = prep_test<kMode, kTileW>(f, in, s, local - dy * in[0][s], dy, sb,
-                                      lod_min);
+      pass = prep_test<kMode>(f, in, s, local - dy * in[0][s], dy, sb,
+                              lod_min, tile_w, tile_h);
     }
     // 3. the round's results back to their owners
     const uint32_t ballot = __ballot_sync(kFullWarp, pass);
@@ -655,11 +662,12 @@ __device__ __forceinline__ int prep_gaussian(
 }
 
 // The block of tile b preps gaussians [256 b, 256 (b + 1)), one a thread.
-template <int kMode, int kTileW>
+template <int kMode>
 __global__ void __launch_bounds__(kPrepThreads)
 prep_kernel(const int32_t* __restrict__ rect_word,
             const int32_t* __restrict__ rect_h, WordPtrs W, int count_rows,
-            int n, float tau, float theta_unit, float inv255,
+            int n, int tile_w, int tile_h, float tau, float theta_unit,
+            float inv255,
             int32_t* __restrict__ offsets, int32_t* __restrict__ rect_out,
             int32_t* __restrict__ mask_out, ScanState st,
             const float* __restrict__ bounds, float lod_min, BandArgs band) {
@@ -683,9 +691,9 @@ prep_kernel(const int32_t* __restrict__ rect_word,
   } else if constexpr (kMode == kBand) {
     count[0] = i < n ? prep_band(i, rect_word, band, rect_out, mask_out) : 0;
   } else {
-    count[0] = prep_gaussian<kMode, kTileW>(
-        i, rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255,
-        rect_out, mask_out, f, in, sb, lod_min);
+    count[0] = prep_gaussian<kMode>(
+        i, rect_word, rect_h, W, count_rows, n, tile_w, tile_h, tau,
+        theta_unit, inv255, rect_out, mask_out, f, in, sb, lod_min);
   }
   int excl[1], end;
   scan_counts<kPrepThreads, 1>(st, tile, tag, count, excl, &end);
@@ -724,9 +732,10 @@ __device__ __forceinline__ int block_upper_bound(const int32_t* offsets, int n,
 // formula).  span 0 when the ellipse misses the row or op < tau.
 __device__ __forceinline__ void row_span(uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, int ty, int min_tx,
-                                         int rect_w, float tau,
-                                         float theta_unit, float inv255,
-                                         int* t_lo_out, int* span_out) {
+                                         int rect_w, int tile_w, int tile_h,
+                                         float tau, float theta_unit,
+                                         float inv255, int* t_lo_out,
+                                         int* span_out) {
   const float mx = f16_bits_to_f32(a0);
   const float my = f16_bits_to_f32(a0 >> 16);
   const float theta =
@@ -742,8 +751,9 @@ __device__ __forceinline__ void row_span(uint32_t a0, uint32_t a1, uint32_t a2,
   const float det = iv1 * iv2;
   const float k = d2_cutoff(u8f(a3, 24, inv255), tau);
 
-  const float y0 = static_cast<float>(ty) * 16.0f - my;
-  const float y1 = y0 + 16.0f;
+  const float th = static_cast<float>(tile_h);
+  const float y0 = static_cast<float>(ty) * th - my;
+  const float y1 = y0 + th;
   const float cak = ca * k;
   const float ylim = sqrtf(jmax(cak / det, 0.0f));
   const float yc0 = jmax(y0, -ylim);
@@ -761,8 +771,10 @@ __device__ __forceinline__ void row_span(uint32_t a0, uint32_t a1, uint32_t a2,
   const float pad = 1e-5f * (fabsf(xa) + fabsf(xb)) + 0.125f;
   const float xs0 = xa + mx - pad;
   const float xs1 = xb + mx + pad;
-  int t_lo = static_cast<int>(floorf(xs0 * 0.0625f));
-  int t_hi = static_cast<int>(floorf(xs1 * 0.0625f));
+  // 1 / tile_w, exact for a power of two (the plain version's multiply)
+  const float inv_tw = 1.0f / static_cast<float>(tile_w);
+  int t_lo = static_cast<int>(floorf(xs0 * inv_tw));
+  int t_hi = static_cast<int>(floorf(xs1 * inv_tw));
   t_lo = max(t_lo, min_tx);
   t_hi = min(t_hi, min_tx + rect_w - 1);
   *t_lo_out = t_lo;
@@ -775,7 +787,8 @@ __device__ __forceinline__ int expand_row(int g, int jj,
                                           const int32_t* __restrict__ rect1,
                                           const int32_t* __restrict__ mask1,
                                           const int32_t* __restrict__ dsw1,
-                                          const WordPtrs& W, float tau,
+                                          const WordPtrs& W, int tile_w,
+                                          int tile_h, float tau,
                                           float theta_unit, float inv255,
                                           uint32_t (&e)[7]) {
   e[0] = static_cast<uint32_t>(rect1[g]);
@@ -791,8 +804,8 @@ __device__ __forceinline__ int expand_row(int g, int jj,
   const int ty = ((ru >> 10) & 0x3FFu) + jj;
   const int rect_w = (ru >> 20) & 0x3FFu;
   int t_lo, span;
-  row_span(e[3], e[4], e[5], e[6], ty, min_tx, rect_w, tau, theta_unit,
-           inv255, &t_lo, &span);
+  row_span(e[3], e[4], e[5], e[6], ty, min_tx, rect_w, tile_w, tile_h, tau,
+           theta_unit, inv255, &t_lo, &span);
   e[0] = static_cast<uint32_t>(t_lo) | (static_cast<uint32_t>(ty) << 10) |
          (static_cast<uint32_t>(span) << 20);
   if (span == 0) e[0] |= GSM_CULLED_BIT;
@@ -807,7 +820,8 @@ row_expand_kernel(const int32_t* __restrict__ off1,
                   const int32_t* __restrict__ rect1,
                   const int32_t* __restrict__ mask1,
                   const int32_t* __restrict__ dsw1, WordPtrs W, int n,
-                  int r_cap, float tau, float theta_unit, float inv255,
+                  int r_cap, int tile_w, int tile_h, float tau,
+                  float theta_unit, float inv255,
                   int32_t* __restrict__ off2, int32_t* __restrict__ planes,
                   int32_t* __restrict__ row_overflow, ScanState st) {
   // the offsets of the block's gaussians g0 + k, k <= kRowTile (INT_MAX past
@@ -842,7 +856,7 @@ row_expand_kernel(const int32_t* __restrict__ off1,
         if (s_off[lo + half] <= r) lo += half;
       }
       count[it] = expand_row(g0 + lo, r - s_off[lo], rect1, mask1, dsw1, W,
-                             tau, theta_unit, inv255, e);
+                             tile_w, tile_h, tau, theta_unit, inv255, e);
     }
 #pragma unroll
     for (int p = 0; p < 7; ++p) planes[p * R + r] = static_cast<int32_t>(e[p]);
@@ -888,13 +902,14 @@ __device__ __forceinline__ float rect_d2(uint32_t a0, uint32_t a1, uint32_t a2,
 // kExpandSlots, (b + 1) * kExpandSlots); slot s0 + k * kExpandThreads +
 // threadIdx.x is the thread's k-th.  row_offset: the tile row of the
 // table's row 0 in the frame (a band's first row), for the mono test.
-template <int kMode, int kTileW>
+template <int kMode>
 __global__ void __launch_bounds__(kExpandThreads)
 expand_kernel(const int32_t* __restrict__ offsets,
               const int32_t* __restrict__ rect,
               const int32_t* __restrict__ mask,
               const int32_t* __restrict__ dsw, WordPtrs W, int n,
-              int capacity, int tiles_x, int d_hi, int d_lo, int idx_bits,
+              int capacity, int tiles_x, int tile_w, int tile_h, int d_hi,
+              int d_lo, int idx_bits,
               int row_offset, int plain_key, float tau, float theta_unit,
               float inv255, int32_t* __restrict__ out,
               const float* __restrict__ bounds) {
@@ -961,11 +976,12 @@ expand_kernel(const int32_t* __restrict__ offsets,
         const uint32_t a0 = word(W, 0, g), a1 = word(W, 1, g),
                        a2 = word(W, 2, g);
         bool passes;
+        const float tw = static_cast<float>(tile_w);
+        const float th = static_cast<float>(tile_h);
         if constexpr (kMode == kMono) {
-          constexpr float kW = static_cast<float>(kTileW);
-          const float x0 = static_cast<float>(tx) * kW;
-          const float y0 = static_cast<float>(ty + row_offset) * 16.0f;
-          passes = rect_d2(a0, a1, a2, x0, x0 + kW, y0, y0 + 16.0f,
+          const float x0 = static_cast<float>(tx) * tw;
+          const float y0 = static_cast<float>(ty + row_offset) * th;
+          passes = rect_d2(a0, a1, a2, x0, x0 + tw, y0, y0 + th,
                            theta_unit) <=
                    d2_cutoff(u8f(word(W, 3, g), 24, inv255), tau);
         } else {
@@ -978,10 +994,10 @@ expand_kernel(const int32_t* __restrict__ offsets,
             y0 = bound_at(sb + kBoundsLanes, ty);
             y1 = bound_at(sb + kBoundsLanes, ty + 1);
           } else {
-            x0 = static_cast<float>(tx) * 16.0f;
-            y0 = static_cast<float>(ty) * 16.0f;
-            x1 = x0 + 16.0f;
-            y1 = y0 + 16.0f;
+            x0 = static_cast<float>(tx) * tw;
+            y0 = static_cast<float>(ty) * th;
+            x1 = x0 + tw;
+            y1 = y0 + th;
           }
           passes = jmin(rect_d2(a0, a1, a2, x0, x1, y0, y1, theta_unit),
                         rect_d2(b0, b1, b2, x0, x1, y0, y1, theta_unit)) <=
@@ -1012,15 +1028,15 @@ expand_kernel(const int32_t* __restrict__ offsets,
 
 }  // namespace
 
-// Whether a launch's mode, record words, bounds table and tile width go
-// together: mono 4 words (16 or 32 px tiles), none 4 words, stereo 8,
-// warped 8 with the bounds table; all but mono take 16 px tiles.
-static bool launch_ok(int mode, int n_words, const float* bounds,
-                      int tile_w) {
+// Whether a launch's mode, record words, bounds table and tile go
+// together: mono 4 words, none 4 words, stereo 8, warped 8 with the bounds
+// table; tile sides of 8, 16 or 32 pixels in every mode.
+static bool launch_ok(int mode, int n_words, const float* bounds, int tile_w,
+                      int tile_h) {
   const int words = mode == kMono || mode == kNone ? 4 : 8;
   return mode >= kMono && mode <= kNone && n_words == words &&
-         (bounds != nullptr) == (mode == kWarped) &&
-         (tile_w == 16 || (tile_w == 32 && mode == kMono));
+         (bounds != nullptr) == (mode == kWarped) && tile_side_ok(tile_w) &&
+         tile_side_ok(tile_h);
 }
 
 // The look-back scratch of a launch over `elements` elements, `per_tile` a
@@ -1037,29 +1053,29 @@ static ScanState scan_state(void* ticket, void* status, int elements,
 
 // mode: a Mode (see launch_ok); bounds: the (2, 128) table for mode
 // "warped", else null.  ticket / status: the look-back scratch, status >=
-// max(ceil(n / 256), 1) words.  tile_w: 16, or 32 in mode mono.  Mode none
+// max(ceil(n / 256), 1) words.  tile_w, tile_h: 8, 16 or 32.  Mode none
 // writes the offsets alone (rect_out and mask_out may be null).  One
 // launch, even at n == 0 (its one block writes offsets[0] = 0).
 extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
                         const void* const* words, int n_words, int mode,
-                        int count_rows, int n, int tile_w, float tau,
+                        int count_rows, int n, int tile_w, int tile_h,
+                        float tau,
                         float theta_unit, float inv255, int32_t* offsets,
                         int32_t* rect_out, int32_t* mask_out, void* ticket,
                         void* status, const float* bounds, float lod_min,
                         cudaStream_t stream) {
-  if (!launch_ok(mode, n_words, bounds, tile_w)) {
+  if (!launch_ok(mode, n_words, bounds, tile_w, tile_h)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WordPtrs W = load_words(words, n_words);
   const ScanState st = scan_state(ticket, status, n, kPrepThreads);
-  auto kernel = mode == kWarped   ? prep_kernel<kWarped, 16>
-                : mode == kStereo ? prep_kernel<kStereo, 16>
-                : mode == kNone   ? prep_kernel<kNone, 16>
-                : tile_w == 32    ? prep_kernel<kMono, 32>
-                                  : prep_kernel<kMono, 16>;
+  auto kernel = mode == kWarped   ? prep_kernel<kWarped>
+                : mode == kStereo ? prep_kernel<kStereo>
+                : mode == kNone   ? prep_kernel<kNone>
+                                  : prep_kernel<kMono>;
   kernel<<<st.num_tiles, kPrepThreads, 0, stream>>>(
-      rect_word, rect_h, W, count_rows, n, tau, theta_unit, inv255, offsets,
-      rect_out, mask_out, st, bounds, lod_min, BandArgs{});
+      rect_word, rect_h, W, count_rows, n, tile_w, tile_h, tau, theta_unit,
+      inv255, offsets, rect_out, mask_out, st, bounds, lod_min, BandArgs{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1082,58 +1098,63 @@ extern "C" int gsm_prep_band(const int32_t* rect_word, const int32_t* rows,
   }
   const ScanState st = scan_state(ticket, status, n, kPrepThreads);
   const BandArgs band{rows, dkey, mask, band0, band1, near_key, span, dsw_out};
-  prep_kernel<kBand, 16><<<st.num_tiles, kPrepThreads, 0, stream>>>(
-      rect_word, nullptr, WordPtrs{}, 0, n, 0.0f, 0.0f, 0.0f, offsets,
+  prep_kernel<kBand><<<st.num_tiles, kPrepThreads, 0, stream>>>(
+      rect_word, nullptr, WordPtrs{}, 0, n, 0, 0, 0.0f, 0.0f, 0.0f, offsets,
       rect_out, mask_out, st, nullptr, 0.0f, band);
   return static_cast<int>(cudaGetLastError());
 }
 
 // planes: (7, r_cap); row_overflow: one int, 1 when the row total exceeds
-// r_cap; ticket / status as for gsm_prep, status >= max(ceil(r_cap / 2048),
-// 1) words.  One launch, even at r_cap == 0.
+// r_cap; tile_w, tile_h: 8, 16 or 32; ticket / status as for gsm_prep,
+// status >= max(ceil(r_cap / 2048), 1) words.  One launch, even at r_cap
+// == 0.
 extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
                               const int32_t* mask1, const int32_t* dsw1,
                               const void* const* words, int n, int r_cap,
-                              float tau, float theta_unit, float inv255,
-                              int32_t* off2, int32_t* planes,
-                              int32_t* row_overflow, void* ticket,
-                              void* status, cudaStream_t stream) {
+                              int tile_w, int tile_h, float tau,
+                              float theta_unit, float inv255, int32_t* off2,
+                              int32_t* planes, int32_t* row_overflow,
+                              void* ticket, void* status,
+                              cudaStream_t stream) {
+  if (!tile_side_ok(tile_w) || !tile_side_ok(tile_h)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const WordPtrs W = load_words(words, 4);  // mono records
   const ScanState st = scan_state(ticket, status, r_cap, kRowTile);
   row_expand_kernel<<<st.num_tiles, kRowThreads, 0, stream>>>(
-      off1, rect1, mask1, dsw1, W, n, r_cap, tau, theta_unit, inv255, off2,
-      planes, row_overflow, st);
+      off1, rect1, mask1, dsw1, W, n, r_cap, tile_w, tile_h, tau, theta_unit,
+      inv255, off2, planes, row_overflow, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out: (2, capacity) = key1, key2, or with plain_key (3, capacity) = the
 // tile, the depth word and the entry index (the sentinel in all three at
 // dead slots); mode: a Mode (see launch_ok); bounds: the (2, 128) table for
-// mode "warped", else null; tile_w: 16, or 32 in mode mono; row_offset:
-// mode mono's, else 0.  Mode none reads no mask (it may be null) and no
+// mode "warped", else null; tile_w, tile_h: 8, 16 or 32; row_offset: mode
+// mono's, else 0.  Mode none reads no mask (it may be null) and no
 // word.
 extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,
                           const int32_t* mask, const int32_t* dsw,
                           const void* const* words, int n_words, int mode,
                           int n, int capacity, int tiles_x, int tile_w,
-                          int d_hi, int d_lo, int idx_bits, int row_offset,
+                          int tile_h, int d_hi, int d_lo, int idx_bits, int row_offset,
                           int plain_key, float tau, float theta_unit,
                           float inv255, int32_t* out, const float* bounds,
                           cudaStream_t stream) {
-  if (!launch_ok(mode, n_words, bounds, tile_w) ||
+  if (!launch_ok(mode, n_words, bounds, tile_w, tile_h) ||
       (row_offset != 0 && mode != kMono)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WordPtrs W = load_words(words, n_words);
   if (capacity > 0) {
     const int blocks = (capacity + kExpandSlots - 1) / kExpandSlots;
-    auto kernel = mode == kWarped   ? expand_kernel<kWarped, 16>
-                  : mode == kStereo ? expand_kernel<kStereo, 16>
-                  : mode == kNone   ? expand_kernel<kNone, 16>
-                  : tile_w == 32    ? expand_kernel<kMono, 32>
-                                    : expand_kernel<kMono, 16>;
+    auto kernel = mode == kWarped   ? expand_kernel<kWarped>
+                  : mode == kStereo ? expand_kernel<kStereo>
+                  : mode == kNone   ? expand_kernel<kNone>
+                                    : expand_kernel<kMono>;
     kernel<<<blocks, kExpandThreads, 0, stream>>>(
-        offsets, rect, mask, dsw, W, n, capacity, tiles_x, d_hi, d_lo,
+        offsets, rect, mask, dsw, W, n, capacity, tiles_x, tile_w, tile_h,
+        d_hi, d_lo,
         idx_bits, row_offset, plain_key, tau, theta_unit, inv255, out,
         bounds);
   }

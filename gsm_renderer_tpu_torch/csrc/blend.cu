@@ -1,7 +1,8 @@
-// Kernel 5: front-to-back tile blend, one CTA per tile of kTileW x 16
-// pixels (16x16, or the Global renderer's 32x16), one pixel a thread,
-// writing the color and depth images directly (assemble fused, ragged edge
-// masked).  kEyes = 2 is the single-pass
+// Kernel 5: front-to-back tile blend, one CTA per tile of tile_w x tile_h
+// pixels (each side 8, 16 or 32: 16x16 in the DepthFirst, Local and
+// Hardware renderers, 32x16 in the Global one), one pixel a thread (two at
+// 32x32), writing the color and depth images directly (assemble fused,
+// ragged edge masked).  kEyes = 2 is the single-pass
 // dual-eye stereo blend: each entry carries both eyes' records (8 words:
 // left w0..w3, right w0..w3), each pixel keeps one accumulator and
 // transmittance per eye, and eye e writes columns [e * width, (e + 1) *
@@ -10,9 +11,10 @@
 // Replaces the Pallas kernel gsm_renderer_tpu/kernels/blend.py::
 // _row_blend_kernel (blend_tiles_pallas, exponent_mode "vpu", depth modes
 // "weighted", "none", "first_hit" and "normalized", n_eyes 1 and 2,
-// r2_cutoff, pixel_coords, tile_row_offset, 16x16 and 32x16 tiles) and
-// the XLA assemble_image after it.  The dual-eye blend and every blend
-// with a cutoff take 16x16 tiles and weighted, normalized or no depth.
+// r2_cutoff, pixel_coords, tile_row_offset, every tile of 8, 16 or 32
+// pixels a side) and the XLA assemble_image after it.  Every pairing of
+// eyes, cutoff, depth mode, pixel coordinates and tile takes the kernel,
+// except two eyes without a cutoff (no frame blends so).
 //
 // Records through the sorted keys: rank k of the sorted instance list is
 // entry g = key2(k) & (2^idx_bits - 1) (the KeyPlan index field, the low
@@ -22,11 +24,11 @@
 // gather in the kernel); here the blend reads only the records it
 // composites, and nothing gathers the table after the sort.
 //
-// Pixel coordinates: pixel p = ly * kTileW + lx of tile (tx, ty) sits at
-// (tx * kTileW + lx, (ty + tile_row_offset) * 16 + ly), or, with the
-// foveated coordinate tables coord_x (tiles_x, 256) and coord_y (tiles_y,
-// 256), at the display-space point (coord_x[tx][p], coord_y[ty][p]) it
-// samples.  tile_row_offset is a band frame's first tile row
+// Pixel coordinates: pixel p = ly * tile_w + lx of tile (tx, ty) sits at
+// (tx * tile_w + lx, (ty + tile_row_offset) * tile_h + ly), or, with the
+// foveated coordinate tables coord_x (tiles_x, P) and coord_y (tiles_y, P),
+// P = tile_w * tile_h, at the display-space point (coord_x[tx][p],
+// coord_y[ty][p]) it samples.  tile_row_offset is a band frame's first tile row
 // (gsm_renderer_tpu/kernels/blend.py:505): the band's raster of tiles_y
 // rows samples the frame's rows from there, and is written from its own row
 // 0.  Writes stay clipped to width x height either way.
@@ -52,9 +54,14 @@
 // Batches and early exit: the tile's span [start, start + count) is walked
 // in batches of 256 records aligned to 128-record blocks -- batch 0 ends at
 // (start / 128 + 2) * 128, later batches are 256 long -- which are exactly
-// the Pallas kernel's 2 x 128-slot chunks.  Each thread decodes one record
-// of the batch (per eye) into shared memory, then every thread composites
-// the batch's records in order.  After each batch the tile stops once every
+// the Pallas kernel's 2 x 128-slot chunks.  A batch is staged in rounds of
+// min(threads, 256) records: each staging thread decodes one record of the
+// round (per eye) into shared memory, then every thread composites the
+// round's records in order; a CTA of 64 or 128 threads (8x8, 16x8, 8x16
+// tiles) takes 4 or 2 rounds a batch.  The exit is tested at batch ends
+// only, never between rounds, so that its granularity stays the Pallas
+// chunk's whatever the tile (a band frame showed that the alignment of the
+// exit changes the image).  After each batch the tile stops once every
 // pixel's transmittance is below 1/255 in every eye (__syncthreads_or over
 // the larger of the eyes' transmittances): the Pallas kernel's tile-level
 // exit, which for two eyes waits until both saturate.  The plain version
@@ -73,8 +80,9 @@
 //   cutoff, the warp skips expf and the accumulations (w = 0 leaves the
 //   sums and T bit-for-bit unchanged: T and the decoded fields are finite)
 //   and never loads the third float4.  A warp covers an 8x4 block of the
-//   tile, the most compact 32 pixels, so that the test fires for as many
-//   warps as it can.  The mono blends without a cutoff have no test: exact
+//   tile, the most compact 32 pixels (8x8 at 32x32, two pixels a thread, 4
+//   rows apart), so that the test fires for as many warps as it can; an
+//   8-pixel-wide tile is one warp block wide.  The mono blends without a cutoff have no test: exact
 //   zeros are rare there, the vote and branch serialised the records, and
 //   without them the compiler overlaps consecutive records (the loop is
 //   latency-bound).
@@ -83,6 +91,13 @@
 //   is bound by latency and by the warps that can hide it, and 256 threads
 //   at 40-48 registers keep 48 warps on an SM.  A 32x16 tile takes 512
 //   threads for the same reason; the first 256 of them stage the batch.
+//   A 32x32 tile takes 512 threads of two pixels (a CTA of 1024 would cap
+//   a thread at 64 registers, and the dual-eye blend would spill).  The
+//   thread count and pixels a thread are template parameters (five CTA
+//   shapes, 64 to 512 threads; 30 instances, nvcc ~8 s); the tile's sides
+//   are runtime arguments: they timed within the run-to-run spread of the
+//   previous 16x16 and 32x16 instances (PERF.md), and instances templated
+//   on the sides too (54) spilled a dual-eye 32x8 instance.
 // - Gather latency.  The key and the words of the next batch's record are
 //   loaded into registers before the current batch is composited, and the
 //   key of the batch after that too, so the dependent key -> entry -> word
@@ -99,8 +114,7 @@
 
 namespace {
 
-constexpr int kTileH = 16;
-constexpr int kBatch = 256;  // records staged per round, one a thread
+constexpr int kBatch = 256;  // records between early-exit checks
 constexpr int kBlock = 128;  // batch alignment (the Pallas chunk)
 // a warp covers a kWarpW x kWarpH block of the tile
 constexpr int kWarpW = 8;
@@ -139,59 +153,75 @@ __device__ __forceinline__ Rec decode_record(uint32_t a0, uint32_t a1,
 }
 
 // kCutoff: alpha zeroed where q > r2_cutoff, the warp test for exact zeros
-// (see the head comment).  kTileW x 16 pixels a tile, a thread a pixel;
-// threads below kBatch stage the batch.  kFirstHit: first_hit depth in
-// place of the weighted sum; depth_mode (a DepthMode) picks what is written.
-template <int kEyes, int kTileW, bool kFirstHit, bool kCutoff>
-__global__ void __launch_bounds__(kTileW * kTileH)
+// (see the head comment).  kThreads threads a CTA, kPix = kThreads * kPPT
+// pixels a tile of tile_w x tile_h (runtime; tile_w * tile_h == kPix),
+// kPPT pixels a thread; the first kStage threads stage a round of records.
+// kFirstHit: first_hit depth in place of the weighted sum; depth_mode (a
+// DepthMode) picks what is written.  A CTA of 64 or 128 threads declares
+// the 256-thread bound: under its own, ptxas capped the first_hit instances
+// at 56 registers and spilled.
+template <int kEyes, int kThreads, int kPPT, bool kFirstHit, bool kCutoff>
+__global__ void __launch_bounds__(kThreads < kBatch ? kBatch : kThreads)
 blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
              WordPtrs W, const int32_t* __restrict__ starts,
-             const int32_t* __restrict__ counts, int tiles_x, int width,
-             int height, int tile_row_offset, int depth_mode,
-             float theta_unit, float inv255,
+             const int32_t* __restrict__ counts, int tiles_x, int tile_w,
+             int tile_h, int width, int height, int tile_row_offset,
+             int depth_mode, float theta_unit, float inv255,
              float min_transmittance, float r2_cutoff,
              const float* __restrict__ coord_x,
              const float* __restrict__ coord_y,
              float* __restrict__ color, float* __restrict__ depth) {
-  constexpr int kPix = kTileW * kTileH;
+  constexpr int kPix = kThreads * kPPT;
   constexpr int kWords = 4 * kEyes;
-  static_assert(kPix >= kBatch, "each staging thread stages one record");
-  __shared__ Rec sr[kEyes][kBatch];
+  constexpr int kStage = kThreads < kBatch ? kThreads : kBatch;
+  static_assert(kBatch % kStage == 0, "rounds tile a batch");
+  __shared__ Rec sr[kEyes][kStage];
 
   const int tile = blockIdx.x;
   const int tx = tile % tiles_x, ty = tile / tiles_x;
   const int t = threadIdx.x;
   const int warp = t / 32, lane = t % 32;
-  const int lx = (warp % (kTileW / kWarpW)) * kWarpW + lane % kWarpW;
-  const int ly = (warp / (kTileW / kWarpW)) * kWarpH + lane / kWarpW;
-  float pxf, pyf;
-  if (coord_x != nullptr) {
-    const int p = ly * kTileW + lx;
-    pxf = coord_x[static_cast<size_t>(tx) * kPix + p];
-    pyf = coord_y[static_cast<size_t>(ty) * kPix + p];
-  } else {
-    pxf = static_cast<float>(lx) + static_cast<float>(tx * kTileW);
-    pyf = static_cast<float>(ly) +
-          static_cast<float>((ty + tile_row_offset) * kTileH);
+  // a warp covers kWarpW x (kWarpH * kPPT) pixels: pixel j of the thread
+  // sits kWarpH * j rows below its first
+  const int wpr = tile_w / kWarpW;  // warps a row of warp blocks
+  const int lx = (warp % wpr) * kWarpW + lane % kWarpW;
+  const int ly0 = (warp / wpr) * (kWarpH * kPPT) + lane / kWarpW;
+  float pxf[kPPT], pyf[kPPT];
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    const int ly = ly0 + kWarpH * j;
+    if (coord_x != nullptr) {
+      const int p = ly * tile_w + lx;
+      pxf[j] = coord_x[static_cast<size_t>(tx) * kPix + p];
+      pyf[j] = coord_y[static_cast<size_t>(ty) * kPix + p];
+    } else {
+      pxf[j] = static_cast<float>(lx) + static_cast<float>(tx * tile_w);
+      pyf[j] = static_cast<float>(ly) +
+               static_cast<float>((ty + tile_row_offset) * tile_h);
+    }
   }
 
   const int start = starts[tile];
   const int end = start + counts[tile];
-  float trans[kEyes], acc_r[kEyes], acc_g[kEyes], acc_b[kEyes], acc_d[kEyes];
-  bool hit[kEyes];
+  float trans[kEyes][kPPT], acc_r[kEyes][kPPT], acc_g[kEyes][kPPT],
+      acc_b[kEyes][kPPT], acc_d[kEyes][kPPT];
+  bool hit[kEyes][kPPT];
 #pragma unroll
   for (int e = 0; e < kEyes; ++e) {
-    trans[e] = 1.0f;
-    acc_r[e] = acc_g[e] = acc_b[e] = acc_d[e] = 0.0f;
-    hit[e] = false;
+#pragma unroll
+    for (int j = 0; j < kPPT; ++j) {
+      trans[e][j] = 1.0f;
+      acc_r[e][j] = acc_g[e][j] = acc_b[e][j] = acc_d[e][j] = 0.0f;
+      hit[e][j] = false;
+    }
   }
 
-  // Entry of this thread's record in the batch at b0, or -1 outside the
-  // span or for a thread past the batch (the key's low word is key2: the
+  // Entry of this thread's record in the round at b0, or -1 outside the
+  // span or for a thread past the round (the key's low word is key2: the
   // entry index in its low bits).
   auto entry_at = [&](int b0) -> int {
     const int s = b0 + t;
-    return (t < kBatch && s >= start && s < end)
+    return (t < kStage && s >= start && s < end)
                ? static_cast<int>(key_words[2 * static_cast<size_t>(s)] & idx_mask)
                : -1;
   };
@@ -207,10 +237,10 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
 
   const int base = (start / kBlock) * kBlock;
   int g = entry_at(base);
-  int g_next = entry_at(base + kBatch);
+  int g_next = entry_at(base + kStage);
   fetch(g);
-  for (int b0 = base; b0 < end; b0 += kBatch) {
-    const int lo = max(b0, start) - b0, hi = min(b0 + kBatch, end) - b0;
+  for (int b0 = base; b0 < end; b0 += kStage) {
+    const int lo = max(b0, start) - b0, hi = min(b0 + kStage, end) - b0;
     if (g >= 0) {
 #pragma unroll
       for (int e = 0; e < kEyes; ++e) {
@@ -219,10 +249,10 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
       }
     }
     __syncthreads();
-    // the next batch's words (its key arrived during this one) and the key
-    // of the batch after it, in flight while this batch is composited
+    // the next round's words (its key arrived during this one) and the key
+    // of the round after it, in flight while this round is composited
     g = g_next;
-    g_next = entry_at(b0 + 2 * kBatch);
+    g_next = entry_at(b0 + 2 * kStage);
     fetch(g);
 
     for (int k = lo; k < hi; ++k) {
@@ -230,78 +260,139 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
       for (int e = 0; e < kEyes; ++e) {
         const float4 A = sr[e][k].a;
         const float4 B = sr[e][k].b;
-        const float dx = pxf - A.x;
-        const float dy = pyf - A.y;
-        const float u = A.z * dx + A.w * dy;
-        const float v = B.x * dx + B.y * dy;
-        const float q = u * u + v * v;
-        const bool cut = kCutoff && q > r2_cutoff;
+        float q[kPPT];
+        bool cut[kPPT];
+        bool any_in = false;
+#pragma unroll
+        for (int j = 0; j < kPPT; ++j) {
+          const float dx = pxf[j] - A.x;
+          const float dy = pyf[j] - A.y;
+          const float u = A.z * dx + A.w * dy;
+          const float v = B.x * dx + B.y * dy;
+          q[j] = u * u + v * v;
+          cut[j] = kCutoff && q[j] > r2_cutoff;
+          any_in = any_in || !cut[j];
+        }
         if constexpr (kCutoff) {
-          if (!__any_sync(0xFFFFFFFFu, !cut)) continue;
+          if (!__any_sync(0xFFFFFFFFu, any_in)) continue;
         }
         const float4 Cc = sr[e][k].c;
-        float alpha = jmin(expf(q * -0.5f + B.z), 0.99f);
-        if (cut) alpha = 0.0f;
-        const float w = alpha * trans[e];
-        acc_r[e] = acc_r[e] + w * Cc.x;
-        acc_g[e] = acc_g[e] + w * Cc.y;
-        acc_b[e] = acc_b[e] + w * Cc.z;
-        if constexpr (kFirstHit) {
-          // acc_d holds the first hit's depth
-          if (!hit[e] && alpha > kFirstHitAlpha) {
-            hit[e] = true;
-            acc_d[e] = B.w;
+#pragma unroll
+        for (int j = 0; j < kPPT; ++j) {
+          float alpha = jmin(expf(q[j] * -0.5f + B.z), 0.99f);
+          if (cut[j]) alpha = 0.0f;
+          const float w = alpha * trans[e][j];
+          acc_r[e][j] = acc_r[e][j] + w * Cc.x;
+          acc_g[e][j] = acc_g[e][j] + w * Cc.y;
+          acc_b[e][j] = acc_b[e][j] + w * Cc.z;
+          if constexpr (kFirstHit) {
+            // acc_d holds the first hit's depth
+            if (!hit[e][j] && alpha > kFirstHitAlpha) {
+              hit[e][j] = true;
+              acc_d[e][j] = B.w;
+            }
+          } else {
+            acc_d[e][j] = acc_d[e][j] + w * B.w;
           }
-        } else {
-          acc_d[e] = acc_d[e] + w * B.w;
+          trans[e][j] = trans[e][j] * (1.0f - alpha);
         }
-        trans[e] = trans[e] * (1.0f - alpha);
       }
     }
-    // barrier (also protects the shared batch) + tile-level early exit
-    float tmax = trans[0];
+    // barrier (also protects the shared round); at the end of each batch
+    // of kBatch records the tile-level early exit
+    if (kStage < kBatch && (b0 + kStage - base) % kBatch != 0) {
+      __syncthreads();
+      continue;
+    }
+    float tmax = trans[0][0];
 #pragma unroll
-    for (int e = 1; e < kEyes; ++e) tmax = jmax(tmax, trans[e]);
+    for (int e = 0; e < kEyes; ++e) {
+#pragma unroll
+      for (int j = 0; j < kPPT; ++j) tmax = jmax(tmax, trans[e][j]);
+    }
     if (!__syncthreads_or(tmax >= min_transmittance)) break;
   }
 
-  const int x = tx * kTileW + lx, y = ty * kTileH + ly;
-  if (x < width && y < height) {
 #pragma unroll
-    for (int e = 0; e < kEyes; ++e) {
-      const size_t p = static_cast<size_t>(y) * (kEyes * width) + e * width + x;
-      float4 c;
-      c.x = acc_r[e];
-      c.y = acc_g[e];
-      c.z = acc_b[e];
-      c.w = 1.0f - trans[e];
-      reinterpret_cast<float4*>(color)[p] = c;
-      if (depth_mode == kDepthNormalized) {
-        depth[p] = acc_d[e] / jmax(c.w, 1e-6f);
-      } else if (depth_mode != kDepthNone) {
-        depth[p] = acc_d[e];
+  for (int j = 0; j < kPPT; ++j) {
+    const int x = tx * tile_w + lx, y = ty * tile_h + ly0 + kWarpH * j;
+    if (x < width && y < height) {
+#pragma unroll
+      for (int e = 0; e < kEyes; ++e) {
+        const size_t p =
+            static_cast<size_t>(y) * (kEyes * width) + e * width + x;
+        float4 c;
+        c.x = acc_r[e][j];
+        c.y = acc_g[e][j];
+        c.z = acc_b[e][j];
+        c.w = 1.0f - trans[e][j];
+        reinterpret_cast<float4*>(color)[p] = c;
+        if (depth_mode == kDepthNormalized) {
+          depth[p] = acc_d[e][j] / jmax(c.w, 1e-6f);
+        } else if (depth_mode != kDepthNone) {
+          depth[p] = acc_d[e][j];
+        }
       }
     }
   }
+}
+
+using BlendFn = decltype(&blend_kernel<1, 256, 1, false, false>);
+
+// The instance for a tile of kPix pixels: a thread a pixel up to 512 pixels
+// (64 to 512 threads), and 512 threads of two pixels each at 32x32 (1024
+// threads a CTA would leave a thread 64 registers); *threads its CTA size.
+template <int kEyes, int kPix, bool kFirstHit, bool kCutoff>
+BlendFn blend_for(int* threads) {
+  constexpr int kPPT = kPix > 512 ? kPix / 512 : 1;
+  *threads = kPix / kPPT;
+  return blend_kernel<kEyes, kPix / kPPT, kPPT, kFirstHit, kCutoff>;
+}
+
+template <int kEyes, bool kFirstHit, bool kCutoff>
+BlendFn pick_pixels(int pix, int* threads) {
+  switch (pix) {
+    case 64: return blend_for<kEyes, 64, kFirstHit, kCutoff>(threads);
+    case 128: return blend_for<kEyes, 128, kFirstHit, kCutoff>(threads);
+    case 256: return blend_for<kEyes, 256, kFirstHit, kCutoff>(threads);
+    case 512: return blend_for<kEyes, 512, kFirstHit, kCutoff>(threads);
+    default: return blend_for<kEyes, 1024, kFirstHit, kCutoff>(threads);
+  }
+}
+
+// The kernel of a launch: two eyes take a cutoff (checked by the caller).
+BlendFn pick_blend(bool two, bool first_hit, bool cutoff, int pix,
+                   int* threads) {
+  if (two) {
+    return first_hit ? pick_pixels<2, true, true>(pix, threads)
+                     : pick_pixels<2, false, true>(pix, threads);
+  }
+  if (cutoff) {
+    return first_hit ? pick_pixels<1, true, true>(pix, threads)
+                     : pick_pixels<1, false, true>(pix, threads);
+  }
+  return first_hit ? pick_pixels<1, true, false>(pix, threads)
+                   : pick_pixels<1, false, false>(pix, threads);
 }
 
 }  // namespace
 
 // sorted_key: (capacity,) int64 sort keys (key2 in the low 32 bits, the
 // entry index in its low idx_bits); words: 4 * n_eyes pointers to the (N,)
-// int32 word rows of the entry table; tile_w: 16 or 32 (tiles tile_w x 16);
-// depth_mode: a DepthMode; coord_x (tiles_x, 256) and coord_y (tiles_y,
-// 256) the foveated pixel coordinates, or both null; tile_row_offset >= 0
-// (0 with coordinate tables); color (H, n_eyes * W, 4), depth (H, n_eyes * W) unless depth_mode is none.  Two eyes (8 words)
-// take r2_cutoff > 0; one eye (4 words) r2_cutoff >= 0 (0: no cutoff).  A
-// blend with two eyes, a cutoff or pixel coordinates takes 16x16 tiles and
-// no first_hit depth.
+// int32 word rows of the entry table; tile_w, tile_h: 8, 16 or 32 (tiles
+// tile_w x tile_h); depth_mode: a DepthMode; coord_x (tiles_x, tile_w *
+// tile_h) and coord_y (tiles_y, tile_w * tile_h) the foveated pixel
+// coordinates, or both null; tile_row_offset >= 0 (0 with coordinate
+// tables); color (H, n_eyes * W, 4), depth (H, n_eyes * W) unless
+// depth_mode is none.  Two eyes (8 words) take r2_cutoff > 0; one eye (4
+// words) r2_cutoff >= 0 (0: no cutoff).  Every depth mode, cutoff and
+// pixel-coordinate pairing takes every tile.
 extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                          const void* const* words, int n_words,
                          const int32_t* starts, const int32_t* counts,
                          int tiles_x, int tiles_y, int width, int height,
-                         int tile_row_offset, int tile_w, int depth_mode,
-                         float theta_unit, float inv255,
+                         int tile_row_offset, int tile_w, int tile_h,
+                         int depth_mode, float theta_unit, float inv255,
                          float min_transmittance, float r2_cutoff,
                          const float* coord_x,
                          const float* coord_y, float* color, float* depth,
@@ -309,11 +400,10 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
   const bool two = n_words == 8;
   const bool cutoff = r2_cutoff > 0.0f;
   if ((n_words != 4 && !two) || idx_bits < 1 || idx_bits > 32 ||
-      (two && !cutoff) || r2_cutoff < 0.0f || (tile_w != 16 && tile_w != 32) ||
-      depth_mode < kDepthNone || depth_mode > kDepthNormalized ||
-      tile_row_offset < 0 || (tile_row_offset != 0 && coord_x != nullptr) ||
-      ((two || cutoff || coord_x != nullptr) &&
-       (tile_w != 16 || depth_mode == kDepthFirstHit))) {
+      (two && !cutoff) || r2_cutoff < 0.0f || !tile_side_ok(tile_w) ||
+      !tile_side_ok(tile_h) || depth_mode < kDepthNone ||
+      depth_mode > kDepthNormalized || tile_row_offset < 0 ||
+      (tile_row_offset != 0 && coord_x != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WordPtrs W = load_words(words, n_words);
@@ -321,19 +411,14 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
       idx_bits == 32 ? 0xFFFFFFFFu : ((1u << idx_bits) - 1u);
   const uint32_t* key_words = reinterpret_cast<const uint32_t*>(sorted_key);
   const int n_tiles = tiles_x * tiles_y;
-  const bool first_hit = depth_mode == kDepthFirstHit;
   if (n_tiles > 0) {
-    auto kernel =
-        two            ? blend_kernel<2, 16, false, true>
-        : cutoff       ? blend_kernel<1, 16, false, true>
-        : tile_w == 32 ? (first_hit ? blend_kernel<1, 32, true, false>
-                                    : blend_kernel<1, 32, false, false>)
-        : first_hit    ? blend_kernel<1, 16, true, false>
-                       : blend_kernel<1, 16, false, false>;
-    kernel<<<n_tiles, tile_w * kTileH, 0, stream>>>(
-        key_words, idx_mask, W, starts, counts, tiles_x, width, height,
-        tile_row_offset, depth_mode, theta_unit, inv255, min_transmittance,
-        r2_cutoff, coord_x, coord_y, color, depth);
+    int threads = 0;
+    const BlendFn kernel = pick_blend(two, depth_mode == kDepthFirstHit,
+                                      cutoff, tile_w * tile_h, &threads);
+    kernel<<<n_tiles, threads, 0, stream>>>(
+        key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h,
+        width, height, tile_row_offset, depth_mode, theta_unit, inv255,
+        min_transmittance, r2_cutoff, coord_x, coord_y, color, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,12 @@ __device__ __forceinline__ float f16_bits_to_f32(uint32_t bits) {
   return e == 0 ? 0.0f : __uint_as_float(f);
 }
 
+// A tile side the kernels take: 8, 16 or 32 pixels (a power of two, so that
+// every tile bound and pixel offset is exact in float32).
+static inline bool tile_side_ok(int side) {
+  return side == 8 || side == 16 || side == 32;
+}
+
 // The record word rows of an entry table (up to 8: left eye w0..w3, right
 // eye w0..w3), passed to a kernel by value.
 struct WordPtrs {

@@ -10,11 +10,13 @@
 // project.py::_f32_to_f16_bits (NaN -> 0x7E00, overflow -> inf), not
 // __float2half_rn.
 //
-// Modes: 16x16 or 32x16 tiles in the tile rect (ProjInts::tile_w; the
-// Global renderer's 32x16), and the 16-bit half-depth key (ProjInts::key16,
-// the Pallas kernel's depth_key16: half_key16 of the record's f16 depth
-// bits, 0xFFFFFFFF where culled, no KeyPlan) in place of the 32-bit depth
-// word.  The dual-eye kernel takes 16x16 tiles and the 32-bit word.
+// Modes: tiles of tile_w x tile_h pixels in the tile rect (ProjInts::tile_w,
+// ::tile_h, each 8, 16 or 32: a power of two, so the rect bounds are exact
+// however the division is done; the renderers use 16x16 and the Global
+// renderer's 32x16), and the 16-bit half-depth key (ProjInts::key16, the
+// Pallas kernel's depth_key16: half_key16 of the record's f16 depth bits,
+// 0xFFFFFFFF where culled, no KeyPlan) in place of the 32-bit depth word.
+// The dual-eye kernel takes the same tiles and the 32-bit word.
 //
 // Bound on the H100: device memory.  Each gaussian reads 11 component floats
 // plus 3 * n_coeffs SH floats (236 B at SH3) and writes 29 B, against a few
@@ -37,7 +39,7 @@ struct ProjParams {
 };
 
 struct ProjInts {
-  int n, tiles_x, tiles_y, sh_degree, srgb, has_plan, tile_w, key16;
+  int n, tiles_x, tiles_y, sh_degree, srgb, has_plan, tile_w, key16, tile_h;
   uint32_t near_key, span;
 };
 
@@ -310,12 +312,14 @@ __device__ __forceinline__ uint32_t theta_u16(float evx, float evy, bool vis,
       static_cast<int>(jclip(tq * P.theta_scale + 0.5f, 0.0f, 65535.0f)));
 }
 
-// compute_tile_bounds_c: clamped inclusive tile rect (tile_w x 16 tiles;
-// tile_w a power of two, so the division is exact either way it is done).
+// compute_tile_bounds_c: clamped inclusive tile rect (tile_w x tile_h
+// tiles; both powers of two, so the division is exact either way it is
+// done).
 __device__ __forceinline__ void tile_bounds(float sx, float sy, float ex,
                                             float ey, const ProjParams& P,
                                             int tiles_x, int tiles_y,
-                                            int tile_w, int* min_tx,
+                                            int tile_w, int tile_h,
+                                            int* min_tx,
                                             int* max_tx, int* min_ty,
                                             int* max_ty) {
   const float xmin = jclip(sx - ex, 0.0f, P.wm1);
@@ -325,8 +329,9 @@ __device__ __forceinline__ void tile_bounds(float sx, float sy, float ex,
   const float tw = static_cast<float>(tile_w);
   *min_tx = max(static_cast<int>(floorf(xmin / tw)), 0);
   *max_tx = min(static_cast<int>(ceilf(xmax / tw)) - 1, tiles_x - 1);
-  *min_ty = max(static_cast<int>(floorf(ymin / 16.0f)), 0);
-  *max_ty = min(static_cast<int>(ceilf(ymax / 16.0f)) - 1, tiles_y - 1);
+  const float th = static_cast<float>(tile_h);
+  *min_ty = max(static_cast<int>(floorf(ymin / th)), 0);
+  *max_ty = min(static_cast<int>(ceilf(ymax / th)) - 1, tiles_y - 1);
 }
 
 __device__ __forceinline__ bool off_screen(float sx, float sy, float ex,
@@ -432,7 +437,7 @@ __global__ void project_kernel(const float* __restrict__ comp,
   // clamped tile rect and the d2 cutoff of the quantized opacity
   int min_tx, max_tx, min_ty, max_ty;
   tile_bounds(screen_x, screen_y, obb_x, obb_y, P, Q.tiles_x, Q.tiles_y,
-              Q.tile_w, &min_tx, &max_tx, &min_ty, &max_ty);
+              Q.tile_w, Q.tile_h, &min_tx, &max_tx, &min_ty, &max_ty);
   alive = alive && (min_tx <= max_tx) && (min_ty <= max_ty);
   const float opacity_q = static_cast<float>(static_cast<int>(op_u8)) * P.inv255;
   alive = alive && (d2_cutoff(opacity_q, P.tau) >= 0.0f);
@@ -473,7 +478,7 @@ struct Eye {
 
 __device__ __forceinline__ Eye eye_chain(float px, float py, float pz,
                                          const Cov3& c3d, const ProjParams& P,
-                                         int tiles_x, int tiles_y) {
+                                         const ProjInts& Q) {
   const float* V = P.view;
   const float* M = P.proj;
   Eye e;
@@ -498,8 +503,9 @@ __device__ __forceinline__ Eye eye_chain(float px, float py, float pz,
   float obb_x, obb_y;
   obb_extents(ca, cb, cd, &obb_x, &obb_y);
   ok = ok && !off_screen(e.screen_x, e.screen_y, obb_x, obb_y, P);
-  tile_bounds(e.screen_x, e.screen_y, obb_x, obb_y, P, tiles_x, tiles_y, 16,
-              &e.min_tx, &e.max_tx, &e.min_ty, &e.max_ty);
+  tile_bounds(e.screen_x, e.screen_y, obb_x, obb_y, P, Q.tiles_x, Q.tiles_y,
+              Q.tile_w, Q.tile_h, &e.min_tx, &e.max_tx, &e.min_ty,
+              &e.max_ty);
   e.ok = ok && (e.min_tx <= e.max_tx) && (e.min_ty <= e.max_ty);
   e.px_min = jclip(e.screen_x - obb_x, 0.0f, P.width);
   e.px_max = jclip(e.screen_x + obb_x, 0.0f, P.width);
@@ -550,8 +556,8 @@ __global__ void stereo_project_kernel(const float* __restrict__ comp,
                                  sz * X.scene_scale, comp[6 * n + i],
                                  comp[7 * n + i], comp[8 * n + i],
                                  comp[9 * n + i]);
-  const Eye L = eye_chain(px, py, pz, c3d, PL, Q.tiles_x, Q.tiles_y);
-  const Eye R = eye_chain(px, py, pz, c3d, PR, Q.tiles_x, Q.tiles_y);
+  const Eye L = eye_chain(px, py, pz, c3d, PL, Q);
+  const Eye R = eye_chain(px, py, pz, c3d, PR, Q);
   const bool vis_l = L.ok && shared_ok;
   const bool vis_r = R.ok && shared_ok;
   bool any_vis = vis_l || vis_r;
@@ -616,11 +622,14 @@ ProjInts load_ints(const int* ints, const uint32_t* plan) {
   Q.has_plan = ints[5];
   Q.tile_w = ints[6];
   Q.key16 = ints[7];
+  Q.tile_h = ints[8];
   Q.near_key = plan[0];
   Q.span = plan[1];
   return Q;
 }
 
+// ints: n, tiles_x, tiles_y, sh_degree, srgb, has_plan, tile_w, key16,
+// tile_h (tile sides 8, 16 or 32); plan: the KeyPlan's near_key and span.
 extern "C" int gsm_project(const float* comp, const float* harm,
                            const float* params, const int* ints,
                            const uint32_t* plan, void* rect_word, void* rect_h,
@@ -629,6 +638,9 @@ extern "C" int gsm_project(const float* comp, const float* harm,
   ProjParams P;
   memcpy(&P, params, sizeof(ProjParams));
   const ProjInts Q = load_ints(ints, plan);
+  if (!tile_side_ok(Q.tile_w) || !tile_side_ok(Q.tile_h)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (Q.n > 0) {
     const int threads = 256;
     const int blocks = (Q.n + threads - 1) / threads;
@@ -647,6 +659,8 @@ extern "C" int gsm_project(const float* comp, const float* harm,
 }
 
 // params: the left eye's ProjParams, the right eye's, then StereoExtra.
+// ints as for gsm_project: n, tiles_x, tiles_y, sh_degree, srgb, has_plan,
+// tile_w, key16 (0 here), tile_h.
 extern "C" int gsm_stereo_project(const float* comp, const float* harm,
                                   const float* params, const int* ints,
                                   const uint32_t* plan, int32_t* out_ints,
@@ -659,6 +673,9 @@ extern "C" int gsm_stereo_project(const float* comp, const float* harm,
   memcpy(&X, params + 2 * (sizeof(ProjParams) / sizeof(float)),
          sizeof(StereoExtra));
   const ProjInts Q = load_ints(ints, plan);
+  if (!tile_side_ok(Q.tile_w) || !tile_side_ok(Q.tile_h)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (Q.n > 0) {
     const int threads = 256;
     const int blocks = (Q.n + threads - 1) / threads;

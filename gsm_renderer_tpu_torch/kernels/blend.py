@@ -3,7 +3,8 @@
 Port of ``gsm_renderer_tpu/kernels/blend.py``: ``blend_tiles_pallas``
 (``_row_blend_kernel``, depth modes "weighted", "none", "first_hit" and
 "normalized", ``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``,
-``tile_row_offset``, 16x16 and 32x16 tiles) and ``assemble_image``.  The
+``tile_row_offset``, tiles of 8, 16 or 32 pixels a side) and
+``assemble_image``.  The
 kernel is ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W)
 depth directly -- (H, 2W) for two eyes side by side -- so assembly is fused
 into it on the card.
@@ -17,8 +18,9 @@ after the sort; here nothing does: the kernel reads the records it
 composites through the index.  A table already in sorted order is blended
 through the identity key, ``sorted_key = arange(C)`` with ``idx_bits = 32``.
 
-``pixel_coords`` = (coord_x (tiles_x, 256), coord_y (tiles_y, 256)) float32
-is the foveated frame's: pixel p of tile (tx, ty) evaluates the gaussians at
+``pixel_coords`` = (coord_x (tiles_x, P), coord_y (tiles_y, P)) float32, P =
+tile_w * tile_h, is the foveated frame's: pixel p of tile (tx, ty) evaluates
+the gaussians at
 the display-space point (coord_x[tx, p], coord_y[ty, p]) instead of its own
 integer corner (``stereo.foveated_raster_tables``).
 
@@ -28,9 +30,9 @@ the first record whose alpha -- after the 0.99 clamp -- exceeds
 its tile exits, so a hit after it saturated still counts.  Depth mode
 "normalized" (the Hardware renderer's) divides the weighted depth by the
 pixel's alpha: sum(w * d) / max(1 - T, 1e-6), T the final transmittance.
-The kernel blends 32x16 tiles (the Global renderer's; pixel p = ly * 32 +
-lx) in one eye without a cutoff or pixel coordinates, and first_hit depth
-in one eye without a cutoff.
+Pixel p of a tile is (p % tile_w, p // tile_w); the kernel blends every
+pairing of eyes, cutoff, depth mode and pixel coordinates at every tile,
+except two eyes without a cutoff.
 
 ``tile_row_offset`` is a band frame's: the raster's tile row t samples
 the frame's pixel rows of tile row t + tile_row_offset and is written to
@@ -38,7 +40,9 @@ the raster's own rows (``parallel/multichip.py``).
 
 Early-exit rule, shared by the kernel and :func:`blend_tiles_plain`: a tile's
 span is walked in 256-record batches aligned to 128-record blocks (the Pallas
-kernel's 2 x 128-slot chunks); after each batch the tile stops once every
+kernel's 2 x 128-slot chunks), whatever the tile's size (the kernel stages a
+batch in rounds where a tile has fewer than 256 pixels); after each batch
+the tile stops once every
 pixel's transmittance is below 1/255 -- in both eyes, for the dual-eye blend
 (the Pallas kernel's exit on the larger of the eyes' transmittances).
 """
@@ -49,7 +53,7 @@ import torch
 
 from .. import _native
 from .. import mathlib as M
-from .expand import THETA_UNIT, _f16_bits_to_f32, _u8f
+from .expand import THETA_UNIT, _f16_bits_to_f32, _u8f, check_tile
 
 MIN_TRANSMITTANCE = 1.0 / 255.0
 ALPHA_CLAMP = 0.99
@@ -66,8 +70,8 @@ BLOCK = 128
 BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
     _native.P, _native.I, _native.P, _native.I, _native.P, _native.P,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.F, _native.F, _native.F, _native.F, _native.P,
-    _native.P, _native.P, _native.P])
+    _native.I, _native.I, _native.F, _native.F, _native.F, _native.F,
+    _native.P, _native.P, _native.P, _native.P])
 
 
 def _check_depth_mode(depth_mode: str) -> None:
@@ -246,11 +250,11 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                      tile_row_offset: int = 0):
     """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
     (H, n_eyes * W) or None), the eyes side by side.  The kernel blends one
-    eye without a cutoff (16x16 or 32x16 tiles, any depth mode), one eye
-    with ``r2_cutoff`` > 0 (the Hardware mono frame) or two eyes with
-    ``r2_cutoff`` > 0 (the stereo and foveated frames); a blend with a
-    cutoff or pixel coordinates takes 16x16 tiles and no first_hit depth.
-    It raises on the other pairings."""
+    eye without a cutoff or with ``r2_cutoff`` > 0 (the Hardware mono
+    frame), or two eyes with ``r2_cutoff`` > 0 (the stereo and foveated
+    frames), in every depth mode, with or without pixel coordinates, at
+    every tile of 8, 16 or 32 pixels a side (:data:`expand.TILE_SIDES`).
+    It raises on two eyes without a cutoff, which no frame blends."""
     _check_depth_mode(depth_mode)
     words = _check_words(entry_words, n_eyes)
     _check_row_offset(tile_row_offset, pixel_coords)
@@ -258,14 +262,7 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
         raise NotImplementedError(
             f"the blend kernel takes n_eyes=2 with r2_cutoff > 0 and n_eyes=1 "
             f"with r2_cutoff >= 0, got n_eyes={n_eyes}, r2_cutoff={r2_cutoff}")
-    if tile_h != 16 or tile_w not in (16, 32):
-        raise NotImplementedError(
-            f"the blend kernel takes 16x16 and 32x16 tiles, got {tile_w}x{tile_h}")
-    if (n_eyes == 2 or r2_cutoff > 0.0 or pixel_coords is not None) and (
-            tile_w != 16 or depth_mode == "first_hit"):
-        raise NotImplementedError(
-            "the dual-eye, cutoff and pixel-coordinate blends take 16x16 "
-            "tiles and weighted, normalized or no depth")
+    check_tile(tile_w, tile_h, "blend kernel")
     if not 1 <= idx_bits <= 32:
         raise ValueError(f"idx_bits must lie in [1, 32], got {idx_bits}")
     dev = sorted_key.device
@@ -281,7 +278,8 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
     if pixel_coords is not None:
         for name, t, rows in (("coord_x", pixel_coords[0], tiles_x),
                               ("coord_y", pixel_coords[1], tiles_y)):
-            _native.check(t, name, torch.float32, (rows, 256), dev)
+            _native.check(t, name, torch.float32, (rows, tile_w * tile_h),
+                          dev)
         coords = tuple(_native.ptr(t) for t in pixel_coords)
     with_depth = depth_mode != "none"
     color = torch.empty((height, n_eyes * width, 4), dtype=torch.float32,
@@ -290,7 +288,7 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                         dtype=torch.float32, device=dev)
     BLEND.launch(_native.ptr(sorted_key), idx_bits, _native.ptr_array(words),
                  len(words), _native.ptr(starts), _native.ptr(counts), tiles_x,
-                 tiles_y, width, height, tile_row_offset, tile_w,
+                 tiles_y, width, height, tile_row_offset, tile_w, tile_h,
                  DEPTH_MODES[depth_mode],
                  M.f32(THETA_UNIT),
                  M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),

@@ -12,10 +12,10 @@ the expand (``exact_test=False``: the Hardware renderer's full rects) with
 its offsets from prep, where the JAX package computes them in XLA
 (``pipelines/common.py::binning_inputs`` and the cumsum of
 ``expand_slots_pallas``).  The kernels are
-``csrc/binning.cu``.  Prep and the expand take 16x16 tiles, and in mode
-"mono" also the Global renderer's 32x16 (the 8x4 window keeps its geometry
-in tiles; only each test's pixel extents change); the row expansion takes
-16x16.  The JAX expand's ``fused_depth16`` key [tile:16 | depth16:16]
+``csrc/binning.cu``.  Prep, the row expansion and the expand take tiles of
+8, 16 or 32 pixels a side in every mode (:data:`TILE_SIDES`; the 8x4 window
+keeps its geometry in tiles, only each test's pixel extents change).  The
+JAX expand's ``fused_depth16`` key [tile:16 | depth16:16]
 needs no key layout of its own here: the KeyPlan with ``depth_span_bits=16``
 orders the slots the same way (``pipelines/common.py``).
 
@@ -59,6 +59,10 @@ CULLED_BIT = 1 << 30
 #: j-th set bit of its 8x4 tile mask (bit = dy * 8 + dx)
 MASKED_BIT = 1 << 31
 MASK_W, MASK_H = 8, 4
+#: the tile sides, in pixels, that the kernels and frames take: powers of
+#: two, so that every tile bound and pixel offset is exact in float32 and
+#: the rect words stay bit-equal to the JAX package's
+TILE_SIDES = (8, 16, 32)
 THETA_UNIT = 3.14159265358979 / 65535.0
 
 #: per-pixel cutoff of the stereo blend (q <= 9); dropping an instance whose
@@ -74,18 +78,18 @@ BOUNDS_LANES = 128
 
 PREP = _native.Kernel("prep", "binning", "gsm_prep", [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.F, _native.F, _native.F,
+    _native.I, _native.I, _native.I, _native.F, _native.F, _native.F,
     _native.P, _native.P, _native.P, _native.P, _native.P,
     _native.P, _native.F])
 ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
-    _native.I, _native.F, _native.F, _native.F,
+    _native.I, _native.I, _native.I, _native.F, _native.F, _native.F,
     _native.P, _native.P, _native.P, _native.P, _native.P])
 EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
-    _native.I, _native.I, _native.I, _native.F, _native.F, _native.F,
-    _native.P, _native.P])
+    _native.I, _native.I, _native.I, _native.I, _native.F, _native.F,
+    _native.F, _native.P, _native.P])
 PREP_BAND = _native.Kernel("prep_band", "binning", "gsm_prep_band", [
     _native.P, _native.P, _native.P, _native.P, _native.I, _native.I,
     _native.I, _native.U, _native.U, _native.P, _native.P, _native.P,
@@ -429,13 +433,16 @@ def _check_mode(mode: str, words):
                          f"words, got {len(words)}")
 
 
-def _check_tiles(mode: str, tile_w: int, tile_h: int, what: str):
-    """The tiles a kernel takes: 16x16, and 32x16 in mode mono (mode
-    "none" takes 16x16, the Hardware renderer's)."""
-    if tile_h != 16 or not (tile_w == 16 or (tile_w == 32 and mode == "mono")):
+def check_tile(tile_w: int, tile_h: int, what: str = "frame") -> None:
+    """Raise NotImplementedError unless both tile sides are in TILE_SIDES
+    (the JAX package takes any side unchecked; a side that is not a power
+    of two is not ported)."""
+    if tile_w not in TILE_SIDES or tile_h not in TILE_SIDES:
         raise NotImplementedError(
-            f"the {what} kernel takes 16x16 tiles, and 32x16 in mode mono; "
-            f"got {tile_w}x{tile_h} in mode {mode!r}")
+            f"the {what} takes tile sides of {', '.join(map(str, TILE_SIDES))} "
+            f"pixels, got {tile_w}x{tile_h}: a side that is not a power of two "
+            "is not ported to gsm_renderer_tpu_torch yet (ROADMAP.md: Queue 2 "
+            "A, tile sides that are not powers of two)")
 
 
 # ---------------------------------------------------------------------------
@@ -527,7 +534,7 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
     writes the offsets alone: it returns ``rect_word`` as rect' and no
     mask, as the plain version does."""
     _check_mode(mode, words)
-    _check_tiles(mode, tile_w, tile_h, "prep")
+    check_tile(tile_w, tile_h, "prep kernel")
     _check_warped(mode, warped_bounds)
     _check_count_rows(mode, count_rows)
     dev = rect_word.device
@@ -546,7 +553,7 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
     ticket, status = scan_scratch(dev, n)
     PREP.launch(_native.ptr(rect_word), _native.ptr(rect_h), _native.ptr_array(words),
                 len(words), MODE_CODES[mode], int(count_rows), n, tile_w,
-                M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
+                tile_h, M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                 M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr_or_null(rect_out),
                 _native.ptr_or_null(mask), _native.ptr(ticket), _native.ptr(status),
                 _native.ptr_or_null(warped_bounds), M.f32(lod_min))
@@ -725,8 +732,7 @@ def row_expand_cuda(offsets, rect, mask, dsw, words, *, row_capacity: int,
     (decoupled look-back over :func:`scan_scratch`); the kernel also writes
     row_overflow.  Needs every gaussian to own >= 1 row, as prep
     ``count_rows`` makes them (unchecked)."""
-    if tile_w != 16 or tile_h != 16:
-        raise NotImplementedError("the row-expand kernel takes 16x16 tiles only")
+    check_tile(tile_w, tile_h, "row-expand kernel")
     _check_mode("mono", words)
     dev = offsets.device
     n = rect.shape[0]
@@ -741,8 +747,9 @@ def row_expand_cuda(offsets, rect, mask, dsw, words, *, row_capacity: int,
     ticket, status = scan_scratch(dev, r)
     ROW_EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr(mask),
                       _native.ptr(dsw), _native.ptr_array(words), n, r,
-                      M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
-                      M.f32(1.0 / 255.0), _native.ptr(offsets2),
+                      tile_w, tile_h, M.f32(max(alpha_threshold, 1e-12)),
+                      M.f32(THETA_UNIT), M.f32(1.0 / 255.0),
+                      _native.ptr(offsets2),
                       _native.ptr(planes), _native.ptr(row_overflow),
                       _native.ptr(ticket), _native.ptr(status))
     return (offsets2, planes[0], planes[1], planes[2], list(planes[3:]),
@@ -880,7 +887,7 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
     allowed.  In mode "none" the mask may be None: the kernel reads no mask
     and no record word there."""
     _check_mode(mode, words)
-    _check_tiles(mode, tile_w, tile_h, "expand")
+    check_tile(tile_w, tile_h, "expand kernel")
     _check_warped(mode, warped_bounds)
     _check_row_offset(mode, tile_row_offset)
     dev = offsets.device
@@ -901,8 +908,8 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
                       device=dev)
     EXPAND.launch(_native.ptr(offsets), _native.ptr(rect), _native.ptr_or_null(mask),
                   _native.ptr(dsw), _native.ptr_array(words), len(words),
-                  MODE_CODES[mode], n, capacity, tiles_x, tile_w, d_hi, d_lo,
-                  idx_bits, tile_row_offset, int(plain_key),
+                  MODE_CODES[mode], n, capacity, tiles_x, tile_w, tile_h,
+                  d_hi, d_lo, idx_bits, tile_row_offset, int(plain_key),
                   M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                   M.f32(1.0 / 255.0), _native.ptr(out),
                   _native.ptr_or_null(warped_bounds))

@@ -7,12 +7,13 @@ with ``_stereo_project_kernel``).  The kernels are ``csrc/project.cu``; they
 also fold in the JAX versions' XLA theta epilogues (atan2 and the u16
 packing), so one launch yields the finished record words.
 
-The mono projection takes 16x16 and 32x16 tiles (the Global renderer's),
-and with ``depth_key16`` emits the 16-bit half-depth key of the Global,
-Local and 16-bit-key DepthFirst frames in place of the 32-bit depth word:
-:func:`mathlib.half_key16` of the record's quantized f16 depth bits, and
-0xFFFFFFFF where culled (a KeyPlan, if given, is then not applied, as in
-JAX).  The dual-eye projection takes 16x16 tiles only.
+Both projections take tiles of 8, 16 or 32 pixels a side
+(``expand.TILE_SIDES``; the renderers use 16x16 and the Global renderer's
+32x16).  The mono projection with ``depth_key16`` emits the 16-bit
+half-depth key of the Global, Local and 16-bit-key DepthFirst frames in
+place of the 32-bit depth word: :func:`mathlib.half_key16` of the record's
+quantized f16 depth bits, and 0xFFFFFFFF where culled (a KeyPlan, if
+given, is then not applied, as in JAX).
 
 :func:`project_plain` and :func:`stereo_project_plain` are the same
 functions in plain PyTorch, operation for operation.  The dispatchers run
@@ -31,7 +32,7 @@ import torch
 from .. import _native
 from .. import mathlib as M
 from ..ops.binning import pack_rect_word
-from .expand import CULLED_BIT
+from .expand import CULLED_BIT, check_tile
 
 PROJECT = _native.Kernel("project", "project", "gsm_project", [
     _native.P, _native.P, _native.P, _native.P, _native.P,
@@ -207,19 +208,13 @@ def _depth_word(depth, alive, key_plan):
     return torch.where(alive, key_plan.normalize(dkey), key_plan.span)
 
 
-def _check_mono_tiles(tile_w: int, tile_h: int) -> None:
-    if tile_w not in (16, 32) or tile_h != 16:
-        raise NotImplementedError(
-            f"the projection takes 16x16 and 32x16 tiles, got {tile_w}x{tile_h}")
-
-
 def project_plain(comp, harm, view, proj, center, *, width: int, height: int,
                   tile_w: int, tile_h: int, sh_degree: int, near_plane: float,
                   far_plane: float, alpha_threshold: float,
                   total_ink_threshold: float, input_is_srgb: bool,
                   key_plan=None, depth_key16: bool = False) -> PackedProjection:
     """Plain PyTorch version of the projection kernel, on any device."""
-    _check_mono_tiles(tile_w, tile_h)
+    check_tile(tile_w, tile_h, "projection")
     view_m, proj_m, cen = M.mat(view), M.mat(proj), M.mat(center)
     k = frame_constants(proj, width=width, height=height,
                         near_plane=near_plane, far_plane=far_plane,
@@ -293,7 +288,7 @@ def project_cuda(comp, harm, view, proj, center, *, width: int, height: int,
                  total_ink_threshold: float, input_is_srgb: bool,
                  key_plan=None, depth_key16: bool = False) -> PackedProjection:
     """Launch ``csrc/project.cu`` on CUDA tensors."""
-    _check_mono_tiles(tile_w, tile_h)
+    check_tile(tile_w, tile_h, "projection")
     dev = comp.device
     n = comp.shape[1]
     n_coeffs = (sh_degree + 1) ** 2
@@ -310,8 +305,8 @@ def project_cuda(comp, harm, view, proj, center, *, width: int, height: int,
         np.asarray([k[name] for name in _PARAM_NAMES], np.float32)])
     tiles_x, tiles_y = -(-width // tile_w), -(-height // tile_h)
     ints = np.asarray([n, tiles_x, tiles_y, sh_degree, int(input_is_srgb),
-                       int(key_plan is not None), tile_w, int(depth_key16)],
-                      np.int32)
+                       int(key_plan is not None), tile_w, int(depth_key16),
+                       tile_h], np.int32)
     plan = np.asarray([key_plan.near_key, key_plan.span] if key_plan else [0, 0],
                       np.uint32)
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(7)]
@@ -406,8 +401,7 @@ def stereo_project_plain(comp, harm, views, projs, centers, scene_transform,
     either eye sees it and it survives the total-ink cull at the eyes' mean
     depth (larger covariance determinant).  SH colour is taken from the mid
     camera; the tile rect is the union of the eyes' rects."""
-    if tile_w != 16 or tile_h != 16:
-        raise NotImplementedError("the projection takes 16x16 tiles only")
+    check_tile(tile_w, tile_h, "projection")
     scene_scale, mid = stereo_constants(centers, scene_transform)
     st = M.mat(scene_transform)
     px0, py0, pz0, sx, sy, sz = (comp[j] for j in range(6))
@@ -489,8 +483,7 @@ def stereo_project_cuda(comp, harm, views, projs, centers, scene_transform,
                         input_is_srgb: bool,
                         key_plan=None) -> StereoPackedProjection:
     """Launch the stereo kernel of ``csrc/project.cu`` on CUDA tensors."""
-    if tile_w != 16 or tile_h != 16:
-        raise NotImplementedError("the projection kernel takes 16x16 tiles only")
+    check_tile(tile_w, tile_h, "projection kernel")
     dev = comp.device
     n = comp.shape[1]
     n_coeffs = (sh_degree + 1) ** 2
@@ -512,7 +505,7 @@ def stereo_project_cuda(comp, harm, views, projs, centers, scene_transform,
         np.asarray([scene_scale], np.float32), mid.reshape(-1)])
     tiles_x, tiles_y = -(-width // tile_w), -(-height // tile_h)
     ints = np.asarray([n, tiles_x, tiles_y, sh_degree, int(input_is_srgb),
-                       int(key_plan is not None), tile_w, 0], np.int32)
+                       int(key_plan is not None), tile_w, 0, tile_h], np.int32)
     plan = np.asarray([key_plan.near_key, key_plan.span] if key_plan else [0, 0],
                       np.uint32)
     out_i = torch.empty((10, n), dtype=torch.int32, device=dev)

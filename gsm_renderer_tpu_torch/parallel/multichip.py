@@ -40,8 +40,9 @@ What the JAX ``build_sharded_depth_first`` takes and this one does not:
 ``use_xla_blend``, ``pallas_project``, ``split_frame`` and ``interpret``:
 TPU means with no counterpart here (the frame always runs the hand
 kernels on CUDA tensors, their plain versions on CPU tensors).  The JAX
-band frame takes any tile; this one the tiles the JAX renderers use, 16x16
-and 32x16 (:data:`BAND_TILES`; others raise NotImplementedError).  One card
+band frame takes any tile; this one every tile of 8, 16 or 32 pixels a side
+(:data:`BAND_TILES`; a side that is not a power of two raises
+NotImplementedError).  One card
 holds every rank of a gloo group in the port's checks; NCCL refuses two
 ranks on one device.
 """
@@ -61,20 +62,19 @@ import torch.distributed as dist
 
 from .. import config as cfg
 from ..kernels.blend import blend_image
-from ..kernels.expand import (MASK_H, MASK_W, SENTINEL, _popcount,
-                              binning_prep, binning_prep_band, expand_slots)
+from ..kernels.expand import (MASK_H, MASK_W, SENTINEL, TILE_SIDES, _popcount,
+                              binning_prep, binning_prep_band, check_tile,
+                              expand_slots)
 from ..kernels.project import cached_projection_inputs, project_and_cull_packed
 from ..mathlib import u32
 from ..ops import binning as B
-from ..pipelines.base import not_ported
 from ..pipelines.common import sort_and_ranges
 from ..types import GaussianInput, resolve_device
 
-#: the tiles of the band frame: the JAX renderers' 16x16 (DepthFirst,
-#: Local, Hardware) and 32x16 (Global)
-BAND_TILES = ((16, 16), (32, 16))
-#: the ROADMAP item of band frames at the other tiles
-OTHER_TILES_ITEM = "Queue 2 A, band frames at tiles other than 16x16 and 32x16"
+#: the tiles of the band frame: every (tile_w, tile_h) of TILE_SIDES, the
+#: JAX renderers' 16x16 (DepthFirst, Local, Hardware) and 32x16 (Global)
+#: among them
+BAND_TILES = tuple((w, h) for w in TILE_SIDES for h in TILE_SIDES)
 
 
 def pad_gaussian_input(gi: GaussianInput, multiple: int) -> GaussianInput:
@@ -177,9 +177,7 @@ class ShardedDepthFirst:
                  alpha_threshold: float, total_ink_threshold: float,
                  input_is_srgb: bool, band_starts, use_keyplan: bool,
                  device):
-        if (tile_w, tile_h) not in BAND_TILES:
-            raise not_ported(f"the band frame at {tile_w}x{tile_h} tiles",
-                             OTHER_TILES_ITEM)
+        check_tile(tile_w, tile_h, "band frame")
         self.group = group
         self.n_dev = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
@@ -287,8 +285,8 @@ def build_sharded_depth_first(
     n_total / n_dev, which a band reports as overflow when it holds the
     padded count plus its load beyond that).  ``use_keyplan=False`` sorts
     stably by the plain tile key, as happens anyway when no tie-free
-    KeyPlan fits the band.  ``device``: the card by default.  Tiles 16x16
-    or 32x16 (others raise NotImplementedError)."""
+    KeyPlan fits the band.  ``device``: the card by default.  Tiles: each
+    side 8, 16 or 32 pixels (others raise NotImplementedError)."""
     return ShardedDepthFirst(
         group, width=width, height=height, n_total=n_total,
         sh_degree=sh_degree, capacity_per_device=capacity_per_device,

@@ -53,7 +53,8 @@ import torch
 from .. import config as cfg
 from .. import mathlib as M
 from ..kernels.blend import blend_image
-from ..kernels.expand import CULLED_BIT, MASK_H, MASK_W, STEREO_R2_CUTOFF
+from ..kernels.expand import (CULLED_BIT, MASK_H, MASK_W, STEREO_R2_CUTOFF,
+                              check_tile)
 from ..kernels.project import (cached_projection_inputs,
                                stereo_project_and_cull_packed)
 from ..mathlib import u32
@@ -74,6 +75,14 @@ def _row_demand(rect_word, rect_h):
     rect_w = (rw >> 20) & 0x3FF
     oversized = visible & ((rect_w > MASK_W) | (rect_h > MASK_H))
     return torch.where(oversized, rect_h, 1).sum().to(torch.int32)
+
+
+def visible_rect_total(rect_word, rect_h, visible):
+    """The rect total of the visible gaussians, sum of rect_w * rect_h
+    (int32): the header's ``total_instances`` where the JAX frame reports
+    its XLA binning's ``total_live`` (stereo, foveated, ``max_per_tile``)."""
+    rect_w = (u32(rect_word) >> 20) & 0x3FF
+    return torch.where(visible, rect_w * rect_h, 0).sum().to(torch.int32)
 
 
 def _mono_key_statics(n_gaussians: int, *, width, height, tile_w, tile_h,
@@ -97,7 +106,8 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
                       depth_mode: str = "weighted",
                       row_capacity: int = 0, tile_id_bits: int = 16,
                       depth_key_bits: int = 32, exact_tile_test: bool = True,
-                      r2_cutoff: float = 0.0) -> RenderOutput:
+                      r2_cutoff: float = 0.0, max_per_tile: int = 0,
+                      back_to_front: bool = False) -> RenderOutput:
     """One mono DepthFirst frame on the device of ``gi``.  ``view``/``proj``
     (4, 4) and ``center`` (3,) are host arrays; ``prepared`` an optional
     cached (comp, harm) projection layout.  ``row_capacity`` > 0 runs the
@@ -117,7 +127,18 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     is the Hardware renderer's frame: every tile of a visible gaussian's
     clamped rect is an instance (prep and the expand in mode "none", rows
     off), the blend zeroes alpha past q = r2_cutoff, and the header has no
-    ``row_total``, as in JAX."""
+    ``row_total``, as in JAX.
+
+    ``max_per_tile`` > 0 (the Local renderer's clamp on this frame) blends
+    at most that many instances a tile, the nearest, with rows off; the
+    header's ``total_instances`` is then the visible gaussians' rect total
+    (sum of rect_w * rect_h), as JAX's XLA binning path reports it there,
+    while ``slot_total`` is prep's, the same as without the clamp.
+    ``back_to_front`` renders the same frame: the radiance weights a_i *
+    prod_{nearer j}(1 - a_j) are those of front-to-back compositing (JAX
+    drops it too).  Tiles: each side 8, 16 or 32 pixels."""
+    del back_to_front
+    check_tile(tile_w, tile_h)
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
     if tile_id_bits == 16 and num_tiles > 0xFFFF:
@@ -131,8 +152,10 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
                     total_ink_threshold=total_ink_threshold,
                     input_is_srgb=input_is_srgb,
                     mode="mono" if exact_tile_test else "none", **statics)
-    if not exact_tile_test:
-        row_capacity = 0  # rows narrow exact-tested rects only, as in JAX
+    if not exact_tile_test or max_per_tile > 0:
+        # rows narrow exact-tested rects only, and JAX takes its XLA
+        # binning (no rows) under a clamp
+        row_capacity = 0
     if depth_key_bits == 16:
         srt, packed, slot_total, overflow = d16_packed_sorted(
             gi, view, proj, center, prepared,
@@ -151,14 +174,21 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
         srt, packed, entry_words, slot_total, overflow = mono_packed_sorted(
             gi, view, proj, center, prepared, key_plan=key_plan,
             row_capacity=row_capacity, **chain_kw)
+    counts = srt.counts
+    if max_per_tile > 0:
+        counts = torch.clamp(counts, max=max_per_tile)
+        total_instances = visible_rect_total(packed.rect_word, packed.rect_h,
+                                             packed.visible)
+    else:
+        total_instances = counts.sum().to(torch.int32)
     color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
-                               srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
+                               counts, tiles_x=tiles_x, tiles_y=tiles_y,
                                width=width, height=height, tile_w=tile_w,
                                tile_h=tile_h, depth_mode=depth_mode,
                                r2_cutoff=r2_cutoff)
     header = FrameHeader(
         visible_count=packed.visible.sum().to(torch.int32),
-        total_instances=srt.counts.sum().to(torch.int32),
+        total_instances=total_instances,
         overflow=overflow,
         slot_total=slot_total,
         row_total=(_row_demand(packed.rect_word, packed.rect_h)
@@ -183,7 +213,8 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     ``views``/``projs`` (2, 4, 4), ``centers`` (2, 3) and
     ``scene_transform`` (4, 4) are host arrays.  The header's
     ``total_instances`` is the union-rect total of the visible gaussians;
-    ``row_total`` is None."""
+    ``row_total`` is None.  Tiles: each side 8, 16 or 32 pixels."""
+    check_tile(tile_w, tile_h)
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
     key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
@@ -199,7 +230,8 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     srt = sort_and_ranges(keys, key_plan, num_tiles)
     color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
                                srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
-                               width=width, height=height, n_eyes=2,
+                               width=width, height=height, tile_w=tile_w,
+                               tile_h=tile_h, n_eyes=2,
                                r2_cutoff=STEREO_R2_CUTOFF,
                                depth_mode=depth_mode)
     header = FrameHeader(visible_count=visible_count,
@@ -226,10 +258,9 @@ def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
     keys, entry_words, slot_total, overflow = binning_sort_operands(
         pp, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode="stereo", tile_w=tile_w, tile_h=tile_h)
-    rect_w = (u32(pp.rect_word) >> 20) & 0x3FF
-    total_live = torch.where(pp.visible, rect_w * pp.rect_h, 0).sum()
     return (keys, entry_words, slot_total, overflow,
-            pp.visible.sum().to(torch.int32), total_live.to(torch.int32))
+            pp.visible.sum().to(torch.int32),
+            visible_rect_total(pp.rect_word, pp.rect_h, pp.visible))
 
 
 def foveated_rects(pp, inv_fit, *, tiles_x: int, tiles_y: int,
@@ -331,12 +362,18 @@ def depth_first_stereo_foveated_frame(
     """One foveated stereo frame on the device of ``gi``, rasterized
     directly into the (render_height, 2 * render_width) physical target.
 
-    ``tables``: :func:`foveated_device_tables` of the target (``inv_fit`` on
-    the host, ``coord_x``, ``coord_y`` and ``bounds`` on the device);
-    ``depth_mode`` "normalized" is the Hardware renderer's.  The
-    KeyPlan addresses the physical tiles; the header's ``visible_count``
-    counts the projection's visible gaussians before re-binning and
-    ``total_instances`` is the re-binned rect total."""
+    ``tables``: :func:`foveated_device_tables` of the target at this
+    frame's tile (``inv_fit`` on the host, ``coord_x``, ``coord_y`` and
+    ``bounds`` on the device); ``depth_mode`` "normalized" is the Hardware
+    renderer's.  The KeyPlan addresses the physical tiles; the header's
+    ``visible_count`` counts the projection's visible gaussians before
+    re-binning and ``total_instances`` is the re-binned rect total.  Tiles:
+    each side 8, 16 or 32 pixels (the physical grid within 127 tiles an
+    axis, as in JAX)."""
+    check_tile(tile_w, tile_h)
+    if tables["coord_x"].shape[1] != tile_w * tile_h:
+        raise ValueError(f"the foveated tables are for {tables['coord_x'].shape[1]}"
+                         f"-pixel tiles, the frame's tile is {tile_w}x{tile_h}")
     tiles_x, tiles_y = cfg.tiles_for(render_width, render_height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
     key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
@@ -355,7 +392,7 @@ def depth_first_stereo_foveated_frame(
     color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
                                srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
                                width=render_width, height=render_height,
-                               n_eyes=2,
+                               tile_w=tile_w, tile_h=tile_h, n_eyes=2,
                                r2_cutoff=STEREO_R2_CUTOFF,
                                pixel_coords=(tables["coord_x"],
                                              tables["coord_y"]),
@@ -366,16 +403,17 @@ def depth_first_stereo_foveated_frame(
     return RenderOutput(color=color, depth=depth, header=header)
 
 
-def foveated_device_tables(target, device) -> dict:
-    """The raster tables of a foveated target for frames on ``device``:
-    ``inv_fit`` (host numpy), ``coord_x``, ``coord_y`` and ``bounds``
-    (tensors on the device).  Built once per device and cached on the
-    target."""
+def foveated_device_tables(target, device, tile_w: int = 16,
+                           tile_h: int = 16) -> dict:
+    """The raster tables of a foveated target for frames on ``device`` at
+    ``tile_w`` x ``tile_h`` tiles: ``inv_fit`` (host numpy), ``coord_x``,
+    ``coord_y`` and ``bounds`` (tensors on the device).  Built once per
+    device and tile and cached on the target."""
     cache = target.__dict__.setdefault("_torch_tabs", {})
-    key = str(torch.device(device))
+    key = (str(torch.device(device)), tile_w, tile_h)
     tabs = cache.get(key)
     if tabs is None:
-        host = foveated_raster_tables(target)
+        host = foveated_raster_tables(target, tile_w, tile_h)
         tabs = dict(inv_fit=host["inv_fit"])
         for name in ("coord_x", "coord_y", "bounds"):
             tabs[name] = torch.from_numpy(host[name]).to(device)

@@ -27,13 +27,10 @@ from .depth_first import DepthFirstRenderer, depth_first_frame
 R2_CUTOFF = 9.0
 
 
-def hardware_frame(gi, view, proj, center, prepared=None, *,
-                   back_to_front: bool = False, **statics):
+def hardware_frame(gi, view, proj, center, prepared=None, **statics):
     """One Hardware mono frame: :func:`depth_first_frame` with full rects,
-    the per-pixel r^2 <= 9 cutoff and normalized depth.  ``back_to_front``
-    renders the same frame (the radiance weights a_i * prod_{nearer j}(1 -
-    a_j) are those of front-to-back compositing)."""
-    del back_to_front
+    the per-pixel r^2 <= 9 cutoff and normalized depth (``back_to_front``,
+    which it takes too, renders the same frame)."""
     return depth_first_frame(gi, view, proj, center, prepared,
                              exact_tile_test=False, depth_mode="normalized",
                              r2_cutoff=R2_CUTOFF, **statics)

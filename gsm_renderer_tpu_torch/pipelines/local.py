@@ -21,6 +21,7 @@ import torch
 
 from .. import config as cfg
 from ..kernels.blend import blend_image
+from ..kernels.expand import check_tile
 from ..types import FrameHeader, RenderOutput
 from .base import GaussianRenderer
 from .common import d16_frame_kwargs, d16_key_plan, d16_packed_sorted
@@ -34,7 +35,9 @@ def local_frame(gi, view, proj, center, prepared=None, *, width: int,
                 max_per_tile: int = cfg.LOCAL_MAX_PER_TILE) -> RenderOutput:
     """One Local frame on the device of ``gi``.  ``view``/``proj`` (4, 4)
     and ``center`` (3,) are host arrays.  The header's ``total_instances``
-    is the sum of the clamped tile counts."""
+    is the sum of the clamped tile counts.  Tiles: each side 8, 16 or 32
+    pixels."""
+    check_tile(tile_w, tile_h)
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
     if num_tiles > 0xFFFF:

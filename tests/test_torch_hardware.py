@@ -377,17 +377,32 @@ def test_cutoff_zeroes_alpha_past_r2():
     assert torch.equal(cut[0, q <= 9.0], full[0, q <= 9.0])
 
 
-def test_blend_cuda_wrapper_takes_one_eye_cutoff():
+def test_blend_cuda_wrapper_takes_one_eye_cutoff(monkeypatch):
     """The kernel's wrapper takes one eye with a cutoff and normalized
-    depth, and refuses a cutoff with 32x16 tiles or first_hit depth (it
+    depth at every tile and depth mode (32x16 and first_hit depth
+    included) and hands the launch its tile and depth mode; it refuses two
+    eyes without a cutoff and a tile side other than 8, 16 or 32 (it
     raises before it touches a device)."""
+    calls = []
+    monkeypatch.setattr(TK.BLEND, "launch", lambda *a: calls.append(a))
     key = torch.arange(4, dtype=torch.int64)
     words = torch.zeros((4, 4), dtype=torch.int32)
     starts = counts = torch.zeros(2, dtype=torch.int32)
     kw = dict(tiles_x=2, tiles_y=1, width=32, height=16, r2_cutoff=R2_CUTOFF)
-    for bad in (dict(tile_w=32), dict(depth_mode="first_hit")):
-        with pytest.raises(NotImplementedError, match="cutoff"):
-            TK.blend_image_cuda(key, words, 32, starts, counts, **kw, **bad)
+    for ok in (dict(depth_mode="normalized"), dict(tile_w=32),
+               dict(depth_mode="first_hit"), dict(tile_w=8, tile_h=32)):
+        TK.blend_image_cuda(key, words, 32, starts, counts, **kw, **ok)
+        mode = ok.get("depth_mode", "weighted")
+        assert calls[-1][11:14] == (ok.get("tile_w", 16), ok.get("tile_h", 16),
+                                    TK.DEPTH_MODES[mode])
+    with pytest.raises(NotImplementedError, match="cutoff"):
+        TK.blend_image_cuda(key, torch.zeros((8, 4), dtype=torch.int32), 32,
+                            starts, counts, **dict(kw, r2_cutoff=0.0),
+                            n_eyes=2)
+    with pytest.raises(NotImplementedError, match="power of two"):
+        TK.blend_image_cuda(key, words, 32, starts, counts, **kw, tile_w=12,
+                            tile_h=12)
+    assert len(calls) == 4
 
 
 def render(cfg_kw, gi, cam, w, h):

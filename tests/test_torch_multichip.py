@@ -306,8 +306,11 @@ def test_dryrun_multichip_twin():
 
 
 def test_band_frame_refuses_other_tiles():
-    """16x16 and 32x16 render (the frames above); other tiles raise."""
-    for tile_w, tile_h in ((64, 16), (16, 32), (8, 8)):
+    """Tiles of 8, 16 and 32 pixels a side render (BAND_TILES, the frames
+    above and tests/test_torch_tiles.py); other sides raise before the
+    frame touches its process group."""
+    assert len(TM.BAND_TILES) == 9 and (8, 8) in TM.BAND_TILES
+    for tile_w, tile_h in ((64, 16), (12, 12), (16, 24)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.build_sharded_depth_first(width=W, height=H, n_total=N,
                                          tile_w=tile_w, tile_h=tile_h,
