@@ -249,8 +249,8 @@ KERNEL_SOURCES = {
                       "gsm_renderer_tpu/kernels/expand.py:202"),
 }
 #: kernels whose -Xptxas -v report must show no spill
-SPILL_CHECKED = ("blend_kernel", "expand_kernel", "prep_kernel",
-                 "row_expand_kernel")
+SPILL_CHECKED = ("blend_kernel", "general_blend_kernel", "expand_kernel",
+                 "prep_kernel", "row_expand_kernel")
 #: the separate scan kernels of the prep and row expansion before the
 #: one-pass scan; no frame may launch them
 OLD_SCAN_KERNELS = ("scan_block_sums_kernel", "add_block_offsets_kernel")
@@ -1399,13 +1399,18 @@ def mono_frame_at(T, gi, cam, capacity: int, tile_w: int, tile_h: int):
     return out
 
 
+def band_tile(kw) -> tuple:
+    """The tile of a band frame's keywords (16x16 unless named)."""
+    return kw.get("tile_w", 16), kw.get("tile_h", 16)
+
+
 def _band_rank(rank: int, world: int, n: int, configs: list):
     """One spawned rank of phase 4m's gloo worlds on cuda:0: the headline
     scene's shard, then each (label, keywords of build_sharded_depth_first,
     early exit) of ``configs``: one warm-up frame, one frame with every
     kernel's count set to 0 just before it and read just after, the image
     gathered.  Rank 0 also renders the mono headline frame (the blend's
-    early exit on and off; at 32x16 tiles :func:`mono_frame_at`) and
+    early exit on and off; at other tiles :func:`mono_frame_at`) and
     compares the stitched image with it."""
     import torch
     import gsm_renderer_tpu_torch as T
@@ -1426,15 +1431,15 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
         r = T.DepthFirstRenderer(T.RendererConfig(
             sh_degree=3, precision=T.Precision.FLOAT32, max_width=W,
             max_height=H))
-        tiles = {kw.get("tile_w", 16) for _label, kw, _exit in configs}
+        tiles = {band_tile(kw) for _label, kw, _exit in configs}
         for early_exit in (True, False):
             KB.MIN_TRANSMITTANCE = exit_t if early_exit else 0.0
             for _ in range(3):
                 out = r.render(gi, cam, W, H)
-            mono[(16, early_exit)] = out
-            if 32 in tiles:
-                mono[(32, early_exit)] = mono_frame_at(
-                    T, gi, cam, -(-4 * n // 4096) * 4096, 32, 16)
+            mono[((16, 16), early_exit)] = out
+            for tile in tiles - {(16, 16)}:
+                mono[(tile, early_exit)] = mono_frame_at(
+                    T, gi, cam, -(-4 * n // 4096) * 4096, *tile)
         KB.MIN_TRANSMITTANCE = exit_t
     gi = MC.shard_gaussian_input(ds.to_input(T.Precision.FLOAT32), rank, world)
     kernels = (KP.PROJECT, KE.PREP, KE.PREP_BAND, KE.EXPAND, KB.BLEND)
@@ -1460,7 +1465,7 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
                    plan=None if render.key_plan is None
                    else list(render.key_plan.kernel_tuple))
         if rank == 0:
-            ref = mono[(kw.get("tile_w", 16), early_exit)]
+            ref = mono[(band_tile(kw), early_exit)]
             d = (color - ref.color).abs()
             row.update(
                 equal=bool(torch.equal(color, ref.color)
@@ -1474,12 +1479,13 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
     return res
 
 
-def phase_multichip(torch, T, kernels, hl, tiles8):
+def phase_multichip(torch, T, kernels, hl, tiles8, odd):
     """Phase 4m: the band-sharded frame of the headline scene.  A world of
     one over NCCL in this process (the KeyPlan and the stable fallback, each
-    bit-equal to the headline frame; at 32x16 and at 8x8 tiles, bit-equal to
-    the mono frame at that tile, ``tiles8`` phase 4t's 8x8 frames; frame
-    times, split and trace beside the headline's rows-off frame); prep
+    bit-equal to the headline frame; at 32x16, 8x8 and ODD_TILE tiles,
+    bit-equal to the mono frame at that tile, ``tiles8`` and ``odd`` phase
+    4t's 8x8 and phase 4o's ODD_TILE rows-off frames; frame times, split
+    and trace beside the headline's rows-off frame); prep
     "band", the expand with a tile row
     offset and the blend with one on band 1 of 4 against their plain
     versions; worlds of 2 and 4 spawned gloo ranks on this card with equal
@@ -1503,7 +1509,8 @@ def phase_multichip(torch, T, kernels, hl, tiles8):
     refs = {(16, 16): (hl["out"], hl["off_capacity"]),
             (32, 16): (mono_frame_at(T, gi, cam, hl["off_capacity"], 32, 16),
                        hl["off_capacity"]),
-            (8, 8): (tiles8["off"], tiles8["cap_off"])}
+            (8, 8): (tiles8["off"], tiles8["cap_off"]),
+            ODD_TILE: (odd["off"], odd["cap_off"])}
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
@@ -1512,7 +1519,8 @@ def phase_multichip(torch, T, kernels, hl, tiles8):
             for label, use_kp, tile in (("keyplan", True, (16, 16)),
                                         ("tile_key", False, (16, 16)),
                                         ("keyplan_32x16", True, (32, 16)),
-                                        ("keyplan_8x8", True, (8, 8))):
+                                        ("keyplan_8x8", True, (8, 8)),
+                                        ("keyplan_odd", True, ODD_TILE)):
                 ref, cap = refs[tile]
                 render = MC.build_sharded_depth_first(
                     use_keyplan=use_kp, capacity_per_device=cap,
@@ -1562,6 +1570,14 @@ def phase_multichip(torch, T, kernels, hl, tiles8):
                 configs.append((f"equal 32x16{'' if early_exit else ' no exit'}",
                                 dict(capacity_per_device=cap, tile_w=32),
                                 early_exit))
+            # the band histogram is of 16-pixel rows: at ODD_TILE the
+            # capacity is the padded count plus the largest band's load
+            # of the frame's slots (the world of one's capacity covers it)
+            for early_exit in (True, False):
+                configs.append((f"equal odd{'' if early_exit else ' no exit'}",
+                                dict(capacity_per_device=odd["cap_off"],
+                                     tile_w=ODD_TILE[0], tile_h=ODD_TILE[1]),
+                                early_exit))
             configs.append(("tiny capacity", dict(capacity_per_device=4096),
                             True))
         t0 = time.perf_counter()
@@ -1572,8 +1588,9 @@ def phase_multichip(torch, T, kernels, hl, tiles8):
             # offset) in the equal-band frames, for the band kernels' rows
             labels = [c[0] for c in configs]
             band_launches = {
-                16: ranks[1][labels.index("equal")]["launches"],
-                32: ranks[1][labels.index("equal 32x16")]["launches"]}
+                (16, 16): ranks[1][labels.index("equal")]["launches"],
+                (32, 16): ranks[1][labels.index("equal 32x16")]["launches"],
+                ODD_TILE: ranks[1][labels.index("equal odd")]["launches"]}
             if ranks[1][0]["band_starts"][1] <= 0:
                 raise RuntimeError("world 4: rank 1's band starts at row 0")
         for k, (label, _kw, early_exit) in enumerate(configs):
@@ -1608,9 +1625,9 @@ def phase_multichip(torch, T, kernels, hl, tiles8):
                     k: v for k, v in ranks[0][j].items()
                     if k not in ("overflow", "launches")})
                 for j in range(len(configs))])))
-    rows = [row for tile_w in (16, 32)
-            for row in band_kernel_rows(torch, hl, band_launches[tile_w],
-                                        tile_w)]
+    rows = [row for tile in ((16, 16), (32, 16), ODD_TILE)
+            for row in band_kernel_rows(torch, hl, band_launches[tile],
+                                        *tile)]
     rows += band_kernel_rows(torch, hl, res["world_1_keyplan_8x8"]["launches"],
                              8, 8)
     sort_rows, other = stable_sort_rows(torch, hl, res)
@@ -1939,6 +1956,14 @@ def phase_fallback(torch, T, kernels, hl):
 TILE_MONO = ((8, 8), (16, 8), (8, 16), (32, 32), (32, 16))
 TILE_STEREO = ((32, 16), (8, 8))
 TILE_FOVEATED = ((32, 16), (32, 32))
+#: phase 4o: tile sides that are not powers of two (and 64x64, the
+#: general blend's cluster of two CTAs): the mono frame with rows at every
+#: ODD_MONO tile; the stereo (and its two-eye blend without a cutoff),
+#: foveated, Hardware, Local and band frames at ODD_TILE; the Global frame
+#: at ODD_GLOBAL
+ODD_MONO = ((24, 24), (12, 12), (20, 12), (48, 16), (64, 64), (7, 5))
+ODD_TILE = (24, 24)
+ODD_GLOBAL = (48, 16)
 #: phase 4t's probe capacity, slots a gaussian, before a frame's own
 TILE_PROBE_SLOTS = 32
 #: phase 4t's per-tile clamp on the realistic scene
@@ -2009,10 +2034,11 @@ def blend_rows_check(torch, KB, name, ent, starts, counts, kernel_out, plain_kw,
 
 
 def mono_tile_rows(torch, T, hl, tile, fr):
-    """The kernels of the mono frame at ``tile`` (rows on) on its own
-    tensors: project, prep counting rows, the row expand, the expand and
-    the blend, each bit-equal to its plain version, the staged frame
-    bit-equal to the frame function's; their kernel rows."""
+    """The kernels of the mono frame at ``tile`` (rows on; rows off where
+    ``fr["row_cap"]`` is 0) on its own tensors: project, prep counting
+    rows, the row expand, the expand and the blend, each bit-equal to its
+    plain version, the staged frame bit-equal to the frame function's;
+    their kernel rows."""
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.kernels import project as KP
@@ -2024,7 +2050,8 @@ def mono_tile_rows(torch, T, hl, tile, fr):
     n, cam, cfg, launches = hl["n"], hl["cam"], hl["cfg"], fr["launches"]
     tiles_x, tiles_y = -(-W // tw), -(-H // th)
     comp, harm = KP.cached_projection_inputs(hl["gi"], 3)
-    plan = OB.make_key_plan(tiles_x * tiles_y, fr["row_cap"],
+    r_cap = fr["row_cap"]
+    plan = OB.make_key_plan(tiles_x * tiles_y, r_cap or n,
                             near_plane=cam.near_plane, far_plane=cam.far_plane)
     pkw = dict(width=W, height=H, tile_w=tw, tile_h=th, sh_degree=3,
                near_plane=cam.near_plane, far_plane=cam.far_plane,
@@ -2046,45 +2073,48 @@ def mono_tile_rows(torch, T, hl, tile, fr):
                            PROJECT_FLOPS * n))
     bkw = dict(tile_w=tw, tile_h=th)
     prep_in = (pk.rect_word, pk.rect_h, pk.words)
+    count_rows = r_cap > 0
     (off, rect, mask), ms, prep_p, plain_ms = timed_pair(
         torch, "prep",
-        lambda: KE.binning_prep_cuda(*prep_in, count_rows=True, **bkw),
-        lambda: KE.binning_prep_plain(*prep_in, count_rows=True, **bkw))
+        lambda: KE.binning_prep_cuda(*prep_in, count_rows=count_rows, **bkw),
+        lambda: KE.binning_prep_plain(*prep_in, count_rows=count_rows, **bkw))
     require_exact(torch, f"prep.{tag}", list(zip((off, rect, mask), prep_p)))
     rows.append(kernel_row(
         f"prep.{tag}", "prep", launches["prep"], ms, plain_ms, 0.0,
         (6 + 3) * 4 * n + 4,
         PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(pk.rect_word,
                                                              pk.rect_h)))
-    r_cap = fr["row_cap"]
-    row_in = (off, rect, mask, pk.dsw, pk.words)
-    rk, ms, rp, plain_ms = timed_pair(
-        torch, "row_expand",
-        lambda: KE.row_expand_cuda(*row_in, row_capacity=r_cap, **bkw),
-        lambda: KE.row_expand_plain(*row_in, row_capacity=r_cap, **bkw))
-    require_exact(torch, f"row_expand.{tag}", [
-        (rk[k], rp[k]) for k in (0, 1, 2, 3, 5)] + list(zip(rk[4], rp[4])))
-    ru = rect.long() & 0xFFFFFFFF
-    oversized_rows = float((off[1:] - off[:-1]).long()[
-        ((ru >> 30) & 3) == 0].sum())
-    rows.append(kernel_row(
-        f"row_expand.{tag}", "row_expand", launches["row_expand"], ms,
-        plain_ms, 0.0,
-        (n + 1) * 4 + 7 * 4 * n + (r_cap + 1) * 4 + 7 * 4 * r_cap,
-        ROW_SPAN_FLOPS * oversized_rows))
+    tab, n_tab = (off, rect, mask, pk.dsw, pk.words), n
+    if count_rows:
+        row_in = (off, rect, mask, pk.dsw, pk.words)
+        rk, ms, rp, plain_ms = timed_pair(
+            torch, "row_expand",
+            lambda: KE.row_expand_cuda(*row_in, row_capacity=r_cap, **bkw),
+            lambda: KE.row_expand_plain(*row_in, row_capacity=r_cap, **bkw))
+        require_exact(torch, f"row_expand.{tag}", [
+            (rk[k], rp[k]) for k in (0, 1, 2, 3, 5)] + list(zip(rk[4], rp[4])))
+        ru = rect.long() & 0xFFFFFFFF
+        oversized_rows = float((off[1:] - off[:-1]).long()[
+            ((ru >> 30) & 3) == 0].sum())
+        rows.append(kernel_row(
+            f"row_expand.{tag}", "row_expand", launches["row_expand"], ms,
+            plain_ms, 0.0,
+            (n + 1) * 4 + 7 * 4 * n + (r_cap + 1) * 4 + 7 * 4 * r_cap,
+            ROW_SPAN_FLOPS * oversized_rows))
+        tab, n_tab = tuple(rk[:5]), r_cap
     cap = fr["cap"]
     ekw = dict(capacity=cap, tiles_x=tiles_x, key_plan=plan, **bkw)
-    exp_in = tuple(rk[:5])
+    exp_in = tab
     ek, ms, ep, plain_ms = timed_pair(
         torch, "expand", lambda: KE.expand_slots_cuda(*exp_in, **ekw),
         lambda: KE.expand_slots_plain(*exp_in, **ekw), plain_reps=1)
     require_exact(torch, f"expand.{tag}", list(zip(ek, ep)))
     rows.append(kernel_row(
         f"expand.{tag}", "expand", launches["expand"], ms, plain_ms, 0.0,
-        expand_bytes(r_cap, cap, 4 * tested_entries(rk[0], rk[1])),
-        (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(rk[0], rk[1])))
+        expand_bytes(n_tab, cap, 4 * tested_entries(tab[0], tab[1])),
+        (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(tab[0], tab[1])))
     srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * tiles_y)
-    ent = (srt.key, rk[4], srt.idx_bits)
+    ent = (srt.key, tab[4], srt.idx_bits)
     frame_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=W, height=H, **bkw)
     out, ms = device_ms(torch, lambda: KB.blend_image_cuda(
         *ent, srt.starts, srt.counts, **frame_kw), 10)
@@ -2108,13 +2138,15 @@ def mono_tile_rows(torch, T, hl, tile, fr):
     return rows
 
 
-def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None):
+def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None, no_cutoff=False):
     """The kernels of the stereo frame (or, with ``fov`` = (target, tables),
     the foveated frame) at ``tile`` on its own tensors, each bit-equal to
     its plain version, the staged frame bit-equal to the frame function's;
     their kernel rows: the dual-eye projection, prep and the expand in
     mode "stereo" or "warped" (with the bounds gather), the dual-eye
-    blend (with pixel coordinates)."""
+    blend (with pixel coordinates); with ``no_cutoff`` also the dual-eye
+    blend without a cutoff on the same tensors (no frame launches it: its
+    row's launches are 0)."""
     import numpy as np
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
@@ -2151,7 +2183,8 @@ def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None):
                for f in ("px_min", "px_max", "py_min", "py_max"))
     if ferr > 1e-3:
         raise RuntimeError(f"stereo_project.{tag}: pixel bounds max |d| {ferr}")
-    if fov is None or tile != (32, 16):  # 32x16 stands in the stereo rows
+    # a stereo frame's row stands for the foveated frame's at its tile
+    if fov is None or tile not in TILE_STEREO + (ODD_TILE,):
         rows.append(kernel_row(
             f"stereo_project.{tag}", "stereo_project",
             launches["stereo_project"], ms, plain_ms, ferr,
@@ -2233,6 +2266,22 @@ def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None):
         f"blend.{kind}.{tag}", "blend", launches["blend"], ms, plain_ms, 0.0,
         blend_bytes(torch, KB, ent, srt.starts, processed, 7, 2 * pw * ph)
         + (0 if coords is None else (tiles_x + tiles_y) * tw * th * 4), flops))
+    if no_cutoff:
+        name = f"blend.{kind}_no_cutoff.{tag}"
+        kw0 = dict(frame_kw, r2_cutoff=0.0)
+        out0, ms = device_ms(torch, lambda: KB.blend_image_cuda(
+            *ent, srt.starts, srt.counts, **kw0), 10)
+        plain_ms, done = blend_rows_check(
+            torch, KB, name, ent, srt.starts, srt.counts, out0,
+            dict(r2_cutoff=0.0, pixel_coords=coords), tiles_x=tiles_x,
+            tiles_y=tiles_y, width=pw, height=ph, tile_w=tw, tile_h=th,
+            n_eyes=2)
+        records = float(done.sum())
+        rows.append(kernel_row(
+            name, "blend", 0, ms, plain_ms, 0.0,
+            blend_bytes(torch, KB, ent, srt.starts, done, 7, 2 * pw * ph)
+            + (0 if coords is None else (tiles_x + tiles_y) * tw * th * 4),
+            2 * (BLEND_DECODE_FLOPS + BLEND_PAIR_FLOPS * tw * th) * records))
     log(f"[tiles] {kind} {tag}: " + json.dumps(dict(
         slots=int(ek[2]), capacity=cap, live=int(srt.counts.sum()),
         records_composited=float(processed.sum()), pairs_within_cutoff=inside,
@@ -2240,12 +2289,13 @@ def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None):
     return rows
 
 
-def full_rect_rows(torch, T, hl, hwf, glf):
-    """The full-rect frames at 32x16 on their own tensors: the Hardware
+def full_rect_rows(torch, T, hl, hwf, glf, tile=(32, 16)):
+    """The full-rect frames at ``tile`` on their own tensors: the Hardware
     frame's prep and expand in mode "none" and its one-eye cutoff blend
-    with normalized depth, and the Global frame's expand in mode "none"
-    over the d16 KeyPlan; each bit-equal to its plain version, the staged
-    frames bit-equal to the frame functions'; their kernel rows."""
+    with normalized depth, and (``glf`` not None) the Global frame's
+    expand in mode "none" over the d16 KeyPlan; each bit-equal to its
+    plain version, the staged frames bit-equal to the frame functions';
+    their kernel rows."""
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.kernels import project as KP
@@ -2253,7 +2303,8 @@ def full_rect_rows(torch, T, hl, hwf, glf):
     from gsm_renderer_tpu_torch.pipelines import common as PC
 
     n, cam, cfg = hl["n"], hl["cam"], hl["cfg"]
-    tw, th = 32, 16
+    tw, th = tile
+    tag = f"{tw}x{th}"
     tiles_x, tiles_y = -(-W // tw), -(-H // th)
     comp, harm = KP.cached_projection_inputs(hl["gi"], 3)
     args = (comp, harm, cam.view_matrix, cam.projection_matrix, cam.position)
@@ -2272,13 +2323,14 @@ def full_rect_rows(torch, T, hl, hwf, glf):
         torch, "prep", lambda: KE.binning_prep_cuda(*prep_in, mode="none",
                                                     **bkw),
         lambda: KE.binning_prep_plain(*prep_in, mode="none", **bkw))
-    require_exact(torch, "prep.none.32x16", [(off, off_p)])
-    rows.append(kernel_row("prep.none.32x16", "prep",
+    require_exact(torch, f"prep.none.{tag}", [(off, off_p)])
+    rows.append(kernel_row(f"prep.none.{tag}", "prep",
                            hwf["launches"]["prep"], ms, plain_ms, 0.0,
                            3 * 4 * n + 4, 0.0))
-    for label, fr, p, words, dsw in (
-            ("expand.none.32x16", hwf, plan, pk.words, pk.dsw),
-            ("expand.none.d16_32", glf, None, None, None)):
+    full = [(f"expand.none.{tag}", hwf, plan, pk.words, pk.dsw)]
+    if glf is not None:
+        full.append(("expand.none.d16_32", glf, None, None, None))
+    for label, fr, p, words, dsw in full:
         if p is None:  # the Global frame: the half-depth key, its plan
             dk = KP.project_cuda(*args, key_plan=None, depth_key16=True, **pkw)
             p = PC.d16_key_plan(tiles_x * tiles_y, n)
@@ -2310,18 +2362,144 @@ def full_rect_rows(torch, T, hl, hwf, glf):
                                "function's")
         if hw:
             plain_ms, processed = blend_rows_check(
-                torch, KB, "blend.cutoff_normalized.32x16", ent, srt.starts,
+                torch, KB, f"blend.cutoff_normalized.{tag}", ent, srt.starts,
                 srt.counts, out, blend_kw, tiles_x=tiles_x, tiles_y=tiles_y,
                 width=W, height=H, tile_w=tw, tile_h=th)
             flops, _inside, _pairs = blend_cutoff_flops(
                 torch, KB, ent, srt.starts, processed, tiles_x=tiles_x,
                 r2_cutoff=9.0, n_eyes=1, tile_w=tw, tile_h=th)
             rows.append(kernel_row(
-                "blend.cutoff_normalized.32x16", "blend",
+                f"blend.cutoff_normalized.{tag}", "blend",
                 fr["launches"]["blend"], ms, plain_ms, 0.0,
                 blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * H),
                 flops))
     return rows
+
+
+def mono_tile_frame(torch, T, kernels, hl, tile):
+    """The mono frame function with rows at ``tile`` on the headline scene
+    (rows off where no KeyPlan addresses them): its capacities probed from
+    its slot and row totals, a frame loop with launch counts of its own
+    (:func:`fixed_frame_loop`), the rows-on frame bit-equal to rows off,
+    then :func:`mono_tile_rows`.  Returns (stats,
+    kernel rows, the rows-off frame and its capacity)."""
+    from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+
+    gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
+    tag = f"{tile[0]}x{tile[1]}"
+    kw = dict(sh_degree=3, alpha_threshold=cfg.alpha_threshold,
+              total_ink_threshold=cfg.total_ink_threshold,
+              near_plane=cam.near_plane, far_plane=cam.far_plane,
+              input_is_srgb=False, width=W, height=H, tile_w=tile[0],
+              tile_h=tile[1])
+    view = (cam.view_matrix, cam.projection_matrix, cam.position)
+    prepared = cached_projection_inputs(gi, 3)
+    run = lambda cap, rc=0: PD.depth_first_frame(
+        gi, *view, prepared, capacity=cap, row_capacity=rc, **kw)
+    probe = run(TILE_PROBE_SLOTS * -(-n // 4096) * 4096)
+    cap_off = fit_capacity(int(probe.header.slot_total))
+    row_cap = 1 << (2 * int(probe.header.row_total) - 1).bit_length()
+    # where no KeyPlan addresses the rows (7x5: 59,400 tiles), the frame
+    # function runs rows off, as JAX's does
+    if PD._mono_key_statics(n, row_capacity=row_cap, width=W, height=H,
+                            tile_w=tile[0], tile_h=tile[1],
+                            near_plane=cam.near_plane,
+                            far_plane=cam.far_plane) is None:
+        row_cap = 0
+    cap = fit_capacity(int(run(cap_off, row_cap).header.slot_total))
+    out, stats, launches = fixed_frame_loop(
+        torch, kernels, MONO_ROWS_PATH if row_cap else MONO_RECTS_PATH,
+        f"tiles {tag}", lambda: run(cap, row_cap))
+    off = run(cap_off)
+    if not (torch.equal(out.color, off.color)
+            and torch.equal(out.depth, off.depth)):
+        raise RuntimeError(f"tiles {tag}: rows-on frame differs from rows off")
+    stats.update(capacity=cap, row_capacity=row_cap,
+                 rows_off_slot_total=int(off.header.slot_total))
+    fr = dict(out=out, cap=cap, row_cap=row_cap, launches=launches)
+    return (stats, mono_tile_rows(torch, T, hl, tile, fr),
+            dict(off=off, cap_off=cap_off))
+
+
+def frame_statics(hl, tile) -> dict:
+    """The frame functions' keywords on the headline scene at ``tile``."""
+    cam, cfg = hl["cam"], hl["cfg"]
+    return dict(sh_degree=3, alpha_threshold=cfg.alpha_threshold,
+                total_ink_threshold=cfg.total_ink_threshold,
+                near_plane=cam.near_plane, far_plane=cam.far_plane,
+                input_is_srgb=False, tile_w=tile[0], tile_h=tile[1])
+
+
+def stereo_tile_frame(torch, T, kernels, hl, st, tile, fv=None,
+                      no_cutoff=False):
+    """The stereo frame function at ``tile`` on the headline scene and rig
+    (or, with ``fv`` phase 4f's result, the foveated frame at that tile): a
+    frame loop at a probed capacity with launch counts of its own, then
+    :func:`stereo_tile_rows`.  Returns (stats, kernel rows)."""
+    from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+
+    gi, n, cfg = hl["gi"], hl["n"], hl["cfg"]
+    tag = f"{tile[0]}x{tile[1]}"
+    prepared = cached_projection_inputs(gi, 3)
+    rig = PD._stereo_rig(st["stereo"])
+    kw = frame_statics(hl, tile)
+    fov = None
+    if fv is None:
+        label, path, split_frames = f"stereo {tag}", STEREO_PATH, 5
+        run = lambda cap: PD.depth_first_stereo_frame(
+            gi, *rig, prepared, capacity=cap, width=W, height=H, **kw)
+    else:
+        label, path, split_frames = f"foveated {tag}", FOVEATED_PATH, 2
+        target = fv["target"]
+        tables = PD.foveated_device_tables(target, gi.positions.device, *tile)
+        fov = (target, tables)
+        run = lambda cap: PD.depth_first_stereo_foveated_frame(
+            gi, *rig, tables, prepared, capacity=cap, display_width=W,
+            display_height=H, render_width=target.render_width,
+            render_height=target.render_height,
+            foveated_lod=cfg.foveated_lod, **kw)
+    cap = probed_capacity(run, n)
+    out, stats, launches = fixed_frame_loop(
+        torch, kernels, path, label, lambda: run(cap), halves=2,
+        split_frames=split_frames)
+    stats["capacity"] = cap
+    return stats, stereo_tile_rows(
+        torch, T, hl, st, tile, dict(out=out, cap=cap, launches=launches),
+        fov=fov, no_cutoff=no_cutoff)
+
+
+def full_rect_frames(torch, T, kernels, hl, tile, with_global):
+    """The Hardware frame function at ``tile`` (and, ``with_global``,
+    ``global_frame(exact_tile_test=False)``) on the headline scene: frame
+    loops at probed capacities with launch counts of their own, then
+    :func:`full_rect_rows`.  Returns (stats by frame, kernel rows)."""
+    from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
+    from gsm_renderer_tpu_torch.pipelines.global_ import global_frame
+    from gsm_renderer_tpu_torch.pipelines.hardware import hardware_frame
+
+    gi, cam, n = hl["gi"], hl["cam"], hl["n"]
+    prepared = cached_projection_inputs(gi, 3)
+    view = (cam.view_matrix, cam.projection_matrix, cam.position)
+    kw = dict(frame_statics(hl, tile), width=W, height=H)
+    tag = f"{tile[0]}x{tile[1]}"
+    runs = [(f"hardware_{tag}", lambda cap: hardware_frame(
+        gi, *view, prepared, capacity=cap, **kw))]
+    if with_global:
+        runs.append(("global_no_exact_test", lambda cap: global_frame(
+            gi, *view, prepared, capacity=cap, exact_tile_test=False, **kw)))
+    frames, full = {}, {}
+    for label, run in runs:
+        cap = probed_capacity(run, n)
+        out, stats, launches = fixed_frame_loop(
+            torch, kernels, HARDWARE_PATH, label,
+            lambda cap=cap, run=run: run(cap))
+        stats["capacity"] = cap
+        frames[label] = stats
+        full[label] = dict(out=out, cap=cap, launches=launches)
+    return frames, full_rect_rows(torch, T, hl, full[f"hardware_{tag}"],
+                                  full.get("global_no_exact_test"), tile)
 
 
 def phase_tiles(torch, T, kernels, hl, st, fv, real):
@@ -2339,97 +2517,34 @@ def phase_tiles(torch, T, kernels, hl, st, fv, real):
     from gsm_renderer_tpu_torch.ops import binning as OB
     from gsm_renderer_tpu_torch.pipelines import common as PC
     from gsm_renderer_tpu_torch.pipelines import depth_first as PD
-    from gsm_renderer_tpu_torch.pipelines.global_ import global_frame
-    from gsm_renderer_tpu_torch.pipelines.hardware import hardware_frame
 
     t0 = time.perf_counter()
-    gi, cam, n, cfg = hl["gi"], hl["cam"], hl["n"], hl["cfg"]
-    prepared = cached_projection_inputs(gi, 3)
-    view = (cam.view_matrix, cam.projection_matrix, cam.position)
+    n, cfg = hl["n"], hl["cfg"]
     statics = dict(sh_degree=3, alpha_threshold=cfg.alpha_threshold,
                    total_ink_threshold=cfg.total_ink_threshold,
-                   near_plane=cam.near_plane, far_plane=cam.far_plane,
                    input_is_srgb=False)
     frames, rows, tiles8 = {}, [], None
 
     for tile in TILE_MONO:
-        tag = f"{tile[0]}x{tile[1]}"
-        kw = dict(statics, width=W, height=H, tile_w=tile[0], tile_h=tile[1])
-        run = lambda cap, rc=0, kw=kw: PD.depth_first_frame(
-            gi, *view, prepared, capacity=cap, row_capacity=rc, **kw)
-        probe = run(TILE_PROBE_SLOTS * -(-n // 4096) * 4096)
-        cap_off = fit_capacity(int(probe.header.slot_total))
-        row_cap = 1 << (2 * int(probe.header.row_total) - 1).bit_length()
-        cap = fit_capacity(int(run(cap_off, row_cap).header.slot_total))
-        out, stats, launches = fixed_frame_loop(
-            torch, kernels, MONO_ROWS_PATH, f"tiles {tag}",
-            lambda cap=cap, row_cap=row_cap, run=run: run(cap, row_cap))
-        off = run(cap_off)
-        if not (torch.equal(out.color, off.color)
-                and torch.equal(out.depth, off.depth)):
-            raise RuntimeError(f"tiles {tag}: rows-on frame differs from "
-                               "rows off")
-        stats.update(capacity=cap, row_capacity=row_cap,
-                     rows_off_slot_total=int(off.header.slot_total))
-        frames[f"mono_{tag}"] = stats
-        fr = dict(out=out, cap=cap, row_cap=row_cap, launches=launches)
-        rows += mono_tile_rows(torch, T, hl, tile, fr)
+        stats, mono_rows, off = mono_tile_frame(torch, T, kernels, hl, tile)
+        frames[f"mono_{tile[0]}x{tile[1]}"] = stats
+        rows += mono_rows
         if tile == (8, 8):
-            tiles8 = dict(off=off, cap_off=cap_off)
+            tiles8 = off
 
-    rig = PD._stereo_rig(st["stereo"])
     for tile in TILE_STEREO:
-        tag = f"{tile[0]}x{tile[1]}"
-        kw = dict(statics, width=W, height=H, tile_w=tile[0], tile_h=tile[1])
-        run = lambda cap, kw=kw: PD.depth_first_stereo_frame(
-            gi, *rig, prepared, capacity=cap, **kw)
-        cap = probed_capacity(run, n)
-        out, stats, launches = fixed_frame_loop(
-            torch, kernels, STEREO_PATH, f"stereo {tag}",
-            lambda cap=cap, run=run: run(cap), halves=2)
-        stats["capacity"] = cap
-        frames[f"stereo_{tag}"] = stats
-        rows += stereo_tile_rows(torch, T, hl, st, tile,
-                                 dict(out=out, cap=cap, launches=launches))
-
-    target = fv["target"]
+        stats, stereo_rows = stereo_tile_frame(torch, T, kernels, hl, st, tile)
+        frames[f"stereo_{tile[0]}x{tile[1]}"] = stats
+        rows += stereo_rows
     for tile in TILE_FOVEATED:
-        tag = f"{tile[0]}x{tile[1]}"
-        tables = PD.foveated_device_tables(target, gi.positions.device, *tile)
-        kw = dict(statics, display_width=W, display_height=H,
-                  render_width=target.render_width,
-                  render_height=target.render_height, tile_w=tile[0],
-                  tile_h=tile[1], foveated_lod=cfg.foveated_lod)
-        run = lambda cap, kw=kw, tables=tables: (
-            PD.depth_first_stereo_foveated_frame(gi, *rig, tables, prepared,
-                                                 capacity=cap, **kw))
-        cap = probed_capacity(run, n)
-        out, stats, launches = fixed_frame_loop(
-            torch, kernels, FOVEATED_PATH, f"foveated {tag}",
-            lambda cap=cap, run=run: run(cap), halves=2, split_frames=2)
-        stats["capacity"] = cap
-        frames[f"foveated_{tag}"] = stats
-        rows += stereo_tile_rows(torch, T, hl, st, tile,
-                                 dict(out=out, cap=cap, launches=launches),
-                                 fov=(target, tables))
-
-    full = {}
-    kw = dict(statics, width=W, height=H, tile_w=32, tile_h=16)
-    for label, run in (
-            ("hardware_32x16", lambda cap: hardware_frame(
-                gi, *view, prepared, capacity=cap, **kw)),
-            ("global_no_exact_test", lambda cap: global_frame(
-                gi, *view, prepared, capacity=cap, exact_tile_test=False,
-                **kw))):
-        cap = probed_capacity(run, n)
-        out, stats, launches = fixed_frame_loop(
-            torch, kernels, HARDWARE_PATH, label,
-            lambda cap=cap, run=run: run(cap))
-        stats["capacity"] = cap
-        frames[label] = stats
-        full[label] = dict(out=out, cap=cap, launches=launches)
-    rows += full_rect_rows(torch, T, hl, full["hardware_32x16"],
-                           full["global_no_exact_test"])
+        stats, fov_rows = stereo_tile_frame(torch, T, kernels, hl, st, tile,
+                                            fv=fv)
+        frames[f"foveated_{tile[0]}x{tile[1]}"] = stats
+        rows += fov_rows
+    full, full_rows = full_rect_frames(torch, T, kernels, hl, (32, 16),
+                                       with_global=True)
+    frames.update(full)
+    rows += full_rows
 
     rgi, rcam = real["gi"], real["cam"]
     rkw = dict(statics, width=W, height=H, near_plane=rcam.near_plane,
@@ -2472,6 +2587,155 @@ def phase_tiles(torch, T, kernels, hl, st, fv, real):
     log("[tiles] " + json.dumps({"tile_frames": frames,
                                  "seconds": time.perf_counter() - t0}))
     return rows, tiles8
+
+
+def d16_tile_rows(torch, T, hl, tile, fr, local):
+    """The kernels of the Global frame (``local``: the Local frame) at
+    ``tile`` on its own tensors: the projection with the half-depth key,
+    prep and the expand over the d16 KeyPlan, and the blend (weighted
+    depth; Local: first_hit depth over counts clamped at its
+    ``max_per_tile``), each bit-equal to its plain version, the staged
+    frame bit-equal to the frame function's; their kernel rows."""
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.kernels import project as KP
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    tw, th = tile
+    tag = f"{tw}x{th}"
+    n, cam, cfg, launches = hl["n"], hl["cam"], hl["cfg"], fr["launches"]
+    tiles_x, tiles_y = -(-W // tw), -(-H // th)
+    comp, harm = KP.cached_projection_inputs(hl["gi"], 3)
+    args = (comp, harm, cam.view_matrix, cam.projection_matrix, cam.position)
+    pkw = dict(width=W, height=H, tile_w=tw, tile_h=th, sh_degree=3,
+               near_plane=cam.near_plane, far_plane=cam.far_plane,
+               alpha_threshold=cfg.alpha_threshold,
+               total_ink_threshold=cfg.total_ink_threshold,
+               input_is_srgb=False, key_plan=None, depth_key16=True)
+    rows = []
+    dk, ms, dp, plain_ms = timed_pair(
+        torch, "project", lambda: KP.project_cuda(*args, **pkw),
+        lambda: KP.project_plain(*args, **pkw))
+    require_exact(torch, f"project.d16.{tag}", [
+        (dk.rect_word, dp.rect_word), (dk.rect_h, dp.rect_h),
+        (dk.dsw, dp.dsw), (dk.visible, dp.visible)]
+        + list(zip(dk.words, dp.words)))
+    rows.append(kernel_row(f"project.d16.{tag}", "project",
+                           launches["project"], ms, plain_ms, 0.0,
+                           (11 + harm.shape[0]) * 4 * n + (7 * 4 + 1) * n,
+                           PROJECT_FLOPS * n))
+    bkw = dict(tile_w=tw, tile_h=th)
+    prep_in = (dk.rect_word, dk.rect_h, dk.words)
+    (off, rect, mask), ms, prep_p, plain_ms = timed_pair(
+        torch, "prep", lambda: KE.binning_prep_cuda(*prep_in, **bkw),
+        lambda: KE.binning_prep_plain(*prep_in, **bkw))
+    require_exact(torch, f"prep.d16.{tag}", list(zip((off, rect, mask),
+                                                     prep_p)))
+    rows.append(kernel_row(
+        f"prep.d16.{tag}", "prep", launches["prep"], ms, plain_ms, 0.0,
+        (6 + 3) * 4 * n + 4,
+        PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(dk.rect_word,
+                                                             dk.rect_h)))
+    plan = PC.d16_key_plan(tiles_x * tiles_y, n)
+    ekw = dict(capacity=fr["cap"], tiles_x=tiles_x, key_plan=plan, **bkw)
+    exp_in = (off, rect, mask, dk.dsw, dk.words)
+    ek, ms, ep, plain_ms = timed_pair(
+        torch, "expand", lambda: KE.expand_slots_cuda(*exp_in, **ekw),
+        lambda: KE.expand_slots_plain(*exp_in, **ekw))
+    require_exact(torch, f"expand.d16.{tag}", list(zip(ek, ep)))
+    rows.append(kernel_row(
+        f"expand.d16.{tag}", "expand", launches["expand"], ms, plain_ms, 0.0,
+        expand_bytes(n, fr["cap"], 4 * tested_entries(off, rect)),
+        (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(off, rect)))
+    srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * tiles_y)
+    counts = srt.counts
+    if local:
+        counts = torch.clamp(counts, max=T.config.LOCAL_MAX_PER_TILE)
+    mode = "first_hit" if local else "weighted"
+    name = f"blend.{'first_hit' if local else 'global'}.{tag}"
+    ent = (srt.key, dk.words, srt.idx_bits)
+    frame_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=W, height=H,
+                    depth_mode=mode, **bkw)
+    out, ms = device_ms(torch, lambda: KB.blend_image_cuda(
+        *ent, srt.starts, counts, **frame_kw), 10)
+    if not (torch.equal(out[0], fr["out"].color)
+            and torch.equal(out[1], fr["out"].depth)):
+        raise RuntimeError(f"{name}: staged frame differs from the frame "
+                           "function's")
+    plain_ms, processed = blend_rows_check(
+        torch, KB, name, ent, srt.starts, counts, out, dict(depth_mode=mode),
+        tiles_x=tiles_x, tiles_y=tiles_y, width=W, height=H, tile_w=tw,
+        tile_h=th)
+    rows.append(kernel_row(
+        name, "blend", launches["blend"], ms, plain_ms, 0.0,
+        blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * H),
+        BLEND_DECODE_FLOPS * float(processed.sum())
+        + BLEND_PAIR_FLOPS * float(tw * th) * float(processed.sum())))
+    return rows
+
+
+def d16_tile_frame(torch, T, kernels, hl, tile, local):
+    """``global_frame`` (``local``: ``local_frame``) at ``tile`` on the
+    headline scene: a frame loop at a probed capacity with launch counts of
+    its own, then :func:`d16_tile_rows`.  Returns (stats, kernel rows)."""
+    from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
+    from gsm_renderer_tpu_torch.pipelines.global_ import global_frame
+    from gsm_renderer_tpu_torch.pipelines.local import local_frame
+
+    gi, cam, n = hl["gi"], hl["cam"], hl["n"]
+    prepared = cached_projection_inputs(gi, 3)
+    view = (cam.view_matrix, cam.projection_matrix, cam.position)
+    kw = dict(frame_statics(hl, tile), width=W, height=H)
+    frame = local_frame if local else global_frame
+    run = lambda cap: frame(gi, *view, prepared, capacity=cap, **kw)
+    cap = probed_capacity(run, n)
+    label = f"{'local' if local else 'global'} {tile[0]}x{tile[1]}"
+    out, stats, launches = fixed_frame_loop(torch, kernels, MONO_RECTS_PATH,
+                                            label, lambda: run(cap))
+    stats["capacity"] = cap
+    return stats, d16_tile_rows(torch, T, hl, tile,
+                                dict(out=out, cap=cap, launches=launches),
+                                local)
+
+
+def phase_odd_tiles(torch, T, kernels, hl, st, fv):
+    """Phase 4o: the frame functions at tile sides that are not powers of
+    two, at full width on the headline scene: the mono frame with rows at
+    every ODD_MONO tile (bit-equal to rows off; 64x64 takes the blend's
+    cluster of two CTAs), the stereo frame at ODD_TILE with the two-eye
+    blend without a cutoff on its tensors, the foveated, Hardware and
+    Local frames at ODD_TILE, and the Global frame at ODD_GLOBAL.  Each
+    frame at a capacity probed from its slot total, with launch counts of
+    its own, the frame gate, its split and trace; then each kernel mode on
+    its tensors against its plain version.  Returns (kernel rows, the
+    ODD_TILE rows-off frame for phase 4m)."""
+    t0 = time.perf_counter()
+    frames, rows, odd = {}, [], None
+    for tile in ODD_MONO:
+        stats, mono_rows, off = mono_tile_frame(torch, T, kernels, hl, tile)
+        frames[f"mono_{tile[0]}x{tile[1]}"] = stats
+        rows += mono_rows
+        if tile == ODD_TILE:
+            odd = off
+    tag = f"{ODD_TILE[0]}x{ODD_TILE[1]}"
+    stats, more = stereo_tile_frame(torch, T, kernels, hl, st, ODD_TILE,
+                                    no_cutoff=True)
+    frames[f"stereo_{tag}"] = stats
+    rows += more
+    stats, more = stereo_tile_frame(torch, T, kernels, hl, st, ODD_TILE, fv=fv)
+    frames[f"foveated_{tag}"] = stats
+    rows += more
+    full, more = full_rect_frames(torch, T, kernels, hl, ODD_TILE,
+                                  with_global=False)
+    frames.update(full)
+    rows += more
+    for tile, local in ((ODD_TILE, True), (ODD_GLOBAL, False)):
+        stats, more = d16_tile_frame(torch, T, kernels, hl, tile, local)
+        frames[f"{'local' if local else 'global'}_{tile[0]}x{tile[1]}"] = stats
+        rows += more
+    log("[odd tiles] " + json.dumps({"tile_frames": frames,
+                                     "seconds": time.perf_counter() - t0}))
+    return rows, odd
 
 
 def phase_kernels(torch, T, hl, st, fv, d16, hw):
@@ -3417,7 +3681,18 @@ def phase_small(torch, T):
                     target, gi.positions.device, 8, 8), display_width=w,
                 display_height=h, render_width=target.render_width,
                 render_height=target.render_height, tile_w=8, tile_h=8,
-                **kw))):
+                **kw)),
+            # tile sides that are not powers of two (phase 4o's kernels)
+            ("tiles 7x5 rows", lambda gi: PD.depth_first_frame(
+                gi, *view, width=w, height=h, tile_w=7, tile_h=5,
+                row_capacity=1 << 17, **kw)),
+            ("tiles 24x24 rows", lambda gi: PD.depth_first_frame(
+                gi, *view, width=w, height=h, tile_w=24, tile_h=24,
+                row_capacity=1 << 16, **kw)),
+            ("global 48x16", lambda gi: global_frame(
+                gi, *view, width=w, height=h, tile_w=48, tile_h=16, **kw)),
+            ("stereo 24x24", lambda gi: PD.depth_first_stereo_frame(
+                gi, *rig, width=w, height=h, tile_w=24, tile_h=24, **kw))):
         small_compare(label, fn(gi_g), fn(gi_c))
 
 
@@ -3521,11 +3796,18 @@ def main() -> int:
         tile_rows, tiles8 = phase_tiles(torch, T, kernels, hl, st, fv, real)
         log(f"[tiles] phase 4t took {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
-        band_rows, band_other = phase_multichip(torch, T, kernels, hl, tiles8)
+        odd_rows, odd = phase_odd_tiles(torch, T, kernels, hl, st, fv)
+        tile_rows += odd_rows
+        log(f"[odd tiles] phase 4o took {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        band_rows, band_other = phase_multichip(torch, T, kernels, hl, tiles8,
+                                                odd)
         phase_fallback(torch, T, kernels, hl)
         log(f"[multichip, fallback] phases 4m and 4s took "
             f"{time.perf_counter() - t1:.1f} s")
     rows, other = phase_kernels(torch, T, hl, st, fv, d16, hw)
+    if kernels_only:  # the 8x8 rows too (phase 4t's), for A/Bs of the tiles
+        tile_rows = mono_tile_frame(torch, T, kernels, hl, (8, 8))[1]
     rows, other = rows + band_rows + tile_rows, other + band_other
     from gsm_renderer_tpu_torch.pipelines.depth_first import foveated_device_tables
     bounds = foveated_device_tables(fv["target"],

@@ -1,7 +1,7 @@
 // Kernel 5: front-to-back tile blend, one CTA per tile of tile_w x tile_h
-// pixels (each side 8, 16 or 32: 16x16 in the DepthFirst, Local and
-// Hardware renderers, 32x16 in the Global one), one pixel a thread (two at
-// 32x32), writing the color and depth images directly (assemble fused,
+// pixels (each side 1 to 64: 16x16 in the DepthFirst, Local and Hardware
+// renderers, 32x16 in the Global one; a cluster of two to four CTAs above
+// 1024 pixels), writing the color and depth images directly (assemble fused,
 // ragged edge masked).  kEyes = 2 is the single-pass
 // dual-eye stereo blend: each entry carries both eyes' records (8 words:
 // left w0..w3, right w0..w3), each pixel keeps one accumulator and
@@ -11,10 +11,9 @@
 // Replaces the Pallas kernel gsm_renderer_tpu/kernels/blend.py::
 // _row_blend_kernel (blend_tiles_pallas, exponent_mode "vpu", depth modes
 // "weighted", "none", "first_hit" and "normalized", n_eyes 1 and 2,
-// r2_cutoff, pixel_coords, tile_row_offset, every tile of 8, 16 or 32
-// pixels a side) and the XLA assemble_image after it.  Every pairing of
-// eyes, cutoff, depth mode, pixel coordinates and tile takes the kernel,
-// except two eyes without a cutoff (no frame blends so).
+// r2_cutoff, pixel_coords, tile_row_offset, every tile of 1 to 64 pixels
+// a side) and the XLA assemble_image after it.  Every pairing of eyes,
+// cutoff, depth mode, pixel coordinates and tile takes the kernel.
 //
 // Records through the sorted keys: rank k of the sorted instance list is
 // entry g = key2(k) & (2^idx_bits - 1) (the KeyPlan index field, the low
@@ -62,9 +61,10 @@
 // only, never between rounds, so that its granularity stays the Pallas
 // chunk's whatever the tile (a band frame showed that the alignment of the
 // exit changes the image).  After each batch the tile stops once every
-// pixel's transmittance is below 1/255 in every eye (__syncthreads_or over
-// the larger of the eyes' transmittances): the Pallas kernel's tile-level
-// exit, which for two eyes waits until both saturate.  The plain version
+// pixel's transmittance is below 1/255 in every eye (__syncthreads_or of
+// "some pixel of the thread is not below it"; a NaN counts as not below, as
+// in the plain version): the Pallas kernel's tile-level exit, which for two
+// eyes waits until both saturate.  The plain version
 // (kernels/blend.py) applies the same rule.
 //
 // Design for the H100, and what each choice does (times: chip_smoke.py and
@@ -82,7 +82,9 @@
 //   and never loads the third float4.  A warp covers an 8x4 block of the
 //   tile, the most compact 32 pixels (8x8 at 32x32, two pixels a thread, 4
 //   rows apart), so that the test fires for as many warps as it can; an
-//   8-pixel-wide tile is one warp block wide.  The mono blends without a cutoff have no test: exact
+//   8-pixel-wide tile is one warp block wide.  In the general layout a
+//   warp covers 32 consecutive pixels of the tile in row-major order.
+//   The blends without a cutoff have no test: exact
 //   zeros are rare there, the vote and branch serialised the records, and
 //   without them the compiler overlaps consecutive records (the loop is
 //   latency-bound).
@@ -98,6 +100,21 @@
 //   are runtime arguments: they timed within the run-to-run spread of the
 //   previous 16x16 and 32x16 instances (PERF.md), and instances templated
 //   on the sides too (54) spilled a dual-eye 32x8 instance.
+// - Other tiles (a side that is not 8, 16 or 32; and two eyes without a
+//   cutoff at every tile) take the general layout (general_blend_kernel):
+//   pixels in row-major order, a CTA of the fewest warps that hold the
+//   tile at one pixel a thread, or two above 512 pixels (at most 512
+//   threads; 24x24 is 288 threads of two pixels, 7x5 two warps), idle
+//   lanes past the tile.  Above 1024 pixels (48x32 to 64x64) a tile is
+//   split over a cluster of two to four CTAs of up to 1024 pixels each,
+//   which share the tile's exit: each CTA votes at a batch end, writes its
+//   vote to shared memory, and after a cluster barrier reads its peers'
+//   through distributed shared memory, so they stop together, where the
+//   plain version's tile stops.  One CTA of four pixels a thread took
+//   about 80 registers (one eye) to 120 (two), a single 512-thread CTA an
+//   SM; a CTA of two pixels a thread holds the state of the 32x32
+//   instance (56 to 80 registers).  The general layout adds 24 instances (eyes x
+//   first_hit x cutoff x {one pixel, two, two in a cluster}).
 // - Gather latency.  The key and the words of the next batch's record are
 //   loaded into registers before the current batch is composited, and the
 //   key of the batch after that too, so the dependent key -> entry -> word
@@ -110,15 +127,30 @@
 // costs about 25 FP32 operations and one MUFU (exp), or 11 (dx, dy, u, v,
 // q) where the cutoff zeroes it; the records read are 8 B of key plus 16 B
 // of words per eye.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBatch = 256;  // records between early-exit checks
 constexpr int kBlock = 128;  // batch alignment (the Pallas chunk)
-// a warp covers a kWarpW x kWarpH block of the tile
+// a warp covers a kWarpW x kWarpH block of the tile (sides 8, 16, 32)
 constexpr int kWarpW = 8;
 constexpr int kWarpH = 32 / kWarpW;
+// the general layout: at most kGenThreads threads of at most two pixels a
+// CTA, so a CTA holds up to kCtaPix pixels of a tile; a larger tile (up to
+// kMaxPix, 64 x 64) is split over a cluster of up to kMaxCluster CTAs
+constexpr int kGenThreads = 512;
+constexpr int kCtaPix = 2 * kGenThreads;
+constexpr int kMaxPix = 4096;
+constexpr int kMaxCluster = kMaxPix / kCtaPix;
+static_assert(kMaxCluster <= 8, "a portable cluster holds at most 8 CTAs");
+
+// A side the 8x4-block instances take.
+inline bool block_side(int side) {
+  return side == 8 || side == 16 || side == 32;
+}
 // depth modes (gsm_blend's depth_mode)
 enum DepthMode {
   kDepthNone = 0,
@@ -153,47 +185,88 @@ __device__ __forceinline__ Rec decode_record(uint32_t a0, uint32_t a1,
 }
 
 // kCutoff: alpha zeroed where q > r2_cutoff, the warp test for exact zeros
-// (see the head comment).  kThreads threads a CTA, kPix = kThreads * kPPT
-// pixels a tile of tile_w x tile_h (runtime; tile_w * tile_h == kPix),
-// kPPT pixels a thread; the first kStage threads stage a round of records.
-// kFirstHit: first_hit depth in place of the weighted sum; depth_mode (a
-// DepthMode) picks what is written.  A CTA of 64 or 128 threads declares
-// the 256-thread bound: under its own, ptxas capped the first_hit instances
-// at 56 registers and spilled.
-template <int kEyes, int kThreads, int kPPT, bool kFirstHit, bool kCutoff>
-__global__ void __launch_bounds__(kThreads < kBatch ? kBatch : kThreads)
-blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
-             WordPtrs W, const int32_t* __restrict__ starts,
-             const int32_t* __restrict__ counts, int tiles_x, int tile_w,
-             int tile_h, int width, int height, int tile_row_offset,
-             int depth_mode, float theta_unit, float inv255,
-             float min_transmittance, float r2_cutoff,
-             const float* __restrict__ coord_x,
-             const float* __restrict__ coord_y,
-             float* __restrict__ color, float* __restrict__ depth) {
-  constexpr int kPix = kThreads * kPPT;
+// (see the head comment).  kFirstHit: first_hit depth in place of the
+// weighted sum; depth_mode (a DepthMode) picks what is written.
+//
+// Two pixel layouts.  kThreads > 0 (blend_kernel): a tile of 8, 16 or 32
+// pixels a side, kThreads threads a CTA, kPix = kThreads * kPPT pixels
+// (tile_w * tile_h == kPix), 8x4 warp blocks; the first kStage threads
+// stage a round of records.  kThreads == 0 (general_blend_kernel): any
+// tile of up to kMaxPix pixels: blockDim.x threads (a multiple of 32, at
+// most kGenThreads), pixel j of thread t is p = rank * blockDim.x * kPPT +
+// j * blockDim.x + t of the tile in row-major order (ly = p / tile_w, lx =
+// p % tile_w), rank the CTA's rank in the cluster that shares the tile
+// (kClustered; else 0); lanes past the tile's P pixels are idle: they
+// stage records, never write, and never hold the exit open (see kFar
+// below).  The largest power of two <= min(blockDim.x, kBatch) threads
+// stage a round.
+template <int kEyes, int kThreads, int kPPT, bool kFirstHit, bool kCutoff,
+          bool kClustered>
+__device__ __forceinline__ void blend_tile(
+    const uint32_t* __restrict__ key_words, uint32_t idx_mask,
+    const WordPtrs& W, const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ counts, int tiles_x, int tile_w, int tile_h,
+    int width, int height, int tile_row_offset, int depth_mode,
+    float theta_unit, float inv255, float min_transmittance, float r2_cutoff,
+    const float* __restrict__ coord_x, const float* __restrict__ coord_y,
+    float* __restrict__ color, float* __restrict__ depth) {
+  constexpr bool kGeneral = kThreads == 0;
   constexpr int kWords = 4 * kEyes;
-  constexpr int kStage = kThreads < kBatch ? kThreads : kBatch;
-  static_assert(kBatch % kStage == 0, "rounds tile a batch");
-  __shared__ Rec sr[kEyes][kStage];
+  constexpr int kStageMax = kGeneral || kThreads >= kBatch ? kBatch : kThreads;
+  static_assert(kGeneral || !kClustered, "clusters take the general layout");
+  __shared__ Rec sr[kEyes][kStageMax];
 
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_x, ty = tile / tiles_x;
   const int t = threadIdx.x;
-  const int warp = t / 32, lane = t % 32;
-  // a warp covers kWarpW x (kWarpH * kPPT) pixels: pixel j of the thread
-  // sits kWarpH * j rows below its first
-  const int wpr = tile_w / kWarpW;  // warps a row of warp blocks
-  const int lx = (warp % wpr) * kWarpW + lane % kWarpW;
-  const int ly0 = (warp / wpr) * (kWarpH * kPPT) + lane / kWarpW;
-  float pxf[kPPT], pyf[kPPT];
+  const int threads = kGeneral ? static_cast<int>(blockDim.x) : kThreads;
+  int stage = kStageMax;
+  if constexpr (kGeneral) {
+    while (stage > threads) stage >>= 1;
+  }
+  namespace cg = cooperative_groups;
+  int tile = blockIdx.x, rank = 0, peers = 1;
+  if constexpr (kClustered) {
+    const cg::cluster_group cluster = cg::this_cluster();
+    peers = static_cast<int>(cluster.num_blocks());
+    rank = static_cast<int>(cluster.block_rank());
+    tile = blockIdx.x / peers;
+  }
+  const int tx = tile % tiles_x, ty = tile / tiles_x;
+  const int pix = tile_w * tile_h;
+  // pixel j of the thread: its place (lx, ly) in the tile; whether it lies
+  // in the tile (the general layout's lanes past the tile are idle)
+  auto place = [&](int j, int* lx, int* ly) -> bool {
+    if constexpr (kGeneral) {
+      const int p = (rank * kPPT + j) * threads + t;
+      *ly = p / tile_w;
+      *lx = p - *ly * tile_w;
+      return p < pix;
+    } else {
+      // a warp covers kWarpW x (kWarpH * kPPT) pixels: pixel j of the
+      // thread sits kWarpH * j rows below its first
+      const int warp = t / 32, lane = t % 32;
+      const int wpr = tile_w / kWarpW;  // warps a row of warp blocks
+      *lx = (warp % wpr) * kWarpW + lane % kWarpW;
+      *ly = (warp / wpr) * (kWarpH * kPPT) + lane / kWarpW + kWarpH * j;
+      return true;
+    }
+  };
+  // An idle lane evaluates every record at a point kFar pixels away: its q
+  // is +inf (the linear forms' coefficients are at most 1e4, the means
+  // f16), so its alpha is exactly 0 and it lies outside every cutoff; its
+  // transmittance starts at 0, so it never holds the tile's exit open.
+  constexpr float kFar = 1e30f;
+  float pxf[kPPT], pyf[kPPT], trans0[kPPT];
 #pragma unroll
   for (int j = 0; j < kPPT; ++j) {
-    const int ly = ly0 + kWarpH * j;
-    if (coord_x != nullptr) {
+    int lx, ly;
+    const bool live = place(j, &lx, &ly);
+    trans0[j] = live ? 1.0f : 0.0f;
+    if (!live) {
+      pxf[j] = pyf[j] = kFar;
+    } else if (coord_x != nullptr) {
       const int p = ly * tile_w + lx;
-      pxf[j] = coord_x[static_cast<size_t>(tx) * kPix + p];
-      pyf[j] = coord_y[static_cast<size_t>(ty) * kPix + p];
+      pxf[j] = coord_x[static_cast<size_t>(tx) * pix + p];
+      pyf[j] = coord_y[static_cast<size_t>(ty) * pix + p];
     } else {
       pxf[j] = static_cast<float>(lx) + static_cast<float>(tx * tile_w);
       pyf[j] = static_cast<float>(ly) +
@@ -210,7 +283,7 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
   for (int e = 0; e < kEyes; ++e) {
 #pragma unroll
     for (int j = 0; j < kPPT; ++j) {
-      trans[e][j] = 1.0f;
+      trans[e][j] = trans0[j];
       acc_r[e][j] = acc_g[e][j] = acc_b[e][j] = acc_d[e][j] = 0.0f;
       hit[e][j] = false;
     }
@@ -221,7 +294,7 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
   // entry index in its low bits).
   auto entry_at = [&](int b0) -> int {
     const int s = b0 + t;
-    return (t < kStage && s >= start && s < end)
+    return (t < stage && s >= start && s < end)
                ? static_cast<int>(key_words[2 * static_cast<size_t>(s)] & idx_mask)
                : -1;
   };
@@ -235,12 +308,17 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
     }
   };
 
+  // the cluster's exit votes, one slot a batch parity (a CTA reads its
+  // peers' slot of this batch before any CTA can pass the next barrier and
+  // write that slot again)
+  __shared__ int vote[2];
+  int parity = 0;
   const int base = (start / kBlock) * kBlock;
   int g = entry_at(base);
-  int g_next = entry_at(base + kStage);
+  int g_next = entry_at(base + stage);
   fetch(g);
-  for (int b0 = base; b0 < end; b0 += kStage) {
-    const int lo = max(b0, start) - b0, hi = min(b0 + kStage, end) - b0;
+  for (int b0 = base; b0 < end; b0 += stage) {
+    const int lo = max(b0, start) - b0, hi = min(b0 + stage, end) - b0;
     if (g >= 0) {
 #pragma unroll
       for (int e = 0; e < kEyes; ++e) {
@@ -252,7 +330,7 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
     // the next round's words (its key arrived during this one) and the key
     // of the round after it, in flight while this round is composited
     g = g_next;
-    g_next = entry_at(b0 + 2 * kStage);
+    g_next = entry_at(b0 + 2 * stage);
     fetch(g);
 
     for (int k = lo; k < hi; ++k) {
@@ -300,23 +378,41 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
     }
     // barrier (also protects the shared round); at the end of each batch
     // of kBatch records the tile-level early exit
-    if (kStage < kBatch && (b0 + kStage - base) % kBatch != 0) {
+    if (stage < kBatch && (b0 + stage - base) % kBatch != 0) {
       __syncthreads();
       continue;
     }
-    float tmax = trans[0][0];
+    bool open = false;  // a pixel of the thread not below the exit
 #pragma unroll
     for (int e = 0; e < kEyes; ++e) {
 #pragma unroll
-      for (int j = 0; j < kPPT; ++j) tmax = jmax(tmax, trans[e][j]);
+      for (int j = 0; j < kPPT; ++j) {
+        open = open || !(trans[e][j] < min_transmittance);
+      }
     }
-    if (!__syncthreads_or(tmax >= min_transmittance)) break;
+    int any_open = __syncthreads_or(open);
+    if constexpr (kClustered) {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (t == 0) vote[parity] = any_open;
+      cluster.sync();
+      for (int r = 0; r < peers; ++r) {
+        any_open |= *cluster.map_shared_rank(&vote[parity], r);
+      }
+      parity ^= 1;
+    }
+    if (!any_open) break;
+  }
+  if constexpr (kClustered) {
+    // no CTA leaves while a peer may still read its votes
+    cg::this_cluster().sync();
   }
 
 #pragma unroll
   for (int j = 0; j < kPPT; ++j) {
-    const int x = tx * tile_w + lx, y = ty * tile_h + ly0 + kWarpH * j;
-    if (x < width && y < height) {
+    int lx, ly;
+    const bool live = place(j, &lx, &ly);
+    const int x = tx * tile_w + lx, y = ty * tile_h + ly;
+    if (live && x < width && y < height) {
 #pragma unroll
       for (int e = 0; e < kEyes; ++e) {
         const size_t p =
@@ -337,56 +433,137 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
   }
 }
 
+// The 8x4-block entry: the bound of its own CTA, 256 for the smaller ones
+// (under their own, ptxas capped the 128-thread first_hit instances at 56
+// registers and spilled).
+template <int kEyes, int kThreads, int kPPT, bool kFirstHit, bool kCutoff>
+__global__ void __launch_bounds__(kThreads < kBatch ? kBatch : kThreads)
+blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
+             WordPtrs W, const int32_t* __restrict__ starts,
+             const int32_t* __restrict__ counts, int tiles_x, int tile_w,
+             int tile_h, int width, int height, int tile_row_offset,
+             int depth_mode, float theta_unit, float inv255,
+             float min_transmittance, float r2_cutoff,
+             const float* __restrict__ coord_x,
+             const float* __restrict__ coord_y,
+             float* __restrict__ color, float* __restrict__ depth) {
+  blend_tile<kEyes, kThreads, kPPT, kFirstHit, kCutoff, false>(
+      key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h, width,
+      height, tile_row_offset, depth_mode, theta_unit, inv255,
+      min_transmittance, r2_cutoff, coord_x, coord_y, color, depth);
+}
+
+// The general-layout entry.  It declares one CTA an SM as its minimum:
+// with the 512-thread bound alone ptxas held some two-pixel instances to
+// 64 registers and spilled.
+template <int kEyes, int kPPT, bool kFirstHit, bool kCutoff, bool kClustered>
+__global__ void __launch_bounds__(kGenThreads, 1)
+general_blend_kernel(const uint32_t* __restrict__ key_words,
+                     uint32_t idx_mask, WordPtrs W,
+                     const int32_t* __restrict__ starts,
+                     const int32_t* __restrict__ counts, int tiles_x,
+                     int tile_w, int tile_h, int width, int height,
+                     int tile_row_offset, int depth_mode, float theta_unit,
+                     float inv255, float min_transmittance, float r2_cutoff,
+                     const float* __restrict__ coord_x,
+                     const float* __restrict__ coord_y,
+                     float* __restrict__ color, float* __restrict__ depth) {
+  blend_tile<kEyes, 0, kPPT, kFirstHit, kCutoff, kClustered>(
+      key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h, width,
+      height, tile_row_offset, depth_mode, theta_unit, inv255,
+      min_transmittance, r2_cutoff, coord_x, coord_y, color, depth);
+}
+
 using BlendFn = decltype(&blend_kernel<1, 256, 1, false, false>);
 
-// The instance for a tile of kPix pixels: a thread a pixel up to 512 pixels
-// (64 to 512 threads), and 512 threads of two pixels each at 32x32 (1024
-// threads a CTA would leave a thread 64 registers); *threads its CTA size.
+// A launch: the kernel, its CTA size and the CTAs a tile.
+struct BlendLaunch {
+  BlendFn kernel;
+  int threads, cluster;
+};
+
+// The 8x4-block instance for a tile of kPix pixels: a thread a pixel up to
+// 512 pixels (64 to 512 threads), and 512 threads of two pixels each at
+// 32x32 (1024 threads a CTA would leave a thread 64 registers).
 template <int kEyes, int kPix, bool kFirstHit, bool kCutoff>
-BlendFn blend_for(int* threads) {
+BlendLaunch blend_for() {
   constexpr int kPPT = kPix > 512 ? kPix / 512 : 1;
-  *threads = kPix / kPPT;
-  return blend_kernel<kEyes, kPix / kPPT, kPPT, kFirstHit, kCutoff>;
+  return {blend_kernel<kEyes, kPix / kPPT, kPPT, kFirstHit, kCutoff>,
+          kPix / kPPT, 1};
 }
 
 template <int kEyes, bool kFirstHit, bool kCutoff>
-BlendFn pick_pixels(int pix, int* threads) {
+BlendLaunch pick_pixels(int pix) {
   switch (pix) {
-    case 64: return blend_for<kEyes, 64, kFirstHit, kCutoff>(threads);
-    case 128: return blend_for<kEyes, 128, kFirstHit, kCutoff>(threads);
-    case 256: return blend_for<kEyes, 256, kFirstHit, kCutoff>(threads);
-    case 512: return blend_for<kEyes, 512, kFirstHit, kCutoff>(threads);
-    default: return blend_for<kEyes, 1024, kFirstHit, kCutoff>(threads);
+    case 64: return blend_for<kEyes, 64, kFirstHit, kCutoff>();
+    case 128: return blend_for<kEyes, 128, kFirstHit, kCutoff>();
+    case 256: return blend_for<kEyes, 256, kFirstHit, kCutoff>();
+    case 512: return blend_for<kEyes, 512, kFirstHit, kCutoff>();
+    default: return blend_for<kEyes, 1024, kFirstHit, kCutoff>();
   }
 }
 
-// The kernel of a launch: two eyes take a cutoff (checked by the caller).
-BlendFn pick_blend(bool two, bool first_hit, bool cutoff, int pix,
-                   int* threads) {
+// The general-layout launch for a tile of pix pixels (<= kMaxPix): the
+// fewest CTAs of at most kCtaPix pixels each (a cluster when more than
+// one), each taking one pixel a thread up to kGenThreads pixels and two
+// above, in the fewest warps that hold its share.
+template <int kEyes, bool kFirstHit, bool kCutoff>
+BlendLaunch pick_general(int pix) {
+  const int cluster = (pix + kCtaPix - 1) / kCtaPix;
+  const int share = (pix + cluster - 1) / cluster;
+  const int ppt = share <= kGenThreads ? 1 : 2;
+  const int threads = ((share + ppt - 1) / ppt + 31) / 32 * 32;
+  const BlendFn kernel =
+      cluster > 1 ? general_blend_kernel<kEyes, 2, kFirstHit, kCutoff, true>
+      : ppt == 2  ? general_blend_kernel<kEyes, 2, kFirstHit, kCutoff, false>
+                  : general_blend_kernel<kEyes, 1, kFirstHit, kCutoff, false>;
+  return {kernel, threads, cluster};
+}
+
+// The 8x4-block instances at sides of 8, 16 and 32 pixels (blocks), but
+// for two eyes without a cutoff; the general layout otherwise.
+template <int kEyes, bool kFirstHit, bool kCutoff>
+BlendLaunch pick_layout(bool blocks, int pix) {
+  if constexpr (kEyes == 2 && !kCutoff) {
+    return pick_general<kEyes, kFirstHit, kCutoff>(pix);
+  } else {
+    return blocks ? pick_pixels<kEyes, kFirstHit, kCutoff>(pix)
+                  : pick_general<kEyes, kFirstHit, kCutoff>(pix);
+  }
+}
+
+// The launch of a tile (see pick_layout).
+BlendLaunch pick_blend(bool two, bool first_hit, bool cutoff, int tile_w,
+                       int tile_h) {
+  const int pix = tile_w * tile_h;
+  const bool blocks = block_side(tile_w) && block_side(tile_h);
   if (two) {
-    return first_hit ? pick_pixels<2, true, true>(pix, threads)
-                     : pick_pixels<2, false, true>(pix, threads);
+    if (cutoff) {
+      return first_hit ? pick_layout<2, true, true>(blocks, pix)
+                       : pick_layout<2, false, true>(blocks, pix);
+    }
+    return first_hit ? pick_layout<2, true, false>(blocks, pix)
+                     : pick_layout<2, false, false>(blocks, pix);
   }
   if (cutoff) {
-    return first_hit ? pick_pixels<1, true, true>(pix, threads)
-                     : pick_pixels<1, false, true>(pix, threads);
+    return first_hit ? pick_layout<1, true, true>(blocks, pix)
+                     : pick_layout<1, false, true>(blocks, pix);
   }
-  return first_hit ? pick_pixels<1, true, false>(pix, threads)
-                   : pick_pixels<1, false, false>(pix, threads);
+  return first_hit ? pick_layout<1, true, false>(blocks, pix)
+                   : pick_layout<1, false, false>(blocks, pix);
 }
 
 }  // namespace
 
 // sorted_key: (capacity,) int64 sort keys (key2 in the low 32 bits, the
 // entry index in its low idx_bits); words: 4 * n_eyes pointers to the (N,)
-// int32 word rows of the entry table; tile_w, tile_h: 8, 16 or 32 (tiles
-// tile_w x tile_h); depth_mode: a DepthMode; coord_x (tiles_x, tile_w *
+// int32 word rows of the entry table; tile_w, tile_h: 1 to 64 pixels
+// (tile_side_ok); depth_mode: a DepthMode; coord_x (tiles_x, tile_w *
 // tile_h) and coord_y (tiles_y, tile_w * tile_h) the foveated pixel
 // coordinates, or both null; tile_row_offset >= 0 (0 with coordinate
 // tables); color (H, n_eyes * W, 4), depth (H, n_eyes * W) unless
-// depth_mode is none.  Two eyes (8 words) take r2_cutoff > 0; one eye (4
-// words) r2_cutoff >= 0 (0: no cutoff).  Every depth mode, cutoff and
-// pixel-coordinate pairing takes every tile.
+// depth_mode is none.  r2_cutoff >= 0 (0: no cutoff).  Every pairing of
+// eyes, cutoff, depth mode and pixel coordinates takes every tile.
 extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                          const void* const* words, int n_words,
                          const int32_t* starts, const int32_t* counts,
@@ -400,7 +577,7 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
   const bool two = n_words == 8;
   const bool cutoff = r2_cutoff > 0.0f;
   if ((n_words != 4 && !two) || idx_bits < 1 || idx_bits > 32 ||
-      (two && !cutoff) || r2_cutoff < 0.0f || !tile_side_ok(tile_w) ||
+      !(r2_cutoff >= 0.0f) || !tile_side_ok(tile_w) ||
       !tile_side_ok(tile_h) || depth_mode < kDepthNone ||
       depth_mode > kDepthNormalized || tile_row_offset < 0 ||
       (tile_row_offset != 0 && coord_x != nullptr)) {
@@ -411,14 +588,30 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
       idx_bits == 32 ? 0xFFFFFFFFu : ((1u << idx_bits) - 1u);
   const uint32_t* key_words = reinterpret_cast<const uint32_t*>(sorted_key);
   const int n_tiles = tiles_x * tiles_y;
-  if (n_tiles > 0) {
-    int threads = 0;
-    const BlendFn kernel = pick_blend(two, depth_mode == kDepthFirstHit,
-                                      cutoff, tile_w * tile_h, &threads);
-    kernel<<<n_tiles, threads, 0, stream>>>(
+  if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
+  const BlendLaunch L = pick_blend(two, depth_mode == kDepthFirstHit, cutoff,
+                                   tile_w, tile_h);
+  if (L.cluster == 1) {
+    L.kernel<<<n_tiles, L.threads, 0, stream>>>(
         key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h,
         width, height, tile_row_offset, depth_mode, theta_unit, inv255,
         min_transmittance, r2_cutoff, coord_x, coord_y, color, depth);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(n_tiles) * L.cluster);
+  config.blockDim = dim3(L.threads);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, L.kernel, key_words, idx_mask, W, starts, counts, tiles_x,
+      tile_w, tile_h, width, height, tile_row_offset, depth_mode, theta_unit,
+      inv255, min_transmittance, r2_cutoff, coord_x, coord_y, color, depth);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

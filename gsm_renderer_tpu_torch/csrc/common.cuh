@@ -43,10 +43,13 @@ __device__ __forceinline__ float f16_bits_to_f32(uint32_t bits) {
   return e == 0 ? 0.0f : __uint_as_float(f);
 }
 
-// A tile side the kernels take: 8, 16 or 32 pixels (a power of two, so that
-// every tile bound and pixel offset is exact in float32).
+// A tile side the kernels take: 1 to 64 pixels (kernels/expand.py
+// MAX_TILE_SIDE).  Every tile bound and pixel offset is an integer product
+// below 2^24, exact in float32; the projection's tile rect multiplies by the
+// float32 reciprocal of the side, as the JAX reference's jitted division by
+// a constant does.
 static inline bool tile_side_ok(int side) {
-  return side == 8 || side == 16 || side == 32;
+  return side >= 1 && side <= 64;
 }
 
 // The record word rows of an entry table (up to 8: left eye w0..w3, right

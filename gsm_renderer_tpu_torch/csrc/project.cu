@@ -11,9 +11,8 @@
 // __float2half_rn.
 //
 // Modes: tiles of tile_w x tile_h pixels in the tile rect (ProjInts::tile_w,
-// ::tile_h, each 8, 16 or 32: a power of two, so the rect bounds are exact
-// however the division is done; the renderers use 16x16 and the Global
-// renderer's 32x16), and the 16-bit half-depth key (ProjInts::key16, the
+// ::tile_h, each 1 to 64; the renderers use 16x16 and the Global
+// renderer's 32x16; see tile_bounds for the rounding), and the 16-bit half-depth key (ProjInts::key16, the
 // Pallas kernel's depth_key16: half_key16 of the record's f16 depth bits,
 // 0xFFFFFFFF where culled, no KeyPlan) in place of the 32-bit depth word.
 // The dual-eye kernel takes the same tiles and the 32-bit word.
@@ -313,8 +312,13 @@ __device__ __forceinline__ uint32_t theta_u16(float evx, float evy, bool vis,
 }
 
 // compute_tile_bounds_c: clamped inclusive tile rect (tile_w x tile_h
-// tiles; both powers of two, so the division is exact either way it is
-// done).
+// tiles).  The JAX reference divides by the side under jit, where XLA
+// folds the division by a constant into a multiply by its float32
+// reciprocal; so does this: floor(xmin * (1 / tile_w)), with the
+// reciprocal rounded once (an IEEE division, equal to the host's float32
+// 1 / tile_w at every side up to 64).  At a side that is not a power of
+// two it can split a bound within an ulp of a tile edge differently from
+// an exact division; at a power of two the two agree bit for bit.
 __device__ __forceinline__ void tile_bounds(float sx, float sy, float ex,
                                             float ey, const ProjParams& P,
                                             int tiles_x, int tiles_y,
@@ -326,12 +330,12 @@ __device__ __forceinline__ void tile_bounds(float sx, float sy, float ex,
   const float xmax = jclip(sx + ex, 0.0f, P.wm1);
   const float ymin = jclip(sy - ey, 0.0f, P.hm1);
   const float ymax = jclip(sy + ey, 0.0f, P.hm1);
-  const float tw = static_cast<float>(tile_w);
-  *min_tx = max(static_cast<int>(floorf(xmin / tw)), 0);
-  *max_tx = min(static_cast<int>(ceilf(xmax / tw)) - 1, tiles_x - 1);
-  const float th = static_cast<float>(tile_h);
-  *min_ty = max(static_cast<int>(floorf(ymin / th)), 0);
-  *max_ty = min(static_cast<int>(ceilf(ymax / th)) - 1, tiles_y - 1);
+  const float rw = 1.0f / static_cast<float>(tile_w);
+  *min_tx = max(static_cast<int>(floorf(xmin * rw)), 0);
+  *max_tx = min(static_cast<int>(ceilf(xmax * rw)) - 1, tiles_x - 1);
+  const float rh = 1.0f / static_cast<float>(tile_h);
+  *min_ty = max(static_cast<int>(floorf(ymin * rh)), 0);
+  *max_ty = min(static_cast<int>(ceilf(ymax * rh)) - 1, tiles_y - 1);
 }
 
 __device__ __forceinline__ bool off_screen(float sx, float sy, float ex,
@@ -629,7 +633,7 @@ ProjInts load_ints(const int* ints, const uint32_t* plan) {
 }
 
 // ints: n, tiles_x, tiles_y, sh_degree, srgb, has_plan, tile_w, key16,
-// tile_h (tile sides 8, 16 or 32); plan: the KeyPlan's near_key and span.
+// tile_h (tile sides 1 to 64); plan: the KeyPlan's near_key and span.
 extern "C" int gsm_project(const float* comp, const float* harm,
                            const float* params, const int* ints,
                            const uint32_t* plan, void* rect_word, void* rect_h,

@@ -3,7 +3,7 @@
 Port of ``gsm_renderer_tpu/kernels/blend.py``: ``blend_tiles_pallas``
 (``_row_blend_kernel``, depth modes "weighted", "none", "first_hit" and
 "normalized", ``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``,
-``tile_row_offset``, tiles of 8, 16 or 32 pixels a side) and
+``tile_row_offset``, tiles of 1 to 64 pixels a side) and
 ``assemble_image``.  The
 kernel is ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W)
 depth directly -- (H, 2W) for two eyes side by side -- so assembly is fused
@@ -31,8 +31,7 @@ its tile exits, so a hit after it saturated still counts.  Depth mode
 "normalized" (the Hardware renderer's) divides the weighted depth by the
 pixel's alpha: sum(w * d) / max(1 - T, 1e-6), T the final transmittance.
 Pixel p of a tile is (p % tile_w, p // tile_w); the kernel blends every
-pairing of eyes, cutoff, depth mode and pixel coordinates at every tile,
-except two eyes without a cutoff.
+pairing of eyes, cutoff, depth mode and pixel coordinates at every tile.
 
 ``tile_row_offset`` is a band frame's: the raster's tile row t samples
 the frame's pixel rows of tile row t + tile_row_offset and is written to
@@ -178,6 +177,10 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
     processed = torch.zeros(n_t, dtype=torch.int64, device=dev)
     max_k = int(count.max()) if n_t else 0
     for k in range(max_k):
+        # once every tile has exited or run out of records the remaining
+        # ranks composite nothing: stop (checked once a batch)
+        if k % BATCH == 0 and not bool((active & (k < count)).any()):
+            break
         valid = active & (k < count)
         g = entry[torch.clamp(start + k, 0, max(cap - 1, 0))]
         for e, rec in enumerate(recs):
@@ -250,18 +253,16 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                      tile_row_offset: int = 0):
     """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
     (H, n_eyes * W) or None), the eyes side by side.  The kernel blends one
-    eye without a cutoff or with ``r2_cutoff`` > 0 (the Hardware mono
-    frame), or two eyes with ``r2_cutoff`` > 0 (the stereo and foveated
-    frames), in every depth mode, with or without pixel coordinates, at
-    every tile of 8, 16 or 32 pixels a side (:data:`expand.TILE_SIDES`).
-    It raises on two eyes without a cutoff, which no frame blends."""
+    or two eyes without a cutoff (``r2_cutoff`` 0) or with one, in every
+    depth mode, with or without pixel coordinates, at every tile of 1 to 64
+    pixels a side.  It raises on a negative cutoff."""
     _check_depth_mode(depth_mode)
     words = _check_words(entry_words, n_eyes)
     _check_row_offset(tile_row_offset, pixel_coords)
-    if r2_cutoff < 0.0 or (n_eyes == 2 and r2_cutoff == 0.0):
+    if not r2_cutoff >= 0.0:
         raise NotImplementedError(
-            f"the blend kernel takes n_eyes=2 with r2_cutoff > 0 and n_eyes=1 "
-            f"with r2_cutoff >= 0, got n_eyes={n_eyes}, r2_cutoff={r2_cutoff}")
+            f"the blend kernel takes r2_cutoff >= 0 (0: no cutoff), got "
+            f"{r2_cutoff}")
     check_tile(tile_w, tile_h, "blend kernel")
     if not 1 <= idx_bits <= 32:
         raise ValueError(f"idx_bits must lie in [1, 32], got {idx_bits}")

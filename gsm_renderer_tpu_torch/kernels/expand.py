@@ -13,7 +13,7 @@ its offsets from prep, where the JAX package computes them in XLA
 (``pipelines/common.py::binning_inputs`` and the cumsum of
 ``expand_slots_pallas``).  The kernels are
 ``csrc/binning.cu``.  Prep, the row expansion and the expand take tiles of
-8, 16 or 32 pixels a side in every mode (:data:`TILE_SIDES`; the 8x4 window
+1 to 64 pixels a side in every mode (:func:`check_tile`; the 8x4 window
 keeps its geometry in tiles, only each test's pixel extents change).  The
 JAX expand's ``fused_depth16`` key [tile:16 | depth16:16]
 needs no key layout of its own here: the KeyPlan with ``depth_span_bits=16``
@@ -59,10 +59,10 @@ CULLED_BIT = 1 << 30
 #: j-th set bit of its 8x4 tile mask (bit = dy * 8 + dx)
 MASKED_BIT = 1 << 31
 MASK_W, MASK_H = 8, 4
-#: the tile sides, in pixels, that the kernels and frames take: powers of
-#: two, so that every tile bound and pixel offset is exact in float32 and
-#: the rect words stay bit-equal to the JAX package's
-TILE_SIDES = (8, 16, 32)
+#: the largest tile side, in pixels, that the kernels and frames take (every
+#: side from 1 up; the blend holds a tile of up to 64 x 64 pixels in one
+#: CTA or a cluster of two)
+MAX_TILE_SIDE = 64
 THETA_UNIT = 3.14159265358979 / 65535.0
 
 #: per-pixel cutoff of the stereo blend (q <= 9); dropping an instance whose
@@ -434,15 +434,15 @@ def _check_mode(mode: str, words):
 
 
 def check_tile(tile_w: int, tile_h: int, what: str = "frame") -> None:
-    """Raise NotImplementedError unless both tile sides are in TILE_SIDES
-    (the JAX package takes any side unchecked; a side that is not a power
-    of two is not ported)."""
-    if tile_w not in TILE_SIDES or tile_h not in TILE_SIDES:
+    """Raise NotImplementedError unless both tile sides are integers from 1
+    to MAX_TILE_SIDE (the JAX package takes any side unchecked; a side over
+    64 pixels is not ported, and a side below 1 tiles nothing)."""
+    if not all(1 <= s <= MAX_TILE_SIDE for s in (tile_w, tile_h)):
         raise NotImplementedError(
-            f"the {what} takes tile sides of {', '.join(map(str, TILE_SIDES))} "
-            f"pixels, got {tile_w}x{tile_h}: a side that is not a power of two "
-            "is not ported to gsm_renderer_tpu_torch yet (ROADMAP.md: Queue 2 "
-            "A, tile sides that are not powers of two)")
+            f"the {what} takes tile sides of 1 to {MAX_TILE_SIDE} pixels, got "
+            f"{tile_w}x{tile_h}: a side over {MAX_TILE_SIDE} pixels is not "
+            "ported to gsm_renderer_tpu_torch yet (ROADMAP.md: Queue 2 A, tile "
+            "sides over 64 pixels)")
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,11 @@ with ``_stereo_project_kernel``).  The kernels are ``csrc/project.cu``; they
 also fold in the JAX versions' XLA theta epilogues (atan2 and the u16
 packing), so one launch yields the finished record words.
 
-Both projections take tiles of 8, 16 or 32 pixels a side
-(``expand.TILE_SIDES``; the renderers use 16x16 and the Global renderer's
-32x16).  The mono projection with ``depth_key16`` emits the 16-bit
+Both projections take tiles of 1 to 64 pixels a side
+(``expand.check_tile``; the renderers use 16x16 and the Global renderer's
+32x16).  The tile rect multiplies by the float32 reciprocal of each side
+(:func:`mathlib.compute_tile_bounds_c`), as the jitted JAX reference
+rounds its division by the static side.  The mono projection with ``depth_key16`` emits the 16-bit
 half-depth key of the Global, Local and 16-bit-key DepthFirst frames in
 place of the 32-bit depth word: :func:`mathlib.half_key16` of the record's
 quantized f16 depth bits, and 0xFFFFFFFF where culled (a KeyPlan, if

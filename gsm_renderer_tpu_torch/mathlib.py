@@ -586,16 +586,24 @@ def cull_by_screen_bounds(screen, obb_extents, width, height):
 def compute_tile_bounds_c(sx, sy, ex, ey, width, height, tile_w, tile_h,
                           tiles_x, tiles_y):
     """Clamped inclusive tile rect (int32 min_tx, max_tx, min_ty, max_ty);
-    invalid when min > max."""
+    invalid when min > max.
+
+    The JAX function divides by the static tile side under ``jax.jit``,
+    where XLA folds a division by a constant into a multiply by its float32
+    reciprocal; this multiplies by ``f32(1 / side)`` the same way.  At a
+    power-of-two side that is the exact quotient; at another side a bound
+    within an ulp of a tile edge can floor to the next tile, as it does in
+    the jitted reference."""
     xmin = torch.clamp(sx - ex, 0.0, width - 1.0)
     xmax = torch.clamp(sx + ex, 0.0, width - 1.0)
     ymin = torch.clamp(sy - ey, 0.0, height - 1.0)
     ymax = torch.clamp(sy + ey, 0.0, height - 1.0)
     i32 = torch.int32
-    min_tx = torch.clamp(torch.floor(xmin / tile_w).to(i32), min=0)
-    max_tx = torch.clamp(torch.ceil(xmax / tile_w).to(i32) - 1, max=tiles_x - 1)
-    min_ty = torch.clamp(torch.floor(ymin / tile_h).to(i32), min=0)
-    max_ty = torch.clamp(torch.ceil(ymax / tile_h).to(i32) - 1, max=tiles_y - 1)
+    rw, rh = f32(1.0 / tile_w), f32(1.0 / tile_h)
+    min_tx = torch.clamp(torch.floor(xmin * rw).to(i32), min=0)
+    max_tx = torch.clamp(torch.ceil(xmax * rw).to(i32) - 1, max=tiles_x - 1)
+    min_ty = torch.clamp(torch.floor(ymin * rh).to(i32), min=0)
+    max_ty = torch.clamp(torch.ceil(ymax * rh).to(i32) - 1, max=tiles_y - 1)
     return min_tx, max_tx, min_ty, max_ty
 
 

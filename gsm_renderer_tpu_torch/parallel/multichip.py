@@ -40,9 +40,8 @@ What the JAX ``build_sharded_depth_first`` takes and this one does not:
 ``use_xla_blend``, ``pallas_project``, ``split_frame`` and ``interpret``:
 TPU means with no counterpart here (the frame always runs the hand
 kernels on CUDA tensors, their plain versions on CPU tensors).  The JAX
-band frame takes any tile; this one every tile of 8, 16 or 32 pixels a side
-(:data:`BAND_TILES`; a side that is not a power of two raises
-NotImplementedError).  One card
+band frame takes any tile; this one every tile of 1 to 64 pixels a side,
+as the mono frame (a side over 64 raises NotImplementedError).  One card
 holds every rank of a gloo group in the port's checks; NCCL refuses two
 ranks on one device.
 """
@@ -62,7 +61,7 @@ import torch.distributed as dist
 
 from .. import config as cfg
 from ..kernels.blend import blend_image
-from ..kernels.expand import (MASK_H, MASK_W, SENTINEL, TILE_SIDES, _popcount,
+from ..kernels.expand import (MASK_H, MASK_W, SENTINEL, _popcount,
                               binning_prep, binning_prep_band, check_tile,
                               expand_slots)
 from ..kernels.project import cached_projection_inputs, project_and_cull_packed
@@ -70,12 +69,6 @@ from ..mathlib import u32
 from ..ops import binning as B
 from ..pipelines.common import sort_and_ranges
 from ..types import GaussianInput, resolve_device
-
-#: the tiles of the band frame: every (tile_w, tile_h) of TILE_SIDES, the
-#: JAX renderers' 16x16 (DepthFirst, Local, Hardware) and 32x16 (Global)
-#: among them
-BAND_TILES = tuple((w, h) for w in TILE_SIDES for h in TILE_SIDES)
-
 
 def pad_gaussian_input(gi: GaussianInput, multiple: int) -> GaussianInput:
     """Pad the gaussian axis to a multiple of ``multiple``.  Pads are
@@ -286,7 +279,7 @@ def build_sharded_depth_first(
     padded count plus its load beyond that).  ``use_keyplan=False`` sorts
     stably by the plain tile key, as happens anyway when no tie-free
     KeyPlan fits the band.  ``device``: the card by default.  Tiles: each
-    side 8, 16 or 32 pixels (others raise NotImplementedError)."""
+    side 1 to 64 pixels (others raise NotImplementedError)."""
     return ShardedDepthFirst(
         group, width=width, height=height, n_total=n_total,
         sh_degree=sh_degree, capacity_per_device=capacity_per_device,

@@ -258,8 +258,11 @@ REFUSERS = {
 
 
 @pytest.mark.parametrize("name", list(REFUSERS))
-@pytest.mark.parametrize("tile", [(12, 12), (16, 24), (64, 16)],
-                         ids=["12x12", "16x24", "64x16"])
+@pytest.mark.parametrize("tile", [(0, 16), (16, 65), (128, 16)],
+                         ids=["0x16", "16x65", "128x16"])
 def test_tile_sides_other_than_8_16_32_raise(scene, name, tile):
-    with pytest.raises(NotImplementedError, match="power of two"):
+    """Every frame function and kernel wrapper takes tile sides of 1 to 64
+    pixels (tests/test_torch_tiles_odd.py renders them) and refuses a side
+    outside that range, naming its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="sides over 64 pixels"):
         REFUSERS[name](scene, dict(tile_w=tile[0], tile_h=tile[1]))

@@ -380,9 +380,9 @@ def test_cutoff_zeroes_alpha_past_r2():
 def test_blend_cuda_wrapper_takes_one_eye_cutoff(monkeypatch):
     """The kernel's wrapper takes one eye with a cutoff and normalized
     depth at every tile and depth mode (32x16 and first_hit depth
-    included) and hands the launch its tile and depth mode; it refuses two
-    eyes without a cutoff and a tile side other than 8, 16 or 32 (it
-    raises before it touches a device)."""
+    included) and hands the launch its tile and depth mode; it refuses a
+    negative cutoff and a tile side outside 1 to 64 (it raises before it
+    touches a device)."""
     calls = []
     monkeypatch.setattr(TK.BLEND, "launch", lambda *a: calls.append(a))
     key = torch.arange(4, dtype=torch.int64)
@@ -397,10 +397,10 @@ def test_blend_cuda_wrapper_takes_one_eye_cutoff(monkeypatch):
                                     TK.DEPTH_MODES[mode])
     with pytest.raises(NotImplementedError, match="cutoff"):
         TK.blend_image_cuda(key, torch.zeros((8, 4), dtype=torch.int32), 32,
-                            starts, counts, **dict(kw, r2_cutoff=0.0),
+                            starts, counts, **dict(kw, r2_cutoff=-1.0),
                             n_eyes=2)
-    with pytest.raises(NotImplementedError, match="power of two"):
-        TK.blend_image_cuda(key, words, 32, starts, counts, **kw, tile_w=12,
+    with pytest.raises(NotImplementedError, match="sides over 64 pixels"):
+        TK.blend_image_cuda(key, words, 32, starts, counts, **kw, tile_w=65,
                             tile_h=12)
     assert len(calls) == 4
 

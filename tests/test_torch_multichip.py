@@ -5,8 +5,9 @@
   tests/test_multichip.py's hot-strip scene (n = 2003, not a multiple of
   4; 128x256) with the KeyPlan and the stable fallback (``use_keyplan``),
   with equal bands and with bands balanced from the row histogram, at
-  32x16 tiles (the Global renderer's; KeyPlan, equal bands), and at a
-  capacity of 2048 slots a band.  One JAX subprocess renders the same
+  32x16 tiles (the Global renderer's; KeyPlan, equal bands), at 24x24
+  tiles (a side that is not a power of two; KeyPlan, equal bands), and at
+  a capacity of 2048 slots a band.  One JAX subprocess renders the same
   frames with ``build_sharded_depth_first(..., use_xla_blend=False,
   interpret=True)`` on a 4-device CPU mesh (set up as
   tests/test_multichip.py does).  Colour within COLOR_TOL (2e-4, that
@@ -20,8 +21,8 @@
   aligned to 128-record blocks of its band's sorted list, not of the mono
   list, so colour differs by less than the exit threshold (1/255) and
   depth by less than it times the far plane.  A world of one is the mono
-  frame bit for bit.  At 32x16 the mono frame is ``depth_first_frame(
-  tile_w=32, tile_h=16)`` (the renderer's tile is 16x16).
+  frame bit for bit.  At 32x16 and 24x24 the mono frame is
+  ``depth_first_frame`` at that tile (the renderer's tile is 16x16).
 * Kernel modes.  Prep "band" against a NumPy transcription of the JAX
   band clamp (``gsm_renderer_tpu/parallel/multichip.py:245-283`` and
   ``binning_inputs`` with its ``mask_override``); the expand with a tile
@@ -105,7 +106,9 @@ for name, kw in (("keyplan", dict(capacity_per_device=%(cap)d)),
                                    band_starts=starts)),
                  ("tiny", dict(capacity_per_device=%(tiny)d)),
                  ("keyplan32", dict(capacity_per_device=%(cap)d, tile_w=32,
-                                    tile_h=16))):
+                                    tile_h=16)),
+                 ("keyplan24", dict(capacity_per_device=%(cap)d, tile_w=24,
+                                    tile_h=24))):
     render = build_sharded_depth_first(
         mesh, width=w, height=h, n_total=n, sh_degree=1, near_plane=0.1,
         far_plane=20.0, use_xla_blend=False, interpret=True, **kw)
@@ -117,9 +120,9 @@ np.savez(%(path)r, **out)
 print("JAX_FRAMES_OK")
 """
 
-FRAMES = ("keyplan", "stable", "balanced", "keyplan32")
-#: each frame's tile width (tiles tile_w x 16)
-TILE_W = dict(keyplan32=32)
+FRAMES = ("keyplan", "stable", "balanced", "keyplan32", "keyplan24")
+#: each frame's tile (tile_w, tile_h), 16x16 where not named
+TILES = dict(keyplan32=(32, 16), keyplan24=(24, 24))
 
 
 def scene_input():
@@ -135,14 +138,15 @@ def hist_kw():
                 far_plane=R.FAR)
 
 
-def mono_frame_32x16(cam):
-    """The port's mono DepthFirst chain at 32x16 tiles with a KeyPlan, rows
-    off (``depth_first_frame``; the renderer's tile is 16x16)."""
+def mono_frame_at(cam, tile_w, tile_h):
+    """The port's mono DepthFirst chain at tile_w x tile_h tiles with a
+    KeyPlan, rows off (``depth_first_frame``; the renderer's tile is
+    16x16)."""
     return depth_first_frame(
         scene_input(), cam.view_matrix, cam.projection_matrix, cam.position,
         width=W, height=H, capacity=131072, sh_degree=1,
         alpha_threshold=0.005, total_ink_threshold=2.0, near_plane=R.NEAR,
-        far_plane=R.FAR, input_is_srgb=False, tile_w=32, tile_h=16)
+        far_plane=R.FAR, input_is_srgb=False, tile_w=tile_w, tile_h=tile_h)
 
 
 @pytest.fixture(scope="module")
@@ -167,7 +171,9 @@ def frames(tmp_path_factory):
                    stable=dict(capacity_per_device=CAP, use_keyplan=False),
                    balanced=dict(capacity_per_device=CAP, band_starts=starts),
                    tiny=dict(capacity_per_device=TINY_CAP),
-                   keyplan32=dict(capacity_per_device=CAP, tile_w=32))
+                   keyplan32=dict(capacity_per_device=CAP, tile_w=32),
+                   keyplan24=dict(capacity_per_device=CAP, tile_w=24,
+                                  tile_h=24))
         names = list(kws) + [f"{k}_no_exit" for k in FRAMES]
         world = TM.run_ranks(
             R.render_frames, RANKS, W, H, N,
@@ -183,7 +189,8 @@ def frames(tmp_path_factory):
             TK.MIN_TRANSMITTANCE = t
             try:
                 mono[label] = r.render(scene_input(), cam, W, H)
-                mono[label + "32"] = mono_frame_32x16(cam)
+                for tile in TILES.values():
+                    mono[label + str(tile[0])] = mono_frame_at(cam, *tile)
             finally:
                 TK.MIN_TRANSMITTANCE = exit_t
         stdout, stderr = proc.communicate(timeout=900)
@@ -221,7 +228,7 @@ def test_tiny_capacity_overflows_on_every_rank(frames):
 def test_band_frame_is_the_mono_frame(frames, name):
     """Bit-equal with the early exit off; with it on, within the exit
     threshold (see the module docstring)."""
-    tile = "32" if TILE_W.get(name) == 32 else ""
+    tile = str(TILES[name][0]) if name in TILES else ""
     mono = frames["mono"]["exit" + tile]
     no_exit = frames["mono"]["no_exit" + tile]
     got = frames["port"][f"{name}_no_exit"][0]
@@ -306,11 +313,10 @@ def test_dryrun_multichip_twin():
 
 
 def test_band_frame_refuses_other_tiles():
-    """Tiles of 8, 16 and 32 pixels a side render (BAND_TILES, the frames
-    above and tests/test_torch_tiles.py); other sides raise before the
-    frame touches its process group."""
-    assert len(TM.BAND_TILES) == 9 and (8, 8) in TM.BAND_TILES
-    for tile_w, tile_h in ((64, 16), (12, 12), (16, 24)):
+    """Tiles of 1 to 64 pixels a side render (the frames above, the 24x24
+    band frame against JAX's and tests/test_torch_tiles.py); other sides
+    raise before the frame touches its process group."""
+    for tile_w, tile_h in ((65, 16), (0, 12), (16, 128)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.build_sharded_depth_first(width=W, height=H, n_total=N,
                                          tile_w=tile_w, tile_h=tile_h,
