@@ -102,6 +102,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    whole-frame blend bit-equal, the staged frame equal to the frame
    function's), each a kernel row named with its tile (``blend.8x8``,
    ``prep.warped.32x32``, ``expand.none.d16_32``, ...).
+4o. The same at tile sides that are not powers of two: mono with rows at
+   24x24, 12x12, 20x12, 48x16, 64x64 (the blend's cluster of four CTAs)
+   and 7x5 (rows off), stereo at 24x24 with the two-eye blend without a
+   cutoff held bit-equal on its tensors, foveated, Hardware and Local at
+   24x24, Global at 48x16.
+4L. The same at tile sides over 64 pixels, where a tile of more than 4096
+   pixels takes the blend's large-tile path (CTAs without a cluster that
+   find the tile's exit in a scan launch): mono with rows at 65x65 (the
+   smallest tile on that path), 96x80, 128x64 and 128x128, each bit-equal
+   to rows off; stereo at 96x96 with the two-eye blend without a cutoff on
+   its tensors; foveated, Hardware and band (4m) at 128x128; Local at
+   96x96; Global at 128x64 with and without the exact tile test.  Each
+   kernel mode on each frame's tensors bit-equal to its plain version (the
+   blends over the whole frame).
 4m. The band-sharded frame (``parallel/multichip.py``) of the headline
    scene.  A world of one over NCCL in this process, with the KeyPlan and
    with the stable fallback (``use_keyplan=False``), and at 32x16 and 8x8
@@ -128,7 +142,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    named with the suffix ``.32x16``) report the launches of rank 1 in the
    world of 4 with equal bands at their tile (band 1 of 4, the band they
    are checked on: a non-zero tile row offset), the tile-key expand's
-   those of the world of one's stable frame.
+   those of the world of one's stable frame.  The world of one also
+   renders at phase 4o's 24x24 and phase 4L's 128x128 (bit-equal to the
+   mono frame there), and the band kernels run at those tiles too (at
+   128x128 with the world of one's launches).
 4s. The stable-sort fallback: ``make_key_plan`` is None for 4M gaussians
    at 3840x2160, far 1000 (printed); that mono ``DepthFirstRenderer``
    frame (scale range halved from the headline's, so the splats cover as
@@ -188,7 +205,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    0.4), Global, Local, DepthFirst BITS16, and Hardware mono, BITS16,
    stereo and foveated; then the frame functions with rows at 8x8 and
    32x32, with ``max_per_tile`` 64, Global without the exact tile test,
-   stereo and foveated at 8x8; colour within 1e-3.
+   stereo and foveated at 8x8, phase 4o's tiles; and on a smaller scene
+   (4,000 gaussians, 192x128) the mono frame at 65x16, 97x33, 256x256
+   (one tile larger than the frame), 4096x1 and 1x4096; colour within
+   1e-3; and at 4096x4096 its image bit-equal to the plain blend of its
+   staged chain on the card.
    After phase 2 a torch.profiler trace of 10 headline frames prints the
    device busy time and the kernel time by name.
 7. The last line is {"ok": true, "device": {...}}.
@@ -249,8 +270,8 @@ KERNEL_SOURCES = {
                       "gsm_renderer_tpu/kernels/expand.py:202"),
 }
 #: kernels whose -Xptxas -v report must show no spill
-SPILL_CHECKED = ("blend_kernel", "general_blend_kernel", "expand_kernel",
-                 "prep_kernel", "row_expand_kernel")
+SPILL_CHECKED = ("blend_kernel", "general_blend_kernel", "large_blend_kernel",
+                 "expand_kernel", "prep_kernel", "row_expand_kernel")
 #: the separate scan kernels of the prep and row expansion before the
 #: one-pass scan; no frame may launch them
 OLD_SCAN_KERNELS = ("scan_block_sums_kernel", "add_block_offsets_kernel")
@@ -299,6 +320,19 @@ def cuda_ms(torch, fn, reps: int):
     end.record()
     end.synchronize()
     return res, start.elapsed_time(end) / reps
+
+
+def once_ms(torch, fn):
+    """(result, ms) of one call, timed with CUDA events and no warm-up: the
+    plain blends, which take seconds a call on the large frames."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
 
 
 def cold_cuda_ms(torch, fn, reps: int, device) -> float:
@@ -1479,13 +1513,14 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
     return res
 
 
-def phase_multichip(torch, T, kernels, hl, tiles8, odd):
+def phase_multichip(torch, T, kernels, hl, tiles8, odd, large):
     """Phase 4m: the band-sharded frame of the headline scene.  A world of
     one over NCCL in this process (the KeyPlan and the stable fallback, each
-    bit-equal to the headline frame; at 32x16, 8x8 and ODD_TILE tiles,
-    bit-equal to the mono frame at that tile, ``tiles8`` and ``odd`` phase
-    4t's 8x8 and phase 4o's ODD_TILE rows-off frames; frame times, split
-    and trace beside the headline's rows-off frame); prep
+    bit-equal to the headline frame; at 32x16, 8x8, ODD_TILE and LARGE_TILE
+    tiles, bit-equal to the mono frame at that tile, ``tiles8``, ``odd``
+    and ``large`` phase 4t's 8x8, phase 4o's ODD_TILE and phase 4L's
+    LARGE_TILE rows-off frames; frame times, split and trace beside the
+    headline's rows-off frame); prep
     "band", the expand with a tile row
     offset and the blend with one on band 1 of 4 against their plain
     versions; worlds of 2 and 4 spawned gloo ranks on this card with equal
@@ -1510,7 +1545,8 @@ def phase_multichip(torch, T, kernels, hl, tiles8, odd):
             (32, 16): (mono_frame_at(T, gi, cam, hl["off_capacity"], 32, 16),
                        hl["off_capacity"]),
             (8, 8): (tiles8["off"], tiles8["cap_off"]),
-            ODD_TILE: (odd["off"], odd["cap_off"])}
+            ODD_TILE: (odd["off"], odd["cap_off"]),
+            LARGE_TILE: (large["off"], large["cap_off"])}
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
@@ -1520,7 +1556,8 @@ def phase_multichip(torch, T, kernels, hl, tiles8, odd):
                                         ("tile_key", False, (16, 16)),
                                         ("keyplan_32x16", True, (32, 16)),
                                         ("keyplan_8x8", True, (8, 8)),
-                                        ("keyplan_odd", True, ODD_TILE)):
+                                        ("keyplan_odd", True, ODD_TILE),
+                                        ("keyplan_large", True, LARGE_TILE)):
                 ref, cap = refs[tile]
                 render = MC.build_sharded_depth_first(
                     use_keyplan=use_kp, capacity_per_device=cap,
@@ -1630,6 +1667,9 @@ def phase_multichip(torch, T, kernels, hl, tiles8, odd):
                                         *tile)]
     rows += band_kernel_rows(torch, hl, res["world_1_keyplan_8x8"]["launches"],
                              8, 8)
+    rows += band_kernel_rows(torch, hl,
+                             res["world_1_keyplan_large"]["launches"],
+                             *LARGE_TILE)
     sort_rows, other = stable_sort_rows(torch, hl, res)
     return rows + sort_rows, other
 
@@ -1760,10 +1800,10 @@ def band_kernel_rows(torch, hl, band_launches, tile_w: int, tile_h: int = 16):
     (color, depth), ms = device_ms(
         torch, lambda: KB.blend_image_cuda(*ent, srt.starts, srt.counts,
                                            **bl_kw), 10)
-    (pc, pd, processed), plain_ms = cuda_ms(
+    (pc, pd, processed), plain_ms = once_ms(
         torch, lambda: KB.blend_tiles_plain(
             *ent, srt.starts, srt.counts, tiles_x=tiles_x, tile_w=tile_w,
-            tile_h=tile_h, tile_row_offset=band0, return_processed=True), 1)
+            tile_h=tile_h, tile_row_offset=band0, return_processed=True))
     pcol, pdep = KB.assemble_image(pc, pd, tiles_x=tiles_x, tiles_y=bands,
                                    width=W, height=bands * tile_h,
                                    tile_w=tile_w, tile_h=tile_h)
@@ -1964,6 +2004,16 @@ TILE_FOVEATED = ((32, 16), (32, 32))
 ODD_MONO = ((24, 24), (12, 12), (20, 12), (48, 16), (64, 64), (7, 5))
 ODD_TILE = (24, 24)
 ODD_GLOBAL = (48, 16)
+#: phase 4L: tile sides over 64 pixels (the blend's large-tile path above
+#: 4096 pixels a tile): the mono frame with rows at every LARGE_MONO tile;
+#: the stereo frame (and its two-eye blend without a cutoff) and the Local
+#: frame at LARGE_STEREO; the foveated, Hardware and band frames at
+#: LARGE_TILE; the Global frame at LARGE_GLOBAL with and without the exact
+#: tile test
+LARGE_MONO = ((65, 65), (96, 80), (128, 64), (128, 128))
+LARGE_TILE = (128, 128)
+LARGE_STEREO = (96, 96)
+LARGE_GLOBAL = (128, 64)
 #: phase 4t's probe capacity, slots a gaussian, before a frame's own
 TILE_PROBE_SLOTS = 32
 #: phase 4t's per-tile clamp on the realistic scene
@@ -2016,9 +2066,9 @@ def blend_rows_check(torch, KB, name, ent, starts, counts, kernel_out, plain_kw,
     """The plain blend of the whole frame against the kernel's images
     (``kernel_out``): (plain ms, records composited a tile), failing unless
     bit-equal."""
-    res, plain_ms = cuda_ms(torch, lambda: KB.blend_tiles_plain(
+    res, plain_ms = once_ms(torch, lambda: KB.blend_tiles_plain(
         *ent, starts, counts, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
-        n_eyes=n_eyes, return_processed=True, **plain_kw), 1)
+        n_eyes=n_eyes, return_processed=True, **plain_kw))
     eyes, processed = ((res[:2],), res[2]) if n_eyes == 1 else res
     full = [KB.assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
                               width=width, height=height, tile_w=tile_w,
@@ -2290,12 +2340,13 @@ def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None, no_cutoff=False):
 
 
 def full_rect_rows(torch, T, hl, hwf, glf, tile=(32, 16)):
-    """The full-rect frames at ``tile`` on their own tensors: the Hardware
-    frame's prep and expand in mode "none" and its one-eye cutoff blend
-    with normalized depth, and (``glf`` not None) the Global frame's
-    expand in mode "none" over the d16 KeyPlan; each bit-equal to its
-    plain version, the staged frames bit-equal to the frame functions';
-    their kernel rows."""
+    """The full-rect frames at ``tile`` on their own tensors: (``hwf`` not
+    None) the Hardware frame's prep and expand in mode "none" and its
+    one-eye cutoff blend with normalized depth, and (``glf`` not None) the
+    Global frame's expand in mode "none" over the d16 KeyPlan (and prep
+    "none" where no Hardware frame runs); each bit-equal to its plain
+    version, the staged frames bit-equal to the frame functions'; their
+    kernel rows."""
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
     from gsm_renderer_tpu_torch.kernels import project as KP
@@ -2325,11 +2376,14 @@ def full_rect_rows(torch, T, hl, hwf, glf, tile=(32, 16)):
         lambda: KE.binning_prep_plain(*prep_in, mode="none", **bkw))
     require_exact(torch, f"prep.none.{tag}", [(off, off_p)])
     rows.append(kernel_row(f"prep.none.{tag}", "prep",
-                           hwf["launches"]["prep"], ms, plain_ms, 0.0,
-                           3 * 4 * n + 4, 0.0))
-    full = [(f"expand.none.{tag}", hwf, plan, pk.words, pk.dsw)]
+                           (hwf or glf)["launches"]["prep"], ms, plain_ms,
+                           0.0, 3 * 4 * n + 4, 0.0))
+    full = [] if hwf is None else [(f"expand.none.{tag}", hwf, plan, pk.words,
+                                    pk.dsw)]
     if glf is not None:
-        full.append(("expand.none.d16_32", glf, None, None, None))
+        # the Global frame's own tile keeps the name of phase 4t's row
+        full.append(("expand.none.d16_32" if tile == (32, 16)
+                     else f"expand.none.d16.{tag}", glf, None, None, None))
     for label, fr, p, words, dsw in full:
         if p is None:  # the Global frame: the half-depth key, its plan
             dk = KP.project_cuda(*args, key_plan=None, depth_key16=True, **pkw)
@@ -2470,8 +2524,10 @@ def stereo_tile_frame(torch, T, kernels, hl, st, tile, fv=None,
         fov=fov, no_cutoff=no_cutoff)
 
 
-def full_rect_frames(torch, T, kernels, hl, tile, with_global):
-    """The Hardware frame function at ``tile`` (and, ``with_global``,
+def full_rect_frames(torch, T, kernels, hl, tile, with_global,
+                     with_hardware=True):
+    """The Hardware frame function at ``tile`` (unless not
+    ``with_hardware``; and, ``with_global``,
     ``global_frame(exact_tile_test=False)``) on the headline scene: frame
     loops at probed capacities with launch counts of their own, then
     :func:`full_rect_rows`.  Returns (stats by frame, kernel rows)."""
@@ -2484,8 +2540,10 @@ def full_rect_frames(torch, T, kernels, hl, tile, with_global):
     view = (cam.view_matrix, cam.projection_matrix, cam.position)
     kw = dict(frame_statics(hl, tile), width=W, height=H)
     tag = f"{tile[0]}x{tile[1]}"
-    runs = [(f"hardware_{tag}", lambda cap: hardware_frame(
-        gi, *view, prepared, capacity=cap, **kw))]
+    runs = []
+    if with_hardware:
+        runs.append((f"hardware_{tag}", lambda cap: hardware_frame(
+            gi, *view, prepared, capacity=cap, **kw)))
     if with_global:
         runs.append(("global_no_exact_test", lambda cap: global_frame(
             gi, *view, prepared, capacity=cap, exact_tile_test=False, **kw)))
@@ -2498,7 +2556,7 @@ def full_rect_frames(torch, T, kernels, hl, tile, with_global):
         stats["capacity"] = cap
         frames[label] = stats
         full[label] = dict(out=out, cap=cap, launches=launches)
-    return frames, full_rect_rows(torch, T, hl, full[f"hardware_{tag}"],
+    return frames, full_rect_rows(torch, T, hl, full.get(f"hardware_{tag}"),
                                   full.get("global_no_exact_test"), tile)
 
 
@@ -2738,6 +2796,51 @@ def phase_odd_tiles(torch, T, kernels, hl, st, fv):
     return rows, odd
 
 
+def phase_large_tiles(torch, T, kernels, hl, st, fv):
+    """Phase 4L: the frame functions at tile sides over 64 pixels, at full
+    width on the headline scene: the mono frame with rows at every
+    LARGE_MONO tile (bit-equal to rows off; 65x65 is the smallest tile on
+    the blend's large-tile path), the stereo frame at LARGE_STEREO with the
+    two-eye blend without a cutoff on its tensors, the foveated and
+    Hardware frames at LARGE_TILE, the Local frame at LARGE_STEREO and the
+    Global frame at LARGE_GLOBAL with and without the exact tile test.
+    Each frame at a capacity probed from its slot total, with launch counts
+    of its own, the frame gate, its split and trace; then each kernel mode
+    on its tensors against its plain version.  Returns (kernel rows, the
+    LARGE_TILE rows-off frame for phase 4m)."""
+    t0 = time.perf_counter()
+    frames, rows, large = {}, [], None
+    for tile in LARGE_MONO:
+        stats, mono_rows, off = mono_tile_frame(torch, T, kernels, hl, tile)
+        frames[f"mono_{tile[0]}x{tile[1]}"] = stats
+        rows += mono_rows
+        if tile == LARGE_TILE:
+            large = off
+    tag = f"{LARGE_STEREO[0]}x{LARGE_STEREO[1]}"
+    stats, more = stereo_tile_frame(torch, T, kernels, hl, st, LARGE_STEREO,
+                                    no_cutoff=True)
+    frames[f"stereo_{tag}"] = stats
+    rows += more
+    stats, more = stereo_tile_frame(torch, T, kernels, hl, st, LARGE_TILE,
+                                    fv=fv)
+    frames[f"foveated_{LARGE_TILE[0]}x{LARGE_TILE[1]}"] = stats
+    rows += more
+    for tile, hardware in ((LARGE_TILE, True), (LARGE_GLOBAL, False)):
+        full, more = full_rect_frames(torch, T, kernels, hl, tile,
+                                      with_global=not hardware,
+                                      with_hardware=hardware)
+        frames.update({f"{k}_{tile[0]}x{tile[1]}" if "global" in k else k: v
+                       for k, v in full.items()})
+        rows += more
+    for tile, local in ((LARGE_STEREO, True), (LARGE_GLOBAL, False)):
+        stats, more = d16_tile_frame(torch, T, kernels, hl, tile, local)
+        frames[f"{'local' if local else 'global'}_{tile[0]}x{tile[1]}"] = stats
+        rows += more
+    log("[large tiles] " + json.dumps({"tile_frames": frames,
+                                       "seconds": time.perf_counter() - t0}))
+    return rows, large
+
+
 def phase_kernels(torch, T, hl, st, fv, d16, hw):
     from gsm_renderer_tpu_torch.kernels import blend as KB
     from gsm_renderer_tpu_torch.kernels import expand as KE
@@ -2898,10 +3001,10 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     time_check("blend", blend_fn, ms)
     if not torch.equal(color, hl["out"].color):
         raise RuntimeError("staged frame differs from the renderer's frame")
-    (pc, pd, processed), plain_ms = cuda_ms(
+    (pc, pd, processed), plain_ms = once_ms(
         torch, lambda: KB.blend_tiles_plain(*ent, starts, counts,
                                             tiles_x=tiles_x,
-                                            return_processed=True), 1)
+                                            return_processed=True))
     err = blend_subset_err(torch, KB, ent, starts, counts, color, depth,
                            tiles_x=tiles_x, tiles_y=tiles_y, w=w, h=h)
     full_err = float((pc.reshape(tiles_y, tiles_x, 16, 16, 4).permute(
@@ -3020,11 +3123,11 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     time_check("blend.stereo", blend_fn, ms)
     if not torch.equal(scolor, st["out"].color):
         raise RuntimeError("staged stereo frame differs from the renderer's")
-    (_eyes, sprocessed), plain_ms = cuda_ms(
+    (_eyes, sprocessed), plain_ms = once_ms(
         torch, lambda: KB.blend_tiles_plain(*s_ent, s_starts, s_counts,
                                             tiles_x=tiles_x, n_eyes=2,
                                             r2_cutoff=9.0,
-                                            return_processed=True), 1)
+                                            return_processed=True))
     err = blend_subset_err(torch, KB, s_ent, s_starts, s_counts, scolor,
                            sdepth, tiles_x=tiles_x, tiles_y=tiles_y, w=w, h=h,
                            n_eyes=2, r2_cutoff=9.0)
@@ -3126,11 +3229,11 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     time_check("blend.warped", blend_fn, ms)
     if not torch.equal(fcolor, fv["out"].color):
         raise RuntimeError("staged foveated frame differs from the renderer's")
-    (_eyes, fprocessed), plain_ms = cuda_ms(
+    (_eyes, fprocessed), plain_ms = once_ms(
         torch, lambda: KB.blend_tiles_plain(*f_ent, f_starts, f_counts,
                                             tiles_x=ftx, n_eyes=2,
                                             r2_cutoff=9.0, pixel_coords=coords,
-                                            return_processed=True), 1)
+                                            return_processed=True))
     err = blend_subset_err(torch, KB, f_ent, f_starts, f_counts, fcolor,
                            fdepth, tiles_x=ftx, tiles_y=fty, w=pw, h=ph,
                            n_eyes=2, r2_cutoff=9.0, pixel_coords=coords)
@@ -3216,10 +3319,10 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
                 and torch.equal(ddepth, frame.depth)):
             raise RuntimeError(f"staged {label} frame differs from the "
                                "renderer's")
-        (pc, pd, dprocessed), plain_ms = cuda_ms(
+        (pc, pd, dprocessed), plain_ms = once_ms(
             torch, lambda: KB.blend_tiles_plain(
                 *d_ent, d_starts, d_counts, tiles_x=dtx, tile_w=tw,
-                depth_mode=mode, return_processed=True), 1)
+                depth_mode=mode, return_processed=True))
         pcol, pdep = KB.assemble_image(pc, pd, tiles_x=dtx, tiles_y=dty,
                                        width=w, height=h, tile_w=tw)
         err = max(float((pcol - dcolor).abs().max()),
@@ -3281,10 +3384,10 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     if not (torch.equal(hcolor, hw["out"].color)
             and torch.equal(hdepth, hw["out"].depth)):
         raise RuntimeError("staged Hardware frame differs from the renderer's")
-    (pc, pd, hprocessed), plain_ms = cuda_ms(
+    (pc, pd, hprocessed), plain_ms = once_ms(
         torch, lambda: KB.blend_tiles_plain(
             *h_ent, h_starts, h_counts, tiles_x=tiles_x, r2_cutoff=9.0,
-            depth_mode="normalized", return_processed=True), 1)
+            depth_mode="normalized", return_processed=True))
     pcol, pdep = KB.assemble_image(pc, pd, tiles_x=tiles_x, tiles_y=tiles_y,
                                    width=w, height=h)
     err = max(float((pcol - hcolor).abs().max()),
@@ -3306,10 +3409,10 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
             and torch.equal(ndepth, hw["stereo_out"].depth)):
         raise RuntimeError("staged Hardware stereo frame differs from the "
                            "renderer's")
-    (eyes, nprocessed), plain_ms = cuda_ms(
+    (eyes, nprocessed), plain_ms = once_ms(
         torch, lambda: KB.blend_tiles_plain(
             *s_ent, s_starts, s_counts, tiles_x=tiles_x, n_eyes=2,
-            r2_cutoff=9.0, depth_mode="normalized", return_processed=True), 1)
+            r2_cutoff=9.0, depth_mode="normalized", return_processed=True))
     full = [KB.assemble_image(tc, td, tiles_x=tiles_x, tiles_y=tiles_y,
                               width=w, height=h) for tc, td in eyes]
     err = max(float((torch.cat([c for c, _ in full], 1) - ncolor).abs().max()),
@@ -3694,6 +3797,60 @@ def phase_small(torch, T):
             ("stereo 24x24", lambda gi: PD.depth_first_stereo_frame(
                 gi, *rig, width=w, height=h, tile_w=24, tile_h=24, **kw))):
         small_compare(label, fn(gi_g), fn(gi_c))
+    small_large_tiles(T)
+
+
+def small_large_tiles(T):
+    """Phase 6's frames at tile sides over 64 pixels (phase 4L's kernels),
+    on a smaller scene, where a 256x256 tile holds the whole frame: the mono
+    frame function at 65x16, 97x33, 256x256, 4096x1 and 1x4096 on the card
+    and on the CPU."""
+    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+
+    n, w, h = 4_000, 192, 128
+    ds = generate_visible_gaussians(n, sh_degree=3, seed=12,
+                                    scale_range=(0.005, 0.05))
+    cam = T.make_camera(w, h, far=50.0)
+    gi_g, gi_c = ds.to_input(), ds.to_input(device="cpu")
+    view = (cam.view_matrix, cam.projection_matrix, cam.position)
+    kw = dict(sh_degree=3, alpha_threshold=0.005, total_ink_threshold=2.0,
+              near_plane=cam.near_plane, far_plane=cam.far_plane,
+              input_is_srgb=False, capacity=64 * 4096, width=w, height=h)
+    for tile in ((65, 16), (97, 33), (256, 256), (4096, 1), (1, 4096)):
+        fn = lambda gi, tile=tile: PD.depth_first_frame(
+            gi, *view, tile_w=tile[0], tile_h=tile[1], **kw)
+        small_compare(f"tiles {tile[0]}x{tile[1]}", fn(gi_g), fn(gi_c))
+    largest_tile(T, gi_g, view, kw)
+
+
+def largest_tile(T, gi, view, kw):
+    """The largest tile, 4096x4096 (2^24 pixels: 16,384 CTAs of the blend's
+    large-tile path), on the card: the frame function's image bit-equal to
+    the plain blend, on the card, of the frame's own sorted chain (the CPU
+    would take minutes over 2^24 pixels a record)."""
+    import torch
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+
+    tk = dict(tile_w=4096, tile_h=4096)
+    out = PD.depth_first_frame(gi, *view, **tk, **kw)
+    plan = OB.make_key_plan(1, gi.count, near_plane=kw["near_plane"],
+                            far_plane=kw["far_plane"])
+    srt, _packed, words, _total, _overflow = PC.mono_packed_sorted(
+        gi, *view, None, key_plan=plan, row_capacity=0, tiles_x=1,
+        tiles_y=1, mode="mono", **tk, **kw)
+    color, depth = KB.assemble_image(
+        *KB.blend_tiles_plain(srt.key, words, srt.idx_bits, srt.starts,
+                              srt.counts, tiles_x=1, **tk),
+        tiles_x=1, tiles_y=1, width=kw["width"], height=kw["height"], **tk)
+    if not (torch.equal(out.color, color) and torch.equal(out.depth, depth)):
+        raise RuntimeError("tile 4096x4096: the frame differs from the plain "
+                           "blend of its chain")
+    log(f"[small] tile 4096x4096: bit-equal to the plain blend on the card "
+        f"({int(srt.counts[0])} records)")
 
 
 def small_compare(label, og, oc):
@@ -3800,8 +3957,12 @@ def main() -> int:
         tile_rows += odd_rows
         log(f"[odd tiles] phase 4o took {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
+        large_rows, large = phase_large_tiles(torch, T, kernels, hl, st, fv)
+        tile_rows += large_rows
+        log(f"[large tiles] phase 4L took {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
         band_rows, band_other = phase_multichip(torch, T, kernels, hl, tiles8,
-                                                odd)
+                                                odd, large)
         phase_fallback(torch, T, kernels, hl)
         log(f"[multichip, fallback] phases 4m and 4s took "
             f"{time.perf_counter() - t1:.1f} s")

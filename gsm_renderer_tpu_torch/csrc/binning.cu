@@ -152,17 +152,20 @@
 // leaves.
 //
 // Tiles: prep, the row expansion and the expand take tiles of tile_w x
-// tile_h pixels, each side 1 to 64 (tile_side_ok), in every mode, as
+// tile_h pixels, each side 1 to 4096 (tile_side_ok), in every mode, as
 // runtime arguments.  The 8x4 window keeps its geometry in tiles; only the
 // pixel extents of each test change (x0 = tx * tile_w, x1 = x0 + tile_w,
-// y0 = ty * tile_h, y1 = y0 + tile_h; integer products below 2^24, so
+// y0 = ty * tile_h, y1 = y0 + tile_h, the window corner min_t * side and
+// the offsets d * side, d < 8: a tile index below 1024, the rect word's
+// 10-bit field, times a side of at most 4096 is an integer below 2^22, so
 // exact in float32 at every side), and the row span divides by tile_w as
 // a multiply by its float32 reciprocal (1.0f / tile_w, correctly rounded,
 // which is the float32 rounding of the JAX kernel's 1.0 / tile_w at every
-// side up to 64).  The warped level of detail divides tile_w by the
-// display width of the tile, as the JAX kernel does.  The sides only scale coordinates, so they are
-// not template parameters: one instance a mode serves every geometry (a
-// multiply by a register where a constant stood).
+// side up to 4096).  The warped level of detail divides tile_w by the
+// display width of the tile, as the JAX kernel does; its window rects are
+// the bounds table's, whatever the side.  The sides only scale
+// coordinates, so they are not template parameters: one instance a mode
+// serves every geometry (a multiply by a register where a constant stood).
 #include <climits>
 
 #include "common.cuh"
@@ -1033,7 +1036,7 @@ expand_kernel(const int32_t* __restrict__ offsets,
 
 // Whether a launch's mode, record words, bounds table and tile go
 // together: mono 4 words, none 4 words, stereo 8, warped 8 with the bounds
-// table; tile sides of 1 to 64 pixels in every mode.
+// table; tile sides of 1 to 4096 pixels in every mode.
 static bool launch_ok(int mode, int n_words, const float* bounds, int tile_w,
                       int tile_h) {
   const int words = mode == kMono || mode == kNone ? 4 : 8;
@@ -1056,7 +1059,7 @@ static ScanState scan_state(void* ticket, void* status, int elements,
 
 // mode: a Mode (see launch_ok); bounds: the (2, 128) table for mode
 // "warped", else null.  ticket / status: the look-back scratch, status >=
-// max(ceil(n / 256), 1) words.  tile_w, tile_h: 1 to 64.  Mode none
+// max(ceil(n / 256), 1) words.  tile_w, tile_h: 1 to 4096.  Mode none
 // writes the offsets alone (rect_out and mask_out may be null).  One
 // launch, even at n == 0 (its one block writes offsets[0] = 0).
 extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
@@ -1108,7 +1111,7 @@ extern "C" int gsm_prep_band(const int32_t* rect_word, const int32_t* rows,
 }
 
 // planes: (7, r_cap); row_overflow: one int, 1 when the row total exceeds
-// r_cap; tile_w, tile_h: 1 to 64; ticket / status as for gsm_prep,
+// r_cap; tile_w, tile_h: 1 to 4096; ticket / status as for gsm_prep,
 // status >= max(ceil(r_cap / 2048), 1) words.  One launch, even at r_cap
 // == 0.
 extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
@@ -1133,7 +1136,7 @@ extern "C" int gsm_row_expand(const int32_t* off1, const int32_t* rect1,
 // out: (2, capacity) = key1, key2, or with plain_key (3, capacity) = the
 // tile, the depth word and the entry index (the sentinel in all three at
 // dead slots); mode: a Mode (see launch_ok); bounds: the (2, 128) table for
-// mode "warped", else null; tile_w, tile_h: 1 to 64; row_offset: mode
+// mode "warped", else null; tile_w, tile_h: 1 to 4096; row_offset: mode
 // mono's, else 0.  Mode none reads no mask (it may be null) and no
 // word.
 extern "C" int gsm_expand(const int32_t* offsets, const int32_t* rect,

@@ -1,18 +1,19 @@
 // Kernel 5: front-to-back tile blend, one CTA per tile of tile_w x tile_h
-// pixels (each side 1 to 64: 16x16 in the DepthFirst, Local and Hardware
+// pixels (each side 1 to 4096: 16x16 in the DepthFirst, Local and Hardware
 // renderers, 32x16 in the Global one; a cluster of two to four CTAs above
-// 1024 pixels), writing the color and depth images directly (assemble fused,
-// ragged edge masked).  kEyes = 2 is the single-pass
-// dual-eye stereo blend: each entry carries both eyes' records (8 words:
-// left w0..w3, right w0..w3), each pixel keeps one accumulator and
-// transmittance per eye, and eye e writes columns [e * width, (e + 1) *
-// width) of an (H, 2W) image.
+// 1024 pixels, and above 4096 pixels CTAs without a cluster that agree on
+// the tile's exit in a scan launch before they blend), writing the color
+// and depth images directly (assemble fused, ragged edge masked).
+// kEyes = 2 is the single-pass dual-eye stereo blend: each entry carries
+// both eyes' records (8 words: left w0..w3, right w0..w3), each pixel
+// keeps one accumulator and transmittance per eye, and eye e writes
+// columns [e * width, (e + 1) * width) of an (H, 2W) image.
 //
 // Replaces the Pallas kernel gsm_renderer_tpu/kernels/blend.py::
 // _row_blend_kernel (blend_tiles_pallas, exponent_mode "vpu", depth modes
 // "weighted", "none", "first_hit" and "normalized", n_eyes 1 and 2,
-// r2_cutoff, pixel_coords, tile_row_offset, every tile of 1 to 64 pixels
-// a side) and the XLA assemble_image after it.  Every pairing of eyes,
+// r2_cutoff, pixel_coords, tile_row_offset, every tile of 1 to 4096
+// pixels a side) and the XLA assemble_image after it.  Every pairing of eyes,
 // cutoff, depth mode, pixel coordinates and tile takes the kernel.
 //
 // Records through the sorted keys: rank k of the sorted instance list is
@@ -115,6 +116,32 @@
 //   SM; a CTA of two pixels a thread holds the state of the 32x32
 //   instance (56 to 80 registers).  The general layout adds 24 instances (eyes x
 //   first_hit x cutoff x {one pixel, two, two in a cluster}).
+// - Tiles of more than 4096 pixels (kMaxPix: 65x65 to 4096x4096) take
+//   ceil(P / 1024) CTAs of the general layout with no cluster (a portable
+//   cluster holds 8 CTAs, so a cluster would stop at 8192 pixels, and
+//   nothing guarantees that the CTAs of a larger tile run at once).  They
+//   agree on the exit in two launches.  A CTA below the exit at a batch
+//   end stays below it at every later batch end where the tile could
+//   exit: transmittance never rises (it is multiplied by 1 - alpha, alpha
+//   in [0, 0.99]), and a NaN (not below the exit, as in the plain version)
+//   comes either from a record whose mean is not finite, which makes dx or
+//   dy infinite, and so q NaN or not, at every pixel of the tile at once
+//   (the idle lanes' far point included), or from a pixel coordinate that
+//   is not finite, whose pixel never gets below the exit.  So the tile's
+//   exit is the latest of its CTAs' own first exits.
+//   (1) large_blend_kernel<..., kScan>, the exit scan: each CTA walks the
+//   tile's records with the same batches and the same float sequence but
+//   computes transmittance alone (no colour, no depth), stops at its first
+//   batch end with every pixel below the exit, and writes the rank after
+//   that batch to the tile's word by atomicMax (INT_MAX: it never got
+//   there).
+//   (2) large_blend_kernel<..., kSplit>: each CTA blends its pixels up to
+//   that rank, with no vote.
+//   Each pixel goes through the same operations as in the cluster path, so
+//   the images are bit-equal to it and to the plain version.  Cost: about
+//   1.5 to 2 walks of each tile's records.  The wrapper allocates the word
+//   a tile; gsm_blend zeroes it on the stream.  12 more instances (the
+//   scan: eyes x cutoff; the blend: eyes x first_hit x cutoff).
 // - Gather latency.  The key and the words of the next batch's record are
 //   loaded into registers before the current batch is composited, and the
 //   key of the batch after that too, so the dependent key -> entry -> word
@@ -127,6 +154,7 @@
 // costs about 25 FP32 operations and one MUFU (exp), or 11 (dx, dy, u, v,
 // q) where the cutoff zeroes it; the records read are 8 B of key plus 16 B
 // of words per eye.
+#include <climits>
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -140,7 +168,8 @@ constexpr int kWarpW = 8;
 constexpr int kWarpH = 32 / kWarpW;
 // the general layout: at most kGenThreads threads of at most two pixels a
 // CTA, so a CTA holds up to kCtaPix pixels of a tile; a larger tile (up to
-// kMaxPix, 64 x 64) is split over a cluster of up to kMaxCluster CTAs
+// kMaxPix, 64 x 64) is split over a cluster of up to kMaxCluster CTAs, and
+// a tile above kMaxPix over CTAs without a cluster (the large-tile path)
 constexpr int kGenThreads = 512;
 constexpr int kCtaPix = 2 * kGenThreads;
 constexpr int kMaxPix = 4096;
@@ -159,6 +188,22 @@ enum DepthMode {
   kDepthNormalized = 3
 };
 constexpr float kFirstHitAlpha = 0.1f;
+
+// How the CTAs of a tile share it (blend_tile's kShare).
+enum Share {
+  kAlone = 0,    // one CTA a tile
+  kCluster = 1,  // a cluster; exit votes through distributed shared memory
+  kScan = 2,     // large tiles, launch 1: each CTA's own exit, no image
+  kSplit = 3     // large tiles, launch 2: blend to the tile's exit
+};
+
+// The large-tile path's state (kScan, kSplit): ctas CTAs a tile;
+// exit_rank[t] the rank after tile t's exit batch (the latest of its CTAs'
+// own; INT_MAX: none).
+struct LargeArgs {
+  int ctas;
+  int* exit_rank;
+};
 
 // A decoded record: {mx, my, a1, b1}, {a2, b2, lop, d}, {r, g, b, 0}.
 struct Rec {
@@ -191,17 +236,19 @@ __device__ __forceinline__ Rec decode_record(uint32_t a0, uint32_t a1,
 // Two pixel layouts.  kThreads > 0 (blend_kernel): a tile of 8, 16 or 32
 // pixels a side, kThreads threads a CTA, kPix = kThreads * kPPT pixels
 // (tile_w * tile_h == kPix), 8x4 warp blocks; the first kStage threads
-// stage a round of records.  kThreads == 0 (general_blend_kernel): any
-// tile of up to kMaxPix pixels: blockDim.x threads (a multiple of 32, at
+// stage a round of records.  kThreads == 0 (general_blend_kernel and the
+// large-tile entries): any tile: blockDim.x threads (a multiple of 32, at
 // most kGenThreads), pixel j of thread t is p = rank * blockDim.x * kPPT +
 // j * blockDim.x + t of the tile in row-major order (ly = p / tile_w, lx =
-// p % tile_w), rank the CTA's rank in the cluster that shares the tile
-// (kClustered; else 0); lanes past the tile's P pixels are idle: they
-// stage records, never write, and never hold the exit open (see kFar
-// below).  The largest power of two <= min(blockDim.x, kBatch) threads
-// stage a round.
+// p % tile_w), rank the CTA's rank among those that share the tile (0
+// when it is alone); lanes past the tile's P pixels are idle: they stage
+// records, never write, and never hold the exit open (see kFar below).
+// The largest power of two <= min(blockDim.x, kBatch) threads stage a
+// round.  kShare (a Share): how the CTAs of the tile share it; the rank of
+// a CTA is its rank in the cluster (kCluster) or blockIdx.x modulo la.ctas
+// (kScan, kSplit).
 template <int kEyes, int kThreads, int kPPT, bool kFirstHit, bool kCutoff,
-          bool kClustered>
+          int kShare>
 __device__ __forceinline__ void blend_tile(
     const uint32_t* __restrict__ key_words, uint32_t idx_mask,
     const WordPtrs& W, const int32_t* __restrict__ starts,
@@ -209,11 +256,13 @@ __device__ __forceinline__ void blend_tile(
     int width, int height, int tile_row_offset, int depth_mode,
     float theta_unit, float inv255, float min_transmittance, float r2_cutoff,
     const float* __restrict__ coord_x, const float* __restrict__ coord_y,
-    float* __restrict__ color, float* __restrict__ depth) {
+    float* __restrict__ color, float* __restrict__ depth,
+    const LargeArgs& la) {
   constexpr bool kGeneral = kThreads == 0;
   constexpr int kWords = 4 * kEyes;
   constexpr int kStageMax = kGeneral || kThreads >= kBatch ? kBatch : kThreads;
-  static_assert(kGeneral || !kClustered, "clusters take the general layout");
+  static_assert(kGeneral || kShare == kAlone,
+                "shared tiles take the general layout");
   __shared__ Rec sr[kEyes][kStageMax];
 
   const int t = threadIdx.x;
@@ -224,12 +273,18 @@ __device__ __forceinline__ void blend_tile(
   }
   namespace cg = cooperative_groups;
   int tile = blockIdx.x, rank = 0, peers = 1;
-  if constexpr (kClustered) {
+  if constexpr (kShare == kCluster) {
     const cg::cluster_group cluster = cg::this_cluster();
     peers = static_cast<int>(cluster.num_blocks());
     rank = static_cast<int>(cluster.block_rank());
     tile = blockIdx.x / peers;
+  } else if constexpr (kShare == kScan || kShare == kSplit) {
+    tile = blockIdx.x / la.ctas;
+    rank = blockIdx.x - tile * la.ctas;
   }
+  // kSplit: the rank after the tile's exit batch, from the scan
+  int stop = INT_MAX;
+  if constexpr (kShare == kSplit) stop = la.exit_rank[tile];
   const int tx = tile % tiles_x, ty = tile / tiles_x;
   const int pix = tile_w * tile_h;
   // pixel j of the thread: its place (lx, ly) in the tile; whether it lies
@@ -313,6 +368,7 @@ __device__ __forceinline__ void blend_tile(
   // write that slot again)
   __shared__ int vote[2];
   int parity = 0;
+  int own_exit = INT_MAX;  // kScan: the rank after the CTA's own exit batch
   const int base = (start / kBlock) * kBlock;
   int g = entry_at(base);
   int g_next = entry_at(base + stage);
@@ -354,23 +410,25 @@ __device__ __forceinline__ void blend_tile(
         if constexpr (kCutoff) {
           if (!__any_sync(0xFFFFFFFFu, any_in)) continue;
         }
-        const float4 Cc = sr[e][k].c;
+        const float4 Cc = sr[e][k].c;  // unused by the scan
 #pragma unroll
         for (int j = 0; j < kPPT; ++j) {
           float alpha = jmin(expf(q[j] * -0.5f + B.z), 0.99f);
           if (cut[j]) alpha = 0.0f;
-          const float w = alpha * trans[e][j];
-          acc_r[e][j] = acc_r[e][j] + w * Cc.x;
-          acc_g[e][j] = acc_g[e][j] + w * Cc.y;
-          acc_b[e][j] = acc_b[e][j] + w * Cc.z;
-          if constexpr (kFirstHit) {
-            // acc_d holds the first hit's depth
-            if (!hit[e][j] && alpha > kFirstHitAlpha) {
-              hit[e][j] = true;
-              acc_d[e][j] = B.w;
+          if constexpr (kShare != kScan) {  // the scan keeps T alone
+            const float w = alpha * trans[e][j];
+            acc_r[e][j] = acc_r[e][j] + w * Cc.x;
+            acc_g[e][j] = acc_g[e][j] + w * Cc.y;
+            acc_b[e][j] = acc_b[e][j] + w * Cc.z;
+            if constexpr (kFirstHit) {
+              // acc_d holds the first hit's depth
+              if (!hit[e][j] && alpha > kFirstHitAlpha) {
+                hit[e][j] = true;
+                acc_d[e][j] = B.w;
+              }
+            } else {
+              acc_d[e][j] = acc_d[e][j] + w * B.w;
             }
-          } else {
-            acc_d[e][j] = acc_d[e][j] + w * B.w;
           }
           trans[e][j] = trans[e][j] * (1.0f - alpha);
         }
@@ -379,6 +437,12 @@ __device__ __forceinline__ void blend_tile(
     // barrier (also protects the shared round); at the end of each batch
     // of kBatch records the tile-level early exit
     if (stage < kBatch && (b0 + stage - base) % kBatch != 0) {
+      __syncthreads();
+      continue;
+    }
+    if constexpr (kShare == kSplit) {
+      // no vote: the scan found the tile's exit batch
+      if (b0 + stage >= stop) break;
       __syncthreads();
       continue;
     }
@@ -391,7 +455,7 @@ __device__ __forceinline__ void blend_tile(
       }
     }
     int any_open = __syncthreads_or(open);
-    if constexpr (kClustered) {
+    if constexpr (kShare == kCluster) {
       cg::cluster_group cluster = cg::this_cluster();
       if (t == 0) vote[parity] = any_open;
       cluster.sync();
@@ -400,11 +464,18 @@ __device__ __forceinline__ void blend_tile(
       }
       parity ^= 1;
     }
-    if (!any_open) break;
+    if (!any_open) {
+      if constexpr (kShare == kScan) own_exit = b0 + stage;
+      break;
+    }
   }
-  if constexpr (kClustered) {
+  if constexpr (kShare == kCluster) {
     // no CTA leaves while a peer may still read its votes
     cg::this_cluster().sync();
+  }
+  if constexpr (kShare == kScan) {
+    if (t == 0) atomicMax(la.exit_rank + tile, own_exit);
+    return;
   }
 
 #pragma unroll
@@ -447,10 +518,11 @@ blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
              const float* __restrict__ coord_x,
              const float* __restrict__ coord_y,
              float* __restrict__ color, float* __restrict__ depth) {
-  blend_tile<kEyes, kThreads, kPPT, kFirstHit, kCutoff, false>(
+  blend_tile<kEyes, kThreads, kPPT, kFirstHit, kCutoff, kAlone>(
       key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h, width,
       height, tile_row_offset, depth_mode, theta_unit, inv255,
-      min_transmittance, r2_cutoff, coord_x, coord_y, color, depth);
+      min_transmittance, r2_cutoff, coord_x, coord_y, color, depth,
+      LargeArgs{});
 }
 
 // The general-layout entry.  It declares one CTA an SM as its minimum:
@@ -468,13 +540,39 @@ general_blend_kernel(const uint32_t* __restrict__ key_words,
                      const float* __restrict__ coord_x,
                      const float* __restrict__ coord_y,
                      float* __restrict__ color, float* __restrict__ depth) {
-  blend_tile<kEyes, 0, kPPT, kFirstHit, kCutoff, kClustered>(
+  blend_tile<kEyes, 0, kPPT, kFirstHit, kCutoff,
+             kClustered ? kCluster : kAlone>(
       key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h, width,
       height, tile_row_offset, depth_mode, theta_unit, inv255,
-      min_transmittance, r2_cutoff, coord_x, coord_y, color, depth);
+      min_transmittance, r2_cutoff, coord_x, coord_y, color, depth,
+      LargeArgs{});
+}
+
+// The large-tile entries (tiles of more than kMaxPix pixels, la.ctas CTAs
+// of two pixels a thread each, no cluster; see the head comment):
+// kScan writes each tile's exit rank, kSplit blends to it.  The scan's
+// transmittance does not depend on the depth mode: one instance serves
+// first_hit and the rest.
+template <int kEyes, bool kFirstHit, bool kCutoff, int kShare>
+__global__ void __launch_bounds__(kGenThreads, 1)
+large_blend_kernel(const uint32_t* __restrict__ key_words, uint32_t idx_mask,
+                   WordPtrs W, const int32_t* __restrict__ starts,
+                   const int32_t* __restrict__ counts, int tiles_x,
+                   int tile_w, int tile_h, int width, int height,
+                   int tile_row_offset, int depth_mode, float theta_unit,
+                   float inv255, float min_transmittance, float r2_cutoff,
+                   const float* __restrict__ coord_x,
+                   const float* __restrict__ coord_y,
+                   float* __restrict__ color, float* __restrict__ depth,
+                   LargeArgs la) {
+  blend_tile<kEyes, 0, 2, kFirstHit, kCutoff, kShare>(
+      key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h, width,
+      height, tile_row_offset, depth_mode, theta_unit, inv255,
+      min_transmittance, r2_cutoff, coord_x, coord_y, color, depth, la);
 }
 
 using BlendFn = decltype(&blend_kernel<1, 256, 1, false, false>);
+using LargeFn = decltype(&large_blend_kernel<1, false, false, kScan>);
 
 // A launch: the kernel, its CTA size and the CTAs a tile.
 struct BlendLaunch {
@@ -503,21 +601,31 @@ BlendLaunch pick_pixels(int pix) {
   }
 }
 
-// The general-layout launch for a tile of pix pixels (<= kMaxPix): the
-// fewest CTAs of at most kCtaPix pixels each (a cluster when more than
-// one), each taking one pixel a thread up to kGenThreads pixels and two
-// above, in the fewest warps that hold its share.
+// The general layout's CTAs for a tile of pix pixels: the fewest CTAs of
+// at most kCtaPix pixels each, each taking one pixel a thread up to
+// kGenThreads pixels and two above, in the fewest warps that hold its
+// share.
+struct GeneralShape {
+  int ctas, ppt, threads;
+};
+
+GeneralShape general_shape(int pix) {
+  const int ctas = (pix + kCtaPix - 1) / kCtaPix;
+  const int share = (pix + ctas - 1) / ctas;
+  const int ppt = share <= kGenThreads ? 1 : 2;
+  return {ctas, ppt, ((share + ppt - 1) / ppt + 31) / 32 * 32};
+}
+
+// The general-layout launch for a tile of pix pixels (<= kMaxPix): a
+// cluster when it takes more than one CTA.
 template <int kEyes, bool kFirstHit, bool kCutoff>
 BlendLaunch pick_general(int pix) {
-  const int cluster = (pix + kCtaPix - 1) / kCtaPix;
-  const int share = (pix + cluster - 1) / cluster;
-  const int ppt = share <= kGenThreads ? 1 : 2;
-  const int threads = ((share + ppt - 1) / ppt + 31) / 32 * 32;
+  const GeneralShape S = general_shape(pix);
   const BlendFn kernel =
-      cluster > 1 ? general_blend_kernel<kEyes, 2, kFirstHit, kCutoff, true>
-      : ppt == 2  ? general_blend_kernel<kEyes, 2, kFirstHit, kCutoff, false>
-                  : general_blend_kernel<kEyes, 1, kFirstHit, kCutoff, false>;
-  return {kernel, threads, cluster};
+      S.ctas > 1   ? general_blend_kernel<kEyes, 2, kFirstHit, kCutoff, true>
+      : S.ppt == 2 ? general_blend_kernel<kEyes, 2, kFirstHit, kCutoff, false>
+                   : general_blend_kernel<kEyes, 1, kFirstHit, kCutoff, false>;
+  return {kernel, S.threads, S.ctas};
 }
 
 // The 8x4-block instances at sides of 8, 16 and 32 pixels (blocks), but
@@ -553,17 +661,49 @@ BlendLaunch pick_blend(bool two, bool first_hit, bool cutoff, int tile_w,
                    : pick_layout<1, false, false>(blocks, pix);
 }
 
+// The large-tile path's two kernels: the exit scan and the blend.
+struct LargeLaunch {
+  LargeFn scan, blend;
+};
+
+template <int kEyes, bool kFirstHit, bool kCutoff>
+LargeLaunch large_for() {
+  return {large_blend_kernel<kEyes, false, kCutoff, kScan>,
+          large_blend_kernel<kEyes, kFirstHit, kCutoff, kSplit>};
+}
+
+LargeLaunch pick_large(bool two, bool first_hit, bool cutoff) {
+  if (two) {
+    if (cutoff) {
+      return first_hit ? large_for<2, true, true>()
+                       : large_for<2, false, true>();
+    }
+    return first_hit ? large_for<2, true, false>()
+                     : large_for<2, false, false>();
+  }
+  if (cutoff) {
+    return first_hit ? large_for<1, true, true>()
+                     : large_for<1, false, true>();
+  }
+  return first_hit ? large_for<1, true, false>()
+                   : large_for<1, false, false>();
+}
+
 }  // namespace
 
 // sorted_key: (capacity,) int64 sort keys (key2 in the low 32 bits, the
 // entry index in its low idx_bits); words: 4 * n_eyes pointers to the (N,)
-// int32 word rows of the entry table; tile_w, tile_h: 1 to 64 pixels
+// int32 word rows of the entry table; tile_w, tile_h: 1 to 4096 pixels
 // (tile_side_ok); depth_mode: a DepthMode; coord_x (tiles_x, tile_w *
 // tile_h) and coord_y (tiles_y, tile_w * tile_h) the foveated pixel
 // coordinates, or both null; tile_row_offset >= 0 (0 with coordinate
 // tables); color (H, n_eyes * W, 4), depth (H, n_eyes * W) unless
-// depth_mode is none.  r2_cutoff >= 0 (0: no cutoff).  Every pairing of
-// eyes, cutoff, depth mode and pixel coordinates takes every tile.
+// depth_mode is none.  r2_cutoff >= 0 (0: no cutoff).  large: tiles_x *
+// tiles_y int32 of scratch for a tile of more than kMaxPix pixels (any
+// contents: zeroed here on the stream), else unused (may be null).  Every
+// pairing of eyes, cutoff, depth mode and pixel coordinates takes every
+// tile.  One launch, a cluster launch above 1024 pixels, or a memset and
+// two launches above kMaxPix pixels.
 extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                          const void* const* words, int n_words,
                          const int32_t* starts, const int32_t* counts,
@@ -573,7 +713,7 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
                          float min_transmittance, float r2_cutoff,
                          const float* coord_x,
                          const float* coord_y, float* color, float* depth,
-                         cudaStream_t stream) {
+                         int32_t* large, cudaStream_t stream) {
   const bool two = n_words == 8;
   const bool cutoff = r2_cutoff > 0.0f;
   if ((n_words != 4 && !two) || idx_bits < 1 || idx_bits > 32 ||
@@ -589,8 +729,32 @@ extern "C" int gsm_blend(const int64_t* sorted_key, int idx_bits,
   const uint32_t* key_words = reinterpret_cast<const uint32_t*>(sorted_key);
   const int n_tiles = tiles_x * tiles_y;
   if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
-  const BlendLaunch L = pick_blend(two, depth_mode == kDepthFirstHit, cutoff,
-                                   tile_w, tile_h);
+  const bool first_hit = depth_mode == kDepthFirstHit;
+  const int pix = tile_w * tile_h;
+  if (pix > kMaxPix) {
+    const GeneralShape S = general_shape(pix);
+    const long long grid = static_cast<long long>(n_tiles) * S.ctas;
+    if (large == nullptr || grid > INT_MAX) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaError_t err = cudaMemsetAsync(
+        large, 0, static_cast<size_t>(n_tiles) * sizeof(int32_t), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // S.ppt is 2 above kMaxPix pixels: the instances' two pixels a thread
+    const LargeLaunch L = pick_large(two, first_hit, cutoff);
+    const LargeArgs la{S.ctas, large};
+    const LargeFn kernels[2] = {L.scan, L.blend};
+    for (const LargeFn kernel : kernels) {
+      kernel<<<static_cast<unsigned>(grid), S.threads, 0, stream>>>(
+          key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h,
+          width, height, tile_row_offset, depth_mode, theta_unit, inv255,
+          min_transmittance, r2_cutoff, coord_x, coord_y, color, depth, la);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return static_cast<int>(cudaSuccess);
+  }
+  const BlendLaunch L = pick_blend(two, first_hit, cutoff, tile_w, tile_h);
   if (L.cluster == 1) {
     L.kernel<<<n_tiles, L.threads, 0, stream>>>(
         key_words, idx_mask, W, starts, counts, tiles_x, tile_w, tile_h,

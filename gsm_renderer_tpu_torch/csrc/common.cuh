@@ -43,13 +43,15 @@ __device__ __forceinline__ float f16_bits_to_f32(uint32_t bits) {
   return e == 0 ? 0.0f : __uint_as_float(f);
 }
 
-// A tile side the kernels take: 1 to 64 pixels (kernels/expand.py
-// MAX_TILE_SIDE).  Every tile bound and pixel offset is an integer product
-// below 2^24, exact in float32; the projection's tile rect multiplies by the
-// float32 reciprocal of the side, as the JAX reference's jitted division by
-// a constant does.
+// A tile side the kernels take: 1 to 4096 pixels (kernels/expand.py
+// MAX_TILE_SIDE).  A tile then holds at most 2^24 pixels, so every in-tile
+// pixel offset and every tile bound (a tile index of at most 1023, the rect
+// word's 10-bit fields, times the side) is an integer below 2^24, exact in
+// float32, and every pixel index fits int32; the projection's tile rect
+// multiplies by the float32 reciprocal of the side, as the JAX reference's
+// jitted division by a constant does.
 static inline bool tile_side_ok(int side) {
-  return side >= 1 && side <= 64;
+  return side >= 1 && side <= 4096;
 }
 
 // The record word rows of an entry table (up to 8: left eye w0..w3, right

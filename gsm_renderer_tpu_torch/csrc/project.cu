@@ -11,7 +11,7 @@
 // __float2half_rn.
 //
 // Modes: tiles of tile_w x tile_h pixels in the tile rect (ProjInts::tile_w,
-// ::tile_h, each 1 to 64; the renderers use 16x16 and the Global
+// ::tile_h, each 1 to 4096; the renderers use 16x16 and the Global
 // renderer's 32x16; see tile_bounds for the rounding), and the 16-bit half-depth key (ProjInts::key16, the
 // Pallas kernel's depth_key16: half_key16 of the record's f16 depth bits,
 // 0xFFFFFFFF where culled, no KeyPlan) in place of the 32-bit depth word.
@@ -316,7 +316,7 @@ __device__ __forceinline__ uint32_t theta_u16(float evx, float evy, bool vis,
 // folds the division by a constant into a multiply by its float32
 // reciprocal; so does this: floor(xmin * (1 / tile_w)), with the
 // reciprocal rounded once (an IEEE division, equal to the host's float32
-// 1 / tile_w at every side up to 64).  At a side that is not a power of
+// 1 / tile_w at every side up to 4096).  At a side that is not a power of
 // two it can split a bound within an ulp of a tile edge differently from
 // an exact division; at a power of two the two agree bit for bit.
 __device__ __forceinline__ void tile_bounds(float sx, float sy, float ex,
@@ -633,7 +633,7 @@ ProjInts load_ints(const int* ints, const uint32_t* plan) {
 }
 
 // ints: n, tiles_x, tiles_y, sh_degree, srgb, has_plan, tile_w, key16,
-// tile_h (tile sides 1 to 64); plan: the KeyPlan's near_key and span.
+// tile_h (tile sides 1 to 4096); plan: the KeyPlan's near_key and span.
 extern "C" int gsm_project(const float* comp, const float* harm,
                            const float* params, const int* ints,
                            const uint32_t* plan, void* rect_word, void* rect_h,

@@ -3,11 +3,14 @@
 Port of ``gsm_renderer_tpu/kernels/blend.py``: ``blend_tiles_pallas``
 (``_row_blend_kernel``, depth modes "weighted", "none", "first_hit" and
 "normalized", ``n_eyes`` 1 and 2, ``r2_cutoff``, ``pixel_coords``,
-``tile_row_offset``, tiles of 1 to 64 pixels a side) and
+``tile_row_offset``, tiles of 1 to 4096 pixels a side) and
 ``assemble_image``.  The
 kernel is ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W)
 depth directly -- (H, 2W) for two eyes side by side -- so assembly is fused
-into it on the card.
+into it on the card.  A tile of more than ``CLUSTER_MAX_PIXELS`` pixels is
+shared by CTAs without a cluster, which find the tile's exit in a scan
+launch before they blend (an int32 word a tile of scratch, allocated
+here).
 
 Records through the sorted keys: the blend takes the sorted int64 instance
 keys and the entry table's word rows (``entry_words``: 4 * n_eyes (N,) int32
@@ -63,14 +66,21 @@ DEPTH_MODES = {"none": 0, "weighted": 1, "first_hit": 2, "normalized": 3}
 #: normalized depth: the weighted depth over max(alpha, NORMALIZED_MIN_ALPHA)
 NORMALIZED_MIN_ALPHA = 1e-6
 WORD_ROWS = 4
+#: the plain version's stacked record fields: the means, the linear forms'
+#: x and y coefficients and the colour side by side, so that a pair of
+#: fields takes one op
+FIELDS = ("mx", "my", "a1", "a2", "b1", "b2", "r", "g", "b", "logop", "depth")
 BATCH = 256
 BLOCK = 128
+#: the most pixels a tile holds on the kernel's one-CTA and cluster paths;
+#: a larger tile takes the large-tile path
+CLUSTER_MAX_PIXELS = 4096
 
 BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
     _native.P, _native.I, _native.P, _native.I, _native.P, _native.P,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.F, _native.F, _native.F, _native.F,
-    _native.P, _native.P, _native.P, _native.P])
+    _native.P, _native.P, _native.P, _native.P, _native.P])
 
 
 def _check_depth_mode(depth_mode: str) -> None:
@@ -142,16 +152,20 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
         tiles = torch.arange(starts.shape[0], device=dev)
     tiles = tiles.to(torch.int64)
     pix = tile_w * tile_h
-    recs = [decode_records(words[WORD_ROWS * e:WORD_ROWS * (e + 1)])
-            for e in range(n_eyes)]
+    # each eye's FIELDS stacked, so that a rank's records gather in one op
+    fields = [torch.stack([rec[name] for name in FIELDS]) for rec in (
+        decode_records(words[WORD_ROWS * e:WORD_ROWS * (e + 1)])
+        for e in range(n_eyes))]
     # ranks outside every span (dead slots) may carry any index
     entry = torch.clamp(entry_index(sorted_key, idx_bits), 0,
                         max(words[0].shape[0] - 1, 0))
     cap = sorted_key.shape[0]
     start = starts.to(torch.int64)[tiles]
     count = counts.to(torch.int64)[tiles]
-    end = start + count
     base = torch.div(start, BLOCK, rounding_mode="floor") * BLOCK
+    # rank start + k ends a batch (start + k + 1 - base a multiple of
+    # BATCH) where k % BATCH is the tile's phase
+    phase = torch.remainder(base - start - 1, BATCH)
     t_x = tiles % tiles_x
     t_y = torch.div(tiles, tiles_x, rounding_mode="floor")
     if pixel_coords is not None:
@@ -164,12 +178,16 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
         pxa = lx[None, :] + (t_x * tile_w).to(torch.float32)[:, None]
         pya = ly[None, :] + ((t_y + tile_row_offset)
                              * tile_h).to(torch.float32)[:, None]
+    pxy = torch.stack([pxa, pya])
 
     n_t = tiles.shape[0]
     trans = [torch.ones((n_t, pix), dtype=torch.float32, device=dev)
              for _ in range(n_eyes)]
-    acc = [[torch.zeros((n_t, pix), dtype=torch.float32, device=dev)
-            for _ in range(4)] for _ in range(n_eyes)]
+    # colour (3, T', P) and depth (T', P) of each eye
+    rgb = [torch.zeros((3, n_t, pix), dtype=torch.float32, device=dev)
+           for _ in range(n_eyes)]
+    acc_d = [torch.zeros((n_t, pix), dtype=torch.float32, device=dev)
+             for _ in range(n_eyes)]
     first_hit = depth_mode == "first_hit"
     hit = [torch.zeros((n_t, pix), dtype=torch.bool, device=dev)
            for _ in range(n_eyes)]
@@ -183,43 +201,39 @@ def blend_tiles_plain(sorted_key, entry_words, idx_bits: int, starts, counts,
             break
         valid = active & (k < count)
         g = entry[torch.clamp(start + k, 0, max(cap - 1, 0))]
-        for e, rec in enumerate(recs):
-            at = {name: v[g][:, None] for name, v in rec.items()}
-            dx = pxa - at["mx"]
-            dy = pya - at["my"]
-            u = at["a1"] * dx + at["b1"] * dy
-            v = at["a2"] * dx + at["b2"] * dy
-            q = u * u + v * v
-            alpha = torch.clamp(torch.exp(q * -0.5 + at["logop"]),
-                                max=ALPHA_CLAMP)
+        for e, stacked in enumerate(fields):
+            f = stacked[:, g, None]  # FIELDS of each tile's record
+            d = pxy - f[0:2]  # dx, dy
+            uv = f[2:4] * d[0] + f[4:6] * d[1]  # u = a1 dx + b1 dy, v
+            sq = uv * uv
+            q = sq[0] + sq[1]
+            alpha = torch.clamp(torch.exp(q * -0.5 + f[9]), max=ALPHA_CLAMP)
             if r2_cutoff > 0.0:
                 alpha = torch.where(q > r2_cutoff, 0.0, alpha)
             alpha = torch.where(valid[:, None], alpha, 0.0)
             w = alpha * trans[e]
-            for c, name in enumerate(("r", "g", "b")):
-                acc[e][c] = acc[e][c] + w * at[name]
+            rgb[e] = rgb[e] + w * f[6:9]
             if first_hit:
                 took = ~hit[e] & (alpha > FIRST_HIT_ALPHA)
-                acc[e][3] = torch.where(took, at["depth"], acc[e][3])
+                acc_d[e] = torch.where(took, f[10], acc_d[e])
                 hit[e] = hit[e] | took
             else:
-                acc[e][3] = acc[e][3] + w * at["depth"]
+                acc_d[e] = acc_d[e] + w * f[10]
             trans[e] = trans[e] * (1.0 - alpha)
         processed += valid.to(torch.int64)
-        pos = start + k + 1
-        batch_end = valid & (torch.remainder(pos - base, BATCH) == 0) & (pos < end)
+        batch_end = valid & (phase == k % BATCH) & (k + 1 < count)
         tmax = trans[0]
         for t in trans[1:]:
             tmax = torch.maximum(tmax, t)
         saturated = (tmax < MIN_TRANSMITTANCE).all(dim=1)
         active = active & ~(batch_end & saturated)
     eyes = []
-    for a, t in zip(acc, trans):
+    for c, a, t in zip(rgb, acc_d, trans):
         alpha = 1.0 - t
-        depth = None if depth_mode == "none" else a[3]
+        depth = None if depth_mode == "none" else a
         if depth_mode == "normalized":
             depth = depth / torch.clamp(alpha, min=NORMALIZED_MIN_ALPHA)
-        eyes.append((torch.stack([a[0], a[1], a[2], alpha], dim=-1), depth))
+        eyes.append((torch.stack([c[0], c[1], c[2], alpha], dim=-1), depth))
     out = eyes[0] if n_eyes == 1 else eyes
     if return_processed:
         return (*out, processed) if n_eyes == 1 else (out, processed)
@@ -254,8 +268,8 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
     """Launch ``csrc/blend.cu``: returns (color (H, n_eyes * W, 4), depth
     (H, n_eyes * W) or None), the eyes side by side.  The kernel blends one
     or two eyes without a cutoff (``r2_cutoff`` 0) or with one, in every
-    depth mode, with or without pixel coordinates, at every tile of 1 to 64
-    pixels a side.  It raises on a negative cutoff."""
+    depth mode, with or without pixel coordinates, at every tile of 1 to
+    4096 pixels a side.  It raises on a negative cutoff."""
     _check_depth_mode(depth_mode)
     words = _check_words(entry_words, n_eyes)
     _check_row_offset(tile_row_offset, pixel_coords)
@@ -287,6 +301,9 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                         device=dev)
     depth = torch.empty((height, n_eyes * width) if with_depth else (1,),
                         dtype=torch.float32, device=dev)
+    # the large-tile path's exit rank of each tile (zeroed by the launch)
+    large = (torch.empty(n_t, dtype=torch.int32, device=dev)
+             if tile_w * tile_h > CLUSTER_MAX_PIXELS else None)
     BLEND.launch(_native.ptr(sorted_key), idx_bits, _native.ptr_array(words),
                  len(words), _native.ptr(starts), _native.ptr(counts), tiles_x,
                  tiles_y, width, height, tile_row_offset, tile_w, tile_h,
@@ -294,7 +311,7 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                  M.f32(THETA_UNIT),
                  M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),
                  M.f32(r2_cutoff), *coords, _native.ptr(color),
-                 _native.ptr(depth))
+                 _native.ptr(depth), _native.ptr_or_null(large))
     return color, (depth if with_depth else None)
 
 

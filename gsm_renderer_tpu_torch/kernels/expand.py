@@ -13,7 +13,7 @@ its offsets from prep, where the JAX package computes them in XLA
 (``pipelines/common.py::binning_inputs`` and the cumsum of
 ``expand_slots_pallas``).  The kernels are
 ``csrc/binning.cu``.  Prep, the row expansion and the expand take tiles of
-1 to 64 pixels a side in every mode (:func:`check_tile`; the 8x4 window
+1 to 4096 pixels a side in every mode (:func:`check_tile`; the 8x4 window
 keeps its geometry in tiles, only each test's pixel extents change).  The
 JAX expand's ``fused_depth16`` key [tile:16 | depth16:16]
 needs no key layout of its own here: the KeyPlan with ``depth_span_bits=16``
@@ -60,9 +60,10 @@ CULLED_BIT = 1 << 30
 MASKED_BIT = 1 << 31
 MASK_W, MASK_H = 8, 4
 #: the largest tile side, in pixels, that the kernels and frames take (every
-#: side from 1 up; the blend holds a tile of up to 64 x 64 pixels in one
-#: CTA or a cluster of two)
-MAX_TILE_SIDE = 64
+#: side from 1 up): a 4096 x 4096 tile holds 2^24 pixels, so every in-tile
+#: pixel offset and every tile bound stays an integer exact in float32 and
+#: every pixel index fits int32
+MAX_TILE_SIDE = 4096
 THETA_UNIT = 3.14159265358979 / 65535.0
 
 #: per-pixel cutoff of the stereo blend (q <= 9); dropping an instance whose
@@ -434,15 +435,16 @@ def _check_mode(mode: str, words):
 
 
 def check_tile(tile_w: int, tile_h: int, what: str = "frame") -> None:
-    """Raise NotImplementedError unless both tile sides are integers from 1
-    to MAX_TILE_SIDE (the JAX package takes any side unchecked; a side over
-    64 pixels is not ported, and a side below 1 tiles nothing)."""
+    """Raise ValueError unless both tile sides are integers from 1 to
+    MAX_TILE_SIDE (the JAX package takes any side unchecked): a side below
+    1 tiles nothing, and a longer side would let a tile's pixel offsets
+    pass the integers float32 holds exactly."""
     if not all(1 <= s <= MAX_TILE_SIDE for s in (tile_w, tile_h)):
-        raise NotImplementedError(
+        raise ValueError(
             f"the {what} takes tile sides of 1 to {MAX_TILE_SIDE} pixels, got "
-            f"{tile_w}x{tile_h}: a side over {MAX_TILE_SIDE} pixels is not "
-            "ported to gsm_renderer_tpu_torch yet (ROADMAP.md: Queue 2 A, tile "
-            "sides over 64 pixels)")
+            f"{tile_w}x{tile_h}: a side below 1 tiles nothing, and a longer "
+            "side would let a tile hold more than 2^24 pixels, past the "
+            "integers float32 holds exactly")
 
 
 # ---------------------------------------------------------------------------

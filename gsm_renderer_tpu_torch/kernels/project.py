@@ -7,7 +7,7 @@ with ``_stereo_project_kernel``).  The kernels are ``csrc/project.cu``; they
 also fold in the JAX versions' XLA theta epilogues (atan2 and the u16
 packing), so one launch yields the finished record words.
 
-Both projections take tiles of 1 to 64 pixels a side
+Both projections take tiles of 1 to 4096 pixels a side
 (``expand.check_tile``; the renderers use 16x16 and the Global renderer's
 32x16).  The tile rect multiplies by the float32 reciprocal of each side
 (:func:`mathlib.compute_tile_bounds_c`), as the jitted JAX reference

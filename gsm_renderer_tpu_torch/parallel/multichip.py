@@ -40,10 +40,10 @@ What the JAX ``build_sharded_depth_first`` takes and this one does not:
 ``use_xla_blend``, ``pallas_project``, ``split_frame`` and ``interpret``:
 TPU means with no counterpart here (the frame always runs the hand
 kernels on CUDA tensors, their plain versions on CPU tensors).  The JAX
-band frame takes any tile; this one every tile of 1 to 64 pixels a side,
-as the mono frame (a side over 64 raises NotImplementedError).  One card
-holds every rank of a gloo group in the port's checks; NCCL refuses two
-ranks on one device.
+band frame takes any tile; this one every tile of 1 to 4096 pixels a
+side, as the mono frame (a side of 0 or over 4096 raises ValueError).
+One card holds every rank of a gloo group in the port's checks; NCCL
+refuses two ranks on one device.
 """
 
 from __future__ import annotations
@@ -279,7 +279,7 @@ def build_sharded_depth_first(
     padded count plus its load beyond that).  ``use_keyplan=False`` sorts
     stably by the plain tile key, as happens anyway when no tie-free
     KeyPlan fits the band.  ``device``: the card by default.  Tiles: each
-    side 1 to 64 pixels (others raise NotImplementedError)."""
+    side 1 to 4096 pixels (others raise ValueError)."""
     return ShardedDepthFirst(
         group, width=width, height=height, n_total=n_total,
         sh_degree=sh_degree, capacity_per_device=capacity_per_device,

@@ -136,7 +136,7 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     while ``slot_total`` is prep's, the same as without the clamp.
     ``back_to_front`` renders the same frame: the radiance weights a_i *
     prod_{nearer j}(1 - a_j) are those of front-to-back compositing (JAX
-    drops it too).  Tiles: each side 1 to 64 pixels."""
+    drops it too).  Tiles: each side 1 to 4096 pixels."""
     del back_to_front
     check_tile(tile_w, tile_h)
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
@@ -213,7 +213,7 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     ``views``/``projs`` (2, 4, 4), ``centers`` (2, 3) and
     ``scene_transform`` (4, 4) are host arrays.  The header's
     ``total_instances`` is the union-rect total of the visible gaussians;
-    ``row_total`` is None.  Tiles: each side 1 to 64 pixels."""
+    ``row_total`` is None.  Tiles: each side 1 to 4096 pixels."""
     check_tile(tile_w, tile_h)
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     num_tiles = tiles_x * tiles_y
@@ -368,7 +368,7 @@ def depth_first_stereo_foveated_frame(
     renderer's.  The KeyPlan addresses the physical tiles; the header's
     ``visible_count`` counts the projection's visible gaussians before
     re-binning and ``total_instances`` is the re-binned rect total.  Tiles:
-    each side 1 to 64 pixels (the physical grid within 127 tiles an
+    each side 1 to 4096 pixels (the physical grid within 127 tiles an
     axis, as in JAX)."""
     check_tile(tile_w, tile_h)
     if tables["coord_x"].shape[1] != tile_w * tile_h:

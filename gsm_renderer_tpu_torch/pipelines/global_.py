@@ -38,7 +38,7 @@ def global_frame(gi, view, proj, center, prepared=None, *, width: int,
     ``view``/``proj`` (4, 4) and ``center`` (3,) are host arrays.
     ``exact_tile_test=False``: full-rect instances, no per-tile test.  The
     header's ``total_instances`` is the sum of the tile counts.  Tiles:
-    each side 1 to 64 pixels."""
+    each side 1 to 4096 pixels."""
     del back_to_front
     check_tile(tile_w, tile_h)
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)

@@ -35,7 +35,7 @@ def local_frame(gi, view, proj, center, prepared=None, *, width: int,
                 max_per_tile: int = cfg.LOCAL_MAX_PER_TILE) -> RenderOutput:
     """One Local frame on the device of ``gi``.  ``view``/``proj`` (4, 4)
     and ``center`` (3,) are host arrays.  The header's ``total_instances``
-    is the sum of the clamped tile counts.  Tiles: each side 1 to 64
+    is the sum of the clamped tile counts.  Tiles: each side 1 to 4096
     pixels."""
     check_tile(tile_w, tile_h)
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)

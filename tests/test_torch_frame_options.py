@@ -20,8 +20,8 @@ kernels), against the JAX package's interpret-mode frames.
   tests/test_torch_global_local.py), and the frame.
 * ``back_to_front``: accepted and ignored by ``depth_first_frame``,
   ``global_frame`` and ``hardware_frame``, as in JAX: bit-equal frames.
-* refusals: a tile side that is not 8, 16 or 32 raises NotImplementedError
-  in every frame function and kernel wrapper of the port.
+* refusals: a tile side of 0 or over 4096 pixels raises ValueError in
+  every frame function and kernel wrapper of the port.
 
 Frames: every header field equal (visible_count, total_instances,
 overflow, slot_total, row_total); colour and alpha max |d| <= 1e-2,
@@ -258,11 +258,12 @@ REFUSERS = {
 
 
 @pytest.mark.parametrize("name", list(REFUSERS))
-@pytest.mark.parametrize("tile", [(0, 16), (16, 65), (128, 16)],
-                         ids=["0x16", "16x65", "128x16"])
+@pytest.mark.parametrize("tile", [(0, 16), (16, 4097), (4097, 16)],
+                         ids=["0x16", "16x4097", "4097x16"])
 def test_tile_sides_other_than_8_16_32_raise(scene, name, tile):
-    """Every frame function and kernel wrapper takes tile sides of 1 to 64
-    pixels (tests/test_torch_tiles_odd.py renders them) and refuses a side
-    outside that range, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="sides over 64 pixels"):
+    """Every frame function and kernel wrapper takes tile sides of 1 to
+    4096 pixels (tests/test_torch_tiles*.py render them) and refuses a side
+    outside that range with ValueError, giving the reason.  (The name is
+    older than the range.)"""
+    with pytest.raises(ValueError, match="tile sides of 1 to 4096 pixels"):
         REFUSERS[name](scene, dict(tile_w=tile[0], tile_h=tile[1]))

@@ -379,10 +379,10 @@ def test_cutoff_zeroes_alpha_past_r2():
 
 def test_blend_cuda_wrapper_takes_one_eye_cutoff(monkeypatch):
     """The kernel's wrapper takes one eye with a cutoff and normalized
-    depth at every tile and depth mode (32x16 and first_hit depth
-    included) and hands the launch its tile and depth mode; it refuses a
-    negative cutoff and a tile side outside 1 to 64 (it raises before it
-    touches a device)."""
+    depth at every tile and depth mode (32x16, first_hit depth, 65x12 and
+    4096x1 included) and hands the launch its tile and depth mode; it
+    refuses a negative cutoff and a tile side outside 1 to 4096 (it raises
+    before it touches a device)."""
     calls = []
     monkeypatch.setattr(TK.BLEND, "launch", lambda *a: calls.append(a))
     key = torch.arange(4, dtype=torch.int64)
@@ -399,10 +399,14 @@ def test_blend_cuda_wrapper_takes_one_eye_cutoff(monkeypatch):
         TK.blend_image_cuda(key, torch.zeros((8, 4), dtype=torch.int32), 32,
                             starts, counts, **dict(kw, r2_cutoff=-1.0),
                             n_eyes=2)
-    with pytest.raises(NotImplementedError, match="sides over 64 pixels"):
-        TK.blend_image_cuda(key, words, 32, starts, counts, **kw, tile_w=65,
-                            tile_h=12)
-    assert len(calls) == 4
+    for tile_w, tile_h in ((65, 12), (4096, 1)):
+        TK.blend_image_cuda(key, words, 32, starts, counts, **kw,
+                            tile_w=tile_w, tile_h=tile_h)
+        assert calls[-1][11:13] == (tile_w, tile_h)
+    with pytest.raises(ValueError, match="tile sides of 1 to 4096 pixels"):
+        TK.blend_image_cuda(key, words, 32, starts, counts, **kw, tile_w=4097,
+                            tile_h=1)
+    assert len(calls) == 6
 
 
 def render(cfg_kw, gi, cam, w, h):

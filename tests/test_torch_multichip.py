@@ -6,10 +6,11 @@
   4; 128x256) with the KeyPlan and the stable fallback (``use_keyplan``),
   with equal bands and with bands balanced from the row histogram, at
   32x16 tiles (the Global renderer's; KeyPlan, equal bands), at 24x24
-  tiles (a side that is not a power of two; KeyPlan, equal bands), and at
-  a capacity of 2048 slots a band.  One JAX subprocess renders the same
-  frames with ``build_sharded_depth_first(..., use_xla_blend=False,
-  interpret=True)`` on a 4-device CPU mesh (set up as
+  tiles (a side that is not a power of two; KeyPlan, equal bands), at
+  96x64 tiles (6144 pixels a tile, the blend's large-tile path: one tile
+  row a rank), and at a capacity of 2048 slots a band.  One JAX
+  subprocess renders the same frames with ``build_sharded_depth_first(...,
+  use_xla_blend=False, interpret=True)`` on a 4-device CPU mesh (set up as
   tests/test_multichip.py does).  Colour within COLOR_TOL (2e-4, that
   file's own bound on the sharded frame) and depth within DEPTH_TOL (the
   same times the far plane) of JAX's: the projections' theta may differ
@@ -21,7 +22,7 @@
   aligned to 128-record blocks of its band's sorted list, not of the mono
   list, so colour differs by less than the exit threshold (1/255) and
   depth by less than it times the far plane.  A world of one is the mono
-  frame bit for bit.  At 32x16 and 24x24 the mono frame is
+  frame bit for bit.  At 32x16, 24x24 and 96x64 the mono frame is
   ``depth_first_frame`` at that tile (the renderer's tile is 16x16).
 * Kernel modes.  Prep "band" against a NumPy transcription of the JAX
   band clamp (``gsm_renderer_tpu/parallel/multichip.py:245-283`` and
@@ -43,6 +44,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from gsm_renderer_tpu.kernels import blend as JK
 from gsm_renderer_tpu.kernels import expand as JE
@@ -108,7 +110,9 @@ for name, kw in (("keyplan", dict(capacity_per_device=%(cap)d)),
                  ("keyplan32", dict(capacity_per_device=%(cap)d, tile_w=32,
                                     tile_h=16)),
                  ("keyplan24", dict(capacity_per_device=%(cap)d, tile_w=24,
-                                    tile_h=24))):
+                                    tile_h=24)),
+                 ("keyplan96", dict(capacity_per_device=%(cap)d, tile_w=96,
+                                    tile_h=64))):
     render = build_sharded_depth_first(
         mesh, width=w, height=h, n_total=n, sh_degree=1, near_plane=0.1,
         far_plane=20.0, use_xla_blend=False, interpret=True, **kw)
@@ -120,9 +124,11 @@ np.savez(%(path)r, **out)
 print("JAX_FRAMES_OK")
 """
 
-FRAMES = ("keyplan", "stable", "balanced", "keyplan32", "keyplan24")
-#: each frame's tile (tile_w, tile_h), 16x16 where not named
-TILES = dict(keyplan32=(32, 16), keyplan24=(24, 24))
+FRAMES = ("keyplan", "stable", "balanced", "keyplan32", "keyplan24",
+          "keyplan96")
+#: each frame's tile (tile_w, tile_h), 16x16 where not named; 96x64 gives
+#: each of the 4 ranks one tile row of 6144-pixel tiles
+TILES = dict(keyplan32=(32, 16), keyplan24=(24, 24), keyplan96=(96, 64))
 
 
 def scene_input():
@@ -173,7 +179,9 @@ def frames(tmp_path_factory):
                    tiny=dict(capacity_per_device=TINY_CAP),
                    keyplan32=dict(capacity_per_device=CAP, tile_w=32),
                    keyplan24=dict(capacity_per_device=CAP, tile_w=24,
-                                  tile_h=24))
+                                  tile_h=24),
+                   keyplan96=dict(capacity_per_device=CAP, tile_w=96,
+                                  tile_h=64))
         names = list(kws) + [f"{k}_no_exit" for k in FRAMES]
         world = TM.run_ranks(
             R.render_frames, RANKS, W, H, N,
@@ -312,15 +320,26 @@ def test_dryrun_multichip_twin():
     TM.dryrun_multichip(2, device="cpu")
 
 
-def test_band_frame_refuses_other_tiles():
-    """Tiles of 1 to 64 pixels a side render (the frames above, the 24x24
-    band frame against JAX's and tests/test_torch_tiles.py); other sides
-    raise before the frame touches its process group."""
-    for tile_w, tile_h in ((65, 16), (0, 12), (16, 128)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_band_frame_refuses_other_tiles(tmp_path):
+    """Tiles of 1 to 4096 pixels a side render (the frames above, the
+    24x24 and 96x64 band frames against JAX's, and
+    tests/test_torch_tiles*.py): 65x16 and 16x128 build in a gloo world of
+    one; other sides raise before the frame touches its process group."""
+    for tile_w, tile_h in ((0, 12), (16, 4097)):
+        with pytest.raises(ValueError, match="tile sides of 1 to 4096"):
             TM.build_sharded_depth_first(width=W, height=H, n_total=N,
                                          tile_w=tile_w, tile_h=tile_h,
                                          device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        for tile_w, tile_h in ((65, 16), (16, 128)):
+            render = TM.build_sharded_depth_first(
+                width=W, height=H, n_total=N, tile_w=tile_w, tile_h=tile_h,
+                device="cpu")
+            assert render.band_starts == (0, -(-H // tile_h))
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError):
         TM.resolve_band_starts(16, 4, (0, 4, 4, 12, 16))
 

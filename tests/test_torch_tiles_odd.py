@@ -104,13 +104,13 @@ def heavy():
                               seed=13), HW, HH)
 
 
-@pytest.fixture(scope="module")
-def stages(scene, heavy):
-    """The JAX Pallas chain (interpret mode) at each STAGE_TILES geometry,
-    as numpy: packed projection, prep table, row table, expand, sort,
-    ranges and the blend of the sorted table."""
+def jax_stages(scene, heavy, stage_tiles):
+    """The JAX Pallas chain (interpret mode) at each (tile_w, tile_h, row
+    capacity) of ``stage_tiles``, as numpy: packed projection, prep table,
+    row table, expand, sort, ranges and the blend of the sorted table; rows
+    on the ``heavy`` scene."""
     out = {}
-    for tile_w, tile_h, rows in STAGE_TILES:
+    for tile_w, tile_h, rows in stage_tiles:
         sc = heavy if rows else scene
         tiles_x, tiles_y = -(-sc["w"] // tile_w), -(-sc["h"] // tile_h)
         plan = JB.make_key_plan(tiles_x * tiles_y, rows or N, near_plane=NEAR,
@@ -155,15 +155,27 @@ def stages(scene, heavy):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_frames(scene, heavy):
+def jax_frames_of(scene, heavy, frames):
+    """JAX's interpret-mode frame of each entry of ``frames`` (name ->
+    (JAX frame, port frame, keywords); names starting "rows" on the
+    ``heavy`` scene), as numpy."""
     out = {}
-    for name, (jfn, _pfn, kw) in FRAMES.items():
+    for name, (jfn, _pfn, kw) in frames.items():
         sc = heavy if name.startswith("rows") else scene
         out[name] = jax.tree_util.tree_map(
             np.asarray, jfn(sc["jgi"], *sc["jax_args"], interpret=True,
                             **{**STATICS, **sc["size"], **kw}))
     return out
+
+
+@pytest.fixture(scope="module")
+def stages(scene, heavy):
+    return jax_stages(scene, heavy, STAGE_TILES)
+
+
+@pytest.fixture(scope="module")
+def jax_frames(scene, heavy):
+    return jax_frames_of(scene, heavy, FRAMES)
 
 
 def jax_tile_bounds(x, side):
@@ -197,11 +209,9 @@ def test_tile_bounds_round_as_jitted_jax(side):
     assert flipped.all() if side in (24, 12) else not flipped.any()
 
 
-@pytest.mark.parametrize("tile", [(w, h) for w, h, _ in STAGE_TILES],
-                         ids=STAGE_IDS)
-def test_projection_matches_pallas(scene, heavy, stages, tile):
-    ref = stages[tile]
-    sc = heavy if ref["rows"] else scene
+def check_projection(sc, ref, tile):
+    """The port's packed projection on ``sc`` against JAX's (``ref``, a
+    :func:`jax_stages` entry)."""
     got = TP.project_and_cull_packed(
         sc["gi"], *sc["port_args"], tile_w=tile[0], tile_h=tile[1],
         key_plan=TB.make_key_plan(ref["tiles_x"] * ref["tiles_y"],
@@ -222,10 +232,7 @@ def test_projection_matches_pallas(scene, heavy, stages, tile):
     assert visible.sum() > N // 3
 
 
-@pytest.mark.parametrize("tile", [(w, h) for w, h, _ in STAGE_TILES],
-                         ids=STAGE_IDS)
-def test_prep_matches_pallas(stages, tile):
-    ref = stages[tile]
+def check_prep(ref, tile):
     p, prep = ref["packed"], ref["prep"]
     offsets, rect, mask = TE.binning_prep(
         i32(p["rect_word"]), i32(p["rect_h"]), [i32(w) for w in p["words"]],
@@ -243,13 +250,9 @@ def test_prep_matches_pallas(stages, tile):
     assert masked.sum() > N // 10  # the window pre-counts at this tile
 
 
-@pytest.mark.parametrize("tile", [(w, h) for w, h, r in STAGE_TILES if r],
-                         ids=[i for i, (_w, _h, r) in zip(STAGE_IDS, STAGE_TILES)
-                              if r])
-def test_row_table_matches_pallas(stages, tile):
+def check_row_table(ref, tile):
     """The row decomposition on JAX's count_rows prep table: the row span
     multiplies by the float32 reciprocal of the side in both packages."""
-    ref = stages[tile]
     prep, rows = ref["prep"], ref["row_tab"]
     off2, rect2, mask2, dsw2, words2, ov = TE.row_expand(
         i32(prep[0, :N + 1]), i32(prep[1, :N]), i32(prep[2, :N]),
@@ -264,10 +267,7 @@ def test_row_table_matches_pallas(stages, tile):
     assert oversized.any()  # rect rows exercised at this tile
 
 
-@pytest.mark.parametrize("tile", [(w, h) for w, h, _ in STAGE_TILES],
-                         ids=STAGE_IDS)
-def test_expand_matches_pallas(stages, tile):
-    ref = stages[tile]
+def check_expand(ref, tile):
     flat, n = ref["flat"], ref["n_tab"]
     key1, key2, total, overflow = TE.expand_slots(
         i32(flat[0, :n + 1]), i32(flat[1, :n]), i32(flat[2, :n]),
@@ -286,11 +286,8 @@ def test_expand_matches_pallas(stages, tile):
     assert live.sum() > N // 2
 
 
-@pytest.mark.parametrize("tile", [(w, h) for w, h, _ in STAGE_TILES],
-                         ids=STAGE_IDS)
-def test_blend_matches_pallas(stages, tile):
+def check_blend(ref, tile):
     """The blend of JAX's sorted table, read through the identity key."""
-    ref = stages[tile]
     sw = torch.stack([i32(w) for w in ref["sorted_words"]])
     color, depth = TK.blend_tiles_plain(
         torch.arange(ref["cap"], dtype=torch.int64), sw, 32,
@@ -303,11 +300,10 @@ def test_blend_matches_pallas(stages, tile):
     assert float(color[..., :3].max()) > 0.05
 
 
-@pytest.mark.parametrize("name", list(FRAMES))
-def test_frame_matches_jax(scene, heavy, jax_frames, name):
-    _jfn, pfn, kw = FRAMES[name]
-    ref = jax_frames[name]
-    sc = heavy if name.startswith("rows") else scene
+def check_frame(sc, ref, name, pfn, kw):
+    """The port's frame ``pfn`` on ``sc`` against JAX's frame ``ref``; the
+    depth tolerance by the name's kind (local: first-hit flips; hardware:
+    normalized depth where alpha > 0.05)."""
     got = pfn(sc["gi"], *sc["port_args"], **{**STATICS, **sc["size"], **kw})
     gh, rh = header(got), {f: (None if getattr(ref.header, f) is None
                                else int(getattr(ref.header, f)))
@@ -326,6 +322,45 @@ def test_frame_matches_jax(scene, heavy, jax_frames, name):
     else:
         np.testing.assert_allclose(depth, ref.depth, atol=DEPTH_TOL)
     assert float(color[..., :3].max()) > 0.05
+
+
+@pytest.mark.parametrize("tile", [(w, h) for w, h, _ in STAGE_TILES],
+                         ids=STAGE_IDS)
+def test_projection_matches_pallas(scene, heavy, stages, tile):
+    ref = stages[tile]
+    check_projection(heavy if ref["rows"] else scene, ref, tile)
+
+
+@pytest.mark.parametrize("tile", [(w, h) for w, h, _ in STAGE_TILES],
+                         ids=STAGE_IDS)
+def test_prep_matches_pallas(stages, tile):
+    check_prep(stages[tile], tile)
+
+
+@pytest.mark.parametrize("tile", [(w, h) for w, h, r in STAGE_TILES if r],
+                         ids=[i for i, (_w, _h, r) in zip(STAGE_IDS, STAGE_TILES)
+                              if r])
+def test_row_table_matches_pallas(stages, tile):
+    check_row_table(stages[tile], tile)
+
+
+@pytest.mark.parametrize("tile", [(w, h) for w, h, _ in STAGE_TILES],
+                         ids=STAGE_IDS)
+def test_expand_matches_pallas(stages, tile):
+    check_expand(stages[tile], tile)
+
+
+@pytest.mark.parametrize("tile", [(w, h) for w, h, _ in STAGE_TILES],
+                         ids=STAGE_IDS)
+def test_blend_matches_pallas(stages, tile):
+    check_blend(stages[tile], tile)
+
+
+@pytest.mark.parametrize("name", list(FRAMES))
+def test_frame_matches_jax(scene, heavy, jax_frames, name):
+    _jfn, pfn, kw = FRAMES[name]
+    check_frame(heavy if name.startswith("rows") else scene,
+                jax_frames[name], name, pfn, kw)
 
 
 def test_rows_frames_bit_equal_to_rows_off(heavy):

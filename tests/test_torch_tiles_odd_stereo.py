@@ -71,8 +71,8 @@ def jax_frames(scene):  # noqa: F811
     return {name: jax_frame(scene, *spec) for name, spec in FRAMES.items()}
 
 
-@pytest.mark.parametrize("tile", TILES, ids=TILE_IDS)
-def test_stereo_projection_matches_pallas(scene, tile):  # noqa: F811
+def check_stereo_projection(scene, tile):  # noqa: F811
+    """The port's dual-eye packed projection at ``tile`` against JAX's."""
     views, projs, centers = scene["rig"]
     tiles_x, tiles_y = -(-W // tile[0]), -(-H // tile[1])
     kw = {k: v for k, v in STATICS.items() if k != "capacity"}
@@ -104,8 +104,7 @@ def test_stereo_projection_matches_pallas(scene, tile):  # noqa: F811
     assert got.visible.sum() > N // 2
 
 
-@pytest.mark.parametrize("tile", TILES, ids=TILE_IDS)
-def test_foveated_tables_match_jax(scene, tile):  # noqa: F811
+def check_foveated_tables(scene, tile):  # noqa: F811
     ref = JS.foveated_raster_tables(scene["jax_target"], *tile)
     got = TD.foveated_device_tables(scene["target"], "cpu", *tile)
     for name in ("coord_x", "coord_y", "bounds"):
@@ -114,10 +113,10 @@ def test_foveated_tables_match_jax(scene, tile):  # noqa: F811
     assert got["coord_x"].shape[1] == tile[0] * tile[1]
 
 
-@pytest.mark.parametrize("name", list(FRAMES))
-def test_frame_matches_jax(scene, jax_frames, name):  # noqa: F811
-    ref = jax_frames[name]
-    got = port_frame(scene, *FRAMES[name])
+def check_frame(scene, ref, spec):  # noqa: F811
+    """The port's stereo or foveated frame of ``spec`` (kind, tile_w,
+    tile_h, depth mode) against JAX's frame ``ref``."""
+    got = port_frame(scene, *spec)
     for f in ("visible_count", "total_instances", "overflow"):
         assert int(getattr(got.header, f)) == int(getattr(ref.header, f)), f
     assert int(got.header.overflow) == 0 and got.header.row_total is None
@@ -151,10 +150,10 @@ def sorted_stereo_table(scene, tile):  # noqa: F811
     return table, srt.starts, srt.counts, tiles_x, tiles_y
 
 
-@pytest.mark.parametrize("depth_mode", ["weighted", "first_hit"])
-@pytest.mark.parametrize("tile", [(24, 24), (16, 16)], ids=["24x24", "16x16"])
-def test_two_eye_blend_without_cutoff_matches_pallas(scene, tile,  # noqa: F811
-                                                     depth_mode):
+def check_two_eye_blend_without_cutoff(scene, tile, depth_mode):  # noqa: F811
+    """The plain two-eye blend without a cutoff of the port's sorted stereo
+    table at ``tile`` against ``blend_tiles_pallas(n_eyes=2,
+    r2_cutoff=0.0, interpret=True)`` on the same table."""
     table, starts, counts, tiles_x, tiles_y = sorted_stereo_table(scene, tile)
     cap = table.shape[1]
     kw = dict(tile_w=tile[0], tile_h=tile[1], n_eyes=2, r2_cutoff=0.0,
@@ -178,3 +177,25 @@ def test_two_eye_blend_without_cutoff_matches_pallas(scene, tile,  # noqa: F811
                                **dict(kw, r2_cutoff=9.0))
     lit = [int((c[..., 3] > 0).sum()) for c, _ in got]
     assert all(n > int((c[..., 3] > 0).sum()) for n, (c, _) in zip(lit, cut))
+
+
+@pytest.mark.parametrize("tile", TILES, ids=TILE_IDS)
+def test_stereo_projection_matches_pallas(scene, tile):  # noqa: F811
+    check_stereo_projection(scene, tile)
+
+
+@pytest.mark.parametrize("tile", TILES, ids=TILE_IDS)
+def test_foveated_tables_match_jax(scene, tile):  # noqa: F811
+    check_foveated_tables(scene, tile)
+
+
+@pytest.mark.parametrize("name", list(FRAMES))
+def test_frame_matches_jax(scene, jax_frames, name):  # noqa: F811
+    check_frame(scene, jax_frames[name], FRAMES[name])
+
+
+@pytest.mark.parametrize("depth_mode", ["weighted", "first_hit"])
+@pytest.mark.parametrize("tile", [(24, 24), (16, 16)], ids=["24x24", "16x16"])
+def test_two_eye_blend_without_cutoff_matches_pallas(scene, tile,  # noqa: F811
+                                                     depth_mode):
+    check_two_eye_blend_without_cutoff(scene, tile, depth_mode)
