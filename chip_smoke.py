@@ -12,7 +12,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    shared memory and spills (a spill in the blend, the expand, prep or the
    row expand fails the run), the SASS counts of the blend's composite
    loop where ``cuobjdump``
-   sits beside ``nvcc``, and the card's name and power limit.
+   sits beside ``nvcc``, each blend launch's registers and resident warps
+   an SM at the BLEND_AB tiles (``gsm_blend_occupancy``), and the card's
+   name and power limit; fails unless expf is exactly 0 at every float
+   below the blend's zero exponent (``gsm_expf_zero_check``: the record
+   culling of the blend without a cutoff relies on it).
 2. The headline frame through the user entry point
    ``DepthFirstRenderer(config).render`` with the default configuration
    (row expansion on): 1M gaussians, SH3, float32, 1920x1080.  Two capacity
@@ -103,15 +107,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    function's), each a kernel row named with its tile (``blend.8x8``,
    ``prep.warped.32x32``, ``expand.none.d16_32``, ...).
 4o. The same at tile sides that are not powers of two: mono with rows at
-   24x24, 12x12, 20x12, 48x16, 64x64 (the blend's cluster of four CTAs)
+   24x24, 12x12, 20x12, 48x16, 64x64 (the blend's cluster of eight CTAs)
    and 7x5 (rows off), stereo at 24x24 with the two-eye blend without a
    cutoff held bit-equal on its tensors, foveated, Hardware and Local at
    24x24, Global at 48x16.
 4L. The same at tile sides over 64 pixels, where a tile of more than 4096
    pixels takes the blend's large-tile path (CTAs without a cluster that
-   find the tile's exit in a scan launch): mono with rows at 65x65 (the
-   smallest tile on that path), 96x80, 128x64 and 128x128, each bit-equal
-   to rows off; stereo at 96x96 with the two-eye blend without a cutoff on
+   blend to their own exits, then resume to the tile's): mono with rows at
+   65x65 (the smallest tile on that path), 96x80, 128x64 and 128x128, each
+   bit-equal to rows off; stereo at 96x96 with the two-eye blend without a cutoff on
    its tensors; foveated, Hardware and band (4m) at 128x128; Local at
    96x96; Global at 128x64 with and without the exact tile test.  Each
    kernel mode on each frame's tensors bit-equal to its plain version (the
@@ -225,6 +229,14 @@ checkout of another commit, it times that commit's package the same way.
 the realistic Local frame), 4h, 5 and 5p (not 4m and 4s) and
 prints one JSON line of the kernel rows and the built-input flip shares and
 digests, for the same use (it does not require the one-pass scan there).
+``python3 chip_smoke.py --blends`` times every blend of the kernel table
+on the split layout and the large-tile path (BLEND_AB: phases 4o, 4L and
+4m's tiles and modes) on its frame function's own tensors, with a digest
+of each image (equal digests across trees: bit-equal images), the device
+split of its launches and their occupancy, and prints one ``{"blends":
+...}`` line, for the same use (about two minutes;
+scratch/blend_occupancy_probe.py gives a tree before it the occupancy
+export).
 """
 
 from __future__ import annotations
@@ -252,6 +264,9 @@ EXPAND_DECODE_FLOPS = 30   # per tested slot and eye, plus one tile test
 BLEND_DECODE_FLOPS = 30    # per record and eye decoded
 BLEND_PAIR_FLOPS = 25      # per (pixel, record, eye) composited
 BLEND_Q_FLOPS = 11         # per pair the r2 cutoff zeroes: dx, dy, u, v, q
+BLEND_BOX_FLOPS = 12       # per (warp, record, eye) box test of a culling blend
+BLEND_EXP_ZERO = -110.0    # csrc/blend.cu kExpZero: expf below it is 0
+BLEND_REACH_MARGIN = 1.1   # csrc/blend.cu kReachMargin
 
 KERNEL_SOURCES = {
     "project": ("gsm_renderer_tpu_torch/csrc/project.cu",
@@ -270,7 +285,7 @@ KERNEL_SOURCES = {
                       "gsm_renderer_tpu/kernels/expand.py:202"),
 }
 #: kernels whose -Xptxas -v report must show no spill
-SPILL_CHECKED = ("blend_kernel", "general_blend_kernel", "large_blend_kernel",
+SPILL_CHECKED = ("blend_kernel", "general_blend_kernel", "resume_blend_kernel",
                  "expand_kernel", "prep_kernel", "row_expand_kernel")
 #: the separate scan kernels of the prep and row expansion before the
 #: one-pass scan; no frame may launch them
@@ -555,6 +570,12 @@ def phase_build(native):
             + json.dumps(sass_loop_counts(sass)))
     else:
         log("[build] no cuobjdump beside nvcc: SASS counts not printed")
+    import torch
+
+    expf_zero_check(torch)
+    log("[build] blend launches (threads, CTAs a tile, CTAs and warps an SM, "
+        "registers): " + json.dumps({f"{f}.{t[0]}x{t[1]}": blend_occupancy(
+            f, t) for f, t in BLEND_AB}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -1360,6 +1381,91 @@ def blend_cutoff_flops(torch, KB, ent, starts, processed, *, tiles_x,
     return flops, inside, pairs
 
 
+def blend_reach_flops(torch, KB, ent, starts, processed, *, tiles_x,
+                      tile_w, tile_h, n_eyes, r2_cutoff, pixel_coords=None,
+                      tile_row_offset: int = 0):
+    """Float operations that a blend which culls records by warp (the split
+    layout's culling instances) cannot skip on this run's data: each record
+    composited is decoded once an eye and box-tested once for each warp of
+    its tile (at least pixels / 32 of them); a (pixel, record, eye) costs
+    its q only within the record's reach (the kernel's reach_mask at the
+    pixel: |pixel - mean|^2 <= BLEND_REACH_MARGIN * r2 * max(s1, s2)^2, r2
+    the cutoff, or without one 2 * (log opacity - BLEND_EXP_ZERO)), and the
+    rest of the composite only where also q <= r2 (elsewhere alpha is
+    exactly 0).  Decode and q as the plain version's.  Returns (flops,
+    pairs within reach and r2, pairs)."""
+    sorted_key, words, idx_bits = ent
+    words = list(words)
+    tile, rank = composited_ranks(torch, starts, processed)
+    g = KB.entry_index(sorted_key[rank], idx_bits)
+    t_x, t_y = tile % tiles_x, tile // tiles_x
+    pix = tile_w * tile_h
+    if pixel_coords is None:
+        p = torch.arange(pix, device=starts.device)
+        lx = (p % tile_w).to(torch.float32)
+        ly = (p // tile_w).to(torch.float32)
+
+    def f16(bits):
+        return (bits & 0xFFFF).to(torch.int16).view(torch.float16).float()
+
+    chunk = max(1, (1 << 23) // pix)
+    near = inside = 0
+    for e in range(n_eyes):
+        w = [x.to(torch.int64) for x in words[4 * e:4 * e + 4]]
+        rec = KB.decode_records(words[4 * e:4 * e + 4])
+        scale = torch.maximum(torch.clamp(f16(w[1] >> 16), min=1e-4),
+                              torch.clamp(f16(w[2]), min=1e-4))
+        r2 = (torch.full_like(scale, r2_cutoff) if r2_cutoff > 0
+              else 2.0 * (rec["logop"] - BLEND_EXP_ZERO))
+        lim = BLEND_REACH_MARGIN * r2 * scale * scale
+        for c0 in range(0, g.numel(), chunk):
+            gc, txc, tyc = g[c0:c0 + chunk], t_x[c0:c0 + chunk], t_y[c0:c0 + chunk]
+            if pixel_coords is None:
+                px = lx[None, :] + (txc * tile_w).to(torch.float32)[:, None]
+                py = ly[None, :] + ((tyc + tile_row_offset)
+                                    * tile_h).to(torch.float32)[:, None]
+            else:
+                px = pixel_coords[0][txc]
+                py = pixel_coords[1][tyc]
+            dx = px - rec["mx"][gc][:, None]
+            dy = py - rec["my"][gc][:, None]
+            within = (dx * dx + dy * dy) <= lim[gc][:, None]
+            u = rec["a1"][gc][:, None] * dx + rec["b1"][gc][:, None] * dy
+            v = rec["a2"][gc][:, None] * dx + rec["b2"][gc][:, None] * dy
+            near += int(within.sum())
+            inside += int((within & ((u * u + v * v) <= r2[gc][:, None])).sum())
+    records = g.numel()
+    flops = (n_eyes * (BLEND_DECODE_FLOPS + BLEND_BOX_FLOPS * -(-pix // 32))
+             * records + BLEND_Q_FLOPS * near
+             + (BLEND_PAIR_FLOPS - BLEND_Q_FLOPS) * inside)
+    return flops, inside, n_eyes * pix * records
+
+
+def blend_flops(torch, KB, ent, starts, processed, *, tiles_x, tile_w,
+                tile_h, n_eyes: int = 1, r2_cutoff: float = 0.0,
+                pixel_coords=None, tile_row_offset: int = 0):
+    """Float operations the blend needs on this run's data, by the kernel
+    that takes the tile (``KB.split_layout``): where records are culled by
+    warp, blend_reach_flops; else with a cutoff blend_cutoff_flops, and
+    without one the whole composite of every (pixel, record, eye).
+    Returns (flops, pairs within the cutoff (all without one), pairs)."""
+    layout = KB.split_layout(n_eyes, r2_cutoff, tile_w, tile_h)
+    kw = dict(tiles_x=tiles_x, n_eyes=n_eyes, pixel_coords=pixel_coords,
+              tile_w=tile_w, tile_h=tile_h)
+    if layout is not None and layout[3]:
+        return blend_reach_flops(torch, KB, ent, starts, processed,
+                                 r2_cutoff=r2_cutoff,
+                                 tile_row_offset=tile_row_offset, **kw)
+    if r2_cutoff > 0:
+        assert tile_row_offset == 0
+        return blend_cutoff_flops(torch, KB, ent, starts, processed,
+                                  r2_cutoff=r2_cutoff, **kw)
+    records = float(processed.sum())
+    pairs = n_eyes * tile_w * tile_h * records
+    return (n_eyes * BLEND_DECODE_FLOPS * records + BLEND_PAIR_FLOPS * pairs,
+            pairs, pairs)
+
+
 def blend_subset_err(torch, KB, ent, starts, counts, color, depth, *,
                      tiles_x, tiles_y, w, h, n_eyes=1, r2_cutoff=0.0,
                      pixel_coords=None, depth_mode="weighted"):
@@ -1817,8 +1923,8 @@ def band_kernel_rows(torch, hl, band_launches, tile_w: int, tile_h: int = 16):
         plain_ms, err,
         blend_bytes(torch, KB, ent, srt.starts, processed, 4,
                     W * bands * tile_h),
-        BLEND_DECODE_FLOPS * float(processed.sum())
-        + BLEND_PAIR_FLOPS * float(tile_w * tile_h) * float(processed.sum())))
+        blend_flops(torch, KB, ent, srt.starts, processed, tiles_x=tiles_x,
+                    tile_w=tile_w, tile_h=tile_h, tile_row_offset=band0)[0]))
     if (tile_w, tile_h) == (16, 16):
         d_head = float((color[:(band1 - band0) * 16]
                         - hl["out"].color[band0 * 16:band1 * 16]).abs().max())
@@ -1997,7 +2103,7 @@ TILE_MONO = ((8, 8), (16, 8), (8, 16), (32, 32), (32, 16))
 TILE_STEREO = ((32, 16), (8, 8))
 TILE_FOVEATED = ((32, 16), (32, 32))
 #: phase 4o: tile sides that are not powers of two (and 64x64, the
-#: general blend's cluster of two CTAs): the mono frame with rows at every
+#: split blend's cluster of eight CTAs): the mono frame with rows at every
 #: ODD_MONO tile; the stereo (and its two-eye blend without a cutoff),
 #: foveated, Hardware, Local and band frames at ODD_TILE; the Global frame
 #: at ODD_GLOBAL
@@ -2179,8 +2285,8 @@ def mono_tile_rows(torch, T, hl, tile, fr):
     rows.append(kernel_row(
         f"blend.{tag}", "blend", launches["blend"], ms, plain_ms, 0.0,
         blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * H),
-        BLEND_DECODE_FLOPS * float(processed.sum())
-        + BLEND_PAIR_FLOPS * float(tw * th) * float(processed.sum())))
+        blend_flops(torch, KB, ent, srt.starts, processed, tiles_x=tiles_x,
+                    tile_w=tw, tile_h=th)[0]))
     log(f"[tiles] {tag}: " + json.dumps(dict(
         rows=int(off[n]), row_capacity=r_cap, slots=int(ek[2]), capacity=cap,
         live=int(srt.counts.sum()), records_composited=float(processed.sum()),
@@ -2309,9 +2415,9 @@ def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None, no_cutoff=False):
         torch, KB, f"blend.{kind}.{tag}", ent, srt.starts, srt.counts, out,
         dict(r2_cutoff=9.0, pixel_coords=coords), tiles_x=tiles_x,
         tiles_y=tiles_y, width=pw, height=ph, tile_w=tw, tile_h=th, n_eyes=2)
-    flops, inside, pairs = blend_cutoff_flops(
-        torch, KB, ent, srt.starts, processed, tiles_x=tiles_x, r2_cutoff=9.0,
-        pixel_coords=coords, tile_w=tw, tile_h=th)
+    flops, inside, pairs = blend_flops(
+        torch, KB, ent, srt.starts, processed, tiles_x=tiles_x, n_eyes=2,
+        r2_cutoff=9.0, pixel_coords=coords, tile_w=tw, tile_h=th)
     rows.append(kernel_row(
         f"blend.{kind}.{tag}", "blend", launches["blend"], ms, plain_ms, 0.0,
         blend_bytes(torch, KB, ent, srt.starts, processed, 7, 2 * pw * ph)
@@ -2326,12 +2432,13 @@ def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None, no_cutoff=False):
             dict(r2_cutoff=0.0, pixel_coords=coords), tiles_x=tiles_x,
             tiles_y=tiles_y, width=pw, height=ph, tile_w=tw, tile_h=th,
             n_eyes=2)
-        records = float(done.sum())
         rows.append(kernel_row(
             name, "blend", 0, ms, plain_ms, 0.0,
             blend_bytes(torch, KB, ent, srt.starts, done, 7, 2 * pw * ph)
             + (0 if coords is None else (tiles_x + tiles_y) * tw * th * 4),
-            2 * (BLEND_DECODE_FLOPS + BLEND_PAIR_FLOPS * tw * th) * records))
+            blend_flops(torch, KB, ent, srt.starts, done, tiles_x=tiles_x,
+                        n_eyes=2, pixel_coords=coords, tile_w=tw,
+                        tile_h=th)[0]))
     log(f"[tiles] {kind} {tag}: " + json.dumps(dict(
         slots=int(ek[2]), capacity=cap, live=int(srt.counts.sum()),
         records_composited=float(processed.sum()), pairs_within_cutoff=inside,
@@ -2419,9 +2526,9 @@ def full_rect_rows(torch, T, hl, hwf, glf, tile=(32, 16)):
                 torch, KB, f"blend.cutoff_normalized.{tag}", ent, srt.starts,
                 srt.counts, out, blend_kw, tiles_x=tiles_x, tiles_y=tiles_y,
                 width=W, height=H, tile_w=tw, tile_h=th)
-            flops, _inside, _pairs = blend_cutoff_flops(
+            flops = blend_flops(
                 torch, KB, ent, srt.starts, processed, tiles_x=tiles_x,
-                r2_cutoff=9.0, n_eyes=1, tile_w=tw, tile_h=th)
+                r2_cutoff=9.0, tile_w=tw, tile_h=th)[0]
             rows.append(kernel_row(
                 f"blend.cutoff_normalized.{tag}", "blend",
                 fr["launches"]["blend"], ms, plain_ms, 0.0,
@@ -2727,8 +2834,8 @@ def d16_tile_rows(torch, T, hl, tile, fr, local):
     rows.append(kernel_row(
         name, "blend", launches["blend"], ms, plain_ms, 0.0,
         blend_bytes(torch, KB, ent, srt.starts, processed, 4, W * H),
-        BLEND_DECODE_FLOPS * float(processed.sum())
-        + BLEND_PAIR_FLOPS * float(tw * th) * float(processed.sum())))
+        blend_flops(torch, KB, ent, srt.starts, processed, tiles_x=tiles_x,
+                    tile_w=tw, tile_h=th)[0]))
     return rows
 
 
@@ -2760,7 +2867,7 @@ def phase_odd_tiles(torch, T, kernels, hl, st, fv):
     """Phase 4o: the frame functions at tile sides that are not powers of
     two, at full width on the headline scene: the mono frame with rows at
     every ODD_MONO tile (bit-equal to rows off; 64x64 takes the blend's
-    cluster of two CTAs), the stereo frame at ODD_TILE with the two-eye
+    cluster of eight CTAs), the stereo frame at ODD_TILE with the two-eye
     blend without a cutoff on its tensors, the foveated, Hardware and
     Local frames at ODD_TILE, and the Global frame at ODD_GLOBAL.  Each
     frame at a capacity probed from its slot total, with launch counts of
@@ -3822,6 +3929,7 @@ def small_large_tiles(T):
             gi, *view, tile_w=tile[0], tile_h=tile[1], **kw)
         small_compare(f"tiles {tile[0]}x{tile[1]}", fn(gi_g), fn(gi_c))
     largest_tile(T, gi_g, view, kw)
+    overflow_records_check()
 
 
 def largest_tile(T, gi, view, kw):
@@ -3853,6 +3961,92 @@ def largest_tile(T, gi, view, kw):
         f"({int(srt.counts[0])} records)")
 
 
+#: overflow_records_check's blends: (label, tile, eyes, r2_cutoff, depth
+#: mode, pixel coordinates); the split layout culls records in all but the
+#: 8x4-block "blocks"
+OVERFLOW_CASES = (("mono", (48, 48), 1, 0.0, "weighted", False),
+                  ("large", (65, 65), 1, 0.0, "first_hit", False),
+                  ("stereo", (24, 24), 2, 9.0, "weighted", False),
+                  ("hardware", (24, 24), 1, 9.0, "normalized", False),
+                  ("blocks", (16, 16), 1, 0.0, "weighted", False),
+                  ("stereo coords", (24, 24), 2, 9.0, "weighted", True),
+                  ("mono coords", (48, 48), 1, 0.0, "weighted", True),
+                  ("large coords", (80, 72), 1, 0.0, "weighted", True))
+
+
+def overflow_records_check(device: str = "cuda"):
+    """Records whose f16 fields overflowed (exponent 31: +-inf and NaN bits
+    in the means and the scales, at theta 0 and not) and coordinate tables
+    holding +-inf and NaN, through the split layout's culling blends (one
+    CTA, cluster, large tile) and an 8x4-block instance: each image
+    bit-equal to the plain version's on the card, NaN where it is NaN."""
+    import torch
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+
+    g = torch.Generator().manual_seed(13)
+    odd = (0x7C00, 0xFC00, 0x7E00, 0xFE00)  # +inf, -inf, NaN, -NaN bits
+    for label, (tw, th), eyes, r2, mode, coords in OVERFLOW_CASES:
+        tiles_x, tiles_y, per = 3, 2, 600
+        n = tiles_x * tiles_y * per
+        tile = torch.arange(n) // per
+        span = torch.tensor([tw, th], dtype=torch.float32)
+        mean = (torch.stack([tile % tiles_x, tile // tiles_x], 1) * span
+                + (torch.rand(n, 2, generator=g) * 1.4 - 0.2) * span)
+        f16 = lambda x: x.to(torch.float16).view(torch.int16).to(
+            torch.int64) & 0xFFFF  # noqa: E731
+        w0 = f16(mean[:, 0]) | f16(mean[:, 1]) << 16
+        theta = torch.randint(1, 1 << 16, (n,), generator=g)
+        s1 = f16(0.5 + torch.rand(n, generator=g) * 6)
+        s2 = f16(0.5 + torch.rand(n, generator=g) * 6)
+        for t in range(tiles_x * tiles_y):
+            for k, bits in enumerate(odd):
+                i = t * per + 40 * k + t
+                w0[i] = (w0[i] & 0xFFFF0000) | bits if k % 2 == 0 \
+                    else (w0[i] & 0xFFFF) | bits << 16
+                w0[i + 1] = (w0[i + 1] & 0xFFFF) | bits << 16
+                theta[i] = theta[i + 1] = 0 if t % 2 == 0 else theta[i]
+                s1[i + 2] = bits
+                s2[i + 3] = bits
+        w = torch.stack([
+            w0, theta | s1 << 16,
+            s2 | f16(1 + torch.rand(n, generator=g) * 30) << 16,
+            torch.randint(0, 1 << 24, (n,), generator=g)
+            | torch.randint(60, 256, (n,), generator=g) << 24])
+        words = torch.cat([w.to(torch.int32)] * eyes).to(device)
+        key = torch.arange(n, dtype=torch.int64, device=device)
+        starts = torch.arange(0, n, per, dtype=torch.int32, device=device)
+        counts = torch.full_like(starts, per)
+        kw = dict(tiles_x=tiles_x, tile_w=tw, tile_h=th, n_eyes=eyes,
+                  r2_cutoff=r2, depth_mode=mode)
+        if coords:
+            p = torch.arange(tw * th)
+            cx = ((p % tw)[None] + (torch.arange(tiles_x) * tw)[:, None]).float()
+            cy = ((p // tw)[None] + (torch.arange(tiles_y) * th)[:, None]).float()
+            for k, v in enumerate((float("inf"), float("-inf"), float("nan"))):
+                cx[k % tiles_x, 37 * k + 5] = v
+                cy[k % tiles_y, 41 * k + 9] = v
+            kw["pixel_coords"] = (cx.to(device), cy.to(device))
+        frame = dict(tiles_y=tiles_y, width=tiles_x * tw, height=tiles_y * th)
+        color, depth = KB.blend_image_cuda(key, words, 32, starts, counts,
+                                           **kw, **frame)
+        eyes_out = KB.blend_tiles_plain(key, words, 32, starts, counts, **kw)
+        full = [KB.assemble_image(c, d, tiles_x=tiles_x, tile_w=tw,
+                                  tile_h=th, **frame)
+                for c, d in (eyes_out if eyes == 2 else [eyes_out])]
+        pc = torch.cat([c for c, _ in full], 1)
+        pd = torch.cat([d for _, d in full], 1)
+
+        def same(a, b):
+            return (torch.equal(a.isnan(), b.isnan())
+                    and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+        nan = int(pc.isnan().any(-1).sum())
+        if not (same(color, pc) and same(depth, pd)):
+            raise RuntimeError(f"overflowed records, {label} {tw}x{th}: the "
+                               "kernel differs from the plain version")
+        log(f"[small] overflowed records, {label} {tw}x{th}: bit-equal to "
+            f"the plain version ({nan} NaN pixels)")
+
+
 def small_compare(label, og, oc):
     """Phase 6's check of a CUDA frame against the CPU frame: colour
     within 1e-3; the rest logged."""
@@ -3867,6 +4061,238 @@ def small_compare(label, og, oc):
     if cerr > 1e-3:
         raise RuntimeError(f"small frame {label}: cuda vs cpu colour max "
                            f"|d| {cerr}")
+
+
+#: ``--blends`` and phase 1's occupancy lines: (frame, tile) of every
+#: general-layout and large-tile blend of the kernel table (phases 4o, 4L,
+#: 4m) on the headline scene; a frame function's own blend ("mono", rows
+#: off; "stereo", two eyes with the r2 9 cutoff; "hardware", one eye with
+#: it and normalized depth; "local", first_hit; "global", the 16-bit-key
+#: chain; "foveated", pixel coordinates), "stereo_no_cutoff", the stereo
+#: frame's tensors blended without the cutoff, or "band", band 1 of 4 with
+#: its tile row offset (phase 4m's blend row)
+BLEND_AB = (("mono", (24, 24)), ("mono", (12, 12)), ("mono", (20, 12)),
+            ("mono", (48, 16)), ("mono", (48, 48)), ("mono", (64, 64)),
+            ("mono", (7, 5)), ("stereo", (24, 24)),
+            ("stereo_no_cutoff", (24, 24)), ("foveated", (24, 24)),
+            ("hardware", (24, 24)), ("local", (24, 24)),
+            ("global", (48, 16)), ("band", (24, 24)), ("mono", (65, 65)),
+            ("mono", (96, 80)), ("mono", (128, 64)), ("mono", (128, 128)),
+            ("stereo", (96, 96)), ("stereo_no_cutoff", (96, 96)),
+            ("foveated", (128, 128)), ("hardware", (128, 128)),
+            ("local", (96, 96)), ("global", (128, 64)), ("band", (128, 128)))
+BLEND_AB_MODES = {"mono": (1, "weighted", 0.0), "global": (1, "weighted", 0.0),
+                  "band": (1, "weighted", 0.0),
+                  "stereo": (2, "weighted", 9.0),
+                  "stereo_no_cutoff": (2, "weighted", 0.0),
+                  "foveated": (2, "weighted", 9.0),
+                  "hardware": (1, "normalized", 9.0),
+                  "local": (1, "first_hit", 0.0)}
+
+
+def blend_occupancy(frame: str, tile) -> list:
+    """The launches of the blend of ``frame`` (a BLEND_AB_MODES key) at
+    ``tile``: for each, its threads a CTA, CTAs a tile, CTAs an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at that CTA size),
+    the warps an SM they hold, and the kernel's registers
+    (``cudaFuncGetAttributes``), from ``gsm_blend_occupancy``."""
+    import ctypes
+
+    from gsm_renderer_tpu_torch import _native
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+
+    fn = _native.load("blend").gsm_blend_occupancy
+    eyes, depth_mode, r2 = BLEND_AB_MODES[frame]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    n = fn(eyes, KB.DEPTH_MODES[depth_mode], r2, tile[0], tile[1], out)
+    if n < 0:
+        raise RuntimeError(f"gsm_blend_occupancy failed at {frame} {tile}")
+    return [dict(threads=out[4 * k], ctas_a_tile=out[4 * k + 1],
+                 ctas_an_sm=out[4 * k + 2],
+                 warps_an_sm=out[4 * k + 2] * out[4 * k] // 32,
+                 registers=out[4 * k + 3]) for k in range(n)]
+
+
+def expf_zero_check(torch) -> int:
+    """The floats from the blend's kExpZero down to -inf whose expf is not
+    exactly 0 on the card (``gsm_expf_zero_check``, compiled as the
+    blends' expf): the blend's record culling without a cutoff needs none
+    (it fails otherwise)."""
+    import ctypes
+
+    from gsm_renderer_tpu_torch import _native
+
+    fn = _native.load("blend").gsm_expf_zero_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    err = fn(count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gsm_expf_zero_check: CUDA error {err}")
+    nonzero = int(count)
+    log(f"[build] expf below the blend's zero exponent: {nonzero} floats "
+        "not exactly 0")
+    if nonzero:
+        raise RuntimeError("expf is not exactly 0 below the blend's zero "
+                           f"exponent at {nonzero} floats")
+    return nonzero
+
+
+def blend_ab_frame(T, frame: str, tile, scene: dict):
+    """``run(capacity)`` of the frame function whose blend ``--blends``
+    times (see BLEND_AB)."""
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+    from gsm_renderer_tpu_torch.pipelines.global_ import global_frame
+    from gsm_renderer_tpu_torch.pipelines.hardware import hardware_frame
+    from gsm_renderer_tpu_torch.pipelines.local import local_frame
+
+    gi, prepared, view, rig = (scene[k] for k in ("gi", "prepared", "view",
+                                                  "rig"))
+    kw = frame_statics(scene, tile)
+    if frame in ("mono", "hardware", "local", "global"):
+        fn = {"mono": PD.depth_first_frame, "hardware": hardware_frame,
+              "local": local_frame, "global": global_frame}[frame]
+        return lambda cap: fn(gi, *view, prepared, capacity=cap, width=W,
+                              height=H, **kw)
+    if frame == "foveated":
+        target = scene["target"]
+        tables = PD.foveated_device_tables(target, gi.positions.device, *tile)
+        return lambda cap: PD.depth_first_stereo_foveated_frame(
+            gi, *rig, tables, prepared, capacity=cap, display_width=W,
+            display_height=H, render_width=target.render_width,
+            render_height=target.render_height,
+            foveated_lod=scene["cfg"].foveated_lod, **kw)
+    return lambda cap: PD.depth_first_stereo_frame(
+        gi, *rig, prepared, capacity=cap, width=W, height=H, **kw)
+
+
+def band_blend_call(scene: dict, tile, n: int):
+    """(args, keywords) of the blend of band 1 of 4 of the headline scene at
+    ``tile`` (phase 4m's blend row: its tile row offset), its chain built
+    on this card as band_kernel_rows builds it."""
+    from gsm_renderer_tpu_torch.kernels import expand as KE
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.parallel import multichip as MC
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    cam, cfg = scene["cam"], scene["cfg"]
+    tw, th = tile
+    tiles_x, tiles_y = -(-W // tw), -(-H // th)
+    bs, bands = MC.resolve_band_starts(tiles_y, 4)
+    block = MC.project_block(
+        scene["gi"], *scene["view"], width=W, height=H, tile_w=tw,
+        tile_h=th, sh_degree=3, near_plane=cam.near_plane,
+        far_plane=cam.far_plane, alpha_threshold=cfg.alpha_threshold,
+        total_ink_threshold=cfg.total_ink_threshold, input_is_srgb=False)
+    plan = OB.make_key_plan(tiles_x * bands, n, near_plane=cam.near_plane,
+                            far_plane=cam.far_plane)
+    off, rect, mask, dsw = KE.binning_prep_band(
+        *block[4:8], band0=bs[1], band1=bs[2], key_plan=plan)
+    words = list(block[:4])
+    keys = KE.expand_slots(off, rect, mask, dsw, words,
+                           capacity=-(-int(off[n]) // 4096) * 4096,
+                           tiles_x=tiles_x, key_plan=plan,
+                           tile_row_offset=bs[1], tile_w=tw, tile_h=th)
+    srt = PC.sort_and_ranges(keys[:2], plan, tiles_x * bands)
+    return ((srt.key, words, srt.idx_bits, srt.starts, srt.counts),
+            dict(tiles_x=tiles_x, tiles_y=bands, width=W, height=bands * th,
+                 tile_w=tw, tile_h=th, tile_row_offset=bs[1]))
+
+
+def blends_only(torch, T, native, n: int = 1_000_000) -> int:
+    """``--blends``: every general-layout and large-tile blend mode
+    (BLEND_AB) on the headline scene, for A/Bs of the blend's other tiles
+    between trees (parent, change, change, parent in one run).  Each
+    frame function runs once at a probed capacity with its blend call
+    captured; that call is then timed alone (CUDA events behind a sleep
+    kernel), its kernels' device times split by a torch.profiler trace, its
+    outputs hashed (equal digests across trees: bit-equal images) and its
+    launches' occupancy printed.  One JSON line."""
+    import hashlib
+
+    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
+    from gsm_renderer_tpu_torch.kernels import blend as KB
+    from gsm_renderer_tpu_torch.kernels.project import cached_projection_inputs
+    from gsm_renderer_tpu_torch.pipelines import depth_first as PD
+
+    out = native.build_all()
+    report = ptxas_report((out / "blend.log").read_text())
+    registers = {k: v for k, v in report.items()
+                 if not k.startswith("blend_kernel")}
+    log("[blends] ptxas: " + json.dumps(registers))
+    cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(out / "libblend.so")],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        log("[blends] inner loop SASS: " + json.dumps(
+            {k: v for k, v in sass_loop_counts(sass).items()
+             if not k.startswith("blend_kernel")}))
+    for label, r in report.items():
+        if r.get("spill_bytes", 0) > 0:
+            raise RuntimeError(f"{label} spills registers: {r}")
+    expf_zero_check(torch)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    ds = generate_visible_gaussians(n, sh_degree=3, seed=7,
+                                    scale_range=(0.002, 0.012))
+    gi = ds.to_input(T.Precision.FLOAT32)
+    cam = T.make_camera(W, H, far=50.0)
+    scene = dict(gi=gi, cam=cam, prepared=cached_projection_inputs(gi, 3),
+                 cfg=T.RendererConfig(sh_degree=3, max_width=W, max_height=H,
+                                      precision=T.Precision.FLOAT32),
+                 view=(cam.view_matrix, cam.projection_matrix, cam.position),
+                 rig=PD._stereo_rig(T.make_side_by_side_stereo(cam)),
+                 target=T.make_rate_maps(W, H, min_rate=FOV_MIN_RATE,
+                                         radius=FOV_RADIUS))
+    real, calls = KB.blend_image_cuda, []
+
+    def capture(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    res = {}
+    for frame, tile in BLEND_AB:
+        if frame == "band":
+            args, kw = band_blend_call(scene, tile, n)
+        else:
+            run = blend_ab_frame(T, frame.replace("_no_cutoff", ""), tile,
+                                 scene)
+            cap = probed_capacity(run, n)
+            KB.blend_image_cuda = capture
+            try:
+                run(cap)
+            finally:
+                KB.blend_image_cuda = real
+            args, kw = calls.pop()
+        if frame == "stereo_no_cutoff":
+            kw = dict(kw, r2_cutoff=0.0)
+        call = lambda: real(*args, **kw)  # noqa: E731
+        img, ms = device_ms(torch, call, 10 if tile[0] * tile[1] <= 4096 else 4)
+        digest = hashlib.sha1()
+        for t in img:
+            if t is not None:
+                digest.update(t.cpu().numpy().tobytes())
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        split = {name: dict(ms=ms_ / count, launches=count)
+                 for name, (ms_, count) in device_kernel_stats(prof).items()
+                 if "blend_kernel" in name}
+        label = f"{frame}.{tile[0]}x{tile[1]}"
+        res[label] = dict(ms=ms, digest=digest.hexdigest()[:16],
+                          split=split, occupancy=blend_occupancy(frame, tile),
+                          records=int(args[4].sum()))
+        log(f"[blends] {label}: " + json.dumps(res[label]))
+    print(json.dumps({"blends": res, "registers": registers,
+                      "card": smi.stdout.strip()}))
+    return 0
 
 
 def frames_only(torch, T, native, n: int = 1_000_000) -> int:
@@ -3924,6 +4350,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--frames"]:
         return frames_only(torch, T, _native)
+    if sys.argv[1:] == ["--blends"]:
+        return blends_only(torch, T, _native)
     kernels_only = sys.argv[1:] == ["--kernels"]
     if kernels_only:
         # another tree's kernels may still launch the separate scan kernels

@@ -7,10 +7,12 @@ Port of ``gsm_renderer_tpu/kernels/blend.py``: ``blend_tiles_pallas``
 ``assemble_image``.  The
 kernel is ``csrc/blend.cu``; it writes the (H, W, 4) image and the (H, W)
 depth directly -- (H, 2W) for two eyes side by side -- so assembly is fused
-into it on the card.  A tile of more than ``CLUSTER_MAX_PIXELS`` pixels is
-shared by CTAs without a cluster, which find the tile's exit in a scan
-launch before they blend (an int32 word a tile of scratch, allocated
-here).
+into it on the card.  A tile whose sides are not 8, 16 or 32 pixels
+takes the kernel's split layout (:func:`split_layout`); a tile of more than
+``CLUSTER_MAX_PIXELS`` pixels is shared by CTAs without a cluster, which
+blend to their own exits and then resume to the tile's, the tiles with the
+most records launched first (scratch and order made here:
+:func:`large_operands`).
 
 Records through the sorted keys: the blend takes the sorted int64 instance
 keys and the entry table's word rows (``entry_words``: 4 * n_eyes (N,) int32
@@ -51,6 +53,8 @@ pixel's transmittance is below 1/255 -- in both eyes, for the dual-eye blend
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _native
@@ -80,7 +84,45 @@ BLEND = _native.Kernel("blend", "blend", "gsm_blend", [
     _native.P, _native.I, _native.P, _native.I, _native.P, _native.P,
     _native.I, _native.I, _native.I, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.F, _native.F, _native.F, _native.F,
-    _native.P, _native.P, _native.P, _native.P, _native.P])
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P])
+
+
+def split_layout(n_eyes: int, r2_cutoff: float, tile_w: int, tile_h: int):
+    """(warp_w, warps a CTA, CTAs a tile, 1 where records are culled by warp
+    else 0) of the kernel's split layout for a tile, or None for a tile the
+    8x4-block instances take: csrc/blend.cu's ``gsm_blend_layout``, host
+    code that needs no card (the library is built on first use)."""
+    fn = _native.load("blend").gsm_blend_layout
+    fn.argtypes = [_native.I, _native.F, _native.I, _native.I,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    got = fn(n_eyes, M.f32(r2_cutoff), tile_w, tile_h, out)
+    if got < 0:
+        raise ValueError(f"gsm_blend_layout refuses {n_eyes} eyes, r2_cutoff "
+                         f"{r2_cutoff}, tile {tile_w}x{tile_h}")
+    return tuple(out) if got else None
+
+
+def large_operands(tile_w: int, tile_h: int, counts, width: int, height: int,
+                   n_eyes: int, r2_cutoff: float):
+    """The large-tile path's operands, None for a tile of at most
+    CLUSTER_MAX_PIXELS pixels: (exits, int32, each tile's exit rank then
+    each CTA's own, the CTAs a tile from :func:`split_layout`; state,
+    int32 (height, n_eyes * width, 2), the resumed pixels' transmittance
+    and depth; order, int32, the tiles by record count, the most first:
+    the order they are launched in)."""
+    if tile_w * tile_h <= CLUSTER_MAX_PIXELS:
+        return None
+    ctas = split_layout(n_eyes, r2_cutoff, tile_w, tile_h)[2]
+    dev = counts.device
+    return (torch.empty(counts.shape[0] * (1 + ctas), dtype=torch.int32,
+                        device=dev),
+            torch.empty((height, n_eyes * width, 2), dtype=torch.int32,
+                        device=dev),
+            torch.argsort(counts, descending=True,
+                         stable=True).to(torch.int32))
 
 
 def _check_depth_mode(depth_mode: str) -> None:
@@ -301,17 +343,16 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
                         device=dev)
     depth = torch.empty((height, n_eyes * width) if with_depth else (1,),
                         dtype=torch.float32, device=dev)
-    # the large-tile path's exit rank of each tile (zeroed by the launch)
-    large = (torch.empty(n_t, dtype=torch.int32, device=dev)
-             if tile_w * tile_h > CLUSTER_MAX_PIXELS else None)
+    large = large_operands(tile_w, tile_h, counts, width, height, n_eyes,
+                           r2_cutoff)
     BLEND.launch(_native.ptr(sorted_key), idx_bits, _native.ptr_array(words),
                  len(words), _native.ptr(starts), _native.ptr(counts), tiles_x,
                  tiles_y, width, height, tile_row_offset, tile_w, tile_h,
-                 DEPTH_MODES[depth_mode],
-                 M.f32(THETA_UNIT),
+                 DEPTH_MODES[depth_mode], M.f32(THETA_UNIT),
                  M.f32(1.0 / 255.0), M.f32(MIN_TRANSMITTANCE),
                  M.f32(r2_cutoff), *coords, _native.ptr(color),
-                 _native.ptr(depth), _native.ptr_or_null(large))
+                 _native.ptr(depth),
+                 *((None,) * 3 if large is None else map(_native.ptr, large)))
     return color, (depth if with_depth else None)
 
 

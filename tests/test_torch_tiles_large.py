@@ -4,8 +4,8 @@ package's interpret-mode stages.
 
 The port takes every tile side from 1 to 4096 pixels; on the card a tile
 of more than 4096 pixels takes the blend's large-tile path (CTAs without a
-cluster that find the tile's exit in a scan launch), whose images equal
-the plain version's.  On the light scene of tests/test_torch_tiles.py
+cluster that blend to their own exits, then resume to the tile's), whose
+images equal the plain version's.  On the light scene of tests/test_torch_tiles.py
 (300 gaussians at 128x96) and on its heavy-tailed scene drawn at 256x384
 ("tall": five 80-pixel tile rows, so that rects outgrow the 8x4 window at
 96x80 tiles and the row decomposition has rows to narrow):
@@ -21,7 +21,9 @@ the plain version's.  On the light scene of tests/test_torch_tiles.py
 * the port's rows-on frame at 96x80 (tall scene) bit-equal to rows off;
 * the longest sides (4096x1, 1x4096) against tests/reference_impl.py;
 * the CUDA blend's wrapper passes its launch the large-tile scratch above
-  4096 pixels a tile and none below (the launch monkeypatched).
+  4096 pixels a tile and none below (the launch monkeypatched), and a
+  large tile's exit is the latest of its CTAs' own (the plain version's
+  steps).
 
 tests/test_torch_tiles_large_frames.py holds the DepthFirst frames at
 these tiles against JAX's, tests/test_torch_tiles_large_d16.py the Local
@@ -155,18 +157,100 @@ def test_longest_sides_match_the_reference(scene, tile):
 
 def test_blend_cuda_wrapper_gives_large_tiles_their_scratch(monkeypatch):
     """The kernel's wrapper hands a tile of more than CLUSTER_MAX_PIXELS
-    pixels the large-tile path's scratch (its last pointer) and any other
-    tile none (it raises or launches before it touches a device)."""
-    calls = []
+    pixels the large-tile path's operands (its last three pointers):
+    exits, int32, a word a tile and one for each of the CTAs a tile that
+    the kernel's layout query reports (``split_layout``, stubbed here: it
+    needs the built library); state, int32 (height, n_eyes * width, 2);
+    the tiles by record count, the most first; and any other tile none,
+    without asking the layout (it raises or launches before it touches a
+    device)."""
+    calls, scratch, asked = [], [], []
     monkeypatch.setattr(TK.BLEND, "launch", lambda *a: calls.append(a))
+    real = TK.large_operands
+    monkeypatch.setattr(TK, "large_operands",
+                        lambda *a: scratch.append(real(*a)) or scratch[-1])
+
+    def layout(n_eyes, r2_cutoff, tw, th):
+        asked.append((n_eyes, r2_cutoff, tw, th))
+        return 8, 8, tw % 7 + 3, 1
+    monkeypatch.setattr(TK, "split_layout", layout)
     key = torch.arange(4, dtype=torch.int64)
-    words = torch.zeros((4, 4), dtype=torch.int32)
-    starts = counts = torch.zeros(1, dtype=torch.int32)
-    for tile, large in (((64, 64), False), ((1, 4096), False),
-                        ((65, 65), True), ((4096, 4096), True)):
-        TK.blend_image_cuda(key, words, 32, starts, counts, tiles_x=1,
-                            tiles_y=1, width=8, height=8, tile_w=tile[0],
-                            tile_h=tile[1])
-        assert calls[-1][11:13] == tile
-        assert (calls[-1][-1] is not None) == large
-    assert len(calls) == 4
+    starts = torch.zeros(6, dtype=torch.int32)
+    counts = torch.tensor([4, 1, 3, 0, 0, 0], dtype=torch.int32)
+    for tile, eyes, large in (((64, 64), 1, False), ((1, 4096), 1, False),
+                              ((65, 65), 1, True), ((4096, 4096), 1, True),
+                              ((96, 96), 2, True), ((24, 24), 2, False)):
+        words = torch.zeros((4 * eyes, 4), dtype=torch.int32)
+        r2 = 9.0 if eyes == 2 else 0.0
+        TK.blend_image_cuda(key, words, 32, starts, counts, tiles_x=3,
+                            tiles_y=2, width=8, height=5, tile_w=tile[0],
+                            tile_h=tile[1], n_eyes=eyes, r2_cutoff=r2)
+        assert calls[-1][11:14] == (*tile, TK.DEPTH_MODES["weighted"])
+        assert all((p is not None) == large for p in calls[-1][-3:])
+        if not large:
+            assert scratch[-1] is None
+            continue
+        assert asked[-1] == (eyes, r2, *tile)
+        exits, state, order = scratch[-1]
+        assert exits.dtype == state.dtype == order.dtype == torch.int32
+        assert tuple(exits.shape) == (6 * (1 + tile[0] % 7 + 3),)
+        assert tuple(state.shape) == (5, eyes * 8, 2)
+        assert torch.equal(order, torch.tensor([0, 2, 1, 3, 4, 5],
+                                               dtype=torch.int32))
+    assert len(calls) == len(scratch) == 6 and len(asked) == 3
+
+
+def test_large_tile_exits_at_its_latest_cta_exit(monkeypatch):
+    """The large-tile path's schedule on the plain version's float steps: on
+    a 64x72 tile (18 CTAs of 256 pixels) whose records
+    crowd its top, so that its CTAs' pixels fall below the exit at
+    different batches, each CTA blended alone (its pixels as a tile of
+    their own, through pixel coordinates) stops at its own batch end, the
+    tile stops at the latest of them, and a CTA that goes on from its own
+    exit to the tile's (its pixels blended alone to that rank, the exit
+    off) ends bit-equal to the whole tile's blend."""
+    rng = np.random.default_rng(4)
+    n = 1500
+    f16 = lambda a: np.asarray(a, np.float16).view(np.uint16).astype(np.uint32)
+    u8 = lambda lo, hi: rng.integers(lo, hi, n).astype(np.uint32)
+    words = np.stack([
+        f16(rng.uniform(-4, 68, n)) | f16(72 * rng.uniform(0, 1, n) ** 3) << 16,
+        u8(0, 1 << 16) | f16(rng.uniform(2, 9, n)) << 16,
+        f16(rng.uniform(2, 9, n)) | f16(rng.uniform(1, 40, n)) << 16,
+        u8(0, 256) | u8(0, 256) << 8 | u8(0, 256) << 16 | u8(60, 256) << 24])
+    words = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    key = torch.arange(n, dtype=torch.int64)
+    tw, th = 64, 72
+    # 18 CTAs of 8 warps over 8x4 warp blocks (the argument holds for any
+    # partition of the tile's pixels into CTAs)
+    ctas, cta_warps = 18, 8
+    gw = torch.arange(ctas * cta_warps * 32) // 32
+    lane = torch.arange(ctas * cta_warps * 32) % 32
+    lx = (gw % 8) * 8 + lane % 8
+    ly = torch.div(gw, 8, rounding_mode="floor") * 4 + \
+        torch.div(lane, 8, rounding_mode="floor")
+    assert torch.equal(torch.sort(ly * tw + lx).values,
+                       torch.arange(tw * th))
+    one = torch.zeros(1, dtype=torch.int32)
+    color, depth, done = TK.blend_tiles_plain(
+        key, words, 32, one, one + n, tiles_x=1, tile_w=tw, tile_h=th,
+        return_processed=True)
+    # CTA g as the diagonal tile (g, g) of a grid of one-row tiles
+    coords = (lx.reshape(ctas, -1).float(), ly.reshape(ctas, -1).float())
+    span = torch.zeros(ctas * ctas, dtype=torch.int32)
+    diag = torch.arange(ctas) * (ctas + 1)
+
+    def alone(count):
+        return TK.blend_tiles_plain(
+            key, words, 32, span, span + count, tiles_x=ctas,
+            tile_w=cta_warps * 32, tile_h=1, tiles=diag, pixel_coords=coords,
+            return_processed=True)
+
+    own = alone(n)[2]
+    assert int(done) < n and len(set(own.tolist())) > 2
+    assert int(own.max()) == int(done[0])
+    monkeypatch.setattr(TK, "MIN_TRANSMITTANCE", 0.0)
+    c_res, d_res, _ = alone(int(done[0]))
+    p = ly * tw + lx
+    assert torch.equal(c_res.reshape(-1, 4), color[0][p])
+    assert torch.equal(d_res.reshape(-1), depth[0][p])
