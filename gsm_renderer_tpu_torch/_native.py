@@ -25,9 +25,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
+
+from . import profiling
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -38,6 +41,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: every Kernel made, for the launch count of profiling.counters()
+KERNELS: list = []
 
 
 def _nvcc() -> str:
@@ -68,6 +73,7 @@ def build_all() -> Path:
     ``<name>.log`` beside each library."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = []
     nvcc = None
     for name in SOURCES:
@@ -89,6 +95,8 @@ def build_all() -> Path:
                           + (out / f"{name}.log").read_text()[-4000:])
             continue
         os.replace(tmp, lib)
+    if procs:
+        profiling.add_setup("kernel_build_s", time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return out
@@ -99,7 +107,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
+            path = build_all() / f"lib{name}.so"
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(str(path))
+            profiling.add_setup("kernel_load_s", time.perf_counter() - t0)
             lib.gsm_error_string.argtypes = [ctypes.c_int]
             lib.gsm_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -116,13 +127,15 @@ class Kernel:
     """One C entry point of a kernel library, with its launch count.
 
     ``launches`` grows by one per successful call of :meth:`launch` and only
-    there, so a run can show that its main path went through the kernel."""
+    there, so a run can show that its main path went through the kernel;
+    ``profiling.counters()`` sums it over every kernel (``KERNELS``)."""
 
     def __init__(self, name: str, lib: str, symbol: str, argtypes: list):
         self.name, self.lib, self.symbol = name, lib, symbol
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def launch(self, *args) -> None:
         if self._fn is None:

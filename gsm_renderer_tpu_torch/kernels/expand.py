@@ -915,8 +915,12 @@ def expand_slots_cuda(offsets, rect, mask, dsw, words, *, capacity: int,
                   M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                   M.f32(1.0 / 255.0), _native.ptr(out),
                   _native.ptr_or_null(warped_bounds))
-    total = offsets[n]
-    return (*out, total, (total > capacity).to(torch.int32))
+    # a copy, not a view: a header that keeps its slot total (the capacity
+    # feedback, a recorded frame) keeps 4 bytes, not the offsets; the
+    # compare writes the int32 flag itself, so the copy adds no launch
+    total = offsets[n].clone()
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    return (*out, total, torch.gt(total, capacity, out=overflow))
 
 
 def expand_slots(offsets, rect, mask, dsw, words, **kw):

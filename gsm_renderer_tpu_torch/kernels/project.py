@@ -27,12 +27,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from .. import _native
 from .. import mathlib as M
+from .. import profiling
 from ..ops.binning import pack_rect_word
 from .expand import CULLED_BIT, check_tile
 
@@ -106,11 +108,17 @@ def prepare_projection_inputs(gi, sh_degree: int):
 
 def cached_projection_inputs(gi, sh_degree: int):
     """Per-input cache of :func:`prepare_projection_inputs`, stored on the
-    GaussianInput (the inputs do not change between frames)."""
+    GaussianInput (the inputs do not change between frames).  A miss waits
+    for its device work and adds its seconds to the set-up timer
+    ``projection_cache_s`` of ``profiling.counters()``."""
     cache = gi.__dict__.setdefault("_proj_prep", {})
     got = cache.get(sh_degree)
     if got is None:
+        t0 = time.perf_counter()
         got = prepare_projection_inputs(gi, sh_degree)
+        if gi.device.type == "cuda":
+            torch.cuda.synchronize(gi.device)
+        profiling.add_setup("projection_cache_s", time.perf_counter() - t0)
         cache[sh_degree] = got
     return got
 

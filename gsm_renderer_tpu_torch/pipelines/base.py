@@ -9,7 +9,10 @@ and locks the capacity to 1.04 x that total, bucketed, re-reading every
 ``ADAPTIVE_REFRESH`` frames.  A frame whose demand exceeds its capacity
 drops instances, sets ``header.overflow`` and still renders.  The row
 decomposition's virtual-row capacity follows the same contract
-(:meth:`GaussianRenderer.pick_row_capacity`).
+(:meth:`GaussianRenderer.pick_row_capacity`).  Each host read counts in
+``profiling.counters()`` as a lock-in or a refresh, and a refresh whose
+demand exceeds the capacity in force as ``capacity_short``;
+:meth:`GaussianRenderer.capacity_state` is the contract's state.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import time
 
 import torch
 
+from .. import profiling
 from ..config import INSTANCE_CAPACITY_FACTOR, ColorFormat, RendererConfig
 from ..types import GaussianInput, RendererError, RenderOutput, resolve_device
 
@@ -42,6 +46,18 @@ def instance_capacity(config: RendererConfig, n: int,
     c = config.max_instances if config.max_instances > 0 else factor * n
     c = max(c, n + 1)
     return -(-c // 4096) * 4096
+
+
+def _count_read(state, total: int) -> None:
+    """Count a capacity read: a lock-in where no capacity was in force,
+    else a refresh, short where ``total`` exceeds the capacity in force."""
+    profiling.count("host_reads")
+    if state is None:
+        profiling.count("capacity_lockins")
+        return
+    profiling.count("capacity_refreshes")
+    if 0 < state["cap"] < total:
+        profiling.count("capacity_short")
 
 
 class GaussianRenderer:
@@ -72,10 +88,11 @@ class GaussianRenderer:
         if fb is None or fb.slot_total is None:
             return full
         total = int(fb.slot_total)  # host read: once per lock-in / refresh
+        _count_read(state, total)
         cap = int(total * ADAPTIVE_MARGIN) + 4096
         bucket = max(4096, 1 << max(cap.bit_length() - 5, 0))
         cap = max(min(-(-cap // bucket) * bucket, 4 * full), 4096)
-        self._cap_state[(kind, n)] = {"cap": cap, "age": 0}
+        self._cap_state[(kind, n)] = {"cap": cap, "age": 0, "demand": total}
         return cap
 
     #: full-model factor of the virtual-row capacity of the row
@@ -101,14 +118,28 @@ class GaussianRenderer:
         if fb is None or getattr(fb, "row_total", None) is None:
             return full
         total = int(fb.row_total)  # host read: once per lock-in / refresh
+        _count_read(state, total)
         if total > 4 * full:
             cap = 0
         else:
             cap = int(total * ADAPTIVE_MARGIN) + 4096
             bucket = max(4096, 1 << max(cap.bit_length() - 5, 0))
             cap = max(min(-(-cap // bucket) * bucket, 4 * full), 4096)
-        self._cap_state[key] = {"cap": cap, "age": 0}
+        self._cap_state[key] = {"cap": cap, "age": 0, "demand": total}
         return cap
+
+    def capacity_state(self) -> list:
+        """The capacity contract's state: one dict for each capacity in
+        force, with its ``kind`` (the frame kind, "<kind>.rows" for the
+        virtual-row capacity), ``gaussians``, ``capacity`` (0: rows off),
+        ``age`` (frames since it was read) and ``demand`` (the slot or row
+        total that read found)."""
+        out = []
+        for key, st in sorted(self._cap_state.items(), key=repr):
+            kind = f"{key[1]}.rows" if key[0] == "rows" else key[0]
+            out.append(dict(kind=kind, gaussians=key[-1], capacity=st["cap"],
+                            age=st["age"], demand=st["demand"]))
+        return out
 
     def note_frame(self, n: int, header, kind: str = "mono") -> None:
         """Keep the frame's header as capacity feedback (no device read)."""

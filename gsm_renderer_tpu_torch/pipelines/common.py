@@ -36,6 +36,10 @@ slot's entry index; one stable ``torch.sort`` of the (tile, depth) int64
 key orders ties by slot, which is the gaussian order; the blend reads the
 entries in sorted order (:func:`sort_and_ranges`).  Both orders are
 (tile, depth, gaussian index), so the fallback renders the KeyPlan frame.
+
+The functions here open the frame's shared stage spans
+(``profiling.span``): project, binning (prep, row_expand, expand), sort
+and ranges.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from .. import mathlib as M
 from ..kernels.expand import SENTINEL, binning_prep, expand_slots, row_expand
 from ..kernels.project import cached_projection_inputs, project_and_cull_packed
 from ..ops import binning as B
+from ..profiling import span
 from ..types import RenderRecord
 
 
@@ -120,20 +125,25 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
         raise ValueError("the row decomposition is a mono binning mode with "
                          "a KeyPlan")
     kw = dict(tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
-    offsets, rect, mask = binning_prep(packed.rect_word, packed.rect_h,
-                                       packed.words, mode=mode,
-                                       count_rows=row_capacity > 0,
-                                       warped_bounds=warped_bounds,
-                                       lod_min=lod_min, **kw)
-    dsw, words, row_overflow = packed.dsw, packed.words, None
-    if row_capacity > 0:
-        offsets, rect, mask, dsw, words, row_overflow = row_expand(
-            offsets, rect, mask, dsw, words, row_capacity=row_capacity, **kw)
-    *keys, total, overflow = expand_slots(
-        offsets, rect, mask, dsw, words, capacity=capacity, tiles_x=tiles_x,
-        key_plan=key_plan, mode=mode, warped_bounds=warped_bounds, **kw)
-    if row_overflow is not None:
-        overflow = torch.maximum(overflow, row_overflow)
+    with span("binning"):
+        with span("prep"):
+            offsets, rect, mask = binning_prep(
+                packed.rect_word, packed.rect_h, packed.words, mode=mode,
+                count_rows=row_capacity > 0, warped_bounds=warped_bounds,
+                lod_min=lod_min, **kw)
+        dsw, words, row_overflow = packed.dsw, packed.words, None
+        if row_capacity > 0:
+            with span("row_expand"):
+                offsets, rect, mask, dsw, words, row_overflow = row_expand(
+                    offsets, rect, mask, dsw, words,
+                    row_capacity=row_capacity, **kw)
+        with span("expand"):
+            *keys, total, overflow = expand_slots(
+                offsets, rect, mask, dsw, words, capacity=capacity,
+                tiles_x=tiles_x, key_plan=key_plan, mode=mode,
+                warped_bounds=warped_bounds, **kw)
+        if row_overflow is not None:
+            overflow = torch.maximum(overflow, row_overflow)
     return tuple(keys), words, total, overflow
 
 
@@ -170,9 +180,10 @@ def tile_ranges(sorted_key, plan, num_tiles: int):
     """(starts, counts) int32 of each tile's span of the sorted int64 keys
     of a KeyPlan ``plan``, or of the plain tile key when ``plan`` is
     None."""
-    sorted_tile = binning_sorted_tile(
-        sorted_key, plan_tuple=None if plan is None else plan.kernel_tuple)
-    return B.extract_tile_ranges(sorted_tile, num_tiles)
+    with span("ranges"):
+        sorted_tile = binning_sorted_tile(
+            sorted_key, plan_tuple=None if plan is None else plan.kernel_tuple)
+        return B.extract_tile_ranges(sorted_tile, num_tiles)
 
 
 class SortedInstances(NamedTuple):
@@ -193,11 +204,12 @@ def sort_keys(keys, key_plan):
     through the plan's index field; without one (the stable fallback) the
     stable sort of (tile, depth word, entry index), the blend reading the
     sorted entries (32 index bits)."""
-    if key_plan is None:
-        sorted_key, entry = sort_instances_stable(*keys)
-        return sorted_key, entry, 32
-    sorted_key = sort_instances(*keys)
-    return sorted_key, sorted_key, key_plan.idx_bits
+    with span("sort"):
+        if key_plan is None:
+            sorted_key, entry = sort_instances_stable(*keys)
+            return sorted_key, entry, 32
+        sorted_key = sort_instances(*keys)
+        return sorted_key, sorted_key, key_plan.idx_bits
 
 
 def sort_and_ranges(keys, key_plan, num_tiles: int) -> SortedInstances:
@@ -224,13 +236,14 @@ def mono_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
     plain tile key and the stable sort, as in JAX.  Returns
     (:class:`SortedInstances`, the projection, the entry words, the
     unclamped slot total, the overflow flag)."""
-    packed = project_and_cull_packed(
-        gi, view, proj, center, prepared=prepared, width=width, height=height,
-        tile_w=tile_w, tile_h=tile_h, sh_degree=sh_degree,
-        near_plane=near_plane, far_plane=far_plane,
-        alpha_threshold=alpha_threshold,
-        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
-        key_plan=key_plan)
+    with span("project"):
+        packed = project_and_cull_packed(
+            gi, view, proj, center, prepared=prepared, width=width,
+            height=height, tile_w=tile_w, tile_h=tile_h, sh_degree=sh_degree,
+            near_plane=near_plane, far_plane=far_plane,
+            alpha_threshold=alpha_threshold,
+            total_ink_threshold=total_ink_threshold,
+            input_is_srgb=input_is_srgb, key_plan=key_plan)
     keys, entry_words, slot_total, overflow = binning_sort_operands(
         packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode=mode, row_capacity=row_capacity, tile_w=tile_w, tile_h=tile_h,
@@ -261,13 +274,14 @@ def d16_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
     ``key_plan`` None, the plain tile key and the stable sort by (tile,
     depth16).  Returns (:class:`SortedInstances`, the projection, the
     unclamped slot total, the overflow flag)."""
-    packed = project_and_cull_packed(
-        gi, view, proj, center, prepared=prepared, width=width, height=height,
-        tile_w=tile_w, tile_h=tile_h, sh_degree=sh_degree,
-        near_plane=near_plane, far_plane=far_plane,
-        alpha_threshold=alpha_threshold,
-        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
-        depth_key16=True)
+    with span("project"):
+        packed = project_and_cull_packed(
+            gi, view, proj, center, prepared=prepared, width=width,
+            height=height, tile_w=tile_w, tile_h=tile_h, sh_degree=sh_degree,
+            near_plane=near_plane, far_plane=far_plane,
+            alpha_threshold=alpha_threshold,
+            total_ink_threshold=total_ink_threshold,
+            input_is_srgb=input_is_srgb, depth_key16=True)
     keys, _words, slot_total, overflow = binning_sort_operands(
         packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode=mode, tile_w=tile_w, tile_h=tile_h,

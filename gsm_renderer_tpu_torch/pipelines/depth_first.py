@@ -59,6 +59,7 @@ from ..kernels.project import (cached_projection_inputs,
                                stereo_project_and_cull_packed)
 from ..mathlib import u32
 from ..ops import binning as B
+from ..profiling import note_header, span, traced_frame
 from ..stereo import compress_foveated, foveated_raster_tables
 from ..types import FrameHeader, RenderOutput
 from .base import GaussianRenderer
@@ -176,24 +177,27 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
             row_capacity=row_capacity, **chain_kw)
     counts = srt.counts
     if max_per_tile > 0:
-        counts = torch.clamp(counts, max=max_per_tile)
-        total_instances = visible_rect_total(packed.rect_word, packed.rect_h,
-                                             packed.visible)
-    else:
-        total_instances = counts.sum().to(torch.int32)
-    color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
-                               counts, tiles_x=tiles_x, tiles_y=tiles_y,
-                               width=width, height=height, tile_w=tile_w,
-                               tile_h=tile_h, depth_mode=depth_mode,
-                               r2_cutoff=r2_cutoff)
-    header = FrameHeader(
-        visible_count=packed.visible.sum().to(torch.int32),
-        total_instances=total_instances,
-        overflow=overflow,
-        slot_total=slot_total,
-        row_total=(_row_demand(packed.rect_word, packed.rect_h)
-                   if exact_tile_test else None),
-    )
+        with span("ranges"):
+            counts = torch.clamp(counts, max=max_per_tile)
+    with span("blend"):
+        color, depth = blend_image(
+            srt.key, entry_words, srt.idx_bits, srt.starts, counts,
+            tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
+            tile_w=tile_w, tile_h=tile_h, depth_mode=depth_mode,
+            r2_cutoff=r2_cutoff)
+    with span("header"):
+        header = FrameHeader(
+            visible_count=packed.visible.sum().to(torch.int32),
+            total_instances=(
+                visible_rect_total(packed.rect_word, packed.rect_h,
+                                   packed.visible)
+                if max_per_tile > 0 else counts.sum().to(torch.int32)),
+            overflow=overflow,
+            slot_total=slot_total,
+            row_total=(_row_demand(packed.rect_word, packed.rect_h)
+                       if exact_tile_test else None),
+        )
+    note_header(header, capacity)
     return RenderOutput(color=color, depth=depth, header=header)
 
 
@@ -219,24 +223,27 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     num_tiles = tiles_x * tiles_y
     key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
                                far_plane=far_plane)
-    (keys, entry_words, slot_total, overflow, visible_count,
-     total_live) = _stereo_packed_ops(
-            gi, views, projs, centers, scene_transform, prepared, key_plan,
-            width=width, height=height, capacity=capacity, tiles_x=tiles_x,
-            sh_degree=sh_degree, alpha_threshold=alpha_threshold,
-            total_ink_threshold=total_ink_threshold, near_plane=near_plane,
-            far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
-            tile_h=tile_h)
+    pp, keys, entry_words, slot_total, overflow = _stereo_packed_ops(
+        gi, views, projs, centers, scene_transform, prepared, key_plan,
+        width=width, height=height, capacity=capacity, tiles_x=tiles_x,
+        sh_degree=sh_degree, alpha_threshold=alpha_threshold,
+        total_ink_threshold=total_ink_threshold, near_plane=near_plane,
+        far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
+        tile_h=tile_h)
     srt = sort_and_ranges(keys, key_plan, num_tiles)
-    color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
-                               srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
-                               width=width, height=height, tile_w=tile_w,
-                               tile_h=tile_h, n_eyes=2,
-                               r2_cutoff=STEREO_R2_CUTOFF,
-                               depth_mode=depth_mode)
-    header = FrameHeader(visible_count=visible_count,
-                         total_instances=total_live, overflow=overflow,
-                         slot_total=slot_total)
+    with span("blend"):
+        color, depth = blend_image(
+            srt.key, entry_words, srt.idx_bits, srt.starts, srt.counts,
+            tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
+            tile_w=tile_w, tile_h=tile_h, n_eyes=2,
+            r2_cutoff=STEREO_R2_CUTOFF, depth_mode=depth_mode)
+    with span("header"):
+        header = FrameHeader(
+            visible_count=pp.visible.sum().to(torch.int32),
+            total_instances=visible_rect_total(pp.rect_word, pp.rect_h,
+                                               pp.visible),
+            overflow=overflow, slot_total=slot_total)
+    note_header(header, capacity)
     return RenderOutput(color=color, depth=depth, header=header)
 
 
@@ -245,22 +252,19 @@ def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                        sh_degree, alpha_threshold, total_ink_threshold,
                        near_plane, far_plane, input_is_srgb, tile_w, tile_h):
     """Dual-eye projection + stereo prep / expand up to the sort operands.
-    Returns (the keys, the 8 entry word rows, slot_total, overflow,
-    visible_count, total_live = the union-rect total of the visible
-    gaussians)."""
-    pp = stereo_project_and_cull_packed(
-        gi, views, projs, centers, scene_transform, prepared=prepared,
-        width=width, height=height, tile_w=tile_w, tile_h=tile_h,
-        sh_degree=sh_degree, near_plane=near_plane, far_plane=far_plane,
-        alpha_threshold=alpha_threshold,
-        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
-        key_plan=key_plan)
-    keys, entry_words, slot_total, overflow = binning_sort_operands(
+    Returns (the projection, the keys, the 8 entry word rows, slot_total,
+    overflow)."""
+    with span("project"):
+        pp = stereo_project_and_cull_packed(
+            gi, views, projs, centers, scene_transform, prepared=prepared,
+            width=width, height=height, tile_w=tile_w, tile_h=tile_h,
+            sh_degree=sh_degree, near_plane=near_plane, far_plane=far_plane,
+            alpha_threshold=alpha_threshold,
+            total_ink_threshold=total_ink_threshold,
+            input_is_srgb=input_is_srgb, key_plan=key_plan)
+    return (pp, *binning_sort_operands(
         pp, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
-        mode="stereo", tile_w=tile_w, tile_h=tile_h)
-    return (keys, entry_words, slot_total, overflow,
-            pp.visible.sum().to(torch.int32),
-            visible_rect_total(pp.rect_word, pp.rect_h, pp.visible))
+        mode="stereo", tile_w=tile_w, tile_h=tile_h))
 
 
 def foveated_rects(pp, inv_fit, *, tiles_x: int, tiles_y: int,
@@ -330,25 +334,24 @@ def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                          foveated_lod):
     """Dual-eye projection at the display size, re-binning onto the
     physical tiles, warped prep / expand up to the sort operands.  Returns
-    (the keys, the 8 entry word rows, slot_total, overflow,
-    visible_count = the projection's visible gaussians, total_live = the
-    re-binned rect total)."""
-    pp = stereo_project_and_cull_packed(
-        gi, views, projs, centers, scene_transform, prepared=prepared,
-        width=display_width, height=display_height, tile_w=tile_w,
-        tile_h=tile_h, sh_degree=sh_degree, near_plane=near_plane,
-        far_plane=far_plane, alpha_threshold=alpha_threshold,
-        total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb,
-        key_plan=key_plan)
-    warped, rect_count = foveated_packed(pp, tables["inv_fit"],
-                                         tiles_x=tiles_x, tiles_y=tiles_y,
-                                         tile_w=tile_w, tile_h=tile_h)
-    keys, entry_words, slot_total, overflow = binning_sort_operands(
+    (the display-size projection, the re-binned rect counts, the keys, the
+    8 entry word rows, slot_total, overflow)."""
+    with span("project"):
+        pp = stereo_project_and_cull_packed(
+            gi, views, projs, centers, scene_transform, prepared=prepared,
+            width=display_width, height=display_height, tile_w=tile_w,
+            tile_h=tile_h, sh_degree=sh_degree, near_plane=near_plane,
+            far_plane=far_plane, alpha_threshold=alpha_threshold,
+            total_ink_threshold=total_ink_threshold,
+            input_is_srgb=input_is_srgb, key_plan=key_plan)
+    with span("rebin"):
+        warped, rect_count = foveated_packed(
+            pp, tables["inv_fit"], tiles_x=tiles_x, tiles_y=tiles_y,
+            tile_w=tile_w, tile_h=tile_h)
+    return (pp, rect_count, *binning_sort_operands(
         warped, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode="warped", tile_w=tile_w, tile_h=tile_h,
-        warped_bounds=tables["bounds"], lod_min=foveated_lod)
-    return (keys, entry_words, slot_total, overflow,
-            pp.visible.sum().to(torch.int32), rect_count.sum().to(torch.int32))
+        warped_bounds=tables["bounds"], lod_min=foveated_lod))
 
 
 def depth_first_stereo_foveated_frame(
@@ -378,8 +381,8 @@ def depth_first_stereo_foveated_frame(
     num_tiles = tiles_x * tiles_y
     key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
                                far_plane=far_plane)
-    (keys, entry_words, slot_total, overflow, visible_count,
-     total_live) = _foveated_packed_ops(
+    (pp, rect_count, keys, entry_words, slot_total,
+     overflow) = _foveated_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
             tables, display_width=display_width,
             display_height=display_height, capacity=capacity,
@@ -389,17 +392,19 @@ def depth_first_stereo_foveated_frame(
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h, foveated_lod=foveated_lod)
     srt = sort_and_ranges(keys, key_plan, num_tiles)
-    color, depth = blend_image(srt.key, entry_words, srt.idx_bits, srt.starts,
-                               srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
-                               width=render_width, height=render_height,
-                               tile_w=tile_w, tile_h=tile_h, n_eyes=2,
-                               r2_cutoff=STEREO_R2_CUTOFF,
-                               pixel_coords=(tables["coord_x"],
-                                             tables["coord_y"]),
-                               depth_mode=depth_mode)
-    header = FrameHeader(visible_count=visible_count,
-                         total_instances=total_live, overflow=overflow,
-                         slot_total=slot_total)
+    with span("blend"):
+        color, depth = blend_image(
+            srt.key, entry_words, srt.idx_bits, srt.starts, srt.counts,
+            tiles_x=tiles_x, tiles_y=tiles_y, width=render_width,
+            height=render_height, tile_w=tile_w, tile_h=tile_h, n_eyes=2,
+            r2_cutoff=STEREO_R2_CUTOFF,
+            pixel_coords=(tables["coord_x"], tables["coord_y"]),
+            depth_mode=depth_mode)
+    with span("header"):
+        header = FrameHeader(visible_count=pp.visible.sum().to(torch.int32),
+                             total_instances=rect_count.sum().to(torch.int32),
+                             overflow=overflow, slot_total=slot_total)
+    note_header(header, capacity)
     return RenderOutput(color=color, depth=depth, header=header)
 
 
@@ -434,15 +439,18 @@ class DepthFirstRenderer(GaussianRenderer):
     _r2_cutoff = 0.0
     _depth_mode = "weighted"
 
+    @traced_frame
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
         return _mono_render(self, gi, camera, width, height)
 
+    @traced_frame
     def render_stereo(self, gi, camera, width: int,
                       height: int) -> RenderOutput:
         """Side-by-side stereo: ``camera`` a :class:`StereoCameraParams`;
         returns an (H, 2W) frame, the left eye first."""
         return _stereo_render(self, gi, camera, width, height)
 
+    @traced_frame
     def render_stereo_foveated(self, gi, camera, target) -> RenderOutput:
         """Foveated stereo: ``camera`` a :class:`StereoCameraParams`,
         ``target`` a :class:`~gsm_renderer_tpu_torch.stereo.
@@ -452,39 +460,42 @@ class DepthFirstRenderer(GaussianRenderer):
         to the display)."""
         return _stereo_foveated_render(self, gi, camera, target)
 
+    @traced_frame
     def render_stereo_foveated_compress(self, gi, camera,
                                         target) -> RenderOutput:
         """The render-full-then-compress foveated path: a full-resolution
         stereo frame resampled into the physical target (kept for
         comparison)."""
-        out = self.render_stereo(gi, camera, target.display_width,
-                                 target.display_height)
-        depth = compress_foveated(out.depth[..., None], target)[..., 0]
-        return RenderOutput(color=compress_foveated(out.color, target),
-                            depth=depth, header=out.header)
+        out = _stereo_render(self, gi, camera, target.display_width,
+                             target.display_height)
+        with span("output"):
+            depth = compress_foveated(out.depth[..., None], target)[..., 0]
+            return RenderOutput(color=compress_foveated(out.color, target),
+                                depth=depth, header=out.header)
 
 
 def _mono_render(self, gi, camera, width, height):
     """The mono frame.  Stereo and foveated frames take neither key
     precision, as in JAX, and render the same frame under any."""
-    self.validate_inputs(gi, width, height)
     c = self.config
     n = gi.count
     tile_w, tile_h = cfg.DEPTH_FIRST_TILE
     depth_key_bits = c.depth_sort_key_precision.value
-    # depth_first_frame falls back to the full-rect path when the
-    # row-addressing KeyPlan does not fit; 16-bit depth keys and full rects
-    # run without rows, as in JAX
-    row_cap = (self.pick_row_capacity(n, kind=self._mono_key)
-               if c.row_expand and depth_key_bits == 32
-               and self._exact_tile_test else 0)
-    sh_degree = used_sh_degree(c, gi)
+    with span("entry"):
+        self.validate_inputs(gi, width, height)
+        sh_degree = used_sh_degree(c, gi)
+        # depth_first_frame falls back to the full-rect path when the
+        # row-addressing KeyPlan does not fit; 16-bit depth keys and full
+        # rects run without rows, as in JAX
+        row_cap = (self.pick_row_capacity(n, kind=self._mono_key)
+                   if c.row_expand and depth_key_bits == 32
+                   and self._exact_tile_test else 0)
+        capacity = self.pick_capacity(n, self._mono_capacity_factor,
+                                      kind=self._mono_key)
+        prepared = cached_projection_inputs(gi, sh_degree)
     out = depth_first_frame(
         gi, camera.view_matrix, camera.projection_matrix, camera.position,
-        cached_projection_inputs(gi, sh_degree),
-        width=width, height=height,
-        capacity=self.pick_capacity(n, self._mono_capacity_factor,
-                                    kind=self._mono_key),
+        prepared, width=width, height=height, capacity=capacity,
         sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
         total_ink_threshold=c.total_ink_threshold,
         near_plane=camera.near_plane, far_plane=camera.far_plane,
@@ -495,7 +506,8 @@ def _mono_render(self, gi, camera, width, height):
         depth_key_bits=depth_key_bits, exact_tile_test=self._exact_tile_test,
         r2_cutoff=self._r2_cutoff)
     self.note_frame(n, out.header, kind=self._mono_key)
-    return self.finalize_output(out)
+    with span("output"):
+        return self.finalize_output(out)
 
 
 def _stereo_rig(camera):
@@ -510,47 +522,54 @@ def _stereo_rig(camera):
 
 
 def _stereo_render(self, gi, camera, width, height):
-    self.validate_inputs(gi, width, height)
     c = self.config
     n = gi.count
-    left = camera.left
-    sh_degree = used_sh_degree(c, gi)
-    out = depth_first_stereo_frame(
-        gi, *_stereo_rig(camera), cached_projection_inputs(gi, sh_degree),
-        width=width, height=height,
+    with span("entry"):
+        self.validate_inputs(gi, width, height)
+        left = camera.left
+        sh_degree = used_sh_degree(c, gi)
         # union rects are expanded in full (the dual-eye test prunes them)
-        capacity=self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
-                                    kind=self._stereo_key),
-        sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
+        capacity = self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
+                                      kind=self._stereo_key)
+        prepared = cached_projection_inputs(gi, sh_degree)
+    out = depth_first_stereo_frame(
+        gi, *_stereo_rig(camera), prepared, width=width, height=height,
+        capacity=capacity, sh_degree=sh_degree,
+        alpha_threshold=c.alpha_threshold,
         total_ink_threshold=c.total_ink_threshold,
         near_plane=left.near_plane, far_plane=left.far_plane,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
         depth_mode=self._depth_mode)
     self.note_frame(n, out.header, kind=self._stereo_key)
-    return self.finalize_output(out)
+    with span("output"):
+        return self.finalize_output(out)
 
 
 def _stereo_foveated_render(self, gi, camera, target):
-    self.validate_inputs(gi, target.display_width, target.display_height)
     c = self.config
     n = gi.count
-    left = camera.left
-    sh_degree = used_sh_degree(c, gi)
     kind = self._stereo_key + "_fov"
+    with span("entry"):
+        self.validate_inputs(gi, target.display_width, target.display_height)
+        left = camera.left
+        sh_degree = used_sh_degree(c, gi)
+        tables = foveated_device_tables(target, self.device)
+        # re-binned union rects are expanded in full (the warped dual-eye
+        # test prunes them)
+        capacity = self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
+                                      kind=kind)
+        prepared = cached_projection_inputs(gi, sh_degree)
     out = depth_first_stereo_foveated_frame(
-        gi, *_stereo_rig(camera), foveated_device_tables(target, self.device),
-        cached_projection_inputs(gi, sh_degree),
+        gi, *_stereo_rig(camera), tables, prepared,
         display_width=target.display_width,
         display_height=target.display_height,
         render_width=target.render_width, render_height=target.render_height,
-        # re-binned union rects are expanded in full (the warped dual-eye
-        # test prunes them)
-        capacity=self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
-                                    kind=kind),
-        sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
+        capacity=capacity, sh_degree=sh_degree,
+        alpha_threshold=c.alpha_threshold,
         total_ink_threshold=c.total_ink_threshold,
         near_plane=left.near_plane, far_plane=left.far_plane,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
         foveated_lod=c.foveated_lod, depth_mode=self._depth_mode)
     self.note_frame(n, out.header, kind=kind)
-    return self.finalize_output(out)
+    with span("output"):
+        return self.finalize_output(out)

@@ -20,6 +20,7 @@ import torch
 from .. import config as cfg
 from ..kernels.blend import blend_image
 from ..kernels.expand import check_tile
+from ..profiling import note_header, span, traced_frame
 from ..types import FrameHeader, RenderOutput
 from .base import GaussianRenderer
 from .common import d16_frame_kwargs, d16_key_plan, d16_packed_sorted
@@ -54,13 +55,17 @@ def global_frame(gi, view, proj, center, prepared=None, *, width: int,
         total_ink_threshold=total_ink_threshold, near_plane=near_plane,
         far_plane=far_plane, input_is_srgb=input_is_srgb,
         mode="mono" if exact_tile_test else "none")
-    color, depth = blend_image(srt.key, packed.words, srt.idx_bits, srt.starts,
-                               srt.counts, tiles_x=tiles_x, tiles_y=tiles_y,
-                               width=width, height=height, tile_w=tile_w,
-                               tile_h=tile_h)
-    header = FrameHeader(visible_count=packed.visible.sum().to(torch.int32),
-                         total_instances=srt.counts.sum().to(torch.int32),
-                         overflow=overflow, slot_total=slot_total)
+    with span("blend"):
+        color, depth = blend_image(
+            srt.key, packed.words, srt.idx_bits, srt.starts, srt.counts,
+            tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
+            tile_w=tile_w, tile_h=tile_h)
+    with span("header"):
+        header = FrameHeader(
+            visible_count=packed.visible.sum().to(torch.int32),
+            total_instances=srt.counts.sum().to(torch.int32),
+            overflow=overflow, slot_total=slot_total)
+    note_header(header, capacity)
     return RenderOutput(color=color, depth=depth, header=header)
 
 
@@ -70,11 +75,15 @@ class GlobalRenderer(GaussianRenderer):
 
     _mono_key = "global"
 
+    @traced_frame
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
-        self.validate_inputs(gi, width, height)
+        with span("entry"):
+            self.validate_inputs(gi, width, height)
+            kw = d16_frame_kwargs(self, gi, camera, width, height)
         out = global_frame(
             gi, camera.view_matrix, camera.projection_matrix, camera.position,
             tile_w=cfg.GLOBAL_TILE[0], tile_h=cfg.GLOBAL_TILE[1],
-            **d16_frame_kwargs(self, gi, camera, width, height))
+            **kw)
         self.note_frame(gi.count, out.header, kind=self._mono_key)
-        return self.finalize_output(out)
+        with span("output"):
+            return self.finalize_output(out)

@@ -22,6 +22,7 @@ import torch
 from .. import config as cfg
 from ..kernels.blend import blend_image
 from ..kernels.expand import check_tile
+from ..profiling import note_header, span, traced_frame
 from ..types import FrameHeader, RenderOutput
 from .base import GaussianRenderer
 from .common import d16_frame_kwargs, d16_key_plan, d16_packed_sorted
@@ -49,14 +50,19 @@ def local_frame(gi, view, proj, center, prepared=None, *, width: int,
         tile_h=tile_h, sh_degree=sh_degree, alpha_threshold=alpha_threshold,
         total_ink_threshold=total_ink_threshold, near_plane=near_plane,
         far_plane=far_plane, input_is_srgb=input_is_srgb)
-    counts = torch.clamp(srt.counts, max=max_per_tile)
-    color, depth = blend_image(srt.key, packed.words, srt.idx_bits, srt.starts,
-                               counts, tiles_x=tiles_x, tiles_y=tiles_y,
-                               width=width, height=height, tile_w=tile_w,
-                               tile_h=tile_h, depth_mode="first_hit")
-    header = FrameHeader(visible_count=packed.visible.sum().to(torch.int32),
-                         total_instances=counts.sum().to(torch.int32),
-                         overflow=overflow, slot_total=slot_total)
+    with span("ranges"):
+        counts = torch.clamp(srt.counts, max=max_per_tile)
+    with span("blend"):
+        color, depth = blend_image(
+            srt.key, packed.words, srt.idx_bits, srt.starts, counts,
+            tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
+            tile_w=tile_w, tile_h=tile_h, depth_mode="first_hit")
+    with span("header"):
+        header = FrameHeader(
+            visible_count=packed.visible.sum().to(torch.int32),
+            total_instances=counts.sum().to(torch.int32),
+            overflow=overflow, slot_total=slot_total)
+    note_header(header, capacity)
     return RenderOutput(color=color, depth=depth, header=header)
 
 
@@ -66,12 +72,16 @@ class LocalRenderer(GaussianRenderer):
 
     _mono_key = "local"
 
+    @traced_frame
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
-        self.validate_inputs(gi, width, height)
+        with span("entry"):
+            self.validate_inputs(gi, width, height)
+            kw = d16_frame_kwargs(self, gi, camera, width, height)
         out = local_frame(
             gi, camera.view_matrix, camera.projection_matrix, camera.position,
             tile_w=cfg.LOCAL_TILE[0], tile_h=cfg.LOCAL_TILE[1],
             max_per_tile=cfg.LOCAL_MAX_PER_TILE,
-            **d16_frame_kwargs(self, gi, camera, width, height))
+            **kw)
         self.note_frame(gi.count, out.header, kind=self._mono_key)
-        return self.finalize_output(out)
+        with span("output"):
+            return self.finalize_output(out)

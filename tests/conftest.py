@@ -28,6 +28,8 @@ def pytest_configure(config):
         "markers",
         "slow: heavy interpret-mode / subprocess test — skipped in the "
         "default run; set GSM_SLOW_TESTS=1 for the full tier")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

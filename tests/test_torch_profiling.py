@@ -1,11 +1,9 @@
 """gsm_renderer_tpu_torch.profiling on the CPU: the stage split's keys (the
-JAX function's) and sums, and the chain it times, which must render the
-image of ``DepthFirstRenderer(row_expand=False)`` bit for bit (the same
-calls in the same order).  Times on the CPU are host-clock times of the
-plain versions, not device metrics; chip_smoke.py reads the split on the
-card."""
+JAX function's) and sums.  The split reads the spans of the frame function
+itself (tests/test_torch_tracing.py holds the spans to the frame).  Times
+on the CPU are host-clock times of the plain versions, not device metrics;
+chip_smoke.py reads the split on the card."""
 
-import numpy as np
 import pytest
 import torch
 
@@ -32,20 +30,3 @@ def test_split_keys_and_total():
     assert all(isinstance(v, float) and v > 0.0 for v in out.values())
     assert out["total"] == pytest.approx(sum(out[k] for k in P.STAGES),
                                          rel=1e-12)
-
-
-@pytest.mark.parametrize("sh_degree", [1, 3])
-def test_profiled_chain_is_the_rows_off_frame(sh_degree):
-    gi, cam = scene(sh_degree)
-    st = {}
-    for _name, fn in P._stage_chain(gi, cam, W, H, sh_degree=sh_degree,
-                                    capacity=0, alpha_threshold=0.005,
-                                    total_ink_threshold=2.0):
-        fn(st)
-    r = T.DepthFirstRenderer(T.RendererConfig(sh_degree=sh_degree,
-                                              row_expand=False), device="cpu")
-    ref = r.render(gi, cam, W, H)
-    assert int(ref.header.overflow) == 0
-    np.testing.assert_array_equal(st["color"].numpy(), ref.color.numpy())
-    np.testing.assert_array_equal(st["depth"].numpy(), ref.depth.numpy())
-    assert float(ref.color[..., :3].max()) > 0.05

@@ -218,7 +218,7 @@ def test_stereo_binning_without_plan_orders_as_the_keyplan(scene):
           if k not in ("tiles_y", "tile_w", "tile_h")}
     out = []
     for key_plan in (plan, None):
-        keys, words, _total, overflow, _vis, _live = TD._stereo_packed_ops(
+        _pp, keys, words, _total, overflow = TD._stereo_packed_ops(
             scene["gi"], *rig, None, key_plan, tile_w=16, tile_h=16, **kw)
         assert int(overflow) == 0
         srt = TC.sort_and_ranges(keys, key_plan, 16 * 12)
@@ -245,7 +245,7 @@ def test_foveated_binning_without_plan_orders_as_the_keyplan(scene):
           if k not in ("width", "height", "tiles_x", "tiles_y")}
     out = []
     for key_plan in (plan, None):
-        keys, _words, _total, overflow, _vis, _live = TD._foveated_packed_ops(
+        _pp, _rc, keys, _words, _total, overflow = TD._foveated_packed_ops(
             scene["gi"], *TD._stereo_rig(stereo), None, key_plan, tables,
             display_width=W, display_height=H, tiles_x=tiles_x,
             tiles_y=num_tiles // tiles_x, foveated_lod=0.0, **kw)
