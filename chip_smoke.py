@@ -188,9 +188,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    expand in mode "none", the one-eye blend with the cutoff and normalized
    depth, the dual-eye blend with normalized depth, each bit-equal to its
    plain version over the whole frame and to the renderer's frame; the
-   Hardware frame's instance sort timed.  The instance sort and tile
-   ranges carry byte floors (one read and one write of the int64 keys; one
-   read of the sorted keys).
+   Hardware frame's instance sort timed.  The instance sort's three
+   kernels (``csrc/sort.cu``: the key pack, CUB's keys-only sort, the tile
+   ranges) on the headline frame's keys, each bit-equal to its plain
+   version, which is the code it replaces (``sort_key64``,
+   ``torch.sort``'s values, ``binning_sorted_tile`` +
+   ``torch.searchsorted``), with byte floors (the int64 keys read and
+   written once; for the sort also the eight passes
+   of 64 bits; one read of the sorted keys) and the PyTorch calls that did
+   the work before (``library_ms``; ``torch.sort`` sorts (key, index)
+   pairs).  Every path of phases 2-4s holds the sort and tile ranges of
+   its first frame to the same yardsticks (``sort_audit``; printed as
+   ``{"sort_audits": [...]}``).
+5g. The same three kernels at the garden cell's shapes: 11,010,048 slots
+   (6% dead), 8160 tiles, 63 key bits (d_hi 19, d_lo 8, 23 index bits), on
+   keys drawn on the card from a fixed seed; no frame runs here, so these
+   rows give no launch count (``launches`` null).
 5t. The expand on built entry tables (entries owning more slots than 4 of
    its CTAs, a run of 1-slot and culled entries, a row table's dead tail, a
    total equal to the capacity and one above it) in modes mono, stereo and
@@ -241,6 +254,7 @@ export).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -283,6 +297,15 @@ KERNEL_SOURCES = {
                        "gsm_renderer_tpu/kernels/project.py:493"),
     "bounds_gather": ("gsm_renderer_tpu_torch/csrc/binning.cu",
                       "gsm_renderer_tpu/kernels/expand.py:202"),
+    # the instance sort: no Pallas kernel (jax.lax.sort and an XLA
+    # searchsorted in gsm_renderer_tpu/pipelines/common.py)
+    "sort_pack": ("gsm_renderer_tpu_torch/csrc/sort.cu",
+                  "none: kernels/sort.py::sort_key64's five torch ops"),
+    "sort_keys": ("gsm_renderer_tpu_torch/csrc/sort.cu (CUB)",
+                  "none: jax.lax.sort; torch.sort (pairs) before"),
+    "sort_ranges": ("gsm_renderer_tpu_torch/csrc/sort.cu",
+                    "none: XLA searchsorted; binning_sorted_tile + "
+                    "torch.searchsorted before"),
 }
 #: kernels whose -Xptxas -v report must show no spill
 SPILL_CHECKED = ("blend_kernel", "general_blend_kernel", "resume_blend_kernel",
@@ -299,17 +322,33 @@ STAGE_KERNELS = (
     ("expand", ("expand_kernel",)),
     ("blend", ("blend_kernel",)),
     ("bounds gather", ("bounds_gather_kernel",)),
+    ("key pack", ("sort_key_pack_kernel",)),
+    ("tile ranges", ("sort_ranges", "searchsorted")),
     ("instance sort", ("Radix", "radix", "Sort", "sort")),
-    ("tile ranges", ("searchsorted",)),
 )
-#: the kernels each path must launch
-MONO_ROWS_PATH = ("project", "prep", "row_expand", "expand", "blend")
-MONO_RECTS_PATH = ("project", "prep", "expand", "blend")
-STEREO_PATH = ("stereo_project", "prep", "expand", "blend")
-FOVEATED_PATH = ("stereo_project", "prep", "expand", "blend")
-D16_PATH = ("project", "prep", "expand", "blend")
-HARDWARE_PATH = ("project", "prep", "expand", "blend")
-BAND_PATH = ("project", "prep", "prep_band", "expand", "blend")
+#: the kernels each path must launch: every path packs its keys and reads
+#: its tile ranges; the keys-only sort runs under a KeyPlan (the mono
+#: rows-off and band paths include the stable fallback's frames)
+SORT_PATH = ("sort_pack", "sort_ranges")
+MONO_ROWS_PATH = ("project", "prep", "row_expand", "expand", "blend",
+                  "sort_keys", *SORT_PATH)
+MONO_RECTS_PATH = ("project", "prep", "expand", "blend", *SORT_PATH)
+STEREO_PATH = ("stereo_project", "prep", "expand", "blend", "sort_keys",
+               *SORT_PATH)
+FOVEATED_PATH = STEREO_PATH
+D16_PATH = ("project", "prep", "expand", "blend", "sort_keys", *SORT_PATH)
+HARDWARE_PATH = D16_PATH
+BAND_PATH = ("project", "prep", "prep_band", "expand", "blend", *SORT_PATH)
+#: the garden cell's sort shapes (gsmbench garden-mono-1080p.orbit: ~11M
+#: slots, 6% dead; 1920x1080 at 16x16 tiles; the row KeyPlan of its ~8M
+#: rows, d_hi 19, d_lo 8, idx_bits 23: 63 live key bits)
+GARDEN_SLOTS = 11_010_048
+GARDEN_TILES = 120 * 68
+GARDEN_D_HI, GARDEN_D_LO, GARDEN_IDX_BITS = 19, 8, 23
+GARDEN_DEAD = 0.06
+#: the paths whose first sort and tile ranges drive_path held to the
+#: yardsticks (sort_audit)
+SORT_AUDITS = []
 W, H = 1920, 1080
 #: phase 4s's frame, where no tie-free KeyPlan fits: gaussians, width,
 #: height, far plane
@@ -729,12 +768,61 @@ def check_frame(torch, out, label: str, halves: int = 1):
             raise RuntimeError(f"{label}: frame (part {k}) is black")
 
 
+@contextlib.contextmanager
+def sort_audit(torch, label):
+    """Holds the first instance sort and tile ranges that the frames of a
+    path make (in its first frame, untimed) to the yardsticks: the sorted
+    keys bit-equal to ``torch.sort(sort_key64(key1, key2)).values`` (stable
+    for the fallback), the starts and counts to ``binning_sorted_tile`` +
+    ``extract_tile_ranges`` (torch.searchsorted).  Yields a dict whose
+    ``checked`` is 1 once they were."""
+    from gsm_renderer_tpu_torch.ops import binning as OB
+    from gsm_renderer_tpu_torch.pipelines import common as PC
+
+    sort_keys, tile_ranges = PC.sort_keys, PC.tile_ranges
+    state = dict(checked=0, sorted=None)
+
+    def audited_sort(keys, key_plan):
+        if state["checked"] or state["sorted"] is not None:
+            return sort_keys(keys, key_plan)
+        want = torch.sort(PC.sort_key64(keys[0], keys[1]),
+                          stable=key_plan is None).values
+        out = sort_keys(keys, key_plan)
+        require_exact(torch, f"{label}: sorted keys", [(out[0], want)])
+        state["sorted"] = out[0]
+        return out
+
+    def audited_ranges(sorted_key, plan, num_tiles):
+        out = tile_ranges(sorted_key, plan, num_tiles)
+        if not state["checked"] and sorted_key is state["sorted"]:
+            tile = PC.binning_sorted_tile(
+                sorted_key,
+                plan_tuple=None if plan is None else plan.kernel_tuple)
+            require_exact(torch, f"{label}: tile ranges", list(zip(
+                out, OB.extract_tile_ranges(tile, num_tiles))))
+            state["checked"] = 1
+            SORT_AUDITS.append(dict(path=label, slots=sorted_key.shape[0],
+                                    tiles=num_tiles,
+                                    keys_only=plan is not None))
+        return out
+
+    PC.sort_keys, PC.tile_ranges = audited_sort, audited_ranges
+    try:
+        yield state
+    finally:
+        PC.sort_keys, PC.tile_ranges = sort_keys, tile_ranges
+
+
 def drive_path(torch, kernels, names, label, render):
     """Counts to 0, the path's frames, counts read: (out, stats, launches).
-    Fails if a kernel of the path was not launched."""
+    Fails if a kernel of the path was not launched, or if the first frame's
+    sort and tile ranges differ from the yardsticks (:func:`sort_audit`)."""
     for k in kernels:
         k.launches = 0
-    out, stats = render()
+    with sort_audit(torch, label) as audit:
+        out, stats = render()
+    if not audit["checked"]:
+        raise RuntimeError(f"{label}: no instance sort was checked")
     launches = {k.name: k.launches for k in kernels}
     for name in names:
         if launches[name] <= 0:
@@ -1582,7 +1670,10 @@ def _band_rank(rank: int, world: int, n: int, configs: list):
                     T, gi, cam, -(-4 * n // 4096) * 4096, *tile)
         KB.MIN_TRANSMITTANCE = exit_t
     gi = MC.shard_gaussian_input(ds.to_input(T.Precision.FLOAT32), rank, world)
-    kernels = (KP.PROJECT, KE.PREP, KE.PREP_BAND, KE.EXPAND, KB.BLEND)
+    from gsm_renderer_tpu_torch.kernels import sort as KS
+
+    kernels = (KP.PROJECT, KE.PREP, KE.PREP_BAND, KE.EXPAND, KB.BLEND,
+               KS.PACK, KS.RANGES)
     res = []
     for label, kw, early_exit in configs:
         KB.MIN_TRANSMITTANCE = exit_t if early_exit else 0.0
@@ -1824,6 +1915,96 @@ def kernel_row(name, kernel, launches, ms, plain_ms, err, nbytes, flops):
                 bound_ms=b, bound_by=by, library_ms=None, flips=0.0)
 
 
+def sort_rows(torch, label, key1, key2, shift, num_tiles, launches):
+    """The pack, the keys-only sort and the tile ranges of ``csrc/sort.cu``
+    on the planes (key1, key2) of a KeyPlan whose tile ids sit above bit
+    ``shift`` of key1: each bit-equal to its plain version on the card,
+    which is the PyTorch code that did its work before (``sort_key64``;
+    ``torch.sort``'s values; ``binning_sorted_tile`` + torch.searchsorted),
+    timed behind a sleep kernel beside its byte bound, its plain version and
+    the library call (``library_ms``: the five int64 ops of ``sort_key64``;
+    ``torch.sort``, which sorts (key, index) pairs; the tile-id decode and
+    ``torch.searchsorted``).  ``launches``: the three kernels' counts in the
+    path's frames, or None where no path ran at these shapes.  Returns
+    (three kernel rows, the sorted keys, starts, counts)."""
+    from gsm_renderer_tpu_torch.kernels import sort as KS
+
+    n = key1.shape[0]
+    packed, ms, want, plain_ms = timed_pair(
+        torch, "sort_pack", lambda: KS.sort_key_pack_cuda(key1, key2),
+        lambda: KS.sort_key64(key1, key2), reps=20, plain_reps=3)
+    _, lib_ms = device_ms(torch, lambda: KS.sort_key64(key1, key2), 20)
+    require_exact(torch, f"sort_pack{label}", [(packed, want)])
+    pack = kernel_row(f"sort_pack{label}", "sort_pack", launches["sort_pack"],
+                      ms, plain_ms, 0.0, 16 * n, 0)
+    pack["library_ms"] = lib_ms
+    # CUB overwrites its input: each call sorts a fresh copy, whose own time
+    # is taken off
+    buf = torch.empty_like(packed)
+    _, copy_ms = device_ms(torch, lambda: buf.copy_(packed), 20)
+    got, ms = device_ms(
+        torch, lambda: KS.sort_keys_only_cuda(buf.copy_(packed)), 10)
+    want, plain_ms = cuda_ms(torch, lambda: KS.sort_keys_only_plain(packed), 3)
+    _, lib_ms = device_ms(torch, lambda: torch.sort(packed, stable=False), 10)
+    require_exact(torch, f"sort_keys{label}", [(got, want)])
+    # bound: the keys read and written once; an LSD radix sort of 64 bits
+    # makes eight such passes (``pass_bound_ms``)
+    srt = kernel_row(f"sort_keys{label}", "sort_keys", launches["sort_keys"],
+                     ms - copy_ms, plain_ms, 0.0, 16 * n, 0)
+    srt.update(library_ms=lib_ms, copy_ms=copy_ms,
+               pass_bound_ms=8 * 16 * n / HBM_BYTES_PER_S * 1e3)
+    (starts, counts), ms, plain, plain_ms = timed_pair(
+        torch, "sort_ranges",
+        lambda: KS.sort_ranges_cuda(got, num_tiles, shift),
+        lambda: KS.sort_ranges_plain(got, num_tiles, shift), reps=20,
+        plain_reps=3)
+    _, lib_ms = device_ms(
+        torch, lambda: KS.sort_ranges_plain(got, num_tiles, shift), 20)
+    require_exact(torch, f"sort_ranges{label}", [
+        (starts, plain[0]), (counts, plain[1])])
+    ranges = kernel_row(f"sort_ranges{label}", "sort_ranges",
+                        launches["sort_ranges"], ms, plain_ms, 0.0,
+                        8 * n + 12 * num_tiles + 4, 0)
+    ranges["library_ms"] = lib_ms
+    return [pack, srt, ranges], got, starts, counts
+
+
+def phase_sort_garden(torch) -> list:
+    """Phase 5g: the pack, the keys-only sort and the tile ranges at the
+    garden cell's shapes (GARDEN_*): keys made on the card from a fixed
+    seed, tiles and depths uniform, the entry index unique a slot, 6% of
+    the slots dead.  Returns the three kernel rows, whose ``launches`` are
+    None: no frame ran at these shapes (the garden cell's main path
+    launches each of the three once a frame)."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    n = GARDEN_SLOTS
+    d_bits = GARDEN_D_HI + GARDEN_D_LO
+
+    def draw(bits):
+        return torch.randint(0, 1 << bits, (n,), device="cuda", generator=g,
+                             dtype=torch.int64)
+
+    tile = torch.randint(0, GARDEN_TILES, (n,), device="cuda", generator=g,
+                         dtype=torch.int64)
+    depth = draw(d_bits)
+    entry = torch.randperm(n, device="cuda", generator=g) \
+        & ((1 << GARDEN_IDX_BITS) - 1)
+    k1 = (tile << GARDEN_D_HI) | (depth >> GARDEN_D_LO)
+    k2 = ((depth & ((1 << GARDEN_D_LO) - 1)) << GARDEN_IDX_BITS) | entry
+    dead = torch.rand(n, device="cuda", generator=g) < GARDEN_DEAD
+    planes = torch.stack([torch.where(dead, 0xFFFFFFFF, k1),
+                          torch.where(dead, 0xFFFFFFFF, k2)])
+    planes = torch.where(planes >= 1 << 31, planes - (1 << 32),
+                         planes).to(torch.int32)
+    rows, *_ = sort_rows(torch, ".garden", planes[0], planes[1], GARDEN_D_HI,
+                         GARDEN_TILES, dict(sort_pack=None, sort_keys=None,
+                                            sort_ranges=None))
+    log(f"[sort garden] {n} slots, {GARDEN_TILES} tiles: " + json.dumps(
+        {r["name"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms",
+                                        "library_ms")} for r in rows}))
+    return rows
+
+
 def require_exact(torch, name, pairs):
     """Fails unless every int tensor pair is equal."""
     bad, total, worst = mismatches(torch, pairs)
@@ -1898,7 +2079,7 @@ def band_kernel_rows(torch, hl, band_launches, tile_w: int, tile_h: int = 16):
         f"{band0}-{band1}): "
         f"{total} slots of {cap}, {int((ek[0] != -1).sum())} live")
 
-    srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * bands)
+    srt = PC.sort_and_ranges(list(ek[:2]), plan, tiles_x * bands)
     ent = (srt.key, words, srt.idx_bits)
     bl_kw = dict(tiles_x=tiles_x, tiles_y=bands, width=W,
                  height=bands * tile_h, tile_w=tile_w, tile_h=tile_h,
@@ -1987,8 +2168,10 @@ def stable_sort_rows(torch, hl, world_1):
     _, unstable_ms = device_ms(torch, lambda: PC.sort_instances(k1, k2), 10)
     _, stable_ms = device_ms(
         torch, lambda: PC.sort_instances_stable(t1, t2, entry), 10)
-    srt_u = PC.sort_and_ranges(ops["keyplan"][:2], full_plan, tiles_x * tiles_y)
-    srt_s = PC.sort_and_ranges(ops["tile_key"][:3], None, tiles_x * tiles_y)
+    srt_u = PC.sort_and_ranges(list(ops["keyplan"][:2]), full_plan,
+                               tiles_x * tiles_y)
+    srt_s = PC.sort_and_ranges(list(ops["tile_key"][:3]), None,
+                               tiles_x * tiles_y)
     live = int(srt_u.counts.sum())
     if not (torch.equal(srt_u.starts, srt_s.starts)
             and torch.equal(KB.entry_index(srt_u.key[:live], srt_u.idx_bits),
@@ -2064,7 +2247,7 @@ def phase_fallback(torch, T, kernels, hl):
     if bad:
         raise RuntimeError(f"fallback 4K: the tile-key expand differs from "
                            f"its plain version at {bad} of {total}")
-    srt = PC.sort_and_ranges(ek[:3], None, tiles_x * tiles_y)
+    srt = PC.sort_and_ranges(list(ek[:3]), None, tiles_x * tiles_y)
     color, _depth = KB.blend_image_cuda(srt.key, pk.words, 32, srt.starts,
                                         srt.counts, tiles_x=tiles_x,
                                         tiles_y=tiles_y, width=w, height=h)
@@ -2269,7 +2452,7 @@ def mono_tile_rows(torch, T, hl, tile, fr):
         f"expand.{tag}", "expand", launches["expand"], ms, plain_ms, 0.0,
         expand_bytes(n_tab, cap, 4 * tested_entries(tab[0], tab[1])),
         (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(tab[0], tab[1])))
-    srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * tiles_y)
+    srt = PC.sort_and_ranges(list(ek[:2]), plan, tiles_x * tiles_y)
     ent = (srt.key, tab[4], srt.idx_bits)
     frame_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=W, height=H, **bkw)
     out, ms = device_ms(torch, lambda: KB.blend_image_cuda(
@@ -2401,7 +2584,7 @@ def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None, no_cutoff=False):
         + bound_bytes,
         (2 * EXPAND_DECODE_FLOPS + 2 * TILE_TEST_FLOPS)
         * tested_slots(off, rect, warped)))
-    srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * tiles_y)
+    srt = PC.sort_and_ranges(list(ek[:2]), plan, tiles_x * tiles_y)
     ent = (srt.key, packed.words, srt.idx_bits)
     frame_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=pw, height=ph,
                     n_eyes=2, r2_cutoff=9.0, pixel_coords=coords, **bkw)
@@ -2509,7 +2692,7 @@ def full_rect_rows(torch, T, hl, hwf, glf, tile=(32, 16)):
                                plain_ms, 0.0,
                                (n + 1) * 4 + 2 * 4 * n + 2 * 4 * fr["cap"],
                                0.0))
-        srt = PC.sort_and_ranges(ek[:2], p, tiles_x * tiles_y)
+        srt = PC.sort_and_ranges(list(ek[:2]), p, tiles_x * tiles_y)
         ent = (srt.key, words, srt.idx_bits)
         hw = fr is hwf
         blend_kw = dict(r2_cutoff=9.0, depth_mode="normalized") if hw else {}
@@ -2812,7 +2995,7 @@ def d16_tile_rows(torch, T, hl, tile, fr, local):
         f"expand.d16.{tag}", "expand", launches["expand"], ms, plain_ms, 0.0,
         expand_bytes(n, fr["cap"], 4 * tested_entries(off, rect)),
         (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(off, rect)))
-    srt = PC.sort_and_ranges(ek[:2], plan, tiles_x * tiles_y)
+    srt = PC.sort_and_ranges(list(ek[:2]), plan, tiles_x * tiles_y)
     counts = srt.counts
     if local:
         counts = torch.clamp(counts, max=T.config.LOCAL_MAX_PER_TILE)
@@ -2997,8 +3180,8 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
         tk = KE.expand_slots_cuda(*exp_in, **kw)
         check_exact(f"{name} tile key", list(zip(
             tk, KE.expand_slots_plain(*exp_in, **kw))))
-        srt_u = PC.sort_and_ranges(ref_keys[:2], plan, num_tiles)
-        srt_s = PC.sort_and_ranges(tk[:3], None, num_tiles)
+        srt_u = PC.sort_and_ranges(list(ref_keys[:2]), plan, num_tiles)
+        srt_s = PC.sort_and_ranges(list(tk[:3]), None, num_tiles)
         live = int(srt_u.counts.sum())
         if not (torch.equal(srt_u.starts, srt_s.starts)
                 and torch.equal(KB.entry_index(srt_u.key[:live],
@@ -3081,23 +3264,11 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
            expand_bytes(r_cap, cap, 4 * tested_entries(rk[0], rk[1])),
            (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(rk[0], rk[1]))
 
-    # instance sort of the keys alone and tile ranges (library calls)
-    sorted_key, sort_ms = device_ms(
-        torch, lambda: PC.sort_instances(ek[0], ek[1]), 10)
-    def ranges():
-        tile = PC.binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)
-        return OB.extract_tile_ranges(tile, tiles_x * tiles_y)
-    (starts, counts), ranges_ms = device_ms(torch, ranges, 20)
-    # byte floors: one read and one write of the int64 keys (a radix sort
-    # takes several passes), one read of the sorted keys
-    other += [dict(name="instance sort (torch.sort of the int64 keys alone)",
-                   ms=sort_ms, elements=cap,
-                   bound_ms=16 * cap / HBM_BYTES_PER_S * 1e3),
-              dict(name="tile ranges (torch.searchsorted)", ms=ranges_ms,
-                   tiles=tiles_x * tiles_y,
-                   bound_ms=8 * cap / HBM_BYTES_PER_S * 1e3)]
-    log(f"[library] sort (keys only) {sort_ms:.4f} ms over {cap} slots, "
-        f"ranges {ranges_ms:.4f} ms")
+    # the instance sort: pack, keys-only sort and tile ranges
+    sort_krows, sorted_key, starts, counts = sort_rows(
+        torch, "", ek[0], ek[1], plan.d_hi, tiles_x * tiles_y, mono_l)
+    for r in sort_krows:
+        rows[r["name"]] = r
 
     # kernel 5: blend through the sorted keys into the row table's words
     # (the staged frame must reproduce the renderer's frame)
@@ -3128,8 +3299,9 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
            + BLEND_PAIR_FLOPS * 256.0 * float(processed.sum()))
     stages = dict(project=rows["project"]["ms"], prep=rows["prep"]["ms"],
                   row_expand=rows["row_expand"]["ms"],
-                  expand=rows["expand"]["ms"], sort=sort_ms, ranges=ranges_ms,
-                  blend=rows["blend"]["ms"])
+                  expand=rows["expand"]["ms"],
+                  sort=rows["sort_pack"]["ms"] + rows["sort_keys"]["ms"],
+                  ranges=rows["sort_ranges"]["ms"], blend=rows["blend"]["ms"])
     log("[stages] " + json.dumps({"stage_ms": stages,
                                   "records_composited": float(processed.sum()),
                                   "live_instances": n_live}))
@@ -3478,10 +3650,10 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     h_sorted, hsort_ms = device_ms(
         torch, lambda: PC.sort_instances(hek[0], hek[1]), 10)
     h_starts, h_counts = PC.tile_ranges(h_sorted, plan0, tiles_x * tiles_y)
-    other.append(dict(name="instance sort, Hardware frame (torch.sort of the "
-                      "int64 keys alone)", ms=hsort_ms, elements=hcap,
+    other.append(dict(name="instance sort, Hardware frame (the pack and "
+                      "CUB's keys-only sort)", ms=hsort_ms, elements=hcap,
                       bound_ms=16 * hcap / HBM_BYTES_PER_S * 1e3))
-    log(f"[library] Hardware sort (keys only) {hsort_ms:.4f} ms over {hcap} "
+    log(f"[library] Hardware pack + keys-only sort {hsort_ms:.4f} ms over {hcap} "
         f"slots, {int(hek[2])} of them filled")
     hbkw = dict(bkw, r2_cutoff=9.0, depth_mode="normalized")
     h_ent = (h_sorted, pk0.words, plan0.idx_bits)
@@ -3540,7 +3712,8 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
 
     log("[timing check] " + json.dumps(timing_check))
     order = ("project", "prep", "prep.rows_off", "row_expand", "expand",
-             "expand.rows_off", "blend", "stereo_project", "prep.stereo",
+             "expand.rows_off", "sort_pack", "sort_keys", "sort_ranges",
+             "blend", "stereo_project", "prep.stereo",
              "expand.stereo", "blend.stereo", "bounds_gather", "prep.warped",
              "expand.warped", "blend.warped", "project.d16_32",
              "project.d16_16", "prep.tile32", "expand.d16_32", "blend.tile32",
@@ -4196,7 +4369,7 @@ def band_blend_call(scene: dict, tile, n: int):
                            capacity=-(-int(off[n]) // 4096) * 4096,
                            tiles_x=tiles_x, key_plan=plan,
                            tile_row_offset=bs[1], tile_w=tw, tile_h=th)
-    srt = PC.sort_and_ranges(keys[:2], plan, tiles_x * bands)
+    srt = PC.sort_and_ranges(list(keys[:2]), plan, tiles_x * bands)
     return ((srt.key, words, srt.idx_bits, srt.starts, srt.counts),
             dict(tiles_x=tiles_x, tiles_y=bands, width=W, height=bands * th,
                  tile_w=tw, tile_h=th, tile_row_offset=bs[1]))
@@ -4342,7 +4515,7 @@ def main() -> int:
     try:
         import gsm_renderer_tpu_torch as T
         from gsm_renderer_tpu_torch import _native
-        from gsm_renderer_tpu_torch.kernels import blend, expand, project
+        from gsm_renderer_tpu_torch.kernels import blend, expand, project, sort
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
@@ -4359,7 +4532,7 @@ def main() -> int:
         REQUIRE_ONE_PASS_SCAN = False
     kernels = [project.PROJECT, expand.PREP, expand.ROW_EXPAND, expand.EXPAND,
                blend.BLEND, project.STEREO_PROJECT, expand.BOUNDS_GATHER,
-               expand.PREP_BAND]
+               expand.PREP_BAND, sort.PACK, sort.SORT, sort.RANGES]
     t0 = time.perf_counter()
     smi = phase_build(_native)
     hl = phase_headline(torch, T, kernels)
@@ -4395,6 +4568,7 @@ def main() -> int:
         log(f"[multichip, fallback] phases 4m and 4s took "
             f"{time.perf_counter() - t1:.1f} s")
     rows, other = phase_kernels(torch, T, hl, st, fv, d16, hw)
+    rows += phase_sort_garden(torch)
     if kernels_only:  # the 8x8 rows too (phase 4t's), for A/Bs of the tiles
         tile_rows = mono_tile_frame(torch, T, kernels, hl, (8, 8))[1]
     rows, other = rows + band_rows + tile_rows, other + band_other
@@ -4411,6 +4585,7 @@ def main() -> int:
     phase_small(torch, T)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"library_ops": other}))
+    print(json.dumps({"sort_audits": SORT_AUDITS}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ from . import profiling
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG / "_build"
-SOURCES = ("project", "binning", "blend")
+SOURCES = ("project", "binning", "blend", "sort")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

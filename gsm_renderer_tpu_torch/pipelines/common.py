@@ -5,14 +5,16 @@ of the Global, Local and DepthFirst BITS16 frames (:func:`d16_packed_sorted`).
 
 Port of the packed branch of ``gsm_renderer_tpu/pipelines/common.py``.
 The JAX package sorts the (key1, key2) pair with ``jax.lax.sort``; here one
-``torch.sort`` on an int64 key ``((key1 ^ 0x80000000) << 32) | key2`` does
-it: flipping bit 31 of key1 keeps the unsigned order under the signed sort
+sort of an int64 key ``((key1 ^ 0x80000000) << 32) | key2`` does it:
+flipping bit 31 of key1 keeps the unsigned order under the signed sort
 (otherwise the sentinel and the upper tile ids would sort first).  KeyPlan
 keys are unique for live slots, so the unstable sort is exact; dead slots
 lie outside every tile span, so their order does not matter.  The sort moves
 keys only: the blend reads each instance's record words through the entry
 index in the key's low bits, so no word table is gathered into sorted order
-(the JAX package's gather is a TPU habit).
+(the JAX package's gather is a TPU habit), and no index rides along either.
+The pack, the keys-only sort and the tile ranges are ``kernels/sort.py``'s
+(``csrc/sort.cu`` on the card).
 
 One key order for the 16-bit depth keys.  The JAX Global and Local frames,
 and its DepthFirst frame with 16-bit depth keys and tile ids, sort one fused
@@ -33,8 +35,9 @@ gaussians on a 3840x2160 grid at 32-bit depth keys), the JAX package keys
 each slot by the plain tile id with the depth word beside it and sorts the
 pair stably.  Here the expand writes the tile, the depth word and the
 slot's entry index; one stable ``torch.sort`` of the (tile, depth) int64
-key orders ties by slot, which is the gaussian order; the blend reads the
-entries in sorted order (:func:`sort_and_ranges`).  Both orders are
+key orders ties by slot, which is the gaussian order (it needs the
+permutation, so it stays a pairs sort); the blend reads the entries in
+sorted order (:func:`sort_and_ranges`).  Both orders are
 (tile, depth, gaussian index), so the fallback renders the KeyPlan frame.
 
 The functions here open the frame's shared stage spans
@@ -50,10 +53,13 @@ import torch
 
 from .. import config as cfg
 from .. import mathlib as M
-from ..kernels.expand import SENTINEL, binning_prep, expand_slots, row_expand
+from ..kernels import sort as KS
+from ..kernels.expand import binning_prep, expand_slots, row_expand
 from ..kernels.project import cached_projection_inputs, project_and_cull_packed
+# public here too: the yardsticks of the sort and of the ranges
+from ..kernels.sort import binning_sorted_tile, sort_key64  # noqa: F401
 from ..ops import binning as B
-from ..profiling import span
+from ..profiling import count, span
 from ..types import RenderRecord
 
 
@@ -120,7 +126,8 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
     (R,) rows), the unclamped slot total and the overflow flag (0-d int32;
     with rows, also set when the row demand exceeds R)).  With ``key_plan``
     None (the stable fallback; no rows) the keys are (the tile, the depth
-    word, the entry index), for :func:`sort_and_ranges`."""
+    word, the entry index), for :func:`sort_and_ranges`.  The keys come as
+    a list, which :func:`sort_and_ranges` takes over and empties."""
     if row_capacity > 0 and (mode != "mono" or key_plan is None):
         raise ValueError("the row decomposition is a mono binning mode with "
                          "a KeyPlan")
@@ -144,17 +151,13 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
                 warped_bounds=warped_bounds, **kw)
         if row_overflow is not None:
             overflow = torch.maximum(overflow, row_overflow)
-    return tuple(keys), words, total, overflow
-
-
-def sort_key64(key1, key2):
-    """The int64 key whose signed order is the unsigned (key1, key2) order."""
-    return ((M.u32(key1) ^ 0x80000000) << 32) | M.u32(key2)
+    return keys, words, total, overflow
 
 
 def sort_instances(key1, key2):
-    """Unstable instance sort by (key1, key2): the sorted int64 keys."""
-    return torch.sort(sort_key64(key1, key2), stable=False).values
+    """Unstable instance sort by (key1, key2): the sorted int64 keys (the
+    pack, then the keys-only sort)."""
+    return KS.sort_keys_only(KS.sort_key_pack(key1, key2))
 
 
 def sort_instances_stable(tile, depth, entry):
@@ -163,17 +166,8 @@ def sort_instances_stable(tile, depth, entry):
     order, a gaussian owning at most one slot a tile -- as the JAX
     package's stable 2-key ``jax.lax.sort``.  Returns (the sorted int64
     keys, the entry index of each rank as int64)."""
-    sorted_key, perm = torch.sort(sort_key64(tile, depth), stable=True)
+    sorted_key, perm = torch.sort(KS.sort_key_pack(tile, depth), stable=True)
     return sorted_key, M.u32(entry)[perm]
-
-
-def binning_sorted_tile(sorted_key, *, plan_tuple):
-    """Sorted tile ids (int64; SENTINEL for dead slots) from the sorted
-    int64 keys; ``plan_tuple`` None for the stable fallback's plain tile
-    key."""
-    k1 = ((sorted_key >> 32) & M.U32) ^ 0x80000000
-    shift = 0 if plan_tuple is None else plan_tuple[0]
-    return torch.where(k1 == SENTINEL, SENTINEL, k1 >> shift)
 
 
 def tile_ranges(sorted_key, plan, num_tiles: int):
@@ -181,9 +175,8 @@ def tile_ranges(sorted_key, plan, num_tiles: int):
     of a KeyPlan ``plan``, or of the plain tile key when ``plan`` is
     None."""
     with span("ranges"):
-        sorted_tile = binning_sorted_tile(
-            sorted_key, plan_tuple=None if plan is None else plan.kernel_tuple)
-        return B.extract_tile_ranges(sorted_tile, num_tiles)
+        return KS.sort_ranges(sorted_key, num_tiles,
+                              0 if plan is None else plan.d_hi)
 
 
 class SortedInstances(NamedTuple):
@@ -197,24 +190,32 @@ class SortedInstances(NamedTuple):
     counts: torch.Tensor
 
 
-def sort_keys(keys, key_plan):
+def sort_keys(keys: list, key_plan):
     """The instance sort of the expand's ``keys``: (the sorted int64 keys,
-    the key the blend reads, its index bits).  With a KeyPlan the unstable
-    sort of the (key1, key2) pair, whose sorted keys the blend reads
-    through the plan's index field; without one (the stable fallback) the
-    stable sort of (tile, depth word, entry index), the blend reading the
-    sorted entries (32 index bits)."""
+    the key the blend reads, its index bits).  The sort takes the list of
+    planes over and empties it, so that the planes' memory is free before
+    the keys-only sort takes its second buffer.  With a KeyPlan the pack
+    and the keys-only sort of the (key1, key2) pair, whose sorted keys the
+    blend reads through the plan's index field; without one (the stable
+    fallback) the stable sort of (tile, depth word, entry index), the blend
+    reading the sorted entries (32 index bits).  Counts the frame's sort
+    path (``profiling.counters()``: ``sort_keys_only``, ``sort_stable``)."""
     with span("sort"):
         if key_plan is None:
+            count("sort_stable")
             sorted_key, entry = sort_instances_stable(*keys)
+            keys.clear()
             return sorted_key, entry, 32
-        sorted_key = sort_instances(*keys)
+        count("sort_keys_only")
+        packed = KS.sort_key_pack(*keys)
+        keys.clear()
+        sorted_key = KS.sort_keys_only(packed)
         return sorted_key, sorted_key, key_plan.idx_bits
 
 
-def sort_and_ranges(keys, key_plan, num_tiles: int) -> SortedInstances:
-    """The instance sort (:func:`sort_keys`) and the tile ranges of the
-    expand's ``keys``."""
+def sort_and_ranges(keys: list, key_plan, num_tiles: int) -> SortedInstances:
+    """The instance sort (:func:`sort_keys`, which empties the list
+    ``keys``) and the tile ranges of the expand's planes."""
     sorted_key, blend_key, idx_bits = sort_keys(keys, key_plan)
     return SortedInstances(blend_key, idx_bits,
                            *tile_ranges(sorted_key, key_plan, num_tiles))

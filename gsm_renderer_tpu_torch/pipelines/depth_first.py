@@ -12,9 +12,9 @@ mono frame is
   2. binning prep: masks, counts, scan       kernels/expand.py    (kernel 2)
   3. row expansion (``row_expand``)          kernels/expand.py    (kernel 3)
   4. slot expansion into KeyPlan keys        kernels/expand.py    (kernel 4)
-  5. unstable sort of the int64 keys alone   pipelines/common.py  (torch.sort;
-     a stable sort of (tile, depth) where no tie-free KeyPlan fits)
-  6. tile ranges                             ops/binning.py       (searchsorted)
+  5. key pack and keys-only radix sort       kernels/sort.py      (CUB; a stable
+     torch.sort of (tile, depth) where no tie-free KeyPlan fits)
+  6. tile ranges                             kernels/sort.py
   7. blend + assemble, records read through
      the keys' entry index                   kernels/blend.py     (kernel 5)
 

@@ -24,8 +24,9 @@ last ``RING`` frames are kept.  A frame's stages, in order::
       project
       rebin      foveated frames: the re-binning onto the physical tiles
       binning    prep, row_expand (rows on), expand
-      sort       the int64 key packing and torch.sort
-      ranges     sorted tile ids, tile ranges, a per-tile clamp
+      sort       the key pack and the keys-only sort (the stable
+                 fallback: torch.sort with its permutation)
+      ranges     the tile ranges, a per-tile clamp
       blend      blend and assemble
       header     the header's sums
       output     the output format
@@ -34,11 +35,12 @@ Every device operation a frame launches is launched inside one of its stage
 spans.  Spans record the frames of one rendering thread.
 
 **Counters** (:func:`counters`): frames rendered through a public entry,
-hand-kernel launches (``_native.Kernel.launches`` summed), host reads,
-capacity lock-ins, refreshes and refreshes that found the demand above the
-capacity in force (``pipelines/base.py``), overflowed frames among the
-recorded ones, and the set-up seconds of the kernel build and load and of
-the projection-input cache.
+instance sorts by path (keys-only under a KeyPlan, or the stable
+fallback), hand-kernel launches (``_native.Kernel.launches`` summed), host
+reads, capacity lock-ins, refreshes and refreshes that found the demand
+above the capacity in force (``pipelines/base.py``), overflowed frames
+among the recorded ones, and the set-up seconds of the kernel build and
+load and of the projection-input cache.
 
 **Stage split.**  :func:`profile_depth_first_stages` renders
 ``depth_first_frame`` (the JAX function's chain: a mono frame at 16x16
@@ -73,8 +75,8 @@ _enabled = False
 _ring: collections.deque = collections.deque(maxlen=RING)
 _open = None  # the _Frame being recorded
 _next_id = 0
-_COUNTS = dict(frames=0, host_reads=0, capacity_lockins=0,
-               capacity_refreshes=0, capacity_short=0)
+_COUNTS = dict(frames=0, sort_keys_only=0, sort_stable=0, host_reads=0,
+               capacity_lockins=0, capacity_refreshes=0, capacity_short=0)
 _SETUP = dict(kernel_build_s=0.0, kernel_load_s=0.0, projection_cache_s=0.0)
 
 
@@ -198,8 +200,8 @@ def note_header(header, capacity: int) -> None:
 
 
 def count(name: str) -> None:
-    """Count one event of ``name`` (a host read, the capacity contract's
-    events)."""
+    """Count one event of ``name`` (a sort by its path, a host read, the
+    capacity contract's events)."""
     _COUNTS[name] += 1
 
 
@@ -249,6 +251,8 @@ def reset() -> None:
 
 def counters() -> dict:
     """A snapshot of the counters: ``frames`` (through a public entry),
+    ``sort_keys_only`` and ``sort_stable`` (instance sorts, a frame's or a
+    band's, by path: the KeyPlan's keys-only sort or the stable fallback),
     ``kernel_launches``, ``host_reads``, ``capacity_lockins``,
     ``capacity_refreshes``, ``capacity_short`` (refresh reads whose demand
     exceeded the capacity in force: a lower bound of the windows that
@@ -259,6 +263,8 @@ def counters() -> dict:
 
     return dict(
         frames=_COUNTS["frames"],
+        sort_keys_only=_COUNTS["sort_keys_only"],
+        sort_stable=_COUNTS["sort_stable"],
         kernel_launches=sum(k.launches for k in _native.KERNELS),
         host_reads=_COUNTS["host_reads"],
         capacity_lockins=_COUNTS["capacity_lockins"],

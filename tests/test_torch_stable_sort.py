@@ -128,7 +128,7 @@ def test_fallback_expand_matches_jax(chain):
 
 def test_fallback_sort_matches_jax_stable_sort(chain):
     tile, depth, entry, _total, _overflow = port_fallback(chain)
-    srt = TC.sort_and_ranges((tile, depth, entry), None, chain["tiles"])
+    srt = TC.sort_and_ranges([tile, depth, entry], None, chain["tiles"])
     assert srt.idx_bits == 32
     sorted_key, sorted_entry = TC.sort_instances_stable(tile, depth, entry)
     np.testing.assert_array_equal(srt.key.numpy(), sorted_entry.numpy())
