@@ -2,17 +2,29 @@
 timing.
 
 Port of ``gsm_renderer_tpu/pipelines/base.py``.  PyTorch runs eagerly, so
-there is no program cache; the capacity contract is the JAX package's: the
-first frame runs at the full model (4 x gaussians), the next frame reads the
-previous frame's unclamped slot total once (the only host read of a frame)
-and locks the capacity to 1.04 x that total, bucketed, re-reading every
-``ADAPTIVE_REFRESH`` frames.  A frame whose demand exceeds its capacity
-drops instances, sets ``header.overflow`` and still renders.  The row
-decomposition's virtual-row capacity follows the same contract
-(:meth:`GaussianRenderer.pick_row_capacity`).  Each host read counts in
-``profiling.counters()`` as a lock-in or a refresh, and a refresh whose
-demand exceeds the capacity in force as ``capacity_short``;
-:meth:`GaussianRenderer.capacity_state` is the contract's state.
+there is no program cache.  The capacity contract starts as the JAX
+package's: the first frame runs at the full model (4 x gaussians), the next
+frame reads the previous frame's unclamped slot total (a host read) and
+locks the capacity to 1.04 x that total, bucketed, re-reading every
+``ADAPTIVE_REFRESH`` frames, when it may shrink.  Between those reads it
+follows the demand without waiting on the device: after each frame
+(:meth:`GaussianRenderer.note_frame`) the slot total, and the row total
+where the frame has one, are copied into pinned host memory behind the
+frame's work, with an event recorded after the copies; the next pick reads
+that copy only if its event is done, and where the demand it finds exceeds
+1 / 1.04 of the capacity in force, grows the capacity to 1.04 x the demand
+at once, bucketed as a lock-in is.  So the capacity trails the demand by
+one frame when frames run one at a time, and a frame that still overflows
+(its demand is that copy's total) makes the next pick grow.  A frame whose
+demand exceeds its capacity drops instances, sets ``header.overflow`` and
+still renders.  The row decomposition's virtual-row capacity follows the
+same contract (:meth:`GaussianRenderer.pick_row_capacity`).  In
+``profiling.counters()`` each host read counts as a lock-in or a refresh,
+each growth between them as ``capacity_regrows``, and each read (refresh
+or growth) whose demand exceeds the capacity in force -- a frame that
+overflowed -- as ``capacity_short``; the picks and the copies run in the
+frame's ``gsm::capacity`` spans; :meth:`GaussianRenderer.capacity_state`
+is the contract's state.
 """
 
 from __future__ import annotations
@@ -48,6 +60,15 @@ def instance_capacity(config: RendererConfig, n: int,
     return -(-c // 4096) * 4096
 
 
+def _fit(total: int, full: int) -> int:
+    """The capacity for a demand of ``total``: the margin and 4096 more,
+    rounded up to a bucket of about 1/32 of it (small growth reuses the
+    allocation), within [4096, 4 x ``full``]."""
+    cap = int(total * ADAPTIVE_MARGIN) + 4096
+    bucket = max(4096, 1 << max(cap.bit_length() - 5, 0))
+    return max(min(-(-cap // bucket) * bucket, 4 * full), 4096)
+
+
 def _count_read(state, total: int) -> None:
     """Count a capacity read: a lock-in where no capacity was in force,
     else a refresh, short where ``total`` exceeds the capacity in force."""
@@ -58,6 +79,20 @@ def _count_read(state, total: int) -> None:
     profiling.count("capacity_refreshes")
     if 0 < state["cap"] < total:
         profiling.count("capacity_short")
+
+
+class _Demand:
+    """A frame's slot total and row total (None where the frame has none)
+    on their way to the host: 0-d views of a pinned buffer that the copies
+    behind the frame's work fill, and the event recorded after them."""
+
+    __slots__ = ("slot_total", "row_total", "event")
+
+    def __init__(self, rows: bool):
+        buf = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+        self.slot_total = buf[0]
+        self.row_total = buf[1] if rows else None
+        self.event = torch.cuda.Event()
 
 
 class GaussianRenderer:
@@ -73,6 +108,42 @@ class GaussianRenderer:
         self._cap_feedback: dict = {}
         self._cap_state: dict = {}
 
+    def _follow(self, key, kind: str, n: int, field: str, size,
+                full: int) -> int:
+        """The capacity under ``key`` for the next frame of ``kind`` and
+        ``n`` gaussians (see the module docstring): the full model
+        ``full`` before any feedback; a lock-in or refresh (a host read,
+        which waits for the last frame's copy) where none is in force or
+        it is ``ADAPTIVE_REFRESH`` frames old; else the capacity in force,
+        grown to ``size(demand)`` where the last copy, once its event is
+        done, shows the demand over 1 / ADAPTIVE_MARGIN of it.  ``field``
+        names the feedback's demand: "slot_total" or "row_total"."""
+        state = self._cap_state.get(key)
+        fb = self._cap_feedback.get((kind, n))
+        value = getattr(fb, field, None)
+        event = getattr(fb, "event", None)
+        if state is not None and state["age"] < ADAPTIVE_REFRESH:
+            state["age"] += 1
+            cap = state["cap"]
+            if value is not None and cap > 0 and (event is None
+                                                  or event.query()):
+                total = int(value)  # the copy is done: no wait
+                grown = size(total) if total * ADAPTIVE_MARGIN > cap else cap
+                if grown != cap:
+                    profiling.count("capacity_regrows")
+                    if total > cap:
+                        profiling.count("capacity_short")
+                    state.update(cap=grown, demand=total)
+            return state["cap"]
+        if value is None:
+            return full
+        if event is not None:
+            event.synchronize()
+        total = int(value)  # host read: once per lock-in / refresh
+        _count_read(state, total)
+        self._cap_state[key] = {"cap": size(total), "age": 0, "demand": total}
+        return self._cap_state[key]["cap"]
+
     def pick_capacity(self, n: int, factor: int | None = None,
                       kind: str = "mono") -> int:
         """Instance capacity for the next frame (see the module docstring).
@@ -80,20 +151,8 @@ class GaussianRenderer:
         full = instance_capacity(self.config, n, factor)
         if not self.adaptive_capacity or self.config.max_instances > 0:
             return full
-        state = self._cap_state.get((kind, n))
-        if state is not None and state["age"] < ADAPTIVE_REFRESH:
-            state["age"] += 1
-            return state["cap"]
-        fb = self._cap_feedback.get((kind, n))
-        if fb is None or fb.slot_total is None:
-            return full
-        total = int(fb.slot_total)  # host read: once per lock-in / refresh
-        _count_read(state, total)
-        cap = int(total * ADAPTIVE_MARGIN) + 4096
-        bucket = max(4096, 1 << max(cap.bit_length() - 5, 0))
-        cap = max(min(-(-cap // bucket) * bucket, 4 * full), 4096)
-        self._cap_state[(kind, n)] = {"cap": cap, "age": 0, "demand": total}
-        return cap
+        return self._follow((kind, n), kind, n, "slot_total",
+                            lambda total: _fit(total, full), full)
 
     #: full-model factor of the virtual-row capacity of the row
     #: decomposition: every gaussian owns >= 1 row and an oversized rect owns
@@ -101,39 +160,36 @@ class GaussianRenderer:
     ROW_CAPACITY_FACTOR = 2
 
     def pick_row_capacity(self, n: int, kind: str = "mono") -> int:
-        """Virtual-row capacity for the next frame, with the margin, bucket
-        and refresh of :meth:`pick_capacity`, sized from ``header.row_total``
-        (read from the device once per lock-in / refresh).  Returns 0 -- run
-        the full-rect expansion instead -- when the measured row demand
-        exceeds 4x the full model."""
+        """Virtual-row capacity for the next frame, with the margin, bucket,
+        refresh and growth of :meth:`pick_capacity`, sized from
+        ``header.row_total``.  Returns 0 -- run the full-rect expansion
+        instead -- when the measured row demand exceeds 4x the full model;
+        rows switched off stay off until the next refresh."""
         full = -(-self.ROW_CAPACITY_FACTOR * n // 4096) * 4096
         if not self.adaptive_capacity:
             return full
-        key = ("rows", kind, n)
-        state = self._cap_state.get(key)
-        if state is not None and state["age"] < ADAPTIVE_REFRESH:
-            state["age"] += 1
-            return state["cap"]
-        fb = self._cap_feedback.get((kind, n))
-        if fb is None or getattr(fb, "row_total", None) is None:
-            return full
-        total = int(fb.row_total)  # host read: once per lock-in / refresh
-        _count_read(state, total)
-        if total > 4 * full:
-            cap = 0
-        else:
-            cap = int(total * ADAPTIVE_MARGIN) + 4096
-            bucket = max(4096, 1 << max(cap.bit_length() - 5, 0))
-            cap = max(min(-(-cap // bucket) * bucket, 4 * full), 4096)
-        self._cap_state[key] = {"cap": cap, "age": 0, "demand": total}
-        return cap
+
+        def size(total):
+            return 0 if total > 4 * full else _fit(total, full)
+
+        return self._follow(("rows", kind, n), kind, n, "row_total", size,
+                            full)
+
+    def pick_capacities(self, n: int, kind: str, factor: int | None = None,
+                        rows: bool = False) -> tuple:
+        """(instance capacity, virtual-row capacity: 0 without ``rows``) of
+        the next frame of ``kind``, picked in the frame's
+        ``gsm::capacity`` span."""
+        with profiling.span("capacity"):
+            row_cap = self.pick_row_capacity(n, kind=kind) if rows else 0
+            return self.pick_capacity(n, factor, kind=kind), row_cap
 
     def capacity_state(self) -> list:
         """The capacity contract's state: one dict for each capacity in
         force, with its ``kind`` (the frame kind, "<kind>.rows" for the
         virtual-row capacity), ``gaussians``, ``capacity`` (0: rows off),
-        ``age`` (frames since it was read) and ``demand`` (the slot or row
-        total that read found)."""
+        ``age`` (frames since its lock-in or refresh) and ``demand`` (the
+        slot or row total that set it: that read's, or a growth's)."""
         out = []
         for key, st in sorted(self._cap_state.items(), key=repr):
             kind = f"{key[1]}.rows" if key[0] == "rows" else key[0]
@@ -142,9 +198,26 @@ class GaussianRenderer:
         return out
 
     def note_frame(self, n: int, header, kind: str = "mono") -> None:
-        """Keep the frame's header as capacity feedback (no device read)."""
-        if self.adaptive_capacity:
-            self._cap_feedback[(kind, n)] = header
+        """Keep the frame's slot and row totals as capacity feedback, in
+        the frame's ``gsm::capacity`` span and without a device read: on
+        the card, copied into pinned host memory behind the frame's work,
+        an event recorded after the copies; on the CPU, the header."""
+        if not self.adaptive_capacity:
+            return
+        with profiling.span("capacity"):
+            total = header.slot_total
+            rows = getattr(header, "row_total", None)
+            if not (torch.is_tensor(total) and total.is_cuda):
+                self._cap_feedback[(kind, n)] = header
+                return
+            fb = self._cap_feedback.get((kind, n))
+            if not isinstance(fb, _Demand) or (
+                    (fb.row_total is None) != (rows is None)):
+                fb = self._cap_feedback[(kind, n)] = _Demand(rows is not None)
+            fb.slot_total.copy_(total, non_blocking=True)
+            if rows is not None:
+                fb.row_total.copy_(rows, non_blocking=True)
+            fb.event.record()
 
     def validate_inputs(self, gi: GaussianInput, width: int, height: int) -> None:
         gi.validate()

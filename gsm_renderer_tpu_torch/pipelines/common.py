@@ -299,14 +299,14 @@ def used_sh_degree(config, gi) -> int:
 
 def d16_frame_kwargs(renderer, gi, camera, width: int, height: int) -> dict:
     """The keyword arguments a Global or Local frame takes from the
-    renderer's config, the input and the camera (the capacity of the
-    renderer's own kind, the cached projection layout)."""
+    renderer's config, the input and the camera (the cached projection
+    layout; not the capacity, which the renderer picks after its entry
+    span)."""
     c = renderer.config
     sh_degree = used_sh_degree(c, gi)
     return dict(
-        width=width, height=height,
-        capacity=renderer.pick_capacity(gi.count, kind=renderer._mono_key),
-        sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
+        width=width, height=height, sh_degree=sh_degree,
+        alpha_threshold=c.alpha_threshold,
         total_ink_threshold=c.total_ink_threshold,
         near_plane=camera.near_plane, far_plane=camera.far_plane,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,

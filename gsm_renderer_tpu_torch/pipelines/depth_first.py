@@ -34,7 +34,8 @@ are re-binned onto the physical tile grid through the fitted inverse warp
 (plain torch on the device, :func:`foveated_rects`), prep and expand run in
 mode "warped" (display-space tile rects from the bounds table), and the
 blend samples each physical pixel at its display-space coordinate.  No host
-read except the capacity lock-in (pipelines/base.py).
+read except the capacity contract's lock-in and refreshes
+(pipelines/base.py).
 
 The Hardware renderer (pipelines/hardware.py) is this class with other
 settings: its mono frame expands full rects (``exact_tile_test=False``:
@@ -484,15 +485,13 @@ def _mono_render(self, gi, camera, width, height):
     with span("entry"):
         self.validate_inputs(gi, width, height)
         sh_degree = used_sh_degree(c, gi)
-        # depth_first_frame falls back to the full-rect path when the
-        # row-addressing KeyPlan does not fit; 16-bit depth keys and full
-        # rects run without rows, as in JAX
-        row_cap = (self.pick_row_capacity(n, kind=self._mono_key)
-                   if c.row_expand and depth_key_bits == 32
-                   and self._exact_tile_test else 0)
-        capacity = self.pick_capacity(n, self._mono_capacity_factor,
-                                      kind=self._mono_key)
         prepared = cached_projection_inputs(gi, sh_degree)
+    # depth_first_frame falls back to the full-rect path when the
+    # row-addressing KeyPlan does not fit; 16-bit depth keys and full rects
+    # run without rows, as in JAX
+    capacity, row_cap = self.pick_capacities(
+        n, self._mono_key, self._mono_capacity_factor,
+        rows=c.row_expand and depth_key_bits == 32 and self._exact_tile_test)
     out = depth_first_frame(
         gi, camera.view_matrix, camera.projection_matrix, camera.position,
         prepared, width=width, height=height, capacity=capacity,
@@ -528,10 +527,10 @@ def _stereo_render(self, gi, camera, width, height):
         self.validate_inputs(gi, width, height)
         left = camera.left
         sh_degree = used_sh_degree(c, gi)
-        # union rects are expanded in full (the dual-eye test prunes them)
-        capacity = self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
-                                      kind=self._stereo_key)
         prepared = cached_projection_inputs(gi, sh_degree)
+    # union rects are expanded in full (the dual-eye test prunes them)
+    capacity, _ = self.pick_capacities(n, self._stereo_key,
+                                       cfg.FULL_RECT_CAPACITY_FACTOR)
     out = depth_first_stereo_frame(
         gi, *_stereo_rig(camera), prepared, width=width, height=height,
         capacity=capacity, sh_degree=sh_degree,
@@ -554,11 +553,10 @@ def _stereo_foveated_render(self, gi, camera, target):
         left = camera.left
         sh_degree = used_sh_degree(c, gi)
         tables = foveated_device_tables(target, self.device)
-        # re-binned union rects are expanded in full (the warped dual-eye
-        # test prunes them)
-        capacity = self.pick_capacity(n, cfg.FULL_RECT_CAPACITY_FACTOR,
-                                      kind=kind)
         prepared = cached_projection_inputs(gi, sh_degree)
+    # re-binned union rects are expanded in full (the warped dual-eye test
+    # prunes them)
+    capacity, _ = self.pick_capacities(n, kind, cfg.FULL_RECT_CAPACITY_FACTOR)
     out = depth_first_stereo_foveated_frame(
         gi, *_stereo_rig(camera), tables, prepared,
         display_width=target.display_width,

@@ -80,6 +80,7 @@ class GlobalRenderer(GaussianRenderer):
         with span("entry"):
             self.validate_inputs(gi, width, height)
             kw = d16_frame_kwargs(self, gi, camera, width, height)
+        kw["capacity"], _ = self.pick_capacities(gi.count, self._mono_key)
         out = global_frame(
             gi, camera.view_matrix, camera.projection_matrix, camera.position,
             tile_w=cfg.GLOBAL_TILE[0], tile_h=cfg.GLOBAL_TILE[1],

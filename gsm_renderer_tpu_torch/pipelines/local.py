@@ -77,6 +77,7 @@ class LocalRenderer(GaussianRenderer):
         with span("entry"):
             self.validate_inputs(gi, width, height)
             kw = d16_frame_kwargs(self, gi, camera, width, height)
+        kw["capacity"], _ = self.pick_capacities(gi.count, self._mono_key)
         out = local_frame(
             gi, camera.view_matrix, camera.projection_matrix, camera.position,
             tile_w=cfg.LOCAL_TILE[0], tile_h=cfg.LOCAL_TILE[1],

@@ -19,8 +19,9 @@ band frame of ``parallel/multichip.py``) goes to the profiler alone.  The
 last ``RING`` frames are kept.  A frame's stages, in order::
 
     frame
-      entry      validation, the capacity picks and their host reads, the
-                 projection-input cache
+      entry      validation, the projection-input cache
+      capacity   the capacity picks, their lock-in and refresh host reads
+                 and their growth (pipelines/base.py)
       project
       rebin      foveated frames: the re-binning onto the physical tiles
       binning    prep, row_expand (rows on), expand
@@ -29,6 +30,7 @@ last ``RING`` frames are kept.  A frame's stages, in order::
       ranges     the tile ranges, a per-tile clamp
       blend      blend and assemble
       header     the header's sums
+      capacity   the copies of the frame's demand to the host
       output     the output format
 
 Every device operation a frame launches is launched inside one of its stage
@@ -37,10 +39,11 @@ spans.  Spans record the frames of one rendering thread.
 **Counters** (:func:`counters`): frames rendered through a public entry,
 instance sorts by path (keys-only under a KeyPlan, or the stable
 fallback), hand-kernel launches (``_native.Kernel.launches`` summed), host
-reads, capacity lock-ins, refreshes and refreshes that found the demand
-above the capacity in force (``pipelines/base.py``), overflowed frames
-among the recorded ones, and the set-up seconds of the kernel build and
-load and of the projection-input cache.
+reads, capacity lock-ins, refreshes, growths between refreshes and reads
+that found the demand above the capacity in force (``pipelines/base.py``),
+overflowed frames among the recorded ones, and the set-up seconds of the
+kernel build and load and of the projection-input cache.  A recorded frame
+keeps the counters that moved while it rendered.
 
 **Stage split.**  :func:`profile_depth_first_stages` renders
 ``depth_first_frame`` (the JAX function's chain: a mono frame at 16x16
@@ -76,7 +79,8 @@ _ring: collections.deque = collections.deque(maxlen=RING)
 _open = None  # the _Frame being recorded
 _next_id = 0
 _COUNTS = dict(frames=0, sort_keys_only=0, sort_stable=0, host_reads=0,
-               capacity_lockins=0, capacity_refreshes=0, capacity_short=0)
+               capacity_lockins=0, capacity_refreshes=0, capacity_regrows=0,
+               capacity_short=0)
 _SETUP = dict(kernel_build_s=0.0, kernel_load_s=0.0, projection_cache_s=0.0)
 
 
@@ -94,7 +98,7 @@ def active() -> bool:
 
 class _Frame:
     __slots__ = ("id", "cuda", "stream", "spans", "stack", "overflow",
-                 "slot_total", "capacity")
+                 "slot_total", "capacity", "counts")
 
     def __init__(self, frame_id: int, cuda: bool):
         self.id, self.cuda = frame_id, cuda
@@ -103,6 +107,9 @@ class _Frame:
         self.stream = torch.cuda.current_stream() if cuda else None
         self.spans, self.stack = [], []
         self.overflow = self.slot_total = self.capacity = None
+        # the counters when the frame opened; when it closed, those that
+        # moved, by how much
+        self.counts = dict(_COUNTS)
 
 
 class _Span:
@@ -162,7 +169,10 @@ class _FrameSpan(_Span):
     def __exit__(self, *exc):
         global _open
         super().__exit__(*exc)
-        _ring.append(self.frame)
+        fr = self.frame
+        fr.counts = {k: _COUNTS[k] - v for k, v in fr.counts.items()
+                     if _COUNTS[k] != v}
+        _ring.append(fr)
         _open = None
         return False
 
@@ -228,7 +238,8 @@ def _read(fr: _Frame) -> dict:
         else (first.t0 - fr.spans[0].t0) * 1e-6,
         capacity=fr.capacity,
         slot_total=None if fr.slot_total is None else int(fr.slot_total),
-        overflow=None if fr.overflow is None else int(fr.overflow))
+        overflow=None if fr.overflow is None else int(fr.overflow),
+        counters=dict(fr.counts))
 
 
 def frames() -> list:
@@ -238,9 +249,12 @@ def frames() -> list:
     stream interval between its markers, which includes any wait for the
     host inside it; on the CPU the host interval); ``entry_ms``, host ms
     from the frame's start to the projection's (the program's work before
-    its first kernel; None without a projection); and the frame's
+    its first kernel; None without a projection); the frame's
     ``capacity``, unclamped ``slot_total`` and ``overflow`` (None where the
-    frame made no header).  Waits for the recorded frames' device work."""
+    frame made no header); and ``counters``, those of :func:`counters`'
+    event counts that moved while the frame rendered (such as
+    ``capacity_regrows``), by how much.  Waits for the recorded frames'
+    device work."""
     return [_read(fr) for fr in _ring]
 
 
@@ -254,10 +268,12 @@ def counters() -> dict:
     ``sort_keys_only`` and ``sort_stable`` (instance sorts, a frame's or a
     band's, by path: the KeyPlan's keys-only sort or the stable fallback),
     ``kernel_launches``, ``host_reads``, ``capacity_lockins``,
-    ``capacity_refreshes``, ``capacity_short`` (refresh reads whose demand
-    exceeded the capacity in force: a lower bound of the windows that
-    overflowed), ``overflow_frames`` (among the recorded frames; reads
-    their flags from the device), ``kernel_build_s``, ``kernel_load_s`` and
+    ``capacity_refreshes``, ``capacity_regrows`` (growths between
+    refreshes, from the pinned copy of a frame's demand),
+    ``capacity_short`` (refresh or growth reads whose demand exceeded the
+    capacity in force: frames that overflowed, as far as a read saw
+    them), ``overflow_frames`` (among the recorded frames; reads their
+    flags from the device), ``kernel_build_s``, ``kernel_load_s`` and
     ``projection_cache_s``."""
     from . import _native
 
@@ -269,6 +285,7 @@ def counters() -> dict:
         host_reads=_COUNTS["host_reads"],
         capacity_lockins=_COUNTS["capacity_lockins"],
         capacity_refreshes=_COUNTS["capacity_refreshes"],
+        capacity_regrows=_COUNTS["capacity_regrows"],
         capacity_short=_COUNTS["capacity_short"],
         overflow_frames=sum(int(fr.overflow) for fr in _ring
                             if fr.overflow is not None),

@@ -27,19 +27,22 @@ from gsm_renderer_tpu_torch.pipelines import base
 W, H = 64, 48
 FOV = dict(min_rate=0.4, radius=0.3)
 #: the stage spans a frame of each entry records, in order (a repeated
-#: stage, such as Local's clamp after the ranges, counts once)
-BINNING = ["binning", "prep", "expand", "sort", "ranges", "blend", "header",
-           "output"]
+#: stage, such as Local's clamp after the ranges, counts once); the
+#: capacity contract's span after the entry (the picks) and after the
+#: header (the copies of the frame's demand)
+BINNING = ["binning", "prep", "expand", "sort", "ranges", "blend", "header"]
+HEAD = ["frame", "entry", "capacity", "project"]
+TAIL = ["capacity", "output"]
 TREES = {
-    "rows": ["frame", "entry", "project", "binning", "prep", "row_expand",
-             "expand", "sort", "ranges", "blend", "header", "output"],
-    "rows_off": ["frame", "entry", "project", *BINNING],
-    "stereo": ["frame", "entry", "project", *BINNING],
-    "foveated": ["frame", "entry", "project", "rebin", *BINNING],
-    "compress": ["frame", "entry", "project", *BINNING],
-    "hardware": ["frame", "entry", "project", *BINNING],
-    "global": ["frame", "entry", "project", *BINNING],
-    "local": ["frame", "entry", "project", *BINNING],
+    "rows": [*HEAD, "binning", "prep", "row_expand", "expand", "sort",
+             "ranges", "blend", "header", *TAIL],
+    "rows_off": [*HEAD, *BINNING, *TAIL],
+    "stereo": [*HEAD, *BINNING, *TAIL],
+    "foveated": [*HEAD, "rebin", *BINNING, *TAIL],
+    "compress": [*HEAD, *BINNING, *TAIL],
+    "hardware": [*HEAD, *BINNING, *TAIL],
+    "global": [*HEAD, *BINNING, *TAIL],
+    "local": [*HEAD, *BINNING, *TAIL],
 }
 CHILDREN = {"prep": "binning", "row_expand": "binning", "expand": "binning"}
 
@@ -184,9 +187,11 @@ def test_frame_records_the_stage_tree(entry, spans_off):
 
 
 def test_lockin_refresh_and_short(monkeypatch, spans_off):
-    """The first host read locks the capacity in, a read ADAPTIVE_REFRESH
-    frames later refreshes it; each is a host read; a refresh after the
-    demand grew past the capacity in force counts as short."""
+    """The first host read locks the capacity in; between refreshes the
+    next pick reads the last frame's demand without a host read and grows
+    the capacity past it (a regrow, short where that frame overflowed); a
+    read ADAPTIVE_REFRESH frames after the lock-in refreshes it.  Only
+    lock-ins and refreshes are host reads."""
     monkeypatch.setattr(base, "ADAPTIVE_REFRESH", 3)
     # as many gaussians, then larger ones: the capacity kind is the same
     small = scene(3000, scale_range=(0.005, 0.02))
@@ -205,22 +210,32 @@ def test_lockin_refresh_and_short(monkeypatch, spans_off):
     cap, demand = state["capacity"], state["demand"]
     assert state["kind"] == "df" and state["gaussians"] == 3000
     assert state["age"] == 0 and demand < cap
-    for k in range(3):  # ADAPTIVE_REFRESH frames at the locked capacity
-        out = r.render(large, cam, W, W)
-        assert r.capacity_state()[0]["age"] == k + 1
+    out = r.render(large, cam, W, W)  # picked before the demand grew
     assert int(out.header.slot_total) > cap  # the demand grew past it
     assert int(out.header.overflow) == 1
-    assert P.counters()["capacity_refreshes"] == c1["capacity_refreshes"]
-    r.render(large, cam, W, W)  # the refresh
+    assert P.counters()["capacity_regrows"] == c1["capacity_regrows"]
+    for k in range(2):  # the next pick grows the capacity, then keeps it
+        out = r.render(large, cam, W, W)
+        assert int(out.header.overflow) == 0
+        (state,) = r.capacity_state()
+        assert state["age"] == k + 2 and state["capacity"] > cap
+        assert state["demand"] == int(out.header.slot_total)
     c2 = P.counters()
-    assert c2["capacity_refreshes"] - c1["capacity_refreshes"] == 1
+    assert c2["capacity_regrows"] - c1["capacity_regrows"] == 1
     assert c2["capacity_short"] - c1["capacity_short"] == 1
-    assert c2["host_reads"] - c0["host_reads"] == (
-        c2["capacity_lockins"] - c0["capacity_lockins"]
-        + c2["capacity_refreshes"] - c0["capacity_refreshes"]) == 2
+    assert c2["host_reads"] == c1["host_reads"]
+    assert c2["capacity_refreshes"] == c1["capacity_refreshes"]
+    grown = state["capacity"]
+    r.render(large, cam, W, W)  # the refresh, at the demand it grew to
+    c3 = P.counters()
+    assert c3["capacity_refreshes"] - c2["capacity_refreshes"] == 1
+    assert c3["capacity_short"] == c2["capacity_short"]
+    assert c3["host_reads"] - c0["host_reads"] == (
+        c3["capacity_lockins"] - c0["capacity_lockins"]
+        + c3["capacity_refreshes"] - c0["capacity_refreshes"]) == 2
     (state,) = r.capacity_state()
     assert state["age"] == 0 and state["demand"] > cap
-    assert state["capacity"] > state["demand"]
+    assert state["capacity"] == grown > state["demand"]
 
 
 def test_rows_count_their_own_reads(spans_off):
@@ -265,7 +280,7 @@ def test_profile_reads_the_rows_off_frame(spans_off):
     assert len(recs) == P.PROFILE_FRAMES + 1 and not P.active()
     for rec in recs:
         assert merged([s["name"] for s in rec["spans"]]) == [
-            "frame", "project", *BINNING[:-1]]
+            "frame", "project", *BINNING]
     for k in P.STAGES:
         want = sum(s["device_ms"] for rec in recs[-P.PROFILE_FRAMES:]
                    for s in rec["spans"] if s["name"] == k) / P.PROFILE_FRAMES
