@@ -20,6 +20,7 @@ non-zero value.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -149,6 +150,15 @@ class Kernel:
             msg = load(self.lib).gsm_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+@functools.cache
+def c_entry(lib: str, name: str, restype=ctypes.c_int, argtypes=(P, P, P)):
+    """C entry ``name`` of library ``lib`` with its types set: for an entry
+    that launches nothing (a :class:`Kernel` counts the ones that do)."""
+    fn = getattr(load(lib), name)
+    fn.argtypes, fn.restype = list(argtypes), restype
+    return fn
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -192,6 +192,7 @@
 // within the record's reach (chip_smoke.py, blend_reach_flops).
 #include <climits>
 #include <cstring>
+#include <vector>
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -1199,4 +1200,138 @@ extern "C" int gsm_blend_occupancy(int n_eyes, int depth_mode,
     out[4 * k + 3] = a.numRegs;
   }
   return n;
+}
+
+// ---------------------------------------------------------------------------
+// The outputs of a captured frame (pipelines/replay.py).  A frame's CUDA
+// graph holds its blend launches with the colour and depth pointers of the
+// frame it was captured on; before each launch the host points them at the
+// next frame's own new tensors (cudaGraphExecKernelNodeSetParams), so that
+// a replay writes what its caller keeps and no frame's outputs are ever
+// written again.  Every blend entry takes colour and depth as its
+// arguments kColorArg and kColorArg + 1.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kColorArg = 18;
+constexpr int kMaxBlendArgs = 21;
+
+// A blend launch of a graph: its node, its launch as captured and its
+// argument count.
+struct OutputNode {
+  cudaGraphNode_t node;
+  cudaKernelNodeParams launch;
+  int nargs;
+};
+
+// The argument count of ``func`` if it is a blend entry (20: the 8x4-block
+// instances; 21: the split layout's, with its Split), else 0.
+int blend_args(const void* func) {
+  constexpr int kPix[5] = {64, 128, 256, 512, 1024};
+  for (int two = 0; two < 2; ++two) {
+    for (int first_hit = 0; first_hit < 2; ++first_hit) {
+      for (int cutoff = 0; cutoff < 2; ++cutoff) {
+        int threads;
+        for (const int pix : kPix) {
+          if (reinterpret_cast<const void*>(pick_blocks(
+                  two, first_hit, cutoff, pix, &threads)) == func) {
+            return 20;
+          }
+        }
+        for (int cull = 0; cull < 2; ++cull) {
+          const SplitPair sp = pick_split(two, first_hit, cutoff, cull);
+          if (reinterpret_cast<const void*>(sp.walk) == func ||
+              reinterpret_cast<const void*>(sp.resume) == func) {
+            return kMaxBlendArgs;
+          }
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" size_t gsm_output_node_bytes() { return sizeof(OutputNode); }
+
+// The blend launches of ``graph`` (a cudaGraph_t) that write ``color``:
+// writes up to ``max_nodes`` OutputNodes into ``out`` and their number into
+// ``count``.  cudaErrorInvalidValue where there is none or more than
+// ``max_nodes``.  ``out`` reads the nodes' arguments from the graph: keep
+// the graph alive.
+extern "C" int gsm_output_nodes(void* graph, const void* color, void* out,
+                                int max_nodes, int* count) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0 && (err = cudaGraphGetNodes(g, nodes.data(), &n)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  std::vector<OutputNode> found;
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    if ((err = cudaGraphNodeGetType(node, &type)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    if (type != cudaGraphNodeTypeKernel) {
+      continue;
+    }
+    cudaKernelNodeParams p;
+    err = cudaGraphKernelNodeGetParams(node, &p);
+    if (err == cudaErrorInvalidDeviceFunction) {
+      // a kernel of another module, each with its own runtime: no blend
+      cudaGetLastError();
+      continue;
+    }
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    const int nargs = blend_args(p.func);
+    if (nargs > 0 &&
+        *static_cast<void* const*>(p.kernelParams[kColorArg]) == color) {
+      found.push_back({node, p, nargs});
+    }
+  }
+  if (found.empty() || static_cast<int>(found.size()) > max_nodes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  memcpy(out, found.data(), found.size() * sizeof(OutputNode));
+  *count = static_cast<int>(found.size());
+  return static_cast<int>(cudaSuccess);
+}
+
+// Point the ``count`` blend launches ``nodes`` (gsm_output_nodes) of
+// ``exec`` (the graph's cudaGraphExec_t) at ``color`` and, unless null,
+// ``depth``, for the graph's next launches; their other arguments stay as
+// captured.
+extern "C" int gsm_set_outputs(void* exec, const void* nodes, int count,
+                               float* color, float* depth) {
+  for (int k = 0; k < count; ++k) {
+    OutputNode on;
+    memcpy(&on, static_cast<const char*>(nodes) + k * sizeof(OutputNode),
+           sizeof(on));
+    void* args[kMaxBlendArgs];
+    for (int i = 0; i < on.nargs; ++i) {
+      args[i] = on.launch.kernelParams[i];
+    }
+    args[kColorArg] = &color;
+    if (depth != nullptr) {
+      args[kColorArg + 1] = &depth;
+    }
+    cudaKernelNodeParams p = on.launch;
+    p.kernelParams = args;
+    p.extra = nullptr;
+    const cudaError_t err = cudaGraphExecKernelNodeSetParams(
+        static_cast<cudaGraphExec_t>(exec), on.node, &p);
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+  }
+  return static_cast<int>(cudaSuccess);
 }

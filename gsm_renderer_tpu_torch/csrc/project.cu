@@ -23,6 +23,7 @@
 // The design keeps every plane coalesced (structure of arrays, thread i reads
 // element i of each plane) and does everything in registers in one pass.
 #include <cstring>
+#include <vector>
 
 #include "common.cuh"
 
@@ -691,4 +692,134 @@ extern "C" int gsm_stereo_project(const float* comp, const float* harm,
                                            out_bounds, visible);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The pose of a captured frame (pipelines/replay.py).  A frame's CUDA graph
+// holds its projection as one kernel node whose by-value ProjParams (the
+// dual-eye kernel's: both eyes' and StereoExtra) are the camera of the frame
+// it was captured on.  Before each launch the host writes the next frame's
+// pose block into the instantiated graph (cudaGraphExecKernelNodeSetParams):
+// it takes effect at the graph's next launch and leaves launches already
+// queued as they were, so frames queued back to back each read their own.
+// kernels/project.py::pose_block and ::stereo_pose_block pack the blocks.
+// ---------------------------------------------------------------------------
+
+static_assert(sizeof(ProjParams) == 56 * sizeof(float),
+              "ProjParams is the host pose block: 56 floats, no padding");
+static_assert(sizeof(StereoExtra) == 20 * sizeof(float),
+              "StereoExtra: 20 floats, no padding");
+
+namespace {
+
+// the arguments of project_kernel and stereo_project_kernel, and the index
+// of the first pose argument (P; PL, PR, X for two eyes)
+constexpr int kMonoArgs = 12;
+constexpr int kStereoArgs = 9;
+constexpr int kPoseArg = 2;
+
+// A graph's projection node: the node and its launch as captured.
+struct PoseNode {
+  cudaGraphNode_t node;
+  cudaKernelNodeParams launch;
+  int stereo;
+};
+
+}  // namespace
+
+extern "C" size_t gsm_pose_node_bytes() { return sizeof(PoseNode); }
+
+// Find the one projection kernel node of ``graph`` (a cudaGraph_t): the mono
+// kernel's (stereo 0) or the dual-eye kernel's (stereo 1), at any SH degree,
+// and write its PoseNode into ``out`` (gsm_pose_node_bytes bytes).
+// cudaErrorInvalidValue where the graph has no such node or more than one.
+// ``out`` reads the node's arguments from the graph: keep the graph alive.
+extern "C" int gsm_pose_node(void* graph, int stereo, void* out) {
+  const void* mono[4] = {
+      reinterpret_cast<const void*>(&project_kernel<0>),
+      reinterpret_cast<const void*>(&project_kernel<1>),
+      reinterpret_cast<const void*>(&project_kernel<2>),
+      reinterpret_cast<const void*>(&project_kernel<3>)};
+  const void* dual[4] = {
+      reinterpret_cast<const void*>(&stereo_project_kernel<0>),
+      reinterpret_cast<const void*>(&stereo_project_kernel<1>),
+      reinterpret_cast<const void*>(&stereo_project_kernel<2>),
+      reinterpret_cast<const void*>(&stereo_project_kernel<3>)};
+  const void* const* funcs = stereo ? dual : mono;
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0 && (err = cudaGraphGetNodes(g, nodes.data(), &n)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  PoseNode found{};
+  int hits = 0;
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    if ((err = cudaGraphNodeGetType(node, &type)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    if (type != cudaGraphNodeTypeKernel) {
+      continue;
+    }
+    cudaKernelNodeParams p;
+    err = cudaGraphKernelNodeGetParams(node, &p);
+    if (err == cudaErrorInvalidDeviceFunction) {
+      // a kernel of another module (PyTorch's, CUB's, the other csrc/
+      // libraries, each with its own runtime): not a projection
+      cudaGetLastError();
+      continue;
+    }
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    for (int k = 0; k < 4; ++k) {
+      if (p.func == funcs[k]) {
+        found.node = node;
+        found.launch = p;
+        ++hits;
+      }
+    }
+  }
+  if (hits != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  found.stereo = stereo;
+  memcpy(out, &found, sizeof(found));
+  return static_cast<int>(cudaSuccess);
+}
+
+// Write the host pose block ``pose`` (ProjParams; two eyes: the left
+// ProjParams, the right, StereoExtra) into the projection node ``node`` (a
+// gsm_pose_node result) of ``exec`` (the graph's cudaGraphExec_t), for the
+// graph's next launches; its other arguments stay as captured.
+extern "C" int gsm_set_pose(void* exec, const void* node, const float* pose) {
+  PoseNode pn;
+  memcpy(&pn, node, sizeof(pn));
+  const int nargs = pn.stereo ? kStereoArgs : kMonoArgs;
+  void* args[kMonoArgs];
+  for (int i = 0; i < nargs; ++i) {
+    args[i] = pn.launch.kernelParams[i];
+  }
+  ProjParams eyes[2];
+  StereoExtra extra;
+  memcpy(&eyes[0], pose, sizeof(ProjParams));
+  args[kPoseArg] = &eyes[0];
+  if (pn.stereo) {
+    const float* rest = pose + sizeof(ProjParams) / sizeof(float);
+    memcpy(&eyes[1], rest, sizeof(ProjParams));
+    memcpy(&extra, rest + sizeof(ProjParams) / sizeof(float),
+           sizeof(StereoExtra));
+    args[kPoseArg + 1] = &eyes[1];
+    args[kPoseArg + 2] = &extra;
+  }
+  cudaKernelNodeParams p = pn.launch;
+  p.kernelParams = args;
+  p.extra = nullptr;
+  return static_cast<int>(cudaGraphExecKernelNodeSetParams(
+      static_cast<cudaGraphExec_t>(exec), pn.node, &p));
 }

@@ -356,6 +356,43 @@ def blend_image_cuda(sorted_key, entry_words, idx_bits: int, starts, counts,
     return color, (depth if with_depth else None)
 
 
+#: the most blend launches a frame makes (the large-tile path: two)
+MAX_OUTPUT_NODES = 4
+
+
+def find_output_nodes(graph: int, color):
+    """The blend launches of a captured frame's CUDA graph (``graph``: its
+    ``cudaGraph_t``, which they read and must outlive) that write the
+    colour tensor ``color``: (an opaque buffer, their number) for
+    :func:`set_outputs`.  Raises RuntimeError where there is none."""
+    size = _native.c_entry("blend", "gsm_output_node_bytes", ctypes.c_size_t,
+                           ())
+    nodes = ctypes.create_string_buffer(size() * MAX_OUTPUT_NODES)
+    count = ctypes.c_int(0)
+    err = _native.c_entry("blend", "gsm_output_nodes", argtypes=(
+        _native.P, _native.P, _native.P, _native.I, _native.P))(
+            graph, _native.ptr(color), nodes, MAX_OUTPUT_NODES,
+            ctypes.addressof(count))
+    if err != 0:
+        raise RuntimeError(f"gsm_output_nodes: CUDA error {err}: no blend "
+                           "launch of the graph writes the colour")
+    return nodes, count.value
+
+
+def set_outputs(graph_exec: int, nodes, color, depth=None) -> None:
+    """Point the blend launches ``nodes`` (:func:`find_output_nodes`) of
+    the instantiated graph ``graph_exec`` (its ``cudaGraphExec_t``) at
+    ``color`` and, where given, ``depth``, for the graph's next launches;
+    launches already queued keep theirs."""
+    buf, count = nodes
+    err = _native.c_entry("blend", "gsm_set_outputs", argtypes=(
+        _native.P, _native.P, _native.I, _native.P, _native.P))(
+            graph_exec, buf, count, _native.ptr(color),
+            _native.ptr_or_null(depth))
+    if err != 0:
+        raise RuntimeError(f"gsm_set_outputs: CUDA error {err}")
+
+
 def blend_image(sorted_key, entry_words, idx_bits: int, starts, counts, *,
                 tiles_x: int, tiles_y: int, width: int, height: int,
                 tile_w: int = 16, tile_h: int = 16,

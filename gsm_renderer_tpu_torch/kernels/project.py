@@ -21,12 +21,21 @@ given, is then not applied, as in JAX).
 functions in plain PyTorch, operation for operation.  The dispatchers run
 them for CPU tensors and the CUDA kernels for CUDA tensors; there is no
 fallback between the two.
+
+The camera reaches the kernels by value, as a pose block (``ProjParams``,
+and for two eyes both eyes' and ``StereoExtra``, in ``csrc/project.cu``):
+the view and projection matrices, the centre and the frame constants,
+packed on the host by :func:`pose_block` / :func:`stereo_pose_block`.  A
+frame captured into a CUDA graph (``pipelines/replay.py``) replays with the
+pose block that :func:`set_pose` writes into the graph's projection node
+(:func:`find_pose_node`) before each launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -143,6 +152,83 @@ def frame_constants(proj, *, width, height, near_plane,
         theta_scale=M.f32(65535.0 / M.PI), pi=M.f32(M.PI),
         inv255=M.f32(1.0 / 255.0))
     return c
+
+
+@functools.lru_cache(maxsize=16)
+def _constants_row(proj: bytes, width, height, near_plane, far_plane,
+                   alpha_threshold, total_ink_threshold):
+    """:func:`frame_constants` of the (4, 4) float32 projection ``proj``
+    (its bytes) as a float32 row in ``_PARAM_NAMES`` order; read-only.
+    Cached: a viewer's projection and size rarely change between frames,
+    its view every frame."""
+    k = frame_constants(np.frombuffer(proj, np.float32).reshape(4, 4),
+                        width=width, height=height, near_plane=near_plane,
+                        far_plane=far_plane, alpha_threshold=alpha_threshold,
+                        total_ink_threshold=total_ink_threshold)
+    row = np.asarray([k[name] for name in _PARAM_NAMES], np.float32)
+    row.flags.writeable = False
+    return row
+
+
+def pose_block(view, proj, center, *, width, height, near_plane, far_plane,
+               alpha_threshold, total_ink_threshold):
+    """The mono projection's pose block (``csrc/project.cu``'s ProjParams),
+    float32: the (4, 4) view and projection matrices row-major, the (3,)
+    centre, then :func:`frame_constants` in the struct's order."""
+    proj = np.ascontiguousarray(proj, np.float32)
+    return np.concatenate([
+        np.asarray(view, np.float32).reshape(-1), proj.reshape(-1),
+        np.asarray(center, np.float32).reshape(-1),
+        _constants_row(proj.tobytes(), width, height, near_plane, far_plane,
+                       alpha_threshold, total_ink_threshold)])
+
+
+def stereo_pose_block(views, projs, centers, scene_transform, *, width,
+                      height, near_plane, far_plane, alpha_threshold,
+                      total_ink_threshold):
+    """The dual-eye projection's pose block, float32: each eye's
+    :func:`pose_block`, left first, then ``csrc/project.cu``'s StereoExtra:
+    the (4, 4) scene transform row-major, the scene scale and the mid
+    camera centre (:func:`stereo_constants`)."""
+    consts = dict(width=width, height=height, near_plane=near_plane,
+                  far_plane=far_plane, alpha_threshold=alpha_threshold,
+                  total_ink_threshold=total_ink_threshold)
+    scene_scale, mid = stereo_constants(centers, scene_transform)
+    return np.concatenate([
+        *(pose_block(views[e], projs[e], centers[e], **consts)
+          for e in range(2)),
+        np.asarray(scene_transform, np.float32).reshape(-1),
+        np.asarray([scene_scale], np.float32), mid.reshape(-1)])
+
+
+def find_pose_node(graph: int, stereo: bool):
+    """The projection kernel node of a captured frame's CUDA graph
+    (``graph``: its ``cudaGraph_t``, which the node reads and must outlive):
+    an opaque buffer for :func:`set_pose`.  Raises RuntimeError unless the
+    graph holds exactly one launch of the mono (``stereo`` False) or the
+    dual-eye projection."""
+    size = _native.c_entry("project", "gsm_pose_node_bytes", ctypes.c_size_t,
+                           ())
+    node = ctypes.create_string_buffer(size())
+    err = _native.c_entry("project", "gsm_pose_node", argtypes=(
+        _native.P, _native.I, _native.P))(graph, int(stereo), node)
+    if err != 0:
+        raise RuntimeError(f"gsm_pose_node: CUDA error {err}: the graph has "
+                           "no single projection launch")
+    return node
+
+
+def set_pose(graph_exec: int, node, pose) -> None:
+    """Write the host pose block ``pose`` (:func:`pose_block`, or
+    :func:`stereo_pose_block` for a dual-eye node) into the projection node
+    ``node`` of the instantiated graph ``graph_exec`` (its
+    ``cudaGraphExec_t``) for its next launches; launches already queued
+    keep theirs.  Waits for nothing on the device."""
+    pose = np.ascontiguousarray(pose, np.float32)
+    err = _native.c_entry("project", "gsm_set_pose")(graph_exec, node,
+                                                     pose.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"gsm_set_pose: CUDA error {err}")
 
 
 def f32_to_f16_bits(v):
@@ -304,15 +390,10 @@ def project_cuda(comp, harm, view, proj, center, *, width: int, height: int,
     n_coeffs = (sh_degree + 1) ** 2
     _native.check(comp, "comp", torch.float32, (11, n), dev)
     _native.check(harm, "harm", torch.float32, (3 * n_coeffs, n), dev)
-    k = frame_constants(proj, width=width, height=height,
+    params = pose_block(view, proj, center, width=width, height=height,
                         near_plane=near_plane, far_plane=far_plane,
                         alpha_threshold=alpha_threshold,
                         total_ink_threshold=total_ink_threshold)
-    params = np.concatenate([
-        np.asarray(view, np.float32).reshape(-1),
-        np.asarray(proj, np.float32).reshape(-1),
-        np.asarray(center, np.float32).reshape(-1),
-        np.asarray([k[name] for name in _PARAM_NAMES], np.float32)])
     tiles_x, tiles_y = -(-width // tile_w), -(-height // tile_h)
     ints = np.asarray([n, tiles_x, tiles_y, sh_degree, int(input_is_srgb),
                        int(key_plan is not None), tile_w, int(depth_key16),
@@ -499,20 +580,11 @@ def stereo_project_cuda(comp, harm, views, projs, centers, scene_transform,
     n_coeffs = (sh_degree + 1) ** 2
     _native.check(comp, "comp", torch.float32, (11, n), dev)
     _native.check(harm, "harm", torch.float32, (3 * n_coeffs, n), dev)
-    scene_scale, mid = stereo_constants(centers, scene_transform)
-    eye_params = []
-    for e in range(2):
-        k = frame_constants(projs[e], width=width, height=height,
-                            near_plane=near_plane, far_plane=far_plane,
-                            alpha_threshold=alpha_threshold,
-                            total_ink_threshold=total_ink_threshold)
-        eye_params += [np.asarray(views[e], np.float32).reshape(-1),
-                       np.asarray(projs[e], np.float32).reshape(-1),
-                       np.asarray(centers[e], np.float32).reshape(-1),
-                       np.asarray([k[name] for name in _PARAM_NAMES], np.float32)]
-    params = np.concatenate(eye_params + [
-        np.asarray(scene_transform, np.float32).reshape(-1),
-        np.asarray([scene_scale], np.float32), mid.reshape(-1)])
+    params = stereo_pose_block(
+        views, projs, centers, scene_transform, width=width, height=height,
+        near_plane=near_plane, far_plane=far_plane,
+        alpha_threshold=alpha_threshold,
+        total_ink_threshold=total_ink_threshold)
     tiles_x, tiles_y = -(-width // tile_w), -(-height // tile_h)
     ints = np.asarray([n, tiles_x, tiles_y, sh_degree, int(input_is_srgb),
                        int(key_plan is not None), tile_w, 0, tile_h], np.int32)

@@ -37,6 +37,15 @@ blend samples each physical pixel at its display-space coordinate.  No host
 read except the capacity contract's lock-in and refreshes
 (pipelines/base.py).
 
+On the card the renderer's mono frames (32-bit depth keys under a KeyPlan,
+rows on or off, and the Hardware renderer's) and side-by-side stereo
+frames replay a CUDA graph of the frame while the values it bakes in stay
+the same, the frame's pose block written into the graph's projection
+before each launch (pipelines/replay.py); the renderer's private
+``_eager_frames`` set true renders them eagerly, through the same kernels
+and the same pose block.  The other frames (16-bit depth keys, the stable
+fallback, foveated) stay eager.
+
 The Hardware renderer (pipelines/hardware.py) is this class with other
 settings: its mono frame expands full rects (``exact_tile_test=False``:
 prep and the expand in mode "none") and blends with the r^2 <= 9 cutoff
@@ -53,10 +62,12 @@ import torch
 
 from .. import config as cfg
 from .. import mathlib as M
+from ..kernels import blend as KB
 from ..kernels.blend import blend_image
 from ..kernels.expand import (CULLED_BIT, MASK_H, MASK_W, STEREO_R2_CUTOFF,
                               check_tile)
-from ..kernels.project import (cached_projection_inputs,
+from ..kernels.project import (cached_projection_inputs, pose_block,
+                               stereo_pose_block,
                                stereo_project_and_cull_packed)
 from ..mathlib import u32
 from ..ops import binning as B
@@ -66,6 +77,7 @@ from ..types import FrameHeader, RenderOutput
 from .base import GaussianRenderer
 from .common import (binning_sort_operands, d16_key_plan, d16_packed_sorted,
                      mono_packed_sorted, sort_and_ranges, used_sh_degree)
+from .replay import FrameGraphs
 
 
 def _row_demand(rect_word, rect_h):
@@ -439,6 +451,12 @@ class DepthFirstRenderer(GaussianRenderer):
     _exact_tile_test = True
     _r2_cutoff = 0.0
     _depth_mode = "weighted"
+    #: render every frame eagerly: no CUDA graph (tests compare the two)
+    _eager_frames = False
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._graphs = FrameGraphs(self.device)
 
     @traced_frame
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
@@ -475,13 +493,42 @@ class DepthFirstRenderer(GaussianRenderer):
                                 depth=depth, header=out.header)
 
 
+def _frame_key(kind, kw, prepared) -> tuple:
+    """The graph key of a frame of ``kind``: the frame function's keyword
+    arguments ``kw`` (all but the pose), the storage of the projection
+    inputs ``prepared`` and the blend's early-exit transmittance (a module
+    value that callers set to 0 to render without the exit)."""
+    return (kind, tuple(kw.items()), KB.MIN_TRANSMITTANCE,
+            *((t.data_ptr(), *t.shape) for t in prepared))
+
+
+def _frame(self, kind, key, render, *, pose, stereo, graphable, prepared,
+           scan_elements):
+    """The frame ``render()`` of ``kind``: on the card, where
+    ``graphable()``, through the kind's CUDA graph under ``key``, its
+    projection given the host pose block ``pose()`` (see the module
+    docstring); else as it is."""
+    if self.device.type != "cuda" or self._eager_frames:
+        return render()
+    return self._graphs.render(kind, key, render, pose=pose, stereo=stereo,
+                               graphable=graphable, keep=prepared,
+                               scan_elements=scan_elements)
+
+
 def _mono_render(self, gi, camera, width, height):
     """The mono frame.  Stereo and foveated frames take neither key
     precision, as in JAX, and render the same frame under any."""
     c = self.config
     n = gi.count
+    kind = self._mono_key
     tile_w, tile_h = cfg.DEPTH_FIRST_TILE
     depth_key_bits = c.depth_sort_key_precision.value
+    view, proj, center = (camera.view_matrix, camera.projection_matrix,
+                          camera.position)
+    consts = dict(width=width, height=height, near_plane=camera.near_plane,
+                  far_plane=camera.far_plane,
+                  alpha_threshold=c.alpha_threshold,
+                  total_ink_threshold=c.total_ink_threshold)
     with span("entry"):
         self.validate_inputs(gi, width, height)
         sh_degree = used_sh_degree(c, gi)
@@ -490,21 +537,29 @@ def _mono_render(self, gi, camera, width, height):
     # row-addressing KeyPlan does not fit; 16-bit depth keys and full rects
     # run without rows, as in JAX
     capacity, row_cap = self.pick_capacities(
-        n, self._mono_key, self._mono_capacity_factor,
+        n, kind, self._mono_capacity_factor,
         rows=c.row_expand and depth_key_bits == 32 and self._exact_tile_test)
-    out = depth_first_frame(
-        gi, camera.view_matrix, camera.projection_matrix, camera.position,
-        prepared, width=width, height=height, capacity=capacity,
-        sh_degree=sh_degree, alpha_threshold=c.alpha_threshold,
-        total_ink_threshold=c.total_ink_threshold,
-        near_plane=camera.near_plane, far_plane=camera.far_plane,
+    kw = dict(
+        consts, capacity=capacity, sh_degree=sh_degree,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
         tile_w=tile_w, tile_h=tile_h,
         depth_mode=self._depth_mode if c.depth_output else "none",
         row_capacity=row_cap, tile_id_bits=c.tile_id_precision.value,
         depth_key_bits=depth_key_bits, exact_tile_test=self._exact_tile_test,
         r2_cutoff=self._r2_cutoff)
-    self.note_frame(n, out.header, kind=self._mono_key)
+    out = _frame(self, kind, _frame_key(kind, kw, prepared),
+                 lambda: depth_first_frame(gi, view, proj, center, prepared,
+                                           **kw),
+                 pose=lambda: pose_block(view, proj, center, **consts),
+                 stereo=False, prepared=prepared,
+                 scan_elements=max(n, row_cap),
+                 # 16-bit depth keys and the stable fallback (no KeyPlan)
+                 # stay eager
+                 graphable=lambda: depth_key_bits == 32 and _mono_key_statics(
+                     n, width=width, height=height, tile_w=tile_w,
+                     tile_h=tile_h, near_plane=camera.near_plane,
+                     far_plane=camera.far_plane) is not None)
+    self.note_frame(n, out.header, kind=kind)
     with span("output"):
         return self.finalize_output(out)
 
@@ -523,23 +578,34 @@ def _stereo_rig(camera):
 def _stereo_render(self, gi, camera, width, height):
     c = self.config
     n = gi.count
+    kind = self._stereo_key
+    left = camera.left
+    rig = _stereo_rig(camera)
+    consts = dict(width=width, height=height, near_plane=left.near_plane,
+                  far_plane=left.far_plane,
+                  alpha_threshold=c.alpha_threshold,
+                  total_ink_threshold=c.total_ink_threshold)
     with span("entry"):
         self.validate_inputs(gi, width, height)
-        left = camera.left
         sh_degree = used_sh_degree(c, gi)
         prepared = cached_projection_inputs(gi, sh_degree)
     # union rects are expanded in full (the dual-eye test prunes them)
-    capacity, _ = self.pick_capacities(n, self._stereo_key,
+    capacity, _ = self.pick_capacities(n, kind,
                                        cfg.FULL_RECT_CAPACITY_FACTOR)
-    out = depth_first_stereo_frame(
-        gi, *_stereo_rig(camera), prepared, width=width, height=height,
-        capacity=capacity, sh_degree=sh_degree,
-        alpha_threshold=c.alpha_threshold,
-        total_ink_threshold=c.total_ink_threshold,
-        near_plane=left.near_plane, far_plane=left.far_plane,
+    kw = dict(
+        consts, capacity=capacity, sh_degree=sh_degree,
         input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
         depth_mode=self._depth_mode)
-    self.note_frame(n, out.header, kind=self._stereo_key)
+    out = _frame(self, kind, _frame_key(kind, kw, prepared),
+                 lambda: depth_first_stereo_frame(gi, *rig, prepared, **kw),
+                 pose=lambda: stereo_pose_block(*rig, **consts), stereo=True,
+                 prepared=prepared, scan_elements=n,
+                 # the stable fallback (no KeyPlan) stays eager
+                 graphable=lambda: _mono_key_statics(
+                     n, width=width, height=height, tile_w=16, tile_h=16,
+                     near_plane=left.near_plane,
+                     far_plane=left.far_plane) is not None)
+    self.note_frame(n, out.header, kind=kind)
     with span("output"):
         return self.finalize_output(out)
 

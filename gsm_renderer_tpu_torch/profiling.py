@@ -22,6 +22,9 @@ last ``RING`` frames are kept.  A frame's stages, in order::
       entry      validation, the projection-input cache
       capacity   the capacity picks, their lock-in and refresh host reads
                  and their growth (pipelines/base.py)
+      replay     a captured frame's graph launch and the copy of its
+                 outputs (pipelines/replay.py); the stages below it are
+                 the graph's, timed by its event-record nodes
       project
       rebin      foveated frames: the re-binning onto the physical tiles
       binning    prep, row_expand (rows on), expand
@@ -41,9 +44,19 @@ instance sorts by path (keys-only under a KeyPlan, or the stable
 fallback), hand-kernel launches (``_native.Kernel.launches`` summed), host
 reads, capacity lock-ins, refreshes, growths between refreshes and reads
 that found the demand above the capacity in force (``pipelines/base.py``),
-overflowed frames among the recorded ones, and the set-up seconds of the
+overflowed frames among the recorded ones, CUDA graph captures and
+replays of frames (``pipelines/replay.py``), and the set-up seconds of the
 kernel build and load and of the projection-input cache.  A recorded frame
 keeps the counters that moved while it rendered.
+
+**Captured frames.**  While a frame is captured into a CUDA graph
+(:func:`capturing`) its launches are recorded, not run: the counters and
+launch counts it moved are taken back and kept, and each replay
+(:func:`replayed`) counts them again.  While spans record, the capture's
+stage spans record their timing events as the graph's event-record nodes,
+and each replay adds the spans to the open frame with those events; their
+times are read (:func:`settle`) before the next replay records the events
+again.
 
 **Stage split.**  :func:`profile_depth_first_stages` renders
 ``depth_first_frame`` (the JAX function's chain: a mono frame at 16x16
@@ -80,7 +93,7 @@ _open = None  # the _Frame being recorded
 _next_id = 0
 _COUNTS = dict(frames=0, sort_keys_only=0, sort_stable=0, host_reads=0,
                capacity_lockins=0, capacity_refreshes=0, capacity_regrows=0,
-               capacity_short=0)
+               capacity_short=0, graph_captures=0, graph_replays=0)
 _SETUP = dict(kernel_build_s=0.0, kernel_load_s=0.0, projection_cache_s=0.0)
 
 
@@ -97,11 +110,13 @@ def active() -> bool:
 
 
 class _Frame:
-    __slots__ = ("id", "cuda", "stream", "spans", "stack", "overflow",
-                 "slot_total", "capacity", "counts")
+    __slots__ = ("id", "cuda", "capture", "stream", "spans", "stack",
+                 "overflow", "slot_total", "capacity", "counts")
 
-    def __init__(self, frame_id: int, cuda: bool):
-        self.id, self.cuda = frame_id, cuda
+    def __init__(self, frame_id: int, cuda: bool, capture: bool = False):
+        # capture: the spans of a frame being captured into a CUDA graph,
+        # whose events are the graph's event-record nodes
+        self.id, self.cuda, self.capture = frame_id, cuda, capture
         # the events' stream, looked up once: torch.cuda.current_stream()
         # costs several times an event record on the host
         self.stream = torch.cuda.current_stream() if cuda else None
@@ -113,12 +128,14 @@ class _Frame:
 
 
 class _Span:
-    __slots__ = ("name", "parent", "frame", "rf", "t0", "t1", "ev0", "ev1")
+    __slots__ = ("name", "parent", "frame", "rf", "t0", "t1", "ev0", "ev1",
+                 "ms")
 
     def __init__(self, name: str):
         self.name = name
         self.parent = self.frame = self.rf = None
         self.ev0 = self.ev1 = None
+        self.ms = None  # the device ms, once read from the events
 
     def __enter__(self):
         if _profiler_enabled():
@@ -132,7 +149,8 @@ class _Span:
             fr.stack.append(self)
             fr.spans.append(self)
             if fr.cuda:
-                self.ev0 = torch.cuda.Event(enable_timing=True)
+                self.ev0 = torch.cuda.Event(enable_timing=True,
+                                            external=fr.capture)
                 self.ev0.record(fr.stream)
             self.t0 = time.perf_counter_ns()
         return self
@@ -142,7 +160,8 @@ class _Span:
         if fr is not None:
             self.t1 = time.perf_counter_ns()
             if fr.cuda:
-                self.ev1 = torch.cuda.Event(enable_timing=True)
+                self.ev1 = torch.cuda.Event(enable_timing=True,
+                                            external=fr.capture)
                 self.ev1.record(fr.stream)
             fr.stack.pop()
         if self.rf is not None:
@@ -220,11 +239,96 @@ def add_setup(name: str, seconds: float) -> None:
     _SETUP[name] += seconds
 
 
+class Capture:
+    """What a frame captured into a CUDA graph recorded: ``spans``, its
+    stage spans, whose events the graph records on each replay (empty
+    while spans do not record); ``counts`` and ``launches``, the counter
+    moves and the launches (``_native.Kernel``, count) that each replay
+    repeats; ``capacity``, the capacity its header noted."""
+
+    __slots__ = ("spans", "counts", "launches", "capacity")
+
+
+@contextlib.contextmanager
+def capturing():
+    """The context of a frame's capture into a CUDA graph, on the
+    capturing stream: yields a :class:`Capture`, filled when the context
+    closes.  The counters and launch counts the capture moved are taken
+    back (a replay counts them) and ``graph_captures`` counts one; while a
+    frame records, the capture's spans go to the Capture."""
+    from . import _native
+
+    global _open
+    outer = _open
+    rec = Capture()
+    fr = None if outer is None else _Frame(-1, True, capture=True)
+    counts = dict(_COUNTS)
+    launches = [k.launches for k in _native.KERNELS]
+    _open = fr
+    try:
+        yield rec
+    finally:
+        _open = outer
+        rec.counts = {k: _COUNTS[k] - v for k, v in counts.items()
+                      if _COUNTS[k] != v}
+        _COUNTS.update(counts)
+        _COUNTS["graph_captures"] += 1
+        rec.launches = [(k, k.launches - n)
+                        for k, n in zip(_native.KERNELS, launches)
+                        if k.launches != n]
+        for k, n in zip(_native.KERNELS, launches):
+            k.launches = n
+        rec.spans = [] if fr is None else fr.spans
+        rec.capacity = None if fr is None else fr.capacity
+
+
+def replayed(rec: Capture, t0: int, header) -> list:
+    """Count a replay of the captured frame ``rec``, launched at host time
+    ``t0`` (``time.perf_counter_ns``): ``graph_replays``, and the counters
+    and launches of the capture.  While a frame records, add the
+    capture's stage spans to it under the open span, timed by the graph's
+    events, and note ``header`` (the replay's copy) with the capture's
+    capacity.  Returns the spans added, for :func:`settle` before the next
+    replay."""
+    _COUNTS["graph_replays"] += 1
+    for k, v in rec.counts.items():
+        _COUNTS[k] += v
+    for kernel, n in rec.launches:
+        kernel.launches += n
+    fr = _open
+    if fr is None:
+        return []
+    outer = fr.stack[-1].name if fr.stack else None
+    added = []
+    for s in rec.spans:
+        r = _Span(s.name)
+        r.frame, r.parent = fr, outer if s.parent is None else s.parent
+        r.t0 = r.t1 = t0
+        r.ev0, r.ev1 = s.ev0, s.ev1
+        added.append(r)
+    fr.spans += added
+    note_header(header, rec.capacity)
+    return added
+
+
+def settle(spans) -> None:
+    """Read the device ms of replayed ``spans`` from their events (a wait
+    for the device), before a replay records the events again.  The last
+    span closed last: its end is the replay's last event."""
+    if spans:
+        spans[-1].ev1.synchronize()
+    for s in spans:
+        s.ms = s.ev0.elapsed_time(s.ev1)
+        s.ev0 = s.ev1 = None
+
+
 def _read(fr: _Frame) -> dict:
     spans = []
     for s in fr.spans:
         host = (s.t1 - s.t0) * 1e-6
-        if fr.cuda:
+        if s.ms is not None:
+            device = s.ms
+        elif fr.cuda:
             s.ev1.synchronize()
             device = s.ev0.elapsed_time(s.ev1)
         else:
@@ -272,9 +376,11 @@ def counters() -> dict:
     refreshes, from the pinned copy of a frame's demand),
     ``capacity_short`` (refresh or growth reads whose demand exceeded the
     capacity in force: frames that overflowed, as far as a read saw
-    them), ``overflow_frames`` (among the recorded frames; reads their
-    flags from the device), ``kernel_build_s``, ``kernel_load_s`` and
-    ``projection_cache_s``."""
+    them), ``graph_captures`` and ``graph_replays`` (frames captured into
+    and replayed from CUDA graphs; a replay counts the launches of its
+    capture in ``kernel_launches``), ``overflow_frames`` (among the
+    recorded frames; reads their flags from the device),
+    ``kernel_build_s``, ``kernel_load_s`` and ``projection_cache_s``."""
     from . import _native
 
     return dict(
@@ -287,6 +393,8 @@ def counters() -> dict:
         capacity_refreshes=_COUNTS["capacity_refreshes"],
         capacity_regrows=_COUNTS["capacity_regrows"],
         capacity_short=_COUNTS["capacity_short"],
+        graph_captures=_COUNTS["graph_captures"],
+        graph_replays=_COUNTS["graph_replays"],
         overflow_frames=sum(int(fr.overflow) for fr in _ring
                             if fr.overflow is not None),
         **_SETUP)
