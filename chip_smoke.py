@@ -26,11 +26,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    the colour and depth bit-equal to the same scene rendered with
    ``row_expand=False`` (8 frames, with launch counts of their own).  Each
    frame loop of phases 2-4f also prints its host/device split
-   (``frame_split``: the host's enqueue time per frame, and the device time
-   of frames queued back to back).  Each traced frame (phases 2-4f) prints
-   its device time by stage, every kernel attributed to one, and fails if
-   it launched a separate scan kernel (prep and the row expand scan in
-   their own pass).
+   (``gsmbench/harness/timing.py::frame_split``: the host's enqueue time per
+   frame, and the device time of frames queued back to back).  Each
+   traced frame (phases 2-4f) prints its device time by stage, every kernel
+   attributed to one, and fails if it launched a separate scan kernel (prep
+   and the row expand scan in their own pass).
 3. The realistic heavy-tailed scene (``generate_realistic_gaussians``, 1M,
    SH3) through a PLY file: ``io.ply.write_ply`` to a temporary file,
    ``load_ply`` with the native decoder (which must build and load), the
@@ -46,10 +46,6 @@ Phases (each raises on failure, and the script then exits non-zero):
    from the headline camera written to a cameras.json and read back by
    ``io.poses.load_cameras_json``: launch counts of its own, overflow 0,
    finite, non-black; file sizes and load times printed.
-3p. ``profiling.profile_depth_first_stages`` on the headline scene at the
-   rows-off frame's capacity: every stage > 0 and the total within 15% of
-   the rows-off frame's queued device time (``frame_split`` of phase 2),
-   printed side by side.
 4. Side-by-side stereo through ``render_stereo``: the headline scene at
    1920x1080 per eye (a 1080x3840 frame), its own launch counts; requires
    overflow 0, a finite frame and both halves non-black.
@@ -263,6 +259,8 @@ import sys
 import time
 from pathlib import Path
 
+from gsmbench.harness.timing import frame_split, sleep_cycles_per_ms
+
 # NVIDIA H100 SXM data sheet (dense, full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -424,25 +422,6 @@ def device_kernel_stats(prof) -> dict:
     return out
 
 
-_SLEEP_CYCLES_PER_MS = []
-
-
-def sleep_cycles_per_ms(torch) -> float:
-    """Clock cycles of ``torch.cuda._sleep`` per millisecond, measured once
-    with CUDA events."""
-    if not _SLEEP_CYCLES_PER_MS:
-        cycles = 20_000_000
-        torch.cuda._sleep(1000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(cycles)
-        end.record()
-        end.synchronize()
-        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
-    return _SLEEP_CYCLES_PER_MS[0]
-
-
 def device_ms(torch, fn, reps: int):
     """(last result, device ms per call) over ``reps`` calls after one
     warm-up, timed with CUDA events.  A sleep kernel holds the device while
@@ -457,7 +436,7 @@ def device_ms(torch, fn, reps: int):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(sleep_cycles_per_ms(torch)
+    torch.cuda._sleep(int(sleep_cycles_per_ms()
                           * (1.5 * reps * host_ms + 0.5)))
     start.record()
     for _ in range(reps):
@@ -651,37 +630,6 @@ def timed_frames(torch, render, n_lock: int = 2, n_warm: int = 3,
     return out, stats
 
 
-def frame_split(torch, render, frames: int = 5) -> dict:
-    """Host and device time of a frame, apart.  ``host_ms``: the host's time
-    to enqueue one frame while a sleep kernel holds the device, so that it
-    never waits on the device; ``device_ms``: the device time per frame of
-    those frames, which run back to back behind the sleep, so that no host
-    gap enters it.  Frames timed back to back (``timed_frames``) take about
-    the larger of the two: the frame is host-bound where ``host_ms`` is.
-    ``host_ahead`` is false where the host waited on the device (a host
-    read, or a launch queue filled by the frames queued behind the sleep),
-    and the split is then not valid."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    render()
-    torch.cuda.synchronize()
-    one_ms = (time.perf_counter() - t0) * 1e3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(sleep_cycles_per_ms(torch)
-                          * (2.0 * frames * one_ms + 1.0)))
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        render()
-    host_ms = (time.perf_counter() - t0) * 1e3 / frames
-    ahead = not start.query()
-    end.record()
-    end.synchronize()
-    return dict(host_ms=host_ms, device_ms=start.elapsed_time(end) / frames,
-                host_ahead=ahead)
-
-
 def host_syncs(torch, render, label: str) -> list:
     """The host synchronisations of one frame: ``render`` once under
     ``torch.cuda.set_sync_debug_mode("warn")``, each warning's message with
@@ -739,7 +687,7 @@ def host_waits(torch, render, label: str, hold_ms: float = 50.0,
                 slow.append(dict(ms=ms, depth=len(stack), call=str(what)[:60],
                                  at=f"{Path(where).name}:{frame.f_lineno}"))
 
-    torch.cuda._sleep(int(sleep_cycles_per_ms(torch) * hold_ms))
+    torch.cuda._sleep(int(sleep_cycles_per_ms() * hold_ms))
     sys.setprofile(prof)
     try:
         render()
@@ -850,7 +798,8 @@ def phase_headline(torch, T, kernels, n: int = 1_000_000):
         raise RuntimeError("headline: the row decomposition was not on")
     stats.update(capacity=capacity, row_capacity=row_capacity,
                  msplats_per_s=n / stats["avg"] / 1e3,
-                 split=frame_split(torch, lambda: r.render(gi, cam, W, H)))
+                 split=frame_split(lambda _: r.render(gi, cam, W, H), 5,
+                                   sleep_cycles_per_ms()))
     check_frame(torch, out, "headline")
 
     r_off = T.DepthFirstRenderer(dataclasses.replace(cfg, row_expand=False))
@@ -862,7 +811,8 @@ def phase_headline(torch, T, kernels, n: int = 1_000_000):
     stats["rows_off"] = dict(
         avg=off_stats["avg"], slot_total=off_stats["slot_total"],
         capacity=off_capacity,
-        split=frame_split(torch, lambda: r_off.render(gi, cam, W, H)))
+        split=frame_split(lambda _: r_off.render(gi, cam, W, H), 5,
+                          sleep_cycles_per_ms()))
     log("[headline] " + json.dumps({"headline_frame_ms": stats}))
     if not (torch.equal(out.color, off.color) and torch.equal(out.depth, off.depth)):
         raise RuntimeError("headline: rows-on frame differs from rows-off")
@@ -1044,8 +994,8 @@ def phase_realistic(torch, T, n: int = 1_000_000):
             max_height=H, row_expand=rows))
         outs[label], res[label] = timed_frames(
             torch, lambda r=r: r.render(gi, cam, W, H))
-        res[label]["split"] = frame_split(torch,
-                                          lambda r=r: r.render(gi, cam, W, H))
+        res[label]["split"] = frame_split(
+            lambda _, r=r: r.render(gi, cam, W, H), 5, sleep_cycles_per_ms())
         require_one_pass_scan(trace_frames(
             torch, lambda r=r: r.render(gi, cam, W, H),
             f"realistic {label} trace", frames=5), f"realistic {label}")
@@ -1133,38 +1083,6 @@ def phase_scene_files(torch, T, kernels, hl):
     return res
 
 
-def phase_profile(torch, hl):
-    """Phase 3p: ``profile_depth_first_stages`` on the headline scene (its
-    chain is the rows-off frame's, at that frame's capacity), beside the
-    same run's rows-off queued device time (``frame_split``).  Requires
-    every stage > 0 and the total within 15% of that time."""
-    from gsm_renderer_tpu_torch.profiling import (STAGES,
-                                                  profile_depth_first_stages)
-
-    cfg = hl["cfg"]
-    split = profile_depth_first_stages(
-        hl["gi"], hl["cam"], W, H, sh_degree=3, capacity=hl["off_capacity"],
-        alpha_threshold=cfg.alpha_threshold,
-        total_ink_threshold=cfg.total_ink_threshold)
-    queued = hl["stats"]["rows_off"]["split"]
-    log("[profile] " + json.dumps({
-        "profile_depth_first_stages_ms": split,
-        "rows_off_queued_device_ms": queued["device_ms"],
-        "rows_off_host_ahead": queued["host_ahead"],
-        "total_over_queued": split["total"] / queued["device_ms"]}))
-    bad = [k for k in STAGES if not split[k] > 0.0]
-    if bad:
-        raise RuntimeError(f"profile: stages {bad} took no time")
-    if not queued["host_ahead"]:
-        raise RuntimeError("profile: the rows-off split is not valid (the host "
-                           "waited on the device)")
-    if abs(split["total"] - queued["device_ms"]) > 0.15 * queued["device_ms"]:
-        raise RuntimeError(f"profile: total {split['total']:.4f} ms is not "
-                           f"within 15% of the rows-off frame's queued device "
-                           f"time {queued['device_ms']:.4f} ms")
-    return split
-
-
 def d16_tile_counts(torch, T, gi, cam, cfg, tile_w: int, capacity: int):
     """(starts, counts) of the 16-bit-key chain's tiles for a frame, on the
     device (the unclamped counts a Local frame clamps)."""
@@ -1221,7 +1139,8 @@ def phase_d16(torch, T, kernels, hl, real=None):
             lambda render=render: timed_frames(torch, render))
         check_frame(torch, out, label)
         stats.update(capacity=r._cap_state[(r._mono_key, n)]["cap"],
-                     split=frame_split(torch, render))
+                     split=frame_split(lambda _: render(), 5,
+                                       sleep_cycles_per_ms()))
         trace = trace_frames(torch, render, f"{label} trace", frames=5)
         require_one_pass_scan(trace, label)
         stats["trace"] = trace
@@ -1283,7 +1202,9 @@ def phase_hardware(torch, T, kernels, hl, st, fv):
     if out.header.row_total is not None:
         raise RuntimeError("hardware: the header carries a row total")
     capacity = r._cap_state[(r._mono_key, n)]["cap"]
-    stats.update(capacity=capacity, split=frame_split(torch, render))
+    stats.update(capacity=capacity,
+                 split=frame_split(lambda _: render(), 5,
+                                   sleep_cycles_per_ms()))
     trace = trace_frames(torch, render, "hardware trace", frames=5)
     require_one_pass_scan(trace, "hardware")
     stats["trace"] = trace
@@ -1318,7 +1239,8 @@ def phase_hardware(torch, T, kernels, hl, st, fv):
         if not torch.equal(o.depth, df.depth / df.color[..., 3].clamp_min(1e-6)):
             raise RuntimeError(f"hardware {label}: depth is not the DepthFirst "
                                "depth over max(alpha, 1e-6)")
-        s2.update(split=frame_split(torch, fn, frames=2),
+        s2.update(split=frame_split(lambda _: fn(), 2,
+                                    sleep_cycles_per_ms()),
                   trace=trace_frames(torch, fn, f"hardware {label} trace",
                                      frames=5))
         log(f"[hardware] {label}: colour bit-equal to DepthFirst, depth its "
@@ -1337,8 +1259,9 @@ def phase_stereo(torch, T, kernels, hl):
         lambda: timed_frames(torch, lambda: r.render_stereo(gi, stereo, W, H)))
     capacity = r._cap_state[(r._stereo_key, n)]["cap"]
     stats.update(capacity=capacity, shape=list(out.color.shape),
-                 split=frame_split(torch,
-                                   lambda: r.render_stereo(gi, stereo, W, H)))
+                 split=frame_split(
+                     lambda _: r.render_stereo(gi, stereo, W, H), 5,
+                     sleep_cycles_per_ms()))
     log("[stereo] " + json.dumps({"stereo_frame_ms": stats}))
     if tuple(out.color.shape) != (H, 2 * W, 4):
         raise RuntimeError(f"stereo: frame shape {tuple(out.color.shape)}")
@@ -1369,8 +1292,11 @@ def phase_foveated(torch, T, kernels, hl, st):
     # behind the sleep kernel, and the host then waits for room: two frames
     # fit
     stats.update(capacity=capacity, shape=list(out.color.shape),
-                 min_rate=FOV_MIN_RATE, split=frame_split(torch, render),
-                 split_2=frame_split(torch, render, frames=2))
+                 min_rate=FOV_MIN_RATE,
+                 split=frame_split(lambda _: render(), 5,
+                                   sleep_cycles_per_ms()),
+                 split_2=frame_split(lambda _: render(), 2,
+                                     sleep_cycles_per_ms()))
     if tuple(out.color.shape) != shape:
         raise RuntimeError(f"foveated: frame shape {tuple(out.color.shape)}, "
                            f"expected {shape}")
@@ -1771,7 +1697,9 @@ def phase_multichip(torch, T, kernels, hl, tiles8, odd, large):
                                        f"the mono frame at {tile[0]}x"
                                        f"{tile[1]}")
                 stats = dict(avg=stats["avg"], min=stats["min"],
-                             max=stats["max"], split=frame_split(torch, fn),
+                             max=stats["max"],
+                             split=frame_split(lambda _: fn(), 5,
+                                               sleep_cycles_per_ms()),
                              launches=launches, equal_to_mono=True,
                              tile=f"{tile[0]}x{tile[1]}", capacity=cap)
                 trace = trace_frames(torch, fn, f"band world 1 {label} trace",
@@ -2226,7 +2154,9 @@ def phase_fallback(torch, T, kernels, hl):
     if launches["row_expand"] != 0:
         raise RuntimeError("fallback 4K: rows ran without a KeyPlan")
     capacity = r._cap_state[(r._mono_key, n)]["cap"]
-    stats.update(capacity=capacity, split=frame_split(torch, render),
+    stats.update(capacity=capacity,
+                 split=frame_split(lambda _: render(), 5,
+                                   sleep_cycles_per_ms()),
                  trace=trace_frames(torch, render, "fallback 4K trace",
                                     frames=5))
     log("[fallback] " + json.dumps({"fallback_4k_frame_ms": stats}))
@@ -2333,7 +2263,8 @@ def fixed_frame_loop(torch, kernels, path, label, render, halves=1,
         torch, kernels, path, label,
         lambda: timed_frames(torch, render, n_lock=0, n_warm=1, n_timed=5))
     check_frame(torch, out, label, halves=halves)
-    stats.update(split=frame_split(torch, render, frames=split_frames),
+    stats.update(split=frame_split(lambda _: render(), split_frames,
+                                   sleep_cycles_per_ms()),
                  launches=launches)
     trace = trace_frames(torch, render, f"{label} trace", frames=5)
     require_one_pass_scan(trace, label)
@@ -2746,7 +2677,7 @@ def mono_tile_frame(torch, T, kernels, hl, tile):
     row_cap = 1 << (2 * int(probe.header.row_total) - 1).bit_length()
     # where no KeyPlan addresses the rows (7x5: 59,400 tiles), the frame
     # function runs rows off, as JAX's does
-    if PD._mono_key_statics(n, row_capacity=row_cap, width=W, height=H,
+    if PD.d32_key_plan(n, row_capacity=row_cap, width=W, height=H,
                             tile_w=tile[0], tile_h=tile[1],
                             near_plane=cam.near_plane,
                             far_plane=cam.far_plane) is None:
@@ -4498,7 +4429,9 @@ def frames_only(torch, T, native, n: int = 1_000_000) -> int:
             tr = trace_frames(torch, render, f"{label} trace", frames=5)
             res[label] = dict(
                 avg=st["avg"], min=st["min"], max=st["max"],
-                wall_avg=st["wall_avg"], split=frame_split(torch, render),
+                wall_avg=st["wall_avg"],
+                split=frame_split(lambda _: render(), 5,
+                                  sleep_cycles_per_ms()),
                 trace=None if tr is None else {
                     k: tr[k] for k in ("frame_wall_ms", "device_busy_ms",
                                        "idle_share", "uneven_launches")})
@@ -4543,7 +4476,6 @@ def main() -> int:
             "trace"), "headline")
         real = phase_realistic(torch, T)
         phase_scene_files(torch, T, kernels, hl)
-        phase_profile(torch, hl)
     st = phase_stereo(torch, T, kernels, hl)
     fv = phase_foveated(torch, T, kernels, hl, st)
     d16 = phase_d16(torch, T, kernels, hl, real)

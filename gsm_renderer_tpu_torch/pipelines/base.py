@@ -25,6 +25,10 @@ or growth) whose demand exceeds the capacity in force -- a frame that
 overflowed -- as ``capacity_short``; the picks and the copies run in the
 frame's ``gsm::capacity`` spans; :meth:`GaussianRenderer.capacity_state`
 is the contract's state.
+
+Every public entry of every renderer renders through one path,
+:meth:`GaussianRenderer.render_frame`: the entry gives its frame function
+and the arguments that differ, the path does the rest.
 """
 
 from __future__ import annotations
@@ -34,8 +38,13 @@ import time
 import torch
 
 from .. import profiling
-from ..config import INSTANCE_CAPACITY_FACTOR, ColorFormat, RendererConfig
+from ..config import (INSTANCE_CAPACITY_FACTOR, ColorFormat,
+                      GaussianColorSpace, RendererConfig)
+from ..kernels.project import cached_projection_inputs
+from ..profiling import span
 from ..types import GaussianInput, RendererError, RenderOutput, resolve_device
+from .common import used_sh_degree
+from .replay import FrameGraphs
 
 ADAPTIVE_MARGIN = 1.04
 ADAPTIVE_REFRESH = 64
@@ -99,6 +108,9 @@ class GaussianRenderer:
     """Base renderer.  ``device`` defaults to the card; with no card the
     constructor raises unless the caller passes ``device="cpu"``."""
 
+    #: render every frame eagerly: no CUDA graph (tests compare the two)
+    _eager_frames = False
+
     def __init__(self, config: RendererConfig | None = None, *, device=None,
                  adaptive_capacity: bool = True):
         self.config = config or RendererConfig()
@@ -107,6 +119,55 @@ class GaussianRenderer:
         self.last_gpu_time: float | None = None
         self._cap_feedback: dict = {}
         self._cap_state: dict = {}
+        self._graphs = FrameGraphs(self.device)
+
+    def render_frame(self, kind: str, gi, width: int, height: int, frame,
+                     kw: dict, *, factor: int | None = None,
+                     rows: bool | None = None, prepare=None, pose=None,
+                     stereo: bool = False, graphable=None,
+                     output=None) -> RenderOutput:
+        """The path of every public entry: the frame function ``frame`` of
+        capacity kind ``kind`` on ``gi`` at a ``width`` x ``height`` size,
+        given the entry's own keyword arguments ``kw``, which it completes.
+
+        1. ``gsm::entry``: the inputs' validation, the SH degree,
+           ``prepare()``'s keyword arguments (the foveated tables) and the
+           cached projection inputs;
+        2. the capacities of ``kind`` (``factor``: the full model's;
+           ``rows``: with the virtual-row capacity, the frame's
+           ``row_capacity``; None: the frame takes none);
+        3. ``frame(prepared=..., **kw)``, ``kw`` given the capacities, the
+           SH degree and the config's thresholds and colour space:
+           replayed or eager (``FrameGraphs.render``, given ``pose``,
+           ``stereo`` and ``graphable``; no ``pose``: eager);
+        4. the frame's demand kept as capacity feedback (:meth:`note_frame`);
+        5. ``gsm::output``: ``output(out)`` where given, then the output
+           format (:meth:`finalize_output`)."""
+        c = self.config
+        n = gi.count
+        with span("entry"):
+            self.validate_inputs(gi, width, height)
+            sh_degree = used_sh_degree(c, gi)
+            if prepare is not None:
+                kw.update(prepare())
+            prepared = cached_projection_inputs(gi, sh_degree)
+        capacity, row_capacity = self.pick_capacities(n, kind, factor,
+                                                      rows=bool(rows))
+        kw.update(capacity=capacity, sh_degree=sh_degree,
+                  alpha_threshold=c.alpha_threshold,
+                  total_ink_threshold=c.total_ink_threshold,
+                  input_is_srgb=c.gaussian_color_space
+                  == GaussianColorSpace.SRGB)
+        if rows is not None:
+            kw["row_capacity"] = row_capacity
+        out = self._graphs.render(
+            kind, frame, kw, prepared, pose=pose, stereo=stereo,
+            graphable=graphable, scan_elements=max(n, row_capacity),
+            eager=self._eager_frames)
+        self.note_frame(n, out.header, kind=kind)
+        with span("output"):
+            return self.finalize_output(out if output is None
+                                        else output(out))
 
     def _follow(self, key, kind: str, n: int, field: str, size,
                 full: int) -> int:

@@ -41,8 +41,8 @@ sorted order (:func:`sort_and_ranges`).  Both orders are
 (tile, depth, gaussian index), so the fallback renders the KeyPlan frame.
 
 The functions here open the frame's shared stage spans
-(``profiling.span``): project, binning (prep, row_expand, expand), sort
-and ranges.
+(``profiling.span``): project, binning (prep, row_expand, expand), sort,
+ranges, and the tail's blend and header (:func:`frame_output`).
 """
 
 from __future__ import annotations
@@ -51,16 +51,16 @@ from typing import NamedTuple
 
 import torch
 
-from .. import config as cfg
 from .. import mathlib as M
 from ..kernels import sort as KS
+from ..kernels.blend import blend_image
 from ..kernels.expand import binning_prep, expand_slots, row_expand
-from ..kernels.project import cached_projection_inputs, project_and_cull_packed
+from ..kernels.project import project_and_cull_packed
 # public here too: the yardsticks of the sort and of the ranges
 from ..kernels.sort import binning_sorted_tile, sort_key64  # noqa: F401
 from ..ops import binning as B
-from ..profiling import count, span
-from ..types import RenderRecord
+from ..profiling import count, note_header, span
+from ..types import FrameHeader, RenderOutput, RenderRecord
 
 
 def pack_record_words(record: RenderRecord):
@@ -297,17 +297,30 @@ def used_sh_degree(config, gi) -> int:
     return min(config.sh_degree, {1: 0, 4: 1, 9: 2, 16: 3}[gi.sh_n_coeffs])
 
 
-def d16_frame_kwargs(renderer, gi, camera, width: int, height: int) -> dict:
-    """The keyword arguments a Global or Local frame takes from the
-    renderer's config, the input and the camera (the cached projection
-    layout; not the capacity, which the renderer picks after its entry
-    span)."""
-    c = renderer.config
-    sh_degree = used_sh_degree(c, gi)
-    return dict(
-        width=width, height=height, sh_degree=sh_degree,
-        alpha_threshold=c.alpha_threshold,
-        total_ink_threshold=c.total_ink_threshold,
-        near_plane=camera.near_plane, far_plane=camera.far_plane,
-        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
-        prepared=cached_projection_inputs(gi, sh_degree))
+def frame_output(srt: SortedInstances, entry_words, *, visible, slot_total,
+                 overflow, capacity: int, counts=None, total_instances=None,
+                 row_total=None, **blend_kw) -> RenderOutput:
+    """The tail of every frame function: in ``gsm::blend`` the blend of the
+    sorted instances ``srt``, each tile's first ``counts`` ranks (default
+    all), over the ``entry_words`` (``blend_kw``: the tile grid, the size
+    and the blend's options); in ``gsm::header`` the header's sums: the
+    visible count of the projection's ``visible``, ``total_instances()``
+    (default: the sum of the blended counts) and ``row_total()`` where
+    given, beside the expand's ``slot_total`` and ``overflow``; the header
+    noted for the frame's record at its ``capacity``
+    (:func:`profiling.note_header`)."""
+    if counts is None:
+        counts = srt.counts
+    with span("blend"):
+        color, depth = blend_image(srt.key, entry_words, srt.idx_bits,
+                                   srt.starts, counts, **blend_kw)
+    with span("header"):
+        header = FrameHeader(
+            visible_count=visible.sum().to(torch.int32),
+            total_instances=(counts.sum().to(torch.int32)
+                             if total_instances is None
+                             else total_instances()),
+            overflow=overflow, slot_total=slot_total,
+            row_total=None if row_total is None else row_total())
+    note_header(header, capacity)
+    return RenderOutput(color=color, depth=depth, header=header)

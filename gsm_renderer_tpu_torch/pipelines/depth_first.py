@@ -4,9 +4,10 @@ foveated stereo.
 Port of ``gsm_renderer_tpu/pipelines/depth_first.py`` (``depth_first_frame``,
 ``depth_first_stereo_frame`` and ``depth_first_stereo_foveated_frame`` on
 their packed paths, ``DepthFirstRenderer.render`` / ``render_stereo`` /
-``render_stereo_foveated`` / ``render_stereo_foveated_compress``,
-``_mono_render``, ``_stereo_render`` and ``_stereo_foveated_render``).  A
-mono frame is
+``render_stereo_foveated`` / ``render_stereo_foveated_compress``, whose
+``_mono_render``, ``_stereo_render`` and ``_stereo_foveated_render`` are
+here the entries' arguments to ``GaussianRenderer.render_frame``,
+pipelines/base.py).  A mono frame is
 
   1. project + cull + quantize + pack        kernels/project.py   (kernel 1)
   2. binning prep: masks, counts, scan       kernels/expand.py    (kernel 2)
@@ -44,7 +45,8 @@ the same, the frame's pose block written into the graph's projection
 before each launch (pipelines/replay.py); the renderer's private
 ``_eager_frames`` set true renders them eagerly, through the same kernels
 and the same pose block.  The other frames (16-bit depth keys, the stable
-fallback, foveated) stay eager.
+fallback, foveated) stay eager: :func:`_capturable` decides with the
+KeyPlan function the frames call, :func:`d32_key_plan`.
 
 The Hardware renderer (pipelines/hardware.py) is this class with other
 settings: its mono frame expands full rects (``exact_tile_test=False``:
@@ -56,28 +58,25 @@ normalized depth.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
 
 from .. import config as cfg
 from .. import mathlib as M
-from ..kernels import blend as KB
-from ..kernels.blend import blend_image
 from ..kernels.expand import (CULLED_BIT, MASK_H, MASK_W, STEREO_R2_CUTOFF,
                               check_tile)
-from ..kernels.project import (cached_projection_inputs, pose_block,
-                               stereo_pose_block,
+from ..kernels.project import (pose_block, stereo_pose_block,
                                stereo_project_and_cull_packed)
 from ..mathlib import u32
 from ..ops import binning as B
-from ..profiling import note_header, span, traced_frame
+from ..profiling import span, traced_frame
 from ..stereo import compress_foveated, foveated_raster_tables
-from ..types import FrameHeader, RenderOutput
+from ..types import RenderOutput
 from .base import GaussianRenderer
 from .common import (binning_sort_operands, d16_key_plan, d16_packed_sorted,
-                     mono_packed_sorted, sort_and_ranges, used_sh_degree)
-from .replay import FrameGraphs
+                     frame_output, mono_packed_sorted, sort_and_ranges)
 
 
 def _row_demand(rect_word, rect_h):
@@ -99,17 +98,30 @@ def visible_rect_total(rect_word, rect_h, visible):
     return torch.where(visible, rect_w * rect_h, 0).sum().to(torch.int32)
 
 
-def _mono_key_statics(n_gaussians: int, *, width, height, tile_w, tile_h,
-                      near_plane, far_plane, row_capacity: int = 0):
-    """The mono frame's KeyPlan for 32-bit depth keys (the same plan for 16-
-    and 32-bit tile ids).  With
+def d32_key_plan(n_gaussians: int, *, width, height, tile_w, tile_h,
+                 near_plane, far_plane, row_capacity: int = 0):
+    """The KeyPlan of a frame with 32-bit depth keys over the
+    ``width`` x ``height`` tile grid: mono (the same plan for 16- and 32-bit
+    tile ids), stereo and foveated (the physical grid).  With
     ``row_capacity`` > 0 its index bits address virtual rows; None when the
-    index field no longer fits -- callers then run with
+    index field no longer fits -- the mono frame then runs with
     ``row_capacity=0``, and with no plan at all the stable fallback."""
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
     key_n = row_capacity if row_capacity > 0 else n_gaussians
     return B.make_key_plan(tiles_x * tiles_y, key_n, near_plane=near_plane,
                            far_plane=far_plane)
+
+
+def _capturable(n_gaussians: int, kw: dict) -> bool:
+    """Whether a mono or side-by-side stereo frame of ``n_gaussians`` with
+    the keyword arguments ``kw`` may be captured into a CUDA graph: with
+    32-bit depth keys under a tie-free KeyPlan (that of the frame without
+    rows, which a frame whose rows' plan does not fit falls back to).  16-bit
+    depth keys and the stable fallback stay eager."""
+    return kw.get("depth_key_bits", 32) == 32 and d32_key_plan(
+        n_gaussians, width=kw["width"], height=kw["height"],
+        tile_w=kw["tile_w"], tile_h=kw["tile_h"],
+        near_plane=kw["near_plane"], far_plane=kw["far_plane"]) is not None
 
 
 def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
@@ -178,13 +190,13 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     else:
         key_plan = None
         if row_capacity > 0:
-            key_plan = _mono_key_statics(gi.count, row_capacity=row_capacity,
-                                         **statics)
+            key_plan = d32_key_plan(gi.count, row_capacity=row_capacity,
+                                    **statics)
         if key_plan is None:
             # no rows without a row-addressing plan, as in JAX; with no
             # plan at all, the stable fallback
             row_capacity = 0
-            key_plan = _mono_key_statics(gi.count, **statics)
+            key_plan = d32_key_plan(gi.count, **statics)
         srt, packed, entry_words, slot_total, overflow = mono_packed_sorted(
             gi, view, proj, center, prepared, key_plan=key_plan,
             row_capacity=row_capacity, **chain_kw)
@@ -192,26 +204,18 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     if max_per_tile > 0:
         with span("ranges"):
             counts = torch.clamp(counts, max=max_per_tile)
-    with span("blend"):
-        color, depth = blend_image(
-            srt.key, entry_words, srt.idx_bits, srt.starts, counts,
-            tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
-            tile_w=tile_w, tile_h=tile_h, depth_mode=depth_mode,
-            r2_cutoff=r2_cutoff)
-    with span("header"):
-        header = FrameHeader(
-            visible_count=packed.visible.sum().to(torch.int32),
-            total_instances=(
-                visible_rect_total(packed.rect_word, packed.rect_h,
-                                   packed.visible)
-                if max_per_tile > 0 else counts.sum().to(torch.int32)),
-            overflow=overflow,
-            slot_total=slot_total,
-            row_total=(_row_demand(packed.rect_word, packed.rect_h)
-                       if exact_tile_test else None),
-        )
-    note_header(header, capacity)
-    return RenderOutput(color=color, depth=depth, header=header)
+    return frame_output(
+        srt, entry_words, visible=packed.visible, slot_total=slot_total,
+        overflow=overflow, capacity=capacity, counts=counts,
+        total_instances=(
+            (lambda: visible_rect_total(packed.rect_word, packed.rect_h,
+                                        packed.visible))
+            if max_per_tile > 0 else None),
+        row_total=((lambda: _row_demand(packed.rect_word, packed.rect_h))
+                   if exact_tile_test else None),
+        tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
+        tile_w=tile_w, tile_h=tile_h, depth_mode=depth_mode,
+        r2_cutoff=r2_cutoff)
 
 
 def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
@@ -233,9 +237,9 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     ``row_total`` is None.  Tiles: each side 1 to 4096 pixels."""
     check_tile(tile_w, tile_h)
     tiles_x, tiles_y = cfg.tiles_for(width, height, tile_w, tile_h)
-    num_tiles = tiles_x * tiles_y
-    key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
-                               far_plane=far_plane)
+    key_plan = d32_key_plan(gi.count, width=width, height=height,
+                            tile_w=tile_w, tile_h=tile_h,
+                            near_plane=near_plane, far_plane=far_plane)
     pp, keys, entry_words, slot_total, overflow = _stereo_packed_ops(
         gi, views, projs, centers, scene_transform, prepared, key_plan,
         width=width, height=height, capacity=capacity, tiles_x=tiles_x,
@@ -243,38 +247,36 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
         total_ink_threshold=total_ink_threshold, near_plane=near_plane,
         far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
         tile_h=tile_h)
-    srt = sort_and_ranges(keys, key_plan, num_tiles)
-    with span("blend"):
-        color, depth = blend_image(
-            srt.key, entry_words, srt.idx_bits, srt.starts, srt.counts,
-            tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
-            tile_w=tile_w, tile_h=tile_h, n_eyes=2,
-            r2_cutoff=STEREO_R2_CUTOFF, depth_mode=depth_mode)
-    with span("header"):
-        header = FrameHeader(
-            visible_count=pp.visible.sum().to(torch.int32),
-            total_instances=visible_rect_total(pp.rect_word, pp.rect_h,
-                                               pp.visible),
-            overflow=overflow, slot_total=slot_total)
-    note_header(header, capacity)
-    return RenderOutput(color=color, depth=depth, header=header)
+    return frame_output(
+        sort_and_ranges(keys, key_plan, tiles_x * tiles_y), entry_words,
+        visible=pp.visible, slot_total=slot_total, overflow=overflow,
+        capacity=capacity,
+        total_instances=lambda: visible_rect_total(pp.rect_word, pp.rect_h,
+                                                   pp.visible),
+        tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
+        tile_w=tile_w, tile_h=tile_h, n_eyes=2, r2_cutoff=STEREO_R2_CUTOFF,
+        depth_mode=depth_mode)
+
+
+def _project_eyes(gi, views, projs, centers, scene_transform, prepared,
+                  key_plan, **kw):
+    """The dual-eye projection of a stereo or foveated frame, in its
+    ``gsm::project`` span (``kw``: the projection's size, tile and
+    frame arguments)."""
+    with span("project"):
+        return stereo_project_and_cull_packed(
+            gi, views, projs, centers, scene_transform, prepared=prepared,
+            key_plan=key_plan, **kw)
 
 
 def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
-                       key_plan, *, width, height, capacity, tiles_x,
-                       sh_degree, alpha_threshold, total_ink_threshold,
-                       near_plane, far_plane, input_is_srgb, tile_w, tile_h):
-    """Dual-eye projection + stereo prep / expand up to the sort operands.
-    Returns (the projection, the keys, the 8 entry word rows, slot_total,
-    overflow)."""
-    with span("project"):
-        pp = stereo_project_and_cull_packed(
-            gi, views, projs, centers, scene_transform, prepared=prepared,
-            width=width, height=height, tile_w=tile_w, tile_h=tile_h,
-            sh_degree=sh_degree, near_plane=near_plane, far_plane=far_plane,
-            alpha_threshold=alpha_threshold,
-            total_ink_threshold=total_ink_threshold,
-            input_is_srgb=input_is_srgb, key_plan=key_plan)
+                       key_plan, *, capacity, tiles_x, tile_w, tile_h,
+                       **project):
+    """Dual-eye projection (``project``: its size and frame arguments) +
+    stereo prep / expand up to the sort operands.  Returns (the
+    projection, the keys, the 8 entry word rows, slot_total, overflow)."""
+    pp = _project_eyes(gi, views, projs, centers, scene_transform, prepared,
+                       key_plan, tile_w=tile_w, tile_h=tile_h, **project)
     return (pp, *binning_sort_operands(
         pp, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode="stereo", tile_w=tile_w, tile_h=tile_h))
@@ -341,22 +343,16 @@ def foveated_packed(pp, inv_fit, *, tiles_x: int, tiles_y: int,
 
 def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                          key_plan, tables, *, display_width, display_height,
-                         capacity, tiles_x, tiles_y, sh_degree,
-                         alpha_threshold, total_ink_threshold, near_plane,
-                         far_plane, input_is_srgb, tile_w, tile_h,
-                         foveated_lod):
-    """Dual-eye projection at the display size, re-binning onto the
-    physical tiles, warped prep / expand up to the sort operands.  Returns
-    (the display-size projection, the re-binned rect counts, the keys, the
-    8 entry word rows, slot_total, overflow)."""
-    with span("project"):
-        pp = stereo_project_and_cull_packed(
-            gi, views, projs, centers, scene_transform, prepared=prepared,
-            width=display_width, height=display_height, tile_w=tile_w,
-            tile_h=tile_h, sh_degree=sh_degree, near_plane=near_plane,
-            far_plane=far_plane, alpha_threshold=alpha_threshold,
-            total_ink_threshold=total_ink_threshold,
-            input_is_srgb=input_is_srgb, key_plan=key_plan)
+                         capacity, tiles_x, tiles_y, tile_w, tile_h,
+                         foveated_lod, **project):
+    """Dual-eye projection at the display size (``project``: its frame
+    arguments), re-binning onto the physical tiles, warped prep / expand up
+    to the sort operands.  Returns (the display-size projection, the
+    re-binned rect counts, the keys, the 8 entry word rows, slot_total,
+    overflow)."""
+    pp = _project_eyes(gi, views, projs, centers, scene_transform, prepared,
+                       key_plan, width=display_width, height=display_height,
+                       tile_w=tile_w, tile_h=tile_h, **project)
     with span("rebin"):
         warped, rect_count = foveated_packed(
             pp, tables["inv_fit"], tiles_x=tiles_x, tiles_y=tiles_y,
@@ -391,9 +387,9 @@ def depth_first_stereo_foveated_frame(
         raise ValueError(f"the foveated tables are for {tables['coord_x'].shape[1]}"
                          f"-pixel tiles, the frame's tile is {tile_w}x{tile_h}")
     tiles_x, tiles_y = cfg.tiles_for(render_width, render_height, tile_w, tile_h)
-    num_tiles = tiles_x * tiles_y
-    key_plan = B.make_key_plan(num_tiles, gi.count, near_plane=near_plane,
-                               far_plane=far_plane)
+    key_plan = d32_key_plan(gi.count, width=render_width, height=render_height,
+                            tile_w=tile_w, tile_h=tile_h,
+                            near_plane=near_plane, far_plane=far_plane)
     (pp, rect_count, keys, entry_words, slot_total,
      overflow) = _foveated_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
@@ -404,21 +400,16 @@ def depth_first_stereo_foveated_frame(
             total_ink_threshold=total_ink_threshold, near_plane=near_plane,
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h, foveated_lod=foveated_lod)
-    srt = sort_and_ranges(keys, key_plan, num_tiles)
-    with span("blend"):
-        color, depth = blend_image(
-            srt.key, entry_words, srt.idx_bits, srt.starts, srt.counts,
-            tiles_x=tiles_x, tiles_y=tiles_y, width=render_width,
-            height=render_height, tile_w=tile_w, tile_h=tile_h, n_eyes=2,
-            r2_cutoff=STEREO_R2_CUTOFF,
-            pixel_coords=(tables["coord_x"], tables["coord_y"]),
-            depth_mode=depth_mode)
-    with span("header"):
-        header = FrameHeader(visible_count=pp.visible.sum().to(torch.int32),
-                             total_instances=rect_count.sum().to(torch.int32),
-                             overflow=overflow, slot_total=slot_total)
-    note_header(header, capacity)
-    return RenderOutput(color=color, depth=depth, header=header)
+    return frame_output(
+        sort_and_ranges(keys, key_plan, tiles_x * tiles_y), entry_words,
+        visible=pp.visible, slot_total=slot_total, overflow=overflow,
+        capacity=capacity,
+        total_instances=lambda: rect_count.sum().to(torch.int32),
+        tiles_x=tiles_x, tiles_y=tiles_y, width=render_width,
+        height=render_height, tile_w=tile_w, tile_h=tile_h, n_eyes=2,
+        r2_cutoff=STEREO_R2_CUTOFF,
+        pixel_coords=(tables["coord_x"], tables["coord_y"]),
+        depth_mode=depth_mode)
 
 
 def foveated_device_tables(target, device, tile_w: int = 16,
@@ -451,23 +442,41 @@ class DepthFirstRenderer(GaussianRenderer):
     _exact_tile_test = True
     _r2_cutoff = 0.0
     _depth_mode = "weighted"
-    #: render every frame eagerly: no CUDA graph (tests compare the two)
-    _eager_frames = False
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self._graphs = FrameGraphs(self.device)
 
     @traced_frame
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
-        return _mono_render(self, gi, camera, width, height)
+        """The mono frame.  Stereo and foveated frames take neither key
+        precision, as in JAX, and render the same frame under any."""
+        c = self.config
+        depth_key_bits = c.depth_sort_key_precision.value
+        view, proj, center = (camera.view_matrix, camera.projection_matrix,
+                              camera.position)
+        tile_w, tile_h = cfg.DEPTH_FIRST_TILE
+        kw = dict(width=width, height=height, near_plane=camera.near_plane,
+                  far_plane=camera.far_plane, tile_w=tile_w, tile_h=tile_h,
+                  depth_mode=self._depth_mode if c.depth_output else "none",
+                  tile_id_bits=c.tile_id_precision.value,
+                  depth_key_bits=depth_key_bits,
+                  exact_tile_test=self._exact_tile_test,
+                  r2_cutoff=self._r2_cutoff)
+        # depth_first_frame falls back to the full-rect path when the
+        # row-addressing KeyPlan does not fit; 16-bit depth keys and full
+        # rects run without rows, as in JAX
+        return self.render_frame(
+            self._mono_key, gi, width, height,
+            partial(depth_first_frame, gi, view, proj, center), kw,
+            factor=self._mono_capacity_factor,
+            rows=(c.row_expand and depth_key_bits == 32
+                  and self._exact_tile_test),
+            pose=partial(pose_block, view, proj, center),
+            graphable=lambda: _capturable(gi.count, kw))
 
     @traced_frame
     def render_stereo(self, gi, camera, width: int,
                       height: int) -> RenderOutput:
         """Side-by-side stereo: ``camera`` a :class:`StereoCameraParams`;
         returns an (H, 2W) frame, the left eye first."""
-        return _stereo_render(self, gi, camera, width, height)
+        return self._stereo(gi, camera, width, height)
 
     @traced_frame
     def render_stereo_foveated(self, gi, camera, target) -> RenderOutput:
@@ -477,91 +486,54 @@ class DepthFirstRenderer(GaussianRenderer):
         physical target and returns a (render_height, 2 * render_width)
         frame, the left eye first (``stereo.expand_foveated`` resamples it
         to the display)."""
-        return _stereo_foveated_render(self, gi, camera, target)
+        left = camera.left
+        kw = dict(display_width=target.display_width,
+                  display_height=target.display_height,
+                  render_width=target.render_width,
+                  render_height=target.render_height,
+                  near_plane=left.near_plane, far_plane=left.far_plane,
+                  foveated_lod=self.config.foveated_lod,
+                  depth_mode=self._depth_mode)
+        # re-binned union rects are expanded in full (the warped dual-eye
+        # test prunes them)
+        return self.render_frame(
+            self._stereo_key + "_fov", gi, target.display_width,
+            target.display_height,
+            partial(depth_first_stereo_foveated_frame, gi,
+                    *_stereo_rig(camera)), kw,
+            factor=cfg.FULL_RECT_CAPACITY_FACTOR,
+            prepare=lambda: dict(tables=foveated_device_tables(target,
+                                                               self.device)))
 
     @traced_frame
     def render_stereo_foveated_compress(self, gi, camera,
                                         target) -> RenderOutput:
         """The render-full-then-compress foveated path: a full-resolution
         stereo frame resampled into the physical target (kept for
-        comparison)."""
-        out = _stereo_render(self, gi, camera, target.display_width,
-                             target.display_height)
-        with span("output"):
+        comparison); the output format applies to the resampled frame."""
+        def compress(out):
             depth = compress_foveated(out.depth[..., None], target)[..., 0]
             return RenderOutput(color=compress_foveated(out.color, target),
                                 depth=depth, header=out.header)
 
+        return self._stereo(gi, camera, target.display_width,
+                            target.display_height, output=compress)
 
-def _frame_key(kind, kw, prepared) -> tuple:
-    """The graph key of a frame of ``kind``: the frame function's keyword
-    arguments ``kw`` (all but the pose), the storage of the projection
-    inputs ``prepared`` and the blend's early-exit transmittance (a module
-    value that callers set to 0 to render without the exit)."""
-    return (kind, tuple(kw.items()), KB.MIN_TRANSMITTANCE,
-            *((t.data_ptr(), *t.shape) for t in prepared))
-
-
-def _frame(self, kind, key, render, *, pose, stereo, graphable, prepared,
-           scan_elements):
-    """The frame ``render()`` of ``kind``: on the card, where
-    ``graphable()``, through the kind's CUDA graph under ``key``, its
-    projection given the host pose block ``pose()`` (see the module
-    docstring); else as it is."""
-    if self.device.type != "cuda" or self._eager_frames:
-        return render()
-    return self._graphs.render(kind, key, render, pose=pose, stereo=stereo,
-                               graphable=graphable, keep=prepared,
-                               scan_elements=scan_elements)
-
-
-def _mono_render(self, gi, camera, width, height):
-    """The mono frame.  Stereo and foveated frames take neither key
-    precision, as in JAX, and render the same frame under any."""
-    c = self.config
-    n = gi.count
-    kind = self._mono_key
-    tile_w, tile_h = cfg.DEPTH_FIRST_TILE
-    depth_key_bits = c.depth_sort_key_precision.value
-    view, proj, center = (camera.view_matrix, camera.projection_matrix,
-                          camera.position)
-    consts = dict(width=width, height=height, near_plane=camera.near_plane,
-                  far_plane=camera.far_plane,
-                  alpha_threshold=c.alpha_threshold,
-                  total_ink_threshold=c.total_ink_threshold)
-    with span("entry"):
-        self.validate_inputs(gi, width, height)
-        sh_degree = used_sh_degree(c, gi)
-        prepared = cached_projection_inputs(gi, sh_degree)
-    # depth_first_frame falls back to the full-rect path when the
-    # row-addressing KeyPlan does not fit; 16-bit depth keys and full rects
-    # run without rows, as in JAX
-    capacity, row_cap = self.pick_capacities(
-        n, kind, self._mono_capacity_factor,
-        rows=c.row_expand and depth_key_bits == 32 and self._exact_tile_test)
-    kw = dict(
-        consts, capacity=capacity, sh_degree=sh_degree,
-        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
-        tile_w=tile_w, tile_h=tile_h,
-        depth_mode=self._depth_mode if c.depth_output else "none",
-        row_capacity=row_cap, tile_id_bits=c.tile_id_precision.value,
-        depth_key_bits=depth_key_bits, exact_tile_test=self._exact_tile_test,
-        r2_cutoff=self._r2_cutoff)
-    out = _frame(self, kind, _frame_key(kind, kw, prepared),
-                 lambda: depth_first_frame(gi, view, proj, center, prepared,
-                                           **kw),
-                 pose=lambda: pose_block(view, proj, center, **consts),
-                 stereo=False, prepared=prepared,
-                 scan_elements=max(n, row_cap),
-                 # 16-bit depth keys and the stable fallback (no KeyPlan)
-                 # stay eager
-                 graphable=lambda: depth_key_bits == 32 and _mono_key_statics(
-                     n, width=width, height=height, tile_w=tile_w,
-                     tile_h=tile_h, near_plane=camera.near_plane,
-                     far_plane=camera.far_plane) is not None)
-    self.note_frame(n, out.header, kind=kind)
-    with span("output"):
-        return self.finalize_output(out)
+    def _stereo(self, gi, camera, width, height, output=None):
+        """The side-by-side stereo frame, ``output`` applied to it."""
+        rig = _stereo_rig(camera)
+        tile_w, tile_h = cfg.DEPTH_FIRST_TILE
+        kw = dict(width=width, height=height,
+                  near_plane=camera.left.near_plane,
+                  far_plane=camera.left.far_plane, tile_w=tile_w,
+                  tile_h=tile_h, depth_mode=self._depth_mode)
+        # union rects are expanded in full (the dual-eye test prunes them)
+        return self.render_frame(
+            self._stereo_key, gi, width, height,
+            partial(depth_first_stereo_frame, gi, *rig), kw,
+            factor=cfg.FULL_RECT_CAPACITY_FACTOR,
+            pose=partial(stereo_pose_block, *rig), stereo=True,
+            graphable=lambda: _capturable(gi.count, kw), output=output)
 
 
 def _stereo_rig(camera):
@@ -573,67 +545,3 @@ def _stereo_rig(camera):
     return (np.stack([left.view_matrix, right.view_matrix]),
             np.stack([left.projection_matrix, right.projection_matrix]),
             np.stack([left.position, right.position]), st)
-
-
-def _stereo_render(self, gi, camera, width, height):
-    c = self.config
-    n = gi.count
-    kind = self._stereo_key
-    left = camera.left
-    rig = _stereo_rig(camera)
-    consts = dict(width=width, height=height, near_plane=left.near_plane,
-                  far_plane=left.far_plane,
-                  alpha_threshold=c.alpha_threshold,
-                  total_ink_threshold=c.total_ink_threshold)
-    with span("entry"):
-        self.validate_inputs(gi, width, height)
-        sh_degree = used_sh_degree(c, gi)
-        prepared = cached_projection_inputs(gi, sh_degree)
-    # union rects are expanded in full (the dual-eye test prunes them)
-    capacity, _ = self.pick_capacities(n, kind,
-                                       cfg.FULL_RECT_CAPACITY_FACTOR)
-    kw = dict(
-        consts, capacity=capacity, sh_degree=sh_degree,
-        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
-        depth_mode=self._depth_mode)
-    out = _frame(self, kind, _frame_key(kind, kw, prepared),
-                 lambda: depth_first_stereo_frame(gi, *rig, prepared, **kw),
-                 pose=lambda: stereo_pose_block(*rig, **consts), stereo=True,
-                 prepared=prepared, scan_elements=n,
-                 # the stable fallback (no KeyPlan) stays eager
-                 graphable=lambda: _mono_key_statics(
-                     n, width=width, height=height, tile_w=16, tile_h=16,
-                     near_plane=left.near_plane,
-                     far_plane=left.far_plane) is not None)
-    self.note_frame(n, out.header, kind=kind)
-    with span("output"):
-        return self.finalize_output(out)
-
-
-def _stereo_foveated_render(self, gi, camera, target):
-    c = self.config
-    n = gi.count
-    kind = self._stereo_key + "_fov"
-    with span("entry"):
-        self.validate_inputs(gi, target.display_width, target.display_height)
-        left = camera.left
-        sh_degree = used_sh_degree(c, gi)
-        tables = foveated_device_tables(target, self.device)
-        prepared = cached_projection_inputs(gi, sh_degree)
-    # re-binned union rects are expanded in full (the warped dual-eye test
-    # prunes them)
-    capacity, _ = self.pick_capacities(n, kind, cfg.FULL_RECT_CAPACITY_FACTOR)
-    out = depth_first_stereo_foveated_frame(
-        gi, *_stereo_rig(camera), tables, prepared,
-        display_width=target.display_width,
-        display_height=target.display_height,
-        render_width=target.render_width, render_height=target.render_height,
-        capacity=capacity, sh_degree=sh_degree,
-        alpha_threshold=c.alpha_threshold,
-        total_ink_threshold=c.total_ink_threshold,
-        near_plane=left.near_plane, far_plane=left.far_plane,
-        input_is_srgb=c.gaussian_color_space == cfg.GaussianColorSpace.SRGB,
-        foveated_lod=c.foveated_lod, depth_mode=self._depth_mode)
-    self.note_frame(n, out.header, kind=kind)
-    with span("output"):
-        return self.finalize_output(out)

@@ -15,15 +15,14 @@ depth16:16] key, sorted stably.
 
 from __future__ import annotations
 
-import torch
+from functools import partial
 
 from .. import config as cfg
-from ..kernels.blend import blend_image
 from ..kernels.expand import check_tile
-from ..profiling import note_header, span, traced_frame
-from ..types import FrameHeader, RenderOutput
+from ..profiling import traced_frame
+from ..types import RenderOutput
 from .base import GaussianRenderer
-from .common import d16_frame_kwargs, d16_key_plan, d16_packed_sorted
+from .common import d16_key_plan, d16_packed_sorted, frame_output
 
 
 def global_frame(gi, view, proj, center, prepared=None, *, width: int,
@@ -55,18 +54,11 @@ def global_frame(gi, view, proj, center, prepared=None, *, width: int,
         total_ink_threshold=total_ink_threshold, near_plane=near_plane,
         far_plane=far_plane, input_is_srgb=input_is_srgb,
         mode="mono" if exact_tile_test else "none")
-    with span("blend"):
-        color, depth = blend_image(
-            srt.key, packed.words, srt.idx_bits, srt.starts, srt.counts,
-            tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
-            tile_w=tile_w, tile_h=tile_h)
-    with span("header"):
-        header = FrameHeader(
-            visible_count=packed.visible.sum().to(torch.int32),
-            total_instances=srt.counts.sum().to(torch.int32),
-            overflow=overflow, slot_total=slot_total)
-    note_header(header, capacity)
-    return RenderOutput(color=color, depth=depth, header=header)
+    return frame_output(
+        srt, packed.words, visible=packed.visible, slot_total=slot_total,
+        overflow=overflow, capacity=capacity, tiles_x=tiles_x,
+        tiles_y=tiles_y, width=width, height=height, tile_w=tile_w,
+        tile_h=tile_h)
 
 
 class GlobalRenderer(GaussianRenderer):
@@ -77,14 +69,10 @@ class GlobalRenderer(GaussianRenderer):
 
     @traced_frame
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
-        with span("entry"):
-            self.validate_inputs(gi, width, height)
-            kw = d16_frame_kwargs(self, gi, camera, width, height)
-        kw["capacity"], _ = self.pick_capacities(gi.count, self._mono_key)
-        out = global_frame(
-            gi, camera.view_matrix, camera.projection_matrix, camera.position,
-            tile_w=cfg.GLOBAL_TILE[0], tile_h=cfg.GLOBAL_TILE[1],
-            **kw)
-        self.note_frame(gi.count, out.header, kind=self._mono_key)
-        with span("output"):
-            return self.finalize_output(out)
+        tile_w, tile_h = cfg.GLOBAL_TILE
+        kw = dict(width=width, height=height, near_plane=camera.near_plane,
+                  far_plane=camera.far_plane, tile_w=tile_w, tile_h=tile_h)
+        return self.render_frame(
+            self._mono_key, gi, width, height,
+            partial(global_frame, gi, camera.view_matrix,
+                    camera.projection_matrix, camera.position), kw)

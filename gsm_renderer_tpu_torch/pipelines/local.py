@@ -17,15 +17,16 @@ Mono only, as in JAX.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from .. import config as cfg
-from ..kernels.blend import blend_image
 from ..kernels.expand import check_tile
-from ..profiling import note_header, span, traced_frame
-from ..types import FrameHeader, RenderOutput
+from ..profiling import span, traced_frame
+from ..types import RenderOutput
 from .base import GaussianRenderer
-from .common import d16_frame_kwargs, d16_key_plan, d16_packed_sorted
+from .common import d16_key_plan, d16_packed_sorted, frame_output
 
 
 def local_frame(gi, view, proj, center, prepared=None, *, width: int,
@@ -52,18 +53,11 @@ def local_frame(gi, view, proj, center, prepared=None, *, width: int,
         far_plane=far_plane, input_is_srgb=input_is_srgb)
     with span("ranges"):
         counts = torch.clamp(srt.counts, max=max_per_tile)
-    with span("blend"):
-        color, depth = blend_image(
-            srt.key, packed.words, srt.idx_bits, srt.starts, counts,
-            tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
-            tile_w=tile_w, tile_h=tile_h, depth_mode="first_hit")
-    with span("header"):
-        header = FrameHeader(
-            visible_count=packed.visible.sum().to(torch.int32),
-            total_instances=counts.sum().to(torch.int32),
-            overflow=overflow, slot_total=slot_total)
-    note_header(header, capacity)
-    return RenderOutput(color=color, depth=depth, header=header)
+    return frame_output(
+        srt, packed.words, visible=packed.visible, slot_total=slot_total,
+        overflow=overflow, capacity=capacity, counts=counts, tiles_x=tiles_x,
+        tiles_y=tiles_y, width=width, height=height, tile_w=tile_w,
+        tile_h=tile_h, depth_mode="first_hit")
 
 
 class LocalRenderer(GaussianRenderer):
@@ -74,15 +68,11 @@ class LocalRenderer(GaussianRenderer):
 
     @traced_frame
     def render(self, gi, camera, width: int, height: int) -> RenderOutput:
-        with span("entry"):
-            self.validate_inputs(gi, width, height)
-            kw = d16_frame_kwargs(self, gi, camera, width, height)
-        kw["capacity"], _ = self.pick_capacities(gi.count, self._mono_key)
-        out = local_frame(
-            gi, camera.view_matrix, camera.projection_matrix, camera.position,
-            tile_w=cfg.LOCAL_TILE[0], tile_h=cfg.LOCAL_TILE[1],
-            max_per_tile=cfg.LOCAL_MAX_PER_TILE,
-            **kw)
-        self.note_frame(gi.count, out.header, kind=self._mono_key)
-        with span("output"):
-            return self.finalize_output(out)
+        tile_w, tile_h = cfg.LOCAL_TILE
+        kw = dict(width=width, height=height, near_plane=camera.near_plane,
+                  far_plane=camera.far_plane, tile_w=tile_w, tile_h=tile_h,
+                  max_per_tile=cfg.LOCAL_MAX_PER_TILE)
+        return self.render_frame(
+            self._mono_key, gi, width, height,
+            partial(local_frame, gi, camera.view_matrix,
+                    camera.projection_matrix, camera.position), kw)

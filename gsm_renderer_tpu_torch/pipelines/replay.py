@@ -15,16 +15,20 @@ block into the instantiated graph's projection node
 launch and leaves launches already queued as they were, so frames queued
 back to back each render their own camera, and the host waits for nothing.
 
-The key holds every host value that a capture bakes into its launches, the
-pose block apart: the frame kind, the storage of the projection inputs,
-the frame function's arguments (size, capacities, near and far and so the
-KeyPlan, the config fields it reads), the blend's early-exit transmittance
-and whether spans record (a graph captured with spans holds their timing
-events).  A frame kind keeps one
-graph, replaced when the key changes; the old graph's outputs are freed
-before the new capture, so that they do not add to its peak memory.  The
-first frame of a kind renders eagerly, so that every library and kernel it
-reaches is loaded before a capture.
+The key (:func:`frame_key`) holds every host value that a capture bakes
+into its launches, the pose block apart: the frame kind, the storage of the
+projection inputs, the frame function's arguments (size, capacities, near
+and far and so the KeyPlan, the config fields it reads), the blend's
+early-exit transmittance and whether spans record (a graph captured with
+spans holds their timing events).  A frame kind keeps one graph, replaced
+when the key changes; the old graph's outputs are freed before the new
+capture, so that they do not add to its peak memory.  A frame renders
+eagerly on the CPU, where the renderer's ``_eager_frames`` is set (tests
+compare the two), where its entry gives no pose block (the foveated,
+Global and Local frames), where its entry says it may not be captured
+(16-bit depth keys, the stable fallback), and as the first frame of its
+kind, so that every library and kernel it reaches is loaded before a
+capture.
 
 A capture runs on a side stream of the renderer and waits for nothing: it
 records the launches without running them, then the frame replays at once
@@ -60,6 +64,7 @@ import time
 import torch
 
 from .. import profiling
+from ..kernels import blend as KB
 from ..kernels.blend import find_output_nodes, set_outputs
 from ..kernels.expand import scan_scratch
 from ..kernels.project import find_pose_node, set_pose
@@ -101,6 +106,21 @@ class _Graph:
         return color, depth
 
 
+#: the frame arguments a pose block's frame constants are made of
+POSE_ARGS = ("width", "height", "near_plane", "far_plane", "alpha_threshold",
+             "total_ink_threshold")
+
+
+def frame_key(kind: str, kw: dict, prepared) -> tuple:
+    """The graph key of a frame of ``kind`` (see the module docstring):
+    the frame function's keyword arguments ``kw`` (all but the pose), the
+    storage of the projection inputs ``prepared``, the blend's early-exit
+    transmittance (a module value that callers set to 0 to render without
+    the exit) and whether spans record."""
+    return (kind, tuple(kw.items()), KB.MIN_TRANSMITTANCE, profiling.active(),
+            *((t.data_ptr(), *t.shape) for t in prepared))
+
+
 def copy_header(h: FrameHeader) -> FrameHeader:
     """A new header holding ``h``'s counters: stacked into one int32
     tensor, whose elements it holds."""
@@ -111,8 +131,9 @@ def copy_header(h: FrameHeader) -> FrameHeader:
 
 
 class FrameGraphs:
-    """A renderer's captured frames on a CUDA ``device``: at most one graph
-    a frame kind (see the module docstring)."""
+    """The frames of a renderer on ``device``: eager, or on the card
+    replayed from at most one graph a frame kind (see the module
+    docstring)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -120,30 +141,36 @@ class FrameGraphs:
         self._warm: set = set()
         self._stream = self._pool = None
 
-    def render(self, kind: str, key, render, *, pose, stereo: bool,
-               graphable, keep=(), scan_elements: int = 0) -> RenderOutput:
-        """The frame ``render()`` of ``kind``: the replay of its graph
-        under ``key`` with the host pose block ``pose()`` (``stereo``: the
-        dual-eye projection's); where the kind's graph has another key,
-        captured first if ``graphable()``, else eager; eager where the kind
-        has not rendered yet.  ``keep``: the tensors the frame reads
-        besides its own (the projection inputs); ``scan_elements``: the
-        most elements a prep or row-expand scan of the frame covers."""
-        key = (key, profiling.active())
+    def render(self, kind: str, frame, kw: dict, prepared, *, pose=None,
+               stereo: bool = False, graphable=None, scan_elements: int = 0,
+               eager: bool = False) -> RenderOutput:
+        """The frame ``frame(prepared=prepared, **kw)`` of ``kind``: on the
+        card the replay of the kind's graph under :func:`frame_key`, its
+        projection given the pose block ``pose(**kw's POSE_ARGS)``
+        (``stereo``: the dual-eye projection's), captured first where the
+        key is new and ``graphable()``; eager on the CPU, with ``eager``,
+        without ``pose``, where the key is new and not ``graphable()``, and
+        where the kind has not rendered yet.  ``prepared``: the projection
+        inputs, which the graph keeps; ``scan_elements``: the most elements
+        a prep or row-expand scan of the frame covers."""
+        if pose is None or eager or self.device.type != "cuda":
+            return frame(prepared=prepared, **kw)
+        key = frame_key(kind, kw, prepared)
         g = self._graphs.get(kind)
         if g is None or g.key != key:
             if kind not in self._warm or not graphable():
                 self._warm.add(kind)
-                return render()
+                return frame(prepared=prepared, **kw)
             if g is not None:
                 g.next = None  # its memory serves the new capture
             try:
-                g = self._capture(key, render, stereo, keep, scan_elements)
+                g = self._capture(key, lambda: frame(prepared=prepared, **kw),
+                                  stereo, prepared, scan_elements)
             except BaseException:
                 self._graphs.pop(kind, None)
                 raise
             self._graphs[kind] = g
-        return self._replay(g, pose())
+        return self._replay(g, pose(**{k: kw[k] for k in POSE_ARGS}))
 
     def _capture(self, key, render, stereo, keep, scan_elements) -> _Graph:
         if self._stream is None:

@@ -19,7 +19,7 @@ import torch
 import gsm_renderer_tpu_torch as T
 from gsm_renderer_tpu_torch import profiling as P
 from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
-from gsm_renderer_tpu_torch.pipelines import base, depth_first
+from gsm_renderer_tpu_torch.pipelines import base, common
 from gsm_renderer_tpu_torch.pipelines.base import instance_capacity
 
 W, H, N = 128, 96, 6000
@@ -47,7 +47,8 @@ def one_thread():
 
 @pytest.fixture
 def no_blend(monkeypatch):
-    """The frames' blend replaced by blank images of its shapes."""
+    """The frames' blend (in their tail, ``common.frame_output``) replaced
+    by blank images of its shapes."""
     def blank(*args, tiles_x, tiles_y, width, height, n_eyes=1,
               depth_mode="weighted", **kwargs):
         dev = args[0].device
@@ -56,7 +57,7 @@ def no_blend(monkeypatch):
                  else torch.zeros((height, n_eyes * width), device=dev))
         return color, depth
 
-    monkeypatch.setattr(depth_first, "blend_image", blank)
+    monkeypatch.setattr(common, "blend_image", blank)
 
 
 def scene(device="cpu"):

@@ -32,8 +32,9 @@ from gsm_renderer_tpu_torch import profiling as P
 from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
 from gsm_renderer_tpu_torch.kernels import blend as KB
 from gsm_renderer_tpu_torch.kernels import project as KP
-from gsm_renderer_tpu_torch.pipelines import base, depth_first
+from gsm_renderer_tpu_torch.pipelines import base, depth_first, replay
 from gsm_renderer_tpu_torch.pipelines.replay import copy_header
+from gsmbench.harness.timing import sleep_cycles_per_ms
 
 CSRC = Path(KP.__file__).resolve().parent.parent / "csrc" / "project.cu"
 W, H, N = 128, 96, 6000
@@ -212,16 +213,17 @@ def test_pose_block_follows_the_projection():
 
 @pytest.fixture
 def keys(monkeypatch):
-    """The graph key each frame computes and whether it may be captured,
-    in order."""
+    """The graph key replay.py builds for each frame (``frame_key``) and
+    whether the frame may be captured, in order."""
     got = []
-    frame = depth_first._frame
+    render = replay.FrameGraphs.render
 
-    def record(self, kind, key, render, **kw):
-        got.append((key, kw["graphable"]()))
-        return frame(self, kind, key, render, **kw)
+    def record(self, kind, frame, kw, prepared, **graph):
+        got.append((replay.frame_key(kind, kw, prepared),
+                    graph["graphable"]()))
+        return render(self, kind, frame, kw, prepared, **graph)
 
-    monkeypatch.setattr(depth_first, "_frame", record)
+    monkeypatch.setattr(replay.FrameGraphs, "render", record)
     return got
 
 
@@ -457,7 +459,7 @@ def test_card_queued_frames_read_their_own_pose(card, entry):
         want.append(fe(k))
         torch.cuda.synchronize()
     c0 = P.counters()
-    torch.cuda._sleep(int(P._sleep_cycles_per_ms() * 200))
+    torch.cuda._sleep(int(sleep_cycles_per_ms() * 200))
     mark = torch.cuda.Event()
     mark.record()
     outs = [fg(k) for k in poses]

@@ -200,7 +200,7 @@ def test_rows_frame_bit_equal_to_rows_off():
     ds = heavy(600, 17)
     base = port_frame(ds, 0, 4096 * 24)
     rows = port_frame(ds, 8192, 4096 * 24)
-    assert TD._mono_key_statics(600, width=W, height=H, tile_w=16, tile_h=16,
+    assert TD.d32_key_plan(600, width=W, height=H, tile_w=16, tile_h=16,
                                 near_plane=NEAR, far_plane=FAR,
                                 row_capacity=8192).idx_bits == 13
     assert int(base.header.overflow) == int(rows.header.overflow) == 0

@@ -173,7 +173,7 @@ def blend(srt, words, **kw):
 
 @pytest.mark.parametrize("mode", ["mono", "none"])
 def test_mono_chain_without_plan_renders_the_keyplan_frame(scene, mode):
-    plan = TD._mono_key_statics(N, width=W, height=H, tile_w=16, tile_h=16,
+    plan = TD.d32_key_plan(N, width=W, height=H, tile_w=16, tile_h=16,
                                 near_plane=NEAR, far_plane=FAR)
     assert plan is not None
     kw = dict(depth_mode="normalized", r2_cutoff=9.0) if mode == "none" else {}

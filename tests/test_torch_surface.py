@@ -83,6 +83,9 @@ NO_COUNTERPART = {
     ("profiling", "profile_depth_first_stages_upto"):
         "deprecated in JAX: it only shows XLA's dead-code-elimination bias, "
         "which eager PyTorch has not",
+    ("profiling", "profile_depth_first_stages"):
+        "the spans of the frames the renderers render are the stage split: "
+        "profiling.enable(True), render, profiling.frames()",
 }
 
 
@@ -195,8 +198,6 @@ NO_KEYWORD = {
     ("pipelines.hardware", "hardware_frame"): dict(blocks_per_dma=_DMA),
     ("pipelines.local", "local_frame"): dict(
         use_xla_blend=_XLA_BLEND, interpret=_PALLAS),
-    ("profiling", "profile_depth_first_stages"): dict(
-        use_pallas="the port's frames always run the hand kernels"),
 }
 
 

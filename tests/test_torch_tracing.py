@@ -271,22 +271,6 @@ def test_overflow_frames(spans_off):
     assert P.counters()["overflow_frames"] == 0
 
 
-def test_profile_reads_the_rows_off_frame(spans_off):
-    """profile_depth_first_stages renders the rows-off frame with the spans
-    on, keeps its frames in the ring and leaves the spans off."""
-    gi, cam = scene(), T.make_camera(W, H, far=20.0)
-    out = P.profile_depth_first_stages(gi, cam, W, H, sh_degree=1)
-    recs = P.frames()
-    assert len(recs) == P.PROFILE_FRAMES + 1 and not P.active()
-    for rec in recs:
-        assert merged([s["name"] for s in rec["spans"]]) == [
-            "frame", "project", *BINNING]
-    for k in P.STAGES:
-        want = sum(s["device_ms"] for rec in recs[-P.PROFILE_FRAMES:]
-                   for s in rec["spans"] if s["name"] == k) / P.PROFILE_FRAMES
-        assert out[k] == pytest.approx(want, rel=1e-12)
-
-
 READERS = ("entry_host_ms", "span_project_ms", "span_binning_ms",
            "span_sort_ms", "span_blend_ms", "span_header_ms",
            "dead_slot_share")
