@@ -740,14 +740,17 @@ def sort_audit(torch, label):
         state["sorted"] = out[0]
         return out
 
-    def audited_ranges(sorted_key, plan, num_tiles):
-        out = tile_ranges(sorted_key, plan, num_tiles)
+    def audited_ranges(sorted_key, plan, num_tiles, max_per_tile=0):
+        out = tile_ranges(sorted_key, plan, num_tiles, max_per_tile)
         if not state["checked"] and sorted_key is state["sorted"]:
             tile = PC.binning_sorted_tile(
                 sorted_key,
                 plan_tuple=None if plan is None else plan.kernel_tuple)
+            starts, counts = OB.extract_tile_ranges(tile, num_tiles)
+            if max_per_tile > 0:
+                counts = torch.clamp(counts, max=max_per_tile)
             require_exact(torch, f"{label}: tile ranges", list(zip(
-                out, OB.extract_tile_ranges(tile, num_tiles))))
+                out, (starts, counts, counts.sum().to(torch.int32)))))
             state["checked"] = 1
             SORT_AUDITS.append(dict(path=label, slots=sorted_key.shape[0],
                                     tiles=num_tiles,
@@ -1090,7 +1093,7 @@ def d16_tile_counts(torch, T, gi, cam, cfg, tile_w: int, capacity: int):
     from gsm_renderer_tpu_torch.pipelines import common as PC
 
     tiles_x, tiles_y = -(-W // tile_w), -(-H // 16)
-    srt, _packed, _total, _overflow = PC.d16_packed_sorted(
+    srt, _packed, _total, _overflow, _sums = PC.d16_packed_sorted(
         gi, cam.view_matrix, cam.projection_matrix, cam.position,
         cached_projection_inputs(gi, 3),
         key_plan=PC.d16_key_plan(tiles_x * tiles_y, gi.count), width=W,
@@ -1881,7 +1884,7 @@ def sort_rows(torch, label, key1, key2, shift, num_tiles, launches):
                      ms - copy_ms, plain_ms, 0.0, 16 * n, 0)
     srt.update(library_ms=lib_ms, copy_ms=copy_ms,
                pass_bound_ms=8 * 16 * n / HBM_BYTES_PER_S * 1e3)
-    (starts, counts), ms, plain, plain_ms = timed_pair(
+    (starts, counts, total), ms, plain, plain_ms = timed_pair(
         torch, "sort_ranges",
         lambda: KS.sort_ranges_cuda(got, num_tiles, shift),
         lambda: KS.sort_ranges_plain(got, num_tiles, shift), reps=20,
@@ -1889,7 +1892,7 @@ def sort_rows(torch, label, key1, key2, shift, num_tiles, launches):
     _, lib_ms = device_ms(
         torch, lambda: KS.sort_ranges_plain(got, num_tiles, shift), 20)
     require_exact(torch, f"sort_ranges{label}", [
-        (starts, plain[0]), (counts, plain[1])])
+        (starts, plain[0]), (counts, plain[1]), (total, plain[2])])
     ranges = kernel_row(f"sort_ranges{label}", "sort_ranges",
                         launches["sort_ranges"], ms, plain_ms, 0.0,
                         8 * n + 12 * num_tiles + 4, 0)
@@ -1982,7 +1985,7 @@ def band_kernel_rows(torch, hl, band_launches, tile_w: int, tile_h: int = 16):
     rows.append(kernel_row("prep.band" + suffix, "prep",
                            band_launches["prep_band"], ms, plain_ms, 0.0,
                            4 * 4 * n + 4 * (n + 1) + 3 * 4 * n, 0.0))
-    offsets, rect, mask, dsw = pk
+    offsets, rect, mask, dsw, _sums = pk
     total = int(offsets[n])
     cap = -(-total // 4096) * 4096
     counts_g = (offsets[1:] - offsets[:-1]).to(torch.int64)
@@ -2070,7 +2073,7 @@ def stable_sort_rows(torch, hl, world_1):
     cap_f = hl["off_capacity"]
     ops, rows = {}, []
     for label, p in (("keyplan", full_plan), ("tile_key", None)):
-        off_f, rect_f, mask_f, dsw_f = KE.binning_prep_band_cuda(
+        off_f, rect_f, mask_f, dsw_f, _sums = KE.binning_prep_band_cuda(
             *prep_in, band0=0, band1=tiles_y, key_plan=p)
         fin = (off_f, rect_f, mask_f, dsw_f, words)
         fkw = dict(capacity=cap_f, tiles_x=tiles_x, key_plan=p)
@@ -2168,7 +2171,8 @@ def phase_fallback(torch, T, kernels, hl):
                          alpha_threshold=cfg.alpha_threshold,
                          total_ink_threshold=cfg.total_ink_threshold,
                          input_is_srgb=False, key_plan=None)
-    off, rect, mask = KE.binning_prep_cuda(pk.rect_word, pk.rect_h, pk.words)
+    off, rect, mask, _sums = KE.binning_prep_cuda(pk.rect_word, pk.rect_h,
+                                                  pk.words)
     ekw = dict(capacity=capacity, tiles_x=tiles_x, key_plan=None)
     exp_in = (off, rect, mask, pk.dsw, pk.words)
     ek = KE.expand_slots_cuda(*exp_in, **ekw)
@@ -2194,7 +2198,7 @@ def phase_fallback(torch, T, kernels, hl):
                near_plane=hl["cam"].near_plane, far_plane=hl["cam"].far_plane,
                input_is_srgb=False)
     hcam = hl["cam"]
-    hs, _packed, words, _total, overflow = PC.mono_packed_sorted(
+    hs, _packed, words, _total, overflow, _sums = PC.mono_packed_sorted(
         hl["gi"], hcam.view_matrix, hcam.projection_matrix, hcam.position,
         key_plan=None, **hkw)
     hc, hd = KB.blend_image_cuda(hs.key, words, hs.idx_bits, hs.starts,
@@ -2344,11 +2348,12 @@ def mono_tile_rows(torch, T, hl, tile, fr):
     bkw = dict(tile_w=tw, tile_h=th)
     prep_in = (pk.rect_word, pk.rect_h, pk.words)
     count_rows = r_cap > 0
-    (off, rect, mask), ms, prep_p, plain_ms = timed_pair(
+    (off, rect, mask, sums), ms, prep_p, plain_ms = timed_pair(
         torch, "prep",
         lambda: KE.binning_prep_cuda(*prep_in, count_rows=count_rows, **bkw),
         lambda: KE.binning_prep_plain(*prep_in, count_rows=count_rows, **bkw))
-    require_exact(torch, f"prep.{tag}", list(zip((off, rect, mask), prep_p)))
+    require_exact(torch, f"prep.{tag}",
+                  list(zip((off, rect, mask, sums), prep_p)))
     rows.append(kernel_row(
         f"prep.{tag}", "prep", launches["prep"], ms, plain_ms, 0.0,
         (6 + 3) * 4 * n + 4,
@@ -2488,11 +2493,11 @@ def stereo_tile_rows(torch, T, hl, st, tile, fr, fov=None, no_cutoff=False):
         bound_bytes = 2 * 128 * 4
         coords = (tables["coord_x"], tables["coord_y"])
     prep_in = (packed.rect_word, packed.rect_h, packed.words)
-    (off, rect, mask), ms, prep_p, plain_ms = timed_pair(
+    (off, rect, mask, sums), ms, prep_p, plain_ms = timed_pair(
         torch, "prep", lambda: KE.binning_prep_cuda(*prep_in, **prep_kw),
         lambda: KE.binning_prep_plain(*prep_in, **prep_kw))
     require_exact(torch, f"prep.{kind}.{tag}",
-                  list(zip((off, rect, mask), prep_p)))
+                  list(zip((off, rect, mask, sums), prep_p)))
     lod_word = fov is not None and cfg.foveated_lod > 0
     rows.append(kernel_row(
         f"prep.{kind}.{tag}", "prep", launches["prep"], ms, plain_ms, 0.0,
@@ -2591,11 +2596,11 @@ def full_rect_rows(torch, T, hl, hwf, glf, tile=(32, 16)):
                             far_plane=cam.far_plane)
     pk = KP.project_cuda(*args, key_plan=plan, **pkw)
     prep_in = (pk.rect_word, pk.rect_h, pk.words)
-    (off, rect, mask), ms, (off_p, _r, _m), plain_ms = timed_pair(
+    (off, rect, mask, sums), ms, (off_p, _r, _m, sums_p), plain_ms = timed_pair(
         torch, "prep", lambda: KE.binning_prep_cuda(*prep_in, mode="none",
                                                     **bkw),
         lambda: KE.binning_prep_plain(*prep_in, mode="none", **bkw))
-    require_exact(torch, f"prep.none.{tag}", [(off, off_p)])
+    require_exact(torch, f"prep.none.{tag}", [(off, off_p), (sums, sums_p)])
     rows.append(kernel_row(f"prep.none.{tag}", "prep",
                            (hwf or glf)["launches"]["prep"], ms, plain_ms,
                            0.0, 3 * 4 * n + 4, 0.0))
@@ -2905,10 +2910,10 @@ def d16_tile_rows(torch, T, hl, tile, fr, local):
                            PROJECT_FLOPS * n))
     bkw = dict(tile_w=tw, tile_h=th)
     prep_in = (dk.rect_word, dk.rect_h, dk.words)
-    (off, rect, mask), ms, prep_p, plain_ms = timed_pair(
+    (off, rect, mask, sums), ms, prep_p, plain_ms = timed_pair(
         torch, "prep", lambda: KE.binning_prep_cuda(*prep_in, **bkw),
         lambda: KE.binning_prep_plain(*prep_in, **bkw))
-    require_exact(torch, f"prep.d16.{tag}", list(zip((off, rect, mask),
+    require_exact(torch, f"prep.d16.{tag}", list(zip((off, rect, mask, sums),
                                                      prep_p)))
     rows.append(kernel_row(
         f"prep.d16.{tag}", "prep", launches["prep"], ms, plain_ms, 0.0,
@@ -3154,12 +3159,12 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
 
     # kernel 2: prep, counting virtual rows as the rows-on frame does
     prep_in = (pk.rect_word, pk.rect_h, pk.words)
-    (off, rect, mask), ms = device_ms(
+    (off, rect, mask, sums), ms = device_ms(
         torch, lambda: KE.binning_prep_cuda(*prep_in, count_rows=True), 20)
-    (off_p, rect_p, mask_p), plain_ms = cuda_ms(
+    (off_p, rect_p, mask_p, sums_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*prep_in, count_rows=True), 3)
     err, flips = check_ints(torch, "prep", [(off, off_p), (rect, rect_p),
-                                            (mask, mask_p)])
+                                            (mask, mask_p), (sums, sums_p)])
     record("prep", "prep", mono_l["prep"], ms, plain_ms, err, flips,
            (6 + 3) * 4 * n + 4,
            PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(pk.rect_word,
@@ -3244,12 +3249,13 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
                              far_plane=cam.far_plane)
     pk0 = KP.project_cuda(*args, **dict(pkw, key_plan=plan0))
     prep0_in = (pk0.rect_word, pk0.rect_h, pk0.words)
-    (off0, rect0, mask0), ms = device_ms(
+    (off0, rect0, mask0, sums0), ms = device_ms(
         torch, lambda: KE.binning_prep_cuda(*prep0_in, count_rows=False), 20)
-    (off0_p, rect0_p, mask0_p), plain_ms = cuda_ms(
+    (off0_p, rect0_p, mask0_p, sums0_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*prep0_in, count_rows=False), 3)
     err, flips = check_ints(torch, "prep.rows_off", [
-        (off0, off0_p), (rect0, rect0_p), (mask0, mask0_p)])
+        (off0, off0_p), (rect0, rect0_p), (mask0, mask0_p),
+        (sums0, sums0_p)])
     record("prep.rows_off", "prep", off_l["prep"], ms, plain_ms, err, flips,
            (6 + 3) * 4 * n + 4,
            PREP_DECODE_FLOPS * n + TILE_TEST_FLOPS * tile_tests(pk0.rect_word,
@@ -3296,12 +3302,13 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
            STEREO_PROJECT_FLOPS * n)
 
     sprep_in = (sk.rect_word, sk.rect_h, sk.words)
-    (soff, srect, smask), ms = device_ms(
+    (soff, srect, smask, ssums), ms = device_ms(
         torch, lambda: KE.binning_prep_cuda(*sprep_in, mode="stereo"), 20)
-    (soff_p, srect_p, smask_p), plain_ms = cuda_ms(
+    (soff_p, srect_p, smask_p, ssums_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*sprep_in, mode="stereo"), 3)
     err, flips = check_ints(torch, "prep.stereo", [
-        (soff, soff_p), (srect, srect_p), (smask, smask_p)])
+        (soff, soff_p), (srect, srect_p), (smask, smask_p),
+        (ssums, ssums_p)])
     record("prep.stereo", "prep", st_l["prep"], ms, plain_ms, err, flips,
            # words 0-2 and 4-6: the stereo cutoff needs no opacity word
            (2 + 6 + 3) * 4 * n + 4,
@@ -3388,12 +3395,13 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
 
     fprep_in = (fpk.rect_word, fpk.rect_h, fpk.words)
     fprep_kw = dict(mode="warped", warped_bounds=bounds, lod_min=lod)
-    (foff, frect, fmask), ms = device_ms(
+    (foff, frect, fmask, fsums), ms = device_ms(
         torch, lambda: KE.binning_prep_cuda(*fprep_in, **fprep_kw), 20)
-    (foff_p, frect_p, fmask_p), plain_ms = cuda_ms(
+    (foff_p, frect_p, fmask_p, fsums_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*fprep_in, **fprep_kw), 3)
     err, flips = check_ints(torch, "prep.warped", [
-        (foff, foff_p), (frect, frect_p), (fmask, fmask_p)])
+        (foff, foff_p), (frect, frect_p), (fmask, fmask_p),
+        (fsums, fsums_p)])
     # the gather's planes reproduce the kernel's masks through the plain
     # warped masks
     w64 = [x.to(torch.int64) & 0xFFFFFFFF for x in fpk.words]
@@ -3483,18 +3491,18 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
         d_plan = OB.make_key_plan(dtx * dty, n, depth_span_bits=16)
         dprep_in = (dk.rect_word, dk.rect_h, dk.words)
         if tw == 32:
-            (doff, drect, dmask), ms = device_ms(
+            (doff, drect, dmask, dsums), ms = device_ms(
                 torch, lambda: KE.binning_prep_cuda(*dprep_in, tile_w=32), 20)
             dprep_p, plain_ms = cuda_ms(
                 torch, lambda: KE.binning_prep_plain(*dprep_in, tile_w=32), 3)
             err, flips = check_exact("prep.tile32", list(zip(
-                (doff, drect, dmask), dprep_p)))
+                (doff, drect, dmask, dsums), dprep_p)))
             record("prep.tile32", "prep", launches["prep"], ms, plain_ms, err,
                    flips, (6 + 3) * 4 * n + 4,
                    PREP_DECODE_FLOPS * n
                    + TILE_TEST_FLOPS * tile_tests(dk.rect_word, dk.rect_h))
         else:
-            doff, drect, dmask = KE.binning_prep_cuda(*dprep_in)
+            doff, drect, dmask, _dsums = KE.binning_prep_cuda(*dprep_in)
         dcap = d16[label]["stats"]["capacity"]
         dekw = dict(capacity=dcap, tiles_x=dtx, key_plan=d_plan, tile_w=tw)
         dexp_in = (doff, drect, dmask, dk.dsw, dk.words)
@@ -3512,7 +3520,8 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
         else:
             dek = KE.expand_slots_cuda(*dexp_in, **dekw)
         d_sorted = PC.sort_instances(dek[0], dek[1])
-        d_starts, d_counts = PC.tile_ranges(d_sorted, d_plan, dtx * dty)
+        d_starts, d_counts, _total = PC.tile_ranges(d_sorted, d_plan,
+                                                    dtx * dty)
         mode = "weighted" if tw == 32 else "first_hit"
         name = "blend.tile32" if tw == 32 else "blend.first_hit"
         if tw == 16:  # Local's per-tile clamp
@@ -3558,13 +3567,13 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     # blend with normalized depth on the stereo frame's tensors; each
     # bit-equal to its plain version and to the renderer's frame
     hw_l, hs_l = hw["launches"], hw["stereo_launches"]
-    (hoff, hrect, hmask), ms = device_ms(
+    (hoff, hrect, hmask, hsums), ms = device_ms(
         torch, lambda: KE.binning_prep_cuda(*prep0_in, mode="none"), 20)
-    (hoff_p, _hrect_p, hmask_p), plain_ms = cuda_ms(
+    (hoff_p, _hrect_p, hmask_p, hsums_p), plain_ms = cuda_ms(
         torch, lambda: KE.binning_prep_plain(*prep0_in, mode="none"), 3)
     if hmask is not None or hmask_p is not None or hrect is not pk0.rect_word:
         raise RuntimeError("prep.none: wrote a mask or a rect word")
-    err, flips = check_exact("prep.none", [(hoff, hoff_p)])
+    err, flips = check_exact("prep.none", [(hoff, hoff_p), (hsums, hsums_p)])
     # the rect word and rect_h of each gaussian read, its offset written
     record("prep.none", "prep", hw_l["prep"], ms, plain_ms, err, flips,
            3 * 4 * n + 4, 0.0)
@@ -3580,7 +3589,8 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
            (n + 1) * 4 + 2 * 4 * n + 2 * 4 * hcap, 0.0)
     h_sorted, hsort_ms = device_ms(
         torch, lambda: PC.sort_instances(hek[0], hek[1]), 10)
-    h_starts, h_counts = PC.tile_ranges(h_sorted, plan0, tiles_x * tiles_y)
+    h_starts, h_counts, _total = PC.tile_ranges(h_sorted, plan0,
+                                                tiles_x * tiles_y)
     other.append(dict(name="instance sort, Hardware frame (the pack and "
                       "CUB's keys-only sort)", ms=hsort_ms, elements=hcap,
                       bound_ms=16 * hcap / HBM_BYTES_PER_S * 1e3))
@@ -3909,7 +3919,7 @@ def phase_prep_tables(torch, bounds) -> dict:
                            KE.binning_prep_plain(*args, **kw))
                 if not kw.get("count_rows"):
                     continue
-                off, rect, mask = out
+                off, rect, mask, _sums = out
                 total = int(off[n])
                 for cap in (max(total // 2, 1), total, total + 300):
                     rargs, rkw = (off, rect, mask, dsw, w8[:4]), dict(
@@ -4051,7 +4061,7 @@ def largest_tile(T, gi, view, kw):
     out = PD.depth_first_frame(gi, *view, **tk, **kw)
     plan = OB.make_key_plan(1, gi.count, near_plane=kw["near_plane"],
                             far_plane=kw["far_plane"])
-    srt, _packed, words, _total, _overflow = PC.mono_packed_sorted(
+    srt, _packed, words, _total, _overflow, _sums = PC.mono_packed_sorted(
         gi, *view, None, key_plan=plan, row_capacity=0, tiles_x=1,
         tiles_y=1, mode="mono", **tk, **kw)
     color, depth = KB.assemble_image(
@@ -4293,7 +4303,7 @@ def band_blend_call(scene: dict, tile, n: int):
         total_ink_threshold=cfg.total_ink_threshold, input_is_srgb=False)
     plan = OB.make_key_plan(tiles_x * bands, n, near_plane=cam.near_plane,
                             far_plane=cam.far_plane)
-    off, rect, mask, dsw = KE.binning_prep_band(
+    off, rect, mask, dsw, _sums = KE.binning_prep_band(
         *block[4:8], band0=bs[1], band1=bs[2], key_plan=plan)
     words = list(block[:4])
     keys = KE.expand_slots(off, rect, mask, dsw, words,

@@ -67,6 +67,26 @@
 // skips the value that would give tag 0; a status word of 2^32 - 1 launches
 // ago would read as current if no launch since had reached its tile.
 //
+// The header's sums.  Every prep launch also writes the frame header's
+// three sums over its gaussians into a record of three ints (sums): the
+// visible count (the input rect word's CULLED bit clear: the projection's
+// visibility), the visible rect total (rect_w * rect_h of each visible
+// gaussian) and the row demand (rect_h for a visible rect wider than 8 or
+// taller than 4 tiles, else 1), each modulo 2^32 as the int64 torch sums
+// they replace, cut to int32, give them.  Mode band states the same terms of
+// its band clamp (visible in the band, rect_w * rows in the band).  Each
+// block reduces its gaussians' terms; while warp 0 looks back, lanes 0-2 of
+// warp 1 add the block's three partials to three accumulator words beside
+// the ticket, one 64-bit atomicAdd each of (partial << 24) + 1: the low 24
+// bits count the blocks that arrived (at most 2^24 - 1, so no carry
+// reaches the sum), the high 40 the sum.  The lane whose add finds every
+// other block arrived holds the total, writes it and zeroes the word for
+// the next launch on the stream, so, as for the status words, nothing is
+// zeroed per call and the sums add no launch.  Under count_rows the row
+// demand is the scan's own total, offsets[n]: the last tile writes it, and
+// its word is not touched.  (That equals the row term's sum wherever a
+// visible gaussian's rect_h is at least 1, as the projections write it.)
+//
 // Mode band (gsm_prep_band, the band-sharded frame's) replaces the JAX
 // package's XLA band clamp (gsm_renderer_tpu/parallel/multichip.py:245-283
 // with binning_inputs' mask_override) and the exclusive scan of
@@ -241,10 +261,12 @@ __device__ __forceinline__ void block_exclusive_scan(const int (&v)[kItems],
 // One-pass scan with decoupled look-back (see the note at the top)
 // ---------------------------------------------------------------------------
 
-// The look-back scratch of a launch: the ticket word and the tile statuses.
+// The look-back scratch of a launch: the ticket word, the tile statuses
+// and prep's three accumulators of the header's sums.
 struct ScanState {
   unsigned long long* ticket;
   unsigned long long* status;
+  unsigned long long* sums;
   int num_tiles;
 };
 
@@ -324,20 +346,31 @@ __device__ __forceinline__ int look_back(const ScanState& st, int tile,
   return prefix;
 }
 
+// No work beside the look-back (the row expansion's scan).
+struct NoSideWork {
+  __device__ void operator()(int) const {}
+};
+
 // The scan of kItems counts a thread over the launch's tiles, in the order
 // (item, thread): excl[k] = the global exclusive offset of the thread's
-// k-th count; *end = the tile's inclusive prefix.  Every thread calls it.
-template <int kThreads, int kItems>
+// k-th count; *end = the tile's inclusive prefix.  While warp 0 looks
+// back, warp 1 runs side(lane), after the block's first barrier.  Every
+// thread calls it.
+template <int kThreads, int kItems, typename Side = NoSideWork>
 __device__ __forceinline__ void scan_counts(const ScanState& st, int tile,
                                             uint32_t tag,
                                             const int (&count)[kItems],
-                                            int (&excl)[kItems], int* end) {
+                                            int (&excl)[kItems], int* end,
+                                            Side side = Side()) {
+  static_assert(kThreads >= 64, "warp 1 runs the side work");
   __shared__ int s_prefix;
   int aggregate;
   block_exclusive_scan<kThreads, kItems>(count, excl, &aggregate);
   if (threadIdx.x < 32) {
     const int p = look_back(st, tile, tag, aggregate);
     if (threadIdx.x == 0) s_prefix = p;
+  } else if (threadIdx.x < 64) {
+    side(threadIdx.x - 32);
   }
   __syncthreads();
 #pragma unroll
@@ -423,6 +456,70 @@ struct PrepRecord {
       kMode == kWarped ? 4 : kMode == kNone || kMode == kBand ? 1 : 2;
 };
 
+// One gaussian's terms of the header's sums (see the note at the top):
+// visible, its rect's instances and its virtual rows, modulo 2^32.
+struct HeaderTerms {
+  uint32_t visible = 0, rect = 0, rows = 0;
+};
+
+__device__ __forceinline__ HeaderTerms header_terms(bool visible, int rect_w,
+                                                    int rect_h) {
+  const bool oversized =
+      visible && (rect_w > GSM_MASK_W || rect_h > GSM_MASK_H);
+  HeaderTerms t;
+  t.visible = visible ? 1u : 0u;
+  t.rect = visible ? static_cast<uint32_t>(rect_w) *
+                         static_cast<uint32_t>(rect_h)
+                   : 0u;
+  t.rows = oversized ? static_cast<uint32_t>(rect_h) : 1u;
+  return t;
+}
+
+constexpr int kPrepWarps = kPrepThreads / 32;
+constexpr int kSumBlockBits = 24;  // the block count of an accumulator word
+
+// The block's partial sums: each warp's three sums in s_part[k][warp].  The
+// caller's next barrier publishes them.
+__device__ __forceinline__ void warp_partials(const HeaderTerms& t,
+                                              uint32_t (*s_part)[kPrepWarps]) {
+  const uint32_t v = __reduce_add_sync(kFullWarp, t.visible);
+  const uint32_t r = __reduce_add_sync(kFullWarp, t.rect);
+  const uint32_t w = __reduce_add_sync(kFullWarp, t.rows);
+  if ((threadIdx.x & 31) == 0) {
+    s_part[0][threadIdx.x >> 5] = v;
+    s_part[1][threadIdx.x >> 5] = r;
+    s_part[2][threadIdx.x >> 5] = w;
+  }
+}
+
+// Lane k < 3 of warp 1 adds the block's sum k to accumulator k; the last
+// block to arrive writes the launch's total to out[k] and zeroes the word
+// (see the note at the top).  Under count_rows the row demand is the scan's
+// total, which the last tile writes: lane 2 stays out.
+struct SumsAdder {
+  const ScanState& st;
+  uint32_t (*s_part)[kPrepWarps];
+  int32_t* out;
+  int count_rows;
+
+  __device__ void operator()(int lane) const {
+    if (lane >= 3 || (lane == 2 && count_rows)) return;
+    uint32_t part = 0;
+#pragma unroll
+    for (int w = 0; w < kPrepWarps; ++w) part += s_part[lane][w];
+    const unsigned long long old = atomicAdd(
+        st.sums + lane,
+        (static_cast<unsigned long long>(part) << kSumBlockBits) + 1ull);
+    const unsigned long long arrived =
+        old & ((1ull << kSumBlockBits) - 1ull);
+    if (arrived == static_cast<unsigned long long>(st.num_tiles - 1)) {
+      out[lane] = static_cast<int32_t>(
+          static_cast<uint32_t>(old >> kSumBlockBits) + part);
+      atomicExch(st.sums + lane, 0ull);
+    }
+  }
+};
+
 // The inputs and extra outputs of prep mode band (see gsm_prep_band): the
 // gathered rect rows (min_ty | max_ty << 10), raw depth keys (0xFFFFFFFF
 // where culled) and 8x4 masks, the band's tile rows [band0, band1), the
@@ -438,14 +535,16 @@ struct BandArgs {
 };
 
 // Gaussian i (< n) of a band frame: its band-local rect word, band
-// sub-mask and normalized depth word written, its count returned (>= 1).
-// The operations of gsm_renderer_tpu/parallel/multichip.py:245-283 and of
+// sub-mask and normalized depth word written, its header terms in *t (of
+// the rect clamped to the band), its count returned (>= 1).  The
+// operations of gsm_renderer_tpu/parallel/multichip.py:245-283 and of
 // binning_inputs with that mask_override, on u32 words.
 __device__ __forceinline__ int prep_band(int i,
                                          const int32_t* __restrict__ rect_word,
                                          const BandArgs& b,
                                          int32_t* __restrict__ rect_out,
-                                         int32_t* __restrict__ mask_out) {
+                                         int32_t* __restrict__ mask_out,
+                                         HeaderTerms* t) {
   const uint32_t rw = static_cast<uint32_t>(rect_word[i]);
   const uint32_t rows = static_cast<uint32_t>(b.rows[i]);
   const uint32_t dk = static_cast<uint32_t>(b.dkey[i]);
@@ -479,6 +578,7 @@ __device__ __forceinline__ int prep_band(int i,
   mask_out[i] = static_cast<int32_t>(sub);
   b.dsw_out[i] = static_cast<int32_t>(min(max(dk, b.near_key) - b.near_key,
                                           b.span));
+  *t = header_terms(visible_here, rect_w, rows_in_band);
   return max(count, 1);
 }
 
@@ -547,9 +647,10 @@ __device__ __forceinline__ bool prep_test(float (*f)[kPrepThreads],
   }
 }
 
-// Gaussian i (< n, else nothing and a count of 0) of the thread: its mask
-// and rect word, its window tests balanced across the warp; returns its
-// count.  Every lane of the warp calls it.
+// Gaussian i (< n, else nothing, no header terms and a count of 0) of the
+// thread: its mask and rect word, its window tests balanced across the
+// warp, its header terms in *t; returns its count.  Every lane of the warp
+// calls it.
 template <int kMode>
 __device__ __forceinline__ int prep_gaussian(
     int i, const int32_t* __restrict__ rect_word,
@@ -557,7 +658,7 @@ __device__ __forceinline__ int prep_gaussian(
     int n, int tile_w, int tile_h, float tau, float theta_unit, float inv255,
     int32_t* __restrict__ rect_out, int32_t* __restrict__ mask_out,
     float (*f)[kPrepThreads], int (*in)[kPrepThreads], const float* sb,
-    float lod_min) {
+    float lod_min, HeaderTerms* t) {
   const int lane = threadIdx.x & 31;
   const int warp0 = threadIdx.x & ~31;
 
@@ -664,10 +765,13 @@ __device__ __forceinline__ int prep_gaussian(
   rect_out[i] = static_cast<int32_t>(rw | (eligible ? GSM_MASKED_BIT : 0u) |
                                      (culled ? GSM_CULLED_BIT : 0u));
   mask_out[i] = static_cast<int32_t>(mask);
+  *t = header_terms(visible, rect_w, rh);
   return max(count, 1);
 }
 
-// The block of tile b preps gaussians [256 b, 256 (b + 1)), one a thread.
+// The block of tile b preps gaussians [256 b, 256 (b + 1)), one a thread,
+// and adds their header terms to the launch's sums (see the note at the
+// top).
 template <int kMode>
 __global__ void __launch_bounds__(kPrepThreads)
 prep_kernel(const int32_t* __restrict__ rect_word,
@@ -675,36 +779,49 @@ prep_kernel(const int32_t* __restrict__ rect_word,
             int n, int tile_w, int tile_h, float tau, float theta_unit,
             float inv255,
             int32_t* __restrict__ offsets, int32_t* __restrict__ rect_out,
-            int32_t* __restrict__ mask_out, ScanState st,
-            const float* __restrict__ bounds, float lod_min, BandArgs band) {
+            int32_t* __restrict__ mask_out, int32_t* __restrict__ sums,
+            ScanState st, const float* __restrict__ bounds, float lod_min,
+            BandArgs band) {
   using Rec = PrepRecord<kMode>;
   __shared__ float sb[kMode == kWarped ? 2 * kBoundsLanes : 1];
   __shared__ float f[Rec::kFloats][kPrepThreads];
   __shared__ int in[Rec::kInts][kPrepThreads];
+  __shared__ uint32_t s_part[3][kPrepWarps];
   if constexpr (kMode == kWarped) stage_bounds(bounds, sb);
   uint32_t tag;
   const int tile = take_tile(st, &tag);
   const int i = tile * kPrepThreads + threadIdx.x;
   int count[1];
+  HeaderTerms terms;
   if constexpr (kMode == kNone) {
     // the whole clamped rect, or one dead slot when culled
     count[0] = 0;
     if (i < n) {
       const uint32_t rw = static_cast<uint32_t>(rect_word[i]);
       const int rect_w = static_cast<int>((rw >> 20) & 0x3FFu);
-      count[0] = (rw & GSM_CULLED_BIT) != 0 ? 1 : max(rect_w * rect_h[i], 1);
+      const int rh = rect_h[i];
+      const bool visible = (rw & GSM_CULLED_BIT) == 0;
+      count[0] = visible ? max(rect_w * rh, 1) : 1;
+      terms = header_terms(visible, rect_w, rh);
     }
   } else if constexpr (kMode == kBand) {
-    count[0] = i < n ? prep_band(i, rect_word, band, rect_out, mask_out) : 0;
+    count[0] = i < n ? prep_band(i, rect_word, band, rect_out, mask_out,
+                                 &terms)
+                     : 0;
   } else {
     count[0] = prep_gaussian<kMode>(
         i, rect_word, rect_h, W, count_rows, n, tile_w, tile_h, tau,
-        theta_unit, inv255, rect_out, mask_out, f, in, sb, lod_min);
+        theta_unit, inv255, rect_out, mask_out, f, in, sb, lod_min, &terms);
   }
+  warp_partials(terms, s_part);
   int excl[1], end;
-  scan_counts<kPrepThreads, 1>(st, tile, tag, count, excl, &end);
+  scan_counts<kPrepThreads, 1>(st, tile, tag, count, excl, &end,
+                               SumsAdder{st, s_part, sums, count_rows});
   if (i < n) offsets[i] = excl[0];
-  if (tile == st.num_tiles - 1 && threadIdx.x == 0) offsets[n] = end;
+  if (tile == st.num_tiles - 1 && threadIdx.x == 0) {
+    offsets[n] = end;
+    if (count_rows) sums[2] = end;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1046,30 +1163,34 @@ static bool launch_ok(int mode, int n_words, const float* bounds, int tile_w,
 }
 
 // The look-back scratch of a launch over `elements` elements, `per_tile` a
-// block: `ticket` one word, `status` at least one word a tile (see the note
-// at the top; the caller allocates them zeroed once and keeps them).
+// block: `ticket` four words (the ticket, then prep's three accumulators of
+// the header's sums), `status` at least one word a tile (see the note at
+// the top; the caller allocates them zeroed once and keeps them).
 static ScanState scan_state(void* ticket, void* status, int elements,
                             int per_tile) {
   ScanState st;
   st.ticket = static_cast<unsigned long long*>(ticket);
+  st.sums = st.ticket + 1;
   st.status = static_cast<unsigned long long*>(status);
   st.num_tiles = elements > 0 ? (elements + per_tile - 1) / per_tile : 1;
   return st;
 }
 
 // mode: a Mode (see launch_ok); bounds: the (2, 128) table for mode
-// "warped", else null.  ticket / status: the look-back scratch, status >=
-// max(ceil(n / 256), 1) words.  tile_w, tile_h: 1 to 4096.  Mode none
-// writes the offsets alone (rect_out and mask_out may be null).  One
-// launch, even at n == 0 (its one block writes offsets[0] = 0).
+// "warped", else null.  ticket / status: the look-back scratch, ticket
+// four words, status >= max(ceil(n / 256), 1) words.  tile_w, tile_h: 1 to
+// 4096.  Mode none writes the offsets alone (rect_out and mask_out may be
+// null).  sums: three ints, the header's visible count, visible rect total
+// and row demand (see the note at the top).  One launch, even at n == 0
+// (its one block writes offsets[0] = 0 and sums of 0).
 extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
                         const void* const* words, int n_words, int mode,
                         int count_rows, int n, int tile_w, int tile_h,
                         float tau,
                         float theta_unit, float inv255, int32_t* offsets,
-                        int32_t* rect_out, int32_t* mask_out, void* ticket,
-                        void* status, const float* bounds, float lod_min,
-                        cudaStream_t stream) {
+                        int32_t* rect_out, int32_t* mask_out, int32_t* sums,
+                        void* ticket, void* status, const float* bounds,
+                        float lod_min, cudaStream_t stream) {
   if (!launch_ok(mode, n_words, bounds, tile_w, tile_h)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1081,7 +1202,8 @@ extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
                                   : prep_kernel<kMono>;
   kernel<<<st.num_tiles, kPrepThreads, 0, stream>>>(
       rect_word, rect_h, W, count_rows, n, tile_w, tile_h, tau, theta_unit,
-      inv255, offsets, rect_out, mask_out, st, bounds, lod_min, BandArgs{});
+      inv255, offsets, rect_out, mask_out, sums, st, bounds, lod_min,
+      BandArgs{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1091,14 +1213,15 @@ extern "C" int gsm_prep(const int32_t* rect_word, const int32_t* rect_h,
 // band-local rect words (min_tx | (max(min_ty, band0) - band0) << 10 |
 // rect_w << 20, MASKED / CULLED), mask_out the band sub-masks, dsw_out the
 // depth words normalized to [near_key, near_key + span]; offsets (n + 1) as
-// gsm_prep writes them.  ticket / status as for gsm_prep.  One launch.
+// gsm_prep writes them; sums the header's sums of the band clamp.  ticket /
+// status as for gsm_prep.  One launch.
 extern "C" int gsm_prep_band(const int32_t* rect_word, const int32_t* rows,
                              const int32_t* dkey, const int32_t* mask, int n,
                              int band0, int band1, uint32_t near_key,
                              uint32_t span, int32_t* offsets,
                              int32_t* rect_out, int32_t* mask_out,
-                             int32_t* dsw_out, void* ticket, void* status,
-                             cudaStream_t stream) {
+                             int32_t* dsw_out, int32_t* sums, void* ticket,
+                             void* status, cudaStream_t stream) {
   if (band0 < 0 || band1 <= band0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1106,7 +1229,7 @@ extern "C" int gsm_prep_band(const int32_t* rect_word, const int32_t* rows,
   const BandArgs band{rows, dkey, mask, band0, band1, near_key, span, dsw_out};
   prep_kernel<kBand><<<st.num_tiles, kPrepThreads, 0, stream>>>(
       rect_word, nullptr, WordPtrs{}, 0, n, 0, 0, 0.0f, 0.0f, 0.0f, offsets,
-      rect_out, mask_out, st, nullptr, 0.0f, band);
+      rect_out, mask_out, sums, st, nullptr, 0.0f, band);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,13 @@
 // writes 8 B a slot; the sort makes one pass per 8 key bits (eight for the
 // 64 bits, each reading and writing the 8-B keys: 128 B a slot, half what
 // the pairs sort moves); the ranges read 8 B a slot and write 4 B a tile.
+//
+// The ranges' counts pass also clamps each tile's count to the frame's
+// max_per_tile, where one is set (the Local frames' nearest instances a
+// tile), and writes the sum of the counts it writes beside them: the frame
+// header's total_instances.  The boundary pass zeroes that sum, and each
+// block of the counts pass adds its own with one atomicAdd, so the sum
+// takes no launch of its own and no memset.
 
 #include <cub/device/device_radix_sort.cuh>
 
@@ -92,9 +99,13 @@ __device__ __forceinline__ int tile_of(long long key, int shift,
 // frame with no live slot: num_tiles + 1 from thread 0).
 __global__ void __launch_bounds__(kRangeThreads)
     sort_ranges_kernel(const long long* __restrict__ keys, int n,
-                       int num_tiles, int shift, int32_t* __restrict__ bounds) {
+                       int num_tiles, int shift, int32_t* __restrict__ bounds,
+                       int32_t* __restrict__ total) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kRangeThreads + threadIdx.x;
+  if (i == 0) {
+    *total = 0;  // the counts pass adds to it
+  }
   const int t = i < n ? tile_of(keys[i], shift, num_tiles) : num_tiles;
   int t_prev = __shfl_up_sync(0xFFFFFFFFu, t, 1);
   if ((threadIdx.x & 31) == 0) {
@@ -109,14 +120,36 @@ __global__ void __launch_bounds__(kRangeThreads)
   }
 }
 
-// counts[t] = bounds[t + 1] - bounds[t]: a second launch, after every
-// boundary is written.
+// counts[t] = bounds[t + 1] - bounds[t], at most max_per_tile where that is
+// above 0, and *total += the block's sum of them: a second launch, after
+// every boundary is written and *total zeroed.
 __global__ void __launch_bounds__(kRangeThreads)
     sort_ranges_counts_kernel(const int32_t* __restrict__ bounds,
-                              int num_tiles, int32_t* __restrict__ counts) {
+                              int num_tiles, int max_per_tile,
+                              int32_t* __restrict__ counts,
+                              int32_t* __restrict__ total) {
+  __shared__ int s_sum[kRangeThreads / 32];
   const int t = blockIdx.x * kRangeThreads + threadIdx.x;
+  int c = 0;
   if (t < num_tiles) {
-    counts[t] = bounds[t + 1] - bounds[t];
+    c = bounds[t + 1] - bounds[t];
+    if (max_per_tile > 0) {
+      c = min(c, max_per_tile);
+    }
+    counts[t] = c;
+  }
+  const int warp_sum = __reduce_add_sync(0xFFFFFFFFu, c);
+  if ((threadIdx.x & 31) == 0) {
+    s_sum[threadIdx.x >> 5] = warp_sum;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kRangeThreads / 32; ++w) {
+      sum += s_sum[w];
+    }
+    atomicAdd(total, sum);
   }
 }
 
@@ -176,24 +209,26 @@ extern "C" int gsm_sort_keys(int64_t* keys, int64_t* alt, int n, void* temp,
 
 // The tile ranges of n sorted int64 keys over num_tiles tiles: bounds
 // (num_tiles + 1, int32; starts are its first num_tiles) and counts
-// (num_tiles, int32).  Two launches.
+// (num_tiles + 1, int32: each tile's count, at most max_per_tile where that
+// is above 0, then their sum).  Two launches.
 extern "C" int gsm_sort_ranges(const long long* keys, int n, int num_tiles,
-                               int shift, int32_t* bounds, int32_t* counts,
-                               cudaStream_t stream) {
-  if (n < 0 || num_tiles < 1 || shift < 0 || shift > 31) {
+                               int shift, int max_per_tile, int32_t* bounds,
+                               int32_t* counts, cudaStream_t stream) {
+  if (n < 0 || num_tiles < 1 || shift < 0 || shift > 31 ||
+      max_per_tile < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long threads = static_cast<long long>(n) + 1;
   const int blocks =
       static_cast<int>((threads + kRangeThreads - 1) / kRangeThreads);
-  sort_ranges_kernel<<<blocks, kRangeThreads, 0, stream>>>(keys, n, num_tiles,
-                                                           shift, bounds);
+  sort_ranges_kernel<<<blocks, kRangeThreads, 0, stream>>>(
+      keys, n, num_tiles, shift, bounds, counts + num_tiles);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
   sort_ranges_counts_kernel<<<(num_tiles + kRangeThreads - 1) / kRangeThreads,
-                              kRangeThreads, 0, stream>>>(bounds, num_tiles,
-                                                          counts);
+                              kRangeThreads, 0, stream>>>(
+      bounds, num_tiles, max_per_tile, counts, counts + num_tiles);
   return static_cast<int>(cudaGetLastError());
 }

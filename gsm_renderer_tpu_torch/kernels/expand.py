@@ -80,7 +80,7 @@ BOUNDS_LANES = 128
 PREP = _native.Kernel("prep", "binning", "gsm_prep", [
     _native.P, _native.P, _native.P, _native.I, _native.I, _native.I,
     _native.I, _native.I, _native.I, _native.F, _native.F, _native.F,
-    _native.P, _native.P, _native.P, _native.P, _native.P,
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.P,
     _native.P, _native.F])
 ROW_EXPAND = _native.Kernel("row_expand", "binning", "gsm_row_expand", [
     _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
@@ -94,7 +94,7 @@ EXPAND = _native.Kernel("expand", "binning", "gsm_expand", [
 PREP_BAND = _native.Kernel("prep_band", "binning", "gsm_prep_band", [
     _native.P, _native.P, _native.P, _native.P, _native.I, _native.I,
     _native.I, _native.U, _native.U, _native.P, _native.P, _native.P,
-    _native.P, _native.P, _native.P])
+    _native.P, _native.P, _native.P, _native.P])
 BOUNDS_GATHER = _native.Kernel("bounds_gather", "binning", "gsm_bounds_gather", [
     _native.P, _native.P, _native.P, _native.I, _native.P])
 
@@ -107,18 +107,20 @@ _scan_scratch_cache: dict = {}
 
 def scan_scratch(device, elements: int):
     """The look-back scratch of the prep and row-expand kernels' one-pass
-    scan on ``device`` and its current stream: ``ticket`` (1,) and
+    scan on ``device`` and its current stream: ``ticket`` (4,) (the ticket
+    word, then prep's three accumulators of the header's sums) and
     ``status`` (>= one word a tile of SCAN_TILE elements) int64, zeroed when
     made and kept.  The kernels leave them valid for the next launch on the
-    stream (the epoch scheme of ``csrc/binning.cu``), so a call zeroes
-    nothing; a larger launch gets a new, larger pair."""
+    stream (the epoch scheme of ``csrc/binning.cu``; the last block to add
+    to an accumulator zeroes it), so a call zeroes nothing; a larger launch
+    gets a new, larger pair."""
     device = torch.device(device)
     stream = (torch.cuda.current_stream(device).cuda_stream
               if device.type == "cuda" else 0)
     tiles = max(-(-elements // SCAN_TILE), 1)
     pair = _scan_scratch_cache.get((device, stream))
     if pair is None or pair[1].numel() < tiles:
-        pair = (torch.zeros(1, dtype=torch.int64, device=device),
+        pair = (torch.zeros(4, dtype=torch.int64, device=device),
                 torch.zeros(1 << (tiles - 1).bit_length(), dtype=torch.int64,
                             device=device))
         _scan_scratch_cache[(device, stream)] = pair
@@ -456,6 +458,44 @@ def _check_warped(mode: str, warped_bounds):
         raise ValueError("mode 'warped' and warped_bounds go together")
 
 
+def visible_rect_total(rect_word, rect_h, visible):
+    """The rect total of the ``visible`` gaussians, sum of rect_w * rect_h
+    (int32, modulo 2^32): the header's ``total_instances`` where the JAX
+    frame reports its XLA binning's ``total_live`` (stereo, foveated,
+    ``max_per_tile``)."""
+    rect_w = (M.u32(rect_word) >> 20) & 0x3FF
+    return torch.where(visible, rect_w * rect_h, 0).sum().to(torch.int32)
+
+
+def row_demand(rect_word, rect_h):
+    """Virtual-row demand of the per-row decomposition (one row per
+    mask-eligible or culled gaussian, ``rect_h`` per oversized rect;
+    int32, modulo 2^32); the header reports it every frame, as the JAX
+    package does."""
+    rw = M.u32(rect_word)
+    visible = (rw & CULLED_BIT) == 0
+    rect_w = (rw >> 20) & 0x3FF
+    oversized = visible & ((rect_w > MASK_W) | (rect_h > MASK_H))
+    return torch.where(oversized, rect_h, 1).sum().to(torch.int32)
+
+
+#: the fields of prep's header sums record, in order
+HEADER_SUMS = ("visible", "rect_total", "row_demand")
+
+
+def header_sums_plain(rect_word, rect_h, row_total=None):
+    """Plain version of the header sums that the prep kernel writes: (3,)
+    int32, the visible count (the rect word's CULLED bit clear), the
+    :func:`visible_rect_total` and the :func:`row_demand` -- the torch sums
+    the frames' headers took before prep wrote them -- or, given, the
+    ``row_total`` (a 0-d int32: under ``count_rows`` the scan's total,
+    which the kernel reports)."""
+    visible = (M.u32(rect_word) & CULLED_BIT) == 0
+    rows = row_demand(rect_word, rect_h) if row_total is None else row_total
+    return torch.stack([visible.sum().to(torch.int32),
+                        visible_rect_total(rect_word, rect_h, visible), rows])
+
+
 def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
                        count_rows: bool = False, tile_w: int = 16,
                        tile_h: int = 16, alpha_threshold: float = 0.005,
@@ -469,8 +509,10 @@ def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
     the counts are virtual tile rows (one per mask-eligible or culled
     gaussian, ``rect_h`` per oversized rect) for :func:`row_expand`.
     Returns (offsets (N+1,) int32 with offsets[N] the total, rect' (N,)
-    int32 with MASKED/CULLED bits, mask (N,) int32); in mode "none" rect'
-    is ``rect_word`` itself and the mask None."""
+    int32 with MASKED/CULLED bits, mask (N,) int32, the header sums (3,)
+    int32 of :func:`header_sums_plain`, whose row demand under
+    ``count_rows`` is offsets[N]); in mode "none" rect' is ``rect_word``
+    itself and the mask None."""
     _check_mode(mode, words)
     _check_warped(mode, warped_bounds)
     _check_count_rows(mode, count_rows)
@@ -482,7 +524,8 @@ def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
     rh = rect_h.to(torch.int64)
     if mode == "none":
         counts = torch.clamp(torch.where(culled0, 0, rect_w * rh), min=1)
-        return _exclusive_offsets(counts), rect_word, None
+        return (_exclusive_offsets(counts), rect_word, None,
+                header_sums_plain(rect_word, rect_h))
     w = [M.u32(x) for x in words]
     if mode == "warped":
         fx, fy = warped_bounds_gather_plain(warped_bounds, min_tx, min_ty)
@@ -506,8 +549,10 @@ def binning_prep_plain(rect_word, rect_h, words, *, mode: str = "mono",
     rect_out = (rw | torch.where(eligible, MASKED_BIT, 0)
                 | torch.where(culled, CULLED_BIT, 0))
     # every gaussian owns >= 1 slot: offsets strictly increase
-    counts = torch.clamp(counts, min=1)
-    return _exclusive_offsets(counts), M.to_i32(rect_out), M.to_i32(mask)
+    offsets = _exclusive_offsets(torch.clamp(counts, min=1))
+    sums = header_sums_plain(rect_word, rect_h,
+                             offsets[-1] if count_rows else None)
+    return offsets, M.to_i32(rect_out), M.to_i32(mask), sums
 
 
 def _exclusive_offsets(counts):
@@ -530,11 +575,14 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
     """Launch the prep kernel of ``csrc/binning.cu``: one launch, a block
     of 256 gaussians each decoded once, their window tests balanced across
     each warp, and the global offset scan in the same pass (decoupled
-    look-back over :func:`scan_scratch`).  In mode "warped" the tests read
+    look-back over :func:`scan_scratch`), and the header sums beside it
+    (each block's partials added to the scratch's accumulators, the last
+    block to arrive writing the total; the row demand under
+    ``count_rows``, the scan's total).  In mode "warped" the tests read
     the window's boundaries from the bounds table staged in shared
     memory.  In mode "none" it reads the rect word and rect_h alone and
-    writes the offsets alone: it returns ``rect_word`` as rect' and no
-    mask, as the plain version does."""
+    writes the offsets and sums alone: it returns ``rect_word`` as rect'
+    and no mask, as the plain version does."""
     _check_mode(mode, words)
     check_tile(tile_w, tile_h, "prep kernel")
     _check_warped(mode, warped_bounds)
@@ -548,6 +596,7 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
         _native.check(warped_bounds, "warped_bounds", torch.float32,
                       (2, BOUNDS_LANES), dev)
     offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    sums = torch.empty(len(HEADER_SUMS), dtype=torch.int32, device=dev)
     rect_out = mask = None
     if mode != "none":
         rect_out = torch.empty(n, dtype=torch.int32, device=dev)
@@ -557,9 +606,10 @@ def binning_prep_cuda(rect_word, rect_h, words, *, mode: str = "mono",
                 len(words), MODE_CODES[mode], int(count_rows), n, tile_w,
                 tile_h, M.f32(max(alpha_threshold, 1e-12)), M.f32(THETA_UNIT),
                 M.f32(1.0 / 255.0), _native.ptr(offsets), _native.ptr_or_null(rect_out),
-                _native.ptr_or_null(mask), _native.ptr(ticket), _native.ptr(status),
-                _native.ptr_or_null(warped_bounds), M.f32(lod_min))
-    return offsets, rect_word if mode == "none" else rect_out, mask
+                _native.ptr_or_null(mask), _native.ptr(sums), _native.ptr(ticket),
+                _native.ptr(status), _native.ptr_or_null(warped_bounds),
+                M.f32(lod_min))
+    return offsets, rect_word if mode == "none" else rect_out, mask, sums
 
 
 def binning_prep(rect_word, rect_h, words, **kw):
@@ -602,8 +652,10 @@ def binning_prep_band_plain(rect_word, rect_rows, dkey, mask, *, band0: int,
     the band one dead slot.  The depth word is normalized under
     ``key_plan`` (unchanged without one, the stable fallback's key).
     Returns (offsets (N+1,), the band-local rect' (min_tx | (bty0 - band0)
-    << 10 | rect_w << 20, MASKED / CULLED), the sub-mask, the depth word),
-    int32."""
+    << 10 | rect_w << 20, MASKED / CULLED), the sub-mask, the depth word,
+    the header sums (3,) of the band clamp: :func:`header_sums_plain` of
+    the rect_w x rows-in-band rects, visible where the gaussian is visible
+    and in the band), int32."""
     _check_band(band0, band1)
     rw, rows, dk = M.u32(rect_word), M.u32(rect_rows), M.u32(dkey)
     min_tx = rw & 0x3FF
@@ -630,8 +682,11 @@ def binning_prep_band_plain(rect_word, rect_rows, dkey, mask, *, band0: int,
                 | torch.where(visible, 0, CULLED_BIT))
     near_key, span = _band_normalization(key_plan)
     dsw = torch.clamp(torch.clamp(dk, min=near_key) - near_key, max=span)
+    band_rect = (rect_w << 20) | torch.where(visible_here, 0, CULLED_BIT)
+    sums = header_sums_plain(M.to_i32(band_rect),
+                             rows_in_band.to(torch.int32))
     return (_exclusive_offsets(torch.clamp(counts, min=1)), M.to_i32(rect_out),
-            M.to_i32(sub), M.to_i32(dsw))
+            M.to_i32(sub), M.to_i32(dsw), sums)
 
 
 def binning_prep_band_cuda(rect_word, rect_rows, dkey, mask, *, band0: int,
@@ -647,14 +702,16 @@ def binning_prep_band_cuda(rect_word, rect_rows, dkey, mask, *, band0: int,
         _native.check(t, name, torch.int32, (n,), dev)
     offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
     out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    sums = torch.empty(len(HEADER_SUMS), dtype=torch.int32, device=dev)
     ticket, status = scan_scratch(dev, n)
     near_key, span = _band_normalization(key_plan)
     PREP_BAND.launch(_native.ptr(rect_word), _native.ptr(rect_rows),
                      _native.ptr(dkey), _native.ptr(mask), n, band0, band1,
                      near_key, span, _native.ptr(offsets), _native.ptr(out[0]),
                      _native.ptr(out[1]), _native.ptr(out[2]),
-                     _native.ptr(ticket), _native.ptr(status))
-    return offsets, out[0], out[1], out[2]
+                     _native.ptr(sums), _native.ptr(ticket),
+                     _native.ptr(status))
+    return offsets, out[0], out[1], out[2], sums
 
 
 def binning_prep_band(rect_word, rect_rows, dkey, mask, **kw):

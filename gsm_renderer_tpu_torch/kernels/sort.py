@@ -18,8 +18,10 @@ replaces on the card:
   one read of them; the tile of a key is ``key1 >> shift`` (``shift`` the
   KeyPlan's ``d_hi``, or 0 for the stable fallback's plain tile key), and
   the sentinel's, or any tile id at or past ``num_tiles``, lies past every
-  tile (plain: :func:`binning_sorted_tile`, then
-  ``ops.binning.extract_tile_ranges``).
+  tile; the counts, clamped to a frame's ``max_per_tile`` where it has one,
+  and their sum, the header's ``total_instances`` (plain:
+  :func:`binning_sorted_tile`, then ``ops.binning.extract_tile_ranges``,
+  ``torch.clamp`` and the sum).
 
 The JAX package leaves the sort to ``jax.lax.sort`` and the ranges to an XLA
 ``searchsorted``: neither is a Pallas kernel.
@@ -41,7 +43,8 @@ PACK = _native.Kernel("sort_pack", "sort", "gsm_sort_key_pack", [
 SORT = _native.Kernel("sort_keys", "sort", "gsm_sort_keys", [
     _native.P, _native.P, _native.I, _native.P, ctypes.c_size_t, _native.P])
 RANGES = _native.Kernel("sort_ranges", "sort", "gsm_sort_ranges", [
-    _native.P, _native.I, _native.I, _native.I, _native.P, _native.P])
+    _native.P, _native.I, _native.I, _native.I, _native.I, _native.P,
+    _native.P])
 
 #: n -> CUB's temporary storage bytes for n keys
 _temp_bytes: dict = {}
@@ -116,10 +119,11 @@ def sort_keys_only(keys):
     return sort_keys_only_plain(keys)
 
 
-def _check_ranges(num_tiles: int, shift: int):
-    if num_tiles < 1 or not 0 <= shift <= 31:
-        raise ValueError(f"tile ranges take num_tiles >= 1 and a shift of 0 "
-                         f"to 31, got {num_tiles} and {shift}")
+def _check_ranges(num_tiles: int, shift: int, max_per_tile: int):
+    if num_tiles < 1 or not 0 <= shift <= 31 or max_per_tile < 0:
+        raise ValueError(f"tile ranges take num_tiles >= 1, a shift of 0 to "
+                         f"31 and max_per_tile >= 0, got {num_tiles}, "
+                         f"{shift} and {max_per_tile}")
 
 
 def binning_sorted_tile(sorted_key, *, plan_tuple):
@@ -132,33 +136,43 @@ def binning_sorted_tile(sorted_key, *, plan_tuple):
     return torch.where(k1 == SENTINEL, SENTINEL, k1 >> shift)
 
 
-def sort_ranges_plain(sorted_key, num_tiles: int, shift: int):
-    """Plain version of the ranges kernel: (starts, counts) int32 of each
-    tile's span of the sorted int64 keys, by a binary search of the sorted
-    tile ids."""
-    _check_ranges(num_tiles, shift)
-    return B.extract_tile_ranges(
+def sort_ranges_plain(sorted_key, num_tiles: int, shift: int,
+                      max_per_tile: int = 0):
+    """Plain version of the ranges kernels: (starts, counts, total) int32 of
+    each tile's span of the sorted int64 keys, by a binary search of the
+    sorted tile ids; the counts clamped to ``max_per_tile`` where it is
+    above 0, and ``total`` (0-d) their sum."""
+    _check_ranges(num_tiles, shift, max_per_tile)
+    starts, counts = B.extract_tile_ranges(
         binning_sorted_tile(sorted_key, plan_tuple=(shift,)), num_tiles)
+    if max_per_tile > 0:
+        counts = torch.clamp(counts, max=max_per_tile)
+    return starts, counts, counts.sum().to(torch.int32)
 
 
-def sort_ranges_cuda(sorted_key, num_tiles: int, shift: int):
+def sort_ranges_cuda(sorted_key, num_tiles: int, shift: int,
+                     max_per_tile: int = 0):
     """Launch the ranges kernels of ``csrc/sort.cu``: the num_tiles + 1 tile
-    boundaries from one read of the sorted keys, then the counts.  Returns
-    (starts, a view of the boundaries; counts)."""
-    _check_ranges(num_tiles, shift)
+    boundaries from one read of the sorted keys, then the counts (clamped
+    to ``max_per_tile`` where it is above 0) and their sum beside them.
+    Returns (starts, a view of the boundaries; counts; the sum, a 0-d view
+    after the counts)."""
+    _check_ranges(num_tiles, shift, max_per_tile)
     n = sorted_key.shape[0]
     dev = sorted_key.device
     _native.check(sorted_key, "sorted_key", torch.int64, (n,), dev)
     bounds = torch.empty(num_tiles + 1, dtype=torch.int32, device=dev)
-    counts = torch.empty(num_tiles, dtype=torch.int32, device=dev)
-    RANGES.launch(_native.ptr(sorted_key), n, num_tiles, shift,
+    counts = torch.empty(num_tiles + 1, dtype=torch.int32, device=dev)
+    RANGES.launch(_native.ptr(sorted_key), n, num_tiles, shift, max_per_tile,
                   _native.ptr(bounds), _native.ptr(counts))
-    return bounds[:num_tiles], counts
+    return bounds[:num_tiles], counts[:num_tiles], counts[num_tiles]
 
 
-def sort_ranges(sorted_key, num_tiles: int, shift: int):
-    """Tile ranges of the sorted int64 keys: the CUDA kernels for CUDA
-    tensors, the plain version for CPU tensors."""
+def sort_ranges(sorted_key, num_tiles: int, shift: int,
+                max_per_tile: int = 0):
+    """Tile ranges of the sorted int64 keys, (starts, counts, the counts'
+    sum), the counts clamped to ``max_per_tile`` where it is above 0: the
+    CUDA kernels for CUDA tensors, the plain version for CPU tensors."""
     if sorted_key.is_cuda:
-        return sort_ranges_cuda(sorted_key, num_tiles, shift)
-    return sort_ranges_plain(sorted_key, num_tiles, shift)
+        return sort_ranges_cuda(sorted_key, num_tiles, shift, max_per_tile)
+    return sort_ranges_plain(sorted_key, num_tiles, shift, max_per_tile)

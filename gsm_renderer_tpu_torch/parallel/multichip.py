@@ -123,10 +123,9 @@ def project_block(gi: GaussianInput, view, proj, center, *, width: int,
         near_plane=near_plane, far_plane=far_plane,
         alpha_threshold=alpha_threshold,
         total_ink_threshold=total_ink_threshold, input_is_srgb=input_is_srgb)
-    _off, _rect, mask = binning_prep(packed.rect_word, packed.rect_h,
-                                     packed.words, mode="mono", tile_w=tile_w,
-                                     tile_h=tile_h,
-                                     alpha_threshold=alpha_threshold)
+    _off, _rect, mask, _sums = binning_prep(
+        packed.rect_word, packed.rect_h, packed.words, mode="mono",
+        tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
     min_ty = (packed.rect_word >> 10) & 0x3FF
     rows = min_ty | ((min_ty + packed.rect_h - 1) << 10)
     dkey = torch.where(packed.visible, packed.dsw, -1)
@@ -224,7 +223,7 @@ class ShardedDepthFirst:
         dist.all_gather(parts, block, group=self.group)
         g = torch.cat(parts, dim=1)
         words = list(g[:4])
-        offsets, rect, mask, dsw = binning_prep_band(
+        offsets, rect, mask, dsw, _sums = binning_prep_band(
             g[4], g[5], g[6], g[7], band0=self.band0, band1=self.band1,
             key_plan=self.key_plan)
         *keys, _total, overflow = expand_slots(

@@ -40,6 +40,13 @@ permutation, so it stays a pairs sort); the blend reads the entries in
 sorted order (:func:`sort_and_ranges`).  Both orders are
 (tile, depth, gaussian index), so the fallback renders the KeyPlan frame.
 
+The header's sums.  No frame sums over its gaussians in torch: prep writes
+the visible count, the visible rect total and the row demand beside its
+offsets (``kernels/expand.py``'s header sums), and the ranges' counts pass
+writes the sum of the (clamped) tile counts beside them
+(``kernels/sort.py``); the frame's header reads the fields it reports
+from those records (:func:`frame_output`).
+
 The functions here open the frame's shared stage spans
 (``profiling.span``): project, binning (prep, row_expand, expand), sort,
 ranges, and the tail's blend and header (:func:`frame_output`).
@@ -127,14 +134,16 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
     with rows, also set when the row demand exceeds R)).  With ``key_plan``
     None (the stable fallback; no rows) the keys are (the tile, the depth
     word, the entry index), for :func:`sort_and_ranges`.  The keys come as
-    a list, which :func:`sort_and_ranges` takes over and empties."""
+    a list, which :func:`sort_and_ranges` takes over and empties.  Last
+    comes prep's header sums record (3,) int32 (``kernels/expand.py``'s
+    ``HEADER_SUMS``)."""
     if row_capacity > 0 and (mode != "mono" or key_plan is None):
         raise ValueError("the row decomposition is a mono binning mode with "
                          "a KeyPlan")
     kw = dict(tile_w=tile_w, tile_h=tile_h, alpha_threshold=alpha_threshold)
     with span("binning"):
         with span("prep"):
-            offsets, rect, mask = binning_prep(
+            offsets, rect, mask, sums = binning_prep(
                 packed.rect_word, packed.rect_h, packed.words, mode=mode,
                 count_rows=row_capacity > 0, warped_bounds=warped_bounds,
                 lod_min=lod_min, **kw)
@@ -151,7 +160,7 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
                 warped_bounds=warped_bounds, **kw)
         if row_overflow is not None:
             overflow = torch.maximum(overflow, row_overflow)
-    return keys, words, total, overflow
+    return keys, words, total, overflow, sums
 
 
 def sort_instances(key1, key2):
@@ -170,24 +179,27 @@ def sort_instances_stable(tile, depth, entry):
     return sorted_key, M.u32(entry)[perm]
 
 
-def tile_ranges(sorted_key, plan, num_tiles: int):
-    """(starts, counts) int32 of each tile's span of the sorted int64 keys
-    of a KeyPlan ``plan``, or of the plain tile key when ``plan`` is
-    None."""
+def tile_ranges(sorted_key, plan, num_tiles: int, max_per_tile: int = 0):
+    """(starts, counts, the counts' sum) int32 of each tile's span of the
+    sorted int64 keys of a KeyPlan ``plan``, or of the plain tile key when
+    ``plan`` is None; the counts clamped to ``max_per_tile`` where it is
+    above 0."""
     with span("ranges"):
         return KS.sort_ranges(sorted_key, num_tiles,
-                              0 if plan is None else plan.d_hi)
+                              0 if plan is None else plan.d_hi, max_per_tile)
 
 
 class SortedInstances(NamedTuple):
     """The sorted instance list the blend reads: rank k composites entry
     ``key[k] & (2**idx_bits - 1)``; tile t's ranks are [starts[t],
-    starts[t] + counts[t])."""
+    starts[t] + counts[t]); ``total`` (0-d int32) is the sum of the
+    counts."""
 
     key: torch.Tensor
     idx_bits: int
     starts: torch.Tensor
     counts: torch.Tensor
+    total: torch.Tensor
 
 
 def sort_keys(keys: list, key_plan):
@@ -213,12 +225,16 @@ def sort_keys(keys: list, key_plan):
         return sorted_key, sorted_key, key_plan.idx_bits
 
 
-def sort_and_ranges(keys: list, key_plan, num_tiles: int) -> SortedInstances:
+def sort_and_ranges(keys: list, key_plan, num_tiles: int,
+                    max_per_tile: int = 0) -> SortedInstances:
     """The instance sort (:func:`sort_keys`, which empties the list
-    ``keys``) and the tile ranges of the expand's planes."""
+    ``keys``) and the tile ranges of the expand's planes, each tile's count
+    clamped to ``max_per_tile`` where it is above 0 (the nearest
+    instances)."""
     sorted_key, blend_key, idx_bits = sort_keys(keys, key_plan)
     return SortedInstances(blend_key, idx_bits,
-                           *tile_ranges(sorted_key, key_plan, num_tiles))
+                           *tile_ranges(sorted_key, key_plan, num_tiles,
+                                        max_per_tile))
 
 
 def mono_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
@@ -227,16 +243,17 @@ def mono_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
                        alpha_threshold: float, total_ink_threshold: float,
                        near_plane: float, far_plane: float,
                        input_is_srgb: bool, mode: str = "mono",
-                       row_capacity: int = 0):
+                       row_capacity: int = 0, max_per_tile: int = 0):
     """The 32-bit-depth-key mono chain up to the tile ranges (the JAX
     ``depth_first_frame``'s packed path): the projection (the depth word
     normalized under ``key_plan``), prep in binning ``mode`` "mono" or
     "none", the row expansion when ``row_capacity`` > 0 (the plan's index
-    bits then address its rows), the expand, the sort and the ranges.  With
+    bits then address its rows), the expand, the sort and the ranges (the
+    counts clamped to ``max_per_tile`` where it is above 0).  With
     ``key_plan`` None -- no tie-free KeyPlan fits -- the raw depth key, the
     plain tile key and the stable sort, as in JAX.  Returns
     (:class:`SortedInstances`, the projection, the entry words, the
-    unclamped slot total, the overflow flag)."""
+    unclamped slot total, the overflow flag, prep's header sums)."""
     with span("project"):
         packed = project_and_cull_packed(
             gi, view, proj, center, prepared=prepared, width=width,
@@ -245,12 +262,12 @@ def mono_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
             alpha_threshold=alpha_threshold,
             total_ink_threshold=total_ink_threshold,
             input_is_srgb=input_is_srgb, key_plan=key_plan)
-    keys, entry_words, slot_total, overflow = binning_sort_operands(
+    keys, entry_words, slot_total, overflow, sums = binning_sort_operands(
         packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode=mode, row_capacity=row_capacity, tile_w=tile_w, tile_h=tile_h,
         alpha_threshold=alpha_threshold)
-    return (sort_and_ranges(keys, key_plan, tiles_x * tiles_y), packed,
-            entry_words, slot_total, overflow)
+    return (sort_and_ranges(keys, key_plan, tiles_x * tiles_y, max_per_tile),
+            packed, entry_words, slot_total, overflow, sums)
 
 
 def d16_key_plan(num_tiles: int, n: int):
@@ -265,7 +282,8 @@ def d16_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
                       tiles_y: int, tile_w: int, tile_h: int, sh_degree: int,
                       alpha_threshold: float, total_ink_threshold: float,
                       near_plane: float, far_plane: float,
-                      input_is_srgb: bool, mode: str = "mono"):
+                      input_is_srgb: bool, mode: str = "mono",
+                      max_per_tile: int = 0):
     """The 16-bit-depth-key chain up to the tile ranges, shared by the
     Global, Local, DepthFirst BITS16 and Hardware BITS16 frames (the JAX
     ``d16_packed_sorted``): the projection emitting the half-depth key, prep
@@ -273,8 +291,9 @@ def d16_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
     rects), and the unstable keys-only sort under the d16 KeyPlan
     ``key_plan`` (:func:`d16_key_plan`, see the module docstring), or, with
     ``key_plan`` None, the plain tile key and the stable sort by (tile,
-    depth16).  Returns (:class:`SortedInstances`, the projection, the
-    unclamped slot total, the overflow flag)."""
+    depth16); the tile counts clamped to ``max_per_tile`` where it is
+    above 0.  Returns (:class:`SortedInstances`, the projection, the
+    unclamped slot total, the overflow flag, prep's header sums)."""
     with span("project"):
         packed = project_and_cull_packed(
             gi, view, proj, center, prepared=prepared, width=width,
@@ -283,12 +302,12 @@ def d16_packed_sorted(gi, view, proj, center, prepared=None, *, key_plan,
             alpha_threshold=alpha_threshold,
             total_ink_threshold=total_ink_threshold,
             input_is_srgb=input_is_srgb, depth_key16=True)
-    keys, _words, slot_total, overflow = binning_sort_operands(
+    keys, _words, slot_total, overflow, sums = binning_sort_operands(
         packed, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode=mode, tile_w=tile_w, tile_h=tile_h,
         alpha_threshold=alpha_threshold)
-    return (sort_and_ranges(keys, key_plan, tiles_x * tiles_y), packed,
-            slot_total, overflow)
+    return (sort_and_ranges(keys, key_plan, tiles_x * tiles_y, max_per_tile),
+            packed, slot_total, overflow, sums)
 
 
 def used_sh_degree(config, gi) -> int:
@@ -297,30 +316,32 @@ def used_sh_degree(config, gi) -> int:
     return min(config.sh_degree, {1: 0, 4: 1, 9: 2, 16: 3}[gi.sh_n_coeffs])
 
 
-def frame_output(srt: SortedInstances, entry_words, *, visible, slot_total,
-                 overflow, capacity: int, counts=None, total_instances=None,
-                 row_total=None, **blend_kw) -> RenderOutput:
+def frame_output(srt: SortedInstances, entry_words, sums, *, slot_total,
+                 overflow, capacity: int, rect_total: bool = False,
+                 rows: bool = False, **blend_kw) -> RenderOutput:
     """The tail of every frame function: in ``gsm::blend`` the blend of the
-    sorted instances ``srt``, each tile's first ``counts`` ranks (default
-    all), over the ``entry_words`` (``blend_kw``: the tile grid, the size
-    and the blend's options); in ``gsm::header`` the header's sums: the
-    visible count of the projection's ``visible``, ``total_instances()``
-    (default: the sum of the blended counts) and ``row_total()`` where
-    given, beside the expand's ``slot_total`` and ``overflow``; the header
-    noted for the frame's record at its ``capacity``
-    (:func:`profiling.note_header`)."""
-    if counts is None:
-        counts = srt.counts
+    sorted instances ``srt`` over the ``entry_words`` (``blend_kw``: the
+    tile grid, the size and the blend's options); in ``gsm::header`` the
+    header, read from the records the kernels wrote, no sum taken: the
+    visible count from prep's header sums ``sums``, ``total_instances`` the
+    sum of the blended tile counts (``srt.total``) or, with
+    ``rect_total``, prep's visible rect total, ``row_total`` prep's row
+    demand with ``rows``, beside the expand's ``slot_total`` and
+    ``overflow``; the header noted for the frame's record at its
+    ``capacity`` (:func:`profiling.note_header`).  Counts
+    ``header_sums_kernel`` where the records are the card's,
+    ``header_sums_torch`` where the plain versions summed them in torch
+    (CPU tensors)."""
     with span("blend"):
         color, depth = blend_image(srt.key, entry_words, srt.idx_bits,
-                                   srt.starts, counts, **blend_kw)
+                                   srt.starts, srt.counts, **blend_kw)
     with span("header"):
+        count("header_sums_kernel" if sums.is_cuda else "header_sums_torch")
+        visible, rect_sum, row_sum = sums.unbind()
         header = FrameHeader(
-            visible_count=visible.sum().to(torch.int32),
-            total_instances=(counts.sum().to(torch.int32)
-                             if total_instances is None
-                             else total_instances()),
+            visible_count=visible,
+            total_instances=rect_sum if rect_total else srt.total,
             overflow=overflow, slot_total=slot_total,
-            row_total=None if row_total is None else row_total())
+            row_total=row_sum if rows else None)
     note_header(header, capacity)
     return RenderOutput(color=color, depth=depth, header=header)

@@ -65,8 +65,7 @@ import torch
 
 from .. import config as cfg
 from .. import mathlib as M
-from ..kernels.expand import (CULLED_BIT, MASK_H, MASK_W, STEREO_R2_CUTOFF,
-                              check_tile)
+from ..kernels.expand import CULLED_BIT, STEREO_R2_CUTOFF, check_tile
 from ..kernels.project import (pose_block, stereo_pose_block,
                                stereo_project_and_cull_packed)
 from ..mathlib import u32
@@ -77,25 +76,6 @@ from ..types import RenderOutput
 from .base import GaussianRenderer
 from .common import (binning_sort_operands, d16_key_plan, d16_packed_sorted,
                      frame_output, mono_packed_sorted, sort_and_ranges)
-
-
-def _row_demand(rect_word, rect_h):
-    """Virtual-row demand of the per-row decomposition (one row per
-    mask-eligible or culled gaussian, ``rect_h`` per oversized rect); the
-    header reports it every frame, as the JAX package does."""
-    rw = u32(rect_word)
-    visible = (rw & CULLED_BIT) == 0
-    rect_w = (rw >> 20) & 0x3FF
-    oversized = visible & ((rect_w > MASK_W) | (rect_h > MASK_H))
-    return torch.where(oversized, rect_h, 1).sum().to(torch.int32)
-
-
-def visible_rect_total(rect_word, rect_h, visible):
-    """The rect total of the visible gaussians, sum of rect_w * rect_h
-    (int32): the header's ``total_instances`` where the JAX frame reports
-    its XLA binning's ``total_live`` (stereo, foveated, ``max_per_tile``)."""
-    rect_w = (u32(rect_word) >> 20) & 0x3FF
-    return torch.where(visible, rect_w * rect_h, 0).sum().to(torch.int32)
 
 
 def d32_key_plan(n_gaussians: int, *, width, height, tile_w, tile_h,
@@ -156,10 +136,11 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
     ``row_total``, as in JAX.
 
     ``max_per_tile`` > 0 (the Local renderer's clamp on this frame) blends
-    at most that many instances a tile, the nearest, with rows off; the
-    header's ``total_instances`` is then the visible gaussians' rect total
-    (sum of rect_w * rect_h), as JAX's XLA binning path reports it there,
-    while ``slot_total`` is prep's, the same as without the clamp.
+    at most that many instances a tile, the nearest (the ranges clamp the
+    counts), with rows off; the header's ``total_instances`` is then the
+    visible gaussians' rect total (sum of rect_w * rect_h, from prep's
+    header sums), as JAX's XLA binning path reports it there, while
+    ``slot_total`` is prep's, the same as without the clamp.
     ``back_to_front`` renders the same frame: the radiance weights a_i *
     prod_{nearer j}(1 - a_j) are those of front-to-back compositing (JAX
     drops it too).  Tiles: each side 1 to 4096 pixels."""
@@ -183,9 +164,10 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
         # binning (no rows) under a clamp
         row_capacity = 0
     if depth_key_bits == 16:
-        srt, packed, slot_total, overflow = d16_packed_sorted(
+        srt, packed, slot_total, overflow, sums = d16_packed_sorted(
             gi, view, proj, center, prepared,
-            key_plan=d16_key_plan(num_tiles, gi.count), **chain_kw)
+            key_plan=d16_key_plan(num_tiles, gi.count),
+            max_per_tile=max_per_tile, **chain_kw)
         entry_words = packed.words
     else:
         key_plan = None
@@ -197,22 +179,13 @@ def depth_first_frame(gi, view, proj, center, prepared=None, *, width: int,
             # plan at all, the stable fallback
             row_capacity = 0
             key_plan = d32_key_plan(gi.count, **statics)
-        srt, packed, entry_words, slot_total, overflow = mono_packed_sorted(
+        (srt, _packed, entry_words, slot_total, overflow,
+         sums) = mono_packed_sorted(
             gi, view, proj, center, prepared, key_plan=key_plan,
-            row_capacity=row_capacity, **chain_kw)
-    counts = srt.counts
-    if max_per_tile > 0:
-        with span("ranges"):
-            counts = torch.clamp(counts, max=max_per_tile)
+            row_capacity=row_capacity, max_per_tile=max_per_tile, **chain_kw)
     return frame_output(
-        srt, entry_words, visible=packed.visible, slot_total=slot_total,
-        overflow=overflow, capacity=capacity, counts=counts,
-        total_instances=(
-            (lambda: visible_rect_total(packed.rect_word, packed.rect_h,
-                                        packed.visible))
-            if max_per_tile > 0 else None),
-        row_total=((lambda: _row_demand(packed.rect_word, packed.rect_h))
-                   if exact_tile_test else None),
+        srt, entry_words, sums, slot_total=slot_total, overflow=overflow,
+        capacity=capacity, rect_total=max_per_tile > 0, rows=exact_tile_test,
         tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
         tile_w=tile_w, tile_h=tile_h, depth_mode=depth_mode,
         r2_cutoff=r2_cutoff)
@@ -240,7 +213,7 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
     key_plan = d32_key_plan(gi.count, width=width, height=height,
                             tile_w=tile_w, tile_h=tile_h,
                             near_plane=near_plane, far_plane=far_plane)
-    pp, keys, entry_words, slot_total, overflow = _stereo_packed_ops(
+    _pp, keys, entry_words, slot_total, overflow, sums = _stereo_packed_ops(
         gi, views, projs, centers, scene_transform, prepared, key_plan,
         width=width, height=height, capacity=capacity, tiles_x=tiles_x,
         sh_degree=sh_degree, alpha_threshold=alpha_threshold,
@@ -248,14 +221,11 @@ def depth_first_stereo_frame(gi, views, projs, centers, scene_transform,
         far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
         tile_h=tile_h)
     return frame_output(
-        sort_and_ranges(keys, key_plan, tiles_x * tiles_y), entry_words,
-        visible=pp.visible, slot_total=slot_total, overflow=overflow,
-        capacity=capacity,
-        total_instances=lambda: visible_rect_total(pp.rect_word, pp.rect_h,
-                                                   pp.visible),
-        tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
-        tile_w=tile_w, tile_h=tile_h, n_eyes=2, r2_cutoff=STEREO_R2_CUTOFF,
-        depth_mode=depth_mode)
+        sort_and_ranges(keys, key_plan, tiles_x * tiles_y), entry_words, sums,
+        slot_total=slot_total, overflow=overflow, capacity=capacity,
+        rect_total=True, tiles_x=tiles_x, tiles_y=tiles_y, width=width,
+        height=height, tile_w=tile_w, tile_h=tile_h, n_eyes=2,
+        r2_cutoff=STEREO_R2_CUTOFF, depth_mode=depth_mode)
 
 
 def _project_eyes(gi, views, projs, centers, scene_transform, prepared,
@@ -274,7 +244,8 @@ def _stereo_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                        **project):
     """Dual-eye projection (``project``: its size and frame arguments) +
     stereo prep / expand up to the sort operands.  Returns (the
-    projection, the keys, the 8 entry word rows, slot_total, overflow)."""
+    projection, the keys, the 8 entry word rows, slot_total, overflow,
+    prep's header sums)."""
     pp = _project_eyes(gi, views, projs, centers, scene_transform, prepared,
                        key_plan, tile_w=tile_w, tile_h=tile_h, **project)
     return (pp, *binning_sort_operands(
@@ -327,14 +298,18 @@ def foveated_packed(pp, inv_fit, *, tiles_x: int, tiles_y: int,
     """The prep input of a foveated frame: ``pp`` (a display-size
     :class:`StereoPackedProjection`) with its rect word, rect_h and
     visibility replaced by the physical rects of :func:`foveated_rects`
-    (CULLED_BIT where not visible, rect_h 0 there).  Returns (that
-    projection, the re-binned rect counts)."""
+    (CULLED_BIT where the projection culled the gaussian, rect_h 0 there).
+    A gaussian the projection sees whose re-binned rect is empty keeps the
+    rect word's visibility with an empty rect (rect_w 0, rect_h 0), which
+    prep culls: prep's visible count is then the projection's, the
+    header's ``visible_count``, and its rect total the re-binned one.
+    Returns (that projection, the re-binned rect counts)."""
     (min_tx, max_tx, min_ty, _), visible, rect_count = foveated_rects(
         pp, inv_fit, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
         tile_h=tile_h)
-    rect_w = max_tx - min_tx + 1
+    rect_w = torch.where(pp.visible & ~visible, 0, max_tx - min_tx + 1)
     rect_word = u32(B.pack_rect_word(min_tx, min_ty, rect_w))
-    rect_word = torch.where(visible, rect_word, rect_word | CULLED_BIT)
+    rect_word = torch.where(pp.visible, rect_word, rect_word | CULLED_BIT)
     rect_h = torch.div(rect_count, torch.clamp(rect_w, min=1),
                        rounding_mode="floor").to(torch.int32)
     return dataclasses.replace(pp, rect_word=M.to_i32(rect_word),
@@ -347,17 +322,17 @@ def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                          foveated_lod, **project):
     """Dual-eye projection at the display size (``project``: its frame
     arguments), re-binning onto the physical tiles, warped prep / expand up
-    to the sort operands.  Returns (the display-size projection, the
-    re-binned rect counts, the keys, the 8 entry word rows, slot_total,
-    overflow)."""
+    to the sort operands.  Returns (the display-size projection, the keys,
+    the 8 entry word rows, slot_total, overflow, prep's header sums: the
+    projection's visible count and the re-binned rect total)."""
     pp = _project_eyes(gi, views, projs, centers, scene_transform, prepared,
                        key_plan, width=display_width, height=display_height,
                        tile_w=tile_w, tile_h=tile_h, **project)
     with span("rebin"):
-        warped, rect_count = foveated_packed(
+        warped, _rect_count = foveated_packed(
             pp, tables["inv_fit"], tiles_x=tiles_x, tiles_y=tiles_y,
             tile_w=tile_w, tile_h=tile_h)
-    return (pp, rect_count, *binning_sort_operands(
+    return (pp, *binning_sort_operands(
         warped, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode="warped", tile_w=tile_w, tile_h=tile_h,
         warped_bounds=tables["bounds"], lod_min=foveated_lod))
@@ -390,8 +365,8 @@ def depth_first_stereo_foveated_frame(
     key_plan = d32_key_plan(gi.count, width=render_width, height=render_height,
                             tile_w=tile_w, tile_h=tile_h,
                             near_plane=near_plane, far_plane=far_plane)
-    (pp, rect_count, keys, entry_words, slot_total,
-     overflow) = _foveated_packed_ops(
+    (_pp, keys, entry_words, slot_total, overflow,
+     sums) = _foveated_packed_ops(
             gi, views, projs, centers, scene_transform, prepared, key_plan,
             tables, display_width=display_width,
             display_height=display_height, capacity=capacity,
@@ -401,11 +376,9 @@ def depth_first_stereo_foveated_frame(
             far_plane=far_plane, input_is_srgb=input_is_srgb, tile_w=tile_w,
             tile_h=tile_h, foveated_lod=foveated_lod)
     return frame_output(
-        sort_and_ranges(keys, key_plan, tiles_x * tiles_y), entry_words,
-        visible=pp.visible, slot_total=slot_total, overflow=overflow,
-        capacity=capacity,
-        total_instances=lambda: rect_count.sum().to(torch.int32),
-        tiles_x=tiles_x, tiles_y=tiles_y, width=render_width,
+        sort_and_ranges(keys, key_plan, tiles_x * tiles_y), entry_words, sums,
+        slot_total=slot_total, overflow=overflow, capacity=capacity,
+        rect_total=True, tiles_x=tiles_x, tiles_y=tiles_y, width=render_width,
         height=render_height, tile_w=tile_w, tile_h=tile_h, n_eyes=2,
         r2_cutoff=STEREO_R2_CUTOFF,
         pixel_coords=(tables["coord_x"], tables["coord_y"]),

@@ -46,7 +46,7 @@ def global_frame(gi, view, proj, center, prepared=None, *, width: int,
     if num_tiles > 0xFFFF:
         raise ValueError("GlobalRenderer tile id must fit 16 bits "
                          f"({num_tiles} tiles)")
-    srt, packed, slot_total, overflow = d16_packed_sorted(
+    srt, packed, slot_total, overflow, sums = d16_packed_sorted(
         gi, view, proj, center, prepared,
         key_plan=d16_key_plan(num_tiles, gi.count), width=width, height=height,
         capacity=capacity, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
@@ -55,10 +55,9 @@ def global_frame(gi, view, proj, center, prepared=None, *, width: int,
         far_plane=far_plane, input_is_srgb=input_is_srgb,
         mode="mono" if exact_tile_test else "none")
     return frame_output(
-        srt, packed.words, visible=packed.visible, slot_total=slot_total,
-        overflow=overflow, capacity=capacity, tiles_x=tiles_x,
-        tiles_y=tiles_y, width=width, height=height, tile_w=tile_w,
-        tile_h=tile_h)
+        srt, packed.words, sums, slot_total=slot_total, overflow=overflow,
+        capacity=capacity, tiles_x=tiles_x, tiles_y=tiles_y, width=width,
+        height=height, tile_w=tile_w, tile_h=tile_h)
 
 
 class GlobalRenderer(GaussianRenderer):

@@ -6,9 +6,10 @@ Pallas path and ``LocalRenderer.render``).  The frame is the Global
 renderer's chain on 16x16 tiles
 (:func:`~gsm_renderer_tpu_torch.pipelines.common.d16_packed_sorted`), then:
 
-* each tile's count is clamped to ``max_per_tile`` (the reference drops the
-  instances past its fixed per-tile capacity); the starts are unchanged,
-  and the dropped instances still count in ``slot_total``;
+* each tile's count is clamped to ``max_per_tile`` in the ranges' counts
+  pass (the reference drops the instances past its fixed per-tile
+  capacity); the starts are unchanged, the dropped instances still count
+  in ``slot_total``, and ``total_instances`` is the clamped counts' sum;
 * the blend's depth is the first hit's: the depth of the first record with
   alpha > 0.1, 0 where none.
 
@@ -19,11 +20,9 @@ from __future__ import annotations
 
 from functools import partial
 
-import torch
-
 from .. import config as cfg
 from ..kernels.expand import check_tile
-from ..profiling import span, traced_frame
+from ..profiling import traced_frame
 from ..types import RenderOutput
 from .base import GaussianRenderer
 from .common import d16_key_plan, d16_packed_sorted, frame_output
@@ -44,20 +43,18 @@ def local_frame(gi, view, proj, center, prepared=None, *, width: int,
     num_tiles = tiles_x * tiles_y
     if num_tiles > 0xFFFF:
         raise ValueError(f"LocalRenderer tile id must fit 16 bits ({num_tiles})")
-    srt, packed, slot_total, overflow = d16_packed_sorted(
+    srt, packed, slot_total, overflow, sums = d16_packed_sorted(
         gi, view, proj, center, prepared,
         key_plan=d16_key_plan(num_tiles, gi.count), width=width, height=height,
         capacity=capacity, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
         tile_h=tile_h, sh_degree=sh_degree, alpha_threshold=alpha_threshold,
         total_ink_threshold=total_ink_threshold, near_plane=near_plane,
-        far_plane=far_plane, input_is_srgb=input_is_srgb)
-    with span("ranges"):
-        counts = torch.clamp(srt.counts, max=max_per_tile)
+        far_plane=far_plane, input_is_srgb=input_is_srgb,
+        max_per_tile=max_per_tile)
     return frame_output(
-        srt, packed.words, visible=packed.visible, slot_total=slot_total,
-        overflow=overflow, capacity=capacity, counts=counts, tiles_x=tiles_x,
-        tiles_y=tiles_y, width=width, height=height, tile_w=tile_w,
-        tile_h=tile_h, depth_mode="first_hit")
+        srt, packed.words, sums, slot_total=slot_total, overflow=overflow,
+        capacity=capacity, tiles_x=tiles_x, tiles_y=tiles_y, width=width,
+        height=height, tile_w=tile_w, tile_h=tile_h, depth_mode="first_hit")
 
 
 class LocalRenderer(GaussianRenderer):

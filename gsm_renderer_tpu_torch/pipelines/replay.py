@@ -4,11 +4,11 @@ it bakes in stay the same.
 Between capacity changes a DepthFirst mono or side-by-side stereo frame
 launches the same kernels on buffers of the same sizes every frame, and
 reads nothing from the device; only the camera changes.  So the frame's
-whole chain -- the projection, prep, row expand, expand, key pack, sort,
-ranges, blend, the header's sums and their torch glue -- is captured once
-into a ``torch.cuda.CUDAGraph`` and replayed for every later frame under the
-same key, each replay one graph launch where the eager frame has about
-sixty.  The camera travels as it does eagerly, by value in the
+whole chain -- the projection, prep (which writes the header's sums), row
+expand, expand, key pack, sort, ranges (and the counts' sum), blend and
+their torch glue -- is captured once into a ``torch.cuda.CUDAGraph`` and
+replayed for every later frame under the same key, each replay one graph
+launch where the eager frame has about forty.  The camera travels as it does eagerly, by value in the
 projection's launch: before each replay the host writes the frame's pose
 block into the instantiated graph's projection node
 (``kernels/project.py::set_pose``).  The update takes effect at the next

@@ -31,7 +31,8 @@ last ``RING`` frames are kept.  A frame's stages, in order::
                  fallback: torch.sort with its permutation)
       ranges     the tile ranges, a per-tile clamp
       blend      blend and assemble
-      header     the header's sums
+      header     the header, read from the kernels' records of its sums
+                 (on the CPU the plain versions sum in prep and ranges)
       capacity   the copies of the frame's demand to the host
       output     the output format
 
@@ -40,7 +41,9 @@ spans.  Spans record the frames of one rendering thread.
 
 **Counters** (:func:`counters`): frames rendered through a public entry,
 instance sorts by path (keys-only under a KeyPlan, or the stable
-fallback), hand-kernel launches (``_native.Kernel.launches`` summed), host
+fallback), frames by where their header's sums came from (the kernels'
+records, or torch sums of the plain versions on the CPU), hand-kernel
+launches (``_native.Kernel.launches`` summed), host
 reads, capacity lock-ins, refreshes, growths between refreshes and reads
 that found the demand above the capacity in force (``pipelines/base.py``),
 overflowed frames among the recorded ones, CUDA graph captures and
@@ -81,7 +84,8 @@ _enabled = False
 _ring: collections.deque = collections.deque(maxlen=RING)
 _open = None  # the _Frame being recorded
 _next_id = 0
-_COUNTS = dict(frames=0, sort_keys_only=0, sort_stable=0, host_reads=0,
+_COUNTS = dict(frames=0, sort_keys_only=0, sort_stable=0,
+               header_sums_kernel=0, header_sums_torch=0, host_reads=0,
                capacity_lockins=0, capacity_refreshes=0, capacity_regrows=0,
                capacity_short=0, graph_captures=0, graph_replays=0)
 _SETUP = dict(kernel_build_s=0.0, kernel_load_s=0.0, projection_cache_s=0.0)
@@ -361,7 +365,10 @@ def counters() -> dict:
     """A snapshot of the counters: ``frames`` (through a public entry),
     ``sort_keys_only`` and ``sort_stable`` (instance sorts, a frame's or a
     band's, by path: the KeyPlan's keys-only sort or the stable fallback),
-    ``kernel_launches``, ``host_reads``, ``capacity_lockins``,
+    ``header_sums_kernel`` and ``header_sums_torch`` (frames whose header
+    sums came from the kernels' records -- prep's sums, the ranges' counts
+    total -- or from torch sums of the plain versions, which CPU frames
+    take), ``kernel_launches``, ``host_reads``, ``capacity_lockins``,
     ``capacity_refreshes``, ``capacity_regrows`` (growths between
     refreshes, from the pinned copy of a frame's demand),
     ``capacity_short`` (refresh or growth reads whose demand exceeded the
@@ -377,6 +384,8 @@ def counters() -> dict:
         frames=_COUNTS["frames"],
         sort_keys_only=_COUNTS["sort_keys_only"],
         sort_stable=_COUNTS["sort_stable"],
+        header_sums_kernel=_COUNTS["header_sums_kernel"],
+        header_sums_torch=_COUNTS["header_sums_torch"],
         kernel_launches=sum(k.launches for k in _native.KERNELS),
         host_reads=_COUNTS["host_reads"],
         capacity_lockins=_COUNTS["capacity_lockins"],

@@ -223,7 +223,7 @@ def test_prep_tile_w32_matches_pallas(chain32):
 
 def _assert_prep_matches(chain, tile_w):
     p = chain["packed"]
-    offsets, rect, mask = TE.binning_prep(
+    offsets, rect, mask, _sums = TE.binning_prep(
         i32(p["rect_word"]), i32(p["rect_h"]), [i32(w) for w in p["words"]],
         tile_w=tile_w)
     mask_ref, mask_got = u32(chain["mask"]), u32(mask.numpy())
@@ -291,7 +291,8 @@ def test_sort_d16_tile_w32_matches_stable_fused_sort(chain32):
     the d16 KeyPlan pair give the same records at every rank."""
     plan = d16_plan()
     sorted_key = TC.sort_instances(*_port_keys(chain32, plan))
-    starts, counts = TC.tile_ranges(sorted_key, plan, TILES_X32 * TILES_Y)
+    starts, counts, _total = TC.tile_ranges(sorted_key, plan,
+                                            TILES_X32 * TILES_Y)
     np.testing.assert_array_equal(starts.numpy(), chain32["starts"])
     np.testing.assert_array_equal(counts.numpy(), chain32["counts"])
     sk = sorted_key.numpy()
@@ -339,7 +340,7 @@ def _port_tile_lists(ds, cam, w, h):
         height=h, tile_w=16, tile_h=16, sh_degree=0, near_plane=0.1,
         far_plane=10.0, alpha_threshold=0.005, total_ink_threshold=2.0,
         input_is_srgb=False, key_plan=plan)
-    (k1, k2), _words, _total, overflow = TC.binning_sort_operands(
+    (k1, k2), _words, _total, overflow, _sums = TC.binning_sort_operands(
         packed, capacity=8192, tiles_x=tiles_x, key_plan=plan)
     assert int(overflow) == 0
     sorted_key = TC.sort_instances(k1, k2)

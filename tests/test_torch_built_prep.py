@@ -134,7 +134,8 @@ def check_prep(n, mode):
     words = mode_words(kw, rows)
     off_ref, rect_ref, mask_ref = jax_prep(n, kw, bounds, words, rect_word,
                                            rect_h)
-    offsets, rect, mask = port_prep(kw, bounds, words, rect_word, rect_h)
+    offsets, rect, mask, _sums = port_prep(kw, bounds, words, rect_word,
+                                           rect_h)
     flips = u32(mask.numpy()) != u32(mask_ref)
     assert flips.sum() <= int(0.002 * n), f"{flips.sum()} mask flips"
     same = ~flips

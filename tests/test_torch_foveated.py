@@ -320,7 +320,7 @@ def test_rebinning_matches_jax(fov_chain):
 def test_warped_prep_matches_pallas(fov_chain, lod_min):
     c = fov_chain
     p, ref = c["packed"], c["preps"][lod_min]
-    offsets, rect, mask = TE.binning_prep(
+    offsets, rect, mask, _sums = TE.binning_prep(
         i32(p["rect_word"]), i32(p["rect_h"]), [i32(x) for x in p["words"]],
         mode="warped", warped_bounds=f32(c["tabs"]["bounds"]), lod_min=lod_min)
     flips = u32(mask.numpy()) != u32(ref["mask"])
@@ -460,7 +460,7 @@ def test_foveated_frame_matches_jax(fov_chain, jax_frame):
         **STATICS)
     warped, _ = TD.foveated_packed(pp, tables["inv_fit"], tiles_x=c["tiles_x"],
                                    tiles_y=c["tiles_y"])
-    offsets, rect, mask = TE.binning_prep(
+    offsets, rect, mask, _sums = TE.binning_prep(
         warped.rect_word, warped.rect_h, warped.words, mode="warped",
         warped_bounds=tables["bounds"])
     ref_prep = c["preps"][0.0]

@@ -148,7 +148,7 @@ def test_max_per_tile_clamps_and_reports_rect_total(scene, jax_frames):
     packed = TP.project_and_cull_packed(
         scene["gi"], *scene["port_args"], tile_w=16, tile_h=16,
         **{k: v for k, v in STATICS.items() if k != "capacity"})
-    rect_total = TD.visible_rect_total(packed.rect_word, packed.rect_h,
+    rect_total = TE.visible_rect_total(packed.rect_word, packed.rect_h,
                                        packed.visible)
     assert int(clamped.header.total_instances) == int(rect_total)
     assert int(rect_total) > int(full.header.total_instances)
@@ -178,7 +178,7 @@ def test_global_no_exact_test_order_matches_jax(scene):
         exact_test=False, tile_w=32, tile_h=16, alpha_threshold=0.005)
     starts, counts = JB.extract_tile_ranges(sorted_tile, tiles_x * tiles_y)
     plan = TC.d16_key_plan(tiles_x * tiles_y, N)
-    srt, packed, p_total, p_overflow = TC.d16_packed_sorted(
+    srt, packed, p_total, p_overflow, _sums = TC.d16_packed_sorted(
         scene["gi"], *scene["port_args"], key_plan=plan,
         capacity=STATICS["capacity"], tiles_x=tiles_x, tiles_y=tiles_y,
         tile_w=32, tile_h=16, mode="none", **kw)

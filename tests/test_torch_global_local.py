@@ -158,7 +158,7 @@ def test_sorted_order_matches_jax(scene, jax_frames, tile_w):
     tiles_x, tiles_y = -(-W // tile_w), -(-H // 16)
     kw = {k: v for k, v in STATICS.items() if k != "capacity"}
     plan = TC.d16_key_plan(tiles_x * tiles_y, N)
-    srt, packed, total, overflow = TC.d16_packed_sorted(
+    srt, packed, total, overflow, _sums = TC.d16_packed_sorted(
         scene["gi"], *scene["port_args"], key_plan=plan,
         capacity=STATICS["capacity"], tiles_x=tiles_x, tiles_y=tiles_y,
         tile_w=tile_w, tile_h=16, **kw)

@@ -14,11 +14,15 @@ stereo frames at new poses, across capacity growths and refreshes, are
 bit-equal to eager frames and outlive the frames after them; a capacity
 change re-captures; replays take no host sync; frames queued back to back
 behind a sleep kernel each render their own camera; under spans each
-replayed frame records its stage tree with its own device times.  This
+replayed frame records its stage tree with its own device times; a
+replayed frame's header comes from the kernels' records of its sums, and
+its trace shows no PyTorch reduction and no more device operations than
+the parent tree's less those sums.  This
 file imports no JAX, so that ``python -m pytest --noconftest
 tests/test_torch_graph_replay.py -m card`` runs it on a machine with a card
 and without JAX."""
 
+import math
 import re
 from pathlib import Path
 
@@ -35,6 +39,7 @@ from gsm_renderer_tpu_torch.kernels import project as KP
 from gsm_renderer_tpu_torch.pipelines import base, depth_first, replay
 from gsm_renderer_tpu_torch.pipelines.replay import copy_header
 from gsmbench.harness.timing import sleep_cycles_per_ms
+from gsmbench.harness.trace import trace_frames
 
 CSRC = Path(KP.__file__).resolve().parent.parent / "csrc" / "project.cu"
 W, H, N = 128, 96, 6000
@@ -506,7 +511,10 @@ def test_card_replays_record_their_spans(card, entry):
         spans = {s["name"]: s for s in rec["spans"]}
         assert spans["project"]["parent"] == "replay"
         assert spans["prep"]["parent"] == "binning"
-        assert all(spans[s]["device_ms"] > 0.0 for s in stages)
+        # the header launches nothing on the card: its span may read 0
+        assert all(spans[s]["device_ms"] > 0.0 for s in stages
+                   if s != "header")
+        assert spans["header"]["device_ms"] >= 0.0
         assert sum(spans[s]["device_ms"] for s in stages
                    if s not in ("prep", "row_expand", "expand")) \
             <= spans["replay"]["device_ms"] + 0.01
@@ -515,3 +523,44 @@ def test_card_replays_record_their_spans(card, entry):
         assert rec["capacity"] > 0 and rec["overflow"] == 0
     assert sum(rec["counters"].get("graph_captures", 0) for rec in recs) >= 1
     assert len({rec["spans"][4]["device_ms"] for rec in recs}) > 1
+
+
+#: the device operations a replayed frame of the dolly's scene at pose 5
+#: launched before the prep and ranges kernels wrote the header's sums, as
+#: a trace counts them (the graph's and the header copy's; H100 80GB HBM3),
+#: and how many of them were the header's PyTorch ops (reductions, int64
+#: casts and bit ops over the gaussians); a stray fill lands in some traced
+#: frames only, so the bound is rounded up to whole launches
+PARENT_LAUNCHES = {"rows": (55.5, 21), "rows_off": (53.5, 21),
+                   "stereo": (43.5, 12)}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("entry", list(PARENT_LAUNCHES))
+def test_card_replayed_headers_take_no_torch_sums(card, entry):
+    """A replayed frame's header comes from the kernels' records: it
+    equals the eager frame's, every replay counts ``header_sums_kernel``
+    and none ``header_sums_torch``, and the trace of four replays at one
+    pose shows no PyTorch reduction and no more device operations a frame
+    than PARENT_LAUNCHES' count less the header's ops."""
+    gi = scene("cuda")
+    g, e = renderer(entry, "cuda"), renderer(entry, "cuda", eager=True)
+    fg, fe = frame_fn(entry, g, gi), frame_fn(entry, e, gi)
+    for _ in range(3):  # eager, then the capture and a replay
+        fg(5)
+        fe(5)
+    torch.cuda.synchronize()
+    # spans record under the profiler, which the graph key holds: the
+    # first traced frame captures again
+    trace_frames(lambda k: (fg(5), torch.cuda.synchronize()), 1)
+    c0 = P.counters()
+    trace = trace_frames(lambda k: (fg(5), torch.cuda.synchronize()), 4)
+    got = moved(c0, P.counters())
+    assert got["graph_replays"] == 4 and got["graph_captures"] == 0
+    assert got["header_sums_kernel"] == 4 and got["header_sums_torch"] == 0
+    assert not [k for k in trace["kernels"] if "reduce_kernel" in k]
+    parent, header_ops = PARENT_LAUNCHES[entry]
+    assert trace["launches"] / 4 <= math.ceil(parent - header_ops)
+    out = fg(5)
+    same_output(out, fe(5))
+    assert int(out.header.overflow) == 0

@@ -224,7 +224,8 @@ def test_prep_none_matches_binning_inputs(jax_hw):
     ref = jax_hw
     rw, rh = i32(ref["rect_word"]), torch.from_numpy(ref["rect_h"].astype(np.int32))
     words = [i32(w) for w in ref["record_words"]]
-    offsets, rect, mask = TE.binning_prep_plain(rw, rh, words, mode="none")
+    offsets, rect, mask, _sums = TE.binning_prep_plain(rw, rh, words,
+                                                       mode="none")
     want = np.concatenate([[0], np.cumsum(ref["counts"])])
     np.testing.assert_array_equal(offsets.numpy(), want)
     assert rect is rw and mask is None
@@ -241,7 +242,8 @@ def test_expand_none_matches_pallas(jax_hw):
     ref = jax_hw
     rw, rh = i32(ref["rect_word"]), torch.from_numpy(ref["rect_h"].astype(np.int32))
     words = [i32(w) for w in ref["record_words"]]
-    offsets, rect, mask = TE.binning_prep_plain(rw, rh, words, mode="none")
+    offsets, rect, mask, _sums = TE.binning_prep_plain(rw, rh, words,
+                                                       mode="none")
     plan = TB.make_key_plan(TILES_X * TILES_Y, N, near_plane=0.1, far_plane=FAR)
     key1, key2, total, overflow = TE.expand_slots_plain(
         offsets, rect, mask, i32(ref["dsw"]), words, capacity=CAP,
@@ -260,11 +262,12 @@ def test_sorted_order_matches_jax(scene, jax_hw):
     words at every live rank but theta flips."""
     ref = jax_hw
     packed, plan = port_packed(scene)
-    (key1, key2), words, total, overflow = TC.binning_sort_operands(
+    (key1, key2), words, total, overflow, _sums = TC.binning_sort_operands(
         packed, capacity=CAP, tiles_x=TILES_X, key_plan=plan, mode="none")
     assert int(total) == ref["total"] and int(overflow) == 0
     sorted_key = TC.sort_instances(key1, key2)
-    starts, counts = TC.tile_ranges(sorted_key, plan, TILES_X * TILES_Y)
+    starts, counts, _total = TC.tile_ranges(sorted_key, plan,
+                                            TILES_X * TILES_Y)
     np.testing.assert_array_equal(counts.numpy(), ref["tile_counts"])
     np.testing.assert_array_equal(starts.numpy(), ref["starts"])
     tile = TC.binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)

@@ -421,8 +421,9 @@ def test_prep_band_at_32x16_matches_numpy_transcription(block32, band0,
 def check_prep_band(block, band0, band1, keyplan):
     plan = (TB.make_key_plan(8 * 4, RANKS * 501, near_plane=R.NEAR,
                              far_plane=R.FAR) if keyplan else None)
-    got = TE.binning_prep_band(block[4], block[5], block[6], block[7],
-                               band0=band0, band1=band1, key_plan=plan)
+    *got, _sums = TE.binning_prep_band(block[4], block[5], block[6],
+                                       block[7], band0=band0, band1=band1,
+                                       key_plan=plan)
     want = numpy_band_clamp(block, band0, band1, plan)
     for k, (g, w) in enumerate(zip(got, want, strict=True)):
         np.testing.assert_array_equal(np.asarray(g).astype(np.int64)
@@ -451,7 +452,8 @@ def check_expand_with_row_offset(block, band0, band1, keyplan, tile_w):
     tiles_x = W // tile_w
     plan = (TB.make_key_plan(tiles_x * bands, N, near_plane=R.NEAR,
                              far_plane=R.FAR) if keyplan else None)
-    offsets, rect, mask, dsw = band_tables(block, band0, band1, plan)
+    offsets, rect, mask, dsw, _sums = band_tables(block, band0, band1,
+                                                  plan)
     words = list(block[:4])
     capacity = (int(offsets[-1]) // 4096 + 1) * 4096
     *keys, total, overflow = TE.expand_slots(

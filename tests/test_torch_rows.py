@@ -96,7 +96,7 @@ def chain():
 
 def test_prep_count_rows_matches_pallas(chain):
     n = chain["n"]
-    offsets, rect, mask = TE.binning_prep(
+    offsets, rect, mask, _sums = TE.binning_prep(
         i32(chain["rect_word"]), i32(chain["rect_h"]),
         [i32(w) for w in chain["words"]], count_rows=True)
     np.testing.assert_array_equal(offsets.numpy(), chain["offsets"])
@@ -159,8 +159,8 @@ def test_row_span_superset_of_exact_test():
     packed = TP.project_and_cull_packed(
         ds_to_torch(ds), cam.view_matrix, cam.projection_matrix, cam.position,
         tile_w=16, tile_h=16, key_plan=plan, **STATICS)
-    offsets, rect, mask = TE.binning_prep(packed.rect_word, packed.rect_h,
-                                          packed.words, count_rows=True)
+    offsets, rect, mask, _sums = TE.binning_prep(
+        packed.rect_word, packed.rect_h, packed.words, count_rows=True)
     rw = u32(rect.numpy())
     off = offsets.numpy().astype(np.int64)
     words = [u32(w.numpy()) for w in packed.words]

@@ -15,10 +15,19 @@ chain, the stable fallback) against those yardsticks and
 On the card (marked ``card``): the CUDA pack, CUB's keys-only sort and the
 ranges kernels bit-equal to the same yardsticks at sizes that are not a
 multiple of a block, with planes that are not 16-B aligned and at 11M
-slots; the same chains on CUDA tensors; each frame's pack, sort and ranges
-launches.  This file imports no JAX, so that
-``python -m pytest --noconftest tests/test_torch_sort_keys.py`` runs it on
-a machine with a card and without JAX."""
+slots; the ranges' clamped counts and their sum (the header's
+``total_instances``) at the garden's shapes; the same chains on CUDA
+tensors; each frame's pack, sort and ranges launches; and the header sums
+that prep writes beside the offsets, bit-equal to the plain prep's in
+every mode at 1M gaussians and at the garden's 5.8M, on the built
+gaussians of tests/test_torch_header_sums.py, back to back at other sizes
+(each launch's last block zeroes the accumulators for the next).  This
+file imports no JAX, so that ``python -m pytest --noconftest
+tests/test_torch_sort_keys.py`` runs it on a machine with a card and
+without JAX."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -32,6 +41,10 @@ from gsm_renderer_tpu_torch.kernels import sort as KS
 from gsm_renderer_tpu_torch.ops import binning as B
 from gsm_renderer_tpu_torch.parallel import multichip as MC
 from gsm_renderer_tpu_torch.pipelines import common as PC
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_header_sums import (MODES, band_planes,  # noqa: E402
+                                    built_inputs, i32, warped_bounds)
 
 SENTINEL = KE.SENTINEL
 
@@ -155,28 +168,32 @@ def test_plain_ranges_are_searchsorted(name):
     assert_ranges(got, yardstick_ranges(sorted_key, num_tiles, shift))
     assert_ranges(got, numpy_ranges(sorted_key, num_tiles, shift))
     assert int(got[1].sum()) <= k1.shape[0]
+    assert got[2].dtype == torch.int32 and got[2].shape == ()
+    assert int(got[2]) == int(got[1].sum())
 
 
 def test_empty_tiles_read_as_empty():
     """The leading, middle and trailing empty tiles of the cases start where
     the next live tile does and count 0."""
     num_tiles, shift, k1, k2 = _case("empty_middle")
-    starts, counts = KS.sort_ranges_plain(
+    starts, counts, _total = KS.sort_ranges_plain(
         torch.sort(PC.sort_key64(k1, k2)).values, num_tiles, shift)
     assert torch.all(counts[9:40] == 0)
     assert torch.all(starts[9:40] == starts[40])
     assert int(starts[0]) == 0
     _, _, k1, k2 = _case("all_dead")
-    starts, counts = KS.sort_ranges_plain(
+    starts, counts, total = KS.sort_ranges_plain(
         torch.sort(PC.sort_key64(k1, k2)).values, 64, 20)
     assert torch.all(starts == 0) and torch.all(counts == 0)
+    assert int(total) == 0
 
 
 def test_ranges_refuse_bad_arguments():
     key = torch.zeros(4, dtype=torch.int64)
-    for num_tiles, shift in ((0, 3), (4, -1), (4, 32)):
+    for num_tiles, shift, most in ((0, 3, 0), (4, -1, 0), (4, 32, 0),
+                                   (4, 3, -1)):
         with pytest.raises(ValueError):
-            KS.sort_ranges(key, num_tiles, shift)
+            KS.sort_ranges(key, num_tiles, shift, most)
 
 
 def test_sort_keys_empties_a_list_of_planes():
@@ -221,8 +238,8 @@ def recorded(monkeypatch):
         calls.append(dict(planes=planes, plan=key_plan, sorted=out[0]))
         return out
 
-    def record_ranges(sorted_key, plan, num_tiles):
-        out = tile_ranges(sorted_key, plan, num_tiles)
+    def record_ranges(sorted_key, plan, num_tiles, max_per_tile=0):
+        out = tile_ranges(sorted_key, plan, num_tiles, max_per_tile)
         calls[-1].update(num_tiles=num_tiles, ranges=out)
         return out
 
@@ -244,7 +261,7 @@ def _band_chain(gi, cam, band0=1, band1=3):
     bands = band1 - band0
     plan = B.make_key_plan(tiles_x * bands, gi.count,
                            near_plane=cam.near_plane, far_plane=cam.far_plane)
-    offsets, rect, mask, dsw = KE.binning_prep_band(
+    offsets, rect, mask, dsw, _sums = KE.binning_prep_band(
         block[4], block[5], block[6], block[7], band0=band0, band1=band1,
         key_plan=plan)
     *keys, _total, overflow = KE.expand_slots(
@@ -387,3 +404,74 @@ def test_cuda_launches_once_a_frame(card, keyplan, monkeypatch):
     rise = [k.launches - b for k, b in zip((KS.PACK, KS.SORT, KS.RANGES),
                                            before)]
     assert rise == [3, 3 if keyplan else 0, 3]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("most", [0, 64, 1300])
+def test_cuda_ranges_clamp_and_sum(card, most):
+    """The ranges' counts pass at the garden's shapes (11M slots, 8,160
+    tiles, about 1,350 slots a tile): each count clamped to ``most`` where
+    it is above 0 (the Local frames' clamp; 1,300 binds on some tiles
+    only) and their sum beside them, bit-equal to the plain version's
+    clamp and torch sum."""
+    rng = np.random.default_rng(most)
+    num_tiles, shift = 8160, 19
+    k1, k2 = plan_keys(rng, 11_010_048, num_tiles=num_tiles, shift=shift)
+    got = KS.sort_keys_only(KS.sort_key_pack(k1.cuda(), k2.cuda()))
+    ranges = KS.sort_ranges_cuda(got, num_tiles, shift, most)
+    want = KS.sort_ranges_plain(got, num_tiles, shift, most)
+    assert_ranges(ranges, want)
+    assert ranges[2].shape == () and int(ranges[2]) == int(ranges[1].sum())
+    if most:
+        assert int(ranges[1].max()) == most
+        assert int(ranges[1].min()) < most or most == 64
+
+
+#: prep's modes on the card: those of the CPU file, and the band clamp
+CARD_PREP_MODES = [*MODES, "band"]
+
+
+def _prep(mode, tensors, plain=False):
+    """The CUDA prep of ``mode`` on the built tensors moved to the card, or
+    with ``plain`` the plain version on the same tensors there."""
+    if mode == "band":
+        planes = [t.cuda() for t in tensors]
+        fn = KE.binning_prep_band_plain if plain else KE.binning_prep_band_cuda
+        return fn(*planes, band0=20, band1=40)
+    rect_word, rect_h, words = tensors
+    kw = dict(MODES[mode])
+    if mode == "warped":
+        kw["warped_bounds"] = warped_bounds().cuda()
+    if mode in ("mono_rows", "mono_full", "none"):
+        words = words[:4]
+    fn = KE.binning_prep_plain if plain else KE.binning_prep_cuda
+    return fn(rect_word.cuda(), rect_h.cuda(), [w.cuda() for w in words],
+              **kw)
+
+
+def _built_tensors(mode, n):
+    if mode == "band":
+        return [i32(a) for a in band_planes(n, "mixed")[:4]]
+    rect_word, rect_h, _culled, rows = built_inputs(n, "mixed")
+    return i32(rect_word), i32(rect_h), [i32(w) for w in rows]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("n", [1_000_003, 5_800_000])
+@pytest.mark.parametrize("mode", CARD_PREP_MODES)
+def test_cuda_prep_sums_are_plain(card, mode, n):
+    """The CUDA prep's header sums, and its tables, equal the plain prep's
+    on the card bit for bit; launches of other sizes between two at ``n``
+    leave the record the same."""
+    tensors = _built_tensors(mode, n)
+    got = _prep(mode, tensors)
+    want = _prep(mode, tensors, plain=True)
+    for k, (g, w) in enumerate(zip(got, want, strict=True)):
+        assert (g is None) == (w is None), f"output {k}"
+        if w is not None:
+            assert torch.equal(g, w), f"output {k}"
+    assert got[-1].dtype == torch.int32 and got[-1].shape == (3,)
+    for m in (257, 1):
+        _prep(mode, _built_tensors(mode, m))
+    again = _prep(mode, tensors)
+    assert torch.equal(again[-1], got[-1])

@@ -179,7 +179,7 @@ def test_mono_chain_without_plan_renders_the_keyplan_frame(scene, mode):
     kw = dict(depth_mode="normalized", r2_cutoff=9.0) if mode == "none" else {}
     frames = []
     for key_plan in (plan, None):
-        srt, _packed, words, total, overflow = TC.mono_packed_sorted(
+        srt, _packed, words, total, overflow, _sums = TC.mono_packed_sorted(
             scene["gi"], *scene["args"], key_plan=key_plan, mode=mode,
             **STATICS)
         assert int(overflow) == 0
@@ -201,7 +201,7 @@ def test_d16_chain_without_plan_renders_the_keyplan_frame(scene):
     plan = TC.d16_key_plan(16 * 12, N)
     frames = []
     for key_plan in (plan, None):
-        srt, packed, total, overflow = TC.d16_packed_sorted(
+        srt, packed, total, overflow, _sums = TC.d16_packed_sorted(
             scene["gi"], *scene["args"], key_plan=key_plan, **STATICS)
         assert int(overflow) == 0
         frames.append((srt, blend(srt, packed.words)))
@@ -218,7 +218,7 @@ def test_stereo_binning_without_plan_orders_as_the_keyplan(scene):
           if k not in ("tiles_y", "tile_w", "tile_h")}
     out = []
     for key_plan in (plan, None):
-        _pp, keys, words, _total, overflow = TD._stereo_packed_ops(
+        _pp, keys, words, _total, overflow, _sums = TD._stereo_packed_ops(
             scene["gi"], *rig, None, key_plan, tile_w=16, tile_h=16, **kw)
         assert int(overflow) == 0
         srt = TC.sort_and_ranges(keys, key_plan, 16 * 12)
@@ -245,7 +245,7 @@ def test_foveated_binning_without_plan_orders_as_the_keyplan(scene):
           if k not in ("width", "height", "tiles_x", "tiles_y")}
     out = []
     for key_plan in (plan, None):
-        _pp, _rc, keys, _words, _total, overflow = TD._foveated_packed_ops(
+        _pp, keys, _words, _total, overflow, _sums = TD._foveated_packed_ops(
             scene["gi"], *TD._stereo_rig(stereo), None, key_plan, tables,
             display_width=W, display_height=H, tiles_x=tiles_x,
             tiles_y=num_tiles // tiles_x, foveated_lod=0.0, **kw)

@@ -249,7 +249,7 @@ def stereo_chain():
 def test_stereo_prep_matches_pallas(stereo_chain):
     c = stereo_chain
     p = c["packed"]
-    offsets, rect, mask = TE.binning_prep(
+    offsets, rect, mask, _sums = TE.binning_prep(
         i32(p["rect_word"]), i32(p["rect_h"]), [i32(x) for x in p["words"]],
         mode="stereo")
     flips = u32(mask.numpy()) != u32(c["mask"])

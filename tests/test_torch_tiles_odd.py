@@ -234,7 +234,7 @@ def check_projection(sc, ref, tile):
 
 def check_prep(ref, tile):
     p, prep = ref["packed"], ref["prep"]
-    offsets, rect, mask = TE.binning_prep(
+    offsets, rect, mask, _sums = TE.binning_prep(
         i32(p["rect_word"]), i32(p["rect_h"]), [i32(w) for w in p["words"]],
         tile_w=tile[0], tile_h=tile[1], count_rows=ref["rows"] > 0)
     flips = u32(mask.numpy()) != u32(prep[2, :N])

@@ -138,7 +138,7 @@ def sorted_stereo_table(scene, tile):  # noqa: F811
     tiles_x, tiles_y = -(-W // tile[0]), -(-H // tile[1])
     plan = TB.make_key_plan(tiles_x * tiles_y, N, near_plane=NEAR,
                             far_plane=FAR)
-    _pp, keys, words, slot_total, overflow = TD._stereo_packed_ops(
+    _pp, keys, words, slot_total, overflow, _sums = TD._stereo_packed_ops(
         scene["gi"], views, projs, centers, np.eye(4, dtype=np.float32), None,
         plan, width=W, height=H, capacity=STATICS["capacity"], tiles_x=tiles_x,
         tile_w=tile[0], tile_h=tile[1],
