@@ -295,6 +295,9 @@ KERNEL_SOURCES = {
                        "gsm_renderer_tpu/kernels/project.py:493"),
     "bounds_gather": ("gsm_renderer_tpu_torch/csrc/binning.cu",
                       "gsm_renderer_tpu/kernels/expand.py:202"),
+    # the foveated re-bin: no Pallas kernel (XLA in JAX's foveated frame)
+    "rebin": ("gsm_renderer_tpu_torch/csrc/binning.cu",
+              "none: pipelines/depth_first.py::foveated_packed's torch ops"),
     # the instance sort: no Pallas kernel (jax.lax.sort and an XLA
     # searchsorted in gsm_renderer_tpu/pipelines/common.py)
     "sort_pack": ("gsm_renderer_tpu_torch/csrc/sort.cu",
@@ -320,6 +323,7 @@ STAGE_KERNELS = (
     ("expand", ("expand_kernel",)),
     ("blend", ("blend_kernel",)),
     ("bounds gather", ("bounds_gather_kernel",)),
+    ("rebin", ("foveated_rebin_kernel",)),
     ("key pack", ("sort_key_pack_kernel",)),
     ("tile ranges", ("sort_ranges", "searchsorted")),
     ("instance sort", ("Radix", "radix", "Sort", "sort")),
@@ -333,7 +337,7 @@ MONO_ROWS_PATH = ("project", "prep", "row_expand", "expand", "blend",
 MONO_RECTS_PATH = ("project", "prep", "expand", "blend", *SORT_PATH)
 STEREO_PATH = ("stereo_project", "prep", "expand", "blend", "sort_keys",
                *SORT_PATH)
-FOVEATED_PATH = STEREO_PATH
+FOVEATED_PATH = (*STEREO_PATH, "rebin")
 D16_PATH = ("project", "prep", "expand", "blend", "sort_keys", *SORT_PATH)
 HARDWARE_PATH = D16_PATH
 BAND_PATH = ("project", "prep", "prep_band", "expand", "blend", *SORT_PATH)
@@ -3375,9 +3379,21 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     ftx, fty = -(-pw // 16), -(-ph // 16)
     f_plan = OB.make_key_plan(ftx * fty, n, near_plane=cam.near_plane,
                               far_plane=cam.far_plane)
-    fpk, _ = PD.foveated_packed(
-        KP.stereo_project_cuda(*sargs, **dict(pkw, key_plan=f_plan)),
-        tables["inv_fit"], tiles_x=ftx, tiles_y=fty)
+    fpp = KP.stereo_project_cuda(*sargs, **dict(pkw, key_plan=f_plan))
+    rebin_in = (fpp.px_min, fpp.px_max, fpp.py_min, fpp.py_max, fpp.visible,
+                tables["inv_fit"])
+    rebin_fn = lambda: KE.foveated_rebin_cuda(*rebin_in, tiles_x=ftx,
+                                              tiles_y=fty)
+    rebinned, ms = device_ms(torch, rebin_fn, 20)
+    time_check("rebin", rebin_fn, ms)
+    (fpk, _), plain_ms = cuda_ms(torch, lambda: PD.foveated_packed(
+        fpp, tables["inv_fit"], tiles_x=ftx, tiles_y=fty), 3)
+    check_exact("rebin", list(zip(rebinned, (fpk.rect_word, fpk.rect_h,
+                                        fpk.visible.to(torch.int32)))))
+    # four bounds and the visibility read, the rect word, rect_h and the
+    # visibility written a gaussian; 20 float32 operations a bound
+    record("rebin", "rebin", fv_l["rebin"], ms, plain_ms, 0.0, 0.0,
+           26 * n, 80 * n)
     fru = fpk.rect_word.to(torch.int64) & 0xFFFFFFFF
     f_min_tx = (fru & 0x3FF).to(torch.int32)
     f_min_ty = ((fru >> 10) & 0x3FF).to(torch.int32)
@@ -4475,7 +4491,8 @@ def main() -> int:
         REQUIRE_ONE_PASS_SCAN = False
     kernels = [project.PROJECT, expand.PREP, expand.ROW_EXPAND, expand.EXPAND,
                blend.BLEND, project.STEREO_PROJECT, expand.BOUNDS_GATHER,
-               expand.PREP_BAND, sort.PACK, sort.SORT, sort.RANGES]
+               expand.PREP_BAND, sort.PACK, sort.SORT, sort.RANGES,
+               expand.REBIN]
     t0 = time.perf_counter()
     smi = phase_build(_native)
     hl = phase_headline(torch, T, kernels)

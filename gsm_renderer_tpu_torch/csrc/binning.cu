@@ -1,5 +1,6 @@
 // Binning kernels: prep (kernel 2), row expansion (kernel 3), slot
-// expansion (kernel 4) and the foveated bounds gather (kernel 7), for the
+// expansion (kernel 4), the foveated bounds gather (kernel 7) and the
+// foveated re-bin onto the physical tiles (see its note below), for the
 // mono and full-rect "none" (4 record words), stereo and warped (8 words:
 // the left record, then the right; w3 shared) tables with KeyPlan keys.
 //
@@ -187,6 +188,7 @@
 // coordinates, so they are not template parameters: one instance a mode
 // serves every geometry (a multiply by a register where a constant stood).
 #include <climits>
+#include <cstring>
 
 #include "common.cuh"
 
@@ -431,6 +433,75 @@ __global__ void bounds_gather_kernel(const float* __restrict__ bounds,
   for (int d = 0; d <= GSM_MASK_W; ++d) out[d * N + i] = fx[d];
 #pragma unroll
   for (int d = 0; d <= GSM_MASK_H; ++d) out[(GSM_MASK_W + 1 + d) * N + i] = fy[d];
+}
+
+// ---------------------------------------------------------------------------
+// The foveated re-bin: a dual-eye projection made at the display size onto
+// the physical tile grid of a foveated target (the JAX package's XLA chain
+// in depth_first_stereo_foveated_frame; plain version
+// pipelines/depth_first.py::foveated_packed).  One thread a gaussian reads
+// its four union pixel bounds and its visibility (17 B) and writes the
+// physical rect word, rect_h and the re-binned visibility (9 B).  The
+// arithmetic is the plain version's float32 chain, operation for operation
+// and rounded as it rounds (no contraction): bound by device memory.
+// ---------------------------------------------------------------------------
+
+// The inverse warp and the grid, by value: per axis the 13 floats of
+// stereo.foveated_raster_tables' inv_fit row (the degree-9 polynomial,
+// highest power first, in t = (v - row[10]) / (row[11] - row[10]) * 2 - 1,
+// then row[12] the fit's error margin), f32(1 / tile side) and the tiles.
+struct RebinParams {
+  float fit[2][13];
+  float inv_tile[2];
+  int tiles[2];
+};
+
+// A display coordinate through one axis' inverse warp: Horner in float32.
+__device__ __forceinline__ float rebin_warp(const float (&row)[13], float v) {
+  float t = __fdiv_rn(__fsub_rn(v, row[10]), __fsub_rn(row[11], row[10]));
+  t = __fsub_rn(__fmul_rn(t, 2.0f), 1.0f);
+  float acc = row[0];
+#pragma unroll
+  for (int k = 1; k < 10; ++k) acc = __fadd_rn(__fmul_rn(acc, t), row[k]);
+  return acc;
+}
+
+// The physical tile of a warped coordinate, floored and clamped to the grid
+// (the float-to-int conversion truncates, as PyTorch's does on the card).
+__device__ __forceinline__ int rebin_tile(float v, float inv_tile, int tiles) {
+  const int t = static_cast<int>(floorf(__fmul_rn(v, inv_tile)));
+  return min(max(t, 0), tiles - 1);
+}
+
+__global__ void foveated_rebin_kernel(
+    const float* __restrict__ px_min, const float* __restrict__ px_max,
+    const float* __restrict__ py_min, const float* __restrict__ py_max,
+    const bool* __restrict__ seen, int n, RebinParams p,
+    int32_t* __restrict__ rect_word, int32_t* __restrict__ rect_h,
+    bool* __restrict__ visible) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float mx = p.fit[0][12], my = p.fit[1][12];
+  const int min_tx = rebin_tile(__fsub_rn(rebin_warp(p.fit[0], px_min[i]), mx),
+                                p.inv_tile[0], p.tiles[0]);
+  const int max_tx = rebin_tile(__fadd_rn(rebin_warp(p.fit[0], px_max[i]), mx),
+                                p.inv_tile[0], p.tiles[0]);
+  const int min_ty = rebin_tile(__fsub_rn(rebin_warp(p.fit[1], py_min[i]), my),
+                                p.inv_tile[1], p.tiles[1]);
+  const int max_ty = rebin_tile(__fadd_rn(rebin_warp(p.fit[1], py_max[i]), my),
+                                p.inv_tile[1], p.tiles[1]);
+  const bool was = seen[i];
+  const bool vis = was && min_tx <= max_tx && min_ty <= max_ty;
+  // a gaussian the projection sees whose re-binned rect is empty keeps its
+  // visibility with an empty rect, which prep culls
+  const int rect_w = was && !vis ? 0 : max_tx - min_tx + 1;
+  uint32_t word = static_cast<uint32_t>(min_tx) |
+                  (static_cast<uint32_t>(min_ty) << 10) |
+                  (static_cast<uint32_t>(rect_w) << 20);
+  if (!was) word |= GSM_CULLED_BIT;
+  rect_word[i] = static_cast<int32_t>(word);
+  rect_h[i] = vis ? max_ty - min_ty + 1 : 0;
+  visible[i] = vis;
 }
 
 // ---------------------------------------------------------------------------
@@ -1298,6 +1369,35 @@ extern "C" int gsm_bounds_gather(const float* bounds, const int32_t* min_tx,
     const int threads = 256;
     bounds_gather_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
         bounds, min_tx, min_ty, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The foveated re-bin of n gaussians: bounds, the projection's four (n,)
+// union pixel bounds; seen, its visibility; fit, the host (2, 13) inverse
+// warp (copied into the launch by value); rect_word, rect_h, visible: (n,)
+// outputs.  One launch, none at n == 0.
+extern "C" int gsm_foveated_rebin(const float* px_min, const float* px_max,
+                                  const float* py_min, const float* py_max,
+                                  const bool* seen, int n, const float* fit,
+                                  int tiles_x, int tiles_y, float inv_tile_w,
+                                  float inv_tile_h, int32_t* rect_word,
+                                  int32_t* rect_h, bool* visible,
+                                  cudaStream_t stream) {
+  if (tiles_x < 1 || tiles_y < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RebinParams p;
+  memcpy(p.fit, fit, sizeof(p.fit));
+  p.inv_tile[0] = inv_tile_w;
+  p.inv_tile[1] = inv_tile_h;
+  p.tiles[0] = tiles_x;
+  p.tiles[1] = tiles_y;
+  if (n > 0) {
+    const int threads = 256;
+    foveated_rebin_kernel<<<(n + threads - 1) / threads, threads, 0,
+                            stream>>>(px_min, px_max, py_min, py_max, seen, n,
+                                      p, rect_word, rect_h, visible);
   }
   return static_cast<int>(cudaGetLastError());
 }

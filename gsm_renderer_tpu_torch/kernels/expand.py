@@ -35,7 +35,10 @@ from the (2, 128) float32 bounds table of
 clamped to 127).  Its tests are the stereo ones (either eye q <= 9) on those
 rects; with ``lod_min`` > 0 the prep also drops periphery instances whose
 opacity-weighted footprint the local sampling rate cannot resolve.  The
-expand re-tests pre-counted (MASKED) entries in this mode.
+expand re-tests pre-counted (MASKED) entries in this mode.  The rects it
+starts from are the display-size projection's re-binned onto the physical
+tiles: :func:`foveated_rebin_cuda`, one launch in place of the plain torch
+chain (``pipelines/depth_first.py::foveated_packed``).
 
 The JAX package packs its tables as (planes, rows, 128) for the TPU; here
 every table is a flat array: ``offsets`` (N + 1,) with ``offsets[N]`` the slot
@@ -47,6 +50,9 @@ plain versions widen to int64 for shifts and compares.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from .. import _native
@@ -97,6 +103,10 @@ PREP_BAND = _native.Kernel("prep_band", "binning", "gsm_prep_band", [
     _native.P, _native.P, _native.P, _native.P])
 BOUNDS_GATHER = _native.Kernel("bounds_gather", "binning", "gsm_bounds_gather", [
     _native.P, _native.P, _native.P, _native.I, _native.P])
+REBIN = _native.Kernel("rebin", "binning", "gsm_foveated_rebin", [
+    _native.P, _native.P, _native.P, _native.P, _native.P, _native.I,
+    _native.P, _native.I, _native.I, _native.F, _native.F, _native.P,
+    _native.P, _native.P])
 
 
 #: the fewest elements a block of the prep and row-expand kernels scans
@@ -322,6 +332,39 @@ def warped_bounds_gather(bounds, min_tx, min_ty):
     if min_tx.is_cuda:
         return warped_bounds_gather_cuda(bounds, min_tx, min_ty)
     return warped_bounds_gather_plain(bounds, min_tx, min_ty)
+
+
+def foveated_rebin_cuda(px_min, px_max, py_min, py_max, seen, inv_fit, *,
+                        tiles_x: int, tiles_y: int, tile_w: int = 16,
+                        tile_h: int = 16):
+    """Launch ``gsm_foveated_rebin`` of ``csrc/binning.cu``: the re-bin of a
+    display-size dual-eye projection (its (N,) float32 union pixel bounds
+    and bool visibility ``seen``) onto the ``tiles_x`` x ``tiles_y``
+    physical tiles of a foveated target through its (2, 13) inverse-warp
+    fit ``inv_fit`` (host, passed by value).  One thread a gaussian, the
+    plain version's float32 chain operation for operation
+    (``pipelines/depth_first.py::foveated_packed``, which the tests hold it
+    to bit for bit).  Returns the physical (rect word, rect_h) int32 and
+    the re-binned visibility."""
+    check_tile(tile_w, tile_h, "re-bin kernel")
+    dev = seen.device
+    n = seen.shape[0]
+    for name, t in (("px_min", px_min), ("px_max", px_max),
+                    ("py_min", py_min), ("py_max", py_max)):
+        _native.check(t, name, torch.float32, (n,), dev)
+    _native.check(seen, "seen", torch.bool, (n,), dev)
+    fit = np.ascontiguousarray(inv_fit, np.float32)
+    if fit.shape != (2, 13):
+        raise ValueError(f"inv_fit: shape {fit.shape}, expected (2, 13)")
+    rects = torch.empty((2, n), dtype=torch.int32, device=dev)
+    visible = torch.empty(n, dtype=torch.bool, device=dev)
+    REBIN.launch(_native.ptr(px_min), _native.ptr(px_max), _native.ptr(py_min),
+                 _native.ptr(py_max), _native.ptr(seen), n,
+                 fit.ctypes.data_as(ctypes.c_void_p), tiles_x, tiles_y,
+                 float(np.float32(1.0 / tile_w)),
+                 float(np.float32(1.0 / tile_h)), _native.ptr(rects[0]),
+                 _native.ptr(rects[1]), _native.ptr(visible))
+    return rects[0], rects[1], visible
 
 
 def stereo_warped_tile_masks(wl, wr, rect_w, rect_h, fx, fy, *, w3=None,

@@ -32,21 +32,23 @@ rasterizes directly into the reduced-rate physical target of a
 :class:`~gsm_renderer_tpu_torch.stereo.FoveatedStereoTarget`: the dual-eye
 projection runs at the display size, each gaussian's display pixel bounds
 are re-binned onto the physical tile grid through the fitted inverse warp
-(plain torch on the device, :func:`foveated_rects`), prep and expand run in
+(:func:`foveated_rebin`: one kernel on the card, the plain torch chain
+:func:`foveated_packed` on the CPU), prep and expand run in
 mode "warped" (display-space tile rects from the bounds table), and the
 blend samples each physical pixel at its display-space coordinate.  No host
 read except the capacity contract's lock-in and refreshes
 (pipelines/base.py).
 
 On the card the renderer's mono frames (32-bit depth keys under a KeyPlan,
-rows on or off, and the Hardware renderer's) and side-by-side stereo
-frames replay a CUDA graph of the frame while the values it bakes in stay
-the same, the frame's pose block written into the graph's projection
+rows on or off, and the Hardware renderer's), side-by-side stereo and
+foveated stereo frames replay a CUDA graph of the frame while the values
+it bakes in stay the same (a foveated frame's: its target's tables, by
+identity), the frame's pose block written into the graph's projection
 before each launch (pipelines/replay.py); the renderer's private
 ``_eager_frames`` set true renders them eagerly, through the same kernels
 and the same pose block.  The other frames (16-bit depth keys, the stable
-fallback, foveated) stay eager: :func:`_capturable` decides with the
-KeyPlan function the frames call, :func:`d32_key_plan`.
+fallback) stay eager: :func:`_capturable` decides with the KeyPlan
+function the frames call, :func:`d32_key_plan`.
 
 The Hardware renderer (pipelines/hardware.py) is this class with other
 settings: its mono frame expands full rects (``exact_tile_test=False``:
@@ -65,12 +67,13 @@ import torch
 
 from .. import config as cfg
 from .. import mathlib as M
-from ..kernels.expand import CULLED_BIT, STEREO_R2_CUTOFF, check_tile
+from ..kernels.expand import (CULLED_BIT, STEREO_R2_CUTOFF, check_tile,
+                              foveated_rebin_cuda)
 from ..kernels.project import (pose_block, stereo_pose_block,
                                stereo_project_and_cull_packed)
 from ..mathlib import u32
 from ..ops import binning as B
-from ..profiling import span, traced_frame
+from ..profiling import count, span, traced_frame
 from ..stereo import compress_foveated, foveated_raster_tables
 from ..types import RenderOutput
 from .base import GaussianRenderer
@@ -93,11 +96,12 @@ def d32_key_plan(n_gaussians: int, *, width, height, tile_w, tile_h,
 
 
 def _capturable(n_gaussians: int, kw: dict) -> bool:
-    """Whether a mono or side-by-side stereo frame of ``n_gaussians`` with
-    the keyword arguments ``kw`` may be captured into a CUDA graph: with
-    32-bit depth keys under a tie-free KeyPlan (that of the frame without
-    rows, which a frame whose rows' plan does not fit falls back to).  16-bit
-    depth keys and the stable fallback stay eager."""
+    """Whether a mono, side-by-side or foveated stereo frame of
+    ``n_gaussians`` with the keyword arguments ``kw`` (a foveated frame's:
+    its physical grid) may be captured into a CUDA graph: with 32-bit depth
+    keys under a tie-free KeyPlan (that of the frame without rows, which a
+    frame whose rows' plan does not fit falls back to).  16-bit depth keys
+    and the stable fallback stay eager."""
     return kw.get("depth_key_bits", 32) == 32 and d32_key_plan(
         n_gaussians, width=kw["width"], height=kw["height"],
         tile_w=kw["tile_w"], tile_h=kw["tile_h"],
@@ -316,6 +320,26 @@ def foveated_packed(pp, inv_fit, *, tiles_x: int, tiles_y: int,
                                rect_h=rect_h, visible=visible), rect_count
 
 
+def foveated_rebin(pp, inv_fit, *, tiles_x: int, tiles_y: int,
+                   tile_w: int = 16, tile_h: int = 16):
+    """The prep input of a foveated frame, :func:`foveated_packed`'s
+    projection: on the card from one kernel
+    (``kernels/expand.py::foveated_rebin_cuda``, bit-equal to the plain
+    chain), on the CPU from the plain chain.  Counts the frame's path
+    (``profiling.counters()``: ``rebin_kernel``, ``rebin_torch``)."""
+    grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+                tile_h=tile_h)
+    if not pp.visible.is_cuda:
+        count("rebin_torch")
+        return foveated_packed(pp, inv_fit, **grid)[0]
+    count("rebin_kernel")
+    rect_word, rect_h, visible = foveated_rebin_cuda(
+        pp.px_min, pp.px_max, pp.py_min, pp.py_max, pp.visible, inv_fit,
+        **grid)
+    return dataclasses.replace(pp, rect_word=rect_word, rect_h=rect_h,
+                               visible=visible)
+
+
 def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                          key_plan, tables, *, display_width, display_height,
                          capacity, tiles_x, tiles_y, tile_w, tile_h,
@@ -329,9 +353,8 @@ def _foveated_packed_ops(gi, views, projs, centers, scene_transform, prepared,
                        key_plan, width=display_width, height=display_height,
                        tile_w=tile_w, tile_h=tile_h, **project)
     with span("rebin"):
-        warped, _rect_count = foveated_packed(
-            pp, tables["inv_fit"], tiles_x=tiles_x, tiles_y=tiles_y,
-            tile_w=tile_w, tile_h=tile_h)
+        warped = foveated_rebin(pp, tables["inv_fit"], tiles_x=tiles_x,
+                                tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
     return (pp, *binning_sort_operands(
         warped, capacity=capacity, tiles_x=tiles_x, key_plan=key_plan,
         mode="warped", tile_w=tile_w, tile_h=tile_h,
@@ -385,8 +408,19 @@ def depth_first_stereo_foveated_frame(
         depth_mode=depth_mode)
 
 
+class DeviceTables(dict):
+    """A foveated target's raster tables on a device: a dict equal only to
+    itself, so that a frame's graph key (pipelines/replay.py), which holds
+    it, replays a graph for the same target and captures anew for
+    another."""
+
+    __eq__ = object.__eq__
+    __ne__ = object.__ne__
+    __hash__ = object.__hash__
+
+
 def foveated_device_tables(target, device, tile_w: int = 16,
-                           tile_h: int = 16) -> dict:
+                           tile_h: int = 16) -> DeviceTables:
     """The raster tables of a foveated target for frames on ``device`` at
     ``tile_w`` x ``tile_h`` tiles: ``inv_fit`` (host numpy), ``coord_x``,
     ``coord_y`` and ``bounds`` (tensors on the device).  Built once per
@@ -396,7 +430,7 @@ def foveated_device_tables(target, device, tile_w: int = 16,
     tabs = cache.get(key)
     if tabs is None:
         host = foveated_raster_tables(target, tile_w, tile_h)
-        tabs = dict(inv_fit=host["inv_fit"])
+        tabs = DeviceTables(inv_fit=host["inv_fit"])
         for name in ("coord_x", "coord_y", "bounds"):
             tabs[name] = torch.from_numpy(host[name]).to(device)
         cache[key] = tabs
@@ -460,23 +494,30 @@ class DepthFirstRenderer(GaussianRenderer):
         frame, the left eye first (``stereo.expand_foveated`` resamples it
         to the display)."""
         left = camera.left
+        rig = _stereo_rig(camera)
+        # the target's physical size: sums over its rate maps
+        width, height = target.render_width, target.render_height
         kw = dict(display_width=target.display_width,
-                  display_height=target.display_height,
-                  render_width=target.render_width,
-                  render_height=target.render_height,
-                  near_plane=left.near_plane, far_plane=left.far_plane,
+                  display_height=target.display_height, render_width=width,
+                  render_height=height, near_plane=left.near_plane,
+                  far_plane=left.far_plane,
                   foveated_lod=self.config.foveated_lod,
                   depth_mode=self._depth_mode)
+        tile_w, tile_h = cfg.DEPTH_FIRST_TILE
+        grid = dict(width=width, height=height, tile_w=tile_w, tile_h=tile_h,
+                    near_plane=left.near_plane, far_plane=left.far_plane)
         # re-binned union rects are expanded in full (the warped dual-eye
-        # test prunes them)
+        # test prunes them); the projection's pose block is at the display
+        # size
         return self.render_frame(
             self._stereo_key + "_fov", gi, target.display_width,
             target.display_height,
-            partial(depth_first_stereo_foveated_frame, gi,
-                    *_stereo_rig(camera)), kw,
+            partial(depth_first_stereo_foveated_frame, gi, *rig), kw,
             factor=cfg.FULL_RECT_CAPACITY_FACTOR,
-            prepare=lambda: dict(tables=foveated_device_tables(target,
-                                                               self.device)))
+            prepare=lambda: dict(tables=foveated_device_tables(
+                target, self.device, tile_w, tile_h)),
+            pose=partial(stereo_pose_block, *rig), stereo=True,
+            graphable=lambda: _capturable(gi.count, grid))
 
     @traced_frame
     def render_stereo_foveated_compress(self, gi, camera,

@@ -1,14 +1,15 @@
 """Captured frames: one CUDA graph a frame kind, replayed while the values
 it bakes in stay the same.
 
-Between capacity changes a DepthFirst mono or side-by-side stereo frame
-launches the same kernels on buffers of the same sizes every frame, and
-reads nothing from the device; only the camera changes.  So the frame's
-whole chain -- the projection, prep (which writes the header's sums), row
-expand, expand, key pack, sort, ranges (and the counts' sum), blend and
-their torch glue -- is captured once into a ``torch.cuda.CUDAGraph`` and
-replayed for every later frame under the same key, each replay one graph
-launch where the eager frame has about forty.  The camera travels as it does eagerly, by value in the
+Between capacity changes a DepthFirst mono, side-by-side or foveated
+stereo frame launches the same kernels on buffers of the same sizes every
+frame, and reads nothing from the device; only the camera changes.  So the
+frame's whole chain -- the projection, a foveated frame's re-bin, prep
+(which writes the header's sums), row expand, expand, key pack, sort,
+ranges (and the counts' sum), blend and their torch glue -- is captured
+once into a ``torch.cuda.CUDAGraph`` and replayed for every later frame
+under the same key, each replay one graph launch where the eager frame has
+about forty.  The camera travels as it does eagerly, by value in the
 projection's launch: before each replay the host writes the frame's pose
 block into the instantiated graph's projection node
 (``kernels/project.py::set_pose``).  The update takes effect at the next
@@ -18,17 +19,17 @@ back to back each render their own camera, and the host waits for nothing.
 The key (:func:`frame_key`) holds every host value that a capture bakes
 into its launches, the pose block apart: the frame kind, the storage of the
 projection inputs, the frame function's arguments (size, capacities, near
-and far and so the KeyPlan, the config fields it reads), the blend's
-early-exit transmittance and whether spans record (a graph captured with
+and far and so the KeyPlan, the config fields it reads; a foveated
+target's device tables, equal only to themselves, which the key holds),
+the blend's early-exit transmittance and whether spans record (a graph captured with
 spans holds their timing events).  A frame kind keeps one graph, replaced
 when the key changes; the old graph's outputs are freed before the new
 capture, so that they do not add to its peak memory.  A frame renders
 eagerly on the CPU, where the renderer's ``_eager_frames`` is set (tests
-compare the two), where its entry gives no pose block (the foveated,
-Global and Local frames), where its entry says it may not be captured
-(16-bit depth keys, the stable fallback), and as the first frame of its
-kind, so that every library and kernel it reaches is loaded before a
-capture.
+compare the two), where its entry gives no pose block (the Global and
+Local frames), where its entry says it may not be captured (16-bit depth
+keys, the stable fallback), and as the first frame of its kind, so that
+every library and kernel it reaches is loaded before a capture.
 
 A capture runs on a side stream of the renderer and waits for nothing: it
 records the launches without running them, then the frame replays at once
@@ -111,12 +112,22 @@ POSE_ARGS = ("width", "height", "near_plane", "far_plane", "alpha_threshold",
              "total_ink_threshold")
 
 
+def pose_args(kw: dict) -> dict:
+    """The frame arguments ``kw``'s POSE_ARGS: the projection's size is a
+    foveated frame's display size."""
+    if "display_width" not in kw:
+        return {k: kw[k] for k in POSE_ARGS}
+    return dict({k: kw[k] for k in POSE_ARGS[2:]}, width=kw["display_width"],
+                height=kw["display_height"])
+
+
 def frame_key(kind: str, kw: dict, prepared) -> tuple:
     """The graph key of a frame of ``kind`` (see the module docstring):
-    the frame function's keyword arguments ``kw`` (all but the pose), the
-    storage of the projection inputs ``prepared``, the blend's early-exit
-    transmittance (a module value that callers set to 0 to render without
-    the exit) and whether spans record."""
+    the frame function's keyword arguments ``kw`` (all but the pose; a
+    foveated target's device tables compare by identity, ``depth_first.
+    DeviceTables``), the storage of the projection inputs ``prepared``,
+    the blend's early-exit transmittance (a module value that callers set
+    to 0 to render without the exit) and whether spans record."""
     return (kind, tuple(kw.items()), KB.MIN_TRANSMITTANCE, profiling.active(),
             *((t.data_ptr(), *t.shape) for t in prepared))
 
@@ -146,7 +157,7 @@ class FrameGraphs:
                eager: bool = False) -> RenderOutput:
         """The frame ``frame(prepared=prepared, **kw)`` of ``kind``: on the
         card the replay of the kind's graph under :func:`frame_key`, its
-        projection given the pose block ``pose(**kw's POSE_ARGS)``
+        projection given the pose block ``pose(**pose_args(kw))``
         (``stereo``: the dual-eye projection's), captured first where the
         key is new and ``graphable()``; eager on the CPU, with ``eager``,
         without ``pose``, where the key is new and not ``graphable()``, and
@@ -170,7 +181,7 @@ class FrameGraphs:
                 self._graphs.pop(kind, None)
                 raise
             self._graphs[kind] = g
-        return self._replay(g, pose(**{k: kw[k] for k in POSE_ARGS}))
+        return self._replay(g, pose(**pose_args(kw)))
 
     def _capture(self, key, render, stereo, keep, scan_elements) -> _Graph:
         if self._stream is None:

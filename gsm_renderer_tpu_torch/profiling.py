@@ -26,6 +26,7 @@ last ``RING`` frames are kept.  A frame's stages, in order::
                  the graph's, timed by its event-record nodes
       project
       rebin      foveated frames: the re-binning onto the physical tiles
+                 (one kernel on the card)
       binning    prep, row_expand (rows on), expand
       sort       the key pack and the keys-only sort (the stable
                  fallback: torch.sort with its permutation)
@@ -42,9 +43,10 @@ spans.  Spans record the frames of one rendering thread.
 **Counters** (:func:`counters`): frames rendered through a public entry,
 instance sorts by path (keys-only under a KeyPlan, or the stable
 fallback), frames by where their header's sums came from (the kernels'
-records, or torch sums of the plain versions on the CPU), hand-kernel
-launches (``_native.Kernel.launches`` summed), host
-reads, capacity lock-ins, refreshes, growths between refreshes and reads
+records, or torch sums of the plain versions on the CPU), foveated frames
+by how they re-binned onto the physical tiles (the kernel, or the plain
+torch chain on the CPU), hand-kernel launches (``_native.Kernel.launches``
+summed), host reads, capacity lock-ins, refreshes, growths between refreshes and reads
 that found the demand above the capacity in force (``pipelines/base.py``),
 overflowed frames among the recorded ones, CUDA graph captures and
 replays of frames (``pipelines/replay.py``), and the set-up seconds of the
@@ -85,9 +87,10 @@ _ring: collections.deque = collections.deque(maxlen=RING)
 _open = None  # the _Frame being recorded
 _next_id = 0
 _COUNTS = dict(frames=0, sort_keys_only=0, sort_stable=0,
-               header_sums_kernel=0, header_sums_torch=0, host_reads=0,
-               capacity_lockins=0, capacity_refreshes=0, capacity_regrows=0,
-               capacity_short=0, graph_captures=0, graph_replays=0)
+               header_sums_kernel=0, header_sums_torch=0, rebin_kernel=0,
+               rebin_torch=0, host_reads=0, capacity_lockins=0,
+               capacity_refreshes=0, capacity_regrows=0, capacity_short=0,
+               graph_captures=0, graph_replays=0)
 _SETUP = dict(kernel_build_s=0.0, kernel_load_s=0.0, projection_cache_s=0.0)
 
 
@@ -368,9 +371,11 @@ def counters() -> dict:
     ``header_sums_kernel`` and ``header_sums_torch`` (frames whose header
     sums came from the kernels' records -- prep's sums, the ranges' counts
     total -- or from torch sums of the plain versions, which CPU frames
-    take), ``kernel_launches``, ``host_reads``, ``capacity_lockins``,
-    ``capacity_refreshes``, ``capacity_regrows`` (growths between
-    refreshes, from the pinned copy of a frame's demand),
+    take), ``rebin_kernel`` and ``rebin_torch`` (foveated frames whose
+    re-bin onto the physical tiles ran the kernel, or the plain torch
+    chain, which CPU frames take), ``kernel_launches``, ``host_reads``,
+    ``capacity_lockins``, ``capacity_refreshes``, ``capacity_regrows``
+    (growths between refreshes, from the pinned copy of a frame's demand),
     ``capacity_short`` (refresh or growth reads whose demand exceeded the
     capacity in force: frames that overflowed, as far as a read saw
     them), ``graph_captures`` and ``graph_replays`` (frames captured into
@@ -386,6 +391,8 @@ def counters() -> dict:
         sort_stable=_COUNTS["sort_stable"],
         header_sums_kernel=_COUNTS["header_sums_kernel"],
         header_sums_torch=_COUNTS["header_sums_torch"],
+        rebin_kernel=_COUNTS["rebin_kernel"],
+        rebin_torch=_COUNTS["rebin_torch"],
         kernel_launches=sum(k.launches for k in _native.KERNELS),
         host_reads=_COUNTS["host_reads"],
         capacity_lockins=_COUNTS["capacity_lockins"],

@@ -4,14 +4,14 @@ block (``kernels/project.py``).
 On the CPU: the host-packed pose blocks hold ``csrc/project.cu``'s
 ProjParams, and for two eyes both eyes' and StereoExtra, field by field,
 their cached constants following what they are made of; a frame's graph
-key changes with
-each value a capture bakes in and not with the pose; CPU frames render
+key changes with each value a capture bakes in (a foveated frame's target
+among them) and not with the pose; CPU frames render
 ``depth_first_frame``'s frame and count no graph; a capture takes back the
 counts it moved and each replay counts them again; the replay's header
 copy; the benchmark's ``graph_replay_share`` reader.  On the card (marked
-``card``): replayed mono (rows on and off), Hardware and side-by-side
-stereo frames at new poses, across capacity growths and refreshes, are
-bit-equal to eager frames and outlive the frames after them; a capacity
+``card``): replayed mono (rows on and off), Hardware, side-by-side and
+foveated stereo frames at new poses, across capacity growths and
+refreshes, are bit-equal to eager frames and outlive the frames after them; a capacity
 change re-captures; replays take no host sync; frames queued back to back
 behind a sleep kernel each render their own camera; under spans each
 replayed frame records its stage tree with its own device times; a
@@ -46,7 +46,9 @@ W, H, N = 128, 96, 6000
 #: the dolly's step towards the scene, scene units a frame (its slot demand
 #: grows by about 2% a frame: capacity growths between refreshes)
 STEP = 0.04
-ENTRIES = ("rows", "rows_off", "hardware", "stereo")
+ENTRIES = ("rows", "rows_off", "hardware", "stereo", "foveated")
+#: the foveated frames' rate maps
+FOV = dict(min_rate=0.4, radius=0.3)
 CONSTS = dict(width=W, height=H, near_plane=0.1, far_plane=20.0,
               alpha_threshold=0.005, total_ink_threshold=2.0)
 
@@ -95,7 +97,22 @@ def renderer(entry, device="cpu", eager=False, **config):
     return r
 
 
+_TARGETS: dict = {}
+
+
+def target(width, height, **fov):
+    """The foveated target of a display size, one object a size and rate
+    map (its device tables are cached on it)."""
+    fov = dict(FOV, **fov)
+    key = (width, height, *sorted(fov.items()))
+    return _TARGETS.setdefault(key, T.make_rate_maps(width, height, **fov))
+
+
 def frame_fn(entry, r, gi, width=W, height=H):
+    if entry == "foveated":
+        tgt = target(width, height)
+        return lambda k: r.render_stereo_foveated(
+            gi, T.make_side_by_side_stereo(camera(k, width, height)), tgt)
     if entry == "stereo":
         return lambda k: r.render_stereo(
             gi, T.make_side_by_side_stereo(camera(k, width, height)), width,
@@ -235,8 +252,8 @@ def keys(monkeypatch):
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_graph_key_changes_with_baked_values(keys, monkeypatch, entry):
     """The key stays under a new pose and changes with the capacity, the
-    size, near and far, the scene and the blend's early exit; rows on and
-    off key apart."""
+    size, near and far, the scene and the blend's early exit (and a
+    foveated frame's target); rows on and off key apart."""
     gi = scene(n=CPU_N)
     r = renderer(entry)
     frame = frame_fn(entry, r, gi, CPU_W, CPU_H)
@@ -249,8 +266,11 @@ def test_graph_key_changes_with_baked_values(keys, monkeypatch, entry):
     stereo = entry == "stereo"
 
     def again(r2=r, gi2=gi, cam=camera(0.5, CPU_W, CPU_H), width=CPU_W,
-              height=CPU_H):
-        if stereo:
+              height=CPU_H, tgt=None):
+        if entry == "foveated":
+            r2.render_stereo_foveated(gi2, T.make_side_by_side_stereo(cam),
+                                      tgt or target(width, height))
+        elif stereo:
             r2.render_stereo(gi2, T.make_side_by_side_stereo(cam), width,
                              height)
         else:
@@ -264,6 +284,10 @@ def test_graph_key_changes_with_baked_values(keys, monkeypatch, entry):
     assert again(cam=camera(0.5, CPU_W, CPU_H, far=30.0)) != k1
     fixed = renderer(entry, max_instances=1 << 16)
     assert again(r2=fixed) != k1 and again(r2=fixed) != k1
+    if entry == "foveated":  # a new target: new tables, new rate map
+        assert again(tgt=T.make_rate_maps(CPU_W, CPU_H, **FOV)) != k1
+        assert again(tgt=target(CPU_W, CPU_H, min_rate=0.15)) != k1
+        assert again() == k1
     monkeypatch.setattr(KB, "MIN_TRANSMITTANCE", 0.0)  # the exit off
     assert again() != k1
     if entry in ("rows", "rows_off"):
@@ -478,7 +502,7 @@ def test_card_queued_frames_read_their_own_pose(card, entry):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("entry", ("rows", "stereo"))
+@pytest.mark.parametrize("entry", ("rows", "stereo", "foveated"))
 def test_card_replays_record_their_spans(card, entry):
     """Under spans each replayed frame records the stage tree under its
     replay span, with device times of its own, and counts its replay and
@@ -501,8 +525,9 @@ def test_card_replays_record_their_spans(card, entry):
         frame(k)
     recs = P.frames()
     assert P.counters()["kernel_launches"] - launches == 6 * per_frame
-    stages = ["project", "binning", "prep", *(["row_expand"] if entry == "rows"
-                                             else []),
+    stages = ["project", *(["rebin"] if entry == "foveated" else []),
+              "binning", "prep", *(["row_expand"] if entry == "rows"
+                                   else []),
               "expand", "sort", "ranges", "blend", "header"]
     for rec in recs:
         names = [s["name"] for s in rec["spans"]]
@@ -520,6 +545,7 @@ def test_card_replays_record_their_spans(card, entry):
             <= spans["replay"]["device_ms"] + 0.01
         assert rec["counters"]["graph_replays"] == 1
         assert rec["counters"]["sort_keys_only"] == 1
+        assert rec["counters"].get("rebin_kernel", 0) == (entry == "foveated")
         assert rec["capacity"] > 0 and rec["overflow"] == 0
     assert sum(rec["counters"].get("graph_captures", 0) for rec in recs) >= 1
     assert len({rec["spans"][4]["device_ms"] for rec in recs}) > 1

@@ -4,10 +4,11 @@ On the CPU (plain versions; times here are host-clock times, not device
 metrics): spans are off by default and cost no ``record_function``; every
 public entry of every renderer records the stage tree in frame order, and
 under ``torch.profiler`` every ``aten::`` op of a frame lies inside a
-``gsm::`` stage span; the capacity contract's counters; the benchmark's
-span readers against ``profiling.frames()``.  On the card (marked
-``card``): the launch counter against the hand kernels a traced frame
-shows.  This file imports no JAX, so that
+``gsm::`` stage span; the capacity contract's counters; the re-bin's
+counters by path; the benchmark's span readers against
+``profiling.frames()``.  On the card (marked ``card``): the launch counter
+against the hand kernels a traced frame shows, and the re-bin's counters
+there.  This file imports no JAX, so that
 ``python -m pytest --noconftest tests/test_torch_tracing.py`` runs it on a
 machine with a card and without JAX."""
 
@@ -271,6 +272,27 @@ def test_overflow_frames(spans_off):
     assert P.counters()["overflow_frames"] == 0
 
 
+def rebin_counts(entry, device, frames=3):
+    """The re-bin counters' moves over ``frames`` frames of ``entry``."""
+    frame = render(entry, scene(device=device), T.make_camera(W, H, far=20.0))
+    c0 = P.counters()
+    for _ in range(frames):
+        frame()
+    c1 = P.counters()
+    return {k: c1[k] - c0[k] for k in ("rebin_kernel", "rebin_torch")}
+
+
+@pytest.mark.parametrize("entry", ("rows", "stereo", "foveated", "compress"))
+def test_rebin_counters_count_by_path(entry, spans_off):
+    """On the CPU every foveated frame re-bins through the plain torch
+    chain and counts ``rebin_torch``; no frame counts ``rebin_kernel``, and
+    the frames that do not re-bin (mono, side by side, the compress path)
+    count neither."""
+    want = 3 if entry == "foveated" else 0
+    assert rebin_counts(entry, "cpu") == dict(rebin_kernel=0,
+                                              rebin_torch=want)
+
+
 READERS = ("entry_host_ms", "span_project_ms", "span_binning_ms",
            "span_sort_ms", "span_blend_ms", "span_header_ms",
            "dead_slot_share")
@@ -344,13 +366,25 @@ SORT_KERNELS = {"sort_key_pack_kernel", "sort_ranges_kernel",
 HAND_KERNELS = {
     "rows": {"project_kernel", "prep_kernel", "row_expand_kernel",
              "expand_kernel", "blend_kernel", *SORT_KERNELS},
-    "foveated": {"stereo_project_kernel", "prep_kernel", "expand_kernel",
-                 "blend_kernel", *SORT_KERNELS},
+    "foveated": {"stereo_project_kernel", "foveated_rebin_kernel",
+                 "prep_kernel", "expand_kernel", "blend_kernel",
+                 *SORT_KERNELS},
 }
 #: the C entries (``_native.Kernel``) a frame calls, one launch each: a
 #: kernel above each, but the ranges' two kernels are one entry, and the
 #: keys-only sort is an entry whose kernels are CUB's
-ENTRIES = {"rows": 8, "foveated": 7}
+ENTRIES = {"rows": 8, "foveated": 8}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("entry", ("stereo", "foveated"))
+def test_rebin_counters_on_card(card, entry, spans_off):
+    """On the card every foveated frame, eager or replayed, re-binned
+    through the kernel: ``rebin_kernel`` counts each, ``rebin_torch``
+    none."""
+    want = 6 if entry == "foveated" else 0
+    assert rebin_counts(entry, "cuda", 6) == dict(rebin_kernel=want,
+                                                  rebin_torch=0)
 
 
 @pytest.mark.card
@@ -382,4 +416,5 @@ def test_kernel_launches_on_card(card, entry, spans_off):
     assert seen & {"project_kernel", "stereo_project_kernel", "prep_kernel",
                    "row_expand_kernel", "expand_kernel", "blend_kernel",
                    "general_blend_kernel", "bounds_gather_kernel",
-                   *SORT_KERNELS} == HAND_KERNELS[entry], seen
+                   "foveated_rebin_kernel", *SORT_KERNELS} \
+        == HAND_KERNELS[entry], seen
