@@ -190,15 +190,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    version, which is the code it replaces (``sort_key64``,
    ``torch.sort``'s values, ``binning_sorted_tile`` +
    ``torch.searchsorted``), with byte floors (the int64 keys read and
-   written once; for the sort also the eight passes
-   of 64 bits; one read of the sorted keys) and the PyTorch calls that did
-   the work before (``library_ms``; ``torch.sort`` sorts (key, index)
-   pairs).  Every path of phases 2-4s holds the sort and tile ranges of
-   its first frame to the same yardsticks (``sort_audit``; printed as
-   ``{"sort_audits": [...]}``).
+   written once; for the sort also its passes from the plan's begin bit,
+   ``radix_passes``, read off the kernel and memset nodes of sorts
+   captured into CUDA graphs (``kernels.sort.measured_radix_passes``) and
+   required to be one per 8 key bits, five for the 1080p plans; the nodes
+   of the row's own sort, ``graph_nodes``; one read of the sorted keys)
+   and the PyTorch calls that did the work before (``library_ms``;
+   ``torch.sort`` sorts (key, index) pairs).  Every path of phases 2-4s
+   holds the sort and tile ranges of its first frame to the same
+   yardsticks (``sort_audit``; printed as ``{"sort_audits": [...]}``,
+   each with its plan's begin bit).
 5g. The same three kernels at the garden cell's shapes: 11,010,048 slots
-   (6% dead), 8160 tiles, 63 key bits (d_hi 19, d_lo 8, 23 index bits), on
-   keys drawn on the card from a fixed seed; no frame runs here, so these
+   (6% dead), 8160 tiles, the garden's KeyPlan (d_hi 19, d_lo 8, 23 index
+   bits), on keys drawn on the card from a fixed seed in the expand's slot
+   order; the plain key sorted whole (".garden.whole_key", 8 passes) and
+   the plan's lifted key from its begin bit 24 (".garden", 5 passes), each
+   bit-equal to torch.sort of its whole key; no frame runs here, so these
    rows give no launch count (``launches`` null).
 5t. The expand on built entry tables (entries owning more slots than 4 of
    its CTAs, a run of 1-slot and culled entries, a row table's dead tail, a
@@ -238,6 +245,10 @@ checkout of another commit, it times that commit's package the same way.
 the realistic Local frame), 4h, 5 and 5p (not 4m and 4s) and
 prints one JSON line of the kernel rows and the built-input flip shares and
 digests, for the same use (it does not require the one-pass scan there).
+``python3 chip_smoke.py --sort`` runs phases 1 and 5g and one 1920x1080
+DepthFirst frame (rows on) and one BITS16 frame of a 200k-gaussian scene,
+and prints one ``{"sort": ...}`` line: the six sort rows of phase 5g and
+each frame's ``sort_radix_passes`` a keys-only sort (5 and 4).
 ``python3 chip_smoke.py --blends`` times every blend of the kernel table
 on the split layout and the large-tile path (BLEND_AB: phases 4o, 4L and
 4m's tiles and modes) on its frame function's own tensors, with a digest
@@ -345,6 +356,7 @@ BAND_PATH = ("project", "prep", "prep_band", "expand", "blend", *SORT_PATH)
 #: slots, 6% dead; 1920x1080 at 16x16 tiles; the row KeyPlan of its ~8M
 #: rows, d_hi 19, d_lo 8, idx_bits 23: 63 live key bits)
 GARDEN_SLOTS = 11_010_048
+GARDEN_GAUSSIANS = 5_800_000
 GARDEN_TILES = 120 * 68
 GARDEN_D_HI, GARDEN_D_LO, GARDEN_IDX_BITS = 19, 8, 23
 GARDEN_DEAD = 0.06
@@ -724,8 +736,9 @@ def check_frame(torch, out, label: str, halves: int = 1):
 def sort_audit(torch, label):
     """Holds the first instance sort and tile ranges that the frames of a
     path make (in its first frame, untimed) to the yardsticks: the sorted
-    keys bit-equal to ``torch.sort(sort_key64(key1, key2)).values`` (stable
-    for the fallback), the starts and counts to ``binning_sorted_tile`` +
+    keys bit-equal to ``torch.sort(sort_key64(key1, key2, lift,
+    idx_bits)).values`` (the plan's lift; the plain key, stable, for the
+    fallback), the starts and counts to ``binning_sorted_tile`` +
     ``extract_tile_ranges`` (torch.searchsorted).  Yields a dict whose
     ``checked`` is 1 once they were."""
     from gsm_renderer_tpu_torch.ops import binning as OB
@@ -737,8 +750,12 @@ def sort_audit(torch, label):
     def audited_sort(keys, key_plan):
         if state["checked"] or state["sorted"] is not None:
             return sort_keys(keys, key_plan)
-        want = torch.sort(PC.sort_key64(keys[0], keys[1]),
-                          stable=key_plan is None).values
+        if key_plan is None:
+            want = torch.sort(PC.sort_key64(keys[0], keys[1]),
+                              stable=True).values
+        else:
+            want = torch.sort(PC.sort_key64(
+                keys[0], keys[1], key_plan.lift, key_plan.idx_bits)).values
         out = sort_keys(keys, key_plan)
         require_exact(torch, f"{label}: sorted keys", [(out[0], want)])
         state["sorted"] = out[0]
@@ -756,9 +773,10 @@ def sort_audit(torch, label):
             require_exact(torch, f"{label}: tile ranges", list(zip(
                 out, (starts, counts, counts.sum().to(torch.int32)))))
             state["checked"] = 1
-            SORT_AUDITS.append(dict(path=label, slots=sorted_key.shape[0],
-                                    tiles=num_tiles,
-                                    keys_only=plan is not None))
+            SORT_AUDITS.append(dict(
+                path=label, slots=sorted_key.shape[0], tiles=num_tiles,
+                keys_only=plan is not None,
+                begin_bit=None if plan is None else plan.sort_begin_bit))
         return out
 
     PC.sort_keys, PC.tile_ranges = audited_sort, audited_ranges
@@ -1850,14 +1868,26 @@ def kernel_row(name, kernel, launches, ms, plain_ms, err, nbytes, flops):
                 bound_ms=b, bound_by=by, library_ms=None, flips=0.0)
 
 
-def sort_rows(torch, label, key1, key2, shift, num_tiles, launches):
+def sort_args(plan) -> dict:
+    """The pack's lift and index bits and the sort's begin bit of a KeyPlan
+    (the frames' sort), or of None: the plain key, sorted whole."""
+    if plan is None:
+        return dict(lift=0, idx_bits=0, begin_bit=0)
+    return dict(lift=plan.lift, idx_bits=plan.idx_bits,
+                begin_bit=plan.sort_begin_bit)
+
+
+def sort_rows(torch, label, key1, key2, shift, num_tiles, launches, *,
+              lift=0, idx_bits=0, begin_bit=0):
     """The pack, the keys-only sort and the tile ranges of ``csrc/sort.cu``
     on the planes (key1, key2) of a KeyPlan whose tile ids sit above bit
-    ``shift`` of key1: each bit-equal to its plain version on the card,
-    which is the PyTorch code that did its work before (``sort_key64``;
-    ``torch.sort``'s values; ``binning_sorted_tile`` + torch.searchsorted),
-    timed behind a sleep kernel beside its byte bound, its plain version and
-    the library call (``library_ms``: the five int64 ops of ``sort_key64``;
+    ``shift`` of key1, the pack lifting key2's bits above ``idx_bits`` by
+    ``lift`` and the sort starting at ``begin_bit`` (:func:`sort_args`):
+    each bit-equal to its plain version on the card, which is the PyTorch
+    code that did its work before (``sort_key64``; ``torch.sort``'s values
+    of the whole key; ``binning_sorted_tile`` + torch.searchsorted), timed
+    behind a sleep kernel beside its byte bound, its plain version and the
+    library call (``library_ms``: the int64 ops of ``sort_key64``;
     ``torch.sort``, which sorts (key, index) pairs; the tile-id decode and
     ``torch.searchsorted``).  ``launches``: the three kernels' counts in the
     path's frames, or None where no path ran at these shapes.  Returns
@@ -1866,9 +1896,12 @@ def sort_rows(torch, label, key1, key2, shift, num_tiles, launches):
 
     n = key1.shape[0]
     packed, ms, want, plain_ms = timed_pair(
-        torch, "sort_pack", lambda: KS.sort_key_pack_cuda(key1, key2),
-        lambda: KS.sort_key64(key1, key2), reps=20, plain_reps=3)
-    _, lib_ms = device_ms(torch, lambda: KS.sort_key64(key1, key2), 20)
+        torch, "sort_pack",
+        lambda: KS.sort_key_pack_cuda(key1, key2, lift, idx_bits),
+        lambda: KS.sort_key64(key1, key2, lift, idx_bits), reps=20,
+        plain_reps=3)
+    _, lib_ms = device_ms(
+        torch, lambda: KS.sort_key64(key1, key2, lift, idx_bits), 20)
     require_exact(torch, f"sort_pack{label}", [(packed, want)])
     pack = kernel_row(f"sort_pack{label}", "sort_pack", launches["sort_pack"],
                       ms, plain_ms, 0.0, 16 * n, 0)
@@ -1878,16 +1911,27 @@ def sort_rows(torch, label, key1, key2, shift, num_tiles, launches):
     buf = torch.empty_like(packed)
     _, copy_ms = device_ms(torch, lambda: buf.copy_(packed), 20)
     got, ms = device_ms(
-        torch, lambda: KS.sort_keys_only_cuda(buf.copy_(packed)), 10)
+        torch, lambda: KS.sort_keys_only_cuda(buf.copy_(packed), begin_bit),
+        10)
     want, plain_ms = cuda_ms(torch, lambda: KS.sort_keys_only_plain(packed), 3)
     _, lib_ms = device_ms(torch, lambda: torch.sort(packed, stable=False), 10)
     require_exact(torch, f"sort_keys{label}", [(got, want)])
-    # bound: the keys read and written once; an LSD radix sort of 64 bits
-    # makes eight such passes (``pass_bound_ms``)
+    # bound: the keys read and written once; the LSD radix sort makes one
+    # such pass per 8 bits from begin_bit up (``pass_bound_ms``), the passes
+    # read off captured sorts' graph nodes and held to that count
+    passes = KS.measured_radix_passes(buf, begin_bit)
+    if passes != KS.radix_passes(begin_bit):
+        raise RuntimeError(f"sort_keys{label}: CUB made {passes} passes from "
+                           f"bit {begin_bit}, not "
+                           f"{KS.radix_passes(begin_bit)}")
+    kernels, memsets = KS.graph_nodes(
+        lambda: KS.sort_keys_only_cuda(buf, begin_bit))
     srt = kernel_row(f"sort_keys{label}", "sort_keys", launches["sort_keys"],
                      ms - copy_ms, plain_ms, 0.0, 16 * n, 0)
-    srt.update(library_ms=lib_ms, copy_ms=copy_ms,
-               pass_bound_ms=8 * 16 * n / HBM_BYTES_PER_S * 1e3)
+    srt.update(library_ms=lib_ms, copy_ms=copy_ms, begin_bit=begin_bit,
+               radix_passes=passes,
+               graph_nodes=dict(kernels=kernels, memsets=memsets),
+               pass_bound_ms=passes * 16 * n / HBM_BYTES_PER_S * 1e3)
     (starts, counts, total), ms, plain, plain_ms = timed_pair(
         torch, "sort_ranges",
         lambda: KS.sort_ranges_cuda(got, num_tiles, shift),
@@ -1907,36 +1951,49 @@ def sort_rows(torch, label, key1, key2, shift, num_tiles, launches):
 def phase_sort_garden(torch) -> list:
     """Phase 5g: the pack, the keys-only sort and the tile ranges at the
     garden cell's shapes (GARDEN_*): keys made on the card from a fixed
-    seed, tiles and depths uniform, the entry index unique a slot, 6% of
-    the slots dead.  Returns the three kernel rows, whose ``launches`` are
-    None: no frame ran at these shapes (the garden cell's main path
-    launches each of the three once a frame)."""
+    seed in the expand's slot order (entries rising with the slot, ~4.6
+    consecutive slots each, each in another tile, one depth an entry,
+    tiles and depths uniform), the last 6% of the slots dead.  Twice: the
+    plain key sorted whole (".garden.whole_key": 64 bits, eight passes,
+    the sort before the begin bit) and the garden plan's lifted key sorted
+    from its begin bit (".garden": 40 bits, five passes), each bit-equal
+    to torch.sort of its whole key.  Returns the six kernel rows, whose
+    ``launches`` are None: no frame ran at these shapes (the garden cell's
+    main path launches each of the three once a frame)."""
+    from gsm_renderer_tpu_torch.ops import binning as OB
+
+    plan = OB.make_key_plan(GARDEN_TILES, GARDEN_GAUSSIANS, near_plane=0.1,
+                            far_plane=100.0)
+    if (plan.d_hi, plan.d_lo, plan.idx_bits) != (GARDEN_D_HI, GARDEN_D_LO,
+                                                 GARDEN_IDX_BITS):
+        raise RuntimeError(f"garden KeyPlan {plan} is not GARDEN_*'s")
     g = torch.Generator(device="cuda").manual_seed(18)
     n = GARDEN_SLOTS
-    d_bits = GARDEN_D_HI + GARDEN_D_LO
-
-    def draw(bits):
-        return torch.randint(0, 1 << bits, (n,), device="cuda", generator=g,
-                             dtype=torch.int64)
-
-    tile = torch.randint(0, GARDEN_TILES, (n,), device="cuda", generator=g,
-                         dtype=torch.int64)
-    depth = draw(d_bits)
-    entry = torch.randperm(n, device="cuda", generator=g) \
-        & ((1 << GARDEN_IDX_BITS) - 1)
+    live = n - int(n * GARDEN_DEAD)
+    entries = live * 10 // 46
+    slot = torch.arange(live, device="cuda")
+    entry = slot * entries // live
+    first = torch.searchsorted(entry, torch.arange(entries, device="cuda"))
+    base = torch.randint(0, GARDEN_TILES, (entries,), device="cuda",
+                         generator=g)
+    tile = (base[entry] + slot - first[entry]) % GARDEN_TILES
+    depth = torch.randint(0, plan.span + 1, (entries,), device="cuda",
+                          generator=g)[entry]
     k1 = (tile << GARDEN_D_HI) | (depth >> GARDEN_D_LO)
     k2 = ((depth & ((1 << GARDEN_D_LO) - 1)) << GARDEN_IDX_BITS) | entry
-    dead = torch.rand(n, device="cuda", generator=g) < GARDEN_DEAD
-    planes = torch.stack([torch.where(dead, 0xFFFFFFFF, k1),
-                          torch.where(dead, 0xFFFFFFFF, k2)])
+    planes = torch.full((2, n), 0xFFFFFFFF, dtype=torch.int64, device="cuda")
+    planes[0, :live], planes[1, :live] = k1, k2
     planes = torch.where(planes >= 1 << 31, planes - (1 << 32),
                          planes).to(torch.int32)
-    rows, *_ = sort_rows(torch, ".garden", planes[0], planes[1], GARDEN_D_HI,
-                         GARDEN_TILES, dict(sort_pack=None, sort_keys=None,
-                                            sort_ranges=None))
+    launches = dict(sort_pack=None, sort_keys=None, sort_ranges=None)
+    rows = []
+    for label, p in ((".garden.whole_key", None), (".garden", plan)):
+        rows += sort_rows(torch, label, planes[0], planes[1], GARDEN_D_HI,
+                          GARDEN_TILES, launches, **sort_args(p))[0]
     log(f"[sort garden] {n} slots, {GARDEN_TILES} tiles: " + json.dumps(
-        {r["name"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms",
-                                        "library_ms")} for r in rows}))
+        {r["name"]: {k: r.get(k) for k in (
+            "ms", "bound_ms", "pass_bound_ms", "radix_passes",
+            "graph_nodes", "plain_ms", "library_ms")} for r in rows}))
     return rows
 
 
@@ -2100,7 +2157,8 @@ def stable_sort_rows(torch, hl, world_1):
                 (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * float(cg[tst].sum())))
     k1, k2 = ops["keyplan"][:2]
     t1, t2, entry = ops["tile_key"][:3]
-    _, unstable_ms = device_ms(torch, lambda: PC.sort_instances(k1, k2), 10)
+    _, unstable_ms = device_ms(
+        torch, lambda: PC.sort_keys([k1, k2], full_plan)[0], 10)
     _, stable_ms = device_ms(
         torch, lambda: PC.sort_instances_stable(t1, t2, entry), 10)
     srt_u = PC.sort_and_ranges(list(ops["keyplan"][:2]), full_plan,
@@ -3206,7 +3264,8 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
 
     # the instance sort: pack, keys-only sort and tile ranges
     sort_krows, sorted_key, starts, counts = sort_rows(
-        torch, "", ek[0], ek[1], plan.d_hi, tiles_x * tiles_y, mono_l)
+        torch, "", ek[0], ek[1], plan.d_hi, tiles_x * tiles_y, mono_l,
+        **sort_args(plan))
     for r in sort_krows:
         rows[r["name"]] = r
 
@@ -3273,7 +3332,7 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     record("expand.rows_off", "expand", off_l["expand"], ms, plain_ms, err,
            flips, expand_bytes(n, cap0, 4 * tested_entries(off0, rect0)),
            (EXPAND_DECODE_FLOPS + TILE_TEST_FLOPS) * tested_slots(off0, rect0))
-    sorted0 = PC.sort_instances(ek0[0], ek0[1])
+    sorted0 = PC.sort_keys(list(ek0[:2]), plan0)[0]
     tile0 = PC.binning_sorted_tile(sorted0, plan_tuple=plan0.kernel_tuple)
     color0, _ = KB.blend_image_cuda(
         sorted0, pk0.words, plan0.idx_bits,
@@ -3334,7 +3393,7 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     tile_key_order("expand.stereo", sexp_in, sekw, sek, st_plan,
                    tiles_x * tiles_y)
 
-    s_sorted = PC.sort_instances(sek[0], sek[1])
+    s_sorted = PC.sort_keys(list(sek[:2]), st_plan)[0]
     s_tile = PC.binning_sorted_tile(s_sorted, plan_tuple=st_plan.kernel_tuple)
     s_starts, s_counts = OB.extract_tile_ranges(s_tile, tiles_x * tiles_y)
     sbkw = dict(bkw, n_eyes=2, r2_cutoff=9.0)
@@ -3451,7 +3510,7 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
            * tested_slots(foff, frect, masked_too=True))
     tile_key_order("expand.warped", fexp_in, fekw, fek, f_plan, ftx * fty)
 
-    f_sorted = PC.sort_instances(fek[0], fek[1])
+    f_sorted = PC.sort_keys(list(fek[:2]), f_plan)[0]
     f_tile = PC.binning_sorted_tile(f_sorted, plan_tuple=f_plan.kernel_tuple)
     f_starts, f_counts = OB.extract_tile_ranges(f_tile, ftx * fty)
     coords = (tables["coord_x"], tables["coord_y"])
@@ -3535,7 +3594,7 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
                    * tested_slots(doff, drect))
         else:
             dek = KE.expand_slots_cuda(*dexp_in, **dekw)
-        d_sorted = PC.sort_instances(dek[0], dek[1])
+        d_sorted = PC.sort_keys(list(dek[:2]), d_plan)[0]
         d_starts, d_counts, _total = PC.tile_ranges(d_sorted, d_plan,
                                                     dtx * dty)
         mode = "weighted" if tw == 32 else "first_hit"
@@ -3604,7 +3663,7 @@ def phase_kernels(torch, T, hl, st, fv, d16, hw):
     record("expand.none", "expand", hw_l["expand"], ms, plain_ms, err, flips,
            (n + 1) * 4 + 2 * 4 * n + 2 * 4 * hcap, 0.0)
     h_sorted, hsort_ms = device_ms(
-        torch, lambda: PC.sort_instances(hek[0], hek[1]), 10)
+        torch, lambda: PC.sort_keys(list(hek[:2]), plan0)[0], 10)
     h_starts, h_counts, _total = PC.tile_ranges(h_sorted, plan0,
                                                 tiles_x * tiles_y)
     other.append(dict(name="instance sort, Hardware frame (the pack and "
@@ -4425,6 +4484,45 @@ def blends_only(torch, T, native, n: int = 1_000_000) -> int:
     return 0
 
 
+def sort_only(torch, T, native) -> int:
+    """``--sort``: phase 5g (the garden-shaped sort, whole key and from the
+    begin bit) and the radix passes a sort of a 1080p DepthFirst frame and
+    of its BITS16 frame count (``profiling.counters()``); one JSON line."""
+    from gsm_renderer_tpu_torch import profiling as PR
+    from gsm_renderer_tpu_torch.io.scene import generate_visible_gaussians
+
+    native.build_all()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    rows = phase_sort_garden(torch)
+    gi = generate_visible_gaussians(200_000, sh_degree=3, seed=7,
+                                    scale_range=(0.002, 0.012)).to_input(
+                                        T.Precision.FLOAT32)
+    cam = T.make_camera(W, H, far=50.0)
+    passes = {}
+    for label, extra in (("depth_first", {}), ("depth_first_bits16", dict(
+            depth_sort_key_precision=T.DepthSortKeyPrecision.BITS16))):
+        r = T.DepthFirstRenderer(T.RendererConfig(
+            sh_degree=3, precision=T.Precision.FLOAT32, max_width=W,
+            max_height=H, **extra))
+        c0 = PR.counters()
+        for _ in range(3):
+            r.render(gi, cam, W, H)
+        torch.cuda.synchronize()
+        c1 = PR.counters()
+        sorts = c1["sort_keys_only"] - c0["sort_keys_only"]
+        passes[label] = dict(
+            sorts=sorts,
+            radix_passes=c1["sort_radix_passes"] - c0["sort_radix_passes"])
+        if sorts != 3:
+            raise RuntimeError(f"--sort {label}: {sorts} keys-only sorts")
+    log("[sort] " + json.dumps(passes))
+    print(json.dumps({"sort": rows, "radix_passes": passes,
+                      "card": smi.stdout.strip()}))
+    return 0
+
+
 def frames_only(torch, T, native, n: int = 1_000_000) -> int:
     """``--frames``: the mono frame loops alone -- the headline and the
     realistic scene, rows on and off -- each with its CUDA-event frame
@@ -4484,6 +4582,8 @@ def main() -> int:
         return frames_only(torch, T, _native)
     if sys.argv[1:] == ["--blends"]:
         return blends_only(torch, T, _native)
+    if sys.argv[1:] == ["--sort"]:
+        return sort_only(torch, T, _native)
     kernels_only = sys.argv[1:] == ["--kernels"]
     if kernels_only:
         # another tree's kernels may still launch the separate scan kernels
@@ -4545,6 +4645,10 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"library_ops": other}))
     print(json.dumps({"sort_audits": SORT_AUDITS}))
+    from gsm_renderer_tpu_torch import profiling as PR
+    print(json.dumps({"sort_counters": {
+        k: PR.counters()[k]
+        for k in ("sort_keys_only", "sort_stable", "sort_radix_passes")}}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,23 @@
 // entry through the key's low bits, so the indices were dead weight.  The
 // pack and the ranges replace nine PyTorch launches with two kernels.
 //
+// Only the bits above the index field order anything.  Within one tile the
+// expand writes live slots in strictly rising entry index (an entry owns at
+// most one slot a tile, and slots follow the entries' prefix offsets), and
+// CUB's LSD radix sort is stable, so sorting from the first depth bit up
+// puts every slot at the rank the full 64-bit sort gives it.  The KeyPlan's
+// key2 is [gap | depth_lo | index] with a zero gap of lift = 32 - d_lo -
+// idx_bits bits, so the pack lifts depth_lo over the gap to the top of the
+// low word, the index staying in its low idx_bits: the ordering bits are
+// then the one run [32 - d_lo, 64), which the sort takes as its begin bit
+// (the garden's plan: 40 bits, 5 passes of 8 where the whole key takes 8).
+// A lift of 0 and a begin bit of 0 are the plain (key1, key2) key and its
+// full sort (the stable fallback's pack).
+//
 // All three are bound by device memory.  At C slots: the pack reads 8 B and
-// writes 8 B a slot; the sort makes one pass per 8 key bits (eight for the
-// 64 bits, each reading and writing the 8-B keys: 128 B a slot, half what
-// the pairs sort moves); the ranges read 8 B a slot and write 4 B a tile.
+// writes 8 B a slot; the sort makes one pass per 8 key bits it sorts, each
+// reading and writing the 8-B keys (16 B a slot a pass: half what the pairs
+// sort moves); the ranges read 8 B a slot and write 4 B a tile.
 //
 // The ranges' counts pass also clamps each tile's count to the frame's
 // max_per_tile, where one is set (the Local frames' nearest instances a
@@ -32,14 +45,18 @@ namespace {
 constexpr int kPackThreads = 256;
 constexpr int kRangeThreads = 256;
 
-// The int64 key whose signed order is the unsigned (key1, key2) order
-// (pipelines/common.py::sort_key64): bit 31 of key1 flipped, so that the
-// sentinel and the upper tile ids sort last under the signed compare.
-__device__ __forceinline__ long long pack_key(int32_t k1, int32_t k2) {
+// The int64 key whose signed order is the unsigned (key1, key2') order
+// (kernels/sort.py::sort_key64): bit 31 of key1 flipped, so that the
+// sentinel and the upper tile ids sort last under the signed compare; key2'
+// is key2 with its bits above the index (idx_mask) moved up by lift (the
+// sentinel keeps its index bits and the top d_lo bits set).
+__device__ __forceinline__ long long pack_key(int32_t k1, int32_t k2,
+                                              uint32_t idx_mask, int lift) {
+  const uint32_t lo = static_cast<uint32_t>(k2);
   return static_cast<long long>(
       (static_cast<unsigned long long>(static_cast<uint32_t>(k1) ^
                                        0x80000000u) << 32) |
-      static_cast<uint32_t>(k2));
+      ((lo & idx_mask) | ((lo & ~idx_mask) << lift)));
 }
 
 // The pack (replaces sort_key64's five int64 launches: &, a copy, |, ^,
@@ -49,7 +66,8 @@ __device__ __forceinline__ long long pack_key(int32_t k1, int32_t k2) {
 // multiple of 4), and one slot at a time otherwise and at the tail.
 __global__ void __launch_bounds__(kPackThreads)
     sort_key_pack_kernel(const int32_t* __restrict__ key1,
-                         const int32_t* __restrict__ key2, int n, int vec,
+                         const int32_t* __restrict__ key2, int n,
+                         uint32_t idx_mask, int lift, int vec,
                          long long* __restrict__ out) {
   const long long i =
       4LL * (static_cast<long long>(blockIdx.x) * kPackThreads + threadIdx.x);
@@ -60,13 +78,15 @@ __global__ void __launch_bounds__(kPackThreads)
     const int4 a = __ldcs(reinterpret_cast<const int4*>(key1 + i));
     const int4 b = __ldcs(reinterpret_cast<const int4*>(key2 + i));
     longlong2* o = reinterpret_cast<longlong2*>(out + i);
-    o[0] = make_longlong2(pack_key(a.x, b.x), pack_key(a.y, b.y));
-    o[1] = make_longlong2(pack_key(a.z, b.z), pack_key(a.w, b.w));
+    o[0] = make_longlong2(pack_key(a.x, b.x, idx_mask, lift),
+                          pack_key(a.y, b.y, idx_mask, lift));
+    o[1] = make_longlong2(pack_key(a.z, b.z, idx_mask, lift),
+                          pack_key(a.w, b.w, idx_mask, lift));
     return;
   }
   const long long end = i + 4 < n ? i + 4 : n;
   for (long long j = i; j < end; ++j) {
-    out[j] = pack_key(key1[j], key2[j]);
+    out[j] = pack_key(key1[j], key2[j], idx_mask, lift);
   }
 }
 
@@ -155,12 +175,16 @@ __global__ void __launch_bounds__(kRangeThreads)
 
 }  // namespace
 
-// The pack of n slots of the expand's key planes into out (int64).
+// The pack of n slots of the expand's key planes into out (int64), key2's
+// bits above its low idx_bits lifted by lift (0: the plain key).
 extern "C" int gsm_sort_key_pack(const int32_t* key1, const int32_t* key2,
-                                 int n, long long* out, cudaStream_t stream) {
-  if (n < 0) {
+                                 int n, int idx_bits, int lift,
+                                 long long* out, cudaStream_t stream) {
+  if (n < 0 || idx_bits < 0 || idx_bits > 32 || lift < 0 || lift > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const uint32_t idx_mask =
+      idx_bits == 32 ? 0xFFFFFFFFu : (1u << idx_bits) - 1u;
   if (n > 0) {
     const int vec = ((reinterpret_cast<uintptr_t>(key1) |
                       reinterpret_cast<uintptr_t>(key2) |
@@ -168,37 +192,44 @@ extern "C" int gsm_sort_key_pack(const int32_t* key1, const int32_t* key2,
     const long long quads = (static_cast<long long>(n) + 3) / 4;
     const int blocks =
         static_cast<int>((quads + kPackThreads - 1) / kPackThreads);
-    sort_key_pack_kernel<<<blocks, kPackThreads, 0, stream>>>(key1, key2, n,
-                                                              vec, out);
+    sort_key_pack_kernel<<<blocks, kPackThreads, 0, stream>>>(
+        key1, key2, n, idx_mask, lift, vec, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The temporary storage, in bytes, of gsm_sort_keys over n keys.  Host
-// code: launches nothing.
-extern "C" int gsm_sort_keys_temp_bytes(int n, size_t* bytes) {
+// The temporary storage, in bytes, of gsm_sort_keys over n keys from
+// begin_bit up.  Host code: launches nothing.
+extern "C" int gsm_sort_keys_temp_bytes(int n, int begin_bit, size_t* bytes) {
   cub::DoubleBuffer<int64_t> keys(nullptr, nullptr);
   *bytes = 0;
+  if (begin_bit < 0 || begin_bit > 63) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(
-      cub::DeviceRadixSort::SortKeys(nullptr, *bytes, keys, n, 0, 64));
+      cub::DeviceRadixSort::SortKeys(nullptr, *bytes, keys, n, begin_bit, 64));
 }
 
 // CUB's keys-only LSD radix sort of the n int64 keys in keys over bits
-// [0, 64), ping-ponging between keys and alt (both overwritten); *selector
-// is set to 1 where the sorted keys end in alt, 0 where in keys.  temp:
-// gsm_sort_keys_temp_bytes(n) bytes (a null temp would make CUB only size
-// it).  The one key type is instantiated, so that the build stays short.
+// [begin_bit, 64): keys equal in those bits keep their order (the sort is
+// stable); one pass per 8 bits.  It ping-pongs between keys and alt (both
+// overwritten); *selector is set to 1 where the sorted keys end in alt, 0
+// where in keys (an odd pass count ends in alt).  temp:
+// gsm_sort_keys_temp_bytes(n, begin_bit) bytes (a null temp would make CUB
+// only size it).  The one key type is instantiated, so that the build
+// stays short.
 extern "C" int gsm_sort_keys(int64_t* keys, int64_t* alt, int n, void* temp,
-                             size_t temp_bytes, int* selector,
+                             size_t temp_bytes, int begin_bit, int* selector,
                              cudaStream_t stream) {
   *selector = 0;
-  if (n < 0 || (n > 0 && temp == nullptr)) {
+  if (n < 0 || (n > 0 && temp == nullptr) || begin_bit < 0 ||
+      begin_bit > 63) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
     cub::DoubleBuffer<int64_t> buf(keys, alt);
     const cudaError_t err = cub::DeviceRadixSort::SortKeys(
-        temp, temp_bytes, buf, n, 0, 64, stream);
+        temp, temp_bytes, buf, n, begin_bit, 64, stream);
     if (err != cudaSuccess) {
       return static_cast<int>(err);
     }

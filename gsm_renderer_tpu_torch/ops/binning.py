@@ -54,6 +54,19 @@ class KeyPlan:
     def kernel_tuple(self):
         return (self.d_hi, self.d_lo, self.idx_bits)
 
+    @property
+    def lift(self) -> int:
+        """The zero gap above depth_lo in key2, 32 - d_lo - idx_bits bits:
+        the sort key pack lifts depth_lo over it (``kernels/sort.py``)."""
+        return 32 - self.d_lo - self.idx_bits
+
+    @property
+    def sort_begin_bit(self) -> int:
+        """The lowest bit of the lifted int64 sort key that orders slots,
+        32 - d_lo: the index below it only breaks ties, which the order
+        the expand writes slots in already breaks."""
+        return 32 - self.d_lo
+
     def normalize(self, depth_word):
         """Order-preserving, saturating depth-word normalization of an int64
         tensor holding u32 sortable depth words."""

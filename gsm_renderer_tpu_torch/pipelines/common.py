@@ -5,16 +5,25 @@ of the Global, Local and DepthFirst BITS16 frames (:func:`d16_packed_sorted`).
 
 Port of the packed branch of ``gsm_renderer_tpu/pipelines/common.py``.
 The JAX package sorts the (key1, key2) pair with ``jax.lax.sort``; here one
-sort of an int64 key ``((key1 ^ 0x80000000) << 32) | key2`` does it:
+sort of an int64 key ``((key1 ^ 0x80000000) << 32) | key2'`` does it:
 flipping bit 31 of key1 keeps the unsigned order under the signed sort
-(otherwise the sentinel and the upper tile ids would sort first).  KeyPlan
-keys are unique for live slots, so the unstable sort is exact; dead slots
-lie outside every tile span, so their order does not matter.  The sort moves
-keys only: the blend reads each instance's record words through the entry
-index in the key's low bits, so no word table is gathered into sorted order
-(the JAX package's gather is a TPU habit), and no index rides along either.
-The pack, the keys-only sort and the tile ranges are ``kernels/sort.py``'s
-(``csrc/sort.cu`` on the card).
+(otherwise the sentinel and the upper tile ids would sort first), and key2'
+is key2 with depth_lo lifted over the zero gap above it (the plan's
+``lift``), the index staying in the low ``idx_bits``.  The sort covers
+only the bits from the plan's ``sort_begin_bit`` (32 - d_lo) up: tile and
+depth.  Within one tile the expand writes live slots in strictly rising
+entry index (an entry -- a gaussian or a virtual row -- owns at most one
+slot a tile, and slot s maps to its entry through prefix offsets, so the
+entry never falls as s rises), and the radix sort is stable, so each slot
+takes the rank the whole-key sort gives it, ties in index order, as the
+JAX package's sort of the pair.  On the CPU the plain sort is
+``torch.sort`` of the whole key: live keys are unique, so it gives the
+same array.  Dead slots lie outside every tile span.  The sort moves keys
+only: the blend reads each instance's record words through the entry
+index in the key's low bits, so no word table is gathered into sorted
+order (the JAX package's gather is a TPU habit), and no index rides along
+either.  The pack, the keys-only sort and the tile ranges are
+``kernels/sort.py``'s (``csrc/sort.cu`` on the card).
 
 One key order for the 16-bit depth keys.  The JAX Global and Local frames,
 and its DepthFirst frame with 16-bit depth keys and tile ids, sort one fused
@@ -163,12 +172,6 @@ def binning_sort_operands(packed, *, capacity: int, tiles_x: int, key_plan,
     return keys, words, total, overflow, sums
 
 
-def sort_instances(key1, key2):
-    """Unstable instance sort by (key1, key2): the sorted int64 keys (the
-    pack, then the keys-only sort)."""
-    return KS.sort_keys_only(KS.sort_key_pack(key1, key2))
-
-
 def sort_instances_stable(tile, depth, entry):
     """The stable fallback's instance sort (no tie-free KeyPlan fits): a
     stable sort by (tile, depth word), ties in slot order -- the gaussian
@@ -207,11 +210,13 @@ def sort_keys(keys: list, key_plan):
     the key the blend reads, its index bits).  The sort takes the list of
     planes over and empties it, so that the planes' memory is free before
     the keys-only sort takes its second buffer.  With a KeyPlan the pack
-    and the keys-only sort of the (key1, key2) pair, whose sorted keys the
-    blend reads through the plan's index field; without one (the stable
-    fallback) the stable sort of (tile, depth word, entry index), the blend
-    reading the sorted entries (32 index bits).  Counts the frame's sort
-    path (``profiling.counters()``: ``sort_keys_only``, ``sort_stable``)."""
+    of the (key1, key2) pair with the plan's ``lift`` and the keys-only
+    sort from its ``sort_begin_bit`` up (see the module docstring), whose
+    sorted keys the blend reads through the plan's index field; without
+    one (the stable fallback) the stable sort of (tile, depth word, entry
+    index), the blend reading the sorted entries (32 index bits).  Counts
+    the frame's sort path (``profiling.counters()``: ``sort_keys_only``,
+    ``sort_stable``; CUB counts its radix passes, ``sort_radix_passes``)."""
     with span("sort"):
         if key_plan is None:
             count("sort_stable")
@@ -219,9 +224,9 @@ def sort_keys(keys: list, key_plan):
             keys.clear()
             return sorted_key, entry, 32
         count("sort_keys_only")
-        packed = KS.sort_key_pack(*keys)
+        packed = KS.sort_key_pack(*keys, key_plan.lift, key_plan.idx_bits)
         keys.clear()
-        sorted_key = KS.sort_keys_only(packed)
+        sorted_key = KS.sort_keys_only(packed, key_plan.sort_begin_bit)
         return sorted_key, sorted_key, key_plan.idx_bits
 
 

@@ -42,12 +42,13 @@ spans.  Spans record the frames of one rendering thread.
 
 **Counters** (:func:`counters`): frames rendered through a public entry,
 instance sorts by path (keys-only under a KeyPlan, or the stable
-fallback), frames by where their header's sums came from (the kernels'
-records, or torch sums of the plain versions on the CPU), foveated frames
-by how they re-binned onto the physical tiles (the kernel, or the plain
-torch chain on the CPU), hand-kernel launches (``_native.Kernel.launches``
-summed), host reads, capacity lock-ins, refreshes, growths between refreshes and reads
-that found the demand above the capacity in force (``pipelines/base.py``),
+fallback) and CUB's radix passes on the card, frames by where their
+header's sums came from (the kernels' records, or torch sums of the plain
+versions on the CPU), foveated frames by how they re-binned onto the
+physical tiles (the kernel, or the plain torch chain on the CPU),
+hand-kernel launches (``_native.Kernel.launches`` summed), host reads,
+capacity lock-ins, refreshes, growths between refreshes and reads that
+found the demand above the capacity in force (``pipelines/base.py``),
 overflowed frames among the recorded ones, CUDA graph captures and
 replays of frames (``pipelines/replay.py``), and the set-up seconds of the
 kernel build and load and of the projection-input cache.  A recorded frame
@@ -87,8 +88,8 @@ _ring: collections.deque = collections.deque(maxlen=RING)
 _open = None  # the _Frame being recorded
 _next_id = 0
 _COUNTS = dict(frames=0, sort_keys_only=0, sort_stable=0,
-               header_sums_kernel=0, header_sums_torch=0, rebin_kernel=0,
-               rebin_torch=0, host_reads=0, capacity_lockins=0,
+               sort_radix_passes=0, header_sums_kernel=0, header_sums_torch=0,
+               rebin_kernel=0, rebin_torch=0, host_reads=0, capacity_lockins=0,
                capacity_refreshes=0, capacity_regrows=0, capacity_short=0,
                graph_captures=0, graph_replays=0)
 _SETUP = dict(kernel_build_s=0.0, kernel_load_s=0.0, projection_cache_s=0.0)
@@ -225,10 +226,10 @@ def note_header(header, capacity: int) -> None:
         fr.capacity = capacity
 
 
-def count(name: str) -> None:
-    """Count one event of ``name`` (a sort by its path, a host read, the
-    capacity contract's events)."""
-    _COUNTS[name] += 1
+def count(name: str, amount: int = 1) -> None:
+    """Count ``amount`` events of ``name`` (a sort by its path, its radix
+    passes, a host read, the capacity contract's events)."""
+    _COUNTS[name] += amount
 
 
 def add_setup(name: str, seconds: float) -> None:
@@ -368,6 +369,9 @@ def counters() -> dict:
     """A snapshot of the counters: ``frames`` (through a public entry),
     ``sort_keys_only`` and ``sort_stable`` (instance sorts, a frame's or a
     band's, by path: the KeyPlan's keys-only sort or the stable fallback),
+    ``sort_radix_passes`` (the passes over the keys that CUB's radix sort
+    makes, summed over its sorts on the card; the CPU's plain sort makes
+    none: on the card, divided by ``sort_keys_only``, the passes a sort),
     ``header_sums_kernel`` and ``header_sums_torch`` (frames whose header
     sums came from the kernels' records -- prep's sums, the ranges' counts
     total -- or from torch sums of the plain versions, which CPU frames
@@ -389,6 +393,7 @@ def counters() -> dict:
         frames=_COUNTS["frames"],
         sort_keys_only=_COUNTS["sort_keys_only"],
         sort_stable=_COUNTS["sort_stable"],
+        sort_radix_passes=_COUNTS["sort_radix_passes"],
         header_sums_kernel=_COUNTS["header_sums_kernel"],
         header_sums_torch=_COUNTS["header_sums_torch"],
         rebin_kernel=_COUNTS["rebin_kernel"],

@@ -49,6 +49,7 @@ from reference_impl import min_quad_rect, render_reference
 import gsm_renderer_tpu_torch as T
 from gsm_renderer_tpu_torch.kernels import expand as TE
 from gsm_renderer_tpu_torch.kernels import project as TP
+from gsm_renderer_tpu_torch.kernels import sort as TS
 from gsm_renderer_tpu_torch.ops import binning as TB
 from gsm_renderer_tpu_torch.pipelines import common as TC
 
@@ -290,7 +291,7 @@ def test_sort_d16_tile_w32_matches_stable_fused_sort(chain32):
     """JAX's stable sort of the fused key and the port's unstable sort of
     the d16 KeyPlan pair give the same records at every rank."""
     plan = d16_plan()
-    sorted_key = TC.sort_instances(*_port_keys(chain32, plan))
+    sorted_key = TC.sort_keys(list(_port_keys(chain32, plan)), plan)[0]
     starts, counts, _total = TC.tile_ranges(sorted_key, plan,
                                             TILES_X32 * TILES_Y)
     np.testing.assert_array_equal(starts.numpy(), chain32["starts"])
@@ -312,15 +313,21 @@ def _port_keys(chain32, plan):
 
 
 def test_sort_and_ranges_match_jax(chain):
-    ref = chain["expand"]["full"]
-    sorted_key = TC.sort_instances(i32(ref[0]), i32(ref[1]))
-    tile = TC.binning_sorted_tile(sorted_key, plan_tuple=port_plan().kernel_tuple)
+    """The frames' sort of JAX's expanded keys orders them as JAX's sort of
+    the (key1, key2) pair; the sorted key's low word is JAX's key2 with
+    depth_lo lifted over the zero gap (the plan's lift)."""
+    ref, plan = chain["expand"]["full"], port_plan()
+    sorted_key = TC.sort_keys([i32(ref[0]), i32(ref[1])], plan)[0]
+    tile = TC.binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)
     np.testing.assert_array_equal(tile.numpy(), u32(chain["sorted_tile"]))
     sk = sorted_key.numpy()
     k1, k2 = ((sk >> 32) & 0xFFFFFFFF) ^ 0x80000000, sk & 0xFFFFFFFF
     np.testing.assert_array_equal(k1, u32(chain["sorted"][0]))
-    np.testing.assert_array_equal(k2, u32(chain["sorted"][1]))
-    assert_words_at_entries(k1, k2, port_plan().idx_bits, chain["words"],
+    jax_k2 = torch.from_numpy(u32(chain["sorted"][1]).astype(np.int64))
+    np.testing.assert_array_equal(
+        k2, TS.lift_low_word(jax_k2, plan.lift, plan.idx_bits).numpy())
+    assert plan.lift > 0
+    assert_words_at_entries(k1, k2, plan.idx_bits, chain["words"],
                             chain["sorted"][2:6])
     starts, counts = TB.extract_tile_ranges(tile, TILES_X * TILES_Y)
     np.testing.assert_array_equal(starts.numpy(), chain["starts"])
@@ -343,7 +350,7 @@ def _port_tile_lists(ds, cam, w, h):
     (k1, k2), _words, _total, overflow, _sums = TC.binning_sort_operands(
         packed, capacity=8192, tiles_x=tiles_x, key_plan=plan)
     assert int(overflow) == 0
-    sorted_key = TC.sort_instances(k1, k2)
+    sorted_key = TC.sort_keys([k1, k2], plan)[0]
     tile = TC.binning_sorted_tile(sorted_key, plan_tuple=plan.kernel_tuple)
     starts, counts = TB.extract_tile_ranges(tile, tiles_x * tiles_y)
     idx = (sorted_key & ((1 << plan.idx_bits) - 1)).numpy()

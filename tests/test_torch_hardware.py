@@ -265,7 +265,7 @@ def test_sorted_order_matches_jax(scene, jax_hw):
     (key1, key2), words, total, overflow, _sums = TC.binning_sort_operands(
         packed, capacity=CAP, tiles_x=TILES_X, key_plan=plan, mode="none")
     assert int(total) == ref["total"] and int(overflow) == 0
-    sorted_key = TC.sort_instances(key1, key2)
+    sorted_key = TC.sort_keys([key1, key2], plan)[0]
     starts, counts, _total = TC.tile_ranges(sorted_key, plan,
                                             TILES_X * TILES_Y)
     np.testing.assert_array_equal(counts.numpy(), ref["tile_counts"])
